@@ -9,9 +9,10 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build    — nvcc builds every kernel from csrc/ (in parallel), with the
               ``-Xptxas -v`` register and shared-memory lines.
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes the serving path gives it, with stated
-              tolerances; times of the kernel, the plain version, one
-              PyTorch library call as a yardstick, and the card's bound.
+              at the shapes the serving and training paths give it, with
+              stated tolerances; times of the kernel, the plain version,
+              one PyTorch library call as a yardstick where one computes
+              the same function, and the card's bound.
 4. serve    — ``tpu_docker_api_torch.serve`` in process at llama3-1b full
               width (random weights from a seed): 8 concurrent greedy
               requests of 17-1900 prompt tokens, a streamed one and a
@@ -19,6 +20,17 @@ Phases, one JSON line each; any failure exits non-zero:
               before and read just after; each kernel of the path must
               have launched. The first-token logits of one prompt through
               the kernel path are held against a plain-path forward.
+5. train    — the trainer's entry points at llama3-1b full width and depth,
+              batch 4 x 2048, random weights from a seed: 4 steps under
+              ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
+              the counts zeroed just before and read just after each run.
+              Checks: finite losses, the first near ln(vocab), the loss
+              falls, each kernel launched its expected count per step,
+              the gradients of wq/wk/wv of one full-width block through
+              the kernels match the dense plain path, and the chunked
+              loss matches the dense one. Then the command-line trainer
+              in process with ``--profile-dir`` for where a step's time
+              goes.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -28,8 +40,13 @@ result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import http.client
+import io
 import json
+import math
+import signal
 import subprocess
 import sys
 import threading
@@ -140,6 +157,390 @@ def phase_kernels(dev) -> dict:
           "timing": timing})
     return {"max_abs_err": max_err, **timing}
 
+
+def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """Least time on the card in ms, and what bounds it."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bwd_bounds(R, s, h, hk, d, dtype, causal=True) -> dict:
+    """Bounds of the two backward kernels. Per visible (query, key) pair
+    dq does 6d FLOPs (scores, dP, dQ) and dk/dv 8d (scores, dP, dV, dK).
+    dq reads q, k, v, out, dout, lse and writes dq and D; dk/dv reads q,
+    k, v, dout, lse, D and writes dk and dv."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    esize = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes, stat = R * h * s * d * esize, R * hk * s * d * esize, \
+        R * h * s * 4
+    dq = _bound(6 * d * R * h * pairs,
+                4 * q_bytes + 2 * kv_bytes + 2 * stat, dtype)
+    dkv = _bound(8 * d * R * h * pairs,
+                 2 * q_bytes + 4 * kv_bytes + 2 * stat, dtype)
+    return {"flash_bwd_dq": dq, "flash_bwd_dkv": dkv}
+
+
+def phase_flash_bwd(dev) -> dict:
+    """The two backward kernels against the plain backward: the training
+    shape (R=4, s=2048, llama3-1b heads, causal), ragged and small
+    lengths, d=128, a non-causal case and an f32 case."""
+    from tpu_docker_api_torch.ops import flash
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def mk(R, s, n, d, dtype):
+        return torch.randn(R, s, n, d, generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+
+    shapes = [(4, 2048, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16,
+               True),
+              (1, 100, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16, True),
+              (2, 300, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16, True),
+              (1, 64, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16, True),
+              (1, 1000, 8, 2, 128, torch.bfloat16, True),
+              (1, 384, 8, 2, LLAMA_HD, torch.bfloat16, False),
+              (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
+    cases = []
+    max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for R, s, h, hk, d, dtype, causal in shapes:
+        q, k, v, do = mk(R, s, h, d, dtype), mk(R, s, hk, d, dtype), \
+            mk(R, s, hk, d, dtype), mk(R, s, h, d, dtype)
+        out, lse = flash.flash_attention_fwd(q, k, v, causal)
+        got = flash.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        # bf16: both round the f32 result once, the f32 sums run in
+        # another order; 2e-2 of the largest |grad| leaves room for both.
+        # f32: only the order differs.
+        rtol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, ref)]
+        tols = [rtol * b.float().abs().max().item() for b in ref]
+        ok = all(e <= t for e, t in zip(errs, tols))
+        cases.append({"R": R, "s": s, "heads": h, "kv_heads": hk, "d": d,
+                      "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "err_dq_dk_dv": errs, "tol_dq_dk_dv": tols,
+                      "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with plain: "
+                                 f"{cases[-1]}")
+        if dtype == torch.bfloat16:
+            max_err["flash_bwd_dq"] = max(max_err["flash_bwd_dq"], errs[0])
+            max_err["flash_bwd_dkv"] = max(max_err["flash_bwd_dkv"],
+                                           *errs[1:])
+        del q, k, v, do, out, lse, got, ref
+        torch.cuda.empty_cache()
+
+    # times at the training shape
+    R, s, h, hk, d = 4, 2048, LLAMA_HEADS, LLAMA_KV, LLAMA_HD
+    dt = torch.bfloat16
+    q, k, v, do = mk(R, s, h, d, dt), mk(R, s, hk, d, dt), \
+        mk(R, s, hk, d, dt), mk(R, s, h, d, dt)
+    out, lse = flash.flash_attention_fwd(q, k, v, True)
+    _, delta = flash.flash_bwd_dq(q, k, v, out, lse, do, True)
+    ms = {"flash_bwd_dq": cuda_ms(
+              lambda: flash.flash_bwd_dq(q, k, v, out, lse, do, True), 20),
+          "flash_bwd_dkv": cuda_ms(
+              lambda: flash.flash_bwd_dkv(q, k, v, lse, delta, do, True),
+              20)}
+    # the plain version computes dq, dk and dv together: one time for both
+    plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, True), 3, warmup=1)
+    # yardstick only, the port never calls it: SDPA's backward, timed as
+    # forward + backward less forward (it computes dq, dk and dv at once)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qr, kr, vr), do)
+
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True), 20)
+    library_ms = cuda_ms(fwd_bwd, 20) - sdpa_fwd
+    bounds = flash_bwd_bounds(R, s, h, hk, d, dt)
+    result = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        result[name] = {"max_abs_err": max_err[name], "ms": ms[name],
+                        "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1],
+                        "roofline_share": bounds[name][0] / ms[name]}
+    emit({"phase": "kernels", "kernel": "flash_bwd", "cases": cases,
+          "timing": {"R": R, "s": s, **result,
+                     "library": "sdpa fwd+bwd - fwd",
+                     "sdpa_fwd_ms": sdpa_fwd}})
+    return result
+
+
+#: llama3-1b's parameter leaves: (name, shape) — one step's adam8 launches
+LLAMA3_1B_LEAVES = [
+    ("embed.tokens", (128256, 2048)), ("attn_norm", (16, 2048)),
+    ("mlp_norm", (16, 2048)), ("wq", (16, 2048, 2048)),
+    ("wk", (16, 2048, 512)), ("wv", (16, 2048, 512)),
+    ("wo", (16, 2048, 2048)), ("w_gate", (16, 2048, 8192)),
+    ("w_up", (16, 2048, 8192)), ("w_down", (16, 8192, 2048)),
+    ("final_norm", (2048,)), ("lm_head", (2048, 128256))]
+
+
+def _adam8_leaf(dev, g, shape, block=256):
+    """bf16 grad and param, int8 moments from small random f32 ones."""
+    from tpu_docker_api_torch.train import optim
+
+    grad = (torch.randn(shape, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    p = (torch.randn(shape, generator=g, device=dev) * 2e-2).to(
+        torch.bfloat16)
+    mq, ms = optim._quant_signed(
+        torch.randn(shape, generator=g, device=dev) * 1e-4, block)
+    vq, vs = optim._quant_sqrt(
+        torch.rand(shape, generator=g, device=dev) * 1e-8, block)
+    return grad, mq, ms, vq, vs, p
+
+
+def phase_adam8(dev) -> dict:
+    """The int8-moment AdamW kernel against the plain version (one_xla) on
+    leaves of llama3-1b's own shapes; times over one step's 12 leaves."""
+    from tpu_docker_api_torch.train import optim
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    sc = optim.adam8_scalars(3, 0.9, 0.95, 1e-8, 3e-4, 0.1)
+    cases, max_err = [], 0.0
+    for name, shape in LLAMA3_1B_LEAVES:
+        if name not in ("wq", "w_gate", "lm_head", "final_norm", "wk"):
+            continue
+        args = _adam8_leaf(dev, g, shape)
+        got = optim.adam8_update_leaf(*args, sc=sc)
+        torch.cuda.synchronize()
+        ref = optim.adam8_plain(*args, sc=sc)
+        # the kernel repeats the plain version's f32 ops: the update
+        # within one bf16 rounding (2^-7 relative), the int8 moments at
+        # most one count apart (a tie of the f32 moment may round either
+        # way), the scales within 1e-6 relative (IEEE division by 127
+        # here, a reciprocal multiply in torch's plain version)
+        upd_err = (got[0].float() - ref[0].float()).abs()
+        ok_upd = bool((upd_err <= 2**-7 * ref[0].float().abs()
+                       + 1e-12).all())
+        q_err = max((got[i].int() - ref[i].int()).abs().max().item()
+                    for i in (1, 3))
+        s_err = max(((got[i] - ref[i]).abs() / ref[i]).max().item()
+                    for i in (2, 4))
+        ok = ok_upd and q_err <= 1 and s_err <= 1e-6
+        cases.append({"leaf": name, "shape": list(shape),
+                      "update_max_abs_err": upd_err.max().item(),
+                      "moment_max_count_diff": q_err,
+                      "scale_max_rel_err": s_err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"adam8 disagrees with plain: {cases[-1]}")
+        max_err = max(max_err, upd_err.max().item())
+        del args, got, ref, upd_err
+        torch.cuda.empty_cache()
+
+    # one optimizer step's worth: every leaf of llama3-1b, kernel and
+    # plain; the row reports the mean per launch
+    kernel_ms = plain_ms = bound_ms = 0.0
+    per_leaf = []
+    for name, shape in LLAMA3_1B_LEAVES:
+        args = _adam8_leaf(dev, g, shape)
+        k = cuda_ms(lambda: optim.adam8_update_leaf(*args, sc=sc), 10)
+        pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 2, warmup=1)
+        n = math.prod(shape)
+        b = optim._block_of(shape[-1], 256)
+        # g, p, update in bf16; mq, vq read and written in int8; four f32
+        # scales per block; ~30 f32 operations an element
+        bd, by = _bound(30 * n, 10 * n + 16 * (n // b), torch.float32)
+        kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + pl, \
+            bound_ms + bd
+        per_leaf.append({"leaf": name, "ms": k, "plain_ms": pl,
+                         "bound_ms": bd, "bound_by": by})
+        del args
+        torch.cuda.empty_cache()
+    n_leaves = len(LLAMA3_1B_LEAVES)
+    bound_by = ("bytes" if all(leaf["bound_by"] == "bytes"
+                               for leaf in per_leaf) else "operations")
+    result = {"max_abs_err": max_err, "ms": kernel_ms / n_leaves,
+              "plain_ms": plain_ms / n_leaves,
+              "bound_ms": bound_ms / n_leaves, "bound_by": bound_by,
+              "library_ms": None}
+    emit({"phase": "kernels", "kernel": "adam8", "cases": cases,
+          "timing": {"step_ms": kernel_ms, "step_plain_ms": plain_ms,
+                     "step_bound_ms": bound_ms, "per_leaf": per_leaf,
+                     "library": "none: no single PyTorch call computes "
+                                "the int8-moment AdamW step",
+                     **result}})
+    return result
+
+
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+
+
+def _train_run(dev, cfg, optim_name: str, tokens) -> dict:
+    """TRAIN_STEPS steps through the trainer's entry points on one
+    repeated batch; every launch count zeroed just before, read just
+    after. Returns losses, step times, counts and peak memory."""
+    from tpu_docker_api_torch.models.llama import param_count
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step)
+
+    opt = optim.adamw_int8() if optim_name == "adamw-int8" else None
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, opt = create_train_state(cfg, dev, gen, optimizer=opt)
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, grad_norms, step_ms = [], [], []
+
+    # ---- the main path: counts zeroed just before, read just after
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+        grad_norms.append(metrics["grad_norm"])
+    launches = {**flash.launch_count, **optim.launch_count}
+    # ---- end of the main path
+
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"optim": optim_name, "params": param_count(state.params),
+            "losses": [x.item() for x in losses],
+            "grad_norms": [x.float().item() for x in grad_norms],
+            "step_ms": step_ms, "launches": launches,
+            "max_memory_allocated": peak, "state": state}
+
+
+def _block_grads_rel_l2(dev, cfg) -> dict:
+    """Gradients of wq/wk/wv of ONE full-width block (the loss through the
+    lm_head) through the flash kernels against the dense plain path."""
+    from tpu_docker_api_torch.models.llama import llama_init, llama_loss
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    params = llama_init(cfg1, torch.Generator(device=dev).manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4))
+    grads = {}
+    for impl in ("flash", "dense"):
+        attn = {n: w.detach().requires_grad_()
+                for n, w in params["layers"]["attn"].items()}
+        live = {**params, "layers": {**params["layers"], "attn": attn}}
+        llama_loss(live, tokens,
+                   dataclasses.replace(cfg1, attention_impl=impl)).backward()
+        grads[impl] = {n: attn[n].grad.float() for n in ("wq", "wk", "wv")}
+    return {n: ((grads["flash"][n] - grads["dense"][n]).norm()
+                / grads["dense"][n].norm()).item() for n in ("wq", "wk", "wv")}
+
+
+def _cli_profile() -> dict:
+    """The command-line trainer in process with --profile-dir: where a
+    step's device time goes (telemetry/profile.py)."""
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    buf = io.StringIO()
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train_main([
+                "--preset", "llama3-1b", "--steps", "3", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--optim",
+                "adamw-int8", "--log-every", "1", "--profile-dir",
+                "build/train_profile", "--profile-steps", "2"])
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln]
+    if rc != 0 or lines[-1].get("event") != "done":
+        raise AssertionError(f"trainer CLI failed: rc {rc}, {lines[-3:]}")
+    prof = [ln for ln in lines if ln.get("event") == "profile_written"]
+    if len(prof) != 1:
+        raise AssertionError(f"no profile summary: {lines}")
+    return {"cli_lines": [ln for ln in lines if "step" in ln
+                          and "event" not in ln], "profile": prof[0]}
+
+
+def phase_train(dev) -> dict:
+    from tpu_docker_api_torch.models.llama import llama_loss, llama_presets
+    from tpu_docker_api_torch.train.trainer import synthetic_batch
+
+    cfg = llama_presets()["llama3-1b"]
+    tokens = synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                             TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    ln_vocab = math.log(cfg.vocab_size)
+    n_leaves = len(LLAMA3_1B_LEAVES)
+    runs, counts = [], {}
+    for optim_name in ("adamw", "adamw-int8"):
+        run = _train_run(dev, cfg, optim_name, tokens)
+        state = run.pop("state")
+        losses = run["losses"]
+        # random weights: unit-RMS hidden states against an N(0, 1/d)
+        # head give logits of std ~0.9, so the first loss is ln(vocab)
+        # plus ~0.4; 1.0 either side bounds it
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{optim_name}: non-finite loss {losses}")
+        if abs(losses[0] - ln_vocab) > 1.0:
+            raise AssertionError(f"{optim_name}: first loss {losses[0]} "
+                                 f"not within 1.0 of ln(vocab) {ln_vocab}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{optim_name}: loss did not fall on the "
+                                 f"repeated batch: {losses}")
+        want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+                "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+                "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+                "adam8": (n_leaves * TRAIN_STEPS
+                          if optim_name == "adamw-int8" else 0)}
+        if run["launches"] != want:
+            raise AssertionError(f"{optim_name}: launches {run['launches']}"
+                                 f", expected {want}")
+        for name, n in run["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+        steady = sorted(run["step_ms"][1:])[len(run["step_ms"][1:]) // 2]
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3)
+        run.update({"step_ms_median_after_first": steady,
+                    "tokens_per_sec": tok_s,
+                    "mfu": cfg.flops_per_token(TRAIN_SEQ) * tok_s
+                    / PEAK_FLOPS[torch.bfloat16]})
+        if optim_name == "adamw-int8":
+            with torch.no_grad():
+                dense = llama_loss(state.params, tokens, cfg).item()
+                chunked = llama_loss(
+                    state.params, tokens,
+                    dataclasses.replace(cfg, loss_chunk_rows=512)).item()
+        runs.append(run)
+        del state
+        torch.cuda.empty_cache()
+
+    # the same per-row f32 math; the mean gathers per chunk in another
+    # order and the logits products may tile differently
+    chunk_rel = abs(chunked - dense) / abs(dense)
+    if chunk_rel > 1e-4:
+        raise AssertionError(f"chunked loss {chunked} vs dense {dense}")
+    # bf16 through one block: the two paths round to bf16 at different
+    # places (the kernel keeps P and dS in f32)
+    grad_rel = _block_grads_rel_l2(dev, cfg)
+    if max(grad_rel.values()) > 2e-2:
+        raise AssertionError(f"flash vs dense block gradients: {grad_rel}")
+    torch.cuda.empty_cache()
+    profile = _cli_profile()
+    result = {"phase": "train", "preset": "llama3-1b",
+              "params": runs[0]["params"],
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+              "runs": runs, "launches": counts,
+              "remat": "selective: flash (out, lse) kept, flash_fwd once "
+                       "per layer per step",
+              "chunked_loss": chunked, "dense_loss": dense,
+              "chunked_rel_diff": chunk_rel, "chunked_tol": 1e-4,
+              "block_grad_rel_l2": grad_rel, "block_grad_tol": 2e-2,
+              **profile, "card": nvidia_smi()}
+    emit(result)
+    return result
 
 def _post(port: int, body: dict) -> tuple[int, bytes]:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
@@ -319,18 +720,41 @@ def main() -> int:
     info = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": info})
-    flash_res = phase_kernels(dev)
+    fwd_res = phase_kernels(dev)
+    bwd_res = phase_flash_bwd(dev)
+    adam_res = phase_adam8(dev)
     serve_res = phase_serve(dev)
+    train_res = phase_train(dev)
+    train_n = train_res["launches"]
+    rows = [
+        ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",
+         "tpu_docker_api/ops/flash_pallas.py:95",
+         serve_res["flash_launches"] + train_n["flash_fwd"], fwd_res,
+         {"serve": serve_res["flash_launches"],
+          "train": train_n["flash_fwd"]}),
+        ("flash_bwd_dq", "tpu_docker_api_torch/csrc/flash_bwd.cu",
+         "tpu_docker_api/ops/flash_pallas.py:164",
+         train_n["flash_bwd_dq"], bwd_res["flash_bwd_dq"],
+         {"train": train_n["flash_bwd_dq"]}),
+        ("flash_bwd_dkv", "tpu_docker_api_torch/csrc/flash_bwd.cu",
+         "tpu_docker_api/ops/flash_pallas.py:205",
+         train_n["flash_bwd_dkv"], bwd_res["flash_bwd_dkv"],
+         {"train": train_n["flash_bwd_dkv"]}),
+        ("adam8", "tpu_docker_api_torch/csrc/adam8.cu",
+         "tpu_docker_api/train/optim.py:103", train_n["adam8"], adam_res,
+         {"train": train_n["adam8"]}),
+    ]
+    for name, _, _, launches, _, _ in rows:
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched on its path")
     emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpu_docker_api_torch/csrc/flash_fwd.cu",
-        "replaces": "tpu_docker_api/ops/flash_pallas.py:95",
-        "launches": serve_res["flash_launches"],
-        "max_abs_err": flash_res["max_abs_err"], "ms": flash_res["ms"],
-        "plain_ms": flash_res["plain_ms"],
-        "bound_ms": flash_res["bound_ms"],
-        "bound_by": flash_res["bound_by"],
-        "library_ms": flash_res["library_ms"]}]})
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "launches_by_path": by_path,
+        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+        for name, source, replaces, launches, res, by_path in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

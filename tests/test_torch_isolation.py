@@ -1,6 +1,7 @@
 """The port stands alone: with ``jax`` and ``tpu_docker_api`` blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
-``chip_smoke.py`` import, and a tiny forward runs on the CPU."""
+``chip_smoke.py`` import, and a tiny forward and train step run on the
+CPU."""
 
 import os
 import subprocess
@@ -30,6 +31,11 @@ _CHILD = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for needed in ("tpu_docker_api_torch.ops.xent",
+                   "tpu_docker_api_torch.train.optim",
+                   "tpu_docker_api_torch.train.trainer",
+                   "tpu_docker_api_torch.train.__main__"):
+        assert needed in names, needed
     importlib.import_module("chip_smoke")
 
     from tpu_docker_api_torch.models.llama import (llama_init,
@@ -40,6 +46,13 @@ _CHILD = textwrap.dedent("""
     logits = llama_forward(params, torch.zeros(1, 5, dtype=torch.long), cfg)
     assert logits.shape == (1, 5, cfg.vocab_size)
     assert torch.isfinite(logits).all()
+
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step)
+    state, opt = create_train_state(cfg, "cpu")
+    state, metrics = make_train_step(cfg, opt)(
+        state, torch.zeros(1, 6, dtype=torch.long))
+    assert torch.isfinite(metrics["loss"])
     assert not any(m.split(".")[0] in ("jax", "tpu_docker_api")
                    for m in sys.modules)
     print("ISOLATED", len(names))
@@ -51,12 +64,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "ISOLATED" in proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 15  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 21  # every module was walked
 
 
 def test_entry_points_refuse_cuda_without_a_card():
     """Without a card, asking for the default device raises; no entry
-    point carries on on the CPU."""
+    point carries on on the CPU: neither ``resolve_device`` nor the
+    trainer's command line with its default ``--device``."""
     import pytest
     import torch
 
@@ -67,3 +81,10 @@ def test_entry_points_refuse_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_docker_api_torch.train", "--preset",
+         "tiny", "--steps", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA requested but no CUDA device" in proc.stderr
+    assert proc.stdout == ""

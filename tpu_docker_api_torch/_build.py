@@ -24,7 +24,8 @@ _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 
 #: kernel name → source file under csrc/
-KERNELS = {"flash_fwd": "flash_fwd.cu"}
+KERNELS = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "adam8": "adam8.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

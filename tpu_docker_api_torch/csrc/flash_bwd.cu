@@ -1,0 +1,554 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface: two
+// kernels, flash_bwd_dq and flash_bwd_dkv, run in that order.
+//
+// They replace the TPU kernels of tpu_docker_api/ops/flash_pallas.py
+// launched by _bwd_impl: flash_bwd_dq replaces _flash_bwd_dq_kernel,
+// flash_bwd_dkv replaces _flash_bwd_dkv_kernel. Both rebuild the softmax
+// probabilities from the forward's natural-log lse (FlashAttention-2):
+//
+//   D_i   = rowsum(dO_i * O_i)
+//   P_ij  = exp(q_i k_j^T * scale - lse_i)
+//   dV_j  = sum_i P_ij dO_i                 dS_ij = P_ij (dO_i v_j^T - D_i)
+//   dQ_i  = scale * sum_j dS_ij k_j         dK_j  = scale * sum_i dS_ij q_i
+//
+// What holds on Hopper, which the TPU grid hid:
+//
+// - flash_bwd_dq: one block per (batch*head, 64-query tile). The TPU
+//   kernel's sequential ("arbitrary") kv grid axis, which carried dQ in
+//   VMEM scratch, is a loop over 64-key tiles inside the block, with dQ
+//   in f32 registers and one cast at the end. The block also computes
+//   D_i for its rows (from dO and O, in f32) in its prologue and writes
+//   it out for flash_bwd_dkv, so no separate pass over dO and O runs.
+// - flash_bwd_dkv: one block per (batch, kv_head, 64-key tile). Both
+//   loops of the TPU kernel's innermost grid axes, the GQA group and the
+//   q tiles, run inside the block, with dK and dV in f32 registers and
+//   ONE cast at the end: no bf16 round-off compounds across the group,
+//   no atomics, no per-group partial outputs summed in the storage dtype.
+// - Causal: tiles wholly above the diagonal are never loaded (dq stops
+//   its kv loop at the diagonal, dkv starts its q loop there); only the
+//   diagonal tiles and the ragged last tile run the mask. Any seq >= 1:
+//   rows and keys past seq are masked here.
+// - Inputs are addressed through (batch, head, seq) strides with a
+//   contiguous head_dim, so the model's (b, s, h, d) tensors and
+//   autograd's cotangent are read in place.
+// - Rounding: scores, P, dP, dS and the sums stay f32. The TPU kernels
+//   round q*scale*log2(e), P and dS to the storage dtype before their
+//   dots; these do not, so in bf16 they sit closer to the f32 plain
+//   version than the TPU kernels do.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the backward
+// does 10*d FLOPs per visible (query, key) pair (scores, dP, dQ in dq:
+// 6d; scores, dP, dV, dK in dkv: 8d), 2.5x the forward. At training
+// shapes (R=4, s=2048, 32 heads, d=64, causal) that is ~43 GFLOP, ~44 us
+// at peak, against ~70 MB of q/k/v/o/dO/lse/D/dq/dk/dv, ~21 us: both are
+// compute-bound.
+//
+// What this simple design leaves on the table, as flash_fwd.cu does: the
+// products run on the CUDA cores in f32 (67 TFLOP/s peak outside the
+// tensor cores) fed from shared memory, not on the tensor cores; tiles
+// are loaded synchronously, with no cp.async/TMA pipeline; the f32 tiles
+// take 86-169 KB of shared memory a block, so one or two blocks share an
+// SM. The scores and dP of both kernels are computed twice over (once in
+// each kernel), as in the TPU kernels.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kBlockM = 64;               // queries per tile
+constexpr int kBlockN = 64;               // keys per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 8;                  // rows a warp owns
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kRows * kWarps == kBlockM && kBlockM == kBlockN,
+              "a warp owns 8 rows of a 64-row tile");
+
+struct Strides {
+  int64_t b, h, s;
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* out;                        // dq only
+  const void* dout;
+  const float* lse;                       // (batch*heads, seq), natural log
+  float* delta;                           // dq writes it, dkv reads it
+  void* dq;
+  void* dk;
+  void* dv;
+  int seq, heads, kv_heads, causal;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  float scale;                            // softmax scale 1/sqrt(d)
+  float scale_log2;                       // scale * log2(e)
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Load rows [r0, r0 + 64) of a (seq, D) slice at `src` (row stride `ss`)
+// into `dst` as f32 with row pitch D + 4; rows past seq read as zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          int64_t ss, int r0, int seq) {
+  for (int i = threadIdx.x; i < kBlockM * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const int row = r0 + r;
+    dst[r * (D + 4) + d] = row < seq ? to_f32(src[row * ss + d]) : 0.f;
+  }
+}
+
+// acc[r][i] += sum_j w[r][j] * X[j][lane*DPL + i] over a 64-row tile X
+// (pitch D + 4) and this warp's (kRows, 64) weights W.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[kRows][D / 32],
+                                           const float* W, const float* X,
+                                           int lane) {
+  constexpr int DPL = D / 32;
+  constexpr int LD = D + 4;
+#pragma unroll 2
+  for (int j = 0; j < kBlockN; j += 4) {
+    float xv[4][DPL];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* xrow = &X[(j + jj) * LD + lane * DPL];
+      if constexpr (DPL == 2) {
+        const float2 t2 = *reinterpret_cast<const float2*>(xrow);
+        xv[jj][0] = t2.x;
+        xv[jj][1] = t2.y;
+      } else {
+        const float4 t4 = *reinterpret_cast<const float4*>(xrow);
+        xv[jj][0] = t4.x;
+        xv[jj][1] = t4.y;
+        xv[jj][2] = t4.z;
+        xv[jj][3] = t4.w;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 w = *reinterpret_cast<const float4*>(&W[r * kBlockN + j]);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        float a = acc[r][i];
+        a = fmaf(w.x, xv[0][i], a);
+        a = fmaf(w.y, xv[1][i], a);
+        a = fmaf(w.z, xv[2][i], a);
+        acc[r][i] = fmaf(w.w, xv[3][i], a);
+      }
+    }
+  }
+}
+
+// For this warp's kRows rows of A and B (pitch D + 4, row base `rb`)
+// against rows `lane` and `lane + 32` of X and Y: x[r][j] = A_r . X_j and
+// y[r][j] = B_r . Y_j.
+template <int D>
+__device__ __forceinline__ void two_products(float (&x)[kRows][2],
+                                             float (&y)[kRows][2],
+                                             const float* A, const float* B,
+                                             const float* X, const float* Y,
+                                             int rb, int lane) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) x[r][0] = x[r][1] = y[r][0] = y[r][1] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    const float4 xa = *reinterpret_cast<const float4*>(&X[lane * LD + d]);
+    const float4 xb =
+        *reinterpret_cast<const float4*>(&X[(lane + 32) * LD + d]);
+    const float4 ya = *reinterpret_cast<const float4*>(&Y[lane * LD + d]);
+    const float4 yb =
+        *reinterpret_cast<const float4*>(&Y[(lane + 32) * LD + d]);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(&A[(rb + r) * LD + d]);
+      const float4 b =
+          *reinterpret_cast<const float4*>(&B[(rb + r) * LD + d]);
+      x[r][0] = dot4(a, xa, x[r][0]);
+      x[r][1] = dot4(a, xb, x[r][1]);
+      y[r][0] = dot4(b, ya, y[r][0]);
+      y[r][1] = dot4(b, yb, y[r][1]);
+    }
+  }
+}
+
+template <int D>
+constexpr int dq_smem_floats() {
+  return 4 * kBlockM * (D + 4) + kBlockM * kBlockN;
+}
+
+template <int D>
+constexpr int dkv_smem_floats() {
+  return 4 * kBlockM * (D + 4) + 2 * kBlockM * kBlockN + 2 * kBlockM;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = D + 4;
+  constexpr int DPL = D / 32;
+  static_assert(DPL == 2 || DPL == 4, "head_dim 64 or 128");
+
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kBlockM * LD;
+  float* Ks = dOs + kBlockM * LD;
+  float* Vs = Ks + kBlockN * LD;
+  float* dSs = Vs + kBlockN * LD;         // (kBlockM, kBlockN), per warp rows
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;  // heavy tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int hk = h / (p.heads / p.kv_heads);
+  const int rb = warp * kRows;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  const T* o = static_cast<const T*>(p.out) + b * p.so.b + h * p.so.h;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const int64_t stat0 = static_cast<int64_t>(bh) * p.seq;
+
+  load_tile<T, D>(Qs, q, p.sq.s, q0, p.seq);
+  load_tile<T, D>(dOs, dout, p.sdo.s, q0, p.seq);
+  __syncthreads();
+
+  // prologue: D_i = rowsum(dO_i * O_i) and lse_i in base 2 for this
+  // warp's rows; D_i goes out for flash_bwd_dkv
+  float lse2[kRows], dlt[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = q0 + rb + r;
+    lse2[r] = 0.f;
+    dlt[r] = 0.f;
+    if (row < p.seq) {
+      float part = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        part = fmaf(dOs[(rb + r) * LD + d], to_f32(o[row * p.so.s + d]), part);
+      }
+      dlt[r] = warp_sum(part);
+      lse2[r] = p.lse[stat0 + row] * kLog2e;
+      if (lane == 0) p.delta[stat0 + row] = dlt[r];
+    }
+  }
+
+  float acc[kRows][DPL];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+
+  const int q_last = min(q0 + kBlockM, p.seq) - 1;
+  const int kv_end = p.causal ? q_last + 1 : p.seq;
+  const int n_tiles = (kv_end + kBlockN - 1) / kBlockN;
+  float* dSw = dSs + rb * kBlockN;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlockN;
+    __syncthreads();  // the previous tile is consumed
+    load_tile<T, D>(Ks, k, p.sk.s, k0, p.seq);
+    load_tile<T, D>(Vs, v, p.sv.s, k0, p.seq);
+    __syncthreads();
+
+    // s = Q K^T and dp = dO V^T for this warp's rows, keys lane, lane+32
+    float s[kRows][2], dp[kRows][2];
+    two_products<D>(s, dp, Qs, dOs, Ks, Vs, rb, lane);
+
+    const bool masked =
+        (k0 + kBlockN > p.seq) || (p.causal && k0 + kBlockN - 1 > q0);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = q0 + rb + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = k0 + lane + 32 * j;
+        float pij = exp2f(s[r][j] * p.scale_log2 - lse2[r]);
+        if (masked && (col >= p.seq || (p.causal && col > row))) pij = 0.f;
+        dSw[r * kBlockN + lane + 32 * j] = pij * (dp[r][j] - dlt[r]);
+      }
+    }
+    __syncwarp();
+    accumulate<D>(acc, dSw, Ks, lane);    // dQ += dS K
+    __syncwarp();
+  }
+
+  T* dq = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = q0 + rb + r;
+    if (row >= p.seq) continue;
+    T* drow = dq + row * p.sdq.s + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) drow[i] = from_f32<T>(acc[r][i] * p.scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const Params p) {
+  constexpr int LD = D + 4;
+  constexpr int DPL = D / 32;
+  static_assert(DPL == 2 || DPL == 4, "head_dim 64 or 128");
+
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kBlockN * LD;
+  float* Qs = Vs + kBlockN * LD;
+  float* dOs = Qs + kBlockM * LD;
+  float* Ps = dOs + kBlockM * LD;         // (kBlockN, kBlockM): P^T rows
+  float* dSs = Ps + kBlockN * kBlockM;    // (kBlockN, kBlockM): dS^T rows
+  float* lse2s = dSs + kBlockN * kBlockM; // (kBlockM,)
+  float* dlts = lse2s + kBlockM;          // (kBlockM,)
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * kBlockN;    // causal: the first tiles see most
+  const int bhk = blockIdx.y;
+  const int b = bhk / p.kv_heads;
+  const int hk = bhk % p.kv_heads;
+  const int group = p.heads / p.kv_heads;
+  const int rb = warp * kRows;            // this warp's keys in the tile
+
+  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  load_tile<T, D>(Ks, k, p.sk.s, k0, p.seq);
+  load_tile<T, D>(Vs, v, p.sv.s, k0, p.seq);
+
+  float dk[kRows][DPL], dv[kRows][DPL];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) dk[r][i] = dv[r][i] = 0.f;
+
+  const int n_q = (p.seq + kBlockM - 1) / kBlockM;
+  const int first_q = p.causal ? k0 / kBlockM : 0;
+  float* Pw = Ps + rb * kBlockM;
+  float* dSw = dSs + rb * kBlockM;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const T* dout =
+        static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+    const int64_t stat0 = (static_cast<int64_t>(b) * p.heads + h) * p.seq;
+    for (int qt = first_q; qt < n_q; ++qt) {
+      const int q0 = qt * kBlockM;
+      __syncthreads();  // the previous tile is consumed (and K/V stored)
+      load_tile<T, D>(Qs, q, p.sq.s, q0, p.seq);
+      load_tile<T, D>(dOs, dout, p.sdo.s, q0, p.seq);
+      for (int i = tid; i < kBlockM; i += kThreads) {
+        const int row = q0 + i;
+        lse2s[i] = row < p.seq ? p.lse[stat0 + row] * kLog2e : 0.f;
+        dlts[i] = row < p.seq ? p.delta[stat0 + row] : 0.f;
+      }
+      __syncthreads();
+
+      // st = K Q^T and dpt = V dO^T for this warp's keys, queries lane,
+      // lane + 32: the transposed score and dP tiles
+      float st[kRows][2], dpt[kRows][2];
+      two_products<D>(st, dpt, Ks, Vs, Qs, dOs, rb, lane);
+
+      const bool masked = (q0 + kBlockM > p.seq) || (k0 + kBlockN > p.seq) ||
+                          (p.causal && k0 + kBlockN - 1 > q0);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int key = k0 + rb + r;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = lane + 32 * j;
+          const int row = q0 + qi;
+          float pij = exp2f(st[r][j] * p.scale_log2 - lse2s[qi]);
+          if (masked &&
+              (row >= p.seq || key >= p.seq || (p.causal && key > row))) {
+            pij = 0.f;
+          }
+          Pw[r * kBlockM + qi] = pij;
+          dSw[r * kBlockM + qi] = pij * (dpt[r][j] - dlts[qi]);
+        }
+      }
+      __syncwarp();
+      accumulate<D>(dv, Pw, dOs, lane);   // dV += P^T dO
+      accumulate<D>(dk, dSw, Qs, lane);   // dK += dS^T Q
+      __syncwarp();
+    }
+  }
+
+  T* dkp = static_cast<T*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
+  T* dvp = static_cast<T*>(p.dv) + b * p.sdv.b + hk * p.sdv.h;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int key = k0 + rb + r;
+    if (key >= p.seq) continue;
+    T* krow = dkp + key * p.sdk.s + lane * DPL;
+    T* vrow = dvp + key * p.sdv.s + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      krow[i] = from_f32<T>(dk[r][i] * p.scale);
+      vrow[i] = from_f32<T>(dv[r][i]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
+  const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + kBlockM - 1) / kBlockM, batch * p.heads);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
+  const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + kBlockN - 1) / kBlockN, batch * p.kv_heads);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool valid(int batch, int seq, int heads, int kv_heads) {
+  return seq >= 1 && batch >= 1 && kv_heads >= 1 && heads % kv_heads == 0;
+}
+
+Params make_params(int seq, int heads, int kv_heads, int causal,
+                   float scale) {
+  Params p = {};
+  p.seq = seq;
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.causal = causal;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  return p;
+}
+
+}  // namespace
+
+#define FLASH_BWD_DISPATCH(LAUNCH)                                          \
+  do {                                                                      \
+    if (is_bf16) {                                                          \
+      if (head_dim == 64) err = LAUNCH<__nv_bfloat16, 64>(p, batch, s);     \
+      if (head_dim == 128) err = LAUNCH<__nv_bfloat16, 128>(p, batch, s);   \
+    } else {                                                                \
+      if (head_dim == 64) err = LAUNCH<float, 64>(p, batch, s);             \
+      if (head_dim == 128) err = LAUNCH<float, 128>(p, batch, s);           \
+    }                                                                       \
+  } while (0)
+
+// Both return the CUDA error of the launch (0 on success). Strides are in
+// elements, for the (batch, head, seq) dims; head_dim is contiguous. lse
+// and delta are contiguous (batch, heads, seq) f32.
+
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* out, const void* dout,
+                            const void* lse, void* delta, void* dq,
+                            int batch, int seq, int heads, int kv_heads,
+                            int head_dim, int is_bf16, int causal,
+                            int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                            int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                            int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                            int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                            int64_t do_sb, int64_t do_sh, int64_t do_ss,
+                            int64_t dq_sb, int64_t dq_sh, int64_t dq_ss,
+                            float scale, void* stream) {
+  if (!valid(batch, seq, heads, kv_heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = make_params(seq, heads, kv_heads, causal, scale);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = dq;
+  p.sq = {q_sb, q_sh, q_ss};
+  p.sk = {k_sb, k_sh, k_ss};
+  p.sv = {v_sb, v_sh, v_ss};
+  p.so = {o_sb, o_sh, o_ss};
+  p.sdo = {do_sb, do_sh, do_ss};
+  p.sdq = {dq_sb, dq_sh, dq_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  FLASH_BWD_DISPATCH(launch_dq);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv,
+                             int batch, int seq, int heads, int kv_heads,
+                             int head_dim, int is_bf16, int causal,
+                             int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                             int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                             int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                             int64_t do_sb, int64_t do_sh, int64_t do_ss,
+                             int64_t dk_sb, int64_t dk_sh, int64_t dk_ss,
+                             int64_t dv_sb, int64_t dv_sh, int64_t dv_ss,
+                             float scale, void* stream) {
+  if (!valid(batch, seq, heads, kv_heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = make_params(seq, heads, kv_heads, causal, scale);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(const_cast<void*>(delta));
+  p.dk = dk;
+  p.dv = dv;
+  p.sq = {q_sb, q_sh, q_ss};
+  p.sk = {k_sb, k_sh, k_ss};
+  p.sv = {v_sb, v_sh, v_ss};
+  p.sdo = {do_sb, do_sh, do_ss};
+  p.sdk = {dk_sb, dk_sh, dk_ss};
+  p.sdv = {dv_sb, dv_sh, dv_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  FLASH_BWD_DISPATCH(launch_dkv);
+  return static_cast<int>(err);
+}

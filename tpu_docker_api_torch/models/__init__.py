@@ -7,6 +7,7 @@ from tpu_docker_api_torch.models.llama import (  # noqa: F401
     llama_forward,
     llama_forward_cached,
     llama_init,
+    llama_loss,
     llama_presets,
 )
 
@@ -14,10 +15,10 @@ _NOT_PORTED = ("moe", "vit", "encdec")
 
 
 def model_fns(cfg):
-    """(init_fn(cfg, generator), loss_fn, sharding_rules). The port has
-    no training loss and no sharding rules yet: both are None."""
+    """(init_fn(cfg, generator), loss_fn(params, tokens, cfg),
+    sharding_rules). The port has no sharding rules yet: None."""
     if isinstance(cfg, LlamaConfig):
-        return llama_init, None, None
+        return llama_init, llama_loss, None
     raise TypeError(f"no model registered for config type {type(cfg)!r}")
 
 

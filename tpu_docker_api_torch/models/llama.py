@@ -27,14 +27,18 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tpu_docker_api_torch.models.common import trunc_normal_init
+from tpu_docker_api_torch.ops import flash
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
 from tpu_docker_api_torch.ops.quant import linear
 from tpu_docker_api_torch.ops.rope import (RopeScaling, apply_rope,
                                            rope_frequencies)
+from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +54,13 @@ class LlamaConfig:
     rope_scaling: Any = None  # ops.rope.RopeScaling or None
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
+    # checkpoint each block under a policy that keeps only the flash
+    # forward's (out, lse) (llama_hidden, _remat_policy)
+    remat: bool = True
     attention_impl: str = "auto"  # ops.attention impls: auto/dense/flash
+    # >0: the training loss runs ops.xent.chunked_cross_entropy with this
+    # row-chunk size instead of making (batch, seq, vocab) logits
+    loss_chunk_rows: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -98,7 +108,7 @@ def llama_presets() -> dict[str, LlamaConfig]:
         # CPU-fast config for tests
         "tiny": LlamaConfig(
             vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-            ffn_dim=128, max_seq_len=128, rope_theta=10000.0,
+            ffn_dim=128, max_seq_len=128, rope_theta=10000.0, remat=False,
         ),
     }
 
@@ -138,14 +148,18 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator) -> dict:
     }
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked per-layer tree (views)."""
-    def index(tree):
-        if isinstance(tree, dict):
-            return {k: index(v) for k, v in tree.items()}
-        return tree[i]
-
-    return index(params["layers"])
+def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
+    """Every layer's slice of the stacked per-layer tree (views), by one
+    ``unbind`` per leaf: under autograd its backward stacks the layers'
+    gradients in one pass, where indexing layer by layer would make a
+    full-size gradient of the stacked leaf for every layer."""
+    out = [{} for _ in range(n_layers)]
+    for name, leaf in layers.items():
+        parts = (unstack_layers(leaf, n_layers) if isinstance(leaf, dict)
+                 else leaf.unbind(0))
+        for tree, part in zip(out, parts):
+            tree[name] = part
+    return out
 
 
 def _write_cache(kc: torch.Tensor, new: torch.Tensor,
@@ -269,16 +283,36 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, table)
 
 
+def _remat_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep ONLY the flash forward's
+    (out, lse) and recompute every other op, matmuls included — the JAX
+    package's ``TRAIN_REMAT_POLICY``. The backward then runs the flash
+    backward kernels on the kept residuals and never re-runs the forward
+    kernel, which plain checkpointing would (once more per layer)."""
+    return (CheckpointPolicy.MUST_SAVE if op is flash.FLASH_OP
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(_remat_policy)
+
+
 def llama_hidden(params: dict, tokens: torch.Tensor,
                  cfg: LlamaConfig) -> torch.Tensor:
     """The trunk: embed → blocks → final hidden (batch, seq, dim),
-    before the final norm."""
+    before the final norm. With ``cfg.remat`` and autograd on, each block
+    is checkpointed under ``_remat_policy``."""
     seq = tokens.shape[1]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
                                           cfg.rope_scaling, device=x.device)
-    for i in range(cfg.n_layers):
-        x = _block(x, layer_params(params, i), cfg, rope_cos, rope_sin)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in unstack_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x = checkpoint(_block, x, layer, cfg, rope_cos, rope_sin,
+                           use_reentrant=False, context_fn=_remat_context)
+        else:
+            x = _block(x, layer, cfg, rope_cos, rope_sin)
     return x
 
 
@@ -321,9 +355,9 @@ def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
                                           cfg.rope_theta, cfg.rope_scaling,
                                           device=x.device)
     kc, vc = k_cache, v_cache
-    for i in range(cfg.n_layers):
-        x, (kc, vc) = block_fn(x, layer_params(params, i), (kc, vc, i),
-                               rope_cos, rope_sin)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    for i, layer in enumerate(layers):
+        x, (kc, vc) = block_fn(x, layer, (kc, vc, i), rope_cos, rope_sin)
     if last_only is True:
         x = x[:, -1:]
     elif last_only is not False and last_only is not None:
@@ -345,6 +379,30 @@ def lm_head(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return linear(h.to(cfg.dtype), params["lm_head"],
                   out_dtype=torch.float32)
+
+
+def cross_entropy(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, in logsumexp form: reduces straight
+    off the logits instead of making the (batch, seq, vocab) log-softmax."""
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - target_logit).mean()
+
+
+def llama_loss(params: dict, tokens: torch.Tensor,
+               cfg: LlamaConfig) -> torch.Tensor:
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]. With
+    ``cfg.loss_chunk_rows`` set, the logits projection and the loss fuse
+    into ``ops.xent.chunked_cross_entropy``, which never makes the
+    (batch, seq, vocab) logits."""
+    if cfg.loss_chunk_rows:
+        x = llama_hidden(params, tokens[:, :-1], cfg)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
+        return chunked_cross_entropy(h, params["lm_head"], tokens[:, 1:],
+                                     cfg.loss_chunk_rows)
+    logits = llama_forward(params, tokens[:, :-1], cfg)
+    return cross_entropy(logits, tokens[:, 1:])
 
 
 def param_count(params: dict) -> int:

@@ -1,16 +1,24 @@
-"""Flash-attention forward: wrapper around the CUDA kernel in
-``csrc/flash_fwd.cu`` plus its plain PyTorch version.
+"""Flash attention, forward and backward: wrappers around the CUDA
+kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` plus their
+plain PyTorch versions.
 
-Counterpart of ``tpu_docker_api/ops/flash_pallas.py`` (forward only —
-the two backward kernels come with training). Layout follows the JAX
-function: q (batch, heads, seq, head_dim), k/v (batch, kv_heads, seq,
+Counterpart of ``tpu_docker_api/ops/flash_pallas.py``. Layout follows the
+JAX function: q (batch, heads, seq, head_dim), k/v (batch, kv_heads, seq,
 head_dim). These may be strided views of the model's (batch, seq, heads,
-head_dim) tensors: the kernel reads the strides, only head_dim must be
-contiguous. ``out`` is returned as a (batch, heads, seq, head_dim) view
-of a contiguous (batch, seq, heads, head_dim) buffer, so the model's
-transpose back is free; ``lse`` is (batch, heads, seq) f32, natural log.
+head_dim) tensors: the kernels read the strides, only head_dim must be
+contiguous. ``out``, ``dq``, ``dk`` and ``dv`` are returned as (batch,
+heads, seq, head_dim) views of contiguous (batch, seq, heads, head_dim)
+buffers, so the model's transposes stay free; ``lse`` is (batch, heads,
+seq) f32, natural log.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+``flash_attention`` is differentiable, as the JAX ``custom_vjp`` is: the
+forward is the custom op ``tpu_docker_api_torch::flash_fwd`` (``FLASH_OP``),
+which saves ``(q, k, v, out, lse)``; its backward runs the dq kernel, which
+also writes ``D = rowsum(dO∘O)``, then the dk/dv kernel. Being an op of its
+own lets a selective-checkpoint policy keep its outputs (models/llama.py's
+remat), as ``TRAIN_REMAT_POLICY`` keeps the JAX kernel's ``(out, lse)``.
+
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. There is no fallback from one to the other.
 """
 
@@ -22,29 +30,29 @@ import torch
 
 from tpu_docker_api_torch import _build
 
-#: kernel launches by this wrapper (the plain version never counts) —
-#: lets a run prove that its main path went through the kernel
-launch_count = {"flash_fwd": 0}
+#: kernel launches by these wrappers (the plain versions never count) —
+#: lets a run prove that its main path went through the kernels
+launch_count = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_count() -> None:
-    launch_count["flash_fwd"] = 0
+    for name in launch_count:
+        launch_count[name] = 0
 
 
 def supports(q: torch.Tensor) -> bool:
-    """Whether the kernel takes this head_dim and dtype."""
+    """Whether the kernels take this head_dim and dtype."""
     return q.shape[-1] in _HEAD_DIMS and q.dtype in _DTYPES
 
 
-def flash_attention_fwd_plain(q, k, v, causal: bool = True):
-    """Plain PyTorch version of the kernel: scores → causal/GQA mask →
-    f32 softmax → PV. Returns (out like q, lse (b, h, s) f32)."""
+def _plain_scores(q, k, causal):
+    """f32 scores (b, hk, group, s, s), scaled and causally masked."""
     b, h, s, d = q.shape
     hk = k.shape[1]
     qf = q.float().reshape(b, hk, h // hk, s, d)
@@ -53,26 +61,76 @@ def flash_attention_fwd_plain(q, k, v, causal: bool = True):
     if causal:
         mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, _NEG)
+    return scores
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool = True):
+    """Plain PyTorch version of the forward kernel: scores → causal/GQA
+    mask → f32 softmax → PV. Returns (out like q, lse (b, h, s) f32)."""
+    b, h, s, d = q.shape
+    scores = _plain_scores(q, k, causal)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
     return out.reshape(b, h, s, d).to(q.dtype), lse.reshape(b, h, s)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_fwd")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """Plain PyTorch version of the two backward kernels, the formulas of
+    ``flash_pallas.py``'s header in f32 with P rebuilt from ``lse``:
+
+        D = rowsum(dO∘O);  P = exp(q kᵀ·scale − lse)
+        dV = Σ_g Pᵀ dO;  dS = P∘(dO vᵀ − D)
+        dQ = scale·dS k;  dK = scale·Σ_g dSᵀ q
+
+    Returns (dq like q, dk like k, dv like v)."""
+    b, h, s, d = q.shape
+    hk = k.shape[1]
+    scale = 1.0 / d**0.5
+    probs = torch.exp(_plain_scores(q, k, causal)
+                      - lse.float().reshape(b, hk, h // hk, s, 1))
+    do = dout.float().reshape(b, hk, h // hk, s, d)
+    delta = (do * out.float().reshape(b, hk, h // hk, s, d)).sum(-1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", probs, do)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", do, v.float())
+    ds = probs * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                      q.float().reshape(b, hk, h // hk, s, d)) * scale
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    lib = _build.load(name)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f32 = ctypes.c_float
+    if name == "flash_fwd":
         lib.flash_fwd.argtypes = (
             [ptr] * 5                    # q, k, v, out, lse
             + [i32] * 7                  # batch, seq, heads, kv_heads,
             #                              head_dim, is_bf16, causal
             + [i64] * 12                 # (b, h, s) strides of q, k, v, out
-            + [ctypes.c_float, ptr])     # softmax scale, stream
-        lib.flash_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+            + [f32, ptr])                # softmax scale, stream
+        lib.flash_fwd.restype = i32
+    else:
+        lib.flash_bwd_dq.argtypes = (
+            [ptr] * 8                    # q, k, v, out, dout, lse, delta, dq
+            + [i32] * 7
+            + [i64] * 18                 # strides of q, k, v, out, dout, dq
+            + [f32, ptr])
+        lib.flash_bwd_dq.restype = i32
+        lib.flash_bwd_dkv.argtypes = (
+            [ptr] * 8                    # q, k, v, dout, lse, delta, dk, dv
+            + [i32] * 7
+            + [i64] * 18                 # strides of q, k, v, dout, dk, dv
+            + [f32, ptr])
+        lib.flash_bwd_dkv.restype = i32
+    _libs[name] = lib
+    return lib
 
 
 def _check(q, k, v):
@@ -92,6 +150,53 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
+def _check_kernel(q, k, v, *like_q):
+    """What every kernel requires of a CUDA call; ``like_q`` (out, dout)
+    have q's shape."""
+    ts = (q, k, v, *like_q)
+    b, h, s, d = q.shape
+    if any(t.shape != q.shape for t in like_q):
+        raise ValueError(f"out/dout must have q's shape {tuple(q.shape)}")
+    if not q.is_cuda or any(t.device != q.device for t in ts):
+        raise ValueError("flash kernels take tensors on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"flash kernels take bf16 or f32 tensors of one "
+                         f"dtype, got {[t.dtype for t in ts]}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS}, "
+                         f"got {d}")
+    if s < 1 or b * h > 65535:
+        raise ValueError(f"flash kernels take seq >= 1 and batch*heads <= "
+                         f"65535, got seq {s}, batch*heads {b * h}")
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("flash kernels need a contiguous head_dim")
+
+
+def _check_stats(q, *stats):
+    """lse and delta: contiguous (batch, heads, seq) f32 beside q."""
+    b, h, s, _ = q.shape
+    for t in stats:
+        if (t.shape != (b, h, s) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError("lse and delta must be contiguous (batch, "
+                             "heads, seq) f32 on q's device")
+
+
+def _strides(*ts):
+    return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _empty_bshd(like: torch.Tensor) -> torch.Tensor:
+    """A (b, h, s, d) view of a new contiguous (b, s, h, d) buffer."""
+    b, h, s, d = like.shape
+    return torch.empty((b, s, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True):
     """(out, lse) of causal or full GQA attention. CPU tensors run the
@@ -102,40 +207,120 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
+    _check_kernel(q, k, v)
     b, h, s, d = q.shape
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel takes bf16 or f32, got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"got {d}")
-    if s < 1 or b * h > 65535:
-        raise ValueError(f"flash kernel takes seq >= 1 and batch*heads <= "
-                         f"65535, got seq {s}, batch*heads {b * h}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash kernel needs a contiguous head_dim")
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _empty_bshd(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = _load()
+    lib = _load("flash_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, s, h, k.shape[1], d, _DTYPES[q.dtype],
-            int(causal),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            1.0 / d**0.5, stream)
+            int(causal), *_strides(q, k, v, out), 1.0 / d**0.5, _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
     launch_count["flash_fwd"] += 1
     return out, lse
 
 
+def flash_bwd_dq(q, k, v, out, lse, dout, causal: bool = True):
+    """Launch the dq kernel: (dq like q, delta (b, h, s) f32). The kernel
+    also writes ``delta = rowsum(dout∘out)``, which the dk/dv kernel
+    reads, so it runs first. CUDA tensors only."""
+    _check_kernel(q, k, v, out, dout)
+    _check_stats(q, lse)
+    b, h, s, d = q.shape
+    dq = _empty_bshd(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = _load("flash_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, s, h, k.shape[1], d, _DTYPES[q.dtype], int(causal),
+            *_strides(q, k, v, out, dout, dq), 1.0 / d**0.5, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
+    launch_count["flash_bwd_dq"] += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, lse, delta, dout, causal: bool = True):
+    """Launch the dk/dv kernel: (dk like k, dv like v), the GQA group
+    summed in f32 before one cast. CUDA tensors only."""
+    _check_kernel(q, k, v, dout)
+    _check_stats(q, lse, delta)
+    b, h, s, d = q.shape
+    dk, dv = _empty_bshd(k), _empty_bshd(v)
+    lib = _load("flash_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, h, k.shape[1], d, _DTYPES[q.dtype], int(causal),
+            *_strides(q, k, v, dout, dk, dv), 1.0 / d**0.5, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
+    launch_count["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
+    """(dq, dk, dv) of the forward's (q, k, v) for the cotangent ``dout``
+    of ``out``. CPU tensors run the plain version; CUDA tensors launch
+    the dq kernel, then the dk/dv kernel, or raise."""
+    _check(q, k, v)
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"dout {tuple(dout.shape)} on {dout.device} does "
+                         f"not match q {tuple(q.shape)} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    if not q.is_cuda:
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    # autograd may hand over any layout: strides are read as they are,
+    # one copy only where head_dim is not contiguous (or the dtype differs)
+    dout = dout.to(q.dtype)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    lse = lse.contiguous()
+    dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, dout, causal)
+    return dq, dk, dv
+
+
+@torch.library.custom_op("tpu_docker_api_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal = causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, dout, _dlse):
+    # lse is not differentiated (the JAX custom_vjp returns out only)
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal)
+    return dq, dk, dv, None
+
+
+torch.library.register_autograd("tpu_docker_api_torch::flash_fwd", _backward,
+                                setup_context=_setup_context)
+
+#: the forward as one dispatcher op: a selective-checkpoint policy that
+#: marks it MUST_SAVE keeps (out, lse) and never re-runs the kernel
+FLASH_OP = torch.ops.tpu_docker_api_torch.flash_fwd.default
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Tiled causal (or full) attention, forward only. Any seq >= 1:
-    the kernel masks the ragged edge of its last tile itself."""
-    return flash_attention_fwd(q, k, v, causal)[0]
+    """Tiled causal (or full) attention, differentiable. Any seq >= 1:
+    the kernels mask the ragged edge of their last tile themselves."""
+    _check(q, k, v)
+    return FLASH_OP(q, k, v, causal)[0]

@@ -1,0 +1,102 @@
+"""Single-device training step (counterpart of
+``tpu_docker_api/train/trainer.py``).
+
+The JAX step is one jitted function over sharded state. The port's step
+runs eagerly on one device: autograd through the model's loss, then the
+optimizer's pure update and ``apply_updates``, all under the caller's
+stream with no host sync. The mesh, the shardings and the JAX step's
+``grad_fn``/``const_args`` seams wait for the port's parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from tpu_docker_api_torch.models import model_fns
+from tpu_docker_api_torch.train.optim import (GradientTransformation,
+                                              adamw, apply_updates, chain,
+                                              clip_by_global_norm,
+                                              global_norm, tree_leaves,
+                                              tree_map)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int          # host counter: reading it never syncs the device
+    params: dict
+    opt_state: Any
+
+
+def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
+                      clip_norm: float = 1.0) -> GradientTransformation:
+    return chain(clip_by_global_norm(clip_norm),
+                 adamw(lr, b1=0.9, b2=0.95, weight_decay=weight_decay))
+
+
+def create_train_state(
+    cfg,
+    device: str | torch.device,
+    generator: torch.Generator | None = None,
+    optimizer: GradientTransformation | None = None,
+) -> tuple[TrainState, GradientTransformation]:
+    """Random parameters on ``device`` (from ``generator``, seed 0 if
+    None) and the optimizer's initial state. ``cfg`` may be any
+    registered model config."""
+    device = torch.device(device)
+    optimizer = optimizer or default_optimizer()
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, state asked "
+                         f"on {device}")
+    model_init, _, _ = model_fns(cfg)
+    params = model_init(cfg, generator)
+    return TrainState(0, params, optimizer.init(params)), optimizer
+
+
+def make_train_step(
+    cfg,
+    optimizer: GradientTransformation,
+    loss_fn: Callable | None = None,
+) -> Callable:
+    """(state, tokens) → (state, metrics). ``metrics`` holds ``loss`` and
+    ``grad_norm`` as device tensors (reading them waits for the device,
+    so a caller reads them only where it needs the value) and ``step``
+    as an int. Every parameter must receive a gradient: an unused one
+    raises rather than training on silently."""
+    if loss_fn is None:
+        _, model_loss, _ = model_fns(cfg)
+
+        def loss_fn(params, tokens):
+            return model_loss(params, tokens, cfg)
+
+    def step(state: TrainState, tokens: torch.Tensor):
+        device = tree_leaves(state.params)[0].device
+        tokens = tokens.to(device, non_blocking=True)
+        live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+        leaves = tree_leaves(live)
+        loss = loss_fn(live, tokens)
+        flat = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(flat), live)
+        del live, leaves
+        with torch.no_grad():
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                state.params)
+            new_params = apply_updates(state.params, updates)
+            metrics = {"loss": loss.detach(),
+                       "grad_norm": global_norm(grads),
+                       "step": state.step + 1}
+        return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    return step
+
+
+def synthetic_batch(generator: torch.Generator, batch: int, seq: int,
+                    vocab: int) -> torch.Tensor:
+    """Synthetic token stream, (batch, seq + 1) on the generator's device
+    (the data layer for the smoke run and tests)."""
+    return torch.randint(0, vocab, (batch, seq + 1), generator=generator,
+                         device=generator.device)
