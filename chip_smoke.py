@@ -7,12 +7,18 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. env      — card name and power limit (nvidia-smi), torch/CUDA versions.
 2. build    — nvcc builds every kernel from csrc/ (in parallel), with the
-              ``-Xptxas -v`` register and shared-memory lines.
+              ``-Xptxas -v`` register and shared-memory lines and the
+              count of tensor-core instructions (HGMMA, HMMA) in each
+              library's SASS; fails if a flash library has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes the serving and training paths give it, with
-              stated tolerances; times of the kernel, the plain version,
-              one PyTorch library call as a yardstick where one computes
-              the same function, and the card's bound.
+              at the shapes the serving and training paths give it and at
+              the edges of the kernels' tiles, with stated tolerances;
+              times of the kernel (device time, its wrapper's host time
+              a call, and back-to-back calls with the host's time in),
+              the plain version, one PyTorch library call as a yardstick
+              where one computes the same function, and the card's bound
+              (flash_fwd at the serve path's R=1 and the training shape
+              R=4).
 4. serve    — ``tpu_docker_api_torch.serve`` in process at llama3-1b full
               width (random weights from a seed): 8 concurrent greedy
               requests of 17-1900 prompt tokens, a streamed one and a
@@ -60,6 +66,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 64
+TRAIN_STEPS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 
 
@@ -74,18 +82,48 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+#: card cycles to sleep for each timed call (~1 ms at the H100's clocks)
+SLEEP_CYCLES_PER_CALL = 2_000_000
+
+
+def _timed(fn, iters: int, warmup: int, sleep: bool) -> tuple[float, float]:
+    """(ms per call by CUDA events around ``iters`` back-to-back calls,
+    host us per call to enqueue them). With ``sleep`` the card sleeps
+    while the host enqueues, so the calls run back to back on the card
+    and the events read device time only; without it, a call whose host
+    side is slower than its kernel reads as its host time."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if sleep:
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s / iters * 1e6
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device milliseconds per call (a wrapper's host time is not
+    counted)."""
+    return _timed(fn, iters, warmup, sleep=True)[0]
+
+
+def kernel_times(fn, iters: int, warmup: int = 3) -> dict:
+    """A kernel wrapper's three readings: ``ms``, device time per call;
+    ``host_us``, the host's time per call to enqueue it (the wrapper's
+    checks, allocations, TMA map encoding and the launch); and
+    ``ms_back_to_back``, events around back-to-back calls with no sleep,
+    which count the host's time where it exceeds the kernel's."""
+    ms, host_us = _timed(fn, iters, warmup, sleep=True)
+    return {"ms": ms, "host_us": host_us,
+            "ms_back_to_back": _timed(fn, iters, warmup, sleep=False)[0]}
 
 
 def flash_bound_ms(R, s, h, hk, d, dtype, causal=True) -> tuple[float, str]:
@@ -112,24 +150,30 @@ def phase_kernels(dev) -> dict:
               for n in (h, hk, hk)]
         return [t.transpose(1, 2) for t in mk]
 
-    shapes = [(R, s, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16)
+    bf = torch.bfloat16
+    shapes = [(R, s, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, bf, True)
               for s in (32, 64, 100, 512, 2048) for R in (1, 8)]
-    shapes += [(1, 1024, 32, 8, 128, torch.bfloat16),
-               (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32)]
+    # the edges of the tiles (64 queries a block, 128 keys a kv tile);
+    # GQA groups of 1 and 4, d=128, full attention
+    shapes += [(2, s, 8, hk, d, bf, causal) for s in (1, 65, 129)
+               for hk, d, causal in ((8, 64, True), (2, 128, True),
+                                     (2, 64, False))]
+    shapes += [(1, 1024, 32, 8, 128, bf, True),
+               (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
     cases, max_err = [], 0.0
-    for R, s, h, hk, d, dtype in shapes:
+    for R, s, h, hk, d, dtype, causal in shapes:
         q, k, v = qkv(R, s, h, hk, d, dtype)
-        out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+        out, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash.flash_attention_fwd_plain(q, k, v, True)
+        ref_out, ref_lse = flash.flash_attention_fwd_plain(q, k, v, causal)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol, lse_tol = FLASH_TOL[dtype]
         ok = err <= tol and lse_err <= lse_tol
         cases.append({"R": R, "s": s, "heads": h, "kv_heads": hk, "d": d,
-                      "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-                      "lse_err": lse_err, "tol": tol, "lse_tol": lse_tol,
-                      "ok": ok})
+                      "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "max_abs_err": err, "lse_err": lse_err, "tol": tol,
+                      "lse_tol": lse_tol, "ok": ok})
         if not ok:
             raise AssertionError(f"flash_fwd disagrees with plain: "
                                  f"{cases[-1]}")
@@ -138,24 +182,31 @@ def phase_kernels(dev) -> dict:
         del q, k, v, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
 
-    # times at the slice's largest prefill: R=1, s=2048, llama3-1b heads
-    R, s = 1, 2048
-    q, k, v = qkv(R, s, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16)
-    kernel_ms = cuda_ms(lambda: flash.flash_attention_fwd(q, k, v), 50)
-    plain_ms = cuda_ms(
-        lambda: flash.flash_attention_fwd_plain(q, k, v, True), 10)
-    # yardstick only: the port never calls it
+    # times at the serve path's largest prefill (R=1) and at the training
+    # shape (R=4), s=2048, llama3-1b heads
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(
-        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 50)
-    bound_ms, bound_by = flash_bound_ms(R, s, LLAMA_HEADS, LLAMA_KV,
-                                        LLAMA_HD, torch.bfloat16)
-    timing = {"R": R, "s": s, "ms": kernel_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms}
+    timing = {}
+    for R in (1, TRAIN_BATCH):
+        s = TRAIN_SEQ
+        q, k, v = qkv(R, s, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, bf)
+        kt = kernel_times(lambda: flash.flash_attention_fwd(q, k, v), 50)
+        plain_ms = cuda_ms(
+            lambda: flash.flash_attention_fwd_plain(q, k, v, True), 5)
+        # yardstick only: the port never calls it
+        library_ms = cuda_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 50)
+        bound_ms, bound_by = flash_bound_ms(R, s, LLAMA_HEADS, LLAMA_KV,
+                                            LLAMA_HD, bf)
+        timing[f"R{R}"] = {
+            "R": R, "s": s, **kt, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "roofline_share": bound_ms / kt["ms"]}
+        del q, k, v
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_fwd", "cases": cases,
           "timing": timing})
-    return {"max_abs_err": max_err, **timing}
+    return {"max_abs_err": max_err, **timing["R1"],
+            "at_train_shape": timing[f"R{TRAIN_BATCH}"]}
 
 
 def _bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -184,7 +235,8 @@ def flash_bwd_bounds(R, s, h, hk, d, dtype, causal=True) -> dict:
 def phase_flash_bwd(dev) -> dict:
     """The two backward kernels against the plain backward: the training
     shape (R=4, s=2048, llama3-1b heads, causal), ragged and small
-    lengths, d=128, a non-causal case and an f32 case."""
+    lengths, the edges of the tiles (seq 1, 65, 129 with GQA groups of 1
+    and 4), d=128, non-causal cases and an f32 case."""
     from tpu_docker_api_torch.ops import flash
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -201,6 +253,9 @@ def phase_flash_bwd(dev) -> dict:
               (1, 1000, 8, 2, 128, torch.bfloat16, True),
               (1, 384, 8, 2, LLAMA_HD, torch.bfloat16, False),
               (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
+    shapes += [(2, s, 8, hk, d, torch.bfloat16, causal) for s in (1, 65, 129)
+               for hk, d, causal in ((8, 64, True), (2, 128, True),
+                                     (2, 64, False))]
     cases = []
     max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for R, s, h, hk, d, dtype, causal in shapes:
@@ -210,13 +265,18 @@ def phase_flash_bwd(dev) -> dict:
         got = flash.flash_attention_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
         ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
-        # bf16: both round the f32 result once, the f32 sums run in
-        # another order; 2e-2 of the largest |grad| leaves room for both.
-        # f32: only the order differs.
+        # bf16: both round the f32 result once, the kernels also P and
+        # dS before dk/dv's products, the f32 sums run in another order;
+        # 2e-2 of the largest |grad| leaves room for all three. f32: only
+        # the order differs. At s=1 the one key has P = 1, so dS = 0 and
+        # dq, dk are f32 rounding noise in both: held to 2e-2 of max|dv|.
         rtol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         errs = [(a.float() - b.float()).abs().max().item()
                 for a, b in zip(got, ref)]
-        tols = [rtol * b.float().abs().max().item() for b in ref]
+        scales = [b.float().abs().max().item() for b in ref]
+        if s == 1:
+            scales[:2] = [scales[2]] * 2
+        tols = [rtol * x for x in scales]
         ok = all(e <= t for e, t in zip(errs, tols))
         cases.append({"R": R, "s": s, "heads": h, "kv_heads": hk, "d": d,
                       "dtype": str(dtype).split(".")[-1], "causal": causal,
@@ -239,9 +299,9 @@ def phase_flash_bwd(dev) -> dict:
         mk(R, s, hk, d, dt), mk(R, s, h, d, dt)
     out, lse = flash.flash_attention_fwd(q, k, v, True)
     _, delta = flash.flash_bwd_dq(q, k, v, out, lse, do, True)
-    ms = {"flash_bwd_dq": cuda_ms(
+    kt = {"flash_bwd_dq": kernel_times(
               lambda: flash.flash_bwd_dq(q, k, v, out, lse, do, True), 20),
-          "flash_bwd_dkv": cuda_ms(
+          "flash_bwd_dkv": kernel_times(
               lambda: flash.flash_bwd_dkv(q, k, v, lse, delta, do, True),
               20)}
     # the plain version computes dq, dk and dv together: one time for both
@@ -263,11 +323,11 @@ def phase_flash_bwd(dev) -> dict:
     bounds = flash_bwd_bounds(R, s, h, hk, d, dt)
     result = {}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        result[name] = {"max_abs_err": max_err[name], "ms": ms[name],
+        result[name] = {"max_abs_err": max_err[name], **kt[name],
                         "plain_ms": plain_ms, "library_ms": library_ms,
                         "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
-                        "roofline_share": bounds[name][0] / ms[name]}
+                        "roofline_share": bounds[name][0] / kt[name]["ms"]}
     emit({"phase": "kernels", "kernel": "flash_bwd", "cases": cases,
           "timing": {"R": R, "s": s, **result,
                      "library": "sdpa fwd+bwd - fwd",
@@ -340,11 +400,14 @@ def phase_adam8(dev) -> dict:
 
     # one optimizer step's worth: every leaf of llama3-1b, kernel and
     # plain; the row reports the mean per launch
-    kernel_ms = plain_ms = bound_ms = 0.0
+    kernel_ms = plain_ms = bound_ms = host_us = b2b_ms = 0.0
     per_leaf = []
     for name, shape in LLAMA3_1B_LEAVES:
         args = _adam8_leaf(dev, g, shape)
-        k = cuda_ms(lambda: optim.adam8_update_leaf(*args, sc=sc), 10)
+        kt = kernel_times(lambda: optim.adam8_update_leaf(*args, sc=sc), 10)
+        k = kt["ms"]
+        host_us, b2b_ms = host_us + kt["host_us"], \
+            b2b_ms + kt["ms_back_to_back"]
         pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 2, warmup=1)
         n = math.prod(shape)
         b = optim._block_of(shape[-1], 256)
@@ -353,7 +416,7 @@ def phase_adam8(dev) -> dict:
         bd, by = _bound(30 * n, 10 * n + 16 * (n // b), torch.float32)
         kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + pl, \
             bound_ms + bd
-        per_leaf.append({"leaf": name, "ms": k, "plain_ms": pl,
+        per_leaf.append({"leaf": name, **kt, "plain_ms": pl,
                          "bound_ms": bd, "bound_by": by})
         del args
         torch.cuda.empty_cache()
@@ -361,6 +424,8 @@ def phase_adam8(dev) -> dict:
     bound_by = ("bytes" if all(leaf["bound_by"] == "bytes"
                                for leaf in per_leaf) else "operations")
     result = {"max_abs_err": max_err, "ms": kernel_ms / n_leaves,
+              "host_us": host_us / n_leaves,
+              "ms_back_to_back": b2b_ms / n_leaves,
               "plain_ms": plain_ms / n_leaves,
               "bound_ms": bound_ms / n_leaves, "bound_by": bound_by,
               "library_ms": None}
@@ -371,10 +436,6 @@ def phase_adam8(dev) -> dict:
                                 "the int8-moment AdamW step",
                      **result}})
     return result
-
-
-TRAIN_STEPS = 4
-TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
 def _train_run(dev, cfg, optim_name: str, tokens) -> dict:
@@ -523,7 +584,8 @@ def phase_train(dev) -> dict:
     if chunk_rel > 1e-4:
         raise AssertionError(f"chunked loss {chunked} vs dense {dense}")
     # bf16 through one block: the two paths round to bf16 at different
-    # places (the kernel keeps P and dS in f32)
+    # places (the kernels round P and dS to bf16 before their products;
+    # the dense path rounds the probabilities it hands to PV)
     grad_rel = _block_grads_rel_l2(dev, cfg)
     if max(grad_rel.values()) > 2e-2:
         raise AssertionError(f"flash vs dense block gradients: {grad_rel}")
@@ -718,8 +780,22 @@ def main() -> int:
           "device_count": torch.cuda.device_count()})
     t0 = time.perf_counter()
     info = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": info})
+    build_s = time.perf_counter() - t0
+    # the flash kernels must run on the tensor cores: wgmma (HGMMA) or
+    # mma.sync (HMMA) in their machine code
+    sass = {name: _build.sass_counts(name) for name in _build.KERNELS}
+    emit({"phase": "build", "seconds": build_s, "kernels": info,
+          "tensor_core_instructions": sass})
+    for name in ("flash_fwd", "flash_bwd"):
+        if not any(sass[name].values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"its SASS: {sass[name]}")
+        # ptxas's C75xx notes: wgmma it had to serialize (a slower
+        # kernel, and no error otherwise)
+        notes = [ln for ln in info.get(name, {}).get("ptxas", [])
+                 if "(C75" in ln]
+        if notes:
+            raise AssertionError(f"{name}: ptxas serialized wgmma: {notes}")
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -752,8 +828,11 @@ def main() -> int:
         "replaces": replaces, "launches": launches,
         "launches_by_path": by_path,
         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+        "host_us": res["host_us"], "ms_back_to_back": res["ms_back_to_back"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-        "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+        "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+        **({"at_train_shape": res["at_train_shape"]}
+           if "at_train_shape" in res else {})}
         for name, source, replaces, launches, res, by_path in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

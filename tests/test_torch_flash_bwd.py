@@ -118,21 +118,34 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+# the tile edges of the kernels (64-query tiles, 64-key kv tiles and
+# dk/dv blocks), both GQA group sizes, d=128, full attention
+BF, F32 = torch.bfloat16, torch.float32
+CARD_CASES = [(100, 64, BF, 4, True), (256, 128, BF, 4, True),
+              (200, 64, BF, 4, False), (64, 64, F32, 4, True)]
+CARD_CASES += [(s, 64, BF, g, True) for s in (1, 63, 65, 127, 129)
+               for g in (1, 4)]
+CARD_CASES += [(s, 128, BF, 4, True) for s in (1, 65, 129)]
+CARD_CASES += [(s, d, BF, 4, False) for s in (1, 65, 129) for d in (64, 128)]
+CARD_CASES += [(65, 64, F32, 1, False), (129, 128, F32, 4, True)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("seq,d,dtype,causal", [
-    (100, 64, torch.bfloat16, True), (256, 128, torch.bfloat16, True),
-    (200, 64, torch.bfloat16, False), (64, 64, torch.float32, True)])
-def test_bwd_kernels_match_plain_on_card(cuda_device, seq, d, dtype,
+@pytest.mark.parametrize("seq,d,dtype,group,causal", CARD_CASES)
+def test_bwd_kernels_match_plain_on_card(cuda_device, seq, d, dtype, group,
                                          causal):
     """|kernel - plain| <= tol·max|plain| per gradient: bf16 2e-2 (both
-    round the f32 result once; the sums run in another order), f32 1e-4."""
+    round the f32 result once, the kernel also P and dS before dk/dv's
+    products; the sums run in another order), f32 1e-4. At seq=1 the one
+    key gets P = 1, so dS = dO·v − rowsum(dO∘O) = 0: dq and dk are zero
+    up to f32 rounding in both versions and are held to tol·max|dv|."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def mk(n):  # the model's (b, s, h, d) layout, as (b, h, s, d) views
         return torch.randn(2, seq, n, d, generator=g,
                            device=cuda_device).to(dtype).transpose(1, 2)
 
-    q, k, v, dout = mk(8), mk(2), mk(2), mk(8)
+    q, k, v, dout = mk(8), mk(8 // group), mk(8 // group), mk(8)
     out, lse = flash.flash_attention_fwd(q, k, v, causal)
     before = dict(flash.launch_count)
     got = flash.flash_attention_bwd(q, k, v, out, lse, dout, causal)
@@ -141,10 +154,13 @@ def test_bwd_kernels_match_plain_on_card(cuda_device, seq, d, dtype,
     assert flash.launch_count["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
     ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    for gr, rf in zip(got, ref):
+    scales = [rf.float().abs().max().item() for rf in ref]
+    if seq == 1:
+        scales[:2] = [scales[2]] * 2
+    for gr, rf, scale in zip(got, ref, scales):
         assert gr.shape == rf.shape
         err = (gr.float() - rf.float()).abs().max().item()
-        assert err <= tol * rf.float().abs().max().item()
+        assert err <= tol * scale
 
 
 @pytest.mark.gpu

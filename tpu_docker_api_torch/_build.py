@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,9 +31,12 @@ KERNELS = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_PTXAS_KEEP = ("Compiling entry", "registers", "arning", "(C75")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: per kernel: {"seconds": nvcc wall time, "ptxas": [register/smem lines]}
+#: per kernel: {"seconds": nvcc wall time, "ptxas": [register/smem lines,
+#: warnings, and ptxas's notes (C75xx) on wgmma it had to serialize]}
 #: for the builds this process ran (empty for a library found on disk)
 build_info: dict[str, dict] = {}
 
@@ -51,9 +55,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _SRC_DIR / KERNELS[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header under csrc/ (which it may include)."""
+    h = hashlib.sha256((_SRC_DIR / KERNELS[name]).read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float]:
@@ -87,7 +94,7 @@ def build_all(names: list[str] | None = None) -> dict[str, dict]:
             build_info[name] = {
                 "seconds": secs,
                 "ptxas": [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "Compiling entry" in ln]}
+                          if any(key in ln for key in _PTXAS_KEEP)]}
         if errors:
             raise RuntimeError("\n".join(errors))
     return build_info
@@ -104,3 +111,14 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def sass_counts(name: str, ops: tuple[str, ...] = ("HGMMA", "HMMA")
+                ) -> dict[str, int]:
+    """How many of each tensor-core instruction (HGMMA: wgmma; HMMA:
+    mma.sync) the built library's machine code holds, by ``cuobjdump
+    -sass`` from the toolkit beside nvcc."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ops}

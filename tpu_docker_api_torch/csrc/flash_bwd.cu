@@ -11,30 +11,53 @@
 //   dV_j  = sum_i P_ij dO_i                 dS_ij = P_ij (dO_i v_j^T - D_i)
 //   dQ_i  = scale * sum_j dS_ij k_j         dK_j  = scale * sum_i dS_ij q_i
 //
-// What holds on Hopper, which the TPU grid hid:
+// flash_bwd_dq (bf16 and f32, on the CUDA cores; the first port's kernel):
+// one block per (batch*head, 64-query tile). The TPU kernel's sequential
+// kv grid axis, which carried dQ in VMEM scratch, is a loop over 64-key
+// tiles inside the block, with dQ in f32 registers and one cast at the
+// end. The block also computes D_i for its rows (from dO and O, in f32)
+// in its prologue and writes it out for flash_bwd_dkv, so no separate
+// pass over dO and O runs.
 //
-// - flash_bwd_dq: one block per (batch*head, 64-query tile). The TPU
-//   kernel's sequential ("arbitrary") kv grid axis, which carried dQ in
-//   VMEM scratch, is a loop over 64-key tiles inside the block, with dQ
-//   in f32 registers and one cast at the end. The block also computes
-//   D_i for its rows (from dO and O, in f32) in its prologue and writes
-//   it out for flash_bwd_dkv, so no separate pass over dO and O runs.
-// - flash_bwd_dkv: one block per (batch, kv_head, 64-key tile). Both
-//   loops of the TPU kernel's innermost grid axes, the GQA group and the
-//   q tiles, run inside the block, with dK and dV in f32 registers and
-//   ONE cast at the end: no bf16 round-off compounds across the group,
-//   no atomics, no per-group partial outputs summed in the storage dtype.
-// - Causal: tiles wholly above the diagonal are never loaded (dq stops
-//   its kv loop at the diagonal, dkv starts its q loop there); only the
-//   diagonal tiles and the ragged last tile run the mask. Any seq >= 1:
-//   rows and keys past seq are masked here.
-// - Inputs are addressed through (batch, head, seq) strides with a
-//   contiguous head_dim, so the model's (b, s, h, d) tensors and
-//   autograd's cotangent are read in place.
-// - Rounding: scores, P, dP, dS and the sums stay f32. The TPU kernels
-//   round q*scale*log2(e), P and dS to the storage dtype before their
-//   dots; these do not, so in bf16 they sit closer to the f32 plain
-//   version than the TPU kernels do.
+// flash_bwd_dkv_kernel_tc (bf16, on the tensor cores): one block of one
+// warpgroup per (batch, kv_head, 64-key tile). (Two warpgroups a block
+// would share each Q/dO tile, but at ~160 registers a thread one such
+// block fits an SM against three of one warpgroup, and more blocks in
+// flight hide more of each one's waits; it measured slower.) Both of the
+// TPU kernel's innermost grid axes, the GQA group and the q tiles, are
+// one loop inside the block, with dK and dV in f32 registers and ONE cast
+// at the end: no bf16 round-off compounds across the group, no atomics,
+// no per-group partial outputs.
+// - Every product is a bf16 wgmma.mma_async with f32 accumulators, on the
+//   transposed tiles so that each A operand is K-major shared memory or
+//   registers: S^T = K Q^T and dP^T = V dO^T take K or V (resident in
+//   shared memory for the whole block) against the Q or dO tile;
+//   P^T = exp2(S^T scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T - D)
+//   are formed in the accumulator registers and rounded to bf16 there;
+//   dV += P^T dO and dK += dS^T Q take them as the register A operand,
+//   with dO and Q read MN-major through the transpose bit. No P or dS
+//   tile is staged in shared memory.
+// - K and V arrive once by TMA. The Q/dO tiles stream through a 2-stage
+//   ring filled by TMA (one thread issues the copies into hopper.cuh's
+//   swizzled layout; an mbarrier a stage reports them), their lse and D
+//   slices beside them by 4-byte cp.async: step i + 1 loads while step i
+//   computes. No thread spends instructions on addresses.
+// - Rounding: P and dS are rounded to bf16 before their products, where
+//   the TPU kernel rounds them (flash_pallas.py:237, :243); scores, dP and
+//   the sums stay f32. TMA needs 16-byte aligned rows: hopper.cuh's
+//   encode_tile_map refuses others with cudaErrorMisalignedAddress.
+//
+// flash_bwd_dkv_kernel (f32, on the CUDA cores): the first port's kernel,
+// unchanged, so the f32 path keeps its 1e-4 agreement with the plain
+// version (TF32 tensor cores keep ~3 decimal digits).
+//
+// Both kernels: causal tiles wholly above the diagonal are never computed
+// (dq stops its kv loop at the diagonal, dkv starts its q loop there);
+// only the diagonal tiles and the ragged last tile run the mask. Any
+// seq >= 1: rows and keys past seq are zero-filled and masked here.
+// Inputs are addressed through (batch, head, seq) strides with a
+// contiguous head_dim, so the model's (b, s, h, d) tensors and autograd's
+// cotangent are read in place.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the backward
 // does 10*d FLOPs per visible (query, key) pair (scores, dP, dQ in dq:
@@ -43,18 +66,19 @@
 // at peak, against ~70 MB of q/k/v/o/dO/lse/D/dq/dk/dv, ~21 us: both are
 // compute-bound.
 //
-// What this simple design leaves on the table, as flash_fwd.cu does: the
-// products run on the CUDA cores in f32 (67 TFLOP/s peak outside the
-// tensor cores) fed from shared memory, not on the tensor cores; tiles
-// are loaded synchronously, with no cp.async/TMA pipeline; the f32 tiles
-// take 86-169 KB of shared memory a block, so one or two blocks share an
-// SM. The scores and dP of both kernels are computed twice over (once in
-// each kernel), as in the TPU kernels.
+// Left for later: flash_bwd_dq on the tensor cores (it is now most of the
+// backward's time); in dkv, overlap of one step's elementwise work with
+// the next step's products (two accumulator sets, or two warpgroups
+// ping-ponging), warp specialisation with TMA loads, a persistent grid.
+// The scores and dP are computed twice over (once in each kernel), as in
+// the TPU kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -424,6 +448,215 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 }
 
+constexpr int kStages = 2;                // depth of the Q/dO ring
+
+// Shared memory of the tensor-core dk/dv kernel in bytes: K and V of the
+// block's keys, resident; the ring's stages of (Q, dO, lse, D) for one
+// 64-query tile each. Every tile is 1024-byte aligned.
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t kKV = kBlockN * D * 2;    // K or V
+  static constexpr uint32_t kTile = kBlockM * D * 2;  // Q or dO
+  static constexpr uint32_t kStage = 2 * kTile + 1024;  // + lse, D
+  static constexpr int kBytes = 1024 + 2 * kKV + kStages * kStage;
+};
+
+// TMA maps of k and v (box: the block's keys) and of q and dout (box: one
+// q tile), each as a (batch, heads, seq, D) tensor
+struct TileMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// One warpgroup: 128 threads, the block's 64 keys by each q tile's 64
+// queries in every product.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkv_kernel_tc(const Params p, const __grid_constant__ TileMaps maps) {
+  using bf16 = __nv_bfloat16;
+  using S = DkvSmem<D>;
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ alignas(8) uint64_t bars[kStages + 1];  // the stages, then K/V
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  uint8_t* base = smem_raw + pad;
+  const uint32_t sK = raw + pad;
+  const uint32_t sV = sK + S::kKV;
+  const uint32_t sStage = sV + S::kKV;    // stage st at sStage + st * kStage:
+                                          // Q, dO, lse (64 f32), D (64 f32)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int k0 = blockIdx.x * kBlockN;    // causal: the first tiles see most
+  const int bhk = blockIdx.y;
+  const int b = bhk / p.kv_heads;
+  const int hk = bhk % p.kv_heads;
+  const int group = p.heads / p.kv_heads;
+
+  // the loop runs over (group member g, q tile qt) pairs, flattened;
+  // causal: from the diagonal tile on
+  const int n_q = (p.seq + kBlockM - 1) / kBlockM;
+  const int first_q = p.causal ? k0 / kBlockM : 0;
+  const int per_head = n_q - first_q;
+  const int n_steps = group * per_head;
+
+  // step i's loads into its ring stage: Q and dO by TMA from thread 0,
+  // the lse and D slices by cp.async (seq need not be a multiple of 4)
+  auto load_step = [&](int i) {
+    const int h = hk * group + i / per_head;
+    const int q0 = (first_q + i % per_head) * kBlockM;
+    const uint32_t st = sStage + (i % kStages) * S::kStage;
+    if (tid == 0) {
+      const uint32_t bar = hopper::smem_u32(&bars[i % kStages]);
+      hopper::mbar_expect(bar, 2 * S::kTile);
+      hopper::tma_load_tile<D, kBlockM>(st, &maps.q, bar, q0, h, b);
+      hopper::tma_load_tile<D, kBlockM>(st + S::kTile, &maps.dout, bar, q0,
+                                        h, b);
+    }
+    if (tid < 2 * kBlockM) {              // lse, then D: one f32 a thread
+      const int row = q0 + tid % kBlockM;
+      const bool ok = row < p.seq;
+      const int64_t at = (static_cast<int64_t>(b) * p.heads + h) * p.seq +
+                         (ok ? row : 0);
+      const float* src = tid < kBlockM ? p.lse + at : p.delta + at;
+      hopper::cp_async4(st + 2 * S::kTile + tid * 4, src, ok ? 4 : 0);
+    }
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j <= kStages; ++j) {
+      hopper::mbar_init(hopper::smem_u32(&bars[j]));
+    }
+    hopper::fence_mbar_init();
+    const uint32_t bar = hopper::smem_u32(&bars[kStages]);
+    hopper::mbar_expect(bar, 2 * S::kKV);
+    hopper::tma_load_tile<D, kBlockN>(sK, &maps.k, bar, k0, hk, b);
+    hopper::tma_load_tile<D, kBlockN>(sV, &maps.v, bar, k0, hk, b);
+  }
+  __syncthreads();                        // the barriers are initialised
+  // the first kStages - 1 steps, one commit group each
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_steps) load_step(i);
+    hopper::cp_async_commit();
+  }
+
+  const int key0 = k0 + 16 * warp + lane / 4;  // keys key0 and key0 + 8
+  const int col0 = 2 * (lane % 4);        // + 8j (+1): query or d column
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  hopper::mbar_wait(hopper::smem_u32(&bars[kStages]), 0);  // K and V
+
+  for (int i = 0; i < n_steps; ++i) {
+    // the ring: step i + kStages - 1 loads into the stage step i - 1 left
+    if (i + kStages - 1 < n_steps) load_step(i + kStages - 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<kStages - 1>();  // this thread's lse/D copies
+    __syncthreads();                       // everyone's
+    hopper::mbar_wait(hopper::smem_u32(&bars[i % kStages]),
+                      (i / kStages) & 1);  // Q and dO
+
+    const int q0 = (first_q + i % per_head) * kBlockM;
+    const uint32_t sQ = sStage + (i % kStages) * S::kStage;
+    const uint32_t sdO = sQ + S::kTile;
+    const float* lse = reinterpret_cast<const float*>(
+        base + (sQ - sK) + 2 * S::kTile);
+    const float* dlt = lse + kBlockM;
+    // st = K Q^T and dpt = V dO^T: the transposed score and dP tiles,
+    // the block's 64 keys by the tile's 64 queries
+    float st[32], dpt[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      hopper::wgmma_ss<64>(st, hopper::desc_k_major<kBlockN>(sK, 0, ks),
+                           hopper::desc_k_major<kBlockM>(sQ, 0, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      hopper::wgmma_ss<64>(dpt, hopper::desc_k_major<kBlockN>(sV, 0, ks),
+                           hopper::desc_k_major<kBlockM>(sdO, 0, ks));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // P^T = exp2(S^T * scale * log2(e) - lse * log2(e)), dS^T = P^T *
+    // (dP^T - D), in the accumulator registers
+    const bool masked = (q0 + kBlockM > p.seq) || (k0 + kBlockN > p.seq) ||
+                        (p.causal && k0 + kBlockN - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qc = 8 * j + col0;
+      const float2 ls = *reinterpret_cast<const float2*>(lse + qc);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        const float lse_e = (e % 2 ? ls.y : ls.x) * kLog2e;
+        float pij = hopper::exp2_ftz(fmaf(st[idx], p.scale_log2, -lse_e));
+        if (masked) {
+          const int key = key0 + 8 * (e / 2);
+          const int row = q0 + qc + e % 2;
+          if (row >= p.seq || key >= p.seq || (p.causal && key > row)) {
+            pij = 0.f;
+          }
+        }
+        st[idx] = pij;
+        dpt[idx] = pij * (dpt[idx] - (e % 2 ? dl.y : dl.x));
+      }
+    }
+    uint32_t pa[4][4], da[4][4];        // P^T and dS^T in bf16
+    hopper::pack_a<64>(st, pa);
+    hopper::pack_a<64>(dpt, da);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {    // dV += P^T dO
+      hopper::wgmma_rs<D>(dv, pa[kk], hopper::desc_mn_major<kBlockM>(sdO, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {    // dK += dS^T Q
+      hopper::wgmma_rs<D>(dk, da[kk], hopper::desc_mn_major<kBlockM>(sQ, kk));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    __syncthreads();                      // stage i is free again
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.sdv.b + hk * p.sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= p.seq) continue;
+    bf16* krow = dkp + key * p.sdk.s + col0;
+    bf16* vrow = dvp + key * p.sdv.s + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * r] * p.scale,
+                                dk[4 * j + 2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
   const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
@@ -448,6 +681,32 @@ cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_tc(const Params& p, int batch, cudaStream_t stream) {
+  TileMaps maps;
+  auto encode = [&](CUtensorMap* map, const void* base, int heads,
+                    const Strides& st, int rows) {
+    return hopper::encode_tile_map(map, base, batch, heads, p.seq, D, st.b,
+                                   st.h, st.s, rows);
+  };
+  cudaError_t err = encode(&maps.q, p.q, p.heads, p.sq, kBlockM);
+  if (err == cudaSuccess) err = encode(&maps.dout, p.dout, p.heads, p.sdo,
+                                       kBlockM);
+  if (err == cudaSuccess) err = encode(&maps.k, p.k, p.kv_heads, p.sk,
+                                       kBlockN);
+  if (err == cudaSuccess) err = encode(&maps.v, p.v, p.kv_heads, p.sv,
+                                       kBlockN);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DkvSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_tc<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + kBlockN - 1) / kBlockN, batch * p.kv_heads);
+  flash_bwd_dkv_kernel_tc<D><<<grid, 128, smem, stream>>>(p, maps);
+  return cudaGetLastError();
+}
+
 bool valid(int batch, int seq, int heads, int kv_heads) {
   return seq >= 1 && batch >= 1 && kv_heads >= 1 && heads % kv_heads == 0;
 }
@@ -465,17 +724,6 @@ Params make_params(int seq, int heads, int kv_heads, int causal,
 }
 
 }  // namespace
-
-#define FLASH_BWD_DISPATCH(LAUNCH)                                          \
-  do {                                                                      \
-    if (is_bf16) {                                                          \
-      if (head_dim == 64) err = LAUNCH<__nv_bfloat16, 64>(p, batch, s);     \
-      if (head_dim == 128) err = LAUNCH<__nv_bfloat16, 128>(p, batch, s);   \
-    } else {                                                                \
-      if (head_dim == 64) err = LAUNCH<float, 64>(p, batch, s);             \
-      if (head_dim == 128) err = LAUNCH<float, 128>(p, batch, s);           \
-    }                                                                       \
-  } while (0)
 
 // Both return the CUDA error of the launch (0 on success). Strides are in
 // elements, for the (batch, head, seq) dims; head_dim is contiguous. lse
@@ -513,7 +761,13 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   p.sdq = {dq_sb, dq_sh, dq_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  FLASH_BWD_DISPATCH(launch_dq);
+  if (is_bf16) {
+    if (head_dim == 64) err = launch_dq<__nv_bfloat16, 64>(p, batch, s);
+    if (head_dim == 128) err = launch_dq<__nv_bfloat16, 128>(p, batch, s);
+  } else {
+    if (head_dim == 64) err = launch_dq<float, 64>(p, batch, s);
+    if (head_dim == 128) err = launch_dq<float, 128>(p, batch, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -549,6 +803,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.sdv = {dv_sb, dv_sh, dv_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  FLASH_BWD_DISPATCH(launch_dkv);
+  if (is_bf16) {
+    if (head_dim == 64) err = launch_dkv_tc<64>(p, batch, s);
+    if (head_dim == 128) err = launch_dkv_tc<128>(p, batch, s);
+  } else {
+    if (head_dim == 64) err = launch_dkv<float, 64>(p, batch, s);
+    if (head_dim == 128) err = launch_dkv<float, 128>(p, batch, s);
+  }
   return static_cast<int>(err);
 }

@@ -172,6 +172,30 @@ def _check_kernel(q, k, v, *like_q):
         raise ValueError("flash kernels need a contiguous head_dim")
 
 
+def _raise_launch(name: str, rc: int, *loaded: torch.Tensor):
+    """The error of a failed launch. The bf16 forward and dk/dv kernels
+    load ``loaded`` by TMA, which ``csrc/hopper.cuh`` refuses unless their
+    rows follow ``rows_aligned``: such a refusal gets a ValueError saying
+    which tensor broke the rule."""
+    bad = [i for i, t in enumerate(loaded) if not rows_aligned(t)]
+    if bad:
+        raise ValueError(f"{name}: the bf16 kernels load 16-byte rows, but "
+                         f"input(s) {bad} have (batch, head, seq) strides "
+                         f"that are not nonzero multiples of 8 elements or "
+                         f"data that is not 16-byte aligned")
+    raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every (batch, head, seq) row of ``t`` starts on a 16-byte
+    boundary and none repeats another (a broadcast stride of 0), as the
+    bf16 kernels' TMA tile loads need (the kernels check it themselves;
+    this is for messages and for copying a cotangent that breaks it)."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * t.element_size() % 16 == 0
+        and (t.stride(i) != 0 or t.shape[i] == 1) for i in range(3))
+
+
 def _check_stats(q, *stats):
     """lse and delta: contiguous (batch, heads, seq) f32 beside q."""
     b, h, s, _ = q.shape
@@ -218,7 +242,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), b, s, h, k.shape[1], d, _DTYPES[q.dtype],
             int(causal), *_strides(q, k, v, out), 1.0 / d**0.5, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
+        _raise_launch("flash_fwd", rc, q, k, v)
     launch_count["flash_fwd"] += 1
     return out, lse
 
@@ -260,7 +284,7 @@ def flash_bwd_dkv(q, k, v, lse, delta, dout, causal: bool = True):
             b, s, h, k.shape[1], d, _DTYPES[q.dtype], int(causal),
             *_strides(q, k, v, dout, dk, dv), 1.0 / d**0.5, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {rc}")
+        _raise_launch("flash_bwd_dkv", rc, q, k, v, dout)
     launch_count["flash_bwd_dkv"] += 1
     return dk, dv
 
@@ -279,10 +303,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
     # autograd may hand over any layout: strides are read as they are,
-    # one copy only where head_dim is not contiguous (or the dtype differs)
+    # one copy only where head_dim is not contiguous, the rows are not
+    # 16-byte aligned, or the dtype differs
     dout = dout.to(q.dtype)
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    if dout.stride(-1) != 1 or not rows_aligned(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
     lse = lse.contiguous()
     dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, causal)
     dk, dv = flash_bwd_dkv(q, k, v, lse, delta, dout, causal)
