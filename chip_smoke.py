@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import http.client
 import io
 import json
@@ -57,6 +58,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import torch
 
@@ -235,8 +237,9 @@ def flash_bwd_bounds(R, s, h, hk, d, dtype, causal=True) -> dict:
 def phase_flash_bwd(dev) -> dict:
     """The two backward kernels against the plain backward: the training
     shape (R=4, s=2048, llama3-1b heads, causal), ragged and small
-    lengths, the edges of the tiles (seq 1, 65, 129 with GQA groups of 1
-    and 4), d=128, non-causal cases and an f32 case."""
+    lengths, the edges of the tiles (64-query tiles, dq's 64-key kv
+    tiles and dk/dv's 64-key blocks: seq 1, 65, 127, 128, 129, 255, 257;
+    GQA groups of 1 and 4), d=128, non-causal cases and an f32 case."""
     from tpu_docker_api_torch.ops import flash
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -256,6 +259,9 @@ def phase_flash_bwd(dev) -> dict:
     shapes += [(2, s, 8, hk, d, torch.bfloat16, causal) for s in (1, 65, 129)
                for hk, d, causal in ((8, 64, True), (2, 128, True),
                                      (2, 64, False))]
+    shapes += [(2, s, 8, hk, 64, torch.bfloat16, True)
+               for s in (127, 128, 255, 257) for hk in (8, 2)]
+    shapes += [(2, 255, 8, 8, 128, torch.bfloat16, True)]
     cases = []
     max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for R, s, h, hk, d, dtype, causal in shapes:
@@ -360,17 +366,23 @@ def _adam8_leaf(dev, g, shape, block=256):
     return grad, mq, ms, vq, vs, p
 
 
+#: a leaf whose quantization block (b = 100) is not a multiple of 8: the
+#: kernel's scalar path
+SCALAR_PATH_LEAF = ("scalar-path b=100", (4096, 100))
+
+
 def phase_adam8(dev) -> dict:
     """The int8-moment AdamW kernel against the plain version (one_xla) on
-    leaves of llama3-1b's own shapes; times over one step's 12 leaves."""
+    leaves of llama3-1b's own shapes (the vector path) and on one leaf
+    with b = 100 (the scalar path); times over one step's 12 leaves."""
     from tpu_docker_api_torch.train import optim
 
     g = torch.Generator(device=dev).manual_seed(2)
     sc = optim.adam8_scalars(3, 0.9, 0.95, 1e-8, 3e-4, 0.1)
+    checked = [leaf for leaf in LLAMA3_1B_LEAVES if leaf[0] in (
+        "wq", "w_gate", "lm_head", "final_norm", "wk")] + [SCALAR_PATH_LEAF]
     cases, max_err = [], 0.0
-    for name, shape in LLAMA3_1B_LEAVES:
-        if name not in ("wq", "w_gate", "lm_head", "final_norm", "wk"):
-            continue
+    for name, shape in checked:
         args = _adam8_leaf(dev, g, shape)
         got = optim.adam8_update_leaf(*args, sc=sc)
         torch.cuda.synchronize()
@@ -389,6 +401,7 @@ def phase_adam8(dev) -> dict:
                     for i in (2, 4))
         ok = ok_upd and q_err <= 1 and s_err <= 1e-6
         cases.append({"leaf": name, "shape": list(shape),
+                      "block": optim._block_of(shape[-1], 256),
                       "update_max_abs_err": upd_err.max().item(),
                       "moment_max_count_diff": q_err,
                       "scale_max_rel_err": s_err, "ok": ok})
@@ -781,15 +794,21 @@ def main() -> int:
     t0 = time.perf_counter()
     info = _build.build_all()
     build_s = time.perf_counter() - t0
-    # the flash kernels must run on the tensor cores: wgmma (HGMMA) or
-    # mma.sync (HMMA) in their machine code
+    # the bf16 flash kernels (flash_fwd_kernel_tc, flash_bwd_dq_kernel_tc,
+    # flash_bwd_dkv_kernel_tc) must run on the tensor cores: wgmma (HGMMA)
+    # in each one's machine code
     sass = {name: _build.sass_counts(name) for name in _build.KERNELS}
+    tc_kernels = {fn: counts for name in ("flash_fwd", "flash_bwd")
+                  for fn, counts in _build.sass_counts_by_function(
+                      name).items() if "_kernel_tc" in fn}
     emit({"phase": "build", "seconds": build_s, "kernels": info,
-          "tensor_core_instructions": sass})
+          "tensor_core_instructions": sass,
+          "tensor_core_kernels": tc_kernels})
+    if len(tc_kernels) != 6 or not all(c["HGMMA"]
+                                       for c in tc_kernels.values()):
+        raise AssertionError(f"a bf16 flash kernel (3 kernels x 2 head "
+                             f"dims) has no wgmma: {tc_kernels}")
     for name in ("flash_fwd", "flash_bwd"):
-        if not any(sass[name].values()):
-            raise AssertionError(f"{name}: no tensor-core instruction in "
-                                 f"its SASS: {sass[name]}")
         # ptxas's C75xx notes: wgmma it had to serialize (a slower
         # kernel, and no error otherwise)
         notes = [ln for ln in info.get(name, {}).get("ptxas", [])
@@ -842,4 +861,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # a fatal signal (a fault in a kernel or in CUDA) prints the stack
+    faulthandler.enable()
+    try:
+        sys.exit(main())
+    except Exception as e:  # every failed check or phase: exit 1, say why
+        traceback.print_exc()
+        print(f"chip_smoke: failed: {type(e).__name__}: {e}"[:2000],
+              file=sys.stderr, flush=True)
+        sys.exit(1)

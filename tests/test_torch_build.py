@@ -1,6 +1,7 @@
 """The port's kernel build (tpu_docker_api_torch/_build.py) without nvcc:
 a library's name follows its source and the headers it may include, and
-the SASS count reads cuobjdump's listing."""
+the SASS counts read cuobjdump's listing, for the library and for each of
+its kernels."""
 
 import subprocess
 
@@ -39,3 +40,22 @@ def test_sass_counts_reads_cuobjdump(monkeypatch):
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     assert _build.sass_counts("flash_fwd") == {"HGMMA": 2, "HMMA": 1}
     assert seen["cmd"][:2] == ["/toolkit/bin/cuobjdump", "-sass"]
+
+
+def test_sass_counts_by_function_splits_cuobjdump(monkeypatch):
+    listing = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_122flash_bwd_dq_kernel_tcILi64EEEv",
+        "        /*0420*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "        /*0430*/  HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8] ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEv",
+        "        /*0460*/  FFMA R1, R2, R3, R1 ;"])
+    monkeypatch.setattr(_build, "nvcc", lambda: "/toolkit/bin/nvcc")
+    monkeypatch.setattr(
+        _build.subprocess, "run",
+        lambda cmd, **kw: subprocess.CompletedProcess(cmd, 0, stdout=listing))
+    assert _build.sass_counts_by_function("flash_bwd") == {
+        "_ZN12_GLOBAL__N_122flash_bwd_dq_kernel_tcILi64EEEv":
+            {"HGMMA": 2, "HMMA": 0},
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64EEEv":
+            {"HGMMA": 0, "HMMA": 0}}

@@ -118,8 +118,9 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-# the tile edges of the kernels (64-query tiles, 64-key kv tiles and
-# dk/dv blocks), both GQA group sizes, d=128, full attention
+# the tile edges of the kernels (64-query tiles, dq's 64-key kv tiles,
+# dk/dv's 64-key blocks), both GQA group sizes, d=128, full attention;
+# the f32 cases run the CUDA-core kernels
 BF, F32 = torch.bfloat16, torch.float32
 CARD_CASES = [(100, 64, BF, 4, True), (256, 128, BF, 4, True),
               (200, 64, BF, 4, False), (64, 64, F32, 4, True)]
@@ -128,6 +129,9 @@ CARD_CASES += [(s, 64, BF, g, True) for s in (1, 63, 65, 127, 129)
 CARD_CASES += [(s, 128, BF, 4, True) for s in (1, 65, 129)]
 CARD_CASES += [(s, d, BF, 4, False) for s in (1, 65, 129) for d in (64, 128)]
 CARD_CASES += [(65, 64, F32, 1, False), (129, 128, F32, 4, True)]
+CARD_CASES += [(s, 64, BF, g, True) for s in (64, 128, 255, 257)
+               for g in (1, 4)]
+CARD_CASES += [(255, 128, BF, 1, True), (257, 64, BF, 4, False)]
 
 
 @pytest.mark.gpu
@@ -161,6 +165,24 @@ def test_bwd_kernels_match_plain_on_card(cuda_device, seq, d, dtype, group,
         assert gr.shape == rf.shape
         err = (gr.float() - rf.float()).abs().max().item()
         assert err <= tol * scale
+
+
+@pytest.mark.gpu
+def test_bwd_refuses_misaligned_rows_on_card(cuda_device):
+    """The bf16 dq kernel reads out's rows 16 bytes at a time and q, k,
+    v, dout by TMA: a tensor whose rows break ``rows_aligned`` is refused
+    with a ValueError naming it, never read misaligned."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, dout = (torch.randn(1, 4, 64, 64, generator=g,
+                                 device=cuda_device).to(torch.bfloat16)
+                     for _ in range(4))
+    out, lse = flash.flash_attention_fwd(q, k, v)
+    odd = torch.empty(out.numel() + 1, dtype=out.dtype,
+                      device=cuda_device)[1:].view(out.shape)
+    odd.copy_(out)
+    assert not flash.rows_aligned(odd)
+    with pytest.raises(ValueError, match=r"flash_bwd_dq.*\[3\]"):
+        flash.flash_bwd_dq(q, k, v, odd, lse, dout)
 
 
 @pytest.mark.gpu

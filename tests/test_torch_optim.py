@@ -29,14 +29,18 @@ from tpu_docker_api_torch.train.trainer import default_optimizer
 
 SHAPES = {"a": (4, 32, 96), "b": {"c": (48,), "d": (16, 600)},
           "e": (3, 256)}
+#: leaves whose quantization block is not a multiple of 8 (b = 100, 97):
+#: the CUDA kernel's scalar path, held against the plain version on the
+#: card, so the plain version is pinned to the reference here
+ODD_SHAPES = {"a": (5, 100), "b": (7, 97)}
 
 
-def _tree(rng, scale=1.0, dtype=np.float32):
+def _tree(rng, scale=1.0, dtype=np.float32, shapes=SHAPES):
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(v) for k, v in spec.items()}
         return (rng.standard_normal(spec) * scale).astype(dtype)
-    return make(SHAPES)
+    return make(shapes)
 
 
 def _leaves(tree):
@@ -60,14 +64,14 @@ def _close(got_tree, ref_tree, atol, rtol=0.0):
                                    atol=atol)
 
 
-def _run_both(jax_tx, torch_tx, grad_scales):
+def _run_both(jax_tx, torch_tx, grad_scales, shapes=SHAPES):
     """Three steps of one gradient stream through both optimizers."""
     rng = np.random.default_rng(0)
-    p0 = _tree(rng)
+    p0 = _tree(rng, shapes=shapes)
     jp, tp = _to_jax(p0), _to_torch(p0)
     js, ts = jax_tx.init(jp), torch_tx.init(tp)
     for scale in grad_scales:
-        g = _tree(rng, scale)
+        g = _tree(rng, scale, shapes=shapes)
         ju, js = jax_tx.update(_to_jax(g), js, jp)
         jp = optax.apply_updates(jp, ju)
         tu, ts = torch_tx.update(_to_torch(g), ts, tp)
@@ -98,10 +102,13 @@ def test_clip_and_global_norm_match_optax():
     _close(tu, ju, atol=1e-7)
 
 
+@pytest.mark.parametrize("shapes", [SHAPES, ODD_SHAPES],
+                         ids=["blocks", "odd-blocks"])
 @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
-def test_adamw_int8_plain_matches_jax(impl):
+def test_adamw_int8_plain_matches_jax(impl, shapes):
     (jp, js), (tp, ts) = _run_both(jopt.adamw_int8(impl=impl),
-                                   optim.adamw_int8(), [1.0, 5e-3, 0.1])
+                                   optim.adamw_int8(), [1.0, 5e-3, 0.1],
+                                   shapes)
     _close(tp, jp, atol=1e-6)
     j8, t8 = js[1], ts[1]
     assert t8.count == int(j8.count) == 3
@@ -111,7 +118,7 @@ def test_adamw_int8_plain_matches_jax(impl):
                atol=1)
     for ts_, js_ in ((t8.mu_scale, j8.mu_scale), (t8.nu_scale, j8.nu_scale)):
         got = optim.tree_map(
-            lambda s, shape: optim.scales_to_jax(s, shape[-1]), ts_, SHAPES)
+            lambda s, shape: optim.scales_to_jax(s, shape[-1]), ts_, shapes)
         _close(got, js_, atol=0.0, rtol=1e-6)
 
 
@@ -148,17 +155,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger buffer: its base is not 16-byte aligned for an odd offset."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype", [
-    ((64, 256), torch.float32), ((3, 512), torch.bfloat16),
-    ((100, 96), torch.bfloat16), ((2048,), torch.bfloat16),
-    ((4, 2048, 600), torch.bfloat16)])
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((64, 256), torch.float32, 0), ((3, 512), torch.bfloat16, 0),
+    ((100, 96), torch.bfloat16, 0), ((2048,), torch.bfloat16, 0),
+    ((4, 2048, 600), torch.bfloat16, 0),
+    # the scalar path: b = 100 and b = 97 are not multiples of 8, and a
+    # leaf at an odd offset of a larger buffer is not 16-byte aligned
+    ((5, 100), torch.bfloat16, 0), ((7, 97), torch.bfloat16, 0),
+    ((8, 512), torch.bfloat16, 1)])
 @pytest.mark.parametrize("with_p", [True, False])
 def test_adam8_kernel_matches_plain_on_card(cuda_device, shape, dtype,
-                                            with_p):
+                                            offset, with_p):
     """int8 moments at most one count apart and scales rtol 1e-6, as on
     the CPU; the update within one rounding of its dtype (rtol 2^-7 in
-    bf16, 1e-5 in f32): the kernel repeats the plain version's f32 ops."""
+    bf16, 1e-5 in f32): the kernel repeats the plain version's f32 ops,
+    on either of its paths."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     grad = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
     p = torch.randn(shape, generator=g, device=cuda_device).to(dtype) \
@@ -167,6 +188,10 @@ def test_adam8_kernel_matches_plain_on_card(cuda_device, shape, dtype,
         torch.randn(shape, generator=g, device=cuda_device) * 1e-2, 256)
     vq, vs = optim._quant_sqrt(
         torch.rand(shape, generator=g, device=cuda_device) * 1e-4, 256)
+    if offset:
+        grad, mq, vq = (_at_offset(t, offset) for t in (grad, mq, vq))
+        p = _at_offset(p, offset) if with_p else None
+        assert grad.data_ptr() % 16 and mq.data_ptr() % 8
     sc = optim.adam8_scalars(3, 0.9, 0.95, 1e-8, 3e-4, 0.1)
     before = optim.launch_count["adam8"]
     got = optim.adam8_update_leaf(grad, mq, ms, vq, vs, p, sc=sc)

@@ -113,12 +113,30 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def _sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library, by the toolkit beside
+    nvcc."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _count(sass: str, ops: tuple[str, ...]) -> dict[str, int]:
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ops}
+
+
 def sass_counts(name: str, ops: tuple[str, ...] = ("HGMMA", "HMMA")
                 ) -> dict[str, int]:
     """How many of each tensor-core instruction (HGMMA: wgmma; HMMA:
-    mma.sync) the built library's machine code holds, by ``cuobjdump
-    -sass`` from the toolkit beside nvcc."""
-    tool = Path(nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
-                          capture_output=True, text=True, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ops}
+    mma.sync) the built library's machine code holds."""
+    return _count(_sass(name), ops)
+
+
+def sass_counts_by_function(name: str,
+                            ops: tuple[str, ...] = ("HGMMA", "HMMA")
+                            ) -> dict[str, dict[str, int]]:
+    """``sass_counts`` for each kernel of the library, by its (mangled)
+    function name."""
+    chunks = re.split(r"^\s*Function : ", _sass(name), flags=re.M)[1:]
+    return {fn.strip(): _count(body, ops)
+            for fn, _, body in (c.partition("\n") for c in chunks)}

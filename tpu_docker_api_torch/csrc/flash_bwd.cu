@@ -11,13 +11,32 @@
 //   dV_j  = sum_i P_ij dO_i                 dS_ij = P_ij (dO_i v_j^T - D_i)
 //   dQ_i  = scale * sum_j dS_ij k_j         dK_j  = scale * sum_i dS_ij q_i
 //
-// flash_bwd_dq (bf16 and f32, on the CUDA cores; the first port's kernel):
-// one block per (batch*head, 64-query tile). The TPU kernel's sequential
-// kv grid axis, which carried dQ in VMEM scratch, is a loop over 64-key
-// tiles inside the block, with dQ in f32 registers and one cast at the
-// end. The block also computes D_i for its rows (from dO and O, in f32)
-// in its prologue and writes it out for flash_bwd_dkv, so no separate
-// pass over dO and O runs.
+// flash_bwd_dq_kernel_tc (bf16, on the tensor cores) replaces
+// _flash_bwd_dq_kernel. One block of one warpgroup per (batch*head,
+// 64-query tile), the heaviest causal tiles first. The TPU kernel's
+// sequential kv grid axis, which carried dQ in VMEM scratch, is a loop
+// over 64-key tiles inside the block, with dQ in f32 registers, scaled
+// once and cast once at the end.
+// - S = Q K^T and dP = dO V^T are bf16 wgmma.mma_async (SS, both operands
+//   K-major) with f32 accumulators; P = exp2(S scale log2(e) - lse
+//   log2(e)) and dS = P (dP - D) are formed in the accumulator registers,
+//   dS rounded to bf16 there and fed back as the register A operand of
+//   dQ += dS K, with K read MN-major through the transpose bit. No P or dS
+//   tile is staged in shared memory.
+// - Q and dO arrive once and the K/V tiles stream through a 2-stage ring,
+//   all by TMA (hopper.cuh; an mbarrier a stage): tile t + 1 loads while
+//   tile t computes. In a prologue that overlaps the first loads, the
+//   block computes D_i = rowsum(dO_i * O_i) for its rows (16-byte reads of
+//   dO and O in f32, summed over a quad) and writes it out for
+//   flash_bwd_dkv, so no separate pass over dO and O runs.
+// - 64-key kv tiles measured 0.236 ms at the training shape against
+//   0.318 for 128-key ones (PERF.md): at d=64 a thread then holds S and
+//   dP in 32 floats each, 122 registers against 194, so four blocks fit
+//   an SM where two did, and the causal diagonal tile wastes less.
+//
+// flash_bwd_dq_kernel (f32, on the CUDA cores): the first port's kernel,
+// now for f32 only: one block of 8 warps per (batch*head, 64-query tile),
+// tiles converted to f32 in shared memory, every product an f32 FMA.
 //
 // flash_bwd_dkv_kernel_tc (bf16, on the tensor cores): one block of one
 // warpgroup per (batch, kv_head, 64-key tile). (Two warpgroups a block
@@ -48,8 +67,8 @@
 //   encode_tile_map refuses others with cudaErrorMisalignedAddress.
 //
 // flash_bwd_dkv_kernel (f32, on the CUDA cores): the first port's kernel,
-// unchanged, so the f32 path keeps its 1e-4 agreement with the plain
-// version (TF32 tensor cores keep ~3 decimal digits).
+// so that, like dq's, the f32 path keeps its 1e-4 agreement with the
+// plain version (TF32 tensor cores keep ~3 decimal digits).
 //
 // Both kernels: causal tiles wholly above the diagonal are never computed
 // (dq stops its kv loop at the diagonal, dkv starts its q loop there);
@@ -62,16 +81,16 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the backward
 // does 10*d FLOPs per visible (query, key) pair (scores, dP, dQ in dq:
 // 6d; scores, dP, dV, dK in dkv: 8d), 2.5x the forward. At training
-// shapes (R=4, s=2048, 32 heads, d=64, causal) that is ~43 GFLOP, ~44 us
-// at peak, against ~70 MB of q/k/v/o/dO/lse/D/dq/dk/dv, ~21 us: both are
-// compute-bound.
+// shapes (R=4, s=2048, 32 heads, d=64, causal) dq is ~103 GFLOP, ~0.104
+// ms at peak, against ~153 MB of q/k/v/o/dO/lse/D/dq, ~0.046 ms; dkv
+// ~138 GFLOP, ~0.139 ms: both are bound by operations, and only the
+// tensor cores reach that rate.
 //
-// Left for later: flash_bwd_dq on the tensor cores (it is now most of the
-// backward's time); in dkv, overlap of one step's elementwise work with
-// the next step's products (two accumulator sets, or two warpgroups
-// ping-ponging), warp specialisation with TMA loads, a persistent grid.
-// The scores and dP are computed twice over (once in each kernel), as in
-// the TPU kernels.
+// Left for later: overlap of one tile's elementwise work with the next
+// tile's products (two accumulator sets, or two warpgroups ping-ponging),
+// warp specialisation with a producer warp, a persistent grid. The scores
+// and dP are computed twice over (once in each kernel), as in the TPU
+// kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,20 +131,6 @@ struct Params {
   float scale_log2;                       // scale * log2(e)
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -141,13 +146,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 // Load rows [r0, r0 + 64) of a (seq, D) slice at `src` (row stride `ss`)
 // into `dst` as f32 with row pitch D + 4; rows past seq read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t ss, int r0, int seq) {
   for (int i = threadIdx.x; i < kBlockM * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int row = r0 + r;
-    dst[r * (D + 4) + d] = row < seq ? to_f32(src[row * ss + d]) : 0.f;
+    dst[r * (D + 4) + d] = row < seq ? src[row * ss + d] : 0.f;
   }
 }
 
@@ -236,7 +241,7 @@ constexpr int dkv_smem_floats() {
   return 4 * kBlockM * (D + 4) + 2 * kBlockM * kBlockN + 2 * kBlockM;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + 4;
@@ -260,15 +265,16 @@ flash_bwd_dq_kernel(const Params p) {
   const int hk = h / (p.heads / p.kv_heads);
   const int rb = warp * kRows;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
-  const T* o = static_cast<const T*>(p.out) + b * p.so.b + h * p.so.h;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  const float* o = static_cast<const float*>(p.out) + b * p.so.b + h * p.so.h;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   const int64_t stat0 = static_cast<int64_t>(bh) * p.seq;
 
-  load_tile<T, D>(Qs, q, p.sq.s, q0, p.seq);
-  load_tile<T, D>(dOs, dout, p.sdo.s, q0, p.seq);
+  load_tile<D>(Qs, q, p.sq.s, q0, p.seq);
+  load_tile<D>(dOs, dout, p.sdo.s, q0, p.seq);
   __syncthreads();
 
   // prologue: D_i = rowsum(dO_i * O_i) and lse_i in base 2 for this
@@ -282,7 +288,7 @@ flash_bwd_dq_kernel(const Params p) {
     if (row < p.seq) {
       float part = 0.f;
       for (int d = lane; d < D; d += 32) {
-        part = fmaf(dOs[(rb + r) * LD + d], to_f32(o[row * p.so.s + d]), part);
+        part = fmaf(dOs[(rb + r) * LD + d], o[row * p.so.s + d], part);
       }
       dlt[r] = warp_sum(part);
       lse2[r] = p.lse[stat0 + row] * kLog2e;
@@ -304,8 +310,8 @@ flash_bwd_dq_kernel(const Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, D>(Ks, k, p.sk.s, k0, p.seq);
-    load_tile<T, D>(Vs, v, p.sv.s, k0, p.seq);
+    load_tile<D>(Ks, k, p.sk.s, k0, p.seq);
+    load_tile<D>(Vs, v, p.sv.s, k0, p.seq);
     __syncthreads();
 
     // s = Q K^T and dp = dO V^T for this warp's rows, keys lane, lane+32
@@ -330,18 +336,18 @@ flash_bwd_dq_kernel(const Params p) {
     __syncwarp();
   }
 
-  T* dq = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+  float* dq = static_cast<float*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = q0 + rb + r;
     if (row >= p.seq) continue;
-    T* drow = dq + row * p.sdq.s + lane * DPL;
+    float* drow = dq + row * p.sdq.s + lane * DPL;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) drow[i] = from_f32<T>(acc[r][i] * p.scale);
+    for (int i = 0; i < DPL; ++i) drow[i] = acc[r][i] * p.scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const Params p) {
   constexpr int LD = D + 4;
@@ -368,10 +374,10 @@ flash_bwd_dkv_kernel(const Params p) {
   const int group = p.heads / p.kv_heads;
   const int rb = warp * kRows;            // this warp's keys in the tile
 
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + hk * p.sv.h;
-  load_tile<T, D>(Ks, k, p.sk.s, k0, p.seq);
-  load_tile<T, D>(Vs, v, p.sv.s, k0, p.seq);
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + hk * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  load_tile<D>(Ks, k, p.sk.s, k0, p.seq);
+  load_tile<D>(Vs, v, p.sv.s, k0, p.seq);
 
   float dk[kRows][DPL], dv[kRows][DPL];
 #pragma unroll
@@ -386,15 +392,15 @@ flash_bwd_dkv_kernel(const Params p) {
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
-    const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-    const T* dout =
-        static_cast<const T*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+    const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const float* dout =
+        static_cast<const float*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
     const int64_t stat0 = (static_cast<int64_t>(b) * p.heads + h) * p.seq;
     for (int qt = first_q; qt < n_q; ++qt) {
       const int q0 = qt * kBlockM;
       __syncthreads();  // the previous tile is consumed (and K/V stored)
-      load_tile<T, D>(Qs, q, p.sq.s, q0, p.seq);
-      load_tile<T, D>(dOs, dout, p.sdo.s, q0, p.seq);
+      load_tile<D>(Qs, q, p.sq.s, q0, p.seq);
+      load_tile<D>(dOs, dout, p.sdo.s, q0, p.seq);
       for (int i = tid; i < kBlockM; i += kThreads) {
         const int row = q0 + i;
         lse2s[i] = row < p.seq ? p.lse[stat0 + row] * kLog2e : 0.f;
@@ -432,23 +438,24 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  T* dkp = static_cast<T*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
-  T* dvp = static_cast<T*>(p.dv) + b * p.sdv.b + hk * p.sdv.h;
+  float* dkp = static_cast<float*>(p.dk) + b * p.sdk.b + hk * p.sdk.h;
+  float* dvp = static_cast<float*>(p.dv) + b * p.sdv.b + hk * p.sdv.h;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int key = k0 + rb + r;
     if (key >= p.seq) continue;
-    T* krow = dkp + key * p.sdk.s + lane * DPL;
-    T* vrow = dvp + key * p.sdv.s + lane * DPL;
+    float* krow = dkp + key * p.sdk.s + lane * DPL;
+    float* vrow = dvp + key * p.sdv.s + lane * DPL;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      krow[i] = from_f32<T>(dk[r][i] * p.scale);
-      vrow[i] = from_f32<T>(dv[r][i]);
+      krow[i] = dk[r][i] * p.scale;
+      vrow[i] = dv[r][i];
     }
   }
 }
 
-constexpr int kStages = 2;                // depth of the Q/dO ring
+constexpr int kStages = 2;                // depth of each TMA ring
+constexpr int kDqKeys = 64;               // keys a kv tile of dq's ring
 
 // Shared memory of the tensor-core dk/dv kernel in bytes: K and V of the
 // block's keys, resident; the ring's stages of (Q, dO, lse, D) for one
@@ -461,8 +468,9 @@ struct DkvSmem {
   static constexpr int kBytes = 1024 + 2 * kKV + kStages * kStage;
 };
 
-// TMA maps of k and v (box: the block's keys) and of q and dout (box: one
-// q tile), each as a (batch, heads, seq, D) tensor
+// TMA maps of q and dout (box: one 64-query tile) and of k and v (box:
+// dkv's block of keys, or one of dq's kv tiles), each as a (batch, heads,
+// seq, D) tensor
 struct TileMaps {
   CUtensorMap q, k, v, dout;
 };
@@ -657,45 +665,267 @@ flash_bwd_dkv_kernel_tc(const Params p, const __grid_constant__ TileMaps maps) {
   }
 }
 
-template <typename T, int D>
+// Shared memory of the tensor-core dq kernel in bytes: the block's Q and
+// dO tiles, resident, and the ring's stages of (K, V) for one kv tile
+// each. Every tile is 1024-byte aligned.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t kTile = kBlockM * D * 2;  // Q or dO
+  static constexpr uint32_t kKV = kDqKeys * D * 2;    // K or V
+  static constexpr int kBytes = 1024 + 2 * kTile + kStages * 2 * kKV;
+};
+
+// sum_i a_i * b_i over 8 bf16 pairs held in two 16-byte words, in f32
+__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float acc) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 fb = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    acc = fmaf(fa.x, fb.x, acc);
+    acc = fmaf(fa.y, fb.y, acc);
+  }
+  return acc;
+}
+
+// One warpgroup: 128 threads, the block's 64 queries by each kv tile's
+// kDqKeys keys in S and dP, by D columns in dQ.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_kernel_tc(const Params p, const __grid_constant__ TileMaps maps) {
+  using bf16 = __nv_bfloat16;
+  using S = DqSmem<D>;
+  constexpr int BN = kDqKeys;
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ alignas(8) uint64_t full[kStages];  // one mbarrier a stage
+  const uint32_t sQ = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + S::kTile;
+  const uint32_t sKV = sdO + S::kTile;    // stage st: K at sKV + st * 2 *
+                                          // kKV, V right after it
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // heaviest causal tiles (the last ones) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int hk = h / (p.heads / p.kv_heads);
+
+  // keys [0, kv_end) are visible to at least one query of this block
+  const int q_last = min(q0 + kBlockM, p.seq) - 1;
+  const int kv_end = p.causal ? q_last + 1 : p.seq;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  // thread 0 loads kv tile t into its ring stage (and Q, dO with tile 0)
+  auto load_kv = [&](int t) {
+    const int st = t % kStages;
+    const uint32_t bar = hopper::smem_u32(&full[st]);
+    const uint32_t dst = sKV + st * 2 * S::kKV;
+    hopper::mbar_expect(bar, 2 * S::kKV + (t == 0 ? 2 * S::kTile : 0));
+    if (t == 0) {
+      hopper::tma_load_tile<D, kBlockM>(sQ, &maps.q, bar, q0, h, b);
+      hopper::tma_load_tile<D, kBlockM>(sdO, &maps.dout, bar, q0, h, b);
+    }
+    hopper::tma_load_tile<D, BN>(dst, &maps.k, bar, t * BN, hk, b);
+    hopper::tma_load_tile<D, BN>(dst + S::kKV, &maps.v, bar, t * BN, hk, b);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(hopper::smem_u32(&full[st]));
+    }
+    hopper::fence_mbar_init();
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles) load_kv(t);
+    }
+  }
+  __syncthreads();                        // the barriers are initialised
+
+  // prologue, while the first tiles load: D_i = rowsum(dO_i * O_i) and
+  // lse_i in base 2 for this thread's rows row0 and row0 + 8 (each lane of
+  // a quad sums every fourth 16-byte chunk of the row); D_i goes out for
+  // flash_bwd_dkv
+  const int row0 = q0 + 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);        // + 8j (+1): key or d column
+  const bf16* o = static_cast<const bf16*>(p.out) + b * p.so.b + h * p.so.h;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
+  const int64_t stat0 = static_cast<int64_t>(bh) * p.seq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    float part = 0.f;
+    if (row < p.seq) {
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {
+        const int c = lane % 4 + 4 * j;
+        part = dot8_bf16(
+            *reinterpret_cast<const uint4*>(o + row * p.so.s + 8 * c),
+            *reinterpret_cast<const uint4*>(dout + row * p.sdo.s + 8 * c),
+            part);
+      }
+    }
+    dlt[r] = hopper::quad_sum(part);
+    lse2[r] = row < p.seq ? p.lse[stat0 + row] * kLog2e : 0.f;
+    if (lane % 4 == 0 && row < p.seq) p.delta[stat0 + row] = dlt[r];
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // the ring: tile t + kStages - 1 loads into the stage tile t - 1 left
+    if (tid == 0 && t + kStages - 1 < n_tiles) load_kv(t + kStages - 1);
+    hopper::mbar_wait(hopper::smem_u32(&full[t % kStages]),
+                      (t / kStages) & 1);  // tile t (and Q, dO) have landed
+
+    const int k0 = t * BN;
+    const uint32_t sK = sKV + (t % kStages) * 2 * S::kKV;
+    const uint32_t sV = sK + S::kKV;
+    // s = Q K^T and dp = dO V^T: the block's 64 queries by the tile's keys
+    float s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      hopper::wgmma_ss<BN>(s, hopper::desc_k_major<kBlockM>(sQ, 0, ks),
+                           hopper::desc_k_major<BN>(sK, 0, ks));
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      hopper::wgmma_ss<BN>(dp, hopper::desc_k_major<kBlockM>(sdO, 0, ks),
+                           hopper::desc_k_major<BN>(sV, 0, ks));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+
+    // P = exp2(S * scale * log2(e) - lse * log2(e)), dS = P * (dP - D), in
+    // the accumulator registers; only the diagonal tiles and the ragged
+    // last tile need the mask
+    const bool masked = (k0 + BN > p.seq) || (p.causal && k0 + BN - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i / 2) % 2;
+      float pij = hopper::exp2_ftz(fmaf(s[i], p.scale_log2, -lse2[r]));
+      if (masked) {
+        const int col = k0 + 8 * (i / 4) + col0 + i % 2;
+        if (col >= p.seq || (p.causal && col > row0 + 8 * r)) pij = 0.f;
+      }
+      dp[i] = pij * (dp[i] - dlt[r]);
+    }
+    uint32_t da[BN / 16][4];              // dS in bf16, the A operand
+    hopper::pack_a<BN>(dp, da);
+    hopper::fence_regs(da);
+    hopper::fence_regs(dq);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {  // dQ += dS K
+      hopper::wgmma_rs<D>(dq, da[kk], hopper::desc_mn_major<BN>(sK, kk));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+    hopper::fence_regs(da);
+    __syncthreads();                      // stage t is free again
+  }
+
+  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.seq) continue;
+    bf16* drow = dqp + row * p.sdq.s + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale,
+                                dq[4 * j + 2 * r + 1] * p.scale);
+    }
+  }
+}
+
+template <int D>
 cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
   const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_dq_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kBlockM - 1) / kBlockM, batch * p.heads);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
   const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq + kBlockN - 1) / kBlockN, batch * p.kv_heads);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The four tensor maps of a tensor-core kernel: q and dout read 64 rows a
+// box, k and v kv_rows
+template <int D>
+cudaError_t encode_maps(TileMaps* maps, const Params& p, int batch,
+                        int kv_rows) {
+  auto encode = [&](CUtensorMap* map, const void* base, int heads,
+                    const Strides& st, int rows) {
+    return hopper::encode_tile_map(map, base, batch, heads, p.seq, D, st.b,
+                                   st.h, st.s, rows);
+  };
+  cudaError_t err = encode(&maps->q, p.q, p.heads, p.sq, kBlockM);
+  if (err == cudaSuccess) err = encode(&maps->dout, p.dout, p.heads, p.sdo,
+                                       kBlockM);
+  if (err == cudaSuccess) err = encode(&maps->k, p.k, p.kv_heads, p.sk,
+                                       kv_rows);
+  if (err == cudaSuccess) err = encode(&maps->v, p.v, p.kv_heads, p.sv,
+                                       kv_rows);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Params& p, int batch, cudaStream_t stream) {
+  // the prologue reads O's rows 16 bytes at a time
+  if (!hopper::rows_aligned16(p.out, p.so.b, p.so.h, p.so.s)) {
+    return cudaErrorMisalignedAddress;
+  }
+  TileMaps maps;
+  cudaError_t err = encode_maps<D>(&maps, p, batch, kDqKeys);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = DqSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seq + kBlockM - 1) / kBlockM, batch * p.heads);
+  flash_bwd_dq_kernel_tc<D><<<grid, 128, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_tc(const Params& p, int batch, cudaStream_t stream) {
   TileMaps maps;
-  auto encode = [&](CUtensorMap* map, const void* base, int heads,
-                    const Strides& st, int rows) {
-    return hopper::encode_tile_map(map, base, batch, heads, p.seq, D, st.b,
-                                   st.h, st.s, rows);
-  };
-  cudaError_t err = encode(&maps.q, p.q, p.heads, p.sq, kBlockM);
-  if (err == cudaSuccess) err = encode(&maps.dout, p.dout, p.heads, p.sdo,
-                                       kBlockM);
-  if (err == cudaSuccess) err = encode(&maps.k, p.k, p.kv_heads, p.sk,
-                                       kBlockN);
-  if (err == cudaSuccess) err = encode(&maps.v, p.v, p.kv_heads, p.sv,
-                                       kBlockN);
+  cudaError_t err = encode_maps<D>(&maps, p, batch, kBlockN);
   if (err != cudaSuccess) return err;
   constexpr int smem = DkvSmem<D>::kBytes;
   err = cudaFuncSetAttribute(
@@ -762,11 +992,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (is_bf16) {
-    if (head_dim == 64) err = launch_dq<__nv_bfloat16, 64>(p, batch, s);
-    if (head_dim == 128) err = launch_dq<__nv_bfloat16, 128>(p, batch, s);
+    if (head_dim == 64) err = launch_dq_tc<64>(p, batch, s);
+    if (head_dim == 128) err = launch_dq_tc<128>(p, batch, s);
   } else {
-    if (head_dim == 64) err = launch_dq<float, 64>(p, batch, s);
-    if (head_dim == 128) err = launch_dq<float, 128>(p, batch, s);
+    if (head_dim == 64) err = launch_dq<64>(p, batch, s);
+    if (head_dim == 128) err = launch_dq<128>(p, batch, s);
   }
   return static_cast<int>(err);
 }
@@ -807,8 +1037,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     if (head_dim == 64) err = launch_dkv_tc<64>(p, batch, s);
     if (head_dim == 128) err = launch_dkv_tc<128>(p, batch, s);
   } else {
-    if (head_dim == 64) err = launch_dkv<float, 64>(p, batch, s);
-    if (head_dim == 128) err = launch_dkv<float, 128>(p, batch, s);
+    if (head_dim == 64) err = launch_dkv<64>(p, batch, s);
+    if (head_dim == 128) err = launch_dkv<128>(p, batch, s);
   }
   return static_cast<int>(err);
 }

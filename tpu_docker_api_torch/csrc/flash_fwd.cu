@@ -273,17 +273,6 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-// Quad reductions: the 4 lanes of a warp that hold one accumulator row.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 constexpr int kStages = 2;                // depth of the K/V ring
 constexpr int kTcQueries = 64;            // queries a block: one warpgroup
 constexpr int kTcKeys = 128;              // keys a kv tile
@@ -406,7 +395,7 @@ flash_fwd_kernel_tc(const Params p, const __grid_constant__ TileMaps maps) {
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]) * p.scale_log2);
+      const float m_new = fmaxf(m[r], hopper::quad_max(mx[r]) * p.scale_log2);
       alpha[r] = hopper::exp2_ftz(m[r] - m_new);
       m[r] = m_new;
       l[r] *= alpha[r];
@@ -440,7 +429,7 @@ flash_fwd_kernel_tc(const Params p, const __grid_constant__ TileMaps maps) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    const float l_safe = fmaxf(quad_sum(l[r]), 1e-30f);
+    const float l_safe = fmaxf(hopper::quad_sum(l[r]), 1e-30f);
     if (row >= p.seq) continue;
     const float inv = 1.f / l_safe;
     bf16* orow = out + row * p.o_ss + col0;

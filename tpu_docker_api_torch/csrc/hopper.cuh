@@ -2,7 +2,7 @@
 // TMA tile loads (and the host's tensor maps for them) into the
 // 128-byte-swizzled shared-memory layout that wgmma's descriptors name,
 // the mbarriers they complete, the descriptors themselves, and the bf16
-// wgmma.mma_async instructions the two flash kernels issue.
+// wgmma.mma_async instructions the three bf16 flash kernels issue.
 //
 // Tile layout. A (rows, D) bf16 tile with D = 64 or 128 is stored as D/64
 // column blocks, each (rows, 64): 128 bytes a row, row r's 16-byte chunk c
@@ -136,21 +136,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The rule for 16-byte rows of a bf16 (batch, heads, seq, D) tensor with
+// element strides (sb, sh, ss): the base 16-byte aligned and each stride a
+// multiple of 8 elements. TMA needs it; so do 16-byte vector reads of a
+// row. The kernels check it here and nowhere else.
+inline bool rows_aligned16(const void* base, int64_t sb, int64_t sh,
+                           int64_t ss) {
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && sb % 8 == 0 &&
+         sh % 8 == 0 && ss % 8 == 0;
+}
+
 // A map of a bf16 (batch, heads, seq, D) tensor with element strides
 // (sb, sh, ss) and a contiguous D, read ROWS x 64 at a time into the
-// 128-byte swizzle. TMA's rule for the rows is checked here and nowhere
-// else in the kernels: cudaErrorMisalignedAddress unless the base is
-// 16-byte aligned and each stride a multiple of 8 elements (16 bytes);
-// cudaErrorNotSupported if a row would repeat (a broadcast stride of 0)
-// or the driver refuses the map.
+// 128-byte swizzle: cudaErrorMisalignedAddress unless its rows follow
+// rows_aligned16; cudaErrorNotSupported if a row would repeat (a
+// broadcast stride of 0) or cuTensorMapEncodeTiled refuses the map.
 inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base,
                                    int batch, int heads, int seq, int d,
                                    int64_t sb, int64_t sh, int64_t ss,
                                    int rows) {
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || sb % 8 != 0 ||
-      sh % 8 != 0 || ss % 8 != 0) {
-    return cudaErrorMisalignedAddress;
-  }
+  if (!rows_aligned16(base, sb, sh, ss)) return cudaErrorMisalignedAddress;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || (seq > 1 && ss == 0) || (heads > 1 && sh == 0) ||
       (batch > 1 && sb == 0)) {
@@ -231,6 +236,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Quad reductions: the 4 lanes of a warp that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // 2^x in one SFU instruction, results below 2^-126 flushed to zero (a

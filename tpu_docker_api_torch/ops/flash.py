@@ -18,6 +18,11 @@ also writes ``D = rowsum(dO∘O)``, then the dk/dv kernel. Being an op of its
 own lets a selective-checkpoint policy keep its outputs (models/llama.py's
 remat), as ``TRAIN_REMAT_POLICY`` keeps the JAX kernel's ``(out, lse)``.
 
+In bf16 all three kernels run on the tensor cores and load their tiles by
+TMA (``csrc/hopper.cuh``), which takes only 16-byte aligned rows
+(``rows_aligned``): an input that breaks the rule is refused with a
+ValueError naming it. In f32 they run on the CUDA cores.
+
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. There is no fallback from one to the other.
 """
@@ -173,10 +178,11 @@ def _check_kernel(q, k, v, *like_q):
 
 
 def _raise_launch(name: str, rc: int, *loaded: torch.Tensor):
-    """The error of a failed launch. The bf16 forward and dk/dv kernels
-    load ``loaded`` by TMA, which ``csrc/hopper.cuh`` refuses unless their
-    rows follow ``rows_aligned``: such a refusal gets a ValueError saying
-    which tensor broke the rule."""
+    """The error of a failed launch. The three bf16 kernels load
+    ``loaded`` by TMA (and the dq kernel reads ``out``'s rows 16 bytes at
+    a time), which ``csrc/hopper.cuh`` refuses unless their rows follow
+    ``rows_aligned``: such a refusal gets a ValueError saying which tensor
+    broke the rule."""
     bad = [i for i, t in enumerate(loaded) if not rows_aligned(t)]
     if bad:
         raise ValueError(f"{name}: the bf16 kernels load 16-byte rows, but "
@@ -250,7 +256,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_dq(q, k, v, out, lse, dout, causal: bool = True):
     """Launch the dq kernel: (dq like q, delta (b, h, s) f32). The kernel
     also writes ``delta = rowsum(dout∘out)``, which the dk/dv kernel
-    reads, so it runs first. CUDA tensors only."""
+    reads, so it runs first. CUDA tensors only; in bf16 the rows of q, k,
+    v, out and dout must follow ``rows_aligned``."""
     _check_kernel(q, k, v, out, dout)
     _check_stats(q, lse)
     b, h, s, d = q.shape
@@ -264,7 +271,7 @@ def flash_bwd_dq(q, k, v, out, lse, dout, causal: bool = True):
             b, s, h, k.shape[1], d, _DTYPES[q.dtype], int(causal),
             *_strides(q, k, v, out, dout, dq), 1.0 / d**0.5, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {rc}")
+        _raise_launch("flash_bwd_dq", rc, q, k, v, out, dout)
     launch_count["flash_bwd_dq"] += 1
     return dq, delta
 
