@@ -37,6 +37,16 @@ Phases, one JSON line each; any failure exits non-zero:
               loss matches the dense one. Then the command-line trainer
               in process with ``--profile-dir`` for where a step's time
               goes.
+6. lifecycle — train → checkpoint → resume → export → serve at llama3-1b
+              full width and depth through the command-line entry points
+              (``phase_lifecycle``): a resumed run and a SIGTERM-quiesced
+              one must equal an uninterrupted run, and ``--hf-ckpt`` and
+              ``--ckpt-dir`` servers must give the greedy tokens of the
+              restored params in memory; checkpoint bytes, the step
+              loop's blocked time and the writer's time of each save,
+              restore, export, import and serve-ready seconds. Under
+              ``build/lifecycle``, deleted at the end; it checks the free
+              disk first.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -49,10 +59,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import faulthandler
+import gc
 import http.client
 import io
 import json
 import math
+import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -512,27 +525,55 @@ def _block_grads_rel_l2(dev, cfg) -> dict:
                 / grads["dense"][n].norm()).item() for n in ("wq", "wk", "wv")}
 
 
+class _Lines(io.TextIOBase):
+    """A stdout that keeps each JSON line and hands it to ``on_line``
+    as soon as it is printed."""
+
+    def __init__(self, on_line=None):
+        self.lines: list[dict] = []
+        self._part = ""
+        self._on_line = on_line
+
+    def write(self, s: str) -> int:
+        self._part += s
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            if line.strip():
+                self.lines.append(json.loads(line))
+                if self._on_line is not None:
+                    self._on_line(self.lines[-1])
+        return len(s)
+
+
+def _run_cli(main_fn, argv: list[str], on_line=None) -> list[dict]:
+    """An entry point's ``main`` in process: its JSON lines. Signal
+    handlers it installs are put back after."""
+    out = _Lines(on_line)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    if rc not in (0, None):
+        raise AssertionError(f"{argv}: exit {rc}, {out.lines[-3:]}")
+    return out.lines
+
+
 def _cli_profile() -> dict:
     """The command-line trainer in process with --profile-dir: where a
     step's device time goes (telemetry/profile.py)."""
     from tpu_docker_api_torch.train.__main__ import main as train_main
 
-    buf = io.StringIO()
-    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
-                                                 signal.SIGINT)}
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = train_main([
-                "--preset", "llama3-1b", "--steps", "3", "--batch",
-                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--optim",
-                "adamw-int8", "--log-every", "1", "--profile-dir",
-                "build/train_profile", "--profile-steps", "2"])
-    finally:
-        for sig, h in handlers.items():
-            signal.signal(sig, h)
-    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln]
-    if rc != 0 or lines[-1].get("event") != "done":
-        raise AssertionError(f"trainer CLI failed: rc {rc}, {lines[-3:]}")
+    lines = _run_cli(train_main, [
+        "--preset", "llama3-1b", "--steps", "3", "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--optim", "adamw-int8",
+        "--log-every", "1", "--profile-dir", "build/train_profile",
+        "--profile-steps", "2"])
+    if lines[-1].get("event") != "done":
+        raise AssertionError(f"trainer CLI failed: {lines[-3:]}")
     prof = [ln for ln in lines if ln.get("event") == "profile_written"]
     if len(prof) != 1:
         raise AssertionError(f"no profile summary: {lines}")
@@ -774,6 +815,278 @@ def phase_serve(dev) -> dict:
         thread.join(timeout=30)
 
 
+LIFECYCLE_DIR = "build/lifecycle"
+LIFECYCLE_WINDOWS = 72  # windows of seq + 1 tokens in the token file
+LIFECYCLE_MAX_NEW = 16
+
+
+def _ckpt_files_equal(dev, a: str, b: str) -> dict:
+    """Every tensor of two checkpoints' files, leaf by leaf: bit-equal,
+    or the largest relative L2 difference of a params leaf and of an
+    optimizer leaf."""
+    from tpu_docker_api_torch.models.import_weights import SafeTensorsFile
+    from tpu_docker_api_torch.train import checkpoint as ckpt
+
+    out = {"bit_equal": True, "leaves": 0, "params_max_rel": 0.0,
+           "opt_max_rel": 0.0, "differing": []}
+    for fname, key in ((ckpt.PARAMS_FILE, "params_max_rel"),
+                       (ckpt.OPT_FILE, "opt_max_rel")):
+        fa = SafeTensorsFile(f"{a}/{fname}")
+        fb = SafeTensorsFile(f"{b}/{fname}")
+        if sorted(fa.keys()) != sorted(fb.keys()):
+            raise AssertionError(f"{a} and {b} hold other tensors")
+        for name in fa.keys():
+            x, y = fa.tensor(name).to(dev), fb.tensor(name).to(dev)
+            out["leaves"] += 1
+            if torch.equal(x, y):
+                continue
+            out["bit_equal"] = False
+            out["differing"].append(name)
+            rel = ((x.float() - y.float()).norm()
+                   / y.float().norm().clamp_min(1e-30)).item()
+            out[key] = max(out[key], rel)
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _serve_once(argv: list[str], prompt: list[int]) -> dict:
+    """A Server from ``argv`` on a free port: its ready time and the
+    tokens of one greedy request."""
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    t0 = time.perf_counter()
+    srv = Server(parse_args([*argv, "--max-seq", "256", "--slots", "2",
+                             "--chunk", "8", "--host", "127.0.0.1",
+                             "--port", "0"]))
+    ready_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = _check_reply(*_post(srv.httpd.server_address[1], {
+            "tokens": [prompt], "maxNewTokens": LIFECYCLE_MAX_NEW}),
+            1, LIFECYCLE_MAX_NEW, srv.cfg.vocab_size)
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", srv.httpd.server_address[1], timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        return {"ready_s": ready_s, "tokens": body["tokens"][0],
+                "model": health["model"], "step": health["step"]}
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+
+
+def phase_lifecycle(dev, preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
+                    seq: int = TRAIN_SEQ) -> dict:
+    """Train → checkpoint → resume → export → serve at llama3-1b's full
+    width and depth (batch 4 x 2048, adamw-int8, remat on), through the
+    command-line entry points in process, on a token file:
+
+    A: 4 steps, a save at step 4. B: 2 steps (saved at 2), then a second
+    run on the same directory that must resume at step 2 and log step 3
+    first; its steps 3-4 and every tensor of its step-4 checkpoint must
+    equal A's. C: SIGTERM during step 2 must save step 2 before
+    ``quiesced``, and a restart must continue to an A-equal step 4. Then
+    B's step 4 is exported by the ``import_weights`` CLI and served by
+    ``Server`` once from ``--hf-ckpt`` and once from ``--ckpt-dir``: one
+    greedy 16-token request each, whose tokens must equal each other's
+    and the slot engine's on ``restore_model_params`` in memory. Launch
+    counts are zeroed just before and read just after the phase. The
+    tests run it on the CPU at the tiny preset, where the wrappers run
+    the plain versions and count nothing."""
+    import numpy as np
+
+    from tpu_docker_api_torch.data.loader import write_token_file
+    from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+    from tpu_docker_api_torch.models import import_weights, param_shapes
+    from tpu_docker_api_torch.models.llama import llama_presets
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train import checkpoint as ckpt
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    cfg = llama_presets()[preset]
+    shapes = optim.tree_leaves(param_shapes(cfg))
+    n_params = sum(math.prod(s) for s in shapes)
+    # bf16 params, int8 mu and nu, two f32 scales a block of 256
+    ckpt_est = n_params * (2 + 2) + 2 * 4 * n_params // 256
+    export_est = 2 * n_params
+    # peak on disk: A, B's step 4, C's steps 2 and 4; then the export
+    need = int(1.1 * (4 * ckpt_est + export_est))
+    shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    os.makedirs(LIFECYCLE_DIR)
+    free = shutil.disk_usage(LIFECYCLE_DIR).free
+    if free < need:
+        raise AssertionError(f"lifecycle needs {need} bytes of disk, "
+                             f"{free} free under {LIFECYCLE_DIR}")
+    d = {k: f"{LIFECYCLE_DIR}/{k}" for k in ("A", "B", "C", "export")}
+    tokens_path = f"{LIFECYCLE_DIR}/tokens.bin"
+    write_token_file(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, LIFECYCLE_WINDOWS * (seq + 1)),
+        tokens_path, "int32" if cfg.vocab_size > 65535 else "uint16")
+    common = ["--preset", preset, "--batch", str(batch), "--seq", str(seq),
+              "--device", str(dev), "--optim", "adamw-int8",
+              "--log-every", "1", "--save-every", "4", "--data",
+              tokens_path]
+
+    def train(ckpt_dir, steps, on_line=None):
+        lines = _run_cli(train_main, [*common, "--ckpt-dir", ckpt_dir,
+                                      "--steps", str(steps)], on_line)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"steps": [ln for ln in lines if "event" not in ln],
+                "saved": [ln for ln in lines if ln.get("event") == "saved"],
+                "resumed": [ln for ln in lines
+                            if ln.get("event") == "resumed"],
+                "last": lines[-1]}
+
+    def step_nums(run):
+        return [ln["step"] for ln in run["steps"]]
+
+    def quiesce_after_step_1(line):
+        if line.get("step") == 1 and "event" not in line:
+            # the handler sets the stop flag before step 2 runs: the
+            # trainer saves and quiesces after step 2
+            signal.raise_signal(signal.SIGTERM)
+
+    try:
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        optim.reset_launch_count()
+        t0 = time.perf_counter()
+        phase_t0 = t0
+        a = train(d["A"], 4)
+        b1 = train(d["B"], 2)
+        b2 = train(d["B"], 4)
+        c1 = train(d["C"], 4, quiesce_after_step_1)
+        c2 = train(d["C"], 4)
+        train_s = time.perf_counter() - t0
+        train_launches = {**flash.launch_count, **optim.launch_count}
+
+        if step_nums(a) != [1, 2, 3, 4] or step_nums(b1) != [1, 2]:
+            raise AssertionError(f"step lines: A {step_nums(a)}, "
+                                 f"B {step_nums(b1)}")
+        if step_nums(b2) != [3, 4] or b2["resumed"][0]["step"] != 2:
+            raise AssertionError(f"B did not resume at step 2: {b2}")
+        if (c1["last"] != {"event": "quiesced", "step": 2}
+                or [s["step"] for s in c1["saved"]] != [2]):
+            raise AssertionError(f"SIGTERM did not save step 2: {c1}")
+        if step_nums(c2) != [3, 4] or c2["resumed"][0]["step"] != 2:
+            raise AssertionError(f"C did not resume at step 2: {c2}")
+        losses_equal = ([s["loss"] for s in b2["steps"]]
+                        == [s["loss"] for s in a["steps"][2:]]
+                        == [s["loss"] for s in c2["steps"]])
+        b_vs_a = _ckpt_files_equal(dev, f"{d['A']}/4", f"{d['B']}/4")
+        c_vs_a = _ckpt_files_equal(dev, f"{d['A']}/4", f"{d['C']}/4")
+        # bit-equal by design (no kernel of the step uses atomics); a
+        # card that is not bit-deterministic is held to 1e-3 relative
+        for name, cmp in (("B", b_vs_a), ("C", c_vs_a)):
+            if not cmp["bit_equal"] and cmp["params_max_rel"] > 1e-3:
+                raise AssertionError(f"{name}'s step 4 differs from A's: "
+                                     f"{cmp}")
+        if (b_vs_a["bit_equal"] and c_vs_a["bit_equal"]
+                and not losses_equal):
+            raise AssertionError("equal checkpoints, other losses")
+        shutil.rmtree(d["C"])
+        shutil.rmtree(f"{d['B']}/2")
+
+        exported = _run_cli(import_weights._main, [
+            "--ckpt-dir", d["B"], "--preset", preset, "--out", d["export"],
+            "--device", str(dev)])[-1]
+        t1 = time.perf_counter()
+        _, imported = import_weights.import_hf_llama(d["export"], cfg,
+                                                     device=dev)
+        _sync(dev)
+        import_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        params, step = ckpt.restore_model_params(d["B"], cfg, dev)
+        _sync(dev)
+        restore_s = time.perf_counter() - t1
+        flat_i, flat_p = {}, {}
+        ckpt._flatten(imported, "", flat_i, {})
+        ckpt._flatten(params, "", flat_p, {})
+        same = flat_i.keys() == flat_p.keys() and all(
+            torch.equal(flat_i[k], flat_p[k]) for k in flat_p)
+        del imported
+        if not same or step != 4:
+            raise AssertionError(f"export of step {step} does not import "
+                                 f"bit-equal")
+
+        prompt = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, 100).tolist()
+        eng = SlotEngine(cfg, fuse_llama_projections(params), slots=2,
+                         max_seq=256, chunk=8, cache_dtype=cfg.dtype)
+        h = eng.submit(prompt, LIFECYCLE_MAX_NEW)
+        while not h.done():
+            eng.step()
+        want = h.result(0)["tokens"]
+        del eng, params
+        gc.collect()
+        hf = _serve_once(["--hf-ckpt", d["export"], "--device", str(dev)],
+                         prompt)
+        ck = _serve_once(["--preset", preset, "--ckpt-dir", d["B"],
+                          "--device", str(dev)], prompt)
+        launches = {**flash.launch_count, **optim.launch_count}
+        # ---- end of the main path
+
+        if not hf["tokens"] == ck["tokens"] == want:
+            raise AssertionError(f"greedy tokens differ: hf {hf['tokens']}"
+                                 f", ckpt {ck['tokens']}, in memory {want}")
+        if ck["step"] != 4 or hf["model"] != "export":
+            raise AssertionError(f"/healthz: {ck}, {hf}")
+        n_train_steps = 12  # A 4, B 2 + 2, C 2 + 2
+        want_train = {"flash_fwd": cfg.n_layers * n_train_steps,
+                      "flash_bwd_dq": cfg.n_layers * n_train_steps,
+                      "flash_bwd_dkv": cfg.n_layers * n_train_steps,
+                      "adam8": len(shapes) * n_train_steps}
+        # on the CPU the wrappers run the plain versions, which never count
+        if dev.type == "cuda" and train_launches != want_train:
+            raise AssertionError(f"lifecycle train launches "
+                                 f"{train_launches}, expected {want_train}")
+        if dev.type == "cuda" and (launches["flash_fwd"]
+                                   <= train_launches["flash_fwd"]):
+            raise AssertionError("no flash_fwd launch while serving")
+        saves = [{"run": run, **{k: s[k] for k in (
+                     "step", "bytes", "blocked_s", "d2h_s", "write_s")}}
+                 for run, r in (("A", a), ("B", b1), ("B", b2), ("C", c1),
+                                ("C", c2)) for s in r["saved"]]
+        result = {
+            "phase": "lifecycle", "preset": preset,
+            "params": n_params,
+            "batch": batch, "seq": seq, "optim": "adamw-int8",
+            "token_file_windows": LIFECYCLE_WINDOWS,
+            "disk_free_bytes": free, "disk_needed_bytes": need,
+            "train_s": train_s,
+            "losses": {"A": [s["loss"] for s in a["steps"]],
+                       "B": [s["loss"] for s in b1["steps"] + b2["steps"]],
+                       "C": [s["loss"] for s in c1["steps"] + c2["steps"]]},
+            "losses_equal": losses_equal,
+            "B_vs_A": b_vs_a, "C_vs_A": c_vs_a,
+            "saves": saves,
+            "resume_restore_s": [r["resumed"][0]["restore_s"]
+                                 for r in (b2, c2)],
+            "quiesce": c1["last"],
+            "export": exported, "import_s": import_s,
+            "restore_params_s": restore_s,
+            "serve_hf": {k: hf[k] for k in ("ready_s", "model", "step")},
+            "serve_ckpt": {k: ck[k] for k in ("ready_s", "model", "step")},
+            "greedy_tokens": want, "launches": launches,
+            "phase_s": time.perf_counter() - phase_t0,
+            "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -820,39 +1133,40 @@ def main() -> int:
     adam_res = phase_adam8(dev)
     serve_res = phase_serve(dev)
     train_res = phase_train(dev)
-    train_n = train_res["launches"]
+    life_res = phase_lifecycle(dev)
+    train_n, life_n = train_res["launches"], life_res["launches"]
+    by_path = {
+        "flash_fwd": {"serve": serve_res["flash_launches"],
+                      "train": train_n["flash_fwd"],
+                      "lifecycle": life_n["flash_fwd"]},
+        **{name: {"train": train_n[name], "lifecycle": life_n[name]}
+           for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",
-         "tpu_docker_api/ops/flash_pallas.py:95",
-         serve_res["flash_launches"] + train_n["flash_fwd"], fwd_res,
-         {"serve": serve_res["flash_launches"],
-          "train": train_n["flash_fwd"]}),
+         "tpu_docker_api/ops/flash_pallas.py:95", fwd_res),
         ("flash_bwd_dq", "tpu_docker_api_torch/csrc/flash_bwd.cu",
-         "tpu_docker_api/ops/flash_pallas.py:164",
-         train_n["flash_bwd_dq"], bwd_res["flash_bwd_dq"],
-         {"train": train_n["flash_bwd_dq"]}),
+         "tpu_docker_api/ops/flash_pallas.py:164", bwd_res["flash_bwd_dq"]),
         ("flash_bwd_dkv", "tpu_docker_api_torch/csrc/flash_bwd.cu",
-         "tpu_docker_api/ops/flash_pallas.py:205",
-         train_n["flash_bwd_dkv"], bwd_res["flash_bwd_dkv"],
-         {"train": train_n["flash_bwd_dkv"]}),
+         "tpu_docker_api/ops/flash_pallas.py:205", bwd_res["flash_bwd_dkv"]),
         ("adam8", "tpu_docker_api_torch/csrc/adam8.cu",
-         "tpu_docker_api/train/optim.py:103", train_n["adam8"], adam_res,
-         {"train": train_n["adam8"]}),
+         "tpu_docker_api/train/optim.py:103", adam_res),
     ]
-    for name, _, _, launches, _, _ in rows:
-        if launches <= 0:
-            raise AssertionError(f"{name} never launched on its path")
+    for name, _, _, _ in rows:
+        for path, n in by_path[name].items():
+            if n <= 0:
+                raise AssertionError(f"{name} never launched on the {path} "
+                                     f"path")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
-        "launches_by_path": by_path,
+        "replaces": replaces, "launches": sum(by_path[name].values()),
+        "launches_by_path": by_path[name],
         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
         "host_us": res["host_us"], "ms_back_to_back": res["ms_back_to_back"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         **({"at_train_shape": res["at_train_shape"]}
            if "at_train_shape" in res else {})}
-        for name, source, replaces, launches, res, by_path in rows]})
+        for name, source, replaces, res in rows]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-"""The port stands alone: with ``jax`` and ``tpu_docker_api`` blocked on
-``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
-``chip_smoke.py`` import, and a tiny forward and train step run on the
-CPU."""
+"""The port stands alone: with ``jax``, ``tpu_docker_api`` and the
+packages the port's GPU hosts need not have (``safetensors``,
+``transformers``, ``orbax``) blocked on ``sys.meta_path``, every module of
+``tpu_docker_api_torch`` and ``chip_smoke.py`` import, and a tiny
+forward, train step, checkpoint save and restore, and HF export and
+import run on the CPU."""
 
 import os
 import subprocess
@@ -11,17 +13,20 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, pkgutil, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "tpu_docker_api", "safetensors",
+               "transformers", "orbax")
 
     class Block:
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "tpu_docker_api"):
+            if top in BLOCKED:
                 raise ImportError(f"blocked import of {name}")
             return None
 
     for mod in list(sys.modules):
-        if mod.split(".")[0] in ("jax", "jaxlib", "tpu_docker_api"):
+        if mod.split(".")[0] in BLOCKED:
             del sys.modules[mod]
     sys.meta_path.insert(0, Block())
 
@@ -34,7 +39,10 @@ _CHILD = textwrap.dedent("""
     for needed in ("tpu_docker_api_torch.ops.xent",
                    "tpu_docker_api_torch.train.optim",
                    "tpu_docker_api_torch.train.trainer",
-                   "tpu_docker_api_torch.train.__main__"):
+                   "tpu_docker_api_torch.train.__main__",
+                   "tpu_docker_api_torch.train.checkpoint",
+                   "tpu_docker_api_torch.data.loader",
+                   "tpu_docker_api_torch.models.import_weights"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -53,8 +61,19 @@ _CHILD = textwrap.dedent("""
     state, metrics = make_train_step(cfg, opt)(
         state, torch.zeros(1, 6, dtype=torch.long))
     assert torch.isfinite(metrics["loss"])
-    assert not any(m.split(".")[0] in ("jax", "tpu_docker_api")
-                   for m in sys.modules)
+
+    from tpu_docker_api_torch.models.import_weights import (
+        export_hf_llama, import_hf_llama)
+    from tpu_docker_api_torch.train.checkpoint import CheckpointManager
+    with tempfile.TemporaryDirectory() as d:
+        with CheckpointManager(d + "/ck") as mgr:
+            mgr.save(state)
+        back = mgr.restore(cfg, opt, device="cpu")
+        assert back.step == 1
+        export_hf_llama(back.params, cfg, d + "/hf")
+        _, params = import_hf_llama(d + "/hf", device="cpu")
+        assert torch.equal(params["lm_head"], state.params["lm_head"])
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED", len(names))
 """)
 
@@ -64,7 +83,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "ISOLATED" in proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 21  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 25  # every module was walked
 
 
 def test_entry_points_refuse_cuda_without_a_card():

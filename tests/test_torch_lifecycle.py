@@ -1,0 +1,31 @@
+"""``chip_smoke.py``'s lifecycle phase at the tiny preset on the CPU:
+train → checkpoint → resume → SIGTERM quiesce → export → serve, through
+the command-line entry points in process. The phase's own checks hold
+here as on the card (a resumed and a quiesced-and-restarted run equal an
+uninterrupted one bit for bit; the ``--hf-ckpt`` and ``--ckpt-dir``
+servers answer with the greedy tokens of the restored params in
+memory); only the launch counts stay 0, since on the CPU the wrappers
+run the kernels' plain versions."""
+
+import torch
+
+import chip_smoke
+
+
+def test_lifecycle_phase_on_cpu(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)  # the phase writes under ./build
+    res = chip_smoke.phase_lifecycle(torch.device("cpu"), "tiny", 2, 32)
+    assert res["B_vs_A"]["bit_equal"] and res["C_vs_A"]["bit_equal"]
+    # 12 params leaves, and for each the int8 mu and nu and their scales
+    assert res["B_vs_A"]["leaves"] == 12 * 5
+    assert res["losses_equal"]
+    assert res["losses"]["A"][2:] == res["losses"]["B"][2:]
+    assert res["quiesce"] == {"event": "quiesced", "step": 2}
+    assert [s["step"] for s in res["saves"]] == [4, 2, 4, 2, 4]
+    assert all(s["bytes"] > 0 for s in res["saves"])
+    assert res["serve_ckpt"]["step"] == 4
+    assert res["serve_hf"]["model"] == "export"
+    assert len(res["greedy_tokens"]) == chip_smoke.LIFECYCLE_MAX_NEW
+    assert set(res["launches"].values()) == {0}
+    assert not (tmp_path / "build" / "lifecycle").exists()  # cleaned up
+    assert '"phase": "lifecycle"' in capsys.readouterr().out

@@ -1,6 +1,7 @@
 """The port's HTTP server, in process on the CPU (tiny preset):
-/healthz, /metrics, /generate (ragged rows, sampling, validation) and a
-streamed request."""
+/healthz, /metrics, /generate (ragged rows, sampling, validation), a
+streamed request, and weights from ``--ckpt-dir`` and ``--hf-ckpt``
+answering greedy requests with the tokens of the params in memory."""
 
 import http.client
 import json
@@ -144,3 +145,89 @@ def test_legacy_path_and_cuda_default():
         srv.close()
         t.join(timeout=10)
     assert parse_args([]).device == "cuda"
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A checkpoint of the port at step 3 and its HF export."""
+    import torch
+
+    from tpu_docker_api_torch.models.import_weights import export_hf_llama
+    from tpu_docker_api_torch.models.llama import llama_presets
+    from tpu_docker_api_torch.train.checkpoint import CheckpointManager
+    from tpu_docker_api_torch.train.optim import adamw_int8
+    from tpu_docker_api_torch.train.trainer import (TrainState,
+                                                    create_train_state)
+
+    root = tmp_path_factory.mktemp("weights")
+    cfg = llama_presets()["tiny"]
+    state, _ = create_train_state(cfg, "cpu",
+                                  torch.Generator().manual_seed(11),
+                                  adamw_int8())
+    with CheckpointManager(root / "ckpt") as mgr:
+        mgr.save(TrainState(3, state.params, state.opt_state))
+    export_hf_llama(state.params, cfg, str(root / "tiny-hf"))
+    return cfg, state.params, root
+
+
+def _greedy_in_memory(cfg, params, prompt, max_new):
+    """The slot engine of the server's settings on the params in memory."""
+    from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+
+    eng = SlotEngine(cfg, fuse_llama_projections(params), slots=4,
+                     max_seq=64, chunk=4, cache_dtype=cfg.dtype)
+    h = eng.submit(prompt, max_new)
+    while not h.done():
+        eng.step()
+    return h.result(0)["tokens"]
+
+
+@pytest.mark.parametrize("source", ["--ckpt-dir", "--hf-ckpt"])
+def test_serves_checkpoint_weights(trained, source):
+    cfg, params, root = trained
+    where = str(root / ("ckpt" if source == "--ckpt-dir" else "tiny-hf"))
+    srv = Server(parse_args(["--device", "cpu", "--preset", "tiny", source,
+                             where, "--host", "127.0.0.1", "--port", "0",
+                             "--max-seq", "64", "--slots", "4",
+                             "--chunk", "4"]))
+    t = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        prompt = [5, 9, 2, 7, 31]
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": [prompt], "maxNewTokens": 8})
+        assert code == 200
+        assert json.loads(data)["tokens"][0] == _greedy_in_memory(
+            cfg, params, prompt, 8)
+        _, health = _request(srv, "GET", "/healthz")
+        health = json.loads(health)
+        if source == "--ckpt-dir":
+            assert health["step"] == 3 and health["model"] == "tiny"
+        else:
+            assert health["step"] == 0 and health["model"] == "tiny-hf"
+        code, data = _request(srv, "POST", "/generate", {
+            "text": ["hello"], "maxNewTokens": 2})
+        assert code == 400
+        assert "tokenizer" in json.loads(data)["error"]
+        assert "ROADMAP" in json.loads(data)["error"]
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        t.join(timeout=10)
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--tokenizer", "tok.json"], "ROADMAP"),
+    (["--ckpt-dir", "a", "--hf-ckpt", "b"], "exclusive")])
+def test_refused_flags(capsys, flags, msg):
+    with pytest.raises(SystemExit) as e:
+        parse_args(flags)
+    assert e.value.code == 2 and msg in capsys.readouterr().err
+
+
+def test_missing_checkpoint_raises(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        Server(parse_args(["--device", "cpu", "--preset", "tiny",
+                           "--ckpt-dir", str(tmp_path / "none"),
+                           "--port", "0", "--host", "127.0.0.1"]))

@@ -9,7 +9,10 @@ every element within 6·lr. Adam normalises each gradient by its own
 running size, so an element whose gradient is at the f32 noise floor of
 the two summation orders may step either way (at most ~lr a step, three
 steps, either sign); every other element agrees to ~1e-6 of lr. The CLI
-runs on the CPU in a subprocess.
+runs on the CPU in a subprocess: a run resumed from ``--ckpt-dir``
+gives the losses and the checkpoint bytes of an uninterrupted one, a
+quiesce saves before it says so, and ``--data`` feeds the loader's
+batches.
 """
 
 import dataclasses
@@ -200,8 +203,8 @@ def test_cli_runs_on_cpu_and_prints_json_lines():
     assert lines[-1] == {"event": "done", "step": 3}
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-dir", "/tmp/x"], ["--qlora"],
-                                  ["--data", "tok.bin"], ["--fsdp", "2"],
+@pytest.mark.parametrize("flag", [["--lora-alpha", "8"], ["--qlora"],
+                                  ["--tp", "2"], ["--fsdp", "2"],
                                   ["--lora-rank", "4"]])
 def test_cli_refuses_unported_flags(flag):
     proc = _cli("--device", "cpu", *flag, timeout=60)
@@ -233,3 +236,105 @@ def test_cli_quiesces_on_sigterm():
     assert proc.returncode == 0, err
     last = json.loads(out.splitlines()[-1])
     assert last["event"] == "quiesced" and last["step"] >= 1
+
+
+def test_synthetic_batch_is_a_pure_function_of_seed_and_step():
+    """The CLI's synthetic batch at step i depends on (seed, i) alone,
+    as the JAX trainer's ``synthetic_batch(PRNGKey(i))``: drawing other
+    steps first, or none, gives the same tokens."""
+    def at(seed, step):
+        return trainer.synthetic_batch(
+            trainer.step_generator(seed, step, "cpu"), 2, 8, 256)
+
+    first = [at(1, i) for i in range(4)]
+    assert torch.equal(at(1, 3), first[3])
+    assert torch.equal(at(1, 0), first[0])
+    assert not torch.equal(first[0], first[1])
+    assert not torch.equal(at(2, 0), first[0])
+
+
+def _steps(out):
+    lines = [json.loads(ln) for ln in out.splitlines()]
+    return [ln for ln in lines if "event" not in ln], lines
+
+
+_SMALL = ("--device", "cpu", "--preset", "tiny", "--batch", "2", "--seq",
+          "16", "--log-every", "1")
+
+
+@pytest.mark.parametrize("optim_name", ["adamw", "adamw-int8"])
+def test_cli_resumes_from_its_checkpoint(tmp_path, optim_name):
+    """Two steps, then a second run on the same --ckpt-dir: it resumes at
+    step 2, and its steps 3-4 give the losses of an uninterrupted run."""
+    flags = (*_SMALL, "--optim", optim_name)
+    whole = _cli(*flags, "--steps", "4", "--ckpt-dir", str(tmp_path / "a"))
+    assert whole.returncode == 0, whole.stderr
+    first = _cli(*flags, "--steps", "2", "--ckpt-dir", str(tmp_path / "b"))
+    assert first.returncode == 0, first.stderr
+    steps, lines = _steps(first.stdout)
+    assert [ln["step"] for ln in steps] == [1, 2]
+    saved = [ln for ln in lines if ln.get("event") == "saved"]
+    assert [ln["step"] for ln in saved] == [2] and saved[0]["bytes"] > 0
+    second = _cli(*flags, "--steps", "4", "--ckpt-dir", str(tmp_path / "b"))
+    assert second.returncode == 0, second.stderr
+    resumed, lines = _steps(second.stdout)
+    assert [ln["step"] for ln in resumed] == [3, 4]
+    assert lines[-1] == {"event": "done", "step": 4}
+    want = _steps(whole.stdout)[0]
+    assert [ln["loss"] for ln in resumed] == [ln["loss"] for ln in want[2:]]
+    for name in ("params.safetensors", "opt_state.safetensors"):
+        assert (tmp_path / "a" / "4" / name).read_bytes() == \
+            (tmp_path / "b" / "4" / name).read_bytes(), name
+
+
+def test_cli_quiesce_saves_and_a_restart_continues(tmp_path):
+    ck = str(tmp_path / "ck")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_docker_api_torch.train", *_SMALL,
+         "--steps", "100000", "--ckpt-dir", ck, "--save-every", "1000"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        assert json.loads(proc.stdout.readline())["step"] == 1
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert proc.returncode == 0, err
+    lines = [json.loads(ln) for ln in out.splitlines()]
+    last = lines[-1]
+    assert last["event"] == "quiesced"
+    n = last["step"]
+    # the quiesce saved the step it stopped at, before it said so
+    assert [ln["step"] for ln in lines if ln.get("event") == "saved"] == [n]
+    assert sorted(os.listdir(ck)) == [str(n)]
+    again = _cli(*_SMALL, "--steps", str(n + 2), "--ckpt-dir", ck)
+    assert again.returncode == 0, again.stderr
+    steps, lines = _steps(again.stdout)
+    assert [ln["step"] for ln in steps] == [n + 1, n + 2]
+    assert lines[-1] == {"event": "done", "step": n + 2}
+
+
+def test_cli_trains_on_a_token_file(tmp_path):
+    """--data feeds the loader's batches: the first logged loss is the
+    loss of the seed's weights on the loader's batch for step 0."""
+    from tpu_docker_api_torch.data import (make_batch_fn, open_token_files)
+    from tpu_docker_api_torch.data.loader import write_token_file
+
+    path = tmp_path / "tok.bin"
+    write_token_file(np.random.default_rng(0).integers(0, 256, 5000), path)
+    proc = _cli(*_SMALL, "--steps", "3", "--data", str(path),
+                "--data-seed", "4")
+    assert proc.returncode == 0, proc.stderr
+    steps, lines = _steps(proc.stdout)
+    assert [ln["step"] for ln in steps] == [1, 2, 3]
+    assert lines[-1] == {"event": "done", "step": 3}
+    cfg = dataclasses.replace(tl.llama_presets()["tiny"], max_seq_len=16)
+    state, _ = trainer.create_train_state(
+        cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = make_batch_fn(open_token_files(path, 17), 2, seed=4)(0)
+    with torch.no_grad():
+        loss = tl.llama_loss(state.params, torch.from_numpy(batch).long(),
+                             cfg).item()
+    assert steps[0]["loss"] == round(loss, 4)

@@ -8,6 +8,7 @@ from tpu_docker_api_torch.models.llama import (  # noqa: F401
     llama_forward_cached,
     llama_init,
     llama_loss,
+    llama_param_specs,
     llama_presets,
 )
 
@@ -19,6 +20,19 @@ def model_fns(cfg):
     sharding_rules). The port has no sharding rules yet: None."""
     if isinstance(cfg, LlamaConfig):
         return llama_init, llama_loss, None
+    raise TypeError(f"no model registered for config type {type(cfg)!r}")
+
+
+def param_shapes(cfg) -> dict:
+    """The param tree of ``cfg`` with each leaf's shape in its place
+    (nothing is allocated)."""
+    if isinstance(cfg, LlamaConfig):
+        def shapes(spec):
+            if isinstance(spec, dict):
+                return {k: shapes(v) for k, v in spec.items()}
+            return spec[0]
+
+        return shapes(llama_param_specs(cfg))
     raise TypeError(f"no model registered for config type {type(cfg)!r}")
 
 

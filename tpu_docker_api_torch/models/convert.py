@@ -35,6 +35,40 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     return _to_tensor(tree, device, dtype)
 
 
+def opt_state_from_numpy(state, device):
+    """Map a JAX optimizer state (its leaves as numpy arrays; the tuples
+    and named tuples as optax and the JAX package build them) onto the
+    port's: optax's ``ScaleByAdamState`` (count, mu, nu) and the JAX
+    ``ScaleByAdamInt8State``, whose scales go from the JAX layout to the
+    port's (``optim.scales_from_jax``); field-less states (the clip's,
+    the weight decay's, the learning rate's) become ``EmptyState``.
+    ``count`` becomes a host int; every leaf keeps its dtype."""
+    from tpu_docker_api_torch.train import optim
+
+    kind = type(state).__name__
+    fields = getattr(state, "_fields", None)
+    if kind == "ScaleByAdamState":
+        return optim.ScaleByAdamState(
+            int(state.count), params_from_numpy(state.mu, device),
+            params_from_numpy(state.nu, device))
+    if kind == "ScaleByAdamInt8State":
+        def scales(tree):
+            if isinstance(tree, dict):
+                return {k: scales(v) for k, v in tree.items()}
+            return optim.scales_from_jax(
+                _to_tensor(tree, "cpu", None)).contiguous().to(device)
+
+        return optim.ScaleByAdamInt8State(
+            int(state.count), params_from_numpy(state.mu_q, device),
+            scales(state.mu_scale), params_from_numpy(state.nu_q, device),
+            scales(state.nu_scale))
+    if fields is not None and not fields:
+        return optim.EmptyState()
+    if isinstance(state, tuple) and fields is None:
+        return tuple(opt_state_from_numpy(s, device) for s in state)
+    raise TypeError(f"no port counterpart for optimizer state {kind}")
+
+
 def params_to_numpy(params):
     """The inverse map: a nested dict of numpy arrays on the host.
     bf16 leaves come back as float32 (exact: every bf16 is an f32), since

@@ -113,39 +113,45 @@ def llama_presets() -> dict[str, LlamaConfig]:
     }
 
 
+def llama_param_specs(cfg: LlamaConfig) -> dict:
+    """The param tree's leaves as ``(shape, fan_in)``, in the order
+    ``llama_init`` draws them; ``fan_in`` None is a norm scale of ones."""
+    d, hd = cfg.dim, cfg.head_dim
+    L = cfg.n_layers
+    return {
+        "embed": {"tokens": ((cfg.vocab_size, d), d)},
+        "layers": {
+            "attn_norm": ((L, d), None),
+            "mlp_norm": ((L, d), None),
+            "attn": {
+                "wq": ((L, d, cfg.n_heads * hd), d),
+                "wk": ((L, d, cfg.n_kv_heads * hd), d),
+                "wv": ((L, d, cfg.n_kv_heads * hd), d),
+                "wo": ((L, cfg.n_heads * hd, d), cfg.n_heads * hd),
+            },
+            "mlp": {
+                "w_gate": ((L, d, cfg.ffn_dim), d),
+                "w_up": ((L, d, cfg.ffn_dim), d),
+                "w_down": ((L, cfg.ffn_dim, d), cfg.ffn_dim),
+            },
+        },
+        "final_norm": ((d,), None),
+        "lm_head": ((d, cfg.vocab_size), d),
+    }
+
+
 def llama_init(cfg: LlamaConfig, generator: torch.Generator) -> dict:
     """Random parameters (truncated-normal fan-in scaling) on the
     generator's device, in the JAX package's pytree layout."""
-    d, hd = cfg.dim, cfg.head_dim
-    L = cfg.n_layers
-    dev = generator.device
-
-    def init(shape, fan_in):
+    def init(spec):
+        if isinstance(spec, dict):
+            return {k: init(v) for k, v in spec.items()}
+        shape, fan_in = spec
+        if fan_in is None:
+            return torch.ones(shape, dtype=cfg.dtype, device=generator.device)
         return trunc_normal_init(generator, shape, fan_in, cfg.dtype)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=cfg.dtype, device=dev)
-
-    return {
-        "embed": {"tokens": init((cfg.vocab_size, d), d)},
-        "layers": {
-            "attn_norm": ones((L, d)),
-            "mlp_norm": ones((L, d)),
-            "attn": {
-                "wq": init((L, d, cfg.n_heads * hd), d),
-                "wk": init((L, d, cfg.n_kv_heads * hd), d),
-                "wv": init((L, d, cfg.n_kv_heads * hd), d),
-                "wo": init((L, cfg.n_heads * hd, d), cfg.n_heads * hd),
-            },
-            "mlp": {
-                "w_gate": init((L, d, cfg.ffn_dim), d),
-                "w_up": init((L, d, cfg.ffn_dim), d),
-                "w_down": init((L, cfg.ffn_dim, d), cfg.ffn_dim),
-            },
-        },
-        "final_norm": ones((d,)),
-        "lm_head": init((d, cfg.vocab_size), d),
-    }
+    return init(llama_param_specs(cfg))
 
 
 def unstack_layers(layers: dict, n_layers: int) -> list[dict]:

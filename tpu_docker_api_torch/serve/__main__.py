@@ -1,12 +1,14 @@
 """Inference-serving entry point of the port (counterpart of
 ``tpu_docker_api/serve/__main__.py``, Llama presets).
 
-    python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000
+    python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000 \
+        [--ckpt-dir CKPT | --hf-ckpt HF_DIR]
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny
 
 HTTP surface (stdlib server):
 
-    GET  /healthz   → {"status": "ok", "model": ..., "slotEngine": {...}}
+    GET  /healthz   → {"status": "ok", "model": ..., "step": ...,
+                       "slotEngine": {...}}
     GET  /metrics   → Prometheus text: serve_ttft_seconds and
                       serve_itl_seconds histograms per completed request,
                       serve_tokens_emitted_total, serve_requests_completed_total
@@ -21,9 +23,16 @@ HTTP surface (stdlib server):
 Requests stream through the continuous-batching slot engine
 (infer/slots.py) by default; rows in one body may be ragged, each row is
 its own request. ``--slots 0`` serves through ``make_generate_fn``
-instead, one generation at a time, with equal-length rows. Weights are
-random (``--seed``) — no checkpoint loading is ported yet. Runs on
-``cuda`` unless ``--device cpu`` is given.
+instead, one generation at a time, with equal-length rows.
+
+Weights: ``--ckpt-dir`` restores the params of a training checkpoint's
+latest step (params only; its step shows in ``/healthz``), ``--hf-ckpt``
+imports an HF-layout llama checkpoint (geometry from its
+``config.json``, the model's name from the directory's), and without
+either the weights are random (``--seed``). The two are exclusive.
+Projection fusion runs after the load. There is no tokenizer yet: a
+``{"text": ...}`` body answers 400 and ``--tokenizer`` is refused.
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -40,6 +49,11 @@ import torch
 
 from tpu_docker_api_torch import resolve_device
 from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
+
+#: why a text request or ``--tokenizer`` is refused
+TOKENIZER_NOT_PORTED = ("text needs a tokenizer, which is not in the "
+                        "PyTorch package yet; it comes with ROADMAP Queue 1 "
+                        "item 3, the tokenizer (send token ids)")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -61,7 +75,20 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="torch device to serve on (cuda, cuda:N or cpu)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
-    return p.parse_args(argv)
+    p.add_argument("--ckpt-dir", default="",
+                   help="training checkpoint to serve (its latest step, "
+                        "params only); '' serves random weights")
+    p.add_argument("--hf-ckpt", default="",
+                   help="HF-layout llama checkpoint dir (config.json + "
+                        "safetensors); its config.json sets the geometry "
+                        "and --preset is ignored")
+    p.add_argument("--tokenizer", default="", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.tokenizer:
+        p.error(f"--tokenizer: {TOKENIZER_NOT_PORTED}")
+    if args.hf_ckpt and args.ckpt_dir:
+        p.error("--hf-ckpt and --ckpt-dir are exclusive")
+    return args
 
 
 def _as_int(value, field: str) -> int:
@@ -85,11 +112,29 @@ class Server:
 
         self.args = args
         self.device = resolve_device(args.device)
-        _, cfg = resolve_preset(args.preset)
+        #: the checkpoint step served (0 for HF and random weights)
+        self.step = 0
+        if args.hf_ckpt:
+            from tpu_docker_api_torch.models.import_weights import (
+                hf_llama_config, import_hf_llama)
+
+            cfg = hf_llama_config(args.hf_ckpt)
+            args.preset = os.path.basename(os.path.normpath(args.hf_ckpt))
+            _, params = import_hf_llama(args.hf_ckpt, cfg,
+                                        device=self.device)
+        else:
+            _, cfg = resolve_preset(args.preset)
+            if args.ckpt_dir:
+                from tpu_docker_api_torch.train.checkpoint import (
+                    restore_model_params)
+
+                params, self.step = restore_model_params(
+                    args.ckpt_dir, cfg, self.device)
+            else:
+                init_fn, _, _ = model_fns(cfg)
+                params = init_fn(cfg, torch.Generator(
+                    device=self.device).manual_seed(args.seed))
         self.cfg = cfg
-        init_fn, _, _ = model_fns(cfg)
-        gen = torch.Generator(device=self.device).manual_seed(args.seed)
-        params = init_fn(cfg, gen)
         if not args.no_fuse_proj:
             params = fuse_llama_projections(params)
         self.params = params
@@ -195,7 +240,8 @@ def _make_handler(srv: Server):
             if self.path != "/healthz":
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
-            payload = {"status": "ok", "model": srv.args.preset, "step": 0,
+            payload = {"status": "ok", "model": srv.args.preset,
+                       "step": srv.step,
                        "quantized": False, "device": str(srv.device),
                        "devices": (torch.cuda.device_count()
                                    if srv.device.type == "cuda" else 1)}
@@ -230,6 +276,8 @@ def _make_handler(srv: Server):
             req = json.loads(self.rfile.read(length) or b"{}")
             if not isinstance(req, dict):
                 raise ValueError("body must be a JSON object")
+            if "text" in req:
+                raise ValueError(TOKENIZER_NOT_PORTED)
             prompts = req.get("tokens")
             if not prompts or not all(valid_token_row(r) for r in prompts):
                 raise ValueError(

@@ -2,22 +2,37 @@
 ``tpu_docker_api/train/__main__.py``, Llama presets, one device).
 
     python -m tpu_docker_api_torch.train --preset llama3-1b --steps 20 \
-        --batch 4 --seq 2048 --optim adamw-int8
+        --batch 4 --seq 2048 --optim adamw-int8 --ckpt-dir CKPT \
+        --save-every 10 [--data TOKENS.bin]
     python -m tpu_docker_api_torch.train --device cpu --preset tiny --steps 3
 
-Trains on synthetic tokens from random weights (``--seed``). Runs on
-``cuda`` unless ``--device cpu`` is given; without a card the default
-raises. Contracts kept from the JAX entry point:
+Trains on a token file (``--data``, data/loader.py) or on synthetic
+tokens, from random weights (``--seed``) or from the latest checkpoint in
+``--ckpt-dir``. Runs on ``cuda`` unless ``--device cpu`` is given;
+without a card the default raises. Contracts kept from the JAX entry
+point:
 
-- **Quiesce**: SIGTERM/SIGINT stops after the current step with
-  ``{"event": "quiesced", "step": N}`` and exit 0.
-- One JSON line per log interval, ``{"step", "loss", "tokens_per_sec"}``,
-  then ``{"event": "done", "step": N}``. The loss is read from the
-  device only at those lines, so steps are not synchronised one by one.
-- ``--profile-dir`` traces ``--profile-steps`` steps after the first
-  with ``torch.profiler``, writes ``trace.json`` there and prints
-  ``{"event": "profile_written", ...}`` with the window's device time by
-  kernel class and its idle share (telemetry/profile.py).
+- **Resume**: boots through ``resume_or_init``: a fresh ``--ckpt-dir``
+  trains from step 0, one with checkpoints from its latest step (after
+  ``{"event": "resumed", "step": N, "restore_s": ...}``), and the loop
+  runs ``range(start_step, steps)``. A batch is a pure function of
+  the step (``make_batch_fn`` for ``--data``, ``step_generator`` for
+  synthetic tokens), so a resumed run reads the batches the stopped run
+  would have read.
+- **Quiesce**: SIGTERM/SIGINT stops after the current step, saves it,
+  waits for the save to be on disk, prints ``{"event": "quiesced",
+  "step": N}`` and exits 0.
+- One JSON line per log interval, ``{"step", "loss", "tokens_per_sec"}``
+  (tokens/s over this run's steps), one ``{"event": "saved", ...}``
+  line for each checkpoint written (step, bytes, the step loop's
+  blocked seconds and the writer's), then ``{"event": "done", "step":
+  N}`` after a final save. The loss is read from the device only at
+  log lines, so steps are not synchronised one by one.
+- ``--profile-dir`` traces ``--profile-steps`` steps from
+  ``start_step + 1`` with ``torch.profiler``, writes ``trace.json``
+  there and prints ``{"event": "profile_written", ...}`` with the
+  window's device time by kernel class and its idle share
+  (telemetry/profile.py).
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -37,10 +52,6 @@ import torch
 
 #: JAX-CLI flags the port does not take yet → why, and what brings them
 _NOT_PORTED = {
-    "it comes with checkpoints (ROADMAP Queue 1)": ("ckpt_dir",
-                                                     "save_every"),
-    "it comes with the --data token loader (ROADMAP Queue 1)": (
-        "data", "data_seed", "data_dtype"),
     "it comes with LoRA/QLoRA (ROADMAP Queue 1)": (
         "lora_rank", "lora_alpha", "lora_targets", "lora_base_ckpt",
         "lora_forward", "qlora"),
@@ -65,7 +76,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "int8 (csrc/adam8.cu on the card)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights and tokens")
+                   help="seed of the random weights and synthetic tokens")
+    p.add_argument("--data", default="",
+                   help="token file or directory (.bin/.npy, "
+                        "data/loader.py); '' trains on synthetic tokens")
+    p.add_argument("--data-seed", type=int, default=0)
+    p.add_argument("--data-dtype", default="",
+                   help=".bin token width; '' picks by vocab size "
+                        "(uint16 below 65536, else int32)")
+    p.add_argument("--ckpt-dir", default="",
+                   help="checkpoint directory to resume from and save to; "
+                        "'' disables checkpointing")
+    p.add_argument("--save-every", type=int, default=50)
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda (the default) raises without "
                         "a card")
@@ -98,8 +120,10 @@ def main(argv: list[str] | None = None) -> int:
     from tpu_docker_api_torch import resolve_device
     from tpu_docker_api_torch.models import resolve_preset
     from tpu_docker_api_torch.telemetry.profile import device_time_summary
+    from tpu_docker_api_torch.train.checkpoint import resume_or_init
     from tpu_docker_api_torch.train.trainer import (create_train_state,
                                                     make_train_step,
+                                                    step_generator,
                                                     synthetic_batch)
 
     device = resolve_device(args.device)
@@ -117,11 +141,38 @@ def main(argv: list[str] | None = None) -> int:
 
         opt = adamw_int8()
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state, optimizer = create_train_state(cfg, device, gen, optimizer=opt)
+    mgr = None
+    if args.ckpt_dir:
+        t_boot = time.perf_counter()
+        state, optimizer, mgr = resume_or_init(args.ckpt_dir, cfg, device,
+                                               gen, optimizer=opt)
+        if state.step:
+            print(json.dumps({"event": "resumed", "step": state.step,
+                              "restore_s": time.perf_counter() - t_boot}),
+                  flush=True)
+    else:
+        state, optimizer = create_train_state(cfg, device, gen,
+                                              optimizer=opt)
     step_fn = make_train_step(cfg, optimizer)
-    data_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    start_step = state.step
 
-    # quiesce contract: graceful stop ⇒ exit 0 after the current step
+    if args.data:
+        from tpu_docker_api_torch.data import make_batch_fn, open_token_files
+
+        bin_dtype = args.data_dtype or (
+            "int32" if cfg.vocab_size > 65535 else "uint16")
+        source = open_token_files(args.data, window=seq + 1,
+                                  bin_dtype=bin_dtype)
+        batch_at = make_batch_fn(source, args.batch, seed=args.data_seed)
+
+        def get_batch(i):
+            return torch.from_numpy(batch_at(i)).long()
+    else:
+        def get_batch(i):
+            return synthetic_batch(step_generator(args.seed + 1, i, device),
+                                   args.batch, seq, cfg.vocab_size)
+
+    # quiesce contract: graceful stop ⇒ checkpoint ⇒ exit 0
     stop = {"now": False}
 
     def _quiesce(signum, _frame):
@@ -130,13 +181,23 @@ def main(argv: list[str] | None = None) -> int:
     signal.signal(signal.SIGTERM, _quiesce)
     signal.signal(signal.SIGINT, _quiesce)
 
+    def _save(final: bool = False) -> None:
+        if mgr is None:
+            return
+        mgr.save(state)
+        if final:
+            mgr.wait()
+            for rec in mgr.history:
+                print(json.dumps({"event": "saved", **rec}), flush=True)
+
     def _sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    # trace a window of steps after the first (cuBLAS handles, allocator
-    # pools and kernel builds land in the first)
-    profile_at = min(1, args.steps - 1) if args.profile_dir else -1
+    # trace a window of steps after the first of this run (cuBLAS
+    # handles, allocator pools and kernel builds land in the first)
+    profile_at = (min(start_step + 1, args.steps - 1) if args.profile_dir
+                  else -1)
     prof, prof_t0 = None, 0.0
 
     def _stop_profile():
@@ -154,36 +215,44 @@ def main(argv: list[str] | None = None) -> int:
 
     tokens_per_step = args.batch * seq
     t0 = time.monotonic()
-    for i in range(args.steps):
-        if i == profile_at:
-            _sync()
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.start()
-            prof_t0 = time.perf_counter()
-        tokens = synthetic_batch(data_gen, args.batch, seq, cfg.vocab_size)
-        state, metrics = step_fn(state, tokens)
-        if prof is not None and i >= profile_at + args.profile_steps - 1:
-            _stop_profile()
-        done = i + 1  # host counter: no device read per step
-        if stop["now"]:
-            if prof is not None:
+    try:
+        for i in range(start_step, args.steps):
+            if i == profile_at:
+                _sync()
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+                prof_t0 = time.perf_counter()
+            state, metrics = step_fn(state, get_batch(i))
+            if prof is not None and i >= profile_at + args.profile_steps - 1:
                 _stop_profile()
-            print(json.dumps({"event": "quiesced", "step": done}),
-                  flush=True)
-            return 0
-        if done % args.log_every == 0 or done == args.steps:
-            loss = float(metrics["loss"])
-            dt = time.monotonic() - t0
-            print(json.dumps({
-                "step": done,
-                "loss": round(loss, 4),
-                "tokens_per_sec": round(done * tokens_per_step / dt, 1),
-            }), flush=True)
-    if prof is not None:  # the window outran the step budget
-        _stop_profile()
+            done = i + 1  # host counter: no device read per step
+            if stop["now"]:
+                if prof is not None:
+                    _stop_profile()
+                _save(final=True)
+                print(json.dumps({"event": "quiesced", "step": done}),
+                      flush=True)
+                return 0
+            if done % args.log_every == 0 or done == args.steps:
+                loss = float(metrics["loss"])
+                dt = time.monotonic() - t0
+                print(json.dumps({
+                    "step": done,
+                    "loss": round(loss, 4),
+                    "tokens_per_sec": round(
+                        (done - start_step) * tokens_per_step / dt, 1),
+                }), flush=True)
+            if done % args.save_every == 0:
+                _save()
+        if prof is not None:  # the window outran the step budget
+            _stop_profile()
+        _save(final=True)
+    finally:
+        if mgr is not None:
+            mgr.close()
     print(json.dumps({"event": "done", "step": state.step}), flush=True)
     return 0
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from tpu_docker_api_torch.models import model_fns
@@ -100,3 +101,14 @@ def synthetic_batch(generator: torch.Generator, batch: int, seq: int,
     (the data layer for the smoke run and tests)."""
     return torch.randint(0, vocab, (batch, seq + 1), generator=generator,
                          device=generator.device)
+
+
+def step_generator(seed: int, step: int,
+                   device: str | torch.device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)`` alone, so a
+    step's batch is a pure function of the two, as the JAX trainer's
+    ``synthetic_batch(PRNGKey(step), ...)``: a run resumed at step N
+    draws the batch the stopped run would have drawn at step N."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(
+        int(mixed[0]) & (2**63 - 1))
