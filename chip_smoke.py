@@ -26,7 +26,16 @@ Phases, one JSON line each; any failure exits non-zero:
               before and read just after; each kernel of the path must
               have launched. The first-token logits of one prompt through
               the kernel path are held against a plain-path forward.
-5. train    — the trainer's entry points at llama3-1b full width and depth,
+5. serve_int8_text — the server with ``--quantize --tokenizer`` at
+              llama3-1b full width and depth (``phase_serve_int8_text``):
+              int8 projections quantized after the load, a Llama-3-shaped
+              ``tokenizer.json`` this script writes, the serve phase's
+              burst as ids, a text request and a streamed one; int8
+              bytes, /healthz, flash launches, ``torch._int_mm`` exact on
+              the card, the tokenizer's round trip, and the int8 logits'
+              cosine to the bf16 model's; launches and device time of one
+              decode step on each tree.
+6. train    — the trainer's entry points at llama3-1b full width and depth,
               batch 4 x 2048, random weights from a seed: 4 steps under
               ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
               the counts zeroed just before and read just after each run.
@@ -37,7 +46,7 @@ Phases, one JSON line each; any failure exits non-zero:
               loss matches the dense one. Then the command-line trainer
               in process with ``--profile-dir`` for where a step's time
               goes.
-6. lifecycle — train → checkpoint → resume → export → serve at llama3-1b
+7. lifecycle — train → checkpoint → resume → export → serve at llama3-1b
               full width and depth through the command-line entry points
               (``phase_lifecycle``): a resumed run and a SIGTERM-quiesced
               one must equal an uninterrupted run, and ``--hf-ckpt`` and
@@ -815,6 +824,471 @@ def phase_serve(dev) -> dict:
         thread.join(timeout=30)
 
 
+#: Llama-3's vocabulary: 128,000 BPE tokens, then 256 special tokens
+LLAMA3_SPECIAL_BASE, LLAMA3_VOCAB = 128000, 128256
+
+
+def write_llama3_shaped_tokenizer(path: str,
+                                  vocab_size: int = LLAMA3_VOCAB,
+                                  n_special: int = 256) -> str:
+    """A ``tokenizer.json`` in Llama-3's shape, made without a download:
+    the Split (Llama-3's pattern) + ByteLevel pre-tokenizer, a BPE model
+    with ``ignore_merges``, a TemplateProcessing that prepends
+    ``<|begin_of_text|>``, and the ByteLevel decoder. Ids 0-255 are the
+    256 byte characters in byte order; ids up to ``vocab_size -
+    n_special - 1`` come from deterministic merges; the last
+    ``n_special`` ids are special tokens (``<|begin_of_text|>``,
+    ``<|end_of_text|>``, then reserved ones).
+
+    The merges, in rank order: every UTF-8 lead byte of the CJK and
+    emoji blocks with every continuation byte, then ASCII pairs (space,
+    letters, digits, punctuation, newline) with lowercase letters and
+    digits, then each merged token in the order it was made, extended by
+    a lowercase letter, a digit or a continuation byte, until the
+    vocabulary is full."""
+    from tpu_docker_api_torch.models.tokenizer import (LLAMA3_PATTERN,
+                                                       bytes_to_unicode)
+
+    b2u = bytes_to_unicode()
+    tokens = [b2u[b] for b in range(256)]
+    n_bpe = vocab_size - n_special
+    seen = set(tokens)
+    merges: list[list[str]] = []
+
+    def add(a: str, b: str) -> bool:
+        if len(tokens) >= n_bpe or a + b in seen:
+            return len(tokens) < n_bpe
+        seen.add(a + b)
+        tokens.append(a + b)
+        merges.append([a, b])
+        return len(tokens) < n_bpe
+
+    cont = [b2u[b] for b in range(0x80, 0xC0)]
+    lower = [b2u[b] for b in b"abcdefghijklmnopqrstuvwxyz0123456789"]
+    heads = [b2u[b] for b in b" \nabcdefghijklmnopqrstuvwxyz"
+             b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,'-"]
+    for lead in [b2u[b] for b in (0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9,
+                                  0xF0)]:
+        for c in cont:
+            add(lead, c)
+    for a in heads:
+        for b in lower:
+            add(a, b)
+    i = 256
+    while len(tokens) < n_bpe:
+        t = tokens[i]
+        tail = cont if t[0] in {b2u[0xE3], b2u[0xF0]} | set(
+            b2u[b] for b in range(0xE4, 0xEA)) else lower
+        for c in tail:
+            if not add(t, c):
+                break
+        i += 1
+    names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{k}|>" for k in range(n_special - 2)]
+    added = [{"id": n_bpe + k, "content": name, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for k, name in enumerate(names)]
+    bos = {"id": names[0], "ids": [n_bpe], "tokens": [names[0]]}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": names[0], "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": names[0], "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": names[0], "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {names[0]: bos}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": {t: i for i, t in enumerate(tokens)},
+                  "merges": merges},
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return path
+
+
+TOKENIZER_PATH = "build/tokenizer/tokenizer.json"
+#: the text request: ASCII, accented Latin, CJK with emoji, digits with
+#: newlines
+INT8_TEXTS = [
+    "The quick brown fox jumps over the lazy dog; it's 42 degrees outside.",
+    "Crème brûlée, naïve façade — déjà vu à São Paulo, Zürich et Kraków.",
+    "東京タワーの夜景はとても綺麗です 🚀🔥 一緒に行きましょう 😀👍",
+    "0123456789\n\n3141592653 5897932384\n2718281828 4590452353\n",
+]
+INT8_COSINE_MIN = 0.98  # tests/test_quant.py's bound
+
+
+def _get(port: int, path: str) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    body = json.loads(conn.getresponse().read())
+    conn.close()
+    return body
+
+
+def _llama_weight_bytes(cfg) -> tuple[int, int]:
+    """(int8-serving bytes, bf16 bytes) of a Llama tree from its shapes:
+    int8 projections and head with one f32 scale an output channel, the
+    embedding and norms in bf16."""
+    from tpu_docker_api_torch.models import param_shapes
+
+    shapes = param_shapes(cfg)
+    projections = [*shapes["layers"]["attn"].values(),
+                   *shapes["layers"]["mlp"].values(), shapes["lm_head"]]
+    rest = [shapes["embed"]["tokens"], shapes["layers"]["attn_norm"],
+            shapes["layers"]["mlp_norm"], shapes["final_norm"]]
+    int8 = sum(math.prod(s) + 4 * math.prod(s[:-2] + s[-1:])
+               for s in projections) + sum(2 * math.prod(s) for s in rest)
+    return int8, sum(2 * math.prod(s) for s in projections + rest)
+
+
+def _decode_step_profile(dev, cfg, params, rows: int = 8) -> dict:
+    """One decode step (``rows`` slots, one token each, per-row positions):
+    its median host-clocked time over 10 steps, and one step under
+    ``torch.profiler``: its kernel launches, device busy time, and the
+    idle share of the traced window and of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_docker_api_torch.models.llama import llama_forward_cached
+    from tpu_docker_api_torch.telemetry.profile import device_time_summary
+
+    shape = (cfg.n_layers, rows, 256, cfg.n_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    vc = torch.zeros_like(kc)
+    tok = torch.arange(rows, device=dev)[:, None] + 1000
+    pos = torch.full((rows,), 100, device=dev)
+
+    def step():
+        with torch.no_grad():
+            llama_forward_cached(params, tok, cfg, kc, vc, pos)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    # host-clocked steps without the profiler (its own host cost inflates
+    # the traced window)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = sorted(times)[len(times) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_time_summary(prof, wall, top=6)
+    out = {k: summary.get(k) for k in ("kernel_events", "window_ms",
+                                       "busy_ms", "idle_share",
+                                       "ms_by_class", "top_kernels")}
+    out["step_ms_median"] = step_ms
+    if out["busy_ms"] is not None:
+        out["idle_share_unprofiled"] = max(0.0, 1 - out["busy_ms"] / step_ms)
+    return out
+
+
+def _kernels_per_call(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _int_mm_checks(dev) -> dict:
+    """``torch._int_mm`` through ``ops.quant.int8_matmul`` on the card, at
+    a decode-shaped (8 rows, padded) and a prefill-shaped product of
+    llama3-1b's widths, against an exact reference: the same int8
+    operands in f64 (every product and partial sum is an integer below
+    2^53, so f64 holds them exactly), as int64."""
+    from tpu_docker_api_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, (m, k, n) in (("decode", (8, 2048, 3072)),
+                            ("prefill", (1900, 2048, 8192))):
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = quant.quantize_weight(torch.randn(k, n, generator=g,
+                                              device=dev)).w_int8
+        got = quant.int8_matmul(a, w)
+        torch.cuda.synchronize()
+        want = (a.double() @ w.double()).long()
+        equal = bool(torch.equal(got.long(), want))
+        # the weight as QuantizedLinear stores it (column-major) against
+        # a row-major copy, and a bf16 product of the same shape
+        w_rows = w.contiguous()
+        ab, wb = a.bfloat16(), w.bfloat16()
+        out[name] = {"shape": [m, k, n], "bit_equal": equal,
+                     "ms": cuda_ms(lambda: quant.int8_matmul(a, w), 50),
+                     "ms_row_major_weight": cuda_ms(
+                         lambda: quant.int8_matmul(a, w_rows), 50),
+                     "bf16_mm_ms": cuda_ms(lambda: ab @ wb, 50)}
+        if not equal:
+            raise AssertionError(f"torch._int_mm {name} {[m, k, n]} is not "
+                                 f"exact: {out[name]}")
+    # the row rule the padding answers: torch._int_mm itself at 16 and 17
+    # rows
+    rule = {}
+    for m in (16, 17):
+        a = torch.ones((m, 64), dtype=torch.int8, device=dev)
+        try:
+            torch._int_mm(a, torch.ones((64, 64), dtype=torch.int8,
+                                        device=dev))
+            rule[m] = "ok"
+        except RuntimeError as e:
+            rule[m] = str(e).splitlines()[0][:160]
+    out["rows_rule"] = rule
+    return out
+
+
+def phase_serve_int8_text(dev, bf16: dict) -> dict:
+    """int8 serving with the tokenizer at llama3-1b full width and depth:
+    ``--quantize --tokenizer`` on a Llama-3-shaped ``tokenizer.json``
+    this script writes (``write_llama3_shaped_tokenizer``), random
+    weights from seed 0 (the bf16 phase's, quantized after the load).
+    The bf16 phase's 8-prompt greedy burst as ids, one text request of
+    ``INT8_TEXTS``, one streamed text request, and one prompt twice; the
+    flash_fwd count zeroed just before and read just after. Checks: int8
+    leaves and their bytes, /healthz, flash launches, determinism, the
+    stream against greedy, "texts" and the done line's "text", the
+    tokenizer's round trip and a decode of every id, ``torch._int_mm``
+    exact on the card, and the int8 logits' cosine to the bf16 model's."""
+    from tpu_docker_api_torch.infer.quantize import quantized_bytes
+    from tpu_docker_api_torch.models.llama import llama_forward, llama_init
+    from tpu_docker_api_torch.models.tokenizer import load_tokenizer
+    from tpu_docker_api_torch.ops import flash, quant
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    t0 = time.perf_counter()
+    write_llama3_shaped_tokenizer(TOKENIZER_PATH)
+    write_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = Server(parse_args(["--preset", "llama3-1b", "--quantize",
+                             "--tokenizer", TOKENIZER_PATH,
+                             "--max-seq", "2048", "--slots", "8",
+                             "--chunk", "8", "--seed", "0",
+                             "--host", "127.0.0.1", "--port", "0"]))
+    setup_s = time.perf_counter() - t0
+    port = srv.httpd.server_address[1]
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    cfg, eng, tok = srv.cfg, srv.engine, srv.tokenizer
+    vocab = cfg.vocab_size
+    try:
+        layers = srv.params["layers"]
+        leaves = [*layers["attn"].values(), *layers["mlp"].values(),
+                  srv.params["lm_head"]]
+        if not all(isinstance(q, quant.QuantizedLinear) for q in leaves):
+            raise AssertionError("a projection of the served tree is not "
+                                 "int8")
+        want_int8, want_bf16 = _llama_weight_bytes(cfg)
+        served_bytes = quantized_bytes(srv.params)
+        if served_bytes != want_int8:
+            raise AssertionError(f"int8 tree holds {served_bytes} bytes, "
+                                 f"its shapes say {want_int8}")
+        health = _get(port, "/healthz")
+        if not (health["quantized"] is True and health["tokenizer"] is True):
+            raise AssertionError(f"/healthz: {health}")
+        _check_reply(*_post(port, {"tokens": [[1, 2, 3]],
+                                   "maxNewTokens": 2}), 1, 2, vocab)
+        g = torch.Generator().manual_seed(0)
+        lengths = [17, 40, 100, 250, 511, 700, 1300, 1900]
+        prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
+                   for n in lengths]
+        max_new = 32
+
+        # ---- the main path: counts zeroed just before, read just after
+        eng.reset_latency_stats()
+        prefills0 = eng.stats["prefills"]
+        emitted0 = eng.stats["emitted_tokens"]
+        flash.reset_launch_count()
+        replies: list = [None] * len(prompts)
+
+        def client(i):
+            replies[i] = _post(port, {"tokens": [prompts[i]],
+                                      "maxNewTokens": max_new})
+
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        latency = eng.latency_stats()
+        emitted = eng.stats["emitted_tokens"] - emitted0
+        for r in replies:
+            _check_reply(*r, 1, max_new, vocab)
+
+        eng.reset_latency_stats()
+        code, data = _post(port, {"text": INT8_TEXTS,
+                                  "maxNewTokens": max_new})
+        text_latency = eng.latency_stats()
+        text_body = _check_reply(code, data, len(INT8_TEXTS), max_new, vocab)
+        code, data = _post(port, {"text": [INT8_TEXTS[0]],
+                                  "maxNewTokens": 16, "stream": True})
+        lines = [json.loads(ln) for ln in data.decode().splitlines() if ln]
+        streamed = [ln["t"] for ln in lines[:-1]]
+        solo = [_check_reply(*_post(port, {"text": [INT8_TEXTS[0]],
+                                           "maxNewTokens": 16}),
+                             1, 16, vocab) for _ in range(2)]
+        launches = flash.launch_count["flash_fwd"]
+        prefills = eng.stats["prefills"] - prefills0
+        # ---- end of the main path
+
+        if launches < cfg.n_layers * prefills or launches == 0:
+            raise AssertionError(f"{launches} flash launches for "
+                                 f"{prefills} prefill groups")
+        if solo[0]["tokens"] != solo[1]["tokens"]:
+            raise AssertionError("same greedy prompt gave different tokens")
+        if (code != 200 or not lines[-1].get("done")
+                or not isinstance(lines[-1].get("text"), str)
+                or streamed != solo[0]["tokens"][0][:len(streamed)]
+                or lines[-1]["length"] != len(streamed)):
+            raise AssertionError(f"bad text stream: {code} {lines[-2:]}, "
+                                 f"greedy {solo[0]['tokens'][0]}")
+        if lines[-1]["text"] != solo[0]["texts"][0]:
+            raise AssertionError("the stream's text differs from greedy's")
+        texts = text_body.get("texts")
+        if not (isinstance(texts, list) and len(texts) == len(INT8_TEXTS)
+                and all(isinstance(t, str) for t in texts)):
+            raise AssertionError(f"no texts in the reply: {text_body}")
+
+        # the tokenizer: a round trip of the four strings (byte-level BPE
+        # is lossless), a decode of every id, and its encode cost
+        fresh = load_tokenizer(TOKENIZER_PATH)
+        enc = {}
+        for phase_name in ("cold", "warm"):
+            t0 = time.perf_counter()
+            ids = [fresh.encode(t) for t in INT8_TEXTS]
+            enc[phase_name] = time.perf_counter() - t0
+        round_trip = [fresh.decode(i[1:]) == t and i[0] == fresh._tok.added[
+            "<|begin_of_text|>"] for i, t in zip(ids, INT8_TEXTS)]
+        if not all(round_trip):
+            raise AssertionError(f"tokenizer round trip: {round_trip}")
+        if ids != [tok.encode(t) for t in INT8_TEXTS]:
+            raise AssertionError("two loads of one tokenizer disagree")
+        t0 = time.perf_counter()
+        every = fresh.decode(list(range(LLAMA3_VOCAB)))
+        decode_all_s = time.perf_counter() - t0
+        n_bytes = sum(len(t.encode()) for t in INT8_TEXTS)
+        encode_ms = enc["cold"] * 1e3
+        text_ttft = text_latency["ttft_p50_ms"]
+
+        int_mm = _int_mm_checks(dev)
+
+        # the int8 model's logits against the bf16 model's: same seed,
+        # one 256-token prompt, every position
+        bf16_params = llama_init(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0))
+        prompt = torch.tensor([prompts[4][:256]], device=dev)
+        with torch.no_grad():
+            ref = llama_forward(bf16_params, prompt, cfg)[0]
+            got = llama_forward(srv.params, prompt, cfg)[0]
+        if not (torch.isfinite(got).all() and got.shape == (256, vocab)):
+            raise AssertionError("int8 logits not finite or misshapen")
+        cos = torch.nn.functional.cosine_similarity(ref, got, dim=-1)
+        argmax_equal = (ref.argmax(-1) == got.argmax(-1)).float().mean()
+        if cos.min() < INT8_COSINE_MIN:
+            raise AssertionError(f"int8 logits cosine {cos.min().item()} "
+                                 f"< {INT8_COSINE_MIN}")
+        del ref, got
+
+        # launches of one decode step (8 slots) on each tree, and of one
+        # int8 projection at the decode shape
+        from tpu_docker_api_torch.infer.quantize import (
+            fuse_llama_projections)
+
+        bf16_fused = fuse_llama_projections(bf16_params)
+        step_int8 = _decode_step_profile(dev, cfg, srv.params)
+        step_bf16 = _decode_step_profile(dev, cfg, bf16_fused)
+        x = torch.randn(8, 1, cfg.dim, device=dev, dtype=cfg.dtype)
+        w_qkv = layers["attn"]["w_qkv"].unbind(0)[0]
+        per_int8_linear = _kernels_per_call(lambda: quant.linear(x, w_qkv))
+        per_bf16_linear = _kernels_per_call(lambda: quant.linear(
+            x, bf16_fused["layers"]["attn"]["w_qkv"][0]))
+        n_linears = 4 * cfg.n_layers + 1
+        del bf16_params, bf16_fused
+        torch.cuda.empty_cache()
+
+        result = {
+            "phase": "serve_int8_text", "preset": srv.args.preset,
+            "quantized": True, "tokenizer": TOKENIZER_PATH,
+            "tokenizer_write_s": write_s, "setup_s": setup_s,
+            "weight_bytes_int8": served_bytes,
+            "weight_bytes_bf16": want_bf16,
+            "slots": eng.slots, "chunk": eng.chunk,
+            "prompt_lengths": lengths, "max_new_tokens": max_new,
+            "wall_s": wall, "ttft_p50_ms": latency["ttft_p50_ms"],
+            "itl_p50_ms": latency["itl_p50_ms"],
+            "decode_tok_s": emitted / wall, "emitted_tokens": emitted,
+            "bf16_phase": {k: bf16[k] for k in ("ttft_p50_ms", "itl_p50_ms",
+                                                "decode_tok_s",
+                                                "max_memory_allocated")},
+            "prefill_groups": prefills, "flash_launches": launches,
+            "text_request": {"rows": len(INT8_TEXTS),
+                             "ttft_p50_ms": text_ttft,
+                             "itl_p50_ms": text_latency["itl_p50_ms"],
+                             "texts": texts},
+            "stream_text": lines[-1]["text"],
+            "tokenizer_encode": {
+                "input_bytes": n_bytes, "ms_cold": encode_ms,
+                "us_per_byte_cold": enc["cold"] * 1e6 / n_bytes,
+                "us_per_byte_warm": enc["warm"] * 1e6 / n_bytes,
+                "share_of_text_ttft": (encode_ms / (encode_ms + text_ttft)
+                                       if text_ttft else None)},
+            "tokenizer_decode_all_ids_s": decode_all_s,
+            "tokenizer_decode_all_chars": len(every),
+            "round_trip": round_trip, "int_mm": int_mm,
+            "logits_cosine_min": cos.min().item(),
+            "logits_cosine_mean": cos.mean().item(),
+            "logits_cosine_tol": INT8_COSINE_MIN,
+            "logits_argmax_equal_share": argmax_equal.item(),
+            "kernels_per_linear_call": {"int8": per_int8_linear,
+                                        "bf16": per_bf16_linear},
+            "linear_launches_per_decode_step": {
+                "int8": per_int8_linear * n_linears,
+                "bf16": per_bf16_linear * n_linears},
+            "decode_step_int8": step_int8, "decode_step_bf16": step_bf16,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "card": nvidia_smi()}
+        emit(result)
+        return result
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+
+
 LIFECYCLE_DIR = "build/lifecycle"
 LIFECYCLE_WINDOWS = 72  # windows of seq + 1 tokens in the token file
 LIFECYCLE_MAX_NEW = 16
@@ -869,11 +1343,7 @@ def _serve_once(argv: list[str], prompt: list[int]) -> dict:
         body = _check_reply(*_post(srv.httpd.server_address[1], {
             "tokens": [prompt], "maxNewTokens": LIFECYCLE_MAX_NEW}),
             1, LIFECYCLE_MAX_NEW, srv.cfg.vocab_size)
-        conn = http.client.HTTPConnection(
-            "127.0.0.1", srv.httpd.server_address[1], timeout=60)
-        conn.request("GET", "/healthz")
-        health = json.loads(conn.getresponse().read())
-        conn.close()
+        health = _get(srv.httpd.server_address[1], "/healthz")
         return {"ready_s": ready_s, "tokens": body["tokens"][0],
                 "model": health["model"], "step": health["step"]}
     finally:
@@ -1132,11 +1602,13 @@ def main() -> int:
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
     serve_res = phase_serve(dev)
+    int8_res = phase_serve_int8_text(dev, serve_res)
     train_res = phase_train(dev)
     life_res = phase_lifecycle(dev)
     train_n, life_n = train_res["launches"], life_res["launches"]
     by_path = {
         "flash_fwd": {"serve": serve_res["flash_launches"],
+                      "serve_int8_text": int8_res["flash_launches"],
                       "train": train_n["flash_fwd"],
                       "lifecycle": life_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name]}

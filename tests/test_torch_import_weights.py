@@ -254,9 +254,72 @@ def test_missing_tensor_names_it(jax_export, tmp_path):
         tiw.import_hf_llama(str(tmp_path), device="cpu")
 
 
-def test_quantize_at_load_is_refused_naming_the_roadmap(jax_export):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        tiw.import_hf_llama(jax_export, device="cpu", quantize=True)
+# ---------------------------------------------------------- int8 at load
+
+
+def _tied_export(jax_tiny, tmp_path, tie):
+    jcfg, jparams = jax_tiny
+    if tie:
+        jparams = {**jparams, "lm_head": jparams["embed"]["tokens"].T}
+    jiw.export_hf_llama(jparams, jcfg, str(tmp_path), tie_embeddings=tie)
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_quantize_at_load_equals_import_then_quantize(jax_tiny, tmp_path,
+                                                      tie):
+    from tpu_docker_api_torch.infer.quantize import quantize_llama_params
+    from tpu_docker_api_torch.ops.quant import QuantizedLinear
+
+    path = _tied_export(jax_tiny, tmp_path, tie)
+    _, q = tiw.import_hf_llama(path, device="cpu", quantize=True)
+    _, plain = tiw.import_hf_llama(path, device="cpu")
+    want = quantize_llama_params(plain)
+    flat_q, flat_w = dict(_named(q)), dict(_named(want))
+    assert flat_q.keys() == flat_w.keys()
+    for k in flat_w:
+        a, b = flat_q[k], flat_w[k]
+        assert type(a) is type(b), k
+        if isinstance(a, QuantizedLinear):
+            assert torch.equal(a.w_int8, b.w_int8), k
+            assert torch.equal(a.scale, b.scale), k
+            assert a.w_int8.stride(-2) == 1, k  # the card's layout
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_quantize_at_load_matches_jax(jax_tiny, tmp_path, tie):
+    """Both packages' int8-at-load imports of one checkpoint: the same
+    int8 weights and f32 scales, bit for bit."""
+    from tpu_docker_api_torch.ops.quant import QuantizedLinear
+
+    path = _tied_export(jax_tiny, tmp_path, tie)
+    _, q = tiw.import_hf_llama(path, device="cpu", quantize=True)
+    _, jq = jiw.import_hf_llama(path, quantize=True)
+    names = 0
+    for name, leaf in _named(q):
+        jleaf = jq
+        for part in name.strip("/").split("/"):
+            jleaf = jleaf[part]
+        if isinstance(leaf, QuantizedLinear):
+            np.testing.assert_array_equal(leaf.w_int8.numpy(),
+                                          np.asarray(jleaf.w_int8))
+            np.testing.assert_array_equal(leaf.scale.numpy(),
+                                          np.asarray(jleaf.scale))
+            names += 1
+        else:
+            np.testing.assert_array_equal(params_to_numpy(leaf),
+                                          np.asarray(jleaf, np.float32))
+    assert names == 8  # seven projections and the head
 
 
 # ---------------------------------------------------------- rope scaling

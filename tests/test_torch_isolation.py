@@ -1,9 +1,10 @@
 """The port stands alone: with ``jax``, ``tpu_docker_api`` and the
 packages the port's GPU hosts need not have (``safetensors``,
-``transformers``, ``orbax``) blocked on ``sys.meta_path``, every module of
-``tpu_docker_api_torch`` and ``chip_smoke.py`` import, and a tiny
-forward, train step, checkpoint save and restore, and HF export and
-import run on the CPU."""
+``transformers``, ``orbax``, ``tokenizers``, ``regex``) blocked on
+``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
+``chip_smoke.py`` import, and a tiny forward, train step, checkpoint
+save and restore, HF export and import (int8 at load too), and a
+tokenizer written by ``chip_smoke.py`` run on the CPU."""
 
 import os
 import subprocess
@@ -16,7 +17,7 @@ _CHILD = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
 
     BLOCKED = ("jax", "jaxlib", "tpu_docker_api", "safetensors",
-               "transformers", "orbax")
+               "transformers", "orbax", "tokenizers", "regex")
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -42,7 +43,8 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.train.__main__",
                    "tpu_docker_api_torch.train.checkpoint",
                    "tpu_docker_api_torch.data.loader",
-                   "tpu_docker_api_torch.models.import_weights"):
+                   "tpu_docker_api_torch.models.import_weights",
+                   "tpu_docker_api_torch.models.tokenizer"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -73,6 +75,14 @@ _CHILD = textwrap.dedent("""
         export_hf_llama(back.params, cfg, d + "/hf")
         _, params = import_hf_llama(d + "/hf", device="cpu")
         assert torch.equal(params["lm_head"], state.params["lm_head"])
+        _, qparams = import_hf_llama(d + "/hf", device="cpu", quantize=True)
+        assert llama_forward(qparams, torch.zeros(1, 5, dtype=torch.long),
+                             cfg).isfinite().all()
+        import chip_smoke
+        from tpu_docker_api_torch.models.import_weights import load_tokenizer
+        tok = load_tokenizer(chip_smoke.write_llama3_shaped_tokenizer(
+            d + "/tok/tokenizer.json", vocab_size=2000, n_special=4))
+        assert tok.decode(tok.encode("héllo 東京")[1:]) == "héllo 東京"
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED", len(names))
 """)

@@ -3,13 +3,17 @@
 torch cannot reproduce ``jax.random`` initialisation, so parameters
 cross as numpy arrays: the JAX param pytree (stacked ``(n_layers, …)``
 leaves, named as in ``tpu_docker_api/models/llama.py``) maps onto the
-port's param dict 1:1, leaf for leaf.
+port's param dict 1:1, leaf for leaf. An int8 leaf (the JAX
+``QuantizedLinear``, its children as numpy arrays) becomes the port's
+``QuantizedLinear`` of the same int8 weights and f32 scales.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tpu_docker_api_torch.ops.quant import QuantizedLinear
 
 
 def _to_tensor(arr, device, dtype):
@@ -28,10 +32,15 @@ def _to_tensor(arr, device, dtype):
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """Map a nested dict of numpy arrays (e.g. a JAX param pytree after
     ``np.asarray`` on each leaf) to torch tensors on ``device``.
-    ``dtype`` casts the floating-point leaves; None keeps each leaf's."""
+    ``dtype`` casts the floating-point leaves; None keeps each leaf's.
+    An int8 leaf (anything with ``w_int8`` and ``scale``, such as the
+    JAX ``QuantizedLinear``) keeps its int8 weights and f32 scales."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
+    if hasattr(tree, "w_int8") and hasattr(tree, "scale"):
+        return QuantizedLinear(_to_tensor(tree.w_int8, device, None),
+                               _to_tensor(tree.scale, device, None))
     return _to_tensor(tree, device, dtype)
 
 
@@ -72,9 +81,13 @@ def opt_state_from_numpy(state, device):
 def params_to_numpy(params):
     """The inverse map: a nested dict of numpy arrays on the host.
     bf16 leaves come back as float32 (exact: every bf16 is an f32), since
-    numpy has no bfloat16 of its own."""
+    numpy has no bfloat16 of its own. An int8 leaf comes back as a
+    ``QuantizedLinear`` of numpy arrays."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, QuantizedLinear):
+        return QuantizedLinear(params_to_numpy(params.w_int8),
+                               params_to_numpy(params.scale))
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -29,8 +29,17 @@ stores ``(out, in)``, the port ``(in, out)``):
         --ckpt-dir CKPT --preset llama3-1b --out EXPORT [--tie] [--device cpu]
 
 exports a training checkpoint of the port as ``model.safetensors`` and
-``config.json``. The tokenizer and int8-at-load quantization are not
-ported yet (ROADMAP Queue 1).
+``config.json``.
+
+Int8 at load (``import_hf_llama(quantize=True)``) streams layer by
+layer: each (out, in) tensor is read from the mapping, cast to the model
+dtype, quantized on the device with ``ops.quant.quantize_weight``'s math
+and written into preallocated stacked int8 and scale buffers, so no
+float copy of a stacked projection is ever held whole (the lm_head is
+read whole, then quantized, as in the JAX package). The cast comes first,
+so int8 at load equals "import, then ``quantize_llama_params``" bit for
+bit. ``Tokenizer`` and ``load_tokenizer`` are importable from here, as
+in the JAX package; they live in ``models/tokenizer.py``.
 """
 
 from __future__ import annotations
@@ -43,9 +52,12 @@ import struct
 
 import torch
 
+from tpu_docker_api_torch.models.tokenizer import Tokenizer, load_tokenizer
+from tpu_docker_api_torch.ops.quant import QuantizedLinear, quantize_weight
+
 __all__ = [
     "SafeTensorsFile", "HFCheckpoint", "save_file", "hf_llama_config",
-    "import_hf_llama", "export_hf_llama",
+    "import_hf_llama", "export_hf_llama", "Tokenizer", "load_tokenizer",
 ]
 
 #: safetensors dtype names ↔ torch dtypes the port reads and writes
@@ -54,11 +66,6 @@ _DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
            "I64": torch.int64}
 _NAMES = {v: k for k, v in _DTYPES.items()}
 _MAX_HEADER = 100 * 2**20  # the safetensors package's own bound
-
-#: what ``quantize=True`` waits for
-QUANTIZE_NOT_PORTED = ("int8 quantization at load is not in the PyTorch "
-                       "package yet; it comes with ROADMAP Queue 1 item 4 "
-                       "(int8 --quantize)")
 
 
 class SafeTensorsFile:
@@ -304,9 +311,9 @@ def import_hf_llama(path, cfg=None, *, device: str | torch.device = "cuda",
     the model dtype. ``cfg`` defaults to ``hf_llama_config(path)``; given
     explicitly, any tensor whose shape does not fit it raises with its
     name. Each stacked leaf is allocated once on the device and filled
-    layer by layer from the file's mapping."""
-    if quantize:
-        raise NotImplementedError(QUANTIZE_NOT_PORTED)
+    layer by layer from the file's mapping. With ``quantize`` every
+    projection and the lm_head load straight to int8
+    (``QuantizedLinear`` leaves; module docstring)."""
     device = torch.device(device)
     ckpt = path if isinstance(path, HFCheckpoint) else HFCheckpoint(path)
     if cfg is None:
@@ -335,11 +342,22 @@ def import_hf_llama(path, cfg=None, *, device: str | torch.device = "cuda",
     layers: dict = {"attn": {}, "mlp": {}}
     for key, suffix in _PROJS.items():
         fin, fout = shapes[key]
-        buf = new(L, fin, fout)
+        if quantize:
+            # int8 stored (out, in): QuantizedLinear's column-major layout
+            w8 = torch.empty((L, fout, fin), dtype=torch.int8, device=device)
+            sc = torch.empty((L, fout), dtype=torch.float32, device=device)
+        else:
+            buf = new(L, fin, fout)
         for i in range(L):
-            buf[i].copy_(get(f"model.layers.{i}.{suffix}.weight",
-                             (fout, fin)).T)
-        layers[key[0]][key[1]] = buf
+            w = get(f"model.layers.{i}.{suffix}.weight", (fout, fin)).T
+            if quantize:
+                q = quantize_weight(w.to(cfg.dtype))
+                w8[i].copy_(q.w_int8.T)
+                sc[i].copy_(q.scale)
+            else:
+                buf[i].copy_(w)
+        layers[key[0]][key[1]] = (QuantizedLinear(w8.transpose(-1, -2), sc)
+                                  if quantize else buf)
     for leaf, hf_name in _NORMS.items():
         buf = new(L, d)
         for i in range(L):
@@ -352,6 +370,8 @@ def import_hf_llama(path, cfg=None, *, device: str | torch.device = "cuda",
         head.copy_(get("lm_head.weight", (cfg.vocab_size, d)).T)
     else:  # tied embeddings: the output projection is the table's .T
         head.copy_(embed.T)
+    if quantize:
+        head = quantize_weight(head)
     final = new(d)
     final.copy_(get("model.norm.weight", (d,)))
     params = {"embed": {"tokens": embed},

@@ -35,7 +35,7 @@ from tpu_docker_api_torch.ops import flash
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
-from tpu_docker_api_torch.ops.quant import linear
+from tpu_docker_api_torch.ops.quant import QuantizedLinear, linear
 from tpu_docker_api_torch.ops.rope import (RopeScaling, apply_rope,
                                            rope_frequencies)
 from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
@@ -158,7 +158,9 @@ def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
     """Every layer's slice of the stacked per-layer tree (views), by one
     ``unbind`` per leaf: under autograd its backward stacks the layers'
     gradients in one pass, where indexing layer by layer would make a
-    full-size gradient of the stacked leaf for every layer."""
+    full-size gradient of the stacked leaf for every layer. A
+    ``QuantizedLinear`` leaf unbinds its int8 weight and its scales
+    together."""
     out = [{} for _ in range(n_layers)]
     for name, leaf in layers.items():
         parts = (unstack_layers(leaf, n_layers) if isinstance(leaf, dict)
@@ -412,9 +414,13 @@ def llama_loss(params: dict, tokens: torch.Tensor,
 
 
 def param_count(params: dict) -> int:
+    """Elements in the tree; an int8 leaf counts its weights and its
+    scales, as the JAX count over the pytree's leaves does."""
     def count(tree):
         if isinstance(tree, dict):
             return sum(count(v) for v in tree.values())
+        if isinstance(tree, QuantizedLinear):
+            return tree.w_int8.numel() + tree.scale.numel()
         return tree.numel()
 
     return count(params)

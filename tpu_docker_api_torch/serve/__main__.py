@@ -2,12 +2,13 @@
 ``tpu_docker_api/serve/__main__.py``, Llama presets).
 
     python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000 \
-        [--ckpt-dir CKPT | --hf-ckpt HF_DIR]
+        [--ckpt-dir CKPT | --hf-ckpt HF_DIR] [--quantize] [--tokenizer TOK]
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny
 
 HTTP surface (stdlib server):
 
     GET  /healthz   → {"status": "ok", "model": ..., "step": ...,
+                       "quantized": ..., "tokenizer": ...,
                        "slotEngine": {...}}
     GET  /metrics   → Prometheus text: serve_ttft_seconds and
                       serve_itl_seconds histograms per completed request,
@@ -19,6 +20,10 @@ HTTP surface (stdlib server):
         "stream": true (one prompt row, slot path only) answers with
         chunked ndjson: {"t": token} per token, then
         {"done": true, "length": n}.
+        With a tokenizer (--tokenizer, or the tokenizer.json of
+        --hf-ckpt), "text": ["..."] replaces the token rows: the reply
+        adds the decoded "texts" (a stream's done line its "text"), and
+        eosId defaults to the tokenizer's (an explicit eosId wins).
 
 Requests stream through the continuous-batching slot engine
 (infer/slots.py) by default; rows in one body may be ragged, each row is
@@ -30,9 +35,12 @@ latest step (params only; its step shows in ``/healthz``), ``--hf-ckpt``
 imports an HF-layout llama checkpoint (geometry from its
 ``config.json``, the model's name from the directory's), and without
 either the weights are random (``--seed``). The two are exclusive.
-Projection fusion runs after the load. There is no tokenizer yet: a
-``{"text": ...}`` body answers 400 and ``--tokenizer`` is refused.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+``--quantize`` serves int8 projections (ops/quant.py): with ``--hf-ckpt``
+they are quantized while they load, otherwise the loaded tree is
+quantized after; projection fusion runs after either. Flags of the JAX
+entry point that the port does not have yet are refused with the ROADMAP
+item that brings them. Runs on ``cuda`` unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -50,10 +58,19 @@ import torch
 from tpu_docker_api_torch import resolve_device
 from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
 
-#: why a text request or ``--tokenizer`` is refused
-TOKENIZER_NOT_PORTED = ("text needs a tokenizer, which is not in the "
-                        "PyTorch package yet; it comes with ROADMAP Queue 1 "
-                        "item 3, the tokenizer (send token ids)")
+#: JAX-CLI flags the port does not take yet → what brings them
+_NOT_PORTED = {
+    "it comes with LoRA serving (ROADMAP Queue 1 item 5)": (
+        "lora_ckpt", "lora_rank", "lora_alpha", "lora_targets",
+        "lora_forward"),
+    "it comes with the serving depth of ROADMAP Queue 1 item 6": (
+        "prefill_chunk", "page_size", "total_pages", "max_prefix_bytes",
+        "draft_preset", "draft_ckpt", "n_spec"),
+    "it comes with parallelism (ROADMAP Queue 1 item 9)": ("dp", "fsdp",
+                                                          "tp"),
+    "it selects a JAX platform; use --device": ("platform",
+                                                "virtual_devices"),
+}
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -82,10 +99,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="HF-layout llama checkpoint dir (config.json + "
                         "safetensors); its config.json sets the geometry "
                         "and --preset is ignored")
-    p.add_argument("--tokenizer", default="", help=argparse.SUPPRESS)
+    p.add_argument("--quantize", action="store_true",
+                   help="serve int8 projections (quantized while an "
+                        "--hf-ckpt loads, else after the load)")
+    p.add_argument("--tokenizer", default="",
+                   help="tokenizer.json, or a directory with one: "
+                        "/generate also takes {\"text\": [...]} and "
+                        "replies with decoded \"texts\". Defaults to "
+                        "--hf-ckpt's tokenizer.json when present")
+    for names in _NOT_PORTED.values():
+        for name in names:
+            p.add_argument("--" + name.replace("_", "-"),
+                           default=argparse.SUPPRESS, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.tokenizer:
-        p.error(f"--tokenizer: {TOKENIZER_NOT_PORTED}")
+    for why, names in _NOT_PORTED.items():
+        given = ["--" + n.replace("_", "-") for n in names if hasattr(args, n)]
+        if given:
+            p.error(f"{', '.join(given)}: not in the PyTorch package yet; "
+                    f"{why}")
     if args.hf_ckpt and args.ckpt_dir:
         p.error("--hf-ckpt and --ckpt-dir are exclusive")
     return args
@@ -106,7 +137,7 @@ class Server:
 
     def __init__(self, args: argparse.Namespace):
         from tpu_docker_api_torch.infer.quantize import (
-            fuse_llama_projections)
+            fuse_llama_projections, quantize_llama_params)
         from tpu_docker_api_torch.infer.slots import SlotEngine
         from tpu_docker_api_torch.models import model_fns, resolve_preset
 
@@ -121,7 +152,8 @@ class Server:
             cfg = hf_llama_config(args.hf_ckpt)
             args.preset = os.path.basename(os.path.normpath(args.hf_ckpt))
             _, params = import_hf_llama(args.hf_ckpt, cfg,
-                                        device=self.device)
+                                        device=self.device,
+                                        quantize=args.quantize)
         else:
             _, cfg = resolve_preset(args.preset)
             if args.ckpt_dir:
@@ -135,9 +167,20 @@ class Server:
                 params = init_fn(cfg, torch.Generator(
                     device=self.device).manual_seed(args.seed))
         self.cfg = cfg
+        if args.quantize and not args.hf_ckpt:  # --hf-ckpt loaded int8
+            params = quantize_llama_params(params)
         if not args.no_fuse_proj:
             params = fuse_llama_projections(params)
         self.params = params
+        tok_path = args.tokenizer
+        if not tok_path and args.hf_ckpt and os.path.exists(
+                os.path.join(args.hf_ckpt, "tokenizer.json")):
+            tok_path = args.hf_ckpt
+        self.tokenizer = None
+        if tok_path:
+            from tpu_docker_api_torch.models.tokenizer import load_tokenizer
+
+            self.tokenizer = load_tokenizer(tok_path)
         self.max_seq = args.max_seq or cfg.max_seq_len
         self.metrics = MetricsRegistry()
         self.engine = None
@@ -241,8 +284,9 @@ def _make_handler(srv: Server):
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
             payload = {"status": "ok", "model": srv.args.preset,
-                       "step": srv.step,
-                       "quantized": False, "device": str(srv.device),
+                       "step": srv.step, "quantized": srv.args.quantize,
+                       "tokenizer": srv.tokenizer is not None,
+                       "device": str(srv.device),
                        "devices": (torch.cuda.device_count()
                                    if srv.device.type == "cuda" else 1)}
             code = 200
@@ -276,9 +320,22 @@ def _make_handler(srv: Server):
             req = json.loads(self.rfile.read(length) or b"{}")
             if not isinstance(req, dict):
                 raise ValueError("body must be a JSON object")
-            if "text" in req:
-                raise ValueError(TOKENIZER_NOT_PORTED)
             prompts = req.get("tokens")
+            texts_in = req.get("text")
+            tok = srv.tokenizer
+            if texts_in is not None:
+                if tok is None:
+                    raise ValueError('"text" requires --tokenizer (or an '
+                                     '--hf-ckpt shipping a tokenizer.json)')
+                if prompts is not None:
+                    raise ValueError('"text" and token-id rows are '
+                                     'exclusive')
+                if (not isinstance(texts_in, list) or not texts_in
+                        or not all(isinstance(t, str) and t
+                                   for t in texts_in)):
+                    raise ValueError('"text" must be a non-empty list of '
+                                     'non-empty strings')
+                prompts = [tok.encode(t) for t in texts_in]
             if not prompts or not all(valid_token_row(r) for r in prompts):
                 raise ValueError(
                     "tokens must be a non-empty list of non-empty rows of "
@@ -301,6 +358,10 @@ def _make_handler(srv: Server):
             top_p = req_float("topP", 1.0)
             eos_id = (_as_int(req["eosId"], "eosId") if "eosId" in req
                       else None)
+            if eos_id is None and texts_in is not None:
+                # text requests stop at the tokenizer's eos by default;
+                # an explicit eosId wins
+                eos_id = tok.eos_id
             do_stream = req.get("stream", False)
             if not isinstance(do_stream, bool):
                 raise ValueError("stream must be a JSON boolean")
@@ -329,13 +390,18 @@ def _make_handler(srv: Server):
                     self._reply(503, {"error": str(e)})
                     return
                 if do_stream:
-                    self._stream(handles[0])
+                    self._stream(handles[0],
+                                 tok if texts_in is not None else None)
                     return
                 outs = [h.result(timeout=600) for h in handles]
-                self._reply(200, {
+                payload = {
                     "tokens": [o["tokens"] + [0] * (max_new - o["length"])
                                for o in outs],
-                    "lengths": [o["length"] for o in outs]})
+                    "lengths": [o["length"] for o in outs]}
+                if texts_in is not None:
+                    payload["texts"] = [tok.decode(o["tokens"][:o["length"]])
+                                        for o in outs]
+                self._reply(200, payload)
                 return
 
             if len({len(r) for r in prompts}) > 1:
@@ -350,10 +416,14 @@ def _make_handler(srv: Server):
                                   device=srv.device)
             with srv._gen_lock:
                 out = fn(srv.params, prompt, srv._rng)
-            self._reply(200, {"tokens": out["tokens"].tolist(),
-                              "lengths": out["lengths"].tolist()})
+            payload = {"tokens": out["tokens"].tolist(),
+                       "lengths": out["lengths"].tolist()}
+            if texts_in is not None:
+                payload["texts"] = [tok.decode(row[:n]) for row, n in zip(
+                    payload["tokens"], payload["lengths"])]
+            self._reply(200, payload)
 
-        def _stream(self, handle):
+        def _stream(self, handle, tok):
             # chunked ndjson; once headers are out an error must DROP the
             # connection (a second status line would poison the stream)
             self.send_response(200)
@@ -364,9 +434,12 @@ def _make_handler(srv: Server):
                 for t in handle.stream(timeout=600):
                     self._chunk(json.dumps({"t": t}).encode() + b"\n")
                 res = handle.result(0)
-                self._chunk(json.dumps({"done": True,
-                                        "length": res["length"]}).encode()
-                            + b"\n")
+                done = {"done": True, "length": res["length"]}
+                if tok is not None:
+                    # BPE pieces do not decode one id at a time: the whole
+                    # decoded text rides the done line
+                    done["text"] = tok.decode(res["tokens"][:res["length"]])
+                self._chunk(json.dumps(done).encode() + b"\n")
                 self.wfile.write(b"0\r\n\r\n")
             except Exception:  # noqa: BLE001
                 self.close_connection = True
@@ -384,6 +457,7 @@ def main(argv: list[str] | None = None) -> None:
     signal.signal(signal.SIGINT, _stop)
     print(json.dumps({"event": "serving", "model": srv.args.preset,
                       "device": str(srv.device),
+                      "quantized": srv.args.quantize,
                       "port": srv.httpd.server_address[1],
                       "slots": srv.engine.slots if srv.engine else 0}),
           flush=True)
