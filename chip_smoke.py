@@ -11,8 +11,10 @@ Phases, one JSON line each; any failure exits non-zero:
               count of tensor-core instructions (HGMMA, HMMA) in each
               library's SASS; fails if a flash library has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes the serving and training paths give it and at
-              the edges of the kernels' tiles, with stated tolerances;
+              at the shapes the serving, training and LoRA paths give it
+              (adam8 on the adapters' f32 leaves at b = 16, 256 and 4)
+              and at the edges of the kernels' tiles, with stated
+              tolerances;
               times of the kernel (device time, its wrapper's host time
               a call, and back-to-back calls with the host's time in),
               the plain version, one PyTorch library call as a yardstick
@@ -56,6 +58,21 @@ Phases, one JSON line each; any failure exits non-zero:
               restore, export, import and serve-ready seconds. Under
               ``build/lifecycle``, deleted at the end; it checks the free
               disk first.
+8. lora     — LoRA and QLoRA at llama3-1b full width and depth, rank 16
+              on wq and wv (``phase_lora``): 4 merged steps under adamw
+              over the bf16 base and 4 QLoRA steps under adamw-int8 over
+              the int8 base, in process (first loss bit-equal to the base
+              model's, base bit-unchanged, launches, adapter gradients
+              through the kernels against the dense path, the chunked
+              loss over the int8 head); the trainer CLI's --qlora run
+              and a resumed one (bit-equal adapter checkpoints), a merged
+              run, an attached ``--quantize`` server and a merged one
+              (greedy tokens of an in-memory engine), the attached
+              server's burst latency and decode-step kernels; then
+              llama3-8b QLoRA at batch 1 x 2048 through the trainer CLI
+              (base unchanged, peak memory, device time by kernel class
+              with the int8 straight-through backward's range). Under
+              ``build/lora``, deleted at the end.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -93,6 +110,8 @@ LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 64
 TRAIN_STEPS = 4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+#: the serving phases' burst: one prompt of each length at max_seq 2048
+SERVE_LENGTHS = [17, 40, 100, 250, 511, 700, 1300, 1900]
 
 
 def emit(obj) -> None:
@@ -373,14 +392,13 @@ LLAMA3_1B_LEAVES = [
     ("final_norm", (2048,)), ("lm_head", (2048, 128256))]
 
 
-def _adam8_leaf(dev, g, shape, block=256):
-    """bf16 grad and param, int8 moments from small random f32 ones."""
+def _adam8_leaf(dev, g, shape, block=256, dtype=torch.bfloat16):
+    """grad and param in ``dtype``, int8 moments from small random f32
+    ones."""
     from tpu_docker_api_torch.train import optim
 
-    grad = (torch.randn(shape, generator=g, device=dev) * 1e-3).to(
-        torch.bfloat16)
-    p = (torch.randn(shape, generator=g, device=dev) * 2e-2).to(
-        torch.bfloat16)
+    grad = (torch.randn(shape, generator=g, device=dev) * 1e-3).to(dtype)
+    p = (torch.randn(shape, generator=g, device=dev) * 2e-2).to(dtype)
     mq, ms = optim._quant_signed(
         torch.randn(shape, generator=g, device=dev) * 1e-4, block)
     vq, vs = optim._quant_sqrt(
@@ -391,31 +409,56 @@ def _adam8_leaf(dev, g, shape, block=256):
 #: a leaf whose quantization block (b = 100) is not a multiple of 8: the
 #: kernel's scalar path
 SCALAR_PATH_LEAF = ("scalar-path b=100", (4096, 100))
+#: llama3-1b's f32 LoRA adapters on wq and wv at rank 16 (A: b = 16, the
+#: vector path with 2 of a warp's lanes per block; B: b = 256) and A at
+#: rank 4 (b = 4, the scalar path): the lora phase's adam8 leaves
+ADAPTER_LEAVES = [("lora A rank 16", (16, 2048, 16)),
+                  ("lora B wq rank 16", (16, 16, 2048)),
+                  ("lora B wv rank 16", (16, 16, 512)),
+                  ("lora A rank 4", (16, 2048, 4))]
+
+
+def _adam8_bound(shape, dtype) -> tuple[float, str]:
+    """g, p, update in ``dtype``; mq, vq read and written in int8; four
+    f32 scales per block; ~30 f32 operations an element."""
+    from tpu_docker_api_torch.train import optim
+
+    n = math.prod(shape)
+    b = optim._block_of(shape[-1], 256)
+    esize = torch.finfo(dtype).bits // 8
+    return _bound(30 * n, (3 * esize + 4) * n + 16 * (n // b),
+                  torch.float32)
 
 
 def phase_adam8(dev) -> dict:
     """The int8-moment AdamW kernel against the plain version (one_xla) on
-    leaves of llama3-1b's own shapes (the vector path) and on one leaf
-    with b = 100 (the scalar path); times over one step's 12 leaves."""
+    leaves of llama3-1b's own shapes (the vector path), on one leaf with
+    b = 100 (the scalar path) and on the LoRA adapters' f32 leaves
+    (``ADAPTER_LEAVES``); times over one step's 12 leaves, and of each
+    adapter leaf."""
     from tpu_docker_api_torch.train import optim
 
     g = torch.Generator(device=dev).manual_seed(2)
     sc = optim.adam8_scalars(3, 0.9, 0.95, 1e-8, 3e-4, 0.1)
     checked = [leaf for leaf in LLAMA3_1B_LEAVES if leaf[0] in (
         "wq", "w_gate", "lm_head", "final_norm", "wk")] + [SCALAR_PATH_LEAF]
+    checked = [(name, shape, torch.bfloat16) for name, shape in checked] \
+        + [(name, shape, torch.float32) for name, shape in ADAPTER_LEAVES]
     cases, max_err = [], 0.0
-    for name, shape in checked:
-        args = _adam8_leaf(dev, g, shape)
+    for name, shape, dtype in checked:
+        args = _adam8_leaf(dev, g, shape, dtype=dtype)
         got = optim.adam8_update_leaf(*args, sc=sc)
         torch.cuda.synchronize()
         ref = optim.adam8_plain(*args, sc=sc)
         # the kernel repeats the plain version's f32 ops: the update
-        # within one bf16 rounding (2^-7 relative), the int8 moments at
-        # most one count apart (a tie of the f32 moment may round either
-        # way), the scales within 1e-6 relative (IEEE division by 127
-        # here, a reciprocal multiply in torch's plain version)
+        # within one rounding of its dtype (2^-7 relative in bf16, 1e-5
+        # in f32), the int8 moments at most one count apart (a tie of the
+        # f32 moment may round either way), the scales within 1e-6
+        # relative (IEEE division by 127 here, a reciprocal multiply in
+        # torch's plain version)
+        rtol = 2**-7 if dtype == torch.bfloat16 else 1e-5
         upd_err = (got[0].float() - ref[0].float()).abs()
-        ok_upd = bool((upd_err <= 2**-7 * ref[0].float().abs()
+        ok_upd = bool((upd_err <= rtol * ref[0].float().abs()
                        + 1e-12).all())
         q_err = max((got[i].int() - ref[i].int()).abs().max().item()
                     for i in (1, 3))
@@ -423,6 +466,7 @@ def phase_adam8(dev) -> dict:
                     for i in (2, 4))
         ok = ok_upd and q_err <= 1 and s_err <= 1e-6
         cases.append({"leaf": name, "shape": list(shape),
+                      "dtype": str(dtype).split(".")[-1],
                       "block": optim._block_of(shape[-1], 256),
                       "update_max_abs_err": upd_err.max().item(),
                       "moment_max_count_diff": q_err,
@@ -444,17 +488,26 @@ def phase_adam8(dev) -> dict:
         host_us, b2b_ms = host_us + kt["host_us"], \
             b2b_ms + kt["ms_back_to_back"]
         pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 2, warmup=1)
-        n = math.prod(shape)
-        b = optim._block_of(shape[-1], 256)
-        # g, p, update in bf16; mq, vq read and written in int8; four f32
-        # scales per block; ~30 f32 operations an element
-        bd, by = _bound(30 * n, 10 * n + 16 * (n // b), torch.float32)
+        bd, by = _adam8_bound(shape, torch.bfloat16)
         kernel_ms, plain_ms, bound_ms = kernel_ms + k, plain_ms + pl, \
             bound_ms + bd
         per_leaf.append({"leaf": name, **kt, "plain_ms": pl,
                          "bound_ms": bd, "bound_by": by})
         del args
         torch.cuda.empty_cache()
+    # the adapters' leaves, one by one (the lora phase's launches)
+    adapter_leaves = []
+    for name, shape in ADAPTER_LEAVES:
+        args = _adam8_leaf(dev, g, shape, dtype=torch.float32)
+        kt = kernel_times(lambda: optim.adam8_update_leaf(*args, sc=sc), 50)
+        pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 5, warmup=1)
+        bd, by = _adam8_bound(shape, torch.float32)
+        adapter_leaves.append({
+            "leaf": name, "shape": list(shape),
+            "block": optim._block_of(shape[-1], 256), **kt,
+            "plain_ms": pl, "bound_ms": bd, "bound_by": by,
+            "roofline_share": bd / kt["ms"]})
+        del args
     n_leaves = len(LLAMA3_1B_LEAVES)
     bound_by = ("bytes" if all(leaf["bound_by"] == "bytes"
                                for leaf in per_leaf) else "operations")
@@ -467,6 +520,7 @@ def phase_adam8(dev) -> dict:
     emit({"phase": "kernels", "kernel": "adam8", "cases": cases,
           "timing": {"step_ms": kernel_ms, "step_plain_ms": plain_ms,
                      "step_bound_ms": bound_ms, "per_leaf": per_leaf,
+                     "adapter_leaves": adapter_leaves,
                      "library": "none: no single PyTorch call computes "
                                 "the int8-moment AdamW step",
                      **result}})
@@ -676,6 +730,24 @@ def _post(port: int, body: dict) -> tuple[int, bytes]:
     return resp.status, data
 
 
+def _concurrent(port: int, prompts: list, max_new: int) -> tuple[list, float]:
+    """One greedy request a prompt, all at once: (replies, wall s)."""
+    replies: list = [None] * len(prompts)
+
+    def client(i):
+        replies[i] = _post(port, {"tokens": [prompts[i]],
+                                  "maxNewTokens": max_new})
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    return replies, time.perf_counter() - t0
+
+
 def _check_reply(code: int, data: bytes, rows: int, max_new: int,
                  vocab: int) -> dict:
     if code != 200:
@@ -713,7 +785,7 @@ def phase_serve(dev) -> dict:
         _check_reply(*_post(port, {"tokens": [[1, 2, 3]],
                                    "maxNewTokens": 2}), 1, 2, vocab)
         g = torch.Generator().manual_seed(0)
-        lengths = [17, 40, 100, 250, 511, 700, 1300, 1900]
+        lengths = SERVE_LENGTHS
         prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
                    for n in lengths]
         max_new = 32
@@ -723,20 +795,7 @@ def phase_serve(dev) -> dict:
         prefills0 = eng.stats["prefills"]
         emitted0 = eng.stats["emitted_tokens"]
         flash.reset_launch_count()
-        replies: list = [None] * len(prompts)
-
-        def client(i):
-            replies[i] = _post(port, {"tokens": [prompts[i]],
-                                      "maxNewTokens": max_new})
-
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(prompts))]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=600)
-        wall = time.perf_counter() - t0
+        replies, wall = _concurrent(port, prompts, max_new)
         latency = eng.latency_stats()
         emitted = eng.stats["emitted_tokens"] - emitted0
         greedy = [_check_reply(*r, 1, max_new, vocab)["tokens"][0]
@@ -1120,7 +1179,7 @@ def phase_serve_int8_text(dev, bf16: dict) -> dict:
         _check_reply(*_post(port, {"tokens": [[1, 2, 3]],
                                    "maxNewTokens": 2}), 1, 2, vocab)
         g = torch.Generator().manual_seed(0)
-        lengths = [17, 40, 100, 250, 511, 700, 1300, 1900]
+        lengths = SERVE_LENGTHS
         prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
                    for n in lengths]
         max_new = 32
@@ -1130,20 +1189,7 @@ def phase_serve_int8_text(dev, bf16: dict) -> dict:
         prefills0 = eng.stats["prefills"]
         emitted0 = eng.stats["emitted_tokens"]
         flash.reset_launch_count()
-        replies: list = [None] * len(prompts)
-
-        def client(i):
-            replies[i] = _post(port, {"tokens": [prompts[i]],
-                                      "maxNewTokens": max_new})
-
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(prompts))]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=600)
-        wall = time.perf_counter() - t0
+        replies, wall = _concurrent(port, prompts, max_new)
         latency = eng.latency_stats()
         emitted = eng.stats["emitted_tokens"] - emitted0
         for r in replies:
@@ -1557,6 +1603,511 @@ def phase_lifecycle(dev, preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
         shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
 
 
+LORA_DIR = "build/lora"
+LORA_RANK, LORA_ALPHA, LORA_TARGETS = 16, 16.0, ("wq", "wv")
+LORA_TOL = 2e-2  # the train phase's block-gradient bound
+LORA_CHUNK_TOL = 1e-4  # the train phase's chunked-loss bound
+
+
+def _tensors(tree, prefix: str = "") -> dict:
+    """Every tensor of a param tree by path: an int8 leaf's weights and
+    scales, a LoRA leaf's base, A and B."""
+    from tpu_docker_api_torch.ops.quant import LoraLinear, QuantizedLinear
+
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tensors(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    if isinstance(tree, QuantizedLinear):
+        return {f"{prefix}/w_int8": tree.w_int8, f"{prefix}/scale": tree.scale}
+    if isinstance(tree, LoraLinear):
+        return {**_tensors(tree.base, f"{prefix}/base"), f"{prefix}/a": tree.a,
+                f"{prefix}/b": tree.b}
+    return {prefix: tree}
+
+
+def _host_copy(tree) -> dict:
+    """A copy of every tensor of ``tree`` in host memory (so it adds
+    nothing to the card's peak)."""
+    return {k: t.to("cpu", copy=True) for k, t in _tensors(tree).items()}
+
+
+def _unchanged(tree, copy: dict) -> bool:
+    now = _tensors(tree)
+    return now.keys() == copy.keys() and all(
+        torch.equal(now[k].cpu(), v) for k, v in copy.items())
+
+
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _lora_train_run(dev, cfg, base, forward: str, optim_name: str,
+                    tokens) -> dict:
+    """TRAIN_STEPS LoRA steps (train/lora.py's entry points) on one
+    repeated batch; every launch count zeroed just before, read just
+    after."""
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import lora, optim
+
+    opt = optim.adamw_int8() if optim_name == "adamw-int8" else None
+    state, opt = lora.create_lora_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), LORA_RANK,
+        LORA_TARGETS, opt)
+    step_fn = lora.make_lora_train_step(cfg, opt, base, LORA_ALPHA, forward)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+
+    # ---- the main path: counts zeroed just before, read just after
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+    launches = {**flash.launch_count, **optim.launch_count}
+    # ---- end of the main path
+
+    steady = _median(step_ms[1:])
+    return {"forward": forward, "optim": optim_name,
+            "adapter_params": sum(t.numel() for t in
+                                  _tensors(state.params).values()),
+            "losses": [x.item() for x in losses], "first_loss": losses[0],
+            "step_ms": step_ms, "step_ms_median_after_first": steady,
+            "tokens_per_sec": tokens.shape[0] * (tokens.shape[1] - 1)
+            / (steady / 1e3),
+            "launches": launches,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+            "state": state}
+
+
+def _adapter_grads_rel_l2(dev, cfg, int8: bool) -> dict:
+    """Adapter gradients of ONE full-width block (the loss through the
+    lm_head), B given mass, through the flash kernels against the dense
+    plain path: merged over bf16, or attached over int8."""
+    from tpu_docker_api_torch.models.llama import llama_init, llama_loss
+    from tpu_docker_api_torch.train import lora, optim
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    base = llama_init(cfg1, torch.Generator(device=dev).manual_seed(3))
+    if int8:
+        base = lora.quantize_base(base)
+    g = torch.Generator(device=dev).manual_seed(5)
+    adapters = lora.lora_init(base, LORA_RANK, g, LORA_TARGETS)
+    adapters = optim.tree_map(
+        lambda t: t + 0.02 * torch.randn(t.shape, generator=g, device=dev),
+        adapters)
+    combine = lora.attach_lora if int8 else lora.merge_lora
+    seq = min(1025, cfg.max_seq_len)
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4))
+    grads = {}
+    for impl in ("flash", "dense"):
+        live = optim.tree_map(lambda t: t.detach().requires_grad_(),
+                              adapters)
+        llama_loss(combine(base, live, LORA_ALPHA), tokens,
+                   dataclasses.replace(cfg1, attention_impl=impl)).backward()
+        grads[impl] = {k: t.grad.float() for k, t in _tensors(live).items()}
+    return {k: ((grads["flash"][k] - ref).norm() / ref.norm()).item()
+            for k, ref in grads["dense"].items()}
+
+
+def _attached_server(dev, cfg, argv: list, want_tree, prompt: list,
+                     max_seq: int) -> dict:
+    """The attached QLoRA server at the serve phase's engine settings:
+    one greedy request alone, whose tokens must equal an in-memory
+    engine's on ``want_tree`` (built apart, same settings), then the
+    serve phase's 8-prompt burst for its latency, and one decode step's
+    kernels on the served tree."""
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    engine_args = {"slots": 8, "max_seq": max_seq, "chunk": 8}
+    t0 = time.perf_counter()
+    srv = Server(parse_args([*argv, "--max-seq", str(max_seq), "--slots",
+                             "8", "--chunk", "8", "--host", "127.0.0.1",
+                             "--port", "0"]))
+    ready_s = time.perf_counter() - t0
+    port = srv.httpd.server_address[1]
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got = _check_reply(*_post(port, {"tokens": [prompt],
+                                         "maxNewTokens": LIFECYCLE_MAX_NEW}),
+                           1, LIFECYCLE_MAX_NEW, cfg.vocab_size)["tokens"][0]
+        eng = SlotEngine(cfg, want_tree, cache_dtype=cfg.dtype, **engine_args)
+        h = eng.submit(prompt, LIFECYCLE_MAX_NEW)
+        while not h.done():
+            eng.step()
+        want = h.result(0)["tokens"]
+        del eng, h
+        if got != want:
+            raise AssertionError(f"attached server {got} != in-memory "
+                                 f"{want}")
+        g = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(0, cfg.vocab_size,
+                                 (min(n * max_seq // 2048, max_seq - 33),),
+                                 generator=g).tolist()
+                   for n in SERVE_LENGTHS]
+        srv.engine.reset_latency_stats()
+        replies, wall = _concurrent(port, prompts, 32)
+        for r in replies:
+            _check_reply(*r, 1, 32, cfg.vocab_size)
+        latency = srv.engine.latency_stats()
+        lora_leaf = srv.params["layers"]["attn"]["wq"]
+        decode = (_decode_step_profile(dev, cfg, srv.params)
+                  if dev.type == "cuda" else None)
+        return {"ready_s": ready_s, "greedy_tokens": got,
+                "served_leaf": f"{type(lora_leaf).__name__}("
+                               f"{type(lora_leaf.base).__name__})",
+                "fused": "w_qkv" in srv.params["layers"]["attn"],
+                "burst_wall_s": wall, "ttft_p50_ms": latency["ttft_p50_ms"],
+                "itl_p50_ms": latency["itl_p50_ms"],
+                "decode_step": decode}
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+
+
+def _qlora_big(dev, preset: str, seq: int, steps: int) -> dict:
+    """The configuration QLoRA exists for: the trainer's command line in
+    process, ``--qlora --lora-rank 16 --batch 1 --optim adamw-int8
+    --profile-dir``, one step traced (the second) and one after it. The
+    step function is wrapped to time each step to a synchronise and to
+    keep a host copy of the int8 base it closes over, which must be
+    unchanged after."""
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import lora, optim
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    real = lora.make_lora_train_step
+    seen: dict = {"step_ms": []}
+
+    def wrapped(cfg, optimizer, base, alpha=16.0, forward="merged"):
+        seen["base"], seen["before"] = base, _host_copy(base)
+        if dev.type == "cuda":
+            # the load (random bf16 base, then int8) peaks apart from the
+            # steps: read it here and count the steps' peak from here on
+            seen["memory"] = {
+                "load_peak": torch.cuda.max_memory_allocated(dev),
+                "allocated_before_steps": torch.cuda.memory_allocated(dev)}
+            torch.cuda.reset_peak_memory_stats(dev)
+        step = real(cfg, optimizer, base, alpha, forward)
+
+        def timed(state, tokens):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = step(state, tokens)
+            _sync(dev)
+            seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    lora.make_lora_train_step = wrapped
+    try:
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        optim.reset_launch_count()
+        lines = _run_cli(train_main, [
+            "--preset", preset, "--qlora", "--lora-rank", str(LORA_RANK),
+            "--batch", "1", "--seq", str(seq), "--steps", str(steps),
+            "--optim", "adamw-int8", "--log-every", "1", "--device",
+            str(dev), "--profile-dir", f"{LORA_DIR}/profile_big",
+            "--profile-steps", "1"])
+        launches = {**flash.launch_count, **optim.launch_count}
+        # ---- end of the main path
+    finally:
+        lora.make_lora_train_step = real
+    memory = seen.get("memory")
+    if memory is not None:
+        memory["steps_peak"] = torch.cuda.max_memory_allocated(dev)
+    losses = [ln["loss"] for ln in lines if "event" not in ln]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{preset} QLoRA losses: {lines[-3:]}")
+    if not _unchanged(seen["base"], seen["before"]):
+        raise AssertionError(f"{preset} QLoRA changed its base")
+    prof = [ln for ln in lines if ln.get("event") == "profile_written"]
+    base_bytes = sum(t.numel() * t.element_size()
+                     for t in seen["before"].values())
+    step_ms = seen["step_ms"]
+    del seen
+    gc.collect()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the first step pays the allocator's first touches, the second is
+    # traced: the third is the steady one
+    return {"preset": preset, "batch": 1, "seq": seq, "steps": steps,
+            "losses": losses, "step_ms": step_ms,
+            "tokens_per_sec_last_step": seq / (step_ms[-1] / 1e3),
+            "base_bytes": base_bytes, "launches": launches,
+            "max_memory_allocated": memory,
+            "profile": prof[0] if prof else None}
+
+
+def phase_lora(dev, train: dict | None, int8: dict | None,
+               preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, big: str = "llama3-8b",
+               big_seq: int = TRAIN_SEQ, max_seq: int = 2048) -> dict:
+    """LoRA and QLoRA at llama3-1b's full width and depth (rank 16, alpha
+    16, targets wq and wv, batch 4 x 2048), then llama3-8b's QLoRA:
+
+    1. In process on one repeated batch: 4 merged steps under adamw over
+       the bf16 base, 4 attached (QLoRA) steps under adamw-int8 over the
+       int8 base. Checks: the first loss equals the base model's bit for
+       bit, the base is bit-unchanged, finite losses that fall, the
+       launch counts, the adapter gradients of one block through the
+       kernels within 2e-2 relative L2 of the dense path (both
+       forwards), the chunked loss over the int8 head within 1e-4 of the
+       dense one.
+    2. The command-line entry points, under ``build/lora`` (deleted at
+       the end): a --qlora run of 4 steps saving at 2 and 4, a 2-step
+       one resumed to 4 (bit-equal step-4 adapter checkpoints), a merged
+       bf16 run; an attached ``--quantize`` server and a merged one, each
+       giving an in-memory engine's greedy tokens; the attached server's
+       burst latency and decode-step kernels.
+    3. ``big`` (llama3-8b) QLoRA through the trainer CLI: finite losses,
+       the base unchanged, peak memory, device time by kernel class with
+       the straight-through backward's products named.
+
+    The tests run it on the CPU at the tiny preset, where the wrappers
+    run the plain versions and count nothing."""
+    from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+    from tpu_docker_api_torch.models.llama import (llama_init, llama_loss,
+                                                   llama_presets)
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import lora, optim
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+    from tpu_docker_api_torch.train.trainer import synthetic_batch
+
+    phase_t0 = time.perf_counter()
+    cfg = llama_presets()[preset]
+    cuda = dev.type == "cuda"
+    tokens = synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                             batch, seq, cfg.vocab_size)
+    want_steps = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+                  "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+                  "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS}
+    n_adapters = 2 * len(LORA_TARGETS)
+    counts: dict = {}
+
+    def add_counts(launches):
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+
+    # ---- 1. in process
+    base = llama_init(cfg, torch.Generator(device=dev).manual_seed(0))
+    runs = []
+    for forward, optim_name in (("merged", "adamw"),
+                                ("attached", "adamw-int8")):
+        tree = base if forward == "merged" else lora.quantize_base(base)
+        if forward == "attached":
+            del base
+            gc.collect()
+        with torch.no_grad():
+            base_loss = llama_loss(tree, tokens, cfg)
+        before = _host_copy(tree)
+        run = _lora_train_run(dev, cfg, tree, forward, optim_name, tokens)
+        state = run.pop("state")
+        losses = run["losses"]
+        run["first_loss_equals_base"] = bool(torch.equal(
+            run.pop("first_loss"), base_loss))
+        run["base_unchanged"] = _unchanged(tree, before)
+        del before
+        if not run["first_loss_equals_base"]:
+            raise AssertionError(f"{forward}: first loss {losses[0]} is not "
+                                 f"the base's {base_loss.item()}")
+        if not run["base_unchanged"]:
+            raise AssertionError(f"{forward}: the base changed")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{forward}: losses {losses}")
+        want = {**want_steps, "adam8": (n_adapters * TRAIN_STEPS
+                                        if optim_name == "adamw-int8"
+                                        else 0)}
+        if cuda and run["launches"] != want:
+            raise AssertionError(f"{forward}: launches {run['launches']}, "
+                                 f"expected {want}")
+        add_counts(run["launches"])
+        if forward == "attached":
+            # the int8 head dequantizes for the chunked loss
+            attached = lora.attach_lora(tree, state.params, LORA_ALPHA)
+            with torch.no_grad():
+                dense = llama_loss(attached, tokens, cfg).item()
+                chunked = llama_loss(attached, tokens, dataclasses.replace(
+                    cfg, loss_chunk_rows=512)).item()
+            del attached
+        runs.append(run)
+        del state
+        _sync(dev)
+    del tree
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    chunk_rel = abs(chunked - dense) / abs(dense)
+    if chunk_rel > LORA_CHUNK_TOL:
+        raise AssertionError(f"QLoRA chunked loss {chunked} vs dense {dense}")
+    grad_rel = {"merged_bf16": _adapter_grads_rel_l2(dev, cfg, False),
+                "attached_int8": _adapter_grads_rel_l2(dev, cfg, True)}
+    worst = max(v for g in grad_rel.values() for v in g.values())
+    if worst > LORA_TOL:
+        raise AssertionError(f"adapter gradients, flash vs dense: {grad_rel}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- 2. the command-line entry points
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    os.makedirs(LORA_DIR)
+    d = {k: f"{LORA_DIR}/{k}" for k in ("Q", "R", "M")}
+    common = ["--preset", preset, "--batch", str(batch), "--seq", str(seq),
+              "--device", str(dev), "--log-every", "1", "--lora-rank",
+              str(LORA_RANK)]
+    qlora = [*common, "--qlora", "--optim", "adamw-int8", "--save-every",
+             "2"]
+
+    def train_cli(argv):
+        lines = _run_cli(train_main, argv)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return {"steps": [ln for ln in lines if "event" not in ln],
+                "saved": [ln for ln in lines if ln.get("event") == "saved"],
+                "resumed": [ln for ln in lines
+                            if ln.get("event") == "resumed"],
+                "last": lines[-1]}
+
+    try:
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        optim.reset_launch_count()
+        t0 = time.perf_counter()
+        q = train_cli([*qlora, "--steps", "4", "--ckpt-dir", d["Q"]])
+        r1 = train_cli([*qlora, "--steps", "2", "--ckpt-dir", d["R"]])
+        r2 = train_cli([*qlora, "--steps", "4", "--ckpt-dir", d["R"]])
+        m = train_cli([*common, "--steps", "2", "--ckpt-dir", d["M"]])
+        cli_s = time.perf_counter() - t0
+        cli_launches = {**flash.launch_count, **optim.launch_count}
+        # ---- end of the main path
+
+        if [s["step"] for s in q["steps"]] != [1, 2, 3, 4] or \
+                [s["step"] for s in r2["steps"]] != [3, 4] or \
+                r2["resumed"][0]["step"] != 2:
+            raise AssertionError(f"QLoRA CLI steps: {q}, {r2}")
+        r_vs_q = _ckpt_files_equal(dev, f"{d['Q']}/4", f"{d['R']}/4")
+        if not r_vs_q["bit_equal"]:
+            raise AssertionError(f"resumed QLoRA step 4 differs: {r_vs_q}")
+        if [s["loss"] for s in r2["steps"]] != \
+                [s["loss"] for s in q["steps"][2:]]:
+            raise AssertionError("resumed QLoRA losses differ")
+        # Q 4 steps, R 2 + 2, M 2; adam8 in Q's and R's (adamw-int8)
+        want = {k: cfg.n_layers * 10 for k in want_steps}
+        want["adam8"] = n_adapters * 8
+        if cuda and cli_launches != want:
+            raise AssertionError(f"LoRA CLI launches {cli_launches}, "
+                                 f"expected {want}")
+        add_counts(cli_launches)
+
+        prompt = torch.randint(0, cfg.vocab_size, (100,),
+                               generator=torch.Generator().manual_seed(1)
+                               ).tolist()
+        seed0 = llama_init(cfg, torch.Generator(device=dev).manual_seed(0))
+        adapters_q = lora.restore_adapters(d["Q"], cfg, dev, LORA_RANK)
+        want_attached = lora.attach_lora(lora.quantize_base(seed0),
+                                         adapters_q, LORA_ALPHA)
+        want_merged = fuse_llama_projections(lora.merge_lora(
+            seed0, lora.restore_adapters(d["M"], cfg, dev, LORA_RANK),
+            LORA_ALPHA))
+        del seed0
+        flash.reset_launch_count()
+        attached_srv = _attached_server(
+            dev, cfg, ["--preset", preset, "--quantize", "--lora-ckpt",
+                       d["Q"], "--lora-rank", str(LORA_RANK),
+                       "--lora-forward", "attached", "--device", str(dev),
+                       "--seed", "0"], want_attached, prompt, max_seq)
+        del want_attached
+        merged_srv = _serve_once(["--preset", preset, "--lora-ckpt", d["M"],
+                                  "--lora-rank", str(LORA_RANK), "--device",
+                                  str(dev), "--seed", "0"], prompt)
+        serve_flash = flash.launch_count["flash_fwd"]
+        from tpu_docker_api_torch.infer.slots import SlotEngine
+
+        eng = SlotEngine(cfg, want_merged, slots=2, max_seq=256, chunk=8,
+                         cache_dtype=cfg.dtype)
+        h = eng.submit(prompt, LIFECYCLE_MAX_NEW)
+        while not h.done():
+            eng.step()
+        if merged_srv["tokens"] != h.result(0)["tokens"]:
+            raise AssertionError(f"merged server {merged_srv['tokens']} != "
+                                 f"in-memory {h.result(0)['tokens']}")
+        del eng, h, want_merged, adapters_q
+        if cuda and serve_flash == 0:
+            raise AssertionError("no flash_fwd launch while serving LoRA")
+        counts["flash_fwd"] = counts.get("flash_fwd", 0) + serve_flash
+        t1 = time.perf_counter()
+        lora.restore_adapters(d["Q"], cfg, dev, LORA_RANK)
+        _sync(dev)
+        restore_s = time.perf_counter() - t1
+        saves = [{"run": name, **{k: s[k] for k in (
+                     "step", "bytes", "blocked_s", "d2h_s", "write_s")}}
+                 for name, run in (("Q", q), ("R", r1), ("R", r2), ("M", m))
+                 for s in run["saved"]]
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ---- 3. the configuration QLoRA exists for
+        big_res = _qlora_big(dev, big, big_seq, 3)
+    finally:
+        shutil.rmtree(LORA_DIR, ignore_errors=True)
+    big_cfg = llama_presets()[big]
+    if cuda and big_res["launches"] != {
+            "flash_fwd": big_cfg.n_layers * 3,
+            "flash_bwd_dq": big_cfg.n_layers * 3,
+            "flash_bwd_dkv": big_cfg.n_layers * 3, "adam8": n_adapters * 3}:
+        raise AssertionError(f"{big} QLoRA launches {big_res['launches']}")
+    add_counts(big_res["launches"])
+
+    result = {
+        "phase": "lora", "preset": preset, "rank": LORA_RANK,
+        "alpha": LORA_ALPHA, "targets": list(LORA_TARGETS),
+        "batch": batch, "seq": seq, "steps": TRAIN_STEPS, "runs": runs,
+        "full_finetune": ({r["optim"]: {k: r[k] for k in (
+            "step_ms_median_after_first", "tokens_per_sec",
+            "max_memory_allocated")} for r in train["runs"]}
+            if train else None),
+        "chunked_loss": chunked, "dense_loss": dense,
+        "chunked_rel_diff": chunk_rel, "chunked_tol": LORA_CHUNK_TOL,
+        "adapter_grad_rel_l2": grad_rel, "adapter_grad_tol": LORA_TOL,
+        "cli": {"seconds": cli_s, "losses": {
+                    "Q": [s["loss"] for s in q["steps"]],
+                    "R": [s["loss"] for s in r1["steps"] + r2["steps"]],
+                    "M": [s["loss"] for s in m["steps"]]},
+                "R_vs_Q": r_vs_q, "saves": saves,
+                "resume_restore_s": r2["resumed"][0]["restore_s"],
+                "adapter_restore_s": restore_s,
+                "launches": cli_launches},
+        "serve_attached": attached_srv,
+        "serve_int8_text_decode_kernels": (
+            int8["decode_step_int8"]["kernel_events"] if int8 else None),
+        "serve_merged": {k: merged_srv[k] for k in ("ready_s", "tokens")},
+        "big": big_res, "launches": counts,
+        "phase_s": time.perf_counter() - phase_t0,
+        "card": nvidia_smi() if cuda else "cpu"}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1605,13 +2156,17 @@ def main() -> int:
     int8_res = phase_serve_int8_text(dev, serve_res)
     train_res = phase_train(dev)
     life_res = phase_lifecycle(dev)
+    lora_res = phase_lora(dev, train_res, int8_res)
     train_n, life_n = train_res["launches"], life_res["launches"]
+    lora_n = lora_res["launches"]
     by_path = {
         "flash_fwd": {"serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
                       "train": train_n["flash_fwd"],
-                      "lifecycle": life_n["flash_fwd"]},
-        **{name: {"train": train_n[name], "lifecycle": life_n[name]}
+                      "lifecycle": life_n["flash_fwd"],
+                      "lora": lora_n["flash_fwd"]},
+        **{name: {"train": train_n[name], "lifecycle": life_n[name],
+                  "lora": lora_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

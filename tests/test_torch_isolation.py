@@ -2,8 +2,8 @@
 packages the port's GPU hosts need not have (``safetensors``,
 ``transformers``, ``orbax``, ``tokenizers``, ``regex``) blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
-``chip_smoke.py`` import, and a tiny forward, train step, checkpoint
-save and restore, HF export and import (int8 at load too), and a
+``chip_smoke.py`` import, and a tiny forward, train step, QLoRA step,
+checkpoint save and restore, HF export and import (int8 at load too), and a
 tokenizer written by ``chip_smoke.py`` run on the CPU."""
 
 import os
@@ -42,6 +42,7 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.train.trainer",
                    "tpu_docker_api_torch.train.__main__",
                    "tpu_docker_api_torch.train.checkpoint",
+                   "tpu_docker_api_torch.train.lora",
                    "tpu_docker_api_torch.data.loader",
                    "tpu_docker_api_torch.models.import_weights",
                    "tpu_docker_api_torch.models.tokenizer"):
@@ -62,6 +63,13 @@ _CHILD = textwrap.dedent("""
     state, opt = create_train_state(cfg, "cpu")
     state, metrics = make_train_step(cfg, opt)(
         state, torch.zeros(1, 6, dtype=torch.long))
+    assert torch.isfinite(metrics["loss"])
+
+    from tpu_docker_api_torch.train import lora
+    lstate, lopt = lora.create_lora_state(cfg, torch.Generator(), 2)
+    lstep = lora.make_lora_train_step(
+        cfg, lopt, lora.quantize_base(state.params), forward="attached")
+    lstate, metrics = lstep(lstate, torch.zeros(1, 6, dtype=torch.long))
     assert torch.isfinite(metrics["loss"])
 
     from tpu_docker_api_torch.models.import_weights import (

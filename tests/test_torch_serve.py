@@ -247,7 +247,9 @@ def test_serves_checkpoint_weights(trained, source):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--lora-ckpt", "a", "--lora-rank", "8"], "ROADMAP Queue 1 item 5"),
+    (["--draft-preset", "tiny"], "ROADMAP Queue 1 item 6"),
+    (["--lora-rank", "8"], "require --lora-ckpt"),
+    (["--lora-ckpt", "a"], "--lora-ckpt requires --lora-rank"),
     (["--page-size", "16", "--n-spec", "4"], "ROADMAP Queue 1 item 6"),
     (["--prefill-chunk", "64"], "ROADMAP Queue 1 item 6"),
     (["--tp", "2"], "ROADMAP Queue 1 item 9"),

@@ -203,14 +203,26 @@ def test_cli_runs_on_cpu_and_prints_json_lines():
     assert lines[-1] == {"event": "done", "step": 3}
 
 
-@pytest.mark.parametrize("flag", [["--lora-alpha", "8"], ["--qlora"],
-                                  ["--tp", "2"], ["--fsdp", "2"],
-                                  ["--lora-rank", "4"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp", "2"],
+                                  ["--moe-dispatch", "gather"],
+                                  ["--dp", "2"], ["--pp", "2"]])
 def test_cli_refuses_unported_flags(flag):
     proc = _cli("--device", "cpu", *flag, timeout=60)
     assert proc.returncode == 2
     assert "not in the PyTorch package yet" in proc.stderr
     assert "ROADMAP" in proc.stderr
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--qlora"], "require --lora-rank > 0"),
+    (["--qlora", "--lora-rank", "4", "--lora-forward", "merged"],
+     "--qlora requires the attached forward"),
+    (["--lora-alpha", "8"], "require --lora-rank > 0")])
+def test_cli_keeps_the_jax_lora_guards(flags, msg):
+    """The JAX entry point's LoRA guards: a LoRA flag without a rank,
+    and --qlora over the merged forward, are refused before any work."""
+    proc = _cli("--device", "cpu", *flags, timeout=60)
+    assert proc.returncode == 2 and msg in proc.stderr
 
 
 def test_cli_refuses_unported_family():

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from tpu_docker_api_torch.ops.quant import QuantizedLinear, quantize_weight
+from tpu_docker_api_torch.ops.quant import (LoraLinear, QuantizedLinear,
+                                            quantize_weight)
 
 
 def quantize_llama_params(params: dict) -> dict:
@@ -75,9 +76,13 @@ def fuse_llama_projections(params: dict) -> dict:
 
 
 def quantized_bytes(params) -> int:
-    """Serving-weight footprint in bytes (int8 + f32 scales + float rest)."""
+    """Serving-weight footprint in bytes (int8 + f32 scales + float rest;
+    a LoRA leaf's base plus its A and B at their own dtypes)."""
     if isinstance(params, dict):
         return sum(quantized_bytes(v) for v in params.values())
+    if isinstance(params, LoraLinear):
+        return quantized_bytes(params.base) + sum(
+            t.numel() * t.element_size() for t in (params.a, params.b))
     if isinstance(params, QuantizedLinear):
         return params.w_int8.numel() + params.scale.numel() * 4
     return params.numel() * params.element_size()

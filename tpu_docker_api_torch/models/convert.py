@@ -5,7 +5,8 @@ cross as numpy arrays: the JAX param pytree (stacked ``(n_layers, …)``
 leaves, named as in ``tpu_docker_api/models/llama.py``) maps onto the
 port's param dict 1:1, leaf for leaf. An int8 leaf (the JAX
 ``QuantizedLinear``, its children as numpy arrays) becomes the port's
-``QuantizedLinear`` of the same int8 weights and f32 scales.
+``QuantizedLinear`` of the same int8 weights and f32 scales, and a LoRA
+leaf (the JAX ``LoraLinear``) the port's ``LoraLinear``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_docker_api_torch.ops.quant import QuantizedLinear
+from tpu_docker_api_torch.ops.quant import LoraLinear, QuantizedLinear
 
 
 def _to_tensor(arr, device, dtype):
@@ -34,10 +35,17 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     ``np.asarray`` on each leaf) to torch tensors on ``device``.
     ``dtype`` casts the floating-point leaves; None keeps each leaf's.
     An int8 leaf (anything with ``w_int8`` and ``scale``, such as the
-    JAX ``QuantizedLinear``) keeps its int8 weights and f32 scales."""
+    JAX ``QuantizedLinear``) keeps its int8 weights and f32 scales; a
+    LoRA leaf (``base``, ``a``, ``b``, ``scale``) maps its base as any
+    leaf and keeps its adapters' dtype and its scale."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
+    if all(hasattr(tree, f) for f in ("base", "a", "b", "scale")):
+        return LoraLinear(params_from_numpy(tree.base, device, dtype),
+                          _to_tensor(tree.a, device, None),
+                          _to_tensor(tree.b, device, None),
+                          float(tree.scale))
     if hasattr(tree, "w_int8") and hasattr(tree, "scale"):
         return QuantizedLinear(_to_tensor(tree.w_int8, device, None),
                                _to_tensor(tree.scale, device, None))

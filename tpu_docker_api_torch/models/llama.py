@@ -35,7 +35,8 @@ from tpu_docker_api_torch.ops import flash
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
-from tpu_docker_api_torch.ops.quant import QuantizedLinear, linear
+from tpu_docker_api_torch.ops.quant import (LoraLinear, QuantizedLinear,
+                                            dequantize_weight, linear)
 from tpu_docker_api_torch.ops.rope import (RopeScaling, apply_rope,
                                            rope_frequencies)
 from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
@@ -160,7 +161,7 @@ def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
     gradients in one pass, where indexing layer by layer would make a
     full-size gradient of the stacked leaf for every layer. A
     ``QuantizedLinear`` leaf unbinds its int8 weight and its scales
-    together."""
+    together, a ``LoraLinear`` its base, A and B."""
     out = [{} for _ in range(n_layers)]
     for name, leaf in layers.items():
         parts = (unstack_layers(leaf, n_layers) if isinstance(leaf, dict)
@@ -403,11 +404,16 @@ def llama_loss(params: dict, tokens: torch.Tensor,
     """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]. With
     ``cfg.loss_chunk_rows`` set, the logits projection and the loss fuse
     into ``ops.xent.chunked_cross_entropy``, which never makes the
-    (batch, seq, vocab) logits."""
+    (batch, seq, vocab) logits. An int8 head (QLoRA's frozen base) is
+    dequantized to ``cfg.dtype`` once a call for it, as in the JAX
+    function."""
     if cfg.loss_chunk_rows:
         x = llama_hidden(params, tokens[:, :-1], cfg)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
-        return chunked_cross_entropy(h, params["lm_head"], tokens[:, 1:],
+        head = params["lm_head"]
+        if isinstance(head, QuantizedLinear):
+            head = dequantize_weight(head, cfg.dtype)
+        return chunked_cross_entropy(h, head, tokens[:, 1:],
                                      cfg.loss_chunk_rows)
     logits = llama_forward(params, tokens[:, :-1], cfg)
     return cross_entropy(logits, tokens[:, 1:])
@@ -415,10 +421,13 @@ def llama_loss(params: dict, tokens: torch.Tensor,
 
 def param_count(params: dict) -> int:
     """Elements in the tree; an int8 leaf counts its weights and its
-    scales, as the JAX count over the pytree's leaves does."""
+    scales, a LoRA leaf its base, A and B, as the JAX count over the
+    pytree's leaves does."""
     def count(tree):
         if isinstance(tree, dict):
             return sum(count(v) for v in tree.values())
+        if isinstance(tree, LoraLinear):
+            return count(tree.base) + tree.a.numel() + tree.b.numel()
         if isinstance(tree, QuantizedLinear):
             return tree.w_int8.numel() + tree.scale.numel()
         return tree.numel()

@@ -12,14 +12,15 @@ The int8 × int8 → int32 product is ``torch._int_mm`` (cuBLASLt on the
 card); the JAX package computes it as an XLA ``dot_general``, outside any
 Pallas kernel. The activation quantization and the scale epilogue are
 plain torch ops, in the JAX function's order, so the CPU result is bit
-for bit the JAX one. ``LoraLinear`` is not ported yet (ROADMAP Queue 1
-item 5).
+for bit the JAX one. A ``LoraLinear`` (QLoRA's leaf, train/lora.py) adds
+a low-rank adapter branch to either kind of base.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Any
 
 import torch
 
@@ -34,6 +35,10 @@ _EPS = 1e-12
 #: where it ran: ``QuantizedLinear`` stores B column-major.
 INT_MM_MIN_ROWS = 17
 INT_MM_PAD_ROWS = 32
+
+#: the profiler range around the straight-through backward's f32 product
+#: (the trainer's ``--profile-dir`` summary reports its device time)
+STE_BACKWARD_RANGE = "int8_linear_ste_backward"
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,7 +151,8 @@ class _Int8LinearSTE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w_int8, scale = ctx.saved_tensors
-        gx = (g.float() * scale) @ w_int8.float().t()
+        with torch.profiler.record_function(STE_BACKWARD_RANGE):
+            gx = (g.float() * scale) @ w_int8.float().t()
         return gx.to(ctx.x_dtype), None, None, None
 
 
@@ -158,6 +164,39 @@ def int8_linear(x: torch.Tensor, q: QuantizedLinear,
     if x.requires_grad and torch.is_grad_enabled():
         return _Int8LinearSTE.apply(x, q.w_int8, q.scale, out_dtype)
     return _int8_linear_fwd(x, q.w_int8, q.scale, out_dtype)
+
+
+@dataclasses.dataclass
+class LoraLinear:
+    """A frozen base projection (tensor OR ``QuantizedLinear``) plus a
+    low-rank adapter branch, evaluated unmerged:
+
+        y = linear(x, base) + s·(x @ A) @ B,   s = alpha / rank
+
+    The leaf ``train/lora.py`` ``attach_lora`` builds: the merged tree
+    ``W + s·A@B`` never materializes, so an int8 base stays int8. The
+    branch computes in the adapter dtype (f32) and casts at the add, so
+    the base path's numerics and dtype are untouched and autograd reaches
+    A and B; the base is frozen (an int8 base gets no weight gradient
+    from ``int8_linear``'s straight-through backward, a tensor base is
+    not a leaf that requires one)."""
+
+    base: Any             # (…, in, out) tensor or QuantizedLinear
+    a: torch.Tensor       # (…, in, rank)
+    b: torch.Tensor       # (…, rank, out)
+    scale: float          # alpha / rank
+
+    @property
+    def shape(self):
+        return self.base.shape
+
+    def unbind(self, dim: int = 0) -> tuple["LoraLinear", ...]:
+        """Per-layer slices of a stacked leaf: the base, A and B unbind
+        together (models/llama.py ``unstack_layers``)."""
+        if dim != 0:
+            raise ValueError("LoraLinear unbinds its leading dim only")
+        return tuple(LoraLinear(w, a, b, self.scale) for w, a, b in zip(
+            self.base.unbind(0), self.a.unbind(0), self.b.unbind(0)))
 
 
 class _WideMM(torch.autograd.Function):
@@ -184,12 +223,17 @@ class _WideMM(torch.autograd.Function):
 def linear(x: torch.Tensor, w,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y = x @ w for an (in, out) weight: a ``QuantizedLinear`` takes the
-    int8 path, a tensor the float matmul. ``out_dtype`` asks for widened
+    int8 path, a tensor the float matmul, a ``LoraLinear`` its base's path
+    plus the adapter branch. ``out_dtype`` asks for widened
     ACCUMULATION, not a cast: the lm_head keeps bf16 operands and wants
     the unrounded f32 result. On CUDA that is one ``mm`` with
     ``out_dtype`` (differentiable through ``_WideMM``); the CPU build of
     torch has no such kernel, so there both operands are upcast (bf16
     products are exact in f32, so the result is the same function)."""
+    if isinstance(w, LoraLinear):
+        y = linear(x, w.base, out_dtype)
+        delta = (x.to(w.a.dtype) @ w.a) @ w.b
+        return y + (w.scale * delta).to(y.dtype)
     if isinstance(w, QuantizedLinear):
         return int8_linear(x, w, out_dtype)
     if out_dtype is None or out_dtype == x.dtype:

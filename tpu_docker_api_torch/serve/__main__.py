@@ -37,7 +37,12 @@ imports an HF-layout llama checkpoint (geometry from its
 either the weights are random (``--seed``). The two are exclusive.
 ``--quantize`` serves int8 projections (ops/quant.py): with ``--hf-ckpt``
 they are quantized while they load, otherwise the loaded tree is
-quantized after; projection fusion runs after either. Flags of the JAX
+quantized after; projection fusion runs after either. ``--lora-ckpt``
+serves trained LoRA adapters (train/lora.py) over those weights, in the
+JAX load order: merged into the float base before any quantization
+(``--lora-forward merged``, the default), or attached unmerged after it
+(``attached``: with ``--quantize``, the numerics of ``train --qlora``;
+such a tree is not fused). Flags of the JAX
 entry point that the port does not have yet are refused with the ROADMAP
 item that brings them. Runs on ``cuda`` unless ``--device cpu`` is
 given.
@@ -60,9 +65,6 @@ from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
 
 #: JAX-CLI flags the port does not take yet → what brings them
 _NOT_PORTED = {
-    "it comes with LoRA serving (ROADMAP Queue 1 item 5)": (
-        "lora_ckpt", "lora_rank", "lora_alpha", "lora_targets",
-        "lora_forward"),
     "it comes with the serving depth of ROADMAP Queue 1 item 6": (
         "prefill_chunk", "page_size", "total_pages", "max_prefix_bytes",
         "draft_preset", "draft_ckpt", "n_spec"),
@@ -107,6 +109,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "/generate also takes {\"text\": [...]} and "
                         "replies with decoded \"texts\". Defaults to "
                         "--hf-ckpt's tokenizer.json when present")
+    p.add_argument("--lora-ckpt", default="",
+                   help="adapter-only checkpoint dir (train --lora-rank): "
+                        "its latest adapters are merged into the base at "
+                        "load, or attached unmerged (--lora-forward "
+                        "attached); --lora-rank/--lora-alpha/"
+                        "--lora-targets must match training")
+    p.add_argument("--lora-rank", type=int, default=0)
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--lora-targets", default="wq,wv")
+    p.add_argument("--lora-forward", default="merged",
+                   choices=["merged", "attached"],
+                   help="merged: fold the adapters into the bf16 base "
+                        "before any --quantize; attached: quantize first, "
+                        "then evaluate Wx + s·B(Ax) unmerged (QLoRA's "
+                        "training numerics)")
     for names in _NOT_PORTED.values():
         for name in names:
             p.add_argument("--" + name.replace("_", "-"),
@@ -119,6 +136,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     f"{why}")
     if args.hf_ckpt and args.ckpt_dir:
         p.error("--hf-ckpt and --ckpt-dir are exclusive")
+    if not args.lora_ckpt and (
+            args.lora_rank > 0 or args.lora_alpha != 16.0
+            or args.lora_targets != "wq,wv"
+            or args.lora_forward != "merged"):
+        # a LoRA flag without --lora-ckpt would serve the bare base
+        p.error("--lora-rank/--lora-alpha/--lora-targets/--lora-forward "
+                "require --lora-ckpt")
+    if args.lora_ckpt and args.lora_rank < 1:
+        p.error("--lora-ckpt requires --lora-rank (the rank the adapters "
+                "were trained at)")
     return args
 
 
@@ -145,15 +172,21 @@ class Server:
         self.device = resolve_device(args.device)
         #: the checkpoint step served (0 for HF and random weights)
         self.step = 0
+        # the JAX load order: a merged --lora-ckpt folds into the float
+        # base before the (lossy) quantization; the attached forward
+        # quantizes first (QLoRA's training numerics), then wraps
+        attached = bool(args.lora_ckpt) and args.lora_forward == "attached"
+        quantized = False
         if args.hf_ckpt:
             from tpu_docker_api_torch.models.import_weights import (
                 hf_llama_config, import_hf_llama)
 
             cfg = hf_llama_config(args.hf_ckpt)
             args.preset = os.path.basename(os.path.normpath(args.hf_ckpt))
+            quantized = args.quantize and (not args.lora_ckpt or attached)
             _, params = import_hf_llama(args.hf_ckpt, cfg,
                                         device=self.device,
-                                        quantize=args.quantize)
+                                        quantize=quantized)
         else:
             _, cfg = resolve_preset(args.preset)
             if args.ckpt_dir:
@@ -167,9 +200,28 @@ class Server:
                 params = init_fn(cfg, torch.Generator(
                     device=self.device).manual_seed(args.seed))
         self.cfg = cfg
-        if args.quantize and not args.hf_ckpt:  # --hf-ckpt loaded int8
+        if args.lora_ckpt:
+            from tpu_docker_api_torch.train.lora import (attach_lora,
+                                                         merge_lora,
+                                                         restore_adapters)
+
+            targets = tuple(t.strip() for t in args.lora_targets.split(",")
+                            if t.strip())
+            adapters = restore_adapters(args.lora_ckpt, cfg, self.device,
+                                        args.lora_rank, targets)
+            if attached:
+                if args.quantize and not quantized:
+                    params = quantize_llama_params(params)
+                    quantized = True
+                params = attach_lora(params, adapters, args.lora_alpha)
+            else:
+                params = merge_lora(params, adapters, args.lora_alpha)
+            del adapters
+        if args.quantize and not quantized:
             params = quantize_llama_params(params)
-        if not args.no_fuse_proj:
+        # fusion concatenates the projections an attached tree keeps
+        # apart (its adapters hang off the unfused leaves)
+        if not args.no_fuse_proj and not attached:
             params = fuse_llama_projections(params)
         self.params = params
         tok_path = args.tokenizer

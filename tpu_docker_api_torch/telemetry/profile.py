@@ -34,13 +34,20 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def device_time_summary(prof, wall_s: float, top: int = 12) -> dict:
+def device_time_summary(prof, wall_s: float, top: int = 12,
+                        ranges: tuple[str, ...] = ()) -> dict:
     """Milliseconds of device time by kernel class over a window of
     ``wall_s`` host seconds (synchronised at both ends), the busy and
-    idle shares of that window, and the ``top`` kernels by time."""
+    idle shares of that window, and the ``top`` kernels by time. For each
+    name in ``ranges`` (a ``torch.profiler.record_function`` range), the
+    device time of the kernels launched inside it (``ms_by_range``)."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    # a record_function range also shows on the device's timeline as a
+    # user annotation spanning its kernels: not a kernel of its own
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     if not kernels:
         return {"kernel_events": 0, "window_ms": wall_s * 1e3}
     by_class: dict[str, float] = defaultdict(float)
@@ -58,6 +65,10 @@ def device_time_summary(prof, wall_s: float, top: int = 12) -> dict:
         "idle_share": max(0.0, 1.0 - busy_ms / window_ms),
         "ms_by_class": dict(by_class),
         "share_by_class": {k: v / busy_ms for k, v in by_class.items()},
+        "ms_by_range": {r: sum(e.device_time_total for e in events
+                               if e.name == r
+                               and e.device_type == DeviceType.CPU) / 1e3
+                        for r in ranges},
         "top_kernels": [[name[:120], ms] for name, ms in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:top]],
     }

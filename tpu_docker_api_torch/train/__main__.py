@@ -5,6 +5,8 @@
         --batch 4 --seq 2048 --optim adamw-int8 --ckpt-dir CKPT \
         --save-every 10 [--data TOKENS.bin]
     python -m tpu_docker_api_torch.train --device cpu --preset tiny --steps 3
+    python -m tpu_docker_api_torch.train --preset llama3-8b --qlora \
+        --lora-rank 16 --batch 1 --seq 2048 --optim adamw-int8
 
 Trains on a token file (``--data``, data/loader.py) or on synthetic
 tokens, from random weights (``--seed``) or from the latest checkpoint in
@@ -31,8 +33,18 @@ point:
 - ``--profile-dir`` traces ``--profile-steps`` steps from
   ``start_step + 1`` with ``torch.profiler``, writes ``trace.json``
   there and prints ``{"event": "profile_written", ...}`` with the
-  window's device time by kernel class and its idle share
-  (telemetry/profile.py).
+  window's device time by kernel class and its idle share, and the
+  device time inside the int8 straight-through backward's range
+  (``ms_by_range``; telemetry/profile.py).
+- **LoRA** (``--lora-rank R > 0``, train/lora.py): the base is frozen
+  (random from ``--seed``, or the params of ``--lora-base-ckpt``) and
+  only rank-R adapters on ``--lora-targets`` train, merged into the base
+  every step (``--lora-forward merged``, the default) or evaluated
+  unmerged (``attached``). ``--qlora`` quantizes the base to int8 and
+  takes the attached forward. ``--ckpt-dir`` then holds adapter-only
+  checkpoints; resume and quiesce work as above. The JAX entry point's
+  guards hold: a LoRA flag without ``--lora-rank``, and ``--qlora
+  --lora-forward merged``, are refused.
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -52,9 +64,6 @@ import torch
 
 #: JAX-CLI flags the port does not take yet → why, and what brings them
 _NOT_PORTED = {
-    "it comes with LoRA/QLoRA (ROADMAP Queue 1)": (
-        "lora_rank", "lora_alpha", "lora_targets", "lora_base_ckpt",
-        "lora_forward", "qlora"),
     "it comes with the other model families (ROADMAP Queue 1)": (
         "moe_dispatch",),
     "it comes with parallelism (ROADMAP Queue 1)": ("dp", "fsdp", "tp",
@@ -95,23 +104,68 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="write a torch.profiler trace of --profile-steps "
                         "steps after the first")
     p.add_argument("--profile-steps", type=int, default=5)
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="> 0: LoRA fine-tuning: freeze the base, train "
+                        "rank-R adapters on --lora-targets; --ckpt-dir "
+                        "then holds adapter-only checkpoints")
+    p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--lora-targets", default="wq,wv",
+                   help="comma-separated projection leaf names to adapt")
+    p.add_argument("--lora-base-ckpt", default="",
+                   help="full-train checkpoint dir to load the frozen base "
+                        "from ('' = random weights from --seed)")
+    p.add_argument("--lora-forward", default=None,
+                   choices=["merged", "attached"],
+                   help="merged: merge every step (a transient "
+                        "weight-sized copy); attached: the unmerged "
+                        "Wx + s·B(Ax) forward, no merged tree")
+    p.add_argument("--qlora", action="store_true",
+                   help="int8-quantize the frozen base at load and use the "
+                        "attached forward")
     for names in _NOT_PORTED.values():
         for name in names:
-            flag = "--" + name.replace("_", "-")
-            if name == "qlora":
-                p.add_argument(flag, action="store_true",
-                               default=argparse.SUPPRESS,
-                               help=argparse.SUPPRESS)
-            else:
-                p.add_argument(flag, default=argparse.SUPPRESS,
-                               help=argparse.SUPPRESS)
+            p.add_argument("--" + name.replace("_", "-"),
+                           default=argparse.SUPPRESS, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     for why, names in _NOT_PORTED.items():
         given = ["--" + n.replace("_", "-") for n in names if hasattr(args, n)]
         if given:
             p.error(f"{', '.join(given)}: not in the PyTorch package yet; "
                     f"{why}")
+    if args.lora_rank <= 0 and (
+            args.lora_base_ckpt or args.lora_alpha != 16.0
+            or args.lora_targets != "wq,wv" or args.qlora
+            or args.lora_forward is not None):
+        # a LoRA flag without --lora-rank would otherwise be ignored, and
+        # a full pretrain from random weights would run with exit 0
+        p.error("--lora-base-ckpt/--lora-alpha/--lora-targets/--qlora/"
+                "--lora-forward require --lora-rank > 0")
+    if args.qlora and args.lora_forward == "merged":
+        # merging onto an int8 base would quantize the delta away
+        p.error("--qlora requires the attached forward; drop "
+                "--lora-forward merged")
+    if args.lora_forward is None:
+        args.lora_forward = "attached" if args.qlora else "merged"
     return args
+
+
+def _lora_base(args, cfg, device, gen) -> dict:
+    """The frozen base of a LoRA run: random from ``gen``, or the params of
+    ``--lora-base-ckpt``; int8 under ``--qlora``."""
+    from tpu_docker_api_torch.train import lora
+
+    if args.lora_base_ckpt:
+        # params only, whatever optimizer wrote them; a missing or empty
+        # directory raises: fine-tuning a random base would be garbage
+        # with exit 0
+        base = lora.restore_base_params(args.lora_base_ckpt, cfg, device)
+    else:
+        base = lora.init_base_params(cfg, gen)
+    if args.qlora:
+        # the serving quantizer: adapters train against the numerics of
+        # serve --quantize --lora-forward attached
+        base = lora.quantize_base(base)
+    return base
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -119,6 +173,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from tpu_docker_api_torch import resolve_device
     from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.ops.quant import STE_BACKWARD_RANGE
     from tpu_docker_api_torch.telemetry.profile import device_time_summary
     from tpu_docker_api_torch.train.checkpoint import resume_or_init
     from tpu_docker_api_torch.train.trainer import (create_train_state,
@@ -141,19 +196,39 @@ def main(argv: list[str] | None = None) -> int:
 
         opt = adamw_int8()
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.lora_rank > 0:
+        from tpu_docker_api_torch.train import lora
+
+        targets = tuple(t.strip() for t in args.lora_targets.split(",")
+                        if t.strip())
+        base = _lora_base(args, cfg, device, gen)
     mgr = None
     if args.ckpt_dir:
+        # under LoRA the directory holds adapter-only checkpoints
         t_boot = time.perf_counter()
-        state, optimizer, mgr = resume_or_init(args.ckpt_dir, cfg, device,
-                                               gen, optimizer=opt)
+        if args.lora_rank > 0:
+            state, optimizer, mgr = lora.lora_resume_or_init(
+                args.ckpt_dir, cfg, device, gen, args.lora_rank, targets,
+                opt)
+        else:
+            state, optimizer, mgr = resume_or_init(args.ckpt_dir, cfg,
+                                                   device, gen, optimizer=opt)
         if state.step:
             print(json.dumps({"event": "resumed", "step": state.step,
                               "restore_s": time.perf_counter() - t_boot}),
                   flush=True)
+    elif args.lora_rank > 0:
+        state, optimizer = lora.create_lora_state(cfg, gen, args.lora_rank,
+                                                  targets, opt)
     else:
         state, optimizer = create_train_state(cfg, device, gen,
                                               optimizer=opt)
-    step_fn = make_train_step(cfg, optimizer)
+    if args.lora_rank > 0:
+        step_fn = lora.make_lora_train_step(cfg, optimizer, base,
+                                            alpha=args.lora_alpha,
+                                            forward=args.lora_forward)
+    else:
+        step_fn = make_train_step(cfg, optimizer)
     start_step = state.step
 
     if args.data:
@@ -210,7 +285,9 @@ def main(argv: list[str] | None = None) -> int:
                                               "trace.json"))
         print(json.dumps({"event": "profile_written",
                           "dir": args.profile_dir,
-                          **device_time_summary(prof, wall)}), flush=True)
+                          **device_time_summary(
+                              prof, wall, ranges=(STE_BACKWARD_RANGE,))}),
+              flush=True)
         prof = None
 
     tokens_per_step = args.batch * seq

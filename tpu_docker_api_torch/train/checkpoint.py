@@ -340,28 +340,77 @@ class CheckpointManager:
         step = self._resolve(step)
         params = self.restore_params(step, device)
         check_params(params, cfg, f"checkpoint step {step}")
+        opt_target = optimizer.init(tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            params))
+        meta_step, opt_state = self._restore_opt(step, opt_target, device)
+        return TrainState(meta_step, params, opt_state)
+
+    def restore_with_target(self, target: TrainState,
+                            step: int | None = None,
+                            device: str | torch.device = "cuda"
+                            ) -> TrainState:
+        """The ``TrainState`` of ``step`` (latest if None) on ``device``
+        in ``target``'s structure: its params and optimizer state as meta
+        tensors (only shapes and dtypes are read). The seam for a state
+        no model config describes, such as LoRA's adapter-only one
+        (train/lora.py ``lora_abstract_state``)."""
+        step = self._resolve(step)
+        params = self.restore_params_with_target(target.params, step,
+                                                 device)
+        meta_step, opt_state = self._restore_opt(step, target.opt_state,
+                                                 device)
+        return TrainState(meta_step, params, opt_state)
+
+    def restore_params_with_target(self, target: dict,
+                                   step: int | None = None,
+                                   device: str | torch.device = "cuda"
+                                   ) -> dict:
+        """The params of ``step`` (latest if None) in ``target``'s
+        structure, whichever optimizer wrote them: every params tensor on
+        disk must be in ``target`` with its shape and dtype."""
+        step = self._resolve(step)
+        d = self._step_dir(step)
+        with open(os.path.join(d, META_FILE)) as fh:
+            on_disk = json.load(fh)["params"]
+        want: dict = {}
+        _flatten(target, "", want, {})
+        if set(on_disk) != set(want):
+            raise ValueError(f"checkpoint step {step}: params "
+                             f"{sorted(set(on_disk) ^ set(want))} differ "
+                             f"from the target's")
+        return _fill(target, "", _reader(
+            SafeTensorsFile(os.path.join(d, PARAMS_FILE)), step, "params",
+            device), {})
+
+    def _restore_opt(self, step: int, target, device) -> tuple[int, Any]:
+        """(the step of ``meta.json``, the optimizer state of ``step`` in
+        ``target``'s structure)."""
         d = self._step_dir(step)
         with open(os.path.join(d, META_FILE)) as fh:
             meta = json.load(fh)
-        f = SafeTensorsFile(os.path.join(d, OPT_FILE))
-        target = optimizer.init(tree_map(
-            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
-            params))
+        read = _reader(SafeTensorsFile(os.path.join(d, OPT_FILE)), step,
+                       "optimizer", device)
+        return int(meta["step"]), _fill(target, "", read, meta["ints"])
 
-        def read(path, like):
-            if path not in f:
-                raise ValueError(f"checkpoint step {step} has no optimizer "
-                                 f"tensor {path!r}: it was written by "
-                                 f"another optimizer")
-            got = f.tensor(path)
-            if got.shape != like.shape or got.dtype != like.dtype:
-                raise ValueError(f"optimizer tensor {path!r}: "
-                                 f"{got.dtype}{tuple(got.shape)} on disk, "
-                                 f"{like.dtype}{tuple(like.shape)} expected")
-            return got.to(device, copy=True)
 
-        opt_state = _fill(target, "", read, meta["ints"])
-        return TrainState(int(meta["step"]), params, opt_state)
+def _reader(f: SafeTensorsFile, step: int, what: str, device):
+    """``read(path, like)`` for ``_fill``: the tensor at ``path`` on
+    ``device``, refused unless it is there with ``like``'s shape and
+    dtype."""
+    def read(path, like):
+        if path not in f:
+            raise ValueError(f"checkpoint step {step} has no {what} tensor "
+                             f"{path!r}: it was written by another "
+                             f"optimizer or model")
+        got = f.tensor(path)
+        if got.shape != like.shape or got.dtype != like.dtype:
+            raise ValueError(f"{what} tensor {path!r}: "
+                             f"{got.dtype}{tuple(got.shape)} on disk, "
+                             f"{like.dtype}{tuple(like.shape)} expected")
+        return got.to(device, copy=True)
+
+    return read
 
 
 def check_params(params: dict, cfg, what: str) -> None:

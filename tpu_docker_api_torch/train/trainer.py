@@ -4,8 +4,11 @@
 The JAX step is one jitted function over sharded state. The port's step
 runs eagerly on one device: autograd through the model's loss, then the
 optimizer's pure update and ``apply_updates``, all under the caller's
-stream with no host sync. The mesh, the shardings and the JAX step's
-``grad_fn``/``const_args`` seams wait for the port's parallelism.
+stream with no host sync. The JAX step's ``const_args`` (a frozen tree
+passed as a jit operand, LoRA's base) is a closure here: train/lora.py's
+``loss_fn`` closes over the base, outside ``state.params``, so it never
+requires a gradient and gets no moments. The mesh, the shardings and the
+``grad_fn`` seam wait for the port's parallelism.
 """
 
 from __future__ import annotations
