@@ -37,6 +37,23 @@ Phases, one JSON line each; any failure exits non-zero:
               the card, the tokenizer's round trip, and the int8 logits'
               cosine to the bf16 model's; launches and device time of one
               decode step on each tree.
+5b. serve_depth — the KV cache's serving depth through the server's HTTP
+              entry point at llama3-1b full width and depth
+              (``phase_serve_depth``): a 1,024-token prefix registered by
+              POST /prefixes (its K/V bytes, GET, DELETE), 8 prompts of
+              prefix + 17-512 tokens with it and without it; the
+              first-token logits of the prefix, segment and paged routes
+              against the whole-prompt flash path (2e-2 relative L2);
+              seven streams decoding beside one 1,900-token admission with
+              --prefill-chunk 256 and 0 (gaps between tokens, the long
+              request's TTFT); the paged cache (--page-size 32) on the
+              serve burst (256 pages, half the dense cache's bytes), with
+              the prefix's pages shared, and a 48-page pool that must
+              preempt; every page back after each drain; flash_fwd on
+              every prefix build and paged prefill; the device time of a
+              decode step through pages against the dense cache and of a
+              256-token segment's offset attention; peak memory of dense
+              and paged at 64 slots x 8192.
 6. train    — the trainer's entry points at llama3-1b full width and depth,
               batch 4 x 2048, random weights from a seed: 4 steps under
               ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
@@ -2108,6 +2125,507 @@ def phase_lora(dev, train: dict | None, int8: dict | None,
     return result
 
 
+#: the serve_depth phase (slice 8): a 1,024-token system prompt and
+#: suffixes of 17-512 tokens; one 1,900-token admission beside seven
+#: decoding streams; the paged cache's page and pools
+DEPTH_PRESET = "llama3-1b"
+DEPTH_MAX_SEQ = 2048
+DEPTH_PREFIX_LEN = 1024
+DEPTH_SUFFIXES = [17, 40, 100, 180, 250, 333, 420, 512]
+DEPTH_LONG, DEPTH_SEGMENT = 1900, 256
+DEPTH_STREAM_PROMPT, DEPTH_STREAM_NEW = 64, 160
+DEPTH_PAGE = 32            # --page-size 64 is refused: default buckets
+#                            start at 32 and a page must divide each
+DEPTH_POOL, DEPTH_TIGHT_POOL = 256, 48
+DEPTH_TIGHT_NEW = 256
+#: a request alone whose decode reads a 512-key view in both engines (the
+#: dense read bucket and the paged 16-page bucket): the same arithmetic
+DEPTH_SOLO = 300
+DEPTH_BIG_SLOTS, DEPTH_BIG_SEQ = 64, 8192
+#: the serve burst's pool under grow admission: its prompts' buckets hold
+#: 191 pages of 32 and five requests grow one page each (196)
+DEPTH_BIG_POOL = 200
+DEPTH_LOGITS_TOL = 2e-2    # relative L2, bf16 through 16 layers
+
+
+@contextlib.contextmanager
+def _server(dev, argv: list[str]):
+    """An in-process Server of the depth phase's model on a free port."""
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    srv = Server(parse_args(["--preset", DEPTH_PRESET, "--device", str(dev),
+                             "--slots", "8", "--chunk", "8", "--seed", "0",
+                             "--host", "127.0.0.1", "--port", "0", *argv]))
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv, srv.httpd.server_address[1]
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+        del srv
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _call(port: int, method: str, path: str, body=None) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, body=None if body is None
+                 else json.dumps(body))
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data
+
+
+def _stream_times(port: int, prompt: list, max_new: int, started=None):
+    """One streamed greedy request: (tokens, host arrival time of each,
+    send time). ``started`` is set once the first token arrives."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate", body=json.dumps(
+        {"tokens": [prompt], "maxNewTokens": max_new, "stream": True}))
+    resp = conn.getresponse()
+    toks, times, done = [], [], None
+    for line in iter(resp.readline, b""):  # to the body's end
+        if not line.strip():
+            continue
+        msg = json.loads(line)
+        if "t" not in msg:
+            done = msg
+            continue
+        toks.append(msg["t"])
+        times.append(time.perf_counter())
+        if started is not None:
+            started.set()
+    conn.close()
+    if done != {"done": True, "length": max_new} or len(toks) != max_new:
+        raise AssertionError(f"stream gave {len(toks)} of {max_new} "
+                             f"tokens, then {done}")
+    return toks, times, t0
+
+
+def _burst(port: int, prompts: list, max_new: int, vocab: int) -> list:
+    replies, _ = _concurrent(port, prompts, max_new)
+    return [_check_reply(*r, 1, max_new, vocab)["tokens"][0]
+            for r in replies]
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _route_logits(srv, prompt: list, **engine_args):
+    """First-token logits of ``prompt`` through one admission route: a
+    fresh one-slot engine on the server's params (a PagedSlotEngine when
+    ``page_size`` is given) with ``prefix`` registered first, its sampler
+    wrapped to keep the logits it is handed."""
+    from tpu_docker_api_torch.infer.paged import PagedSlotEngine
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+
+    prefix = engine_args.pop("prefix", None)
+    cls = PagedSlotEngine if "page_size" in engine_args else SlotEngine
+    eng = cls(srv.cfg, srv.params, slots=1, max_seq=DEPTH_MAX_SEQ,
+              cache_dtype=srv.cfg.dtype, **engine_args)
+    if prefix is not None:
+        eng.register_prefix(prefix)
+    seen = []
+
+    def keep(logits, *rest):
+        seen.append(logits[0].float().clone())
+        return cls._sample_filtered(logits, *rest)
+
+    eng._sample_filtered = keep
+    for _ in range(2):  # the second admission is timed
+        t0 = time.perf_counter()
+        h = eng.submit(prompt, 1)
+        while not h.done():
+            eng.step()
+        h.result(0)
+        admit_s = time.perf_counter() - t0
+    stats = dict(eng.stats, admit_ms=admit_s * 1e3)
+    eng.close()
+    return seen[-1], stats
+
+
+def _segment_stall(dev, prefill_chunk: int, vocab: int) -> dict:
+    """Seven streams decoding, then one long admission: each stream's
+    longest gap between tokens and mean gap, the long request's TTFT."""
+    g = torch.Generator().manual_seed(2)
+    streams = [torch.randint(0, vocab, (DEPTH_STREAM_PROMPT,),
+                             generator=g).tolist() for _ in range(7)]
+    long_p = torch.randint(0, vocab, (DEPTH_LONG,), generator=g).tolist()
+    with _server(dev, ["--max-seq", str(DEPTH_MAX_SEQ), "--prefill-chunk",
+                       str(prefill_chunk)]) as (srv, port):
+        _burst(port, [[1, 2, 3]], 2, vocab)
+        # the long prompt's programs once, so both runs start warm
+        _burst(port, [long_p], 2, vocab)
+        out: list = [None] * 8
+        started = [threading.Event() for _ in range(7)]
+
+        def stream(i, prompt, max_new, ev=None):
+            out[i] = _stream_times(port, prompt, max_new, ev)
+
+        threads = [threading.Thread(
+            target=stream, args=(i, streams[i], DEPTH_STREAM_NEW,
+                                 started[i])) for i in range(7)]
+        for t in threads:
+            t.start()
+        for ev in started:
+            if not ev.wait(timeout=300):
+                raise AssertionError("a stream never started")
+        segments0 = srv.engine.stats["segment_prefills"]
+        long_t = threading.Thread(target=stream, args=(7, long_p, 8))
+        long_t.start()
+        for t in [*threads, long_t]:
+            t.join(timeout=600)
+        segments = srv.engine.stats["segment_prefills"] - segments0
+    _, long_times, long_t0 = out[7]
+    gaps = []
+    means = []
+    for _, times, _ in out[:7]:
+        d = [b - a for a, b in zip(times, times[1:])]
+        gaps.append(max(d))
+        means.append(sum(d) / len(d))
+    # the window the long admission can stall: from its send to its first
+    # token, seen by the streams still running
+    in_window = [max([b - a for a, b in zip(times, times[1:])
+                      if b >= long_t0] or [0.0])
+                 for _, times, _ in out[:7]]
+    return {"prefill_chunk": prefill_chunk, "segments": segments,
+            "long_ttft_ms": (long_times[0] - long_t0) * 1e3,
+            "streams_max_gap_ms": max(gaps) * 1e3,
+            "streams_max_gap_after_long_submit_ms": max(in_window) * 1e3,
+            "streams_itl_p50_ms": sorted(means)[3] * 1e3}
+
+
+def _busy_ms(fn) -> dict:
+    """One call of ``fn`` (a whole forward: more launches than the card's
+    queue holds, so events around it read the host's time): its device
+    busy ms and kernels under ``torch.profiler``, and its host-clocked ms
+    to a synchronise, after two warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_docker_api_torch.telemetry.profile import device_time_summary
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = device_time_summary(prof, wall)
+    return {"busy_ms": summary.get("busy_ms"),
+            "kernels": summary["kernel_events"], "wall_ms": wall * 1e3}
+
+
+def _decode_read_costs(dev, srv) -> dict:
+    """Device ms of one 8-slot decode step at position 1900 through the
+    dense cache (2,048-key read bucket) and through the page pool
+    (64 pages of 32 gathered a layer), and of one 256-token segment at
+    offset 1,792 against the 2,048-key view (dense f32 scores) beside the
+    whole 2,048-token prefill through the flash kernel."""
+    from tpu_docker_api_torch.models.llama import (llama_forward_cached,
+                                                   llama_forward_paged)
+
+    cfg, params = srv.cfg, srv.params
+    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    rows, pos = 8, 1900
+    dense_k = torch.randn((L, rows, DEPTH_MAX_SEQ, kvh, hd), device=dev,
+                          dtype=cfg.dtype)
+    dense_v = torch.randn_like(dense_k)
+    pages = DEPTH_MAX_SEQ // DEPTH_PAGE
+    pool_k = dense_k.reshape(L, rows * pages, DEPTH_PAGE, kvh, hd).clone()
+    pool_v = dense_v.reshape(L, rows * pages, DEPTH_PAGE, kvh, hd).clone()
+    table = torch.arange(rows * pages, device=dev).reshape(rows, pages)
+    tok = torch.arange(rows, device=dev)[:, None] + 1000
+    posv = torch.full((rows,), pos, device=dev)
+    with torch.no_grad():
+        dense_logits, _, _ = llama_forward_cached(
+            params, tok, cfg, dense_k, dense_v, posv, kv_limit=DEPTH_MAX_SEQ)
+        paged_logits, _, _ = llama_forward_paged(
+            params, tok, cfg, pool_k, pool_v, table, posv,
+            max_pos=DEPTH_MAX_SEQ)
+        dense_step = _busy_ms(lambda: llama_forward_cached(
+            params, tok, cfg, dense_k, dense_v, posv,
+            kv_limit=DEPTH_MAX_SEQ))
+        paged_step = _busy_ms(lambda: llama_forward_paged(
+            params, tok, cfg, pool_k, pool_v, table, posv,
+            max_pos=DEPTH_MAX_SEQ))
+        seg = torch.randint(0, cfg.vocab_size, (1, DEPTH_SEGMENT),
+                            device=dev)
+        start = torch.tensor([DEPTH_MAX_SEQ - DEPTH_SEGMENT], device=dev)
+        row_k, row_v = dense_k[:, :1].clone(), dense_v[:, :1].clone()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        segment = _busy_ms(lambda: llama_forward_cached(
+            params, seg, cfg, row_k, row_v, start,
+            last_only=torch.tensor([DEPTH_SEGMENT - 1]),
+            kv_limit=DEPTH_MAX_SEQ))
+        segment_peak = torch.cuda.max_memory_allocated(dev) - base
+        whole = torch.randint(0, cfg.vocab_size, (1, DEPTH_MAX_SEQ),
+                              device=dev)
+        wk = torch.zeros_like(row_k)
+        wv = torch.zeros_like(row_v)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        whole_step = _busy_ms(lambda: llama_forward_cached(
+            params, whole, cfg, wk, wv, 0, last_only=True))
+        whole_peak = torch.cuda.max_memory_allocated(dev) - base
+    gather = 2 * L * rows * DEPTH_MAX_SEQ * kvh * hd * 2
+    rel = _rel_l2(paged_logits, dense_logits)
+    if rel != 0.0:
+        # the gathered view holds the dense cache's values: the same
+        # attention on the same numbers
+        raise AssertionError(f"paged decode logits differ: {rel}")
+    return {"decode_step_dense": dense_step,
+            "decode_step_paged": paged_step,
+            "paged_vs_dense_decode_logits_rel_l2": rel,
+            "paged_gather_bytes_per_step": gather,
+            "segment_256_at_1792": segment,
+            "segment_peak_bytes": segment_peak,
+            "offset_scores_bytes_per_layer": (
+                cfg.n_heads * DEPTH_SEGMENT * DEPTH_MAX_SEQ * 4),
+            "whole_2048_flash": whole_step,
+            "whole_2048_peak_bytes": whole_peak}
+
+
+def _peak_burst(dev, argv: list[str], prompts: list, vocab: int) -> dict:
+    """max_memory_allocated across building a server and serving the
+    burst, beside the bytes of its KV cache."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else None
+    with _server(dev, argv) as (srv, port):
+        _burst(port, prompts, 32, vocab)
+        eng = srv.engine
+        out = {"argv": argv, "allocated_before": before,
+               "cache_bytes": 2 * eng._k.numel() * eng._k.element_size(),
+               "max_memory_allocated": (
+                   torch.cuda.max_memory_allocated(dev) if cuda else None),
+               "deferred_admissions": eng.stats.get("deferred_admissions")}
+    return out
+
+
+def phase_serve_depth(dev) -> dict:
+    """Prefix caching, segments and the paged cache through the server's
+    HTTP entry point at llama3-1b full width and depth (module docstring,
+    phase 5b)."""
+    from tpu_docker_api_torch.ops import flash
+
+    phase_t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(1)
+    res: dict = {"phase": "serve_depth", "preset": DEPTH_PRESET}
+    launches: dict = {}
+    seq = ["--max-seq", str(DEPTH_MAX_SEQ)]
+    with _server(dev, seq) as (srv, port):
+        cfg, eng = srv.cfg, srv.engine
+        vocab = cfg.vocab_size
+        prefix = torch.randint(0, vocab, (DEPTH_PREFIX_LEN,),
+                               generator=g).tolist()
+        px_prompts = [prefix + torch.randint(0, vocab, (n,),
+                                             generator=g).tolist()
+                      for n in DEPTH_SUFFIXES]
+        burst = [torch.randint(0, vocab, (n,), generator=g).tolist()
+                 for n in SERVE_LENGTHS]
+        _burst(port, [[1, 2, 3]], 2, vocab)
+
+        # ---- 1. prefix: build, 8 prefixed requests, then without it
+        flash.reset_launch_count()
+        code, body = _call(port, "POST", "/prefixes", {"tokens": prefix})
+        launches["dense_prefix_build"] = flash.launch_count["flash_fwd"]
+        if code != 200 or body["length"] != DEPTH_PREFIX_LEN:
+            raise AssertionError(f"POST /prefixes: {code} {body}")
+        pid = body["prefixId"]
+        _, listing = _call(port, "GET", "/prefixes")
+        want_bytes = (2 * cfg.n_layers * DEPTH_PREFIX_LEN * cfg.n_kv_heads
+                      * cfg.head_dim * 2)
+        if listing["prefixes"] != [{"id": pid, "length": DEPTH_PREFIX_LEN,
+                                    "bytes": want_bytes}]:
+            raise AssertionError(f"GET /prefixes: {listing}")
+        runs = {}
+        for name in ("with_prefix", "without_prefix"):
+            if name == "without_prefix":
+                code, body = _call(port, "DELETE", f"/prefixes/{pid}")
+                _, after = _call(port, "GET", "/prefixes")
+                if (body != {"removed": True} or after["prefixes"]
+                        or eng.stats["prefix_bytes"] != 0):
+                    raise AssertionError(f"DELETE: {body} {after}")
+            eng.reset_latency_stats()
+            hits0 = eng.stats["prefix_hits"]
+            flash.reset_launch_count()
+            toks = _burst(port, px_prompts, 32, vocab)
+            launches[f"dense_{name}"] = flash.launch_count["flash_fwd"]
+            lat = eng.latency_stats()
+            runs[name] = {"ttft_p50_ms": lat["ttft_p50_ms"],
+                          "itl_p50_ms": lat["itl_p50_ms"],
+                          "prefix_hits": eng.stats["prefix_hits"] - hits0,
+                          "flash_launches": launches[f"dense_{name}"],
+                          "tokens": toks}
+        if runs["with_prefix"]["prefix_hits"] != len(px_prompts):
+            raise AssertionError(f"prefix hits: {runs['with_prefix']}")
+        agree = [a == b for a, b in zip(runs["with_prefix"].pop("tokens"),
+                                        runs["without_prefix"].pop("tokens"))]
+        res["prefix"] = {"prefix_bytes": want_bytes, "listing": listing,
+                         **runs, "streams_token_equal": sum(agree)}
+        # the dense burst, for the paged one below
+        solo = torch.randint(0, vocab, (DEPTH_SOLO,), generator=g).tolist()
+        dense_solo = _burst(port, [solo], 32, vocab)[0]
+        eng.reset_latency_stats()
+        dense_burst = _burst(port, burst, 32, vocab)
+        lat = eng.latency_stats()
+        res["dense_burst"] = {"ttft_p50_ms": lat["ttft_p50_ms"],
+                              "itl_p50_ms": lat["itl_p50_ms"],
+                              "cache_bytes": 2 * eng._k.numel()
+                              * eng._k.element_size()}
+
+        # ---- first-token logits of each route against the whole prompt
+        probe = px_prompts[3]
+        whole, whole_stats = _route_logits(srv, probe)
+        routes = {
+            "prefix": dict(prefix=prefix),
+            "segments": dict(prefill_chunk=DEPTH_SEGMENT),
+            "paged": dict(page_size=DEPTH_PAGE),
+            "paged_prefix": dict(page_size=DEPTH_PAGE, prefix=prefix),
+            "paged_segments": dict(page_size=DEPTH_PAGE,
+                                   prefill_chunk=DEPTH_SEGMENT)}
+        logits = {}
+        for name, kw in routes.items():
+            got, stats = _route_logits(srv, probe, **kw)
+            logits[name] = {"rel_l2": _rel_l2(got, whole),
+                            "argmax_equal": bool(got.argmax()
+                                                 == whole.argmax()),
+                            "admit_ms": stats["admit_ms"],
+                            "prefix_hits": stats["prefix_hits"],
+                            "segment_prefills": stats["segment_prefills"]}
+            if logits[name]["rel_l2"] > DEPTH_LOGITS_TOL or not (
+                    torch.isfinite(got).all()):
+                raise AssertionError(f"{name} logits: {logits[name]}")
+        if logits["paged"]["rel_l2"] != 0.0:
+            # the same forward as the dense whole prompt, then a scatter
+            raise AssertionError(f"paged whole-prompt logits: {logits}")
+        res["first_token_logits"] = {"tol": DEPTH_LOGITS_TOL,
+                                     "whole_admit_ms": whole_stats[
+                                         "admit_ms"], **logits}
+        if dev.type == "cuda":
+            res["read_costs"] = _decode_read_costs(dev, srv)
+
+    # ---- 2. segments: seven streams and one long admission
+    res["segments"] = [_segment_stall(dev, pc, vocab)
+                       for pc in (DEPTH_SEGMENT, 0)]
+
+    # ---- 3. paged: the burst, the shared prefix, a tight pool
+    paged = ["--page-size", str(DEPTH_PAGE)]
+    with _server(dev, [*seq, *paged, "--total-pages", str(DEPTH_POOL)]) as (
+            srv, port):
+        eng = srv.engine
+        _burst(port, [[1, 2, 3]], 2, vocab)
+        eng.reset_latency_stats()
+        flash.reset_launch_count()
+        paged_burst = _burst(port, burst, 32, vocab)
+        launches["paged_burst"] = flash.launch_count["flash_fwd"]
+        lat = eng.latency_stats()
+        if eng.stats["pages_free"] != eng.stats["pages_total"]:
+            raise AssertionError(f"pages leaked: {eng.stats}")
+        agree = sum(a == b for a, b in zip(paged_burst, dense_burst))
+        if _burst(port, [solo], 32, vocab)[0] != dense_solo:
+            # alone, both read 512-key views of the same values
+            raise AssertionError("paged solo tokens differ from dense")
+        res["paged_burst"] = {
+            "ttft_p50_ms": lat["ttft_p50_ms"],
+            "itl_p50_ms": lat["itl_p50_ms"],
+            "cache_bytes": 2 * eng._k.numel() * eng._k.element_size(),
+            "pages_total": eng.stats["pages_total"],
+            "grown_pages": eng.stats["grown_pages"],
+            "streams_token_equal_dense": agree}
+        flash.reset_launch_count()
+        code, body = _call(port, "POST", "/prefixes", {"tokens": prefix})
+        launches["paged_prefix_build"] = flash.launch_count["flash_fwd"]
+        if code != 200:
+            raise AssertionError(f"paged POST /prefixes: {code} {body}")
+        pinned = DEPTH_PREFIX_LEN // DEPTH_PAGE
+        eng.reset_latency_stats()
+        hits0 = eng.stats["prefix_hits"]
+        flash.reset_launch_count()
+        _burst(port, px_prompts, 32, vocab)
+        launches["paged_with_prefix"] = flash.launch_count["flash_fwd"]
+        lat = eng.latency_stats()
+        free = eng.stats["pages_free"]
+        if free != eng.stats["pages_total"] - pinned:
+            raise AssertionError(f"pages after the prefix run: {eng.stats}")
+        _call(port, "DELETE", f"/prefixes/{body['prefixId']}")
+        deadline = time.monotonic() + 10  # the engine loop reclaims them
+        while (eng.stats["pages_free"] != eng.stats["pages_total"]
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        if eng.stats["pages_free"] != eng.stats["pages_total"]:
+            raise AssertionError(f"prefix pages not returned: {eng.stats}")
+        res["paged_prefix"] = {"ttft_p50_ms": lat["ttft_p50_ms"],
+                               "itl_p50_ms": lat["itl_p50_ms"],
+                               "prefix_hits": eng.stats["prefix_hits"] - hits0,
+                               "pinned_pages": pinned,
+                               "pages_free_after": free}
+    tight_prompts = [torch.randint(0, vocab, (20,), generator=g).tolist()
+                     for _ in range(8)]
+    with _server(dev, [*seq, *paged, "--total-pages",
+                       str(DEPTH_TIGHT_POOL)]) as (srv, port):
+        eng = srv.engine
+        out: list = [None] * 8
+
+        def stream(i):
+            out[i] = _stream_times(port, tight_prompts[i], DEPTH_TIGHT_NEW)
+
+        flash.reset_launch_count()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches["paged_tight"] = flash.launch_count["flash_fwd"]
+        if not all(out):
+            raise AssertionError("a tight-pool stream did not finish")
+        st = dict(eng.stats)
+        if st["preemptions"] < 1 or st["pages_free"] != st["pages_total"]:
+            raise AssertionError(f"tight pool: {st}")
+        res["paged_tight"] = {
+            "pages_total": st["pages_total"], "max_new": DEPTH_TIGHT_NEW,
+            "wall_s": time.perf_counter() - t0,
+            "preemptions": st["preemptions"],
+            "grown_pages": st["grown_pages"],
+            "deferred_admissions": st["deferred_admissions"],
+            "prefills": st["prefills"]}
+
+    # ---- capacity: dense and paged at 64 slots x 8192, nothing else held
+    srv = eng = None
+    big = ["--max-seq", str(DEPTH_BIG_SEQ), "--slots", str(DEPTH_BIG_SLOTS)]
+    live = sum(math.ceil((n + 31) / DEPTH_PAGE) for n in SERVE_LENGTHS)
+    res["capacity"] = {
+        "dense": _peak_burst(dev, big, burst, vocab),
+        "paged": _peak_burst(dev, [*big, *paged, "--total-pages",
+                                   str(DEPTH_BIG_POOL)], burst, vocab),
+        "burst_live_pages": live}
+    for path in ("dense_prefix_build", "paged_burst", "paged_prefix_build"):
+        if launches[path] < cfg.n_layers:
+            raise AssertionError(f"flash_fwd launched {launches[path]} "
+                                 f"times on {path}")
+    res.update({"flash_launches_by_run": launches,
+                "flash_launches": sum(launches.values()),
+                "phase_s": time.perf_counter() - phase_t0,
+                "card": nvidia_smi() if dev.type == "cuda" else "cpu"})
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2154,6 +2672,7 @@ def main() -> int:
     adam_res = phase_adam8(dev)
     serve_res = phase_serve(dev)
     int8_res = phase_serve_int8_text(dev, serve_res)
+    depth_res = phase_serve_depth(dev)
     train_res = phase_train(dev)
     life_res = phase_lifecycle(dev)
     lora_res = phase_lora(dev, train_res, int8_res)
@@ -2162,6 +2681,7 @@ def main() -> int:
     by_path = {
         "flash_fwd": {"serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
+                      "serve_depth": depth_res["flash_launches"],
                       "train": train_n["flash_fwd"],
                       "lifecycle": life_n["flash_fwd"],
                       "lora": lora_n["flash_fwd"]},

@@ -2,7 +2,8 @@
 packages the port's GPU hosts need not have (``safetensors``,
 ``transformers``, ``orbax``, ``tokenizers``, ``regex``) blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
-``chip_smoke.py`` import, and a tiny forward, train step, QLoRA step,
+``chip_smoke.py`` import, and a tiny forward, a paged engine with a
+shared prefix and segments, a train step, a QLoRA step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
 tokenizer written by ``chip_smoke.py`` run on the CPU."""
 
@@ -45,7 +46,9 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.train.lora",
                    "tpu_docker_api_torch.data.loader",
                    "tpu_docker_api_torch.models.import_weights",
-                   "tpu_docker_api_torch.models.tokenizer"):
+                   "tpu_docker_api_torch.models.tokenizer",
+                   "tpu_docker_api_torch.ops.paged",
+                   "tpu_docker_api_torch.infer.paged"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -57,6 +60,17 @@ _CHILD = textwrap.dedent("""
     logits = llama_forward(params, torch.zeros(1, 5, dtype=torch.long), cfg)
     assert logits.shape == (1, 5, cfg.vocab_size)
     assert torch.isfinite(logits).all()
+
+    from tpu_docker_api_torch.infer.paged import PagedSlotEngine
+    eng = PagedSlotEngine(cfg, params, page_size=16, slots=2, max_seq=64,
+                          chunk=4, prefill_chunk=8, total_pages=8)
+    eng.register_prefix(list(range(1, 17)))
+    hs = [eng.submit(list(range(1, 17)) + [5], 3),
+          eng.submit(list(range(2, 30)), 3)]
+    while not all(h.done() for h in hs):
+        eng.step()
+    assert [h.result(0)["length"] for h in hs] == [3, 3]
+    assert eng.stats["prefix_hits"] == 1 and eng.stats["segment_prefills"]
 
     from tpu_docker_api_torch.train.trainer import (create_train_state,
                                                     make_train_step)

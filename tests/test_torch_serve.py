@@ -2,8 +2,10 @@
 /healthz, /metrics, /generate (ragged rows, sampling, validation), a
 streamed request, weights from ``--ckpt-dir`` and ``--hf-ckpt`` answering
 greedy requests with the tokens of the params in memory, int8 serving
-(``--quantize``) and text bodies (``--tokenizer``), and the JAX flags the
-port refuses by name."""
+(``--quantize``) and text bodies (``--tokenizer``), /prefixes,
+``--prefill-chunk`` and the paged cache (``--page-size``,
+``--total-pages``) answering as an in-memory engine of the same settings,
+and the JAX flags the port refuses by name."""
 
 import http.client
 import json
@@ -251,7 +253,7 @@ def test_serves_checkpoint_weights(trained, source):
     (["--lora-rank", "8"], "require --lora-ckpt"),
     (["--lora-ckpt", "a"], "--lora-ckpt requires --lora-rank"),
     (["--page-size", "16", "--n-spec", "4"], "ROADMAP Queue 1 item 6"),
-    (["--prefill-chunk", "64"], "ROADMAP Queue 1 item 6"),
+    (["--draft-ckpt", "d"], "ROADMAP Queue 1 item 6"),
     (["--tp", "2"], "ROADMAP Queue 1 item 9"),
     (["--platform", "cpu", "--virtual-devices", "4"], "use --device"),
     (["--ckpt-dir", "a", "--hf-ckpt", "b"], "exclusive")])
@@ -535,3 +537,152 @@ def test_int8_greedy_tokens_follow_jax(int8_text):
             exact += int(row.argmax()) == t
             steps += 1
     assert exact >= 0.9 * steps
+
+
+# ------------------------------------- prefixes, segments and the paged cache
+
+PX = list(range(5, 5 + 32))  # bucket 32; two pages at --page-size 16
+
+
+def test_prefixes_round_trip(server):
+    """POST registers (and dedupes), GET lists with the bytes the K/V
+    pin, a prompt extending the prefix takes the suffix route with the
+    tokens of the whole-prompt route, DELETE removes once."""
+    code, data = _request(server, "POST", "/prefixes", {"tokens": PX})
+    body = json.loads(data)
+    assert code == 200 and body["length"] == len(PX)
+    pid = body["prefixId"]
+    _, again = _request(server, "POST", "/prefixes", {"tokens": PX})
+    assert json.loads(again)["prefixId"] == pid
+    _, data = _request(server, "GET", "/prefixes")
+    (entry,) = json.loads(data)["prefixes"]
+    # 2 x layers x bucket 32 x kv heads x head_dim x bf16
+    assert entry == {"id": pid, "length": len(PX),
+                     "bytes": 2 * 2 * 32 * 2 * 16 * 2}
+    hits = server.engine.stats["prefix_hits"]
+    _, data = _request(server, "POST", "/generate", {
+        "tokens": [PX + [9, 9, 9]], "maxNewTokens": 5})
+    assert server.engine.stats["prefix_hits"] == hits + 1
+    assert len(json.loads(data)["tokens"][0]) == 5
+    for removed in (True, False):
+        code, data = _request(server, "DELETE", f"/prefixes/{pid}")
+        assert code == 200 and json.loads(data) == {"removed": removed}
+    _, data = _request(server, "GET", "/prefixes")
+    assert json.loads(data)["prefixes"] == []
+    assert server.engine.stats["prefix_bytes"] == 0
+
+
+@pytest.mark.parametrize("body,msg", [
+    ({"tokens": []}, "non-empty list"),
+    ({"tokens": [1, 999]}, "non-empty list"),
+    ({"text": "hi"}, "--tokenizer"),
+    ({"tokens": [1] * 63}, "no room")])
+def test_bad_prefix_bodies(server, body, msg):
+    code, data = _request(server, "POST", "/prefixes", body)
+    assert code == 400 and msg in json.loads(data)["error"]
+
+
+def test_prefix_text_body(int8_server):
+    tok = int8_server.tokenizer
+    code, data = _request(int8_server, "POST", "/prefixes",
+                          {"text": TEXTS[0]})
+    body = json.loads(data)
+    assert code == 200 and body["length"] == len(tok.encode(TEXTS[0]))
+    code, data = _request(int8_server, "POST", "/prefixes",
+                          {"text": [TEXTS[0]]})
+    assert code == 400 and "ONE" in json.loads(data)["error"]
+    _request(int8_server, "DELETE", f"/prefixes/{body['prefixId']}")
+
+
+def test_prefixes_need_the_slot_engine():
+    srv, t = _serve(["--preset", "tiny", "--slots", "0"])
+    try:
+        for method, path, body in (("GET", "/prefixes", None),
+                                   ("POST", "/prefixes", {"tokens": [1]}),
+                                   ("DELETE", "/prefixes/px-1", None)):
+            code, data = _request(srv, method, path, body)
+            assert code == 400 and "slot engine" in json.loads(data)["error"]
+    finally:
+        _stop(srv, t)
+
+
+def test_prefix_byte_budget_refused():
+    """--max-prefix-bytes: a registration past the budget is a 400, and
+    a removal gives its bytes back."""
+    per = 2 * 2 * 32 * 2 * 16 * 2   # one bucket-32 prefix, bf16
+    srv, t = _serve(["--preset", "tiny", "--slots", "2",
+                     "--max-prefix-bytes", str(per)])
+    try:
+        code, data = _request(srv, "POST", "/prefixes", {"tokens": PX})
+        pid = json.loads(data)["prefixId"]
+        code, data = _request(srv, "POST", "/prefixes",
+                              {"tokens": PX[:10]})
+        assert code == 400 and "byte budget" in json.loads(data)["error"]
+        _request(srv, "DELETE", f"/prefixes/{pid}")
+        code, _ = _request(srv, "POST", "/prefixes", {"tokens": PX[:10]})
+        assert code == 200
+    finally:
+        _stop(srv, t)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--prefill-chunk", "8"],
+    ["--page-size", "16"],
+    ["--page-size", "16", "--total-pages", "10", "--prefill-chunk", "8"]])
+def test_depth_servers_answer_as_an_in_memory_engine(flags):
+    """A server with segments, a paged cache or both answers greedy
+    requests (one past --prefill-chunk, one through a registered prefix)
+    with the tokens of an in-memory engine of the same settings on the
+    server's params; a paged server shows its pool in /healthz and
+    /metrics."""
+    from tpu_docker_api_torch.infer.paged import PagedSlotEngine
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+
+    srv, t = _serve(["--preset", "tiny", "--slots", "4", *flags])
+    try:
+        prompts = [list(range(3, 40)), PX + [7, 7], [4, 2]]
+        code, data = _request(srv, "POST", "/prefixes", {"tokens": PX})
+        assert code == 200
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": prompts, "maxNewTokens": 6})
+        assert code == 200
+        got = json.loads(data)["tokens"]
+        args = srv.args
+        kw = dict(slots=4, max_seq=64, chunk=4, cache_dtype=srv.cfg.dtype,
+                  prefill_chunk=args.prefill_chunk)
+        want = []
+        for p in prompts:
+            eng = (PagedSlotEngine(srv.cfg, srv.params,
+                                   page_size=args.page_size,
+                                   total_pages=args.total_pages or None,
+                                   **kw)
+                   if args.page_size else SlotEngine(srv.cfg, srv.params,
+                                                     **kw))
+            eng.register_prefix(PX)
+            h = eng.submit(p, 6)
+            while not h.done():
+                eng.step()
+            want.append(h.result(0)["tokens"])
+        assert got == want
+        _, data = _request(srv, "GET", "/healthz")
+        health = json.loads(data)["slotEngine"]
+        assert health["prefix_hits"] >= 1
+        _, metrics = _request(srv, "GET", "/metrics")
+        if args.page_size:
+            assert health["pages_total"] == (args.total_pages or 16)
+            assert health["pages_free"] == health["pages_total"] - 2
+            assert (f"serve_pages_free {health['pages_free']}\n".encode()
+                    in metrics)
+            assert b"serve_deferred_admissions_total" in metrics
+        else:
+            assert b"serve_pages_free" not in metrics
+        if args.prefill_chunk:
+            assert health["segment_prefills"] >= 5
+    finally:
+        _stop(srv, t)
+
+
+def test_total_pages_requires_page_size(capsys):
+    with pytest.raises(SystemExit) as e:
+        parse_args(["--total-pages", "8"])
+    assert e.value.code == 2 and "--page-size" in capsys.readouterr().err

@@ -1,6 +1,6 @@
 """Continuous-batching ("slot") serving engine (counterpart of
-``tpu_docker_api/infer/slots.py``; its core: prefix caching, chunked
-prefill segments and the speculative engine are not ported yet).
+``tpu_docker_api/infer/slots.py``; its speculative engine is not ported
+yet).
 
 N request streams share one card through a fixed-capacity KV cache of
 S slots ``(layers, S, max_seq, kv, head_dim)``, allocated once. A request
@@ -17,6 +17,17 @@ is admitted into a free slot and the slot is recycled when it completes.
   positions of the slot; the causal mask never attends a position
   ``> pos``, and decode overwrites position p before any query can see
   it. The first token is sampled at each row's ``actual_len - 1``.
+- **Prefix caching**: :meth:`register_prefix` prefills a shared prompt
+  prefix once (the flash path) into a (layers, pbucket, kv, head_dim)
+  pair; admission matches the longest registered strict prefix of each
+  prompt and prefills only the suffix, at the prefix's length, through
+  ``dense_attention``'s offset mask.
+- **Chunked prefill** (``prefill_chunk``): a long prompt admits in
+  segments, one per engine step between decode chunks, so a long
+  admission stalls the streams already decoding by one segment's
+  compute at a time. A segment writes the slot's own cache row at its
+  offset; until the final one the slot's decode lane is parked at
+  position ``max_seq``, where its writes are dropped.
 - **Device-resident chunk chaining**: per-slot decode inputs (token,
   position, temperature, top-k, top-p) are device tensors that each
   K-step decode chunk consumes and updates, so chunks are enqueued back
@@ -32,12 +43,18 @@ is admitted into a free slot and the slot is recycled when it completes.
 - **Length-bucketed decode reads**: each chunk attends only the cache
   prefix (``kv_limit``) that any active slot can reach, derived from
   dispatch counts so the pipeline lag never under-reads.
-- **All device work on the engine thread** (:meth:`start`), or on the
-  caller's thread through :meth:`step`; ``submit`` only queues.
+- **One CUDA stream orders all device work**: the engine thread
+  (:meth:`start`) or the caller of :meth:`step` dispatches on the
+  engine's stream, and so does a prefix registration made from another
+  thread (:meth:`register_prefix`): its K/V are enqueued before the
+  entry is visible, so an admission that reads them runs after they are
+  written. ``submit`` only queues.
 
-Correctness contract (tests/test_torch_engine.py): per-stream greedy
-outputs are token-exact against ``make_generate_fn`` on the same prompt,
-for any admission order and slot reuse, in f32 on the CPU.
+Correctness contract (tests/test_torch_engine.py,
+tests/test_torch_slots_depth.py): per-stream greedy outputs are
+token-exact against ``make_generate_fn`` on the same prompt, for any
+admission order and slot reuse, through prefixes and segments, in f32 on
+the CPU.
 
 A slot that completes mid-chunk keeps decoding garbage until the host
 processes that chunk; its writes land in its own row, and positions past
@@ -47,6 +64,7 @@ capacity are dropped (models/llama.py ``_write_cache``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -147,6 +165,12 @@ class _Slot:
     base_len: int = 0          # prompt length at admission
     dispatched: int = 0        # chunks dispatched since admission; bounds
     #                            this slot's reachable cache position
+    pending: list[int] | None = None  # chunked prefill: prompt tokens not
+    #                            prefilled yet; the slot joins decode once
+    #                            this drains (None = fully prefilled)
+    prefill_pos: int = 0       # next segment's absolute write offset
+    preseed: int = 0           # tokens already in ``tokens`` at admission
+    #                            (a paged preemption's restore carries them)
 
     def emit(self, t: int) -> None:
         self.tokens.append(t)
@@ -158,6 +182,20 @@ class _Slot:
 
 class QueueFull(Exception):
     """Admission queue at capacity — callers should shed load (HTTP 503)."""
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Prefix:
+    """A registered prompt prefix with its device-resident K/V pair
+    (identity semantics: tensors are never compared elementwise)."""
+
+    pid: str
+    tokens: tuple[int, ...]
+    length: int                # actual token count
+    bucket: int                # padded device length
+    k: Any                     # (layers, bucket, n_kv_heads, head_dim)
+    v: Any
+    nbytes: int = 0            # device bytes both tensors pin
 
 
 class SlotEngine:
@@ -181,6 +219,9 @@ class SlotEngine:
         cache_dtype: Any = torch.bfloat16,
         seed: int = 0,
         max_pending: int = 0,
+        max_prefixes: int = 8,
+        max_prefix_bytes: int = 0,
+        prefill_chunk: int = 0,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -204,10 +245,16 @@ class SlotEngine:
         self.pad_id = pad_id
         #: admission-queue bound (0 = unbounded), checked approximately
         self.max_pending = max_pending
+        #: > 0: prompts longer than this prefill in segments of this many
+        #: tokens, one per engine step, between decode chunks
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
         self._fwd = cached_forward_fn(cfg)
-        cache = init_kv_cache(cfg, slots, self.max_seq, dtype=cache_dtype,
-                              device=self.device)
-        self._k, self._v = cache.k, cache.v
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._k, self._v = self._alloc_cache(cache_dtype)
         self._seed = seed
         self._dispatches = 0
         self._gen = torch.Generator(device=self.device)
@@ -238,14 +285,40 @@ class SlotEngine:
         self._kv_buckets = tuple(
             b for b in (128, 256, 512, 1024, 2048, 4096, 8192)
             if b < self.max_seq)
+        #: prefix registry: pid → _Prefix. ``_px_lock`` serializes whole
+        #: registrations (device work included); ``_lock`` guards the
+        #: dict for the engine thread's reads
+        self.max_prefixes = max_prefixes
+        #: byte ceiling for registered prefix K/V (0 = unbounded): each
+        #: prefix pins memory the cache sizing never counted
+        self.max_prefix_bytes = max_prefix_bytes
+        self._prefixes: dict[str, _Prefix] = {}
+        self._px_lock = threading.Lock()
+        self._px_seq = 0
+        self._seg_rr = -1          # last slot served a prefill segment
         # ALL keys pre-seeded: /healthz unpacks this dict from other threads
         self.stats = {"completed": 0, "decode_chunks": 0, "prefills": 0,
                       "wasted_steps": 0, "emitted_tokens": 0,
-                      "bucketed_chunks": 0}
+                      "bucketed_chunks": 0, "prefix_hits": 0,
+                      "segment_prefills": 0, "prefix_bytes": 0}
         #: per-request (ttft, mean_itl) ring for latency_stats(); serve
         #: points ``metrics_hook`` at its metrics registry
         self._lat_samples: collections.deque = collections.deque(maxlen=512)
         self.metrics_hook = None
+
+    def _alloc_cache(self, cache_dtype):
+        """The per-slot KV buffers: dense (slots, max_seq) here; the paged
+        engine (infer/paged.py) allocates a page pool instead."""
+        cache = init_kv_cache(self.cfg, self.slots, self.max_seq,
+                              dtype=cache_dtype, device=self.device)
+        return cache.k, cache.v
+
+    def _on_stream(self):
+        """Context that puts this thread's device work on the engine's
+        stream (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     # ---- device programs ---------------------------------------------------
 
@@ -288,6 +361,39 @@ class SlotEngine:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
+    def _temp_cache(self, rows: int, length: int):
+        """A zeroed (layers, rows, length, kv, head_dim) k/v pair in the
+        cache dtype: the cache a prefill forward writes before its rows
+        move into the engine's cache."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, rows, length, cfg.n_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=self._k.dtype, device=self.device),
+                torch.zeros(shape, dtype=self._k.dtype, device=self.device))
+
+    def _first_tokens(self, prompts_np, lens, temps, topks, topps, kc, vc,
+                      start, kv_limit=None):
+        """The prefill forward of R rows into ``kc``/``vc`` at ``start``
+        and each row's sampled first token. Returns (toks, lens, temps,
+        topks, topps) as device tensors."""
+        lens_t = self._to_device(lens)
+        temps_t = self._to_device(temps)
+        topks_t = self._to_device(topks)
+        topps_t = self._to_device(topps)
+        logits, _, _ = self._fwd(self.params, self._to_device(prompts_np),
+                                 self.cfg, kc, vc, start,
+                                 last_only=lens_t - 1, kv_limit=kv_limit)
+        toks = self._sample_filtered(logits[:, 0], temps_t, topks_t, topps_t,
+                                     self._seeded(self._next_seed()))
+        return toks, lens_t, temps_t, topks_t, topps_t
+
+    def _arm(self, slots_t, toks, pos_t, temps_t, topks_t, topps_t) -> None:
+        """Set the per-slot decode state of freshly prefilled slots."""
+        self._dtok[slots_t] = toks
+        self._dpos[slots_t] = pos_t
+        self._dtemp[slots_t] = temps_t
+        self._dtopk[slots_t] = topks_t
+        self._dtopp[slots_t] = topps_t
+
     @torch.no_grad()
     def _prefill(self, bucket, prompts_np, lens, slots_v, temps, topks,
                  topps) -> torch.Tensor:
@@ -295,32 +401,87 @@ class SlotEngine:
         bucket-length cache, sample each row's first token, drop the rows
         into their slots and arm the per-slot device state. Returns the
         device vector of first tokens."""
-        cfg = self.cfg
-        R = len(slots_v)
-        shape = (cfg.n_layers, R, bucket, cfg.n_kv_heads, cfg.head_dim)
-        kc = torch.zeros(shape, dtype=self._k.dtype, device=self.device)
-        vc = torch.zeros(shape, dtype=self._k.dtype, device=self.device)
-        lens_t = self._to_device(lens)
-        temps_t = self._to_device(temps)
-        topks_t = self._to_device(topks)
-        topps_t = self._to_device(topps)
+        kc, vc = self._temp_cache(len(slots_v), bucket)
+        toks, lens_t, *samp = self._first_tokens(prompts_np, lens, temps,
+                                                 topks, topps, kc, vc, 0)
         slots_t = self._to_device(slots_v)
-        logits, kc, vc = self._fwd(self.params, self._to_device(prompts_np),
-                                   cfg, kc, vc, 0, last_only=lens_t - 1)
-        toks = self._sample_filtered(logits[:, 0], temps_t, topks_t, topps_t,
-                                     self._seeded(self._next_seed()))
         self._k[:, slots_t, :bucket] = kc
         self._v[:, slots_t, :bucket] = vc
-        self._dtok[slots_t] = toks
-        self._dpos[slots_t] = lens_t
-        self._dtemp[slots_t] = temps_t
-        self._dtopk[slots_t] = topks_t
-        self._dtopp[slots_t] = topps_t
+        self._arm(slots_t, toks, lens_t, *samp)
         return toks
 
     @torch.no_grad()
-    def _decode_chunk(self, kv_limit: int | None,
-                      filtered: bool) -> torch.Tensor:
+    def _build_prefix(self, bucket: int, prompt_np) -> tuple:
+        """One prefix row prefilled into a fresh bucket-length cache (the
+        whole-prompt flash path): its (layers, bucket, kv, head_dim)
+        k/v pair."""
+        kc, vc = self._temp_cache(1, bucket)
+        self._fwd(self.params, self._to_device(prompt_np), self.cfg, kc, vc,
+                  0, last_only=True)
+        return kc[:, 0], vc[:, 0]
+
+    @torch.no_grad()
+    def _px_prefill(self, prefix: _Prefix, sbucket, prompts_np, lens,
+                    slots_v, temps, topks, topps) -> torch.Tensor:
+        """Suffix-only prefill against a registered prefix: the prefix
+        k/v land in a temp cache first, then the suffix forward runs at
+        the per-row position ``prefix.length`` (rope phases and the causal
+        offset mask are position-derived, so this is the math of a full
+        prefill with the prefix's work skipped). The temp cache is clamped
+        to capacity; pad-tail writes past it are dropped. Prefix-pad
+        garbage in (length, bucket) sits at future positions."""
+        R = len(slots_v)
+        tsize = min(prefix.bucket + sbucket, self.max_seq)
+        kc, vc = self._temp_cache(R, tsize)
+        kc[:, :, :prefix.bucket] = prefix.k[:, None]
+        vc[:, :, :prefix.bucket] = prefix.v[:, None]
+        starts = torch.full((R,), prefix.length, dtype=torch.long,
+                            device=self.device)
+        toks, lens_t, *samp = self._first_tokens(prompts_np, lens, temps,
+                                                 topks, topps, kc, vc, starts)
+        slots_t = self._to_device(slots_v)
+        self._k[:, slots_t, :tsize] = kc
+        self._v[:, slots_t, :tsize] = vc
+        self._arm(slots_t, toks, prefix.length + lens_t, *samp)
+        return toks
+
+    @torch.no_grad()
+    def _seg_prefill(self, kr, vr, slot: int, st: _Slot, tokens_np, n: int,
+                     final: bool, kv_limit: int | None, park: int):
+        """One chunked-prefill segment of ``n`` real tokens for one slot,
+        written into the slot's one-row cache ``kr``/``vr`` (views of the
+        engine's cache here, a gathered page row in the paged engine) at
+        ``st.prefill_pos``: a per-row start, so pad-tail writes past the
+        row are dropped. ``kv_limit`` bounds the attended prefix to the
+        segment's reach. A non-final segment parks the slot's decode lane
+        at position ``park``, whose writes are dropped; the final one
+        samples the first token and arms the decode state. Returns the
+        (1,) first-token vector, or None."""
+        start = torch.tensor([st.prefill_pos], device=self.device)
+        slot_t = torch.tensor([slot], device=self.device)
+        if not final:
+            self._fwd(self.params, self._to_device(tokens_np), self.cfg, kr,
+                      vr, start, last_only=torch.tensor([n - 1]),
+                      kv_limit=kv_limit)
+            self._dpos[slot_t] = park
+            return None
+        toks, lens_t, *samp = self._first_tokens(
+            tokens_np, np.array([n]), np.array([st.temperature], np.float32),
+            np.array([st.top_k]), np.array([st.top_p], np.float32), kr, vr,
+            start, kv_limit)
+        self._arm(slot_t, toks, start + lens_t, *samp)
+        return toks
+
+    def _forward_step(self, tok, pos, view):
+        """One decode step of every slot; ``view`` is the chunk's kv read
+        limit (the paged engine: its page table)."""
+        logits, self._k, self._v = self._fwd(
+            self.params, tok[:, None], self.cfg, self._k, self._v, pos,
+            kv_limit=view)
+        return logits
+
+    @torch.no_grad()
+    def _decode_chunk(self, view, filtered: bool) -> torch.Tensor:
         """K decode steps for every slot; returns (S, K+1) tokens whose
         column 0 is each slot's INPUT token (a fresh slot's prefill token,
         so the host needs no separate fetch for it)."""
@@ -328,9 +489,7 @@ class SlotEngine:
         tok, pos = self._dtok, self._dpos
         cols = [tok]
         for _ in range(self.chunk):
-            logits, self._k, self._v = self._fwd(
-                self.params, tok[:, None], self.cfg, self._k, self._v, pos,
-                kv_limit=kv_limit)
+            logits = self._forward_step(tok, pos, view)
             if filtered:
                 tok = self._sample_filtered(logits[:, -1], self._dtemp,
                                             self._dtopk, self._dtopp, gen)
@@ -360,6 +519,102 @@ class SlotEngine:
                 return b
         return None
 
+    # ---- prefix cache ------------------------------------------------------
+
+    def register_prefix(self, tokens: list[int]) -> str:
+        """Prefill ``tokens`` once and register them as a shared prompt
+        prefix; returns its id. Later submits whose prompt STRICTLY starts
+        with these tokens prefill only the suffix. Registering a sequence
+        again returns the existing id. Callable from any thread: the
+        build runs on the engine's stream before the entry is visible."""
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError("prefix must be non-empty")
+        if len(tokens) + 2 > self.max_seq:
+            # a usable prefix needs >= 1 suffix token + >= 1 generated
+            raise ValueError(
+                f"prefix ({len(tokens)}) leaves no room for a suffix and "
+                f"a generated token in cache capacity {self.max_seq}")
+        bucket = next((b for b in self.buckets if b >= len(tokens)), None)
+        if bucket is None:
+            raise ValueError(
+                f"prefix ({len(tokens)}) exceeds the largest prefill "
+                f"bucket ({self.buckets[-1]})")
+        with self._px_lock:
+            key = tuple(tokens)
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("engine is closed")
+                if self._dead is not None:
+                    raise RuntimeError(f"engine failed: {self._dead!r}")
+                for ent in self._prefixes.values():
+                    if ent.tokens == key:
+                        return ent.pid
+                if len(self._prefixes) >= self.max_prefixes:
+                    raise ValueError(
+                        f"prefix registry full ({self.max_prefixes}) — "
+                        f"unregister one first")
+                nbytes = (2 * self.cfg.n_layers * bucket
+                          * self.cfg.n_kv_heads * self.cfg.head_dim
+                          * self._k.element_size())
+                if (self.max_prefix_bytes
+                        and self.stats["prefix_bytes"] + nbytes
+                        > self.max_prefix_bytes):
+                    raise ValueError(
+                        f"prefix K/V ({nbytes} B) would exceed the "
+                        f"registry byte budget ({self.max_prefix_bytes} B;"
+                        f" {self.stats['prefix_bytes']} B registered) — "
+                        f"unregister one first")
+                self._px_seq += 1
+                pid = f"px-{self._px_seq}"
+            prompt = np.full((1, bucket), self.pad_id, np.int64)
+            prompt[0, :len(tokens)] = tokens
+            with self._on_stream():
+                k, v = self._build_prefix(bucket, prompt)
+            ent = _Prefix(pid=pid, tokens=key, length=len(tokens),
+                          bucket=bucket, k=k, v=v, nbytes=nbytes)
+            with self._lock:
+                self._prefixes[pid] = ent
+                self.stats["prefix_bytes"] += nbytes
+            return pid
+
+    def unregister_prefix(self, pid: str) -> bool:
+        with self._px_lock, self._lock:
+            ent = self._prefixes.pop(pid, None)
+            if ent is not None:
+                self.stats["prefix_bytes"] -= ent.nbytes
+            return ent is not None
+
+    def prefixes(self) -> list[dict]:
+        """Snapshot of the registry (serve's GET /prefixes)."""
+        with self._lock:
+            return [{"id": p.pid, "length": p.length, "bytes": p.nbytes}
+                    for p in self._prefixes.values()]
+
+    def _resolve_prefix(self, prompt: list[int]):
+        """Longest registered STRICT prefix of ``prompt``, or None."""
+        best = None
+        with self._lock:
+            for ent in self._prefixes.values():
+                if (ent.length < len(prompt)
+                        and (best is None or ent.length > best.length)
+                        and tuple(prompt[:ent.length]) == ent.tokens):
+                    best = ent
+        return best
+
+    def _px_plan(self, prompt: list[int]) -> tuple[_Prefix, int] | None:
+        """(prefix, suffix_bucket) if a registered prefix applies to this
+        prompt: the suffix must fit a prefill bucket (capacity is
+        validate()'s job)."""
+        ent = self._resolve_prefix(prompt)
+        if ent is None:
+            return None
+        sbucket = next((b for b in self.buckets
+                        if b >= len(prompt) - ent.length), None)
+        if sbucket is None:
+            return None
+        return ent, sbucket
+
     # ---- request API -------------------------------------------------------
 
     def validate(self, prompt: list[int], max_new: int,
@@ -374,10 +629,15 @@ class SlotEngine:
         n = len(prompt)
         if n < 1:
             raise ValueError("prompt must be non-empty")
-        if n > self.buckets[-1]:
+        if (n > self.buckets[-1] and not self.prefill_chunk
+                and self._px_plan(prompt) is None):
+            # two ways past the bucket ceiling: a registered prefix
+            # covering the overflow, or chunked prefill (segments clamp
+            # to the largest bucket). The admission re-resolves the
+            # prefix and fails the handle if it is gone by then
             raise ValueError(
                 f"prompt ({n}) exceeds the largest prefill bucket "
-                f"({self.buckets[-1]})")
+                f"({self.buckets[-1]}) and no registered prefix covers it")
         if n + max_new - 1 > self.max_seq:
             raise ValueError(
                 f"prompt ({n}) + max_new ({max_new}) exceeds cache "
@@ -426,8 +686,13 @@ class SlotEngine:
 
     def _admit(self) -> bool:
         """Move pending requests into free slots. Same-bucket requests
-        admit as power-of-two row groups through ONE prefill each.
-        Returns True if anything was admitted."""
+        admit as power-of-two row groups through ONE prefill each;
+        prompts matching a registered prefix group per (prefix, suffix
+        bucket) and prefill only the suffix; with ``prefill_chunk`` a long
+        prompt reserves its slot here and prefills in segments
+        (:meth:`_dispatch_segments`). Returns True if anything was
+        admitted."""
+        admitted = False
         free = [i for i, s in self._table.items() if s is None]
         batch = []
         while len(batch) < len(free):
@@ -437,11 +702,44 @@ class SlotEngine:
                 break
         if not batch:
             return False
-        groups: dict[int, list] = {}
+        # group key: (prefix or None, bucket); for a prefix group the
+        # bucket is the SUFFIX bucket, and the _Prefix object rides the
+        # key so a concurrent unregister cannot drop it mid-dispatch
+        groups: dict[tuple, list] = {}
         for req in batch:
-            bucket = next(b for b in self.buckets if b >= len(req[0]))
-            groups.setdefault(bucket, []).append(req)
-        for bucket, reqs in groups.items():
+            prompt = req[0]
+            plan = self._px_plan(prompt)
+            if plan is not None and (
+                    not self.prefill_chunk
+                    or len(prompt) - plan[0].length <= self.prefill_chunk):
+                # a long suffix would break --prefill-chunk's bounded
+                # stall as one dispatch: it falls through to segments
+                groups.setdefault(plan, []).append(req)
+                continue
+            if self.prefill_chunk and (
+                    len(prompt) > self.prefill_chunk
+                    or len(prompt) > self.buckets[-1]):
+                prompt, max_new, temp, eos_id, tk, tp, handle = req
+                st = _Slot(handle=handle, tokens=[], max_new=max_new,
+                           pos=len(prompt), temperature=temp,
+                           eos_id=eos_id, top_k=tk, top_p=tp,
+                           base_len=len(prompt), pending=list(prompt))
+                with self._lock:
+                    self._table[free.pop()] = st
+                admitted = True
+                continue
+            bucket = next((b for b in self.buckets if b >= len(prompt)),
+                          None)
+            if bucket is None:
+                # admitted past validate() through a prefix unregistered
+                # since: fail the handle, not the engine loop
+                req[-1]._fail(ValueError(
+                    f"prompt ({len(prompt)}) exceeds the largest prefill "
+                    f"bucket and its covering prefix is gone"))
+                continue
+            groups.setdefault((None, bucket), []).append(req)
+        for (prefix, bucket), reqs in groups.items():
+            plen = prefix.length if prefix is not None else 0
             while reqs:
                 R = 1
                 while R * 2 <= len(reqs) and R * 2 <= self.slots:
@@ -455,12 +753,18 @@ class SlotEngine:
                 topps = np.empty((R,), np.float32)
                 for r, (prompt, _mn, temp, _eos, tk, tp, _h) in enumerate(
                         group):
-                    prompts_np[r, :len(prompt)] = prompt
-                    lens[r] = len(prompt)
+                    sfx = prompt[plen:]
+                    prompts_np[r, :len(sfx)] = sfx
+                    lens[r] = len(sfx)
                     temps[r], topks[r], topps[r] = temp, tk, tp
-                toks = self._prefill(bucket, prompts_np, lens,
-                                     np.asarray(slots_v, np.int64), temps,
-                                     topks, topps)
+                slots_np = np.asarray(slots_v, np.int64)
+                if prefix is not None:
+                    toks = self._px_prefill(prefix, bucket, prompts_np, lens,
+                                            slots_np, temps, topks, topps)
+                    self.stats["prefix_hits"] += R
+                else:
+                    toks = self._prefill(bucket, prompts_np, lens, slots_np,
+                                         temps, topks, topps)
                 self.stats["prefills"] += 1
                 for r, (prompt, max_new, temp, eos_id, tk, tp,
                         handle) in enumerate(group):
@@ -471,11 +775,61 @@ class SlotEngine:
                     with self._lock:
                         self._table[slots_v[r]] = st
                     if max_new == 1:
-                        # the admission produced the only token: resolve
-                        # now (the one admission path that syncs)
-                        st.emit(int(toks[r]))
-                        st.fresh = False
-                        self._finish_if_done(slots_v[r], st)
+                        self._emit_first(slots_v[r], st, toks[r])
+                admitted = True
+        return admitted
+
+    def _emit_first(self, slot: int, st: _Slot, tok) -> None:
+        """The admission produced a request's only token: resolve it now
+        (the one admission path that syncs)."""
+        st.emit(int(tok))
+        st.fresh = False
+        self._finish_if_done(slot, st)
+
+    def _next_segment(self):
+        """(slot, state, segment tokens, final, bucket) of the prefilling
+        slot whose turn it is (round-robin past the last one served), or
+        None. The rotation advances here, so a slot that then stalls is
+        not picked again while others wait."""
+        filling = [(i, st) for i, st in self._table.items()
+                   if st is not None and st.pending is not None]
+        if not filling:
+            return None
+        filling.sort(key=lambda p: (p[0] <= self._seg_rr, p[0]))
+        i, st = filling[0]
+        self._seg_rr = i
+        seg = st.pending[:min(self.prefill_chunk, self.buckets[-1])]
+        bucket = next(b for b in self.buckets if b >= len(seg))
+        return i, st, seg, len(seg) == len(st.pending), bucket
+
+    def _segment_done(self, i: int, st: _Slot, seg, final: bool,
+                      toks) -> None:
+        st.prefill_pos += len(seg)
+        st.pending = None if final else st.pending[len(seg):]
+        self.stats["segment_prefills"] += 1
+        if final:
+            self.stats["prefills"] += 1
+            if st.max_new - st.preseed <= 1:
+                self._emit_first(i, st, toks[0])
+
+    def _dispatch_segments(self) -> bool:
+        """ONE prefill segment per engine step, round-robin across
+        prefilling slots, so active streams wait at most one segment's
+        compute per step however many long admissions are in flight.
+        Segments clamp to the largest prefill bucket."""
+        nxt = self._next_segment()
+        if nxt is None:
+            return False
+        i, st, seg, final, bucket = nxt
+        # read only the cache prefix this segment can attend
+        reach = st.prefill_pos + bucket
+        kvl = next((b for b in self._kv_buckets if b >= reach), None)
+        tokens_np = np.full((1, bucket), self.pad_id, np.int64)
+        tokens_np[0, :len(seg)] = seg
+        toks = self._seg_prefill(self._k[:, i:i + 1], self._v[:, i:i + 1],
+                                 i, st, tokens_np, len(seg), final, kvl,
+                                 self.max_seq)
+        self._segment_done(i, st, seg, final, toks)
         return True
 
     def _finish_if_done(self, slot: int, st: _Slot) -> bool:
@@ -535,11 +889,23 @@ class SlotEngine:
             "itl_p50_ms": pct(itls, 50), "itl_p99_ms": pct(itls, 99),
         }
 
+    def _decoding(self) -> dict:
+        """Active slots past their prefill: a prefilling slot's decode
+        lane computes garbage (its writes are dropped at the parked
+        position) and its tokens are never processed."""
+        return {i: s for i, s in self._table.items()
+                if s is not None and s.pending is None}
+
     def _dispatch_chunk(self) -> None:
-        snap = {i: s for i, s in self._table.items() if s is not None}
+        snap = self._decoding()
         limit = self._kv_limit_for_chunk(snap)
+        self._launch_chunk(snap, limit, limit is not None)
+
+    def _launch_chunk(self, snap: dict, view, bucketed: bool) -> None:
+        """Dispatch one decode chunk over ``view`` for the slots of
+        ``snap`` and queue its tokens for the host."""
         filtered = any(s.top_k > 0 or s.top_p < 1.0 for s in snap.values())
-        out = self._decode_chunk(limit, filtered)
+        out = self._decode_chunk(view, filtered)
         for st in snap.values():
             st.dispatched += 1
         event = None
@@ -553,7 +919,7 @@ class SlotEngine:
             out = host
         self._outstanding.append((snap, out, event))
         self.stats["decode_chunks"] += 1
-        if limit is not None:
+        if bucketed:
             self.stats["bucketed_chunks"] += 1
 
     def _process_oldest(self) -> None:
@@ -591,7 +957,8 @@ class SlotEngine:
                 self._process_oldest()
                 did = True
         did = self._admit() or did
-        active = any(s is not None for s in self._table.values())
+        did = self._dispatch_segments() or did
+        active = bool(self._decoding())
         if active:
             self._dispatch_chunk()
             did = True
@@ -603,20 +970,24 @@ class SlotEngine:
 
     def _loop(self) -> None:
         try:
-            while not self._closed:
-                try:
-                    if not self.step():
-                        if self._draining and self._pending.empty():
-                            return
-                        self._wake.clear()
-                        self._wake.wait(timeout=0.05)
-                except Exception as e:  # noqa: BLE001 — a dead engine
-                    # thread must not leave clients hanging: fail every
-                    # in-flight and queued handle, reject new submits
-                    self._die(e)
-                    return
+            with self._on_stream():
+                self._run()
         finally:
             self._drained.set()
+
+    def _run(self) -> None:
+        while not self._closed:
+            try:
+                if not self.step():
+                    if self._draining and self._pending.empty():
+                        return
+                    self._wake.clear()
+                    self._wake.wait(timeout=0.05)
+            except Exception as e:  # noqa: BLE001 — a dead engine
+                # thread must not leave clients hanging: fail every
+                # in-flight and queued handle, reject new submits
+                self._die(e)
+                return
 
     def _die(self, err: Exception) -> None:
         with self._lock:

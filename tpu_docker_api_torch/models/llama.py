@@ -17,7 +17,11 @@ A whole-prompt prefill into a cache exactly as long as the prompt
 (``start_pos`` the Python int 0, ``seq == cache length``, no
 ``kv_limit``) is causal self-attention over the prompt's own k/v; it
 runs through the flash kernel. Every other cached call keeps
-``dense_attention`` with its position mask, as the JAX path does.
+``dense_attention`` with its position mask, as the JAX path does: decode,
+a suffix after a cached prefix and a prefill segment, which attend at an
+offset. ``llama_forward_paged`` is the decode step over a page pool
+(ops/paged.py): its write scatters into each slot's page and its read
+gathers the slot's pages into a contiguous view.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from tpu_docker_api_torch.ops import flash
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
+from tpu_docker_api_torch.ops.paged import (PagedRef, gather_pages,
+                                            paged_write)
 from tpu_docker_api_torch.ops.quant import (LoraLinear, QuantizedLinear,
                                             dequantize_weight, linear)
 from tpu_docker_api_torch.ops.rope import (RopeScaling, apply_rope,
@@ -178,25 +184,27 @@ def _write_cache(kc: torch.Tensor, new: torch.Tensor,
 
     Per-row writes past capacity are no-ops (the JAX scatter's
     ``mode="drop"``), never clamped into bounds. Without a host sync
-    (a boolean mask would need one): each dropped entry is redirected
-    to position ``start_pos - 1`` of its own row — outside the row's
-    write range, so no kept write goes there — and carries that slot's
-    current value, read before the write. Every row with a dropped entry
-    has ``start_pos >= 1`` (``s <= max_seq`` is checked), and a row
-    parked wholly past capacity redirects to its last slot."""
+    (a boolean mask would need one): each dropped entry is redirected to
+    the row's last slot carrying the value that slot ends up with — the
+    new entry written there when the row reaches it, else the slot's
+    current value — so duplicate indices all agree and the scatter's
+    order does not matter. A row parked wholly past capacity rewrites
+    its last slot unchanged."""
     b, s = positions.shape
     cap = kc.shape[1]
     new = new.to(kc.dtype)
     if not per_row:
         kc[:, start_pos:start_pos + s] = new
         return
-    if s > cap:
-        raise ValueError(f"{s} new positions exceed cache capacity {cap}")
-    rows = torch.arange(b, device=kc.device)[:, None].expand(b, s)
+    last = cap - 1
+    brow = torch.arange(b, device=kc.device)
+    col = (last - start_pos).clamp(0, s - 1)      # column writing ``last``
+    fill = torch.where((start_pos <= last)[:, None, None], new[brow, col],
+                       kc[brow, last])
     keep = positions < cap
-    redirect = (start_pos - 1).clamp(0, cap - 1)[:, None].expand(b, s)
-    idx = torch.where(keep, positions, redirect)
-    kc[rows, idx] = torch.where(keep[..., None, None], new, kc[rows, idx])
+    idx = torch.where(keep, positions, last)
+    kc[brow[:, None].expand(b, s), idx] = torch.where(
+        keep[..., None, None], new, fill[:, None])
 
 
 def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
@@ -220,6 +228,25 @@ def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
         q = linear(x, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
         k = linear(x, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
         v = linear(x, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if isinstance(cache, PagedRef):
+        # paged decode (ops/paged.py; infer/paged.py drives it): s == 1,
+        # per-row positions; the write goes into the slot's current
+        # page, the read gathers its pages into a view element-identical
+        # to the dense cache prefix
+        positions = start_pos[:, None].long() + torch.arange(
+            s, device=x.device)[None, :]
+        q = apply_rope(q, rope_cos, rope_sin, positions)
+        k = apply_rope(k, rope_cos, rope_sin, positions)
+        k_pool = paged_write(cache.k_pool, cache.layer_idx, cache.table,
+                             start_pos, k[:, 0])
+        v_pool = paged_write(cache.v_pool, cache.layer_idx, cache.table,
+                             start_pos, v[:, 0])
+        k_cache = gather_pages(k_pool, cache.layer_idx, cache.table)
+        v_cache = gather_pages(v_pool, cache.layer_idx, cache.table)
+        out = dense_attention(q, k_cache, v_cache, causal=True,
+                              q_offset=start_pos)
+        return linear(out.reshape(b, s, cfg.n_heads * hd),
+                      layer["attn"]["wo"]), (k_pool, v_pool)
     if cache is not None:
         k_all, v_all, layer_idx = cache
         per_row = torch.is_tensor(start_pos) and start_pos.ndim == 1
@@ -353,12 +380,38 @@ def llama_forward_cached(
                                   last_only, block_fn)
 
 
+def llama_forward_paged(
+    params: dict,
+    tokens: torch.Tensor,     # (S, 1) — one decode token per slot
+    cfg: LlamaConfig,
+    k_pool: torch.Tensor,     # (n_layers, P, page, n_kv_heads, head_dim)
+    v_pool: torch.Tensor,
+    table: torch.Tensor,      # (S, mp) long page ids; 0 = trash
+    pos: torch.Tensor,        # (S,) per-slot positions
+    max_pos: int,             # position capacity (sizes the rope tables)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged-KV decode step: logits (S, 1, vocab) + the pools (updated in
+    place and returned). Block math is ``_block`` through the shared
+    skeleton; only the cache write (page scatter) and read (page gather,
+    ops/paged.py) differ from ``llama_forward_cached``."""
+    def block_fn(x, layer, cache, rope_cos, rope_sin):
+        kc, vc, layer_idx = cache
+        ref = PagedRef(k_pool=kc, v_pool=vc, layer_idx=layer_idx,
+                       table=table)
+        return _block(x, layer, cfg, rope_cos, rope_sin, cache=ref,
+                      start_pos=pos)
+
+    return decoder_forward_cached(params, tokens, cfg, k_pool, v_pool,
+                                  False, block_fn, max_pos=max_pos)
+
+
 def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
-                           last_only, block_fn):
+                           last_only, block_fn, max_pos=None):
     """The shared KV-cached decoder skeleton: embed → cache-threading
     layer loop → lm_head. ``block_fn(x, layer, (kc, vc, layer_idx),
-    rope_cos, rope_sin) -> (x, (kc, vc))`` supplies the block body."""
-    max_seq = k_cache.shape[2]
+    rope_cos, rope_sin) -> (x, (kc, vc))`` supplies the block body.
+    ``max_pos`` sizes the rope tables (default: the cache length)."""
+    max_seq = max_pos or k_cache.shape[2]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, max_seq,
                                           cfg.rope_theta, cfg.rope_scaling,

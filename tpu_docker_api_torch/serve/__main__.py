@@ -12,7 +12,15 @@ HTTP surface (stdlib server):
                        "slotEngine": {...}}
     GET  /metrics   → Prometheus text: serve_ttft_seconds and
                       serve_itl_seconds histograms per completed request,
-                      serve_tokens_emitted_total, serve_requests_completed_total
+                      serve_tokens_emitted_total, serve_requests_completed_total,
+                      and with a paged cache serve_pages_free and
+                      serve_deferred_admissions_total
+    POST /prefixes  {"tokens": [...]} (or, with a tokenizer, {"text": "..."})
+                    → {"prefixId", "length"}: a shared prompt prefix;
+                      /generate prompts starting with it prefill only the
+                      suffix
+    GET  /prefixes  → {"prefixes": [{"id", "length", "bytes"}]}
+    DELETE /prefixes/{id} → {"removed": bool}
     POST /generate  → {"tokens": [[...]], "lengths": [...]}
         body: {"tokens": [[...prompt ids...]], "maxNewTokens": 64,
                "temperature": 0.8, "topK": 0, "topP": 1.0, "eosId": 2,
@@ -27,8 +35,11 @@ HTTP surface (stdlib server):
 
 Requests stream through the continuous-batching slot engine
 (infer/slots.py) by default; rows in one body may be ragged, each row is
-its own request. ``--slots 0`` serves through ``make_generate_fn``
-instead, one generation at a time, with equal-length rows.
+its own request. ``--prefill-chunk N`` admits longer prompts in N-token
+segments between decode chunks; ``--page-size P [--total-pages N]``
+serves from a paged KV cache (infer/paged.py). ``--slots 0`` serves
+through ``make_generate_fn`` instead, one generation at a time, with
+equal-length rows (and no /prefixes).
 
 Weights: ``--ckpt-dir`` restores the params of a training checkpoint's
 latest step (params only; its step shows in ``/healthz``), ``--hf-ckpt``
@@ -66,7 +77,6 @@ from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
 #: JAX-CLI flags the port does not take yet → what brings them
 _NOT_PORTED = {
     "it comes with the serving depth of ROADMAP Queue 1 item 6": (
-        "prefill_chunk", "page_size", "total_pages", "max_prefix_bytes",
         "draft_preset", "draft_ckpt", "n_spec"),
     "it comes with parallelism (ROADMAP Queue 1 item 9)": ("dp", "fsdp",
                                                           "tp"),
@@ -87,6 +97,24 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "engine)")
     p.add_argument("--chunk", type=int, default=8,
                    help="decode steps per slot-engine dispatch")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="> 0: prompts longer than this prefill in "
+                        "segments interleaved with decode (bounds the "
+                        "stall a long admission inflicts on active "
+                        "streams); 0 = whole-prompt admission")
+    p.add_argument("--page-size", type=int, default=0,
+                   help="> 0: paged KV cache (infer/paged.py) — the slot "
+                        "cache becomes a page pool and its memory follows "
+                        "--total-pages instead of slots x max-seq; "
+                        "/prefixes (refcounted shared pages) and "
+                        "--prefill-chunk (page-aware segments) compose")
+    p.add_argument("--total-pages", type=int, default=0,
+                   help="pool size in pages (0 = dense-equivalent "
+                        "capacity); only with --page-size")
+    p.add_argument("--max-prefix-bytes", type=int, default=256 * 2**20,
+                   help="device-memory budget of POST /prefixes K/V in "
+                        "bytes (0 = unbounded); a registration past it "
+                        "gets a 400")
     p.add_argument("--no-fuse-proj", action="store_true",
                    help="disable the default q|k|v and gate|up projection "
                         "fusion (for A/B measurement)")
@@ -134,6 +162,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         if given:
             p.error(f"{', '.join(given)}: not in the PyTorch package yet; "
                     f"{why}")
+    if args.total_pages and not args.page_size:
+        p.error("--total-pages requires --page-size (the dense engine has "
+                "no page pool)")
     if args.hf_ckpt and args.ckpt_dir:
         p.error("--hf-ckpt and --ckpt-dir are exclusive")
     if not args.lora_ckpt and (
@@ -237,12 +268,22 @@ class Server:
         self.metrics = MetricsRegistry()
         self.engine = None
         if args.slots > 0:
-            self.engine = SlotEngine(
-                cfg, params, slots=args.slots, max_seq=self.max_seq,
-                chunk=args.chunk, cache_dtype=cfg.dtype,
+            common = dict(
+                slots=args.slots, max_seq=self.max_seq, chunk=args.chunk,
+                prefill_chunk=args.prefill_chunk, cache_dtype=cfg.dtype,
                 # shed load once the queue is 8x the slot count deep
                 max_pending=args.slots * 8,
                 seed=int.from_bytes(os.urandom(4), "little"))
+            if args.page_size > 0:
+                from tpu_docker_api_torch.infer.paged import PagedSlotEngine
+
+                self.engine = PagedSlotEngine(
+                    cfg, params, page_size=args.page_size,
+                    total_pages=args.total_pages or None, **common)
+            else:
+                self.engine = SlotEngine(
+                    cfg, params, max_prefix_bytes=args.max_prefix_bytes,
+                    **common)
             self._wire_metrics(self.engine)
             self.engine.start()
         self._fns: dict[tuple, object] = {}
@@ -270,6 +311,13 @@ class Server:
         reg.counter_fn("serve_requests_completed_total",
                        lambda: engine.stats["completed"],
                        help="requests completed by the slot engine")
+        if "pages_free" in engine.stats:
+            reg.gauge_fn("serve_pages_free",
+                         lambda: engine.stats["pages_free"],
+                         help="free pages in the paged KV pool")
+            reg.counter_fn("serve_deferred_admissions_total",
+                           lambda: engine.stats["deferred_admissions"],
+                           help="admissions deferred on pool pressure")
 
     def generate_fn(self, max_new: int, temperature: float, top_k: int,
                     top_p: float, eos_id: int | None):
@@ -323,7 +371,18 @@ def _make_handler(srv: Server):
             self.end_headers()
             self.wfile.write(body)
 
+        def _body(self):
+            length = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(length) or b"{}")
+
         def do_GET(self):
+            if self.path == "/prefixes":
+                if srv.engine is None:
+                    self._reply(400, {"error": "prefix caching requires "
+                                               "the slot engine path"})
+                    return
+                self._reply(200, {"prefixes": srv.engine.prefixes()})
+                return
             if self.path == "/metrics":
                 body = srv.metrics.render().encode()
                 self.send_response(200)
@@ -354,12 +413,53 @@ def _make_handler(srv: Server):
                     code = 503
             self._reply(code, payload)
 
+        def do_DELETE(self):
+            if not self.path.startswith("/prefixes/"):
+                self._reply(404, {"error": f"no route {self.path}"})
+                return
+            if srv.engine is None:
+                self._reply(400, {"error": "prefix caching requires the "
+                                           "slot engine path"})
+                return
+            pid = self.path[len("/prefixes/"):]
+            self._reply(200, {"removed": srv.engine.unregister_prefix(pid)})
+
+        def _register_prefix(self):
+            """POST /prefixes {"tokens": [...]} or, with a tokenizer,
+            {"text": "..."} (one string): a shared prompt prefix that
+            /generate prompts starting with it prefill past."""
+            if srv.engine is None:
+                raise ValueError("prefix caching requires the slot engine "
+                                 "path (--slots > 0)")
+            req = self._body()
+            toks = req.get("tokens") if isinstance(req, dict) else None
+            text = req.get("text") if isinstance(req, dict) else None
+            if text is not None:
+                if srv.tokenizer is None:
+                    raise ValueError('"text" requires --tokenizer (or an '
+                                     '--hf-ckpt shipping a tokenizer.json)')
+                if toks is not None:
+                    raise ValueError('"text" and "tokens" are exclusive')
+                if not isinstance(text, str) or not text:
+                    raise ValueError('"text" must be ONE non-empty string '
+                                     'here (a prefix is a single shared '
+                                     'header, not a batch)')
+                toks = srv.tokenizer.encode(text)
+            if not valid_token_row(toks):
+                raise ValueError(f"tokens must be a non-empty list of ids "
+                                 f"in [0, {cfg.vocab_size})")
+            pid = srv.engine.register_prefix(toks)
+            self._reply(200, {"prefixId": pid, "length": len(toks)})
+
         def do_POST(self):
-            if self.path != "/generate":
+            if self.path not in ("/generate", "/prefixes"):
                 self._reply(404, {"error": f"no route {self.path}"})
                 return
             try:
-                self._generate()
+                if self.path == "/prefixes":
+                    self._register_prefix()
+                else:
+                    self._generate()
             except ValueError as e:
                 self._reply(400, {"error": str(e)})
             except Exception as e:  # noqa: BLE001 — serving must not die
@@ -368,8 +468,7 @@ def _make_handler(srv: Server):
         def _generate(self):
             from tpu_docker_api_torch.infer.slots import QueueFull
 
-            length = int(self.headers.get("Content-Length", 0))
-            req = json.loads(self.rfile.read(length) or b"{}")
+            req = self._body()
             if not isinstance(req, dict):
                 raise ValueError("body must be a JSON object")
             prompts = req.get("tokens")
