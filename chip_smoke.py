@@ -54,6 +54,30 @@ Phases, one JSON line each; any failure exits non-zero:
               decode step through pages against the dense cache and of a
               256-token segment's offset attention; peak memory of dense
               and paged at 64 slots x 8192.
+5c. speculative — speculative decoding (``phase_speculative``): the
+              batch-1 generator at llama3-1b full width and depth, the
+              target its own draft (128-token prompt, 128 new, k = 4,
+              against plain greedy; fewer than 64 rounds); the
+              ``SpeculativeSlotEngine`` on the serve burst (8 slots,
+              2,048 positions, 32 new) with a self-draft (at least half of
+              the proposals accepted) and with a llama3-8b target and a
+              llama3-1b draft, each against a plain ``SlotEngine`` on the
+              same burst (TTFT/ITL p50, rounds, accepted tokens, peak
+              memory, flash launches of both models' prefills); the
+              server's ``--draft-preset llama3-1b --n-spec 4`` (/healthz,
+              greedy burst, a sampled request on the --slots 0 path).
+              Every emitted token lies within 2ε of the target's
+              teacher-forced argmax (one flash prefill of prompt +
+              output), ε being the largest logit difference between
+              routes on the same positions of the same streams: the
+              verify route against the one-token route, and the
+              one-token route against the flash prefill.
+5d. servebench — ``infer/servebench.py`` at the JAX defaults:
+              ``bench_concurrent_serving`` (llama3-1b, 8 streams,
+              128/64), ``bench_decode_roofline`` (llama3-8b int8, batch
+              64; % of the 3.35 TB/s roof beside the card's name and
+              power limit), ``bench_int8_serving`` (llama3-8b, batch 64)
+              and ``bench_tail_latency``; one JSON line each, each ok.
 6. train    — the trainer's entry points at llama3-1b full width and depth,
               batch 4 x 2048, random weights from a seed: 4 steps under
               ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
@@ -2626,6 +2650,330 @@ def phase_serve_depth(dev) -> dict:
     return res
 
 
+SPEC_PRESET, SPEC_BIG = "llama3-1b", "llama3-8b"
+#: the legacy generator's run (scripts/validate_tpu.py's mechanism check)
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 128, 128, 4
+SPEC_MAX_SEQ, SPEC_SLOTS, SPEC_SLOT_NEW = 2048, 8, 32
+SPEC_LENGTHS = SERVE_LENGTHS   # the serve phase's burst
+
+
+def _spec_model(dev, preset: str, seed: int = 0):
+    """(cfg, params) of a preset: random bf16 weights from a seed, fused
+    as the server fuses them."""
+    from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+    from tpu_docker_api_torch.models.llama import llama_init, llama_presets
+
+    cfg = llama_presets()[preset]
+    params = llama_init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    return cfg, fuse_llama_projections(params)
+
+
+@torch.no_grad()
+def _teacher_logits(dev, cfg, params, prompt: list, out: list):
+    """The target's f32 logits at the positions that emitted ``out``, from
+    ONE whole-prompt (flash) prefill of prompt + output."""
+    from tpu_docker_api_torch.models.llama import llama_forward_cached
+
+    seq = torch.tensor([prompt + out], device=dev)
+    n = seq.shape[1]
+    kc = torch.zeros((cfg.n_layers, 1, n, cfg.n_kv_heads, cfg.head_dim),
+                     dtype=cfg.dtype, device=dev)
+    logits, _, _ = llama_forward_cached(params, seq, cfg, kc,
+                                        torch.zeros_like(kc), 0)
+    return logits[0, len(prompt) - 1:n - 1]
+
+
+@torch.no_grad()
+def _decode_route_logits(dev, cfg, params, prompt: list, out: list,
+                         k: int):
+    """The target's teacher-forced logits of ``out[1:]`` through the two
+    decode routes, after one flash prefill of ``prompt``: one-token steps
+    and (k+1)-token verify blocks. Returns (one, verify)."""
+    from tpu_docker_api_torch.infer.engine import (init_kv_cache,
+                                                   prefill_and_first_token)
+    from tpu_docker_api_torch.models.llama import llama_forward_cached
+
+    P, T = len(prompt), len(out)
+    toks = torch.tensor(out, device=dev)
+
+    def prefilled():
+        cache = init_kv_cache(cfg, 1, P + T + k + 1, dtype=cfg.dtype,
+                              device=dev)
+        prefill_and_first_token(params, torch.tensor([prompt], device=dev),
+                                cfg, cache)
+        return cache.k, cache.v
+
+    kc, vc = prefilled()
+    one = []
+    for t in range(T - 1):
+        lg, kc, vc = llama_forward_cached(params, toks[t].view(1, 1), cfg,
+                                          kc, vc, P + t)
+        one.append(lg[0, -1])
+    kc, vc = prefilled()
+    blocks = []
+    for j in range(0, T - 1, k + 1):
+        lg, kc, vc = llama_forward_cached(params, toks[j:j + k + 1][None],
+                                          cfg, kc, vc, P + j)
+        blocks.append(lg[0])
+    return torch.stack(one), torch.cat(blocks)[:T - 1]
+
+
+def _near_argmax(dev, cfg, params, prompts: list, outs: list,
+                 k: int) -> dict:
+    """Every emitted token a near-argmax of the target's teacher-forced
+    logits (one flash prefill of prompt + output). ε is the largest
+    |logit| difference between routes on the same positions: the verify
+    route against the one-token route, and the one-token route against
+    the flash prefill. A token that is the argmax of a route lies within
+    2ε of the flash logits' maximum (each of the two logits moves by at
+    most ε), so that is the hard check. Reports both differences, the
+    largest gap and the positions off the flash argmax."""
+    gaps, eps_vo, eps_fo = [], 0.0, 0.0
+    for p, o in zip(prompts, outs):
+        lg = _teacher_logits(dev, cfg, params, p, o)
+        emitted = torch.tensor(o, device=dev)
+        gaps.append((lg.max(-1).values
+                     - lg.gather(1, emitted[:, None])[:, 0]).cpu())
+        one, verify = _decode_route_logits(dev, cfg, params, p, o, k)
+        eps_vo = max(eps_vo, (verify - one).abs().max().item())
+        eps_fo = max(eps_fo, (lg[1:] - one).abs().max().item())
+    gaps = torch.cat(gaps)
+    eps = max(eps_vo, eps_fo)
+    res = {"positions": gaps.numel(), "max_gap": gaps.max().item(),
+           "off_argmax": int((gaps > 0).sum()),
+           "eps_verify_vs_one_token": eps_vo,
+           "eps_flash_vs_one_token": eps_fo, "eps": eps, "bound": 2 * eps}
+    if not res["max_gap"] <= 2 * eps:
+        raise AssertionError(f"an emitted token is {res['max_gap']} below "
+                             f"the target's argmax (2 eps {2 * eps}): {res}")
+    return res
+
+
+def _differing(a: list, b: list) -> int:
+    """Positions where two token streams differ."""
+    return sum(x != y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def _spec_legacy(dev, cfg, params) -> dict:
+    """The batch-1 speculative generator, the target its own draft,
+    against plain greedy decoding: rounds, accepted, ms, ε and the
+    near-argmax check."""
+    from tpu_docker_api_torch.infer.engine import (GenerateConfig,
+                                                   make_generate_fn)
+    from tpu_docker_api_torch.infer.speculative import (
+        SpeculativeConfig, make_speculative_generate_fn)
+    from tpu_docker_api_torch.ops import flash
+
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SPEC_PROMPT),
+                           generator=g).to(dev)
+    plain = make_generate_fn(cfg, GenerateConfig(
+        max_new_tokens=SPEC_NEW, max_seq=SPEC_MAX_SEQ, cache_dtype=cfg.dtype))
+    spec = make_speculative_generate_fn(cfg, cfg, SpeculativeConfig(
+        max_new_tokens=SPEC_NEW, n_speculative=SPEC_K, max_seq=SPEC_MAX_SEQ))
+
+    def timed(fn):
+        fn()  # first-call costs
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ref, plain_ms = timed(lambda: plain(params, prompt))
+    flash.reset_launch_count()
+    out, spec_ms = timed(lambda: spec(params, params, prompt))
+    launches = flash.launch_count["flash_fwd"]
+    if out["rounds"] >= SPEC_NEW // 2:
+        raise AssertionError(f"self-draft took {out['rounds']} rounds for "
+                             f"{SPEC_NEW} tokens")
+    toks, ref_toks = out["tokens"][0].tolist(), ref["tokens"][0].tolist()
+    p = prompt[0].tolist()
+    return {"prompt_len": SPEC_PROMPT, "new_tokens": SPEC_NEW,
+            "k": SPEC_K, "rounds": out["rounds"],
+            "accepted": out["accepted"], "plain_ms": plain_ms,
+            "spec_ms": spec_ms, "flash_launches": launches,
+            "differing_from_plain": _differing([toks], [ref_toks]),
+            "near_argmax": _near_argmax(dev, cfg, params, [p], [toks],
+                                        SPEC_K)}
+
+
+def _spec_burst(dev, cfg, params, prompts: list, draft=None) -> dict:
+    """The burst through a SpeculativeSlotEngine (``draft`` = (cfg,
+    params)) or a plain SlotEngine: engine latency, counters, streams and
+    the flash launches of the burst (zeroed after the warmup)."""
+    from tpu_docker_api_torch.infer.slots import (SlotEngine,
+                                                  SpeculativeSlotEngine)
+    from tpu_docker_api_torch.ops import flash
+
+    kw = dict(slots=SPEC_SLOTS, max_seq=SPEC_MAX_SEQ, cache_dtype=cfg.dtype)
+    eng = (SpeculativeSlotEngine(cfg, params, draft_cfg=draft[0],
+                                 draft_params=draft[1], n_spec=SPEC_K, **kw)
+           if draft else SlotEngine(cfg, params, chunk=8, **kw))
+    eng.warmup(rows=(1, 2))
+    eng.start()
+    try:
+        flash.reset_launch_count()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, SPEC_SLOT_NEW) for p in prompts]
+        outs = [h.result(600)["tokens"] for h in hs]
+        wall = time.perf_counter() - t0
+        launches = flash.launch_count["flash_fwd"]
+        lat, stats = eng.latency_stats(), dict(eng.stats)
+    finally:
+        eng.close()
+    if [len(o) for o in outs] != [SPEC_SLOT_NEW] * len(prompts):
+        raise AssertionError(f"incomplete streams: {[len(o) for o in outs]}")
+    return {"outs": outs, "wall_s": wall, "ttft_p50_ms": lat["ttft_p50_ms"],
+            "itl_p50_ms": lat["itl_p50_ms"],
+            "decode_chunks": stats["decode_chunks"],
+            "accepted_tokens": stats["accepted_tokens"],
+            "prefills": stats["prefills"], "flash_launches": launches}
+
+
+def _spec_pair(dev, cfg, params, prompts: list, draft) -> dict:
+    """The burst through the speculative engine and a plain one; the
+    speculative streams near the target's teacher-forced argmax."""
+    spec = _spec_burst(dev, cfg, params, prompts, draft)
+    plain = _spec_burst(dev, cfg, params, prompts)
+    res = {"speculative": spec, "plain": plain,
+           "differing_from_plain": _differing(spec["outs"], plain["outs"]),
+           "near_argmax": _near_argmax(dev, cfg, params, prompts,
+                                       spec["outs"], SPEC_K)}
+    for r in (spec, plain):
+        del r["outs"]
+    return res
+
+
+def phase_speculative(dev) -> dict:
+    """Speculative decoding through the port's entry points (module
+    docstring, phase 5c)."""
+    phase_t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(4)
+    res: dict = {"phase": "speculative", "preset": SPEC_PRESET,
+                 "big": SPEC_BIG}
+    launches: dict = {}
+
+    # ---- self-draft at llama3-1b: the batch-1 generator, then the engine
+    cfg, params = _spec_model(dev, SPEC_PRESET)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in SPEC_LENGTHS]
+    res["legacy_self_draft"] = _spec_legacy(dev, cfg, params)
+    launches["legacy"] = res["legacy_self_draft"]["flash_launches"]
+    self_res = _spec_pair(dev, cfg, params, prompts, (cfg, params))
+    res["slots_self_draft"] = self_res
+    launches["slots_self_draft"] = self_res["speculative"]["flash_launches"]
+    generated = SPEC_SLOT_NEW * len(prompts)
+    accepted = self_res["speculative"]["accepted_tokens"]
+    if accepted < 0.5 * (generated - len(prompts)):
+        raise AssertionError(f"self-draft accepted {accepted} of "
+                             f"{generated - len(prompts)} proposals")
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---- a llama3-8b target with a llama3-1b draft, both random
+    bcfg, bparams = _spec_model(dev, SPEC_BIG)
+    dcfg, dparams = _spec_model(dev, SPEC_PRESET, seed=1)
+    pair = _spec_pair(dev, bcfg, bparams, prompts, (dcfg, dparams))
+    pair["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None)
+    want = (bcfg.n_layers + dcfg.n_layers) * pair["speculative"]["prefills"]
+    if pair["speculative"]["flash_launches"] != want:
+        raise AssertionError(f"flash_fwd launched "
+                             f"{pair['speculative']['flash_launches']} "
+                             f"times for {want} prefill layers")
+    res["slots_8b_1b"] = pair
+    launches["slots_8b_1b"] = pair["speculative"]["flash_launches"]
+    del bparams, dparams
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the CLI: --draft-preset llama3-1b --n-spec 4 (a self-draft)
+    from tpu_docker_api_torch.ops import flash
+
+    with _server(dev, ["--max-seq", str(SPEC_MAX_SEQ), "--draft-preset",
+                       SPEC_PRESET, "--n-spec", str(SPEC_K)]) as (srv, port):
+        health = _get(port, "/healthz")["slotEngine"]
+        if not (health.get("speculative") is True
+                and health.get("nSpec") == SPEC_K):
+            raise AssertionError(f"/healthz: {health}")
+        _burst(port, [[1, 2, 3]], 2, srv.cfg.vocab_size)
+        flash.reset_launch_count()
+        outs = _burst(port, prompts[:4], SPEC_SLOT_NEW, srv.cfg.vocab_size)
+        launches["cli"] = flash.launch_count["flash_fwd"]
+        completed = srv.engine.stats["completed"]
+        _check_reply(*_post(port, {"tokens": [prompts[1]],
+                                   "maxNewTokens": 8, "temperature": 0.8,
+                                   "topK": 40}), 1, 8, srv.cfg.vocab_size)
+        if srv.engine.stats["completed"] != completed:
+            raise AssertionError("a sampled request reached the "
+                                 "speculative engine")
+        res["cli"] = {
+            "health": {k: health[k] for k in ("speculative", "nSpec",
+                                              "chunk", "slots")},
+            "accepted_tokens": srv.engine.stats["accepted_tokens"],
+            "near_argmax": _near_argmax(dev, srv.cfg, srv.params,
+                                        prompts[:4], outs, SPEC_K)}
+    for path, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"flash_fwd never launched on {path}")
+    res.update({"flash_launches_by_run": launches,
+                "flash_launches": sum(launches.values()),
+                "phase_s": time.perf_counter() - phase_t0,
+                "card": nvidia_smi() if dev.type == "cuda" else "cpu"})
+    emit(res)
+    return res
+
+
+#: the servebench phase's runs, at the JAX functions' defaults
+SERVEBENCH = [
+    ("bench_concurrent_serving", {"preset": "llama3-1b", "streams": 8,
+                                  "prompt_len": 128, "new_tok": 64}),
+    ("bench_decode_roofline", {"preset": "llama3-8b", "batch": 64}),
+    ("bench_int8_serving", {"preset": "llama3-8b", "batch": 64, "reps": 2}),
+    ("bench_tail_latency", {"preset": "llama3-1b"}),
+]
+
+
+def phase_servebench(dev) -> dict:
+    """The port's serving benchmarks (module docstring, phase 5d): each
+    result on a line of its own, each ``ok``; flash_fwd launches of the
+    whole phase (its slot-engine and generate prefills)."""
+    from tpu_docker_api_torch.infer import servebench
+    from tpu_docker_api_torch.infer.quantize import bench_int8_serving
+    from tpu_docker_api_torch.ops import flash
+
+    phase_t0 = time.perf_counter()
+    seconds = {}
+    flash.reset_launch_count()
+    for name, kw in SERVEBENCH:
+        fn = (bench_int8_serving if name == "bench_int8_serving"
+              else getattr(servebench, name))
+        t0 = time.perf_counter()
+        out = fn(device=dev, **kw)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": "servebench", "bench": name, "args": kw,
+              "seconds": seconds[name], **out})
+        if out.get("ok") is not True:
+            raise AssertionError(f"{name} not ok: {out}")
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    launches = flash.launch_count["flash_fwd"]
+    if launches <= 0:
+        raise AssertionError("flash_fwd never launched in servebench")
+    res = {"phase": "servebench_summary", "seconds": seconds,
+           "flash_launches": launches,
+           "phase_s": time.perf_counter() - phase_t0,
+           "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2673,6 +3021,8 @@ def main() -> int:
     serve_res = phase_serve(dev)
     int8_res = phase_serve_int8_text(dev, serve_res)
     depth_res = phase_serve_depth(dev)
+    spec_res = phase_speculative(dev)
+    bench_res = phase_servebench(dev)
     train_res = phase_train(dev)
     life_res = phase_lifecycle(dev)
     lora_res = phase_lora(dev, train_res, int8_res)
@@ -2682,6 +3032,8 @@ def main() -> int:
         "flash_fwd": {"serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
                       "serve_depth": depth_res["flash_launches"],
+                      "speculative": spec_res["flash_launches"],
+                      "servebench": bench_res["flash_launches"],
                       "train": train_n["flash_fwd"],
                       "lifecycle": life_n["flash_fwd"],
                       "lora": lora_n["flash_fwd"]},

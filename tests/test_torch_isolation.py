@@ -3,7 +3,9 @@ packages the port's GPU hosts need not have (``safetensors``,
 ``transformers``, ``orbax``, ``tokenizers``, ``regex``) blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
 ``chip_smoke.py`` import, and a tiny forward, a paged engine with a
-shared prefix and segments, a train step, a QLoRA step,
+shared prefix and segments, speculative decoding (the batch-1 generator
+and the slot engine), the int8-serving benchmark, a train step, a QLoRA
+step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
 tokenizer written by ``chip_smoke.py`` run on the CPU."""
 
@@ -48,7 +50,9 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.models.import_weights",
                    "tpu_docker_api_torch.models.tokenizer",
                    "tpu_docker_api_torch.ops.paged",
-                   "tpu_docker_api_torch.infer.paged"):
+                   "tpu_docker_api_torch.infer.paged",
+                   "tpu_docker_api_torch.infer.speculative",
+                   "tpu_docker_api_torch.infer.servebench"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -71,6 +75,28 @@ _CHILD = textwrap.dedent("""
         eng.step()
     assert [h.result(0)["length"] for h in hs] == [3, 3]
     assert eng.stats["prefix_hits"] == 1 and eng.stats["segment_prefills"]
+
+    from tpu_docker_api_torch.infer.speculative import (
+        SpeculativeConfig, make_speculative_generate_fn)
+    from tpu_docker_api_torch.infer.slots import SpeculativeSlotEngine
+    out = make_speculative_generate_fn(cfg, cfg, SpeculativeConfig(
+        max_new_tokens=6, n_speculative=2, max_seq=32))(
+        params, params, torch.ones(1, 4, dtype=torch.long))
+    assert out["tokens"].shape == (1, 6) and out["rounds"] >= 1
+    eng = SpeculativeSlotEngine(cfg, params, draft_cfg=cfg,
+                                draft_params=params, n_spec=2, slots=2,
+                                max_seq=32)
+    hs = [eng.submit([3, 1, 4], 5), eng.submit([2, 7], 3)]
+    while not all(h.done() for h in hs):
+        eng.step()
+    assert [h.result(0)["length"] for h in hs] == [5, 3]
+
+    from tpu_docker_api_torch.infer import servebench
+    from tpu_docker_api_torch.infer.quantize import bench_int8_serving
+    assert servebench._hbm_bw("cpu") is None
+    res = bench_int8_serving("tiny", batch=2, new_tok=3, prompt_len=4,
+                             reps=1, max_seq=16, device="cpu")
+    assert res["ok"] and res["batch"] == 2
 
     from tpu_docker_api_torch.train.trainer import (create_train_state,
                                                     make_train_step)
@@ -139,3 +165,23 @@ def test_entry_points_refuse_cuda_without_a_card():
     assert proc.returncode != 0
     assert "CUDA requested but no CUDA device" in proc.stderr
     assert proc.stdout == ""
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second top-level definition of a name in ``chip_smoke.py``
+    silently replaces the first for every phase that calls it."""
+    import ast
+    from collections import Counter
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name):
+                        names[n.id] += 1
+    assert [n for n, c in names.items() if c > 1] == []

@@ -12,6 +12,7 @@ import json
 import threading
 
 import pytest
+import torch
 
 from tpu_docker_api_torch.serve.__main__ import Server, parse_args
 
@@ -249,11 +250,12 @@ def test_serves_checkpoint_weights(trained, source):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--draft-preset", "tiny"], "ROADMAP Queue 1 item 6"),
+    (["--draft-preset", "tiny", "--page-size", "16"], "exclusive"),
     (["--lora-rank", "8"], "require --lora-ckpt"),
     (["--lora-ckpt", "a"], "--lora-ckpt requires --lora-rank"),
-    (["--page-size", "16", "--n-spec", "4"], "ROADMAP Queue 1 item 6"),
-    (["--draft-ckpt", "d"], "ROADMAP Queue 1 item 6"),
+    (["--draft-preset", "tiny", "--prefill-chunk", "8"],
+     "--prefill-chunk is not supported with --draft-preset"),
+    (["--draft-preset", "moe:moe-tiny"], "requires llama presets"),
     (["--tp", "2"], "ROADMAP Queue 1 item 9"),
     (["--platform", "cpu", "--virtual-devices", "4"], "use --device"),
     (["--ckpt-dir", "a", "--hf-ckpt", "b"], "exclusive")])
@@ -623,6 +625,90 @@ def test_prefix_byte_budget_refused():
         assert code == 200
     finally:
         _stop(srv, t)
+
+
+def test_draft_preset_serves_greedy_and_falls_back_sampled():
+    """--draft-preset tiny at --seed 0: the draft's weights are the
+    target's (acceptance ~1). /healthz shows speculative and nSpec;
+    greedy rows answer with the tokens of an in-memory speculative engine
+    of the same settings and the isolated greedy decode; a sampled
+    request takes the --slots 0 path instead of a 400."""
+    from tpu_docker_api_torch.infer.slots import SpeculativeSlotEngine
+
+    srv, t = _serve(["--preset", "tiny", "--slots", "2", "--seed", "0",
+                     "--draft-preset", "tiny", "--n-spec", "3"])
+    try:
+        eng = srv.engine
+        assert isinstance(eng, SpeculativeSlotEngine) and eng.chunk == 4
+        assert all(torch.equal(a, b) for a, b in zip(
+            _leaves(eng.draft_params), _leaves(srv.params)))
+        _, data = _request(srv, "GET", "/healthz")
+        health = json.loads(data)["slotEngine"]
+        assert health["speculative"] is True and health["nSpec"] == 3
+        assert health["accepted_tokens"] == 0
+        prompts = [[7, 3, 2, 9], [1, 4]]
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": prompts, "maxNewTokens": 6, "temperature": 0.0})
+        assert code == 200
+        got = json.loads(data)["tokens"]
+        mem = SpeculativeSlotEngine(srv.cfg, srv.params,
+                                    draft_cfg=srv.cfg,
+                                    draft_params=srv.params, n_spec=3,
+                                    slots=2, max_seq=64,
+                                    cache_dtype=srv.cfg.dtype)
+        hs = [mem.submit(p, 6) for p in prompts]
+        while not all(h.done() for h in hs):
+            mem.step()
+        assert got == [h.result(0)["tokens"] for h in hs]
+        _, data = _request(srv, "GET", "/healthz")
+        assert json.loads(data)["slotEngine"]["accepted_tokens"] > 0
+        completed = eng.stats["completed"]
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": [[1, 2, 3]], "maxNewTokens": 4, "temperature": 0.9,
+            "topK": 5})
+        assert code == 200 and len(json.loads(data)["tokens"][0]) == 4
+        assert eng.stats["completed"] == completed  # not the engine's
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": [[1, 2, 3]], "maxNewTokens": 4, "temperature": 0.9,
+            "stream": True})
+        assert code == 400 and "slot engine" in json.loads(data)["error"]
+    finally:
+        _stop(srv, t)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def test_draft_ckpt_restores_the_draft(trained):
+    """--draft-ckpt restores a training checkpoint's params as the draft
+    (fused as the target's are), beside random target weights."""
+    from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+
+    _, params, root = trained
+    srv, t = _serve(["--preset", "tiny", "--slots", "2", "--seed", "5",
+                     "--draft-preset", "tiny", "--draft-ckpt",
+                     str(root / "ckpt")])
+    try:
+        want = _leaves(fuse_llama_projections(params))
+        assert all(torch.equal(a, b) for a, b in zip(
+            _leaves(srv.engine.draft_params), want))
+        code, data = _request(srv, "POST", "/generate", {
+            "tokens": [[5, 9, 2]], "maxNewTokens": 5})
+        assert code == 200 and json.loads(data)["lengths"] == [5]
+    finally:
+        _stop(srv, t)
+
+
+@pytest.mark.parametrize("flags", [["--draft-ckpt", "d"],
+                                   ["--n-spec", "2"]])
+def test_draft_flags_require_a_draft_preset(capsys, flags):
+    with pytest.raises(SystemExit) as e:
+        parse_args(flags)
+    assert e.value.code == 2 and "require --draft-preset" in (
+        capsys.readouterr().err)
 
 
 @pytest.mark.parametrize("flags", [

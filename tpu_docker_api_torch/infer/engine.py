@@ -3,7 +3,8 @@
 
 The serve path's ``--slots 0`` generator, and the exactness reference of
 the slot engine (infer/slots.py): one prompt batch, one prefill, then one
-decode step per token in a Python loop over a fixed-capacity cache.
+decode step per token in a Python loop over a fixed-capacity cache. Every
+prefill here is a whole-prompt one, through the flash kernel on the card.
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ def make_generate_fn(cfg: LlamaConfig, gen: GenerateConfig) -> Callable:
         max_seq = min(max_seq, (need + 127) // 128 * 128)
         cache = init_kv_cache(cfg, b, max_seq, dtype=gen.cache_dtype,
                               device=dev)
-        logits, k_cache, v_cache = fwd(params, prompt, cfg, cache.k,
-                                       cache.v, 0, last_only=True)
+        k_cache, v_cache = cache.k, cache.v
+        logits = _prefill(fwd, params, prompt, cfg, k_cache, v_cache)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         tok, done = _sample_step(logits[:, -1], generator, done)
         toks = [tok]
@@ -106,15 +107,35 @@ def make_generate_fn(cfg: LlamaConfig, gen: GenerateConfig) -> Callable:
     return generate
 
 
+def _prefill(fwd, params: dict, prompt: torch.Tensor, cfg: LlamaConfig,
+             k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The prompt's prefill into a cache exactly its length — the
+    whole-prompt path that runs the flash kernel (models/llama.py) — whose
+    k/v then fill the first positions of ``k``/``v`` (in place). Returns
+    the last position's logits (b, 1, vocab)."""
+    s = prompt.shape[1]
+    if k.shape[2] == s:
+        kc, vc = k, v
+    else:
+        shape = k.shape[:2] + (s,) + k.shape[3:]
+        kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
+        vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
+    logits, kc, vc = fwd(params, prompt, cfg, kc, vc, 0, last_only=True)
+    if kc is not k:
+        k[:, :, :s] = kc
+        v[:, :, :s] = vc
+    return logits
+
+
 @torch.no_grad()
 def prefill_and_first_token(params: dict, prompt: torch.Tensor,
                             cfg: LlamaConfig,
                             cache: KVCache) -> tuple[torch.Tensor, KVCache]:
     """Standalone prefill for callers that drive decode themselves:
-    greedy first token + filled cache."""
-    logits, k, v = cached_forward_fn(cfg)(params, prompt, cfg, cache.k,
-                                          cache.v, 0, last_only=True)
-    return torch.argmax(logits[:, -1], dim=-1), KVCache(k=k, v=v)
+    greedy first token + filled cache (the whole-prompt flash path)."""
+    logits = _prefill(cached_forward_fn(cfg), params, prompt, cfg, cache.k,
+                      cache.v)
+    return torch.argmax(logits[:, -1], dim=-1), cache
 
 
 @torch.no_grad()

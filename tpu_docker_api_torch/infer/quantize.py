@@ -1,7 +1,7 @@
 """Serving-time weight transforms (counterpart of
 ``tpu_docker_api/infer/quantize.py``): int8 quantization of a Llama tree,
-projection fusion, the serving footprint, and int8 weights made straight
-from a formula.
+projection fusion, the serving footprint, int8 weights made straight
+from a formula, and the int8-serving benchmark (``bench_int8_serving``).
 
 ``quantize_llama_params`` rewrites every projection (attention q/k/v/o,
 MLP gate/up/down, stacked per layer and quantized along their in axis
@@ -133,4 +133,64 @@ def synth_quantized_params(cfg, seed: int = 0,
         },
         "final_norm": torch.ones((d,), dtype=cfg.dtype, device=device),
         "lm_head": qweight((d, cfg.vocab_size), d, 9),
+    }
+
+
+def bench_int8_serving(preset: str = "llama3-8b", batch: int = 64,
+                       new_tok: int = 64, prompt_len: int = 128,
+                       reps: int = 2, max_seq: int = 512,
+                       fuse: bool = False,
+                       device: str | torch.device = "cuda") -> dict:
+    """int8-serving throughput harness (the JAX function's keys and
+    definitions). Makes the preset's int8 weights on ``device``
+    (``synth_quantized_params``), runs one untimed and ``reps`` timed
+    greedy generations, and reports:
+
+    - ``new_tok_s_incl_prefill``: generated tokens / wall time of a whole
+      generation, prefill included, as the name says;
+    - ``ms_per_new_tok_incl_prefill``: its inverse per token. NOT a pure
+      decode-step latency: the (batch, prompt_len) prefill is a
+      comparable share of the wall time.
+
+    The wall time ends in a device synchronise."""
+    import time
+
+    from tpu_docker_api_torch.infer.engine import (GenerateConfig,
+                                                   make_generate_fn)
+    from tpu_docker_api_torch.models.llama import llama_presets
+
+    device = torch.device(device)
+    cfg = llama_presets()[preset]
+    params = synth_quantized_params(cfg, device=device)
+    if fuse:
+        params = fuse_llama_projections(params)
+    fn = make_generate_fn(cfg, GenerateConfig(
+        max_new_tokens=new_tok, temperature=0.0, max_seq=max_seq))
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g).to(device)
+
+    def run():
+        t0 = time.perf_counter()
+        out = fn(params, prompt)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t0
+
+    out, _ = run()  # first-call costs, untimed
+    times = []
+    for _ in range(reps):
+        out, dt = run()
+        times.append(dt)
+    dt = min(times)
+    return {
+        "ok": bool((out["tokens"] >= 0).all())
+        and tuple(out["tokens"].shape) == (batch, new_tok),
+        "weights_gb": round(quantized_bytes(params) / 2**30, 2),
+        "batch": batch,
+        "prompt_len": prompt_len,
+        "new_tokens": new_tok,
+        "new_tok_s_incl_prefill": round(batch * new_tok / dt, 1),
+        "ms_per_new_tok_incl_prefill": round(dt / new_tok * 1e3, 2),
+        "fused_projections": fuse,
     }

@@ -1,6 +1,6 @@
 """Continuous-batching ("slot") serving engine (counterpart of
-``tpu_docker_api/infer/slots.py``; its speculative engine is not ported
-yet).
+``tpu_docker_api/infer/slots.py``), and its speculative variant
+(:class:`SpeculativeSlotEngine`).
 
 N request streams share one card through a fixed-capacity KV cache of
 S slots ``(layers, S, max_seq, kv, head_dim)``, allocated once. A request
@@ -300,7 +300,8 @@ class SlotEngine:
         self.stats = {"completed": 0, "decode_chunks": 0, "prefills": 0,
                       "wasted_steps": 0, "emitted_tokens": 0,
                       "bucketed_chunks": 0, "prefix_hits": 0,
-                      "segment_prefills": 0, "prefix_bytes": 0}
+                      "segment_prefills": 0, "prefix_bytes": 0,
+                      "accepted_tokens": 0}
         #: per-request (ttft, mean_itl) ring for latency_stats(); serve
         #: points ``metrics_hook`` at its metrics registry
         self._lat_samples: collections.deque = collections.deque(maxlen=512)
@@ -676,6 +677,29 @@ class SlotEngine:
         self._wake.set()
         return handle
 
+    def warmup(self, buckets=None, rows=(1,)) -> None:
+        """Serve one throwaway group of ``R`` bucket-long prompts in every
+        prefill bucket for each ``R`` in ``rows`` (with a decode chunk
+        where the bucket leaves room), so that a measured window pays no
+        first-call costs: allocator growth, library handles, kernel
+        loads. The JAX method compiles the same programs. The stats are
+        left as they were. Runs before :meth:`start`."""
+        if self._thread is not None:
+            raise RuntimeError("warmup must run before start()")
+        saved = dict(self.stats)
+        for b in (self.buckets if buckets is None else buckets):
+            for r in sorted({min(r, self.slots) for r in rows}):
+                max_new = 2 if b < self.max_seq else 1
+                hs = [self.submit([self.pad_id] * b, max_new)
+                      for _ in range(r)]
+                while not all(h.done() for h in hs):
+                    self.step()
+        while self._outstanding:
+            self._process_oldest()
+        with self._lock:
+            self.stats.update(saved)
+        self.reset_latency_stats()
+
     # ---- engine loop -------------------------------------------------------
 
     def _next_seed(self) -> int:
@@ -905,13 +929,18 @@ class SlotEngine:
         """Dispatch one decode chunk over ``view`` for the slots of
         ``snap`` and queue its tokens for the host."""
         filtered = any(s.top_k > 0 or s.top_p < 1.0 for s in snap.values())
-        out = self._decode_chunk(view, filtered)
+        self._enqueue(snap, self._decode_chunk(view, filtered))
+        if bucketed:
+            self.stats["bucketed_chunks"] += 1
+
+    def _enqueue(self, snap: dict, out: torch.Tensor) -> None:
+        """Queue one dispatched chunk's (S, cols) device output for the
+        host: the device→host copy starts now, and the host reads it
+        ``pipeline`` chunks later, after waiting on its event."""
         for st in snap.values():
             st.dispatched += 1
         event = None
         if out.is_cuda:
-            # start the device→host copy now; the host reads it
-            # ``pipeline`` chunks later, after waiting on the event
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
@@ -919,29 +948,32 @@ class SlotEngine:
             out = host
         self._outstanding.append((snap, out, event))
         self.stats["decode_chunks"] += 1
-        if bucketed:
-            self.stats["bucketed_chunks"] += 1
 
     def _process_oldest(self) -> None:
-        """Host-side half of one chunk: wait for its tokens and hand them
-        to the slots that were active at its dispatch; complete slots that
-        hit eos or max_new. Slots freed by an EARLIER chunk are skipped by
-        identity (the snapshot holds the _Slot object)."""
+        """Host-side half of one chunk: wait for its output and hand each
+        row to the slot that was active at its dispatch (:meth:`_emit_row`).
+        Slots freed by an EARLIER chunk are skipped by identity (the
+        snapshot holds the _Slot object)."""
         snap, out, event = self._outstanding.popleft()
         if event is not None:
             event.synchronize()
-        out = out.numpy()  # (S, K+1); column 0 is the chunk's input
+        out = out.numpy()  # (S, cols); column 0 is the chunk's input
         for i, st in snap.items():
             if self._table.get(i) is not st:
                 continue  # completed in an earlier chunk; this is garbage
             start = 0 if st.fresh else 1  # col 0: prefill token, once
             st.fresh = False
-            st.pos += self.chunk
-            for j in range(start, self.chunk + 1):
-                st.emit(int(out[i, j]))
-                if self._finish_if_done(i, st):
-                    self.stats["wasted_steps"] += self.chunk - j
-                    break
+            self._emit_row(i, st, out[i], start)
+
+    def _emit_row(self, i: int, st: _Slot, row, start: int) -> None:
+        """Emit one slot's tokens of a processed chunk from column
+        ``start``; complete the slot at eos or max_new."""
+        st.pos += self.chunk
+        for j in range(start, self.chunk + 1):
+            st.emit(int(row[j]))
+            if self._finish_if_done(i, st):
+                self.stats["wasted_steps"] += self.chunk - j
+                break
 
     def step(self) -> bool:
         """One engine iteration: admit pending requests, dispatch one
@@ -1047,3 +1079,147 @@ class SlotEngine:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class SpeculativeSlotEngine(SlotEngine):
+    """Continuous batching x speculative decoding (greedy): every engine
+    round a small DRAFT model proposes ``n_spec`` tokens per slot by
+    single-token steps, and the TARGET verifies all of them in ONE
+    ``(slots, n_spec + 1)`` cached forward with per-row positions. The
+    accepted prefix plus the target's own correction token emit per
+    round, so a slot advances 1..n_spec+1 positions per dispatch.
+
+    Exactness: greedy verification gives plain greedy decoding's tokens
+    whatever the draft proposes (a bad draft only costs speed); on the
+    CPU in f32 that is token-exact (tests/test_torch_spec_slots.py).
+    Rejected positions' k/v, in both caches, are rewritten by the round
+    that legitimately crosses them before the causal mask lets anything
+    attend them; per-row writes past capacity are dropped.
+
+    A round's outputs (tokens, counts, the next input token and position)
+    stay on the device and chain into the next round with no host
+    round-trip; the host reads a round ``pipeline`` rounds later, as the
+    base engine's chunks. Every draft and target forward runs on the
+    engine's one stream. Greedy-only, no prefix caching, no chunked
+    prefill; decode reads are unbucketed (verify reads scale with
+    n_spec, not chunk)."""
+
+    def __init__(self, cfg, params, *, draft_cfg, draft_params,
+                 n_spec: int = 4, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise ValueError("speculative slots are single-device for now")
+        if kwargs.get("prefill_chunk"):
+            raise ValueError(
+                "chunked prefill is not supported on the speculative "
+                "engine (segments fill the target cache only)")
+        if n_spec < 1:
+            raise ValueError(f"n_spec must be >= 1, got {n_spec}")
+        kwargs.pop("mesh", None)
+        # chunk drives the position-bound math (a round advances at most
+        # n_spec+1) and the base engine's column count
+        kwargs["chunk"] = n_spec + 1
+        super().__init__(cfg, params, **kwargs)
+        self.n_spec = n_spec
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self._dfwd = cached_forward_fn(draft_cfg)
+        dcache = init_kv_cache(draft_cfg, self.slots, self.max_seq,
+                               dtype=self._k.dtype, device=self.device)
+        self._dk, self._dv = dcache.k, dcache.v
+        self._kv_buckets = ()  # verify reads stay unbucketed
+
+    def submit(self, prompt, max_new, temperature=0.0, eos_id=None,
+               stream=False, top_k=0, top_p=1.0):
+        if temperature != 0.0 or top_k != 0 or top_p != 1.0:
+            raise ValueError(
+                "speculative slots are greedy-only (temperature 0, no "
+                "top-k/top-p)")
+        return super().submit(prompt, max_new, 0.0, eos_id=eos_id,
+                              stream=stream)
+
+    def register_prefix(self, tokens):
+        # the suffix-only prefill fills the TARGET cache only; a draft
+        # cache left unfilled would silently collapse acceptance
+        raise ValueError(
+            "prefix caching is not supported on the speculative engine")
+
+    @torch.no_grad()
+    def _prefill(self, bucket, prompts_np, lens, slots_v, temps, topks,
+                 topps) -> torch.Tensor:
+        """The base prefill (target cache, first tokens, decode state),
+        then the draft's prefill of the same rows into its own cache —
+        the draft's next round must attend the whole prompt. Both run
+        the whole-prompt flash path."""
+        toks = super()._prefill(bucket, prompts_np, lens, slots_v, temps,
+                                topks, topps)
+        dcfg = self.draft_cfg
+        shape = (dcfg.n_layers, len(slots_v), bucket, dcfg.n_kv_heads,
+                 dcfg.head_dim)
+        dkc = torch.zeros(shape, dtype=self._dk.dtype, device=self.device)
+        dvc = torch.zeros(shape, dtype=self._dk.dtype, device=self.device)
+        self._dfwd(self.draft_params, self._to_device(prompts_np), dcfg,
+                   dkc, dvc, 0, last_only=True)
+        slots_t = self._to_device(slots_v)
+        self._dk[:, slots_t, :bucket] = dkc
+        self._dv[:, slots_t, :bucket] = dvc
+        return toks
+
+    @torch.no_grad()
+    def _spec_round(self) -> torch.Tensor:
+        """One round for every slot. Returns (S, n_spec + 3) on the
+        device: column 0 the round's input token, columns 1..n_spec+1
+        the accepted proposals, the correction and pad, the last column
+        the count of new tokens (accepted + 1)."""
+        K, dcfg = self.n_spec, self.draft_cfg
+        dtok, dpos = self._dtok, self._dpos
+        # 1. the draft proposes K tokens per slot (its cache fills
+        # dpos..dpos+K-1 with [dtok, p0..p_{K-2}])
+        tok, props = dtok, []
+        for i in range(K):
+            logits, self._dk, self._dv = self._dfwd(
+                self.draft_params, tok[:, None], dcfg, self._dk, self._dv,
+                dpos + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            props.append(tok)
+        props_t = torch.stack(props, dim=1)                  # (S, K)
+        # feed the FINAL proposal once more so its k/v lands in the draft
+        # cache at dpos+K: on a fully accepted round the next round starts
+        # PAST that position and would never rewrite it, leaving a
+        # garbage hole the draft attends forever (acceptance collapses
+        # even for a perfect draft). On partial acceptance this write
+        # sits at a future position and is rewritten just in time.
+        _, self._dk, self._dv = self._dfwd(
+            self.draft_params, tok[:, None], dcfg, self._dk, self._dv,
+            dpos + K)
+
+        # 2. the target verifies all K+1 positions in ONE forward
+        seq_in = torch.cat([dtok[:, None], props_t], dim=1)
+        logits, self._k, self._v = self._fwd(self.params, seq_in, self.cfg,
+                                             self._k, self._v, dpos)
+        greedy = torch.argmax(logits, dim=-1)                # (S, K+1)
+
+        # 3. accepted prefix length + the target's correction token
+        match = (props_t == greedy[:, :K]).long()
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)       # (S,)
+        corr = greedy.gather(1, n_acc[:, None])[:, 0]
+        idx = torch.arange(K + 1, device=self.device)[None, :]
+        props_ext = torch.cat([props_t, props_t.new_zeros(props_t.shape[0],
+                                                          1)], dim=1)
+        newt = torch.where(
+            idx < n_acc[:, None], props_ext,
+            torch.where(idx == n_acc[:, None], corr[:, None], self.pad_id))
+        counts = n_acc + 1
+        self._dtok, self._dpos = corr, dpos + counts
+        return torch.cat([dtok[:, None], newt, counts[:, None]], dim=1)
+
+    def _dispatch_chunk(self) -> None:
+        self._enqueue(self._decoding(), self._spec_round())
+
+    def _emit_row(self, i: int, st, row, start: int) -> None:
+        n = int(row[-1])             # new tokens this round
+        st.pos += n
+        self.stats["accepted_tokens"] += n - 1
+        for j in range(start, 1 + n):
+            st.emit(int(row[j]))
+            if self._finish_if_done(i, st):
+                break

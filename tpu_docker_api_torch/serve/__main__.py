@@ -4,6 +4,8 @@
     python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000 \
         [--ckpt-dir CKPT | --hf-ckpt HF_DIR] [--quantize] [--tokenizer TOK]
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny
+    python -m tpu_docker_api_torch.serve --device cpu --preset tiny \
+        --draft-preset tiny --n-spec 4
 
 HTTP surface (stdlib server):
 
@@ -37,9 +39,13 @@ Requests stream through the continuous-batching slot engine
 (infer/slots.py) by default; rows in one body may be ragged, each row is
 its own request. ``--prefill-chunk N`` admits longer prompts in N-token
 segments between decode chunks; ``--page-size P [--total-pages N]``
-serves from a paged KV cache (infer/paged.py). ``--slots 0`` serves
-through ``make_generate_fn`` instead, one generation at a time, with
-equal-length rows (and no /prefixes).
+serves from a paged KV cache (infer/paged.py). ``--draft-preset NAME
+[--draft-ckpt DIR] [--n-spec K]`` serves greedy requests through the
+speculative slot engine (a draft proposes K tokens a round, the target
+verifies them in one forward; ``/healthz`` shows ``speculative`` and
+``nSpec``), and sampled requests through the ``--slots 0`` path.
+``--slots 0`` serves through ``make_generate_fn`` instead, one
+generation at a time, with equal-length rows (and no /prefixes).
 
 Weights: ``--ckpt-dir`` restores the params of a training checkpoint's
 latest step (params only; its step shows in ``/healthz``), ``--hf-ckpt``
@@ -76,8 +82,6 @@ from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
 
 #: JAX-CLI flags the port does not take yet → what brings them
 _NOT_PORTED = {
-    "it comes with the serving depth of ROADMAP Queue 1 item 6": (
-        "draft_preset", "draft_ckpt", "n_spec"),
     "it comes with parallelism (ROADMAP Queue 1 item 9)": ("dp", "fsdp",
                                                           "tp"),
     "it selects a JAX platform; use --device": ("platform",
@@ -152,6 +156,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "before any --quantize; attached: quantize first, "
                         "then evaluate Wx + s·B(Ax) unmerged (QLoRA's "
                         "training numerics)")
+    p.add_argument("--draft-preset", default="",
+                   help="serve speculatively with this (smaller) llama "
+                        "preset as the draft model: greedy requests go "
+                        "through the speculative slot engine, sampled "
+                        "ones through the --slots 0 path")
+    p.add_argument("--draft-ckpt", default="",
+                   help="training checkpoint of the draft (its latest "
+                        "step, params only); '' = random weights")
+    p.add_argument("--n-spec", type=int, default=4,
+                   help="draft tokens proposed per speculative round")
     for names in _NOT_PORTED.values():
         for name in names:
             p.add_argument("--" + name.replace("_", "-"),
@@ -174,6 +188,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         # a LoRA flag without --lora-ckpt would serve the bare base
         p.error("--lora-rank/--lora-alpha/--lora-targets/--lora-forward "
                 "require --lora-ckpt")
+    if args.draft_preset:
+        if args.page_size:
+            p.error("--page-size and --draft-preset are exclusive (the "
+                    "speculative engine uses the dense cache)")
+        if any(spec.partition(":")[1] for spec in (args.preset,
+                                                   args.draft_preset)):
+            p.error("--draft-preset requires llama presets (target and "
+                    "draft) on a single device")
+        if args.prefill_chunk:
+            p.error("--prefill-chunk is not supported with --draft-preset "
+                    "(speculative segments would fill the target cache "
+                    "only)")
+    elif args.draft_ckpt or args.n_spec != 4:
+        # either flag alone would serve plainly, without a draft
+        p.error("--draft-ckpt/--n-spec require --draft-preset")
     if args.lora_ckpt and args.lora_rank < 1:
         p.error("--lora-ckpt requires --lora-rank (the rank the adapters "
                 "were trained at)")
@@ -274,7 +303,15 @@ class Server:
                 # shed load once the queue is 8x the slot count deep
                 max_pending=args.slots * 8,
                 seed=int.from_bytes(os.urandom(4), "little"))
-            if args.page_size > 0:
+            if args.draft_preset:
+                from tpu_docker_api_torch.infer.slots import (
+                    SpeculativeSlotEngine)
+
+                draft_cfg, draft_params = self._load_draft(args)
+                self.engine = SpeculativeSlotEngine(
+                    cfg, params, draft_cfg=draft_cfg,
+                    draft_params=draft_params, n_spec=args.n_spec, **common)
+            elif args.page_size > 0:
                 from tpu_docker_api_torch.infer.paged import PagedSlotEngine
 
                 self.engine = PagedSlotEngine(
@@ -292,6 +329,29 @@ class Server:
             int.from_bytes(os.urandom(4), "little"))
         self.httpd = ThreadingHTTPServer((args.host, args.port),
                                          _make_handler(self))
+
+    def _load_draft(self, args) -> tuple:
+        """The draft's config and params: ``--draft-ckpt`` restored, else
+        random weights from seed 0 (the JAX server's ``PRNGKey(0)``), so
+        a draft of the target's preset at ``--seed 0`` is the target
+        itself. Projections fuse as the target's do."""
+        from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+        from tpu_docker_api_torch.models import model_fns, resolve_preset
+
+        _, draft_cfg = resolve_preset(args.draft_preset)
+        if args.draft_ckpt:
+            from tpu_docker_api_torch.train.checkpoint import (
+                restore_model_params)
+
+            draft_params, _ = restore_model_params(args.draft_ckpt,
+                                                   draft_cfg, self.device)
+        else:
+            init_fn, _, _ = model_fns(draft_cfg)
+            draft_params = init_fn(draft_cfg, torch.Generator(
+                device=self.device).manual_seed(0))
+        if not args.no_fuse_proj:
+            draft_params = fuse_llama_projections(draft_params)
+        return draft_cfg, draft_params
 
     def _wire_metrics(self, engine) -> None:
         reg = self.metrics
@@ -406,6 +466,9 @@ def _make_handler(srv: Server):
                 payload["slotEngine"] = {"slots": eng.slots,
                                          "chunk": eng.chunk, **eng.stats,
                                          "latency": eng.latency_stats()}
+                if hasattr(eng, "n_spec"):
+                    payload["slotEngine"]["speculative"] = True
+                    payload["slotEngine"]["nSpec"] = eng.n_spec
                 if eng.dead:
                     # degraded must be visible at the HTTP level
                     payload["status"] = "degraded"
@@ -517,7 +580,12 @@ def _make_handler(srv: Server):
             if not isinstance(do_stream, bool):
                 raise ValueError("stream must be a JSON boolean")
             eng = srv.engine
+            # a dead engine falls back to the --slots 0 path; so does a
+            # sampled request on a (greedy-only) speculative engine
             slot_ok = eng is not None and not eng.dead
+            if slot_ok and hasattr(eng, "n_spec") and (
+                    temperature != 0.0 or top_k != 0 or top_p != 1.0):
+                slot_ok = False
             if do_stream and not slot_ok:
                 raise ValueError("stream requires the slot engine path "
                                  "(--slots > 0)")
