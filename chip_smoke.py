@@ -12,7 +12,9 @@ Phases, one JSON line each; any failure exits non-zero:
               library's SASS; fails if a flash library has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
-              (adam8 on the adapters' f32 leaves at b = 16, 256 and 4)
+              (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
+              and on the moe phase's f32 router at b = 8 and bf16 expert
+              leaves)
               and at the edges of the kernels' tiles, with stated
               tolerances;
               times of the kernel (device time, its wrapper's host time
@@ -76,8 +78,10 @@ Phases, one JSON line each; any failure exits non-zero:
               ``bench_concurrent_serving`` (llama3-1b, 8 streams,
               128/64), ``bench_decode_roofline`` (llama3-8b int8, batch
               64; % of the 3.35 TB/s roof beside the card's name and
-              power limit), ``bench_int8_serving`` (llama3-8b, batch 64)
-              and ``bench_tail_latency``; one JSON line each, each ok.
+              power limit), ``bench_int8_serving`` (llama3-8b, batch 64),
+              ``bench_tail_latency`` and ``bench_moe_serving`` (bench-moe,
+              batch 8, 128/64); one JSON line each, each ok (the MoE one:
+              a positive decode rate).
 6. train    — the trainer's entry points at llama3-1b full width and depth,
               batch 4 x 2048, random weights from a seed: 4 steps under
               ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
@@ -114,6 +118,21 @@ Phases, one JSON line each; any failure exits non-zero:
               (base unchanged, peak memory, device time by kernel class
               with the int8 straight-through backward's range). Under
               ``build/lora``, deleted at the end.
+9. moe      — the Mixtral-style MoE family (``phase_moe``): mixtral-8x7b
+              at its published width with 16 layers (47.0 GB of bf16
+              weights) in a ``SlotEngine`` of 8 slots x 2048 on the serve
+              phase's burst, 32 greedy tokens (TTFT/ITL p50, peak memory,
+              flash_fwd 16 a prefill group, one decode step's device time
+              and kernels against its weight bytes at 3.35 TB/s, first-token
+              logits of the kernel route against the plain one with the
+              expert picks replayed, and the share of picks that differ
+              when they are not); 4 layers trained under adamw-int8 at
+              batch 2 x 2048 on a repeated batch (losses, launches a step,
+              one block's wq/router/w_gate gradients through the kernels
+              against the dense path, picks replayed); the trainer CLI on
+              moe:bench-moe at full depth under --moe-dispatch gather (with
+              --profile-dir) and einsum (equal first loss), and the server
+              on it (a burst, a stream, /healthz).
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -459,6 +478,15 @@ ADAPTER_LEAVES = [("lora A rank 16", (16, 2048, 16)),
                   ("lora A rank 4", (16, 2048, 4))]
 
 
+#: the moe phase's leaves at Mixtral width (its training runs 4 layers;
+#: one layer's expert leaves here, 470 M elements each): the f32 router
+#: (b = 8: the vector path, one lane a block) and the bf16 expert
+#: matrices (b = 256)
+MOE_LEAVES = [("moe router", (4, 4096, 8), torch.float32),
+              ("moe w_gate", (1, 8, 4096, 14336), torch.bfloat16),
+              ("moe w_down", (1, 8, 14336, 4096), torch.bfloat16)]
+
+
 def _adam8_bound(shape, dtype) -> tuple[float, str]:
     """g, p, update in ``dtype``; mq, vq read and written in int8; four
     f32 scales per block; ~30 f32 operations an element."""
@@ -474,9 +502,10 @@ def _adam8_bound(shape, dtype) -> tuple[float, str]:
 def phase_adam8(dev) -> dict:
     """The int8-moment AdamW kernel against the plain version (one_xla) on
     leaves of llama3-1b's own shapes (the vector path), on one leaf with
-    b = 100 (the scalar path) and on the LoRA adapters' f32 leaves
-    (``ADAPTER_LEAVES``); times over one step's 12 leaves, and of each
-    adapter leaf."""
+    b = 100 (the scalar path), on the LoRA adapters' f32 leaves
+    (``ADAPTER_LEAVES``) and on the moe phase's router and expert leaves
+    (``MOE_LEAVES``); times over one step's 12 leaves, and of each
+    adapter and moe leaf."""
     from tpu_docker_api_torch.train import optim
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -484,7 +513,8 @@ def phase_adam8(dev) -> dict:
     checked = [leaf for leaf in LLAMA3_1B_LEAVES if leaf[0] in (
         "wq", "w_gate", "lm_head", "final_norm", "wk")] + [SCALAR_PATH_LEAF]
     checked = [(name, shape, torch.bfloat16) for name, shape in checked] \
-        + [(name, shape, torch.float32) for name, shape in ADAPTER_LEAVES]
+        + [(name, shape, torch.float32) for name, shape in ADAPTER_LEAVES] \
+        + MOE_LEAVES
     cases, max_err = [], 0.0
     for name, shape, dtype in checked:
         args = _adam8_leaf(dev, g, shape, dtype=dtype)
@@ -549,6 +579,22 @@ def phase_adam8(dev) -> dict:
             "plain_ms": pl, "bound_ms": bd, "bound_by": by,
             "roofline_share": bd / kt["ms"]})
         del args
+    # the moe phase's leaves, one by one
+    moe_leaves = []
+    for name, shape, dtype in MOE_LEAVES:
+        args = _adam8_leaf(dev, g, shape, dtype=dtype)
+        kt = kernel_times(lambda: optim.adam8_update_leaf(*args, sc=sc),
+                          50 if dtype == torch.float32 else 10)
+        pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 2, warmup=1)
+        bd, by = _adam8_bound(shape, dtype)
+        moe_leaves.append({
+            "leaf": name, "shape": list(shape),
+            "dtype": str(dtype).split(".")[-1],
+            "block": optim._block_of(shape[-1], 256), **kt,
+            "plain_ms": pl, "bound_ms": bd, "bound_by": by,
+            "roofline_share": bd / kt["ms"]})
+        del args
+        torch.cuda.empty_cache()
     n_leaves = len(LLAMA3_1B_LEAVES)
     bound_by = ("bytes" if all(leaf["bound_by"] == "bytes"
                                for leaf in per_leaf) else "operations")
@@ -562,6 +608,7 @@ def phase_adam8(dev) -> dict:
           "timing": {"step_ms": kernel_ms, "step_plain_ms": plain_ms,
                      "step_bound_ms": bound_ms, "per_leaf": per_leaf,
                      "adapter_leaves": adapter_leaves,
+                     "moe_leaves": moe_leaves,
                      "library": "none: no single PyTorch call computes "
                                 "the int8-moment AdamW step",
                      **result}})
@@ -1066,9 +1113,10 @@ def _decode_step_profile(dev, cfg, params, rows: int = 8) -> dict:
     idle share of the traced window and of the unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpu_docker_api_torch.models.llama import llama_forward_cached
+    from tpu_docker_api_torch.models import cached_forward_fn
     from tpu_docker_api_torch.telemetry.profile import device_time_summary
 
+    fwd = cached_forward_fn(cfg)
     shape = (cfg.n_layers, rows, 256, cfg.n_kv_heads, cfg.head_dim)
     kc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
     vc = torch.zeros_like(kc)
@@ -1077,7 +1125,7 @@ def _decode_step_profile(dev, cfg, params, rows: int = 8) -> dict:
 
     def step():
         with torch.no_grad():
-            llama_forward_cached(params, tok, cfg, kc, vc, pos)
+            fwd(params, tok, cfg, kc, vc, pos)
 
     for _ in range(3):
         step()
@@ -2936,6 +2984,7 @@ SERVEBENCH = [
     ("bench_decode_roofline", {"preset": "llama3-8b", "batch": 64}),
     ("bench_int8_serving", {"preset": "llama3-8b", "batch": 64, "reps": 2}),
     ("bench_tail_latency", {"preset": "llama3-1b"}),
+    ("bench_moe_serving", {"preset": "bench-moe"}),
 ]
 
 
@@ -2958,7 +3007,12 @@ def phase_servebench(dev) -> dict:
         seconds[name] = time.perf_counter() - t0
         emit({"phase": "servebench", "bench": name, "args": kw,
               "seconds": seconds[name], **out})
-        if out.get("ok") is not True:
+        # bench_moe_serving's result has no "ok" (as in JAX): its decode
+        # rate must be a positive number
+        ok = (out["ok"] is True if "ok" in out
+              else math.isfinite(out["decode_tok_s"])
+              and out["decode_tok_s"] > 0)
+        if not ok:
             raise AssertionError(f"{name} not ok: {out}")
         gc.collect()
         if dev.type == "cuda":
@@ -2968,6 +3022,428 @@ def phase_servebench(dev) -> dict:
         raise AssertionError("flash_fwd never launched in servebench")
     res = {"phase": "servebench_summary", "seconds": seconds,
            "flash_launches": launches,
+           "phase_s": time.perf_counter() - phase_t0,
+           "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+    emit(res)
+    return res
+
+
+# ------------------------------------------------------------------ moe
+
+#: the moe phase: Mixtral-8x7B at its published width, depth cut to fit
+#: one 80 GB card (16 layers: 47.0 GB of bf16 weights serving; 4 layers
+#: training under adamw-int8), and bench-moe at its full depth through
+#: the trainer CLI and the server. A CPU rehearsal patches these to
+#: moe-tiny and small shapes.
+MOE_PRESET = "mixtral-8x7b"
+MOE_SERVE_LAYERS = 16
+MOE_SERVE_MAX_SEQ = 2048
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2048
+MOE_CLI_PRESET = "moe:bench-moe"
+MOE_CLI_BATCH, MOE_CLI_SEQ = 4, 2048
+#: relative L2 of first-token logits and of one block's gradients through
+#: the kernels against the plain path, with the expert picks of the
+#: kernel route replayed in the plain one (bf16 through 16 layers, as
+#: the serve phase's bound). Free-running, a near-tie of two experts'
+#: probabilities may pick another expert on either route: that share is
+#: reported, not bounded.
+MOE_TOL = 2e-2
+#: gather and einsum dispatch: the same products in other orders (bf16)
+MOE_DISPATCH_LOSS_TOL = 1e-3
+
+
+class _RouteTape:
+    """Records the expert picks of every routing call (``models/moe.py``
+    ``_topk_lower_index_first``), or replays recorded ones: the values
+    are then the probabilities of the replayed experts, so the gates and
+    their gradients follow the replaying route's own inputs."""
+
+    def __init__(self):
+        from tpu_docker_api_torch.models import moe
+
+        self._moe, self._real = moe, moe._topk_lower_index_first
+        self.picks: list = []
+        self._replay = None
+
+    def _record(self, probs, k):
+        vals, idx = self._real(probs, k)
+        self.picks.append(idx.detach().clone())
+        return vals, idx
+
+    def _replayed(self, probs, k):
+        idx = next(self._replay)
+        self.picks.append(self._real(probs, k)[1].detach().clone())
+        return probs.gather(-1, idx), idx
+
+    @contextlib.contextmanager
+    def record(self):
+        self.picks = []
+        self._moe._topk_lower_index_first = self._record
+        try:
+            yield self
+        finally:
+            self._moe._topk_lower_index_first = self._real
+
+    @contextlib.contextmanager
+    def replay(self, picks):
+        self._replay, self.picks = iter(list(picks)), []
+        self._moe._topk_lower_index_first = self._replayed
+        try:
+            yield self
+        finally:
+            self._moe._topk_lower_index_first = self._real
+            self._replay = None
+
+
+def _pick_share_differing(a: list, b: list) -> float:
+    """Share of (token, choice) expert picks that differ between two
+    routes' tapes."""
+    diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+    return diff / max(1, sum(x.numel() for x in a))
+
+
+def _moe_first_logits(dev, cfg, params, prompt: list) -> dict:
+    """First-token logits of ``prompt`` padded to its bucket (128) through
+    the kernel route (a cache the bucket's length: the flash prefill)
+    against the plain route (one slot longer: dense attention), free
+    and with the kernel route's expert picks replayed."""
+    from tpu_docker_api_torch.models.moe import moe_forward_cached
+
+    n, bucket = len(prompt), 128
+    padded = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    padded[0, :n] = torch.tensor(prompt, device=dev)
+
+    def logits(cap):
+        shape = (cfg.n_layers, 1, cap, cfg.n_kv_heads, cfg.head_dim)
+        kc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        with torch.no_grad():
+            out, _, _ = moe_forward_cached(params, padded, cfg, kc,
+                                           torch.zeros_like(kc), 0,
+                                           last_only=n - 1)
+        return out[0, 0].float()
+
+    tape = _RouteTape()
+    with tape.record():
+        kernel = logits(bucket)
+    kernel_picks = tape.picks
+    with tape.record():
+        free = logits(bucket + 1)
+    free_picks = tape.picks
+    with tape.replay(kernel_picks):
+        pinned = logits(bucket + 1)
+    if not (torch.isfinite(kernel).all() and kernel.shape
+            == (cfg.vocab_size,)):
+        raise AssertionError("moe kernel-route logits not finite")
+    rel = _rel_l2(kernel, pinned)
+    if rel > MOE_TOL:
+        raise AssertionError(f"moe first-token logits differ: {rel}")
+    return {"logits_rel_l2_pinned": rel, "logits_tol": MOE_TOL,
+            "logits_rel_l2_free": _rel_l2(kernel, free),
+            "argmax_equal_free": bool(kernel.argmax() == free.argmax()),
+            "pick_share_differing_free": _pick_share_differing(
+                kernel_picks, free_picks)}
+
+
+def _moe_serve(dev) -> dict:
+    """The SlotEngine in process at ``MOE_PRESET``'s width and
+    ``MOE_SERVE_LAYERS`` layers: the serve phase's burst, flash launches
+    per prefill group, peak memory, one decode step, route logits."""
+    from tpu_docker_api_torch.infer.slots import SlotEngine
+    from tpu_docker_api_torch.models.llama import param_count
+    from tpu_docker_api_torch.models.moe import moe_init, moe_presets
+    from tpu_docker_api_torch.ops import flash
+
+    cfg = dataclasses.replace(moe_presets()[MOE_PRESET],
+                              n_layers=MOE_SERVE_LAYERS)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = moe_init(cfg, torch.Generator(device=dev).manual_seed(0))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = (torch.cuda.max_memory_allocated(dev)
+                 if dev.type == "cuda" else None)
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       _tensors(params).values())
+    eng = SlotEngine(cfg, params, slots=8, max_seq=MOE_SERVE_MAX_SEQ,
+                     chunk=8, cache_dtype=cfg.dtype, max_pending=64,
+                     seed=0)
+    eng.start()
+    try:
+        # one short request first: cuBLAS handles, allocator pools
+        eng.submit([1, 2, 3], 2).result(600)
+        g = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g)
+                   .tolist() for n in SERVE_LENGTHS]
+        max_new = 32
+
+        # ---- the main path: counts zeroed just before, read just after
+        eng.reset_latency_stats()
+        prefills0 = eng.stats["prefills"]
+        flash.reset_launch_count()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new) for p in prompts]
+        outs = [h.result(600)["tokens"] for h in handles]
+        wall = time.perf_counter() - t0
+        launches = flash.launch_count["flash_fwd"]
+        prefills = eng.stats["prefills"] - prefills0
+        # ---- end of the main path
+
+        latency = eng.latency_stats()
+    finally:
+        eng.close()
+    if any(len(o) != max_new or not all(0 <= t < cfg.vocab_size
+                                        for t in o) for o in outs):
+        raise AssertionError(f"malformed moe tokens: {outs}")
+    if launches != cfg.n_layers * prefills or prefills == 0:
+        raise AssertionError(f"{launches} flash launches for {prefills} "
+                             f"prefill groups of {cfg.n_layers} layers")
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    del eng
+    gc.collect()
+    step = (_decode_step_profile(dev, cfg, params) if dev.type == "cuda"
+            else {})
+    bound_ms = weight_bytes / PEAK_BYTES * 1e3
+    logits = _moe_first_logits(dev, cfg, params, prompts[2])
+    return {"preset": MOE_PRESET, "layers": cfg.n_layers,
+            "params": param_count(params), "weight_bytes": weight_bytes,
+            "init_s": init_s, "init_peak_memory": init_peak,
+            "slots": 8, "max_seq": MOE_SERVE_MAX_SEQ,
+            "prompt_lengths": SERVE_LENGTHS, "max_new_tokens": max_new,
+            "wall_s": wall, "ttft_p50_ms": latency["ttft_p50_ms"],
+            "itl_p50_ms": latency["itl_p50_ms"],
+            "decode_tok_s": len(prompts) * max_new / wall,
+            "prefill_groups": prefills, "flash_launches": launches,
+            "max_memory_allocated": peak, "decode_step": step,
+            "decode_step_weight_bound_ms": bound_ms, **logits}
+
+
+def _moe_block_grads(dev, cfg) -> dict:
+    """Gradients of wq, router and w_gate of ONE block (the loss through
+    the lm_head) through the flash kernels against the dense plain path,
+    the kernel run's expert picks replayed in the plain one; and the
+    share of picks a free plain run makes otherwise."""
+    from tpu_docker_api_torch.models.moe import moe_init, moe_loss
+
+    cfg1 = dataclasses.replace(cfg, n_layers=1, remat=False)
+    params = moe_init(cfg1, torch.Generator(device=dev).manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4))
+
+    def grads(impl):
+        live = {**params, "layers": {
+            **params["layers"],
+            "attn": {n: w.detach().requires_grad_()
+                     for n, w in params["layers"]["attn"].items()},
+            "moe": {n: w.detach().requires_grad_()
+                    for n, w in params["layers"]["moe"].items()}}}
+        moe_loss(live, tokens,
+                 dataclasses.replace(cfg1, attention_impl=impl)).backward()
+        return {"wq": live["layers"]["attn"]["wq"].grad.float(),
+                "router": live["layers"]["moe"]["router"].grad.float(),
+                "w_gate": live["layers"]["moe"]["w_gate"].grad.float()}
+
+    tape = _RouteTape()
+    with tape.record():
+        kernel = grads("flash")
+    kernel_picks = tape.picks
+    with tape.replay(kernel_picks):
+        dense = grads("dense")
+    free_share = _pick_share_differing(kernel_picks, tape.picks)
+    rel = {n: _rel_l2(kernel[n], dense[n]) for n in kernel}
+    if max(rel.values()) > MOE_TOL:
+        raise AssertionError(f"moe flash vs dense block gradients: {rel}")
+    return {"block_grad_rel_l2": rel, "block_grad_tol": MOE_TOL,
+            "pick_share_differing_free": free_share}
+
+
+def _moe_train(dev) -> dict:
+    """``MOE_TRAIN_LAYERS`` layers at ``MOE_PRESET``'s width under
+    adamw-int8 on one repeated batch: losses, launches a step, step ms,
+    MFU over the active parameters, peak memory."""
+    from tpu_docker_api_torch.models import param_shapes
+    from tpu_docker_api_torch.models.llama import param_count
+    from tpu_docker_api_torch.models.moe import moe_presets
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step,
+                                                    synthetic_batch)
+
+    cfg = dataclasses.replace(moe_presets()[MOE_PRESET],
+                              n_layers=MOE_TRAIN_LAYERS,
+                              max_seq_len=MOE_TRAIN_SEQ)
+    tokens = synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                             MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, cfg.vocab_size)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, opt = create_train_state(
+        cfg, dev, torch.Generator(device=dev).manual_seed(0),
+        optimizer=optim.adamw_int8())
+    step_fn = make_train_step(cfg, opt)
+    _sync(dev)
+    losses, step_ms = [], []
+
+    # ---- the main path: counts zeroed just before, read just after
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = {**flash.launch_count, **optim.launch_count}
+    # ---- end of the main path
+
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    n_params = param_count(state.params)
+    n_leaves = len(_tensors(param_shapes(cfg)))
+    del state, metrics, opt, step_fn
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ln_vocab = math.log(cfg.vocab_size)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe: non-finite loss {losses}")
+    if abs(losses[0] - ln_vocab) > 1.0:
+        raise AssertionError(f"moe: first loss {losses[0]} not within 1.0 "
+                             f"of ln(vocab) {ln_vocab}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"moe: loss did not fall: {losses}")
+    want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+            "adam8": n_leaves * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"moe train launches {launches}, expected "
+                             f"{want}")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (steady / 1e3)
+    grads = _moe_block_grads(dev, cfg)
+    return {"preset": MOE_PRESET, "layers": cfg.n_layers,
+            "params": n_params, "batch": MOE_TRAIN_BATCH,
+            "seq": MOE_TRAIN_SEQ, "optim": "adamw-int8",
+            "capacity": cfg.capacity(MOE_TRAIN_BATCH * MOE_TRAIN_SEQ),
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_median_after_first": steady, "tokens_per_sec": tok_s,
+            "mfu": cfg.flops_per_token(MOE_TRAIN_SEQ) * tok_s
+            / PEAK_FLOPS[torch.bfloat16],
+            "launches": launches, "leaves": n_leaves,
+            "max_memory_allocated": peak, **grads}
+
+
+def _moe_cli(dev) -> dict:
+    """The trainer CLI on ``MOE_CLI_PRESET`` at its full depth under
+    ``--moe-dispatch gather`` (with ``--profile-dir``) and ``einsum``:
+    equal first losses; then the server on it: a burst, a streamed
+    request and /healthz."""
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    base = ["--preset", MOE_CLI_PRESET, "--device", str(dev), "--batch",
+            str(MOE_CLI_BATCH), "--seq", str(MOE_CLI_SEQ), "--optim",
+            "adamw-int8", "--log-every", "1"]
+    runs, launches = {}, {}
+    for dispatch, extra in (("gather", ["--steps", "3", "--profile-dir",
+                                        "build/moe_profile",
+                                        "--profile-steps", "1"]),
+                            ("einsum", ["--steps", "2"])):
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        optim.reset_launch_count()
+        lines = _run_cli(train_main, [*base, "--moe-dispatch", dispatch,
+                                      *extra])
+        counts = {**flash.launch_count, **optim.launch_count}
+        # ---- end of the main path
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        if lines[-1].get("event") != "done":
+            raise AssertionError(f"moe trainer CLI failed: {lines[-3:]}")
+        runs[dispatch] = {
+            "steps": [ln for ln in lines if "loss" in ln],
+            "profile": next((ln for ln in lines
+                             if ln.get("event") == "profile_written"),
+                            None)}
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    first = {d: r["steps"][0]["loss"] for d, r in runs.items()}
+    if abs(first["gather"] - first["einsum"]) > MOE_DISPATCH_LOSS_TOL:
+        raise AssertionError(f"gather and einsum first losses: {first}")
+    if runs["gather"]["profile"] is None:
+        raise AssertionError("moe trainer CLI wrote no profile")
+
+    vocab = resolve_preset(MOE_CLI_PRESET)[1].vocab_size
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
+               for n in SERVE_LENGTHS]
+    with _server(dev, ["--preset", MOE_CLI_PRESET, "--max-seq",
+                       str(MOE_SERVE_MAX_SEQ)]) as (srv, port):
+        _burst(port, [[1, 2, 3]], 2, vocab)  # warm
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        t0 = time.perf_counter()
+        burst = _burst(port, prompts, 32, vocab)
+        burst_s = time.perf_counter() - t0
+        streamed, times, t_send = _stream_times(port, prompts[2], 16)
+        health = _get(port, "/healthz")
+        launches["flash_fwd"] += flash.launch_count["flash_fwd"]
+        # ---- end of the main path
+        if health.get("status") != "ok" or health["model"] != MOE_CLI_PRESET:
+            raise AssertionError(f"moe server /healthz: {health}")
+        if "w_qkv" in srv.params["layers"]["attn"]:
+            raise AssertionError("a moe tree was fused")
+    return {"cli": {d: {"first_loss": first[d],
+                        "losses": [s["loss"] for s in r["steps"]],
+                        "tokens_per_sec": [s["tokens_per_sec"]
+                                           for s in r["steps"]]}
+                    for d, r in runs.items()},
+            "dispatch_first_loss_diff": abs(first["gather"]
+                                            - first["einsum"]),
+            "dispatch_loss_tol": MOE_DISPATCH_LOSS_TOL,
+            "profile": runs["gather"]["profile"],
+            "server": {"burst_s": burst_s, "rows": len(burst),
+                       "stream_ttft_ms": (times[0] - t_send) * 1e3,
+                       "stream_tokens": len(streamed),
+                       "healthz_slot_engine": health.get("slotEngine")},
+            "launches": launches}
+
+
+def phase_moe(dev) -> dict:
+    """The Mixtral-style MoE family (module docstring, phase 9): serving
+    and training at Mixtral width in process, bench-moe through the
+    trainer CLI and the server. Launch counts of every kernel over the
+    phase's main paths."""
+    phase_t0 = time.perf_counter()
+    seconds = {}
+    t0 = time.perf_counter()
+    serve = _moe_serve(dev)
+    seconds["serve"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = _moe_train(dev)
+    seconds["train"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = _moe_cli(dev)
+    seconds["cli_and_server"] = time.perf_counter() - t0
+    launches = {k: train["launches"].get(k, 0) + cli["launches"].get(k, 0)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                          "adam8")}
+    launches["flash_fwd"] += serve["flash_launches"]
+    res = {"phase": "moe", "serve": serve, "train": train, "cli": cli,
+           "launches": launches, "seconds": seconds,
            "phase_s": time.perf_counter() - phase_t0,
            "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
     emit(res)
@@ -3026,8 +3502,9 @@ def main() -> int:
     train_res = phase_train(dev)
     life_res = phase_lifecycle(dev)
     lora_res = phase_lora(dev, train_res, int8_res)
+    moe_res = phase_moe(dev)
     train_n, life_n = train_res["launches"], life_res["launches"]
-    lora_n = lora_res["launches"]
+    lora_n, moe_n = lora_res["launches"], moe_res["launches"]
     by_path = {
         "flash_fwd": {"serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
@@ -3036,9 +3513,10 @@ def main() -> int:
                       "servebench": bench_res["flash_launches"],
                       "train": train_n["flash_fwd"],
                       "lifecycle": life_n["flash_fwd"],
-                      "lora": lora_n["flash_fwd"]},
+                      "lora": lora_n["flash_fwd"],
+                      "moe": moe_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
-                  "lora": lora_n[name]}
+                  "lora": lora_n[name], "moe": moe_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

@@ -278,6 +278,27 @@ def test_writer_error_is_raised_at_the_next_save(tmp_path, cfg, monkeypatch):
     mgr.close()
 
 
+def test_save_gate_sees_a_job_that_finishes_while_it_looks(tmp_path):
+    """A save of the step an in-flight job is writing is declined even
+    when the job finishes between the gate's two reads (its state and
+    the directory listing): the gate reads the job first, so a job it
+    saw in flight counts, and one it saw done is on disk."""
+    import threading
+    import types
+
+    mgr = ckpt.CheckpointManager(tmp_path)
+    job = types.SimpleNamespace(step=4, done=threading.Event())
+    mgr._job = job
+
+    def listing_then_the_writer_finishes():
+        job.done.set()
+        return 2  # listed before the job's rename
+
+    mgr.latest_step = listing_then_the_writer_finishes
+    assert mgr._should_save(4) is False
+    assert mgr._should_save(5) is True
+
+
 # ------------------------------------------------------------- card only
 
 

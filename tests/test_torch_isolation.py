@@ -4,8 +4,8 @@ packages the port's GPU hosts need not have (``safetensors``,
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
 ``chip_smoke.py`` import, and a tiny forward, a paged engine with a
 shared prefix and segments, speculative decoding (the batch-1 generator
-and the slot engine), the int8-serving benchmark, a train step, a QLoRA
-step,
+and the slot engine), the int8-serving benchmark, a train step (Llama
+and MoE), a QLoRA step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
 tokenizer written by ``chip_smoke.py`` run on the CPU."""
 
@@ -52,7 +52,8 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.ops.paged",
                    "tpu_docker_api_torch.infer.paged",
                    "tpu_docker_api_torch.infer.speculative",
-                   "tpu_docker_api_torch.infer.servebench"):
+                   "tpu_docker_api_torch.infer.servebench",
+                   "tpu_docker_api_torch.models.moe"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -103,6 +104,12 @@ _CHILD = textwrap.dedent("""
     state, opt = create_train_state(cfg, "cpu")
     state, metrics = make_train_step(cfg, opt)(
         state, torch.zeros(1, 6, dtype=torch.long))
+    assert torch.isfinite(metrics["loss"])
+    from tpu_docker_api_torch.models.moe import moe_presets
+    mcfg = moe_presets()["moe-tiny"]
+    mstate, mopt = create_train_state(mcfg, "cpu")
+    mstate, metrics = make_train_step(mcfg, mopt)(
+        mstate, torch.zeros(1, 6, dtype=torch.long))
     assert torch.isfinite(metrics["loss"])
 
     from tpu_docker_api_torch.train import lora

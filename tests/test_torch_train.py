@@ -204,7 +204,7 @@ def test_cli_runs_on_cpu_and_prints_json_lines():
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp", "2"],
-                                  ["--moe-dispatch", "gather"],
+                                  ["--ep", "2"],
                                   ["--dp", "2"], ["--pp", "2"]])
 def test_cli_refuses_unported_flags(flag):
     proc = _cli("--device", "cpu", *flag, timeout=60)
@@ -217,16 +217,19 @@ def test_cli_refuses_unported_flags(flag):
     (["--qlora"], "require --lora-rank > 0"),
     (["--qlora", "--lora-rank", "4", "--lora-forward", "merged"],
      "--qlora requires the attached forward"),
-    (["--lora-alpha", "8"], "require --lora-rank > 0")])
+    (["--lora-alpha", "8"], "require --lora-rank > 0"),
+    (["--moe-dispatch", "gather"],
+     "--moe-dispatch applies to moe: presets only")])
 def test_cli_keeps_the_jax_lora_guards(flags, msg):
-    """The JAX entry point's LoRA guards: a LoRA flag without a rank,
-    and --qlora over the merged forward, are refused before any work."""
+    """The JAX entry point's guards: a LoRA flag without a rank, --qlora
+    over the merged forward, and --moe-dispatch on a Llama preset are
+    refused before any work."""
     proc = _cli("--device", "cpu", *flags, timeout=60)
     assert proc.returncode == 2 and msg in proc.stderr
 
 
 def test_cli_refuses_unported_family():
-    proc = _cli("--device", "cpu", "--preset", "moe:moe-tiny", timeout=60)
+    proc = _cli("--device", "cpu", "--preset", "vit:tiny", timeout=60)
     assert proc.returncode != 0 and "not yet ported" in proc.stderr
 
 

@@ -1,5 +1,6 @@
-"""Llama inference engine: KV-cached prefill + decode (counterpart of
-``tpu_docker_api/infer/engine.py``).
+"""Inference engine of the decoder families (Llama, MoE): KV-cached
+prefill + decode (counterpart of ``tpu_docker_api/infer/engine.py``),
+through ``models.cached_forward_fn``.
 
 The serve path's ``--slots 0`` generator, and the exactness reference of
 the slot engine (infer/slots.py): one prompt batch, one prefill, then one

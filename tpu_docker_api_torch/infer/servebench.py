@@ -24,9 +24,8 @@ on the host's clock around work that ends in ``torch.cuda.synchronize``
 (or in tokens the host has read). Weights are random from a seed (or
 ``synth_quantized_params``) and prompts come from seeded ``torch``
 generators, so the JAX functions' tokens are not reproduced; their
-counts, bytes and capacities are. ``bench_moe_serving`` and
-``bench_encdec_slot_serving`` wait for the MoE and encoder-decoder
-families.
+counts, bytes and capacities are. ``bench_encdec_slot_serving`` waits
+for the encoder-decoder family.
 """
 
 from __future__ import annotations
@@ -521,6 +520,56 @@ def bench_decode_batch_sweep(
         finally:
             _free(device)
     return out
+
+
+def bench_moe_serving(
+    preset: str = "bench-moe",
+    batch: int = 8,
+    prompt_len: int = 128,
+    new_tok: int = 64,
+    max_seq: int = 256,
+    reps: int = 3,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """The ``moe:`` serving preset's decode number, by
+    ``bench_decode_roofline``'s differencing: whole generations of
+    new_tok tokens and of 1 share one prefill, so their difference is
+    (new_tok - 1) decode steps. Random bf16 weights from seed 0."""
+    from tpu_docker_api_torch.infer.engine import (GenerateConfig,
+                                                   make_generate_fn)
+    from tpu_docker_api_torch.models.moe import moe_init, moe_presets
+
+    device = torch.device(device)
+    cfg = moe_presets()[preset]
+    params = moe_init(cfg, torch.Generator(device=device).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g).to(device)
+
+    def timed(n):
+        fn = make_generate_fn(cfg, GenerateConfig(
+            max_new_tokens=n, temperature=0.0, max_seq=max_seq))
+        fn(params, prompt)
+        _sync(device)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(params, prompt)
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    t_full, t_one = timed(new_tok), timed(1)
+    decode_s = (t_full - t_one) / (new_tok - 1)
+    return {
+        "preset": preset,
+        "batch": batch,
+        "new_tokens": new_tok,
+        "decode_tok_s": round(batch / decode_s, 1),
+        "decode_only_ms_per_tok": round(decode_s * 1e3, 3),
+        "tok_s_incl_prefill": round(batch * new_tok / t_full, 1),
+        "card": _card(device),
+    }
 
 
 def _percentile(xs: list[float], p: float) -> float:

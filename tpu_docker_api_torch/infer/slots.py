@@ -199,8 +199,10 @@ class _Prefix:
 
 
 class SlotEngine:
-    """Slot-based continuous-batching engine for the Llama family on one
-    device (the device of ``params``). ``submit()`` is thread-safe; the
+    """Slot-based continuous-batching engine for the decoder families
+    (Llama, MoE) on one device (the device of ``params``). For MoE the
+    row groups, buckets and segments are the JAX engine's: capacity is
+    shared by every token of one forward, pad tokens included. ``submit()`` is thread-safe; the
     engine loop runs on the caller's thread via :meth:`step` or on a
     background thread via :meth:`start`."""
 

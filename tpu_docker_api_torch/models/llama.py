@@ -341,7 +341,8 @@ def llama_hidden(params: dict, tokens: torch.Tensor,
     seq = tokens.shape[1]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
-                                          cfg.rope_scaling, device=x.device)
+                                          getattr(cfg, "rope_scaling", None),
+                                          device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if remat:
@@ -410,11 +411,14 @@ def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
     """The shared KV-cached decoder skeleton: embed → cache-threading
     layer loop → lm_head. ``block_fn(x, layer, (kc, vc, layer_idx),
     rope_cos, rope_sin) -> (x, (kc, vc))`` supplies the block body.
-    ``max_pos`` sizes the rope tables (default: the cache length)."""
+    ``max_pos`` sizes the rope tables (default: the cache length).
+    ``cfg`` may be another family's (models/moe.py): one without a
+    ``rope_scaling`` field runs unscaled rope."""
     max_seq = max_pos or k_cache.shape[2]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, max_seq,
-                                          cfg.rope_theta, cfg.rope_scaling,
+                                          cfg.rope_theta,
+                                          getattr(cfg, "rope_scaling", None),
                                           device=x.device)
     kc, vc = k_cache, v_cache
     layers = unstack_layers(params["layers"], cfg.n_layers)

@@ -1,11 +1,12 @@
 """Inference-serving entry point of the port (counterpart of
-``tpu_docker_api/serve/__main__.py``, Llama presets).
+``tpu_docker_api/serve/__main__.py``, Llama and ``moe:`` presets).
 
     python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000 \
         [--ckpt-dir CKPT | --hf-ckpt HF_DIR] [--quantize] [--tokenizer TOK]
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny \
         --draft-preset tiny --n-spec 4
+    python -m tpu_docker_api_torch.serve --device cpu --preset moe:moe-tiny
 
 HTTP surface (stdlib server):
 
@@ -59,7 +60,11 @@ serves trained LoRA adapters (train/lora.py) over those weights, in the
 JAX load order: merged into the float base before any quantization
 (``--lora-forward merged``, the default), or attached unmerged after it
 (``attached``: with ``--quantize``, the numerics of ``train --qlora``;
-such a tree is not fused). Flags of the JAX
+such a tree is not fused). A ``moe:NAME`` preset (models/moe.py) serves
+through the same slot engine, ``/prefixes``, ``--prefill-chunk``,
+``--ckpt-dir`` and ``--slots 0``; as in JAX, ``--quantize``,
+``--page-size`` and ``--draft-preset`` take Llama presets only, and
+projection fusion applies to Llama trees only. Flags of the JAX
 entry point that the port does not have yet are refused with the ROADMAP
 item that brings them. Runs on ``cuda`` unless ``--device cpu`` is
 given.
@@ -181,6 +186,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                 "no page pool)")
     if args.hf_ckpt and args.ckpt_dir:
         p.error("--hf-ckpt and --ckpt-dir are exclusive")
+    if not args.hf_ckpt and args.preset.partition(":")[1]:
+        if args.quantize:
+            p.error("--quantize currently supports llama presets only")
+        if args.page_size:
+            p.error("--page-size requires a llama preset (paged engine v1 "
+                    "scope)")
     if not args.lora_ckpt and (
             args.lora_rank > 0 or args.lora_alpha != 16.0
             or args.lora_targets != "wq,wv"
@@ -237,6 +248,7 @@ class Server:
         # quantizes first (QLoRA's training numerics), then wraps
         attached = bool(args.lora_ckpt) and args.lora_forward == "attached"
         quantized = False
+        family = "llama"
         if args.hf_ckpt:
             from tpu_docker_api_torch.models.import_weights import (
                 hf_llama_config, import_hf_llama)
@@ -248,7 +260,7 @@ class Server:
                                         device=self.device,
                                         quantize=quantized)
         else:
-            _, cfg = resolve_preset(args.preset)
+            family, cfg = resolve_preset(args.preset)
             if args.ckpt_dir:
                 from tpu_docker_api_torch.train.checkpoint import (
                     restore_model_params)
@@ -280,8 +292,9 @@ class Server:
         if args.quantize and not quantized:
             params = quantize_llama_params(params)
         # fusion concatenates the projections an attached tree keeps
-        # apart (its adapters hang off the unfused leaves)
-        if not args.no_fuse_proj and not attached:
+        # apart (its adapters hang off the unfused leaves); it is
+        # Llama-shaped (an MoE tree has no dense gate|up to fuse)
+        if family == "llama" and not args.no_fuse_proj and not attached:
             params = fuse_llama_projections(params)
         self.params = params
         tok_path = args.tokenizer

@@ -1,5 +1,6 @@
 """Training entry point of the port (counterpart of
-``tpu_docker_api/train/__main__.py``, Llama presets, one device).
+``tpu_docker_api/train/__main__.py``, Llama and ``moe:`` presets, one
+device).
 
     python -m tpu_docker_api_torch.train --preset llama3-1b --steps 20 \
         --batch 4 --seq 2048 --optim adamw-int8 --ckpt-dir CKPT \
@@ -7,6 +8,8 @@
     python -m tpu_docker_api_torch.train --device cpu --preset tiny --steps 3
     python -m tpu_docker_api_torch.train --preset llama3-8b --qlora \
         --lora-rank 16 --batch 1 --seq 2048 --optim adamw-int8
+    python -m tpu_docker_api_torch.train --preset moe:bench-moe \
+        --moe-dispatch einsum --batch 4 --seq 2048
 
 Trains on a token file (``--data``, data/loader.py) or on synthetic
 tokens, from random weights (``--seed``) or from the latest checkpoint in
@@ -45,6 +48,11 @@ point:
   checkpoints; resume and quiesce work as above. The JAX entry point's
   guards hold: a LoRA flag without ``--lora-rank``, and ``--qlora
   --lora-forward merged``, are refused.
+- **MoE** (``--preset moe:NAME``, models/moe.py): ``--moe-dispatch``
+  picks the expert dispatch (auto, gather, einsum, sort; on one device
+  auto and sort are gather). As in JAX, it is refused on a Llama preset,
+  and ``--qlora`` on a ``moe:`` preset (the int8 quantizer is
+  Llama-shaped).
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -64,8 +72,6 @@ import torch
 
 #: JAX-CLI flags the port does not take yet → why, and what brings them
 _NOT_PORTED = {
-    "it comes with the other model families (ROADMAP Queue 1)": (
-        "moe_dispatch",),
     "it comes with parallelism (ROADMAP Queue 1)": ("dp", "fsdp", "tp",
                                                     "sp", "pp", "ep"),
     "it selects a JAX platform; use --device": ("platform",
@@ -76,7 +82,8 @@ _NOT_PORTED = {
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m tpu_docker_api_torch.train")
     p.add_argument("--preset", default="tiny",
-                   help="llama preset (tiny, bench-350m, llama3-1b, ...)")
+                   help="llama preset (tiny, bench-350m, llama3-1b, ...) "
+                        "or moe:NAME (moe-tiny, bench-moe, mixtral-8x7b)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=0, help="0 = preset default")
@@ -122,6 +129,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--qlora", action="store_true",
                    help="int8-quantize the frozen base at load and use the "
                         "attached forward")
+    p.add_argument("--moe-dispatch", default="auto",
+                   choices=["auto", "gather", "einsum", "sort"],
+                   help="moe: presets: expert dispatch (models/moe.py "
+                        "_moe_mlp; auto and sort are gather on one device)")
     for names in _NOT_PORTED.values():
         for name in names:
             p.add_argument("--" + name.replace("_", "-"),
@@ -140,6 +151,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         # a full pretrain from random weights would run with exit 0
         p.error("--lora-base-ckpt/--lora-alpha/--lora-targets/--qlora/"
                 "--lora-forward require --lora-rank > 0")
+    family = args.preset.partition(":")[0] if ":" in args.preset else "llama"
+    if args.moe_dispatch != "auto" and family != "moe":
+        p.error("--moe-dispatch applies to moe: presets only")
+    if args.qlora and family != "llama":
+        p.error("--qlora supports llama presets only (the int8 quantizer "
+                "is llama-shaped)")
     if args.qlora and args.lora_forward == "merged":
         # merging onto an int8 base would quantize the delta away
         p.error("--qlora requires the attached forward; drop "
@@ -183,9 +200,11 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)
     try:
-        _, cfg = resolve_preset(args.preset)
+        family, cfg = resolve_preset(args.preset)
     except (KeyError, ValueError) as e:
         raise SystemExit(f"unknown or unported preset {args.preset!r}: {e}")
+    if family == "moe":
+        cfg = dataclasses.replace(cfg, dispatch_impl=args.moe_dispatch)
     if args.seq:
         cfg = dataclasses.replace(cfg, max_seq_len=args.seq)
     seq = args.seq or min(cfg.max_seq_len, 512)

@@ -48,7 +48,7 @@ from typing import Any
 
 import torch
 
-from tpu_docker_api_torch.models import param_shapes
+from tpu_docker_api_torch.models import param_dtypes, param_shapes
 from tpu_docker_api_torch.models.import_weights import (SafeTensorsFile,
                                                         save_file)
 from tpu_docker_api_torch.train.optim import tree_map
@@ -196,9 +196,14 @@ class CheckpointManager:
         return True
 
     def _should_save(self, step: int) -> bool:
+        # the job's state first, the directory second: a job that finishes
+        # between the two reads is then on disk when the directory is
+        # listed (read the other way round, neither read sees its step)
+        job = self._job
+        in_flight = job is not None and not job.done.is_set()
         last = self.latest_step()
-        if self._job is not None and not self._job.done.is_set():
-            last = max(last if last is not None else -1, self._job.step)
+        if in_flight:
+            last = max(last if last is not None else -1, job.step)
         if last is not None and last >= step:
             return False
         if last is None:
@@ -415,28 +420,30 @@ def _reader(f: SafeTensorsFile, step: int, what: str, device):
 
 def check_params(params: dict, cfg, what: str) -> None:
     """Raise unless ``params`` has exactly ``cfg``'s leaves, shapes and
-    dtype."""
+    dtypes (``models.param_dtypes``: the MoE router is f32)."""
     got: dict = {}
     _flatten(params, "", got, {})
     expected: dict = {}
-    _collect_shapes(param_shapes(cfg), "", expected)
+    _collect_leaves(param_shapes(cfg), "", expected, tuple)
+    dtypes: dict = {}
+    _collect_leaves(param_dtypes(cfg), "", dtypes, lambda d: d)
     if set(got) != set(expected):
         raise ValueError(f"{what}: leaves {sorted(set(got) ^ set(expected))}"
                          f" differ from the config's")
     for path, t in got.items():
-        if tuple(t.shape) != expected[path] or t.dtype != cfg.dtype:
+        if tuple(t.shape) != expected[path] or t.dtype != dtypes[path]:
             raise ValueError(f"{what}: {path} is {t.dtype}"
                              f"{tuple(t.shape)}, the config wants "
-                             f"{cfg.dtype}{expected[path]}")
+                             f"{dtypes[path]}{expected[path]}")
 
 
-def _collect_shapes(tree, prefix: str, out: dict) -> None:
+def _collect_leaves(tree, prefix: str, out: dict, leaf) -> None:
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else k
         if isinstance(v, dict):
-            _collect_shapes(v, path, out)
+            _collect_leaves(v, path, out, leaf)
         else:
-            out[path] = tuple(v)
+            out[path] = leaf(v)
 
 
 def restore_model_params(directory, cfg, device: str | torch.device = "cuda"

@@ -32,7 +32,7 @@ import os
 
 import torch
 
-from tpu_docker_api_torch.models import model_fns, param_shapes
+from tpu_docker_api_torch.models import model_fns, param_dtypes, param_shapes
 from tpu_docker_api_torch.models.common import trunc_normal_init
 from tpu_docker_api_torch.ops.quant import LoraLinear
 from tpu_docker_api_torch.train.trainer import (TrainState,
@@ -177,12 +177,12 @@ def init_base_params(cfg, generator: torch.Generator) -> dict:
 
 def _meta_base(cfg) -> dict:
     """``cfg``'s param tree as meta tensors (shapes and dtype only)."""
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
-        return torch.empty(tree, dtype=cfg.dtype, device="meta")
+    def walk(shapes, dtypes):
+        if isinstance(shapes, dict):
+            return {k: walk(v, dtypes[k]) for k, v in shapes.items()}
+        return torch.empty(shapes, dtype=dtypes, device="meta")
 
-    return walk(param_shapes(cfg))
+    return walk(param_shapes(cfg), param_dtypes(cfg))
 
 
 def create_lora_state(cfg, generator: torch.Generator, rank: int,
