@@ -123,16 +123,18 @@ Phases, one JSON line each; any failure exits non-zero:
               weights) in a ``SlotEngine`` of 8 slots x 2048 on the serve
               phase's burst, 32 greedy tokens (TTFT/ITL p50, peak memory,
               flash_fwd 16 a prefill group, one decode step's device time
-              and kernels against its weight bytes at 3.35 TB/s, first-token
-              logits of the kernel route against the plain one with the
-              expert picks replayed, and the share of picks that differ
-              when they are not); 4 layers trained under adamw-int8 at
-              batch 2 x 2048 on a repeated batch (losses, launches a step,
-              one block's wq/router/w_gate gradients through the kernels
-              against the dense path, picks replayed); the trainer CLI on
-              moe:bench-moe at full depth under --moe-dispatch gather (with
-              --profile-dir) and einsum (equal first loss), and the server
-              on it (a burst, a stream, /healthz).
+              and kernels against the bytes it reads at 3.35 TB/s, the
+              burst's longest prompt's first-token logits in its 2048
+              bucket through the kernel route against the plain one with
+              the expert picks replayed, and the share of picks that
+              differ when they are not); 4 layers trained under
+              adamw-int8 at batch 2 x 2048 on a repeated batch (losses,
+              launches a step, one block's wq/router/w_gate gradients at
+              2 x 2048 through the kernels against the dense path, picks
+              replayed); the trainer CLI on moe:bench-moe at full depth
+              under --moe-dispatch gather (with --profile-dir) and einsum
+              (equal first loss), and the server on it (a burst, a
+              stream, /healthz).
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -261,7 +263,11 @@ def phase_kernels(dev) -> dict:
     shapes += [(2, s, 8, hk, d, bf, causal) for s in (1, 65, 129)
                for hk, d, causal in ((8, 64, True), (2, 128, True),
                                      (2, 64, False))]
+    # mixtral's heads (GQA R = 4, d 128): a serve prefill group of one and
+    # two rows, and the moe training forward, at 2048
     shapes += [(1, 1024, 32, 8, 128, bf, True),
+               (1, 2048, 32, 8, 128, bf, True),
+               (2, 2048, 32, 8, 128, bf, True),
                (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
     cases, max_err = [], 0.0
     for R, s, h, hk, d, dtype, causal in shapes:
@@ -337,7 +343,8 @@ def flash_bwd_bounds(R, s, h, hk, d, dtype, causal=True) -> dict:
 
 def phase_flash_bwd(dev) -> dict:
     """The two backward kernels against the plain backward: the training
-    shape (R=4, s=2048, llama3-1b heads, causal), ragged and small
+    shape (R=4, s=2048, llama3-1b heads, causal), the moe training shape
+    (R=2, s=2048, mixtral's 32/8 heads, d=128), ragged and small
     lengths, the edges of the tiles (64-query tiles, dq's 64-key kv
     tiles and dk/dv's 64-key blocks: seq 1, 65, 127, 128, 129, 255, 257;
     GQA groups of 1 and 4), d=128, non-causal cases and an f32 case."""
@@ -355,6 +362,8 @@ def phase_flash_bwd(dev) -> dict:
               (2, 300, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16, True),
               (1, 64, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.bfloat16, True),
               (1, 1000, 8, 2, 128, torch.bfloat16, True),
+              # the moe training shape: mixtral's heads, GQA R = 4, d 128
+              (2, 2048, 32, 8, 128, torch.bfloat16, True),
               (1, 384, 8, 2, LLAMA_HD, torch.bfloat16, False),
               (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
     shapes += [(2, s, 8, hk, d, torch.bfloat16, causal) for s in (1, 65, 129)
@@ -3053,49 +3062,6 @@ MOE_TOL = 2e-2
 MOE_DISPATCH_LOSS_TOL = 1e-3
 
 
-class _RouteTape:
-    """Records the expert picks of every routing call (``models/moe.py``
-    ``_topk_lower_index_first``), or replays recorded ones: the values
-    are then the probabilities of the replayed experts, so the gates and
-    their gradients follow the replaying route's own inputs."""
-
-    def __init__(self):
-        from tpu_docker_api_torch.models import moe
-
-        self._moe, self._real = moe, moe._topk_lower_index_first
-        self.picks: list = []
-        self._replay = None
-
-    def _record(self, probs, k):
-        vals, idx = self._real(probs, k)
-        self.picks.append(idx.detach().clone())
-        return vals, idx
-
-    def _replayed(self, probs, k):
-        idx = next(self._replay)
-        self.picks.append(self._real(probs, k)[1].detach().clone())
-        return probs.gather(-1, idx), idx
-
-    @contextlib.contextmanager
-    def record(self):
-        self.picks = []
-        self._moe._topk_lower_index_first = self._record
-        try:
-            yield self
-        finally:
-            self._moe._topk_lower_index_first = self._real
-
-    @contextlib.contextmanager
-    def replay(self, picks):
-        self._replay, self.picks = iter(list(picks)), []
-        self._moe._topk_lower_index_first = self._replayed
-        try:
-            yield self
-        finally:
-            self._moe._topk_lower_index_first = self._real
-            self._replay = None
-
-
 def _pick_share_differing(a: list, b: list) -> float:
     """Share of (token, choice) expert picks that differ between two
     routes' tapes."""
@@ -3104,13 +3070,15 @@ def _pick_share_differing(a: list, b: list) -> float:
 
 
 def _moe_first_logits(dev, cfg, params, prompt: list) -> dict:
-    """First-token logits of ``prompt`` padded to its bucket (128) through
-    the kernel route (a cache the bucket's length: the flash prefill)
-    against the plain route (one slot longer: dense attention), free
-    and with the kernel route's expert picks replayed."""
-    from tpu_docker_api_torch.models.moe import moe_forward_cached
+    """First-token logits of ``prompt`` padded to its serving bucket
+    through the kernel route (a cache the bucket's length: the flash
+    prefill) against the plain route (one slot longer: dense attention),
+    free and with the kernel route's expert picks replayed."""
+    from tpu_docker_api_torch.infer.slots import _default_buckets
+    from tpu_docker_api_torch.models.moe import RouteTape, moe_forward_cached
 
-    n, bucket = len(prompt), 128
+    n = len(prompt)
+    bucket = min(b for b in _default_buckets(MOE_SERVE_MAX_SEQ) if b >= n)
     padded = torch.zeros((1, bucket), dtype=torch.long, device=dev)
     padded[0, :n] = torch.tensor(prompt, device=dev)
 
@@ -3123,13 +3091,17 @@ def _moe_first_logits(dev, cfg, params, prompt: list) -> dict:
                                            last_only=n - 1)
         return out[0, 0].float()
 
-    tape = _RouteTape()
+    tape = RouteTape()
     with tape.record():
         kernel = logits(bucket)
     kernel_picks = tape.picks
     with tape.record():
         free = logits(bucket + 1)
     free_picks = tape.picks
+    if not len(kernel_picks) == len(free_picks) == cfg.n_layers:
+        raise AssertionError(f"routing calls: kernel route "
+                             f"{len(kernel_picks)}, plain {len(free_picks)}, "
+                             f"{cfg.n_layers} layers")
     with tape.replay(kernel_picks):
         pinned = logits(bucket + 1)
     if not (torch.isfinite(kernel).all() and kernel.shape
@@ -3138,7 +3110,8 @@ def _moe_first_logits(dev, cfg, params, prompt: list) -> dict:
     rel = _rel_l2(kernel, pinned)
     if rel > MOE_TOL:
         raise AssertionError(f"moe first-token logits differ: {rel}")
-    return {"logits_rel_l2_pinned": rel, "logits_tol": MOE_TOL,
+    return {"logits_prompt_len": n, "logits_bucket": bucket,
+            "logits_rel_l2_pinned": rel, "logits_tol": MOE_TOL,
             "logits_rel_l2_free": _rel_l2(kernel, free),
             "argmax_equal_free": bool(kernel.argmax() == free.argmax()),
             "pick_share_differing_free": _pick_share_differing(
@@ -3205,8 +3178,14 @@ def _moe_serve(dev) -> dict:
     gc.collect()
     step = (_decode_step_profile(dev, cfg, params) if dev.type == "cuda"
             else {})
-    bound_ms = weight_bytes / PEAK_BYTES * 1e3
-    logits = _moe_first_logits(dev, cfg, params, prompts[2])
+    # a decode step reads every weight but the embedding, of which it
+    # reads one row a decode row (8)
+    embed = params["embed"]["tokens"]
+    step_bytes = (weight_bytes - embed.numel() * embed.element_size()
+                  + 8 * embed.shape[1] * embed.element_size())
+    bound_ms = step_bytes / PEAK_BYTES * 1e3
+    # the burst's longest prompt, in its 2048 bucket
+    logits = _moe_first_logits(dev, cfg, params, prompts[-1])
     return {"preset": MOE_PRESET, "layers": cfg.n_layers,
             "params": param_count(params), "weight_bytes": weight_bytes,
             "init_s": init_s, "init_peak_memory": init_peak,
@@ -3217,6 +3196,7 @@ def _moe_serve(dev) -> dict:
             "decode_tok_s": len(prompts) * max_new / wall,
             "prefill_groups": prefills, "flash_launches": launches,
             "max_memory_allocated": peak, "decode_step": step,
+            "decode_step_bytes": step_bytes,
             "decode_step_weight_bound_ms": bound_ms, **logits}
 
 
@@ -3225,11 +3205,13 @@ def _moe_block_grads(dev, cfg) -> dict:
     the lm_head) through the flash kernels against the dense plain path,
     the kernel run's expert picks replayed in the plain one; and the
     share of picks a free plain run makes otherwise."""
-    from tpu_docker_api_torch.models.moe import moe_init, moe_loss
+    from tpu_docker_api_torch.models.moe import RouteTape, moe_init, moe_loss
 
     cfg1 = dataclasses.replace(cfg, n_layers=1, remat=False)
     params = moe_init(cfg1, torch.Generator(device=dev).manual_seed(3))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), device=dev,
+    # the training shape: flash fwd, dq and dk/dv at (2, 32/8, 2048, 128)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ + 1), device=dev,
                            generator=torch.Generator(device=dev)
                            .manual_seed(4))
 
@@ -3246,17 +3228,21 @@ def _moe_block_grads(dev, cfg) -> dict:
                 "router": live["layers"]["moe"]["router"].grad.float(),
                 "w_gate": live["layers"]["moe"]["w_gate"].grad.float()}
 
-    tape = _RouteTape()
+    tape = RouteTape()
     with tape.record():
         kernel = grads("flash")
     kernel_picks = tape.picks
+    if len(kernel_picks) != 1:
+        raise AssertionError(f"{len(kernel_picks)} routing calls in one "
+                             f"block without remat")
     with tape.replay(kernel_picks):
         dense = grads("dense")
     free_share = _pick_share_differing(kernel_picks, tape.picks)
     rel = {n: _rel_l2(kernel[n], dense[n]) for n in kernel}
     if max(rel.values()) > MOE_TOL:
         raise AssertionError(f"moe flash vs dense block gradients: {rel}")
-    return {"block_grad_rel_l2": rel, "block_grad_tol": MOE_TOL,
+    return {"block_grad_tokens": list(tokens.shape),
+            "block_grad_rel_l2": rel, "block_grad_tol": MOE_TOL,
             "pick_share_differing_free": free_share}
 
 

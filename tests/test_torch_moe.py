@@ -13,6 +13,7 @@ the losses at 1e-4 and the parameters as the Llama trainer's test holds
 them (tests/test_torch_train.py).
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -550,6 +551,53 @@ def test_three_train_steps_match_jax(setup, optim_name):
         assert (diff > 2e-6).mean() <= 1e-3, path
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_route_tape_records_and_replays_every_routing_call(setup, remat):
+    """``RouteTape``: a record run keeps one pick tensor a routing call
+    (two a layer under remat: forward and recompute); replaying them gives
+    the same loss and gradients; replaying other picks routes by them; a
+    replay that consumes fewer or more calls than recorded fails, and
+    tapes do not nest."""
+    tcfg = dataclasses.replace(setup[1], remat=remat)
+    tokens = torch.from_numpy(_tokens(2, 17, seed=2)).long()
+
+    def run(route):
+        live = optim.tree_map(lambda p: p.detach().requires_grad_(),
+                              setup[3])
+        with route:
+            loss = tm.moe_loss(live, tokens, tcfg)
+            loss.backward()
+        return loss.item(), live["layers"]["moe"]["router"].grad
+
+    tape = tm.RouteTape()
+    loss, grad = run(tape.record())
+    picks = tape.picks
+    assert len(picks) == (2 if remat else 1) * tcfg.n_layers
+    # the loss feeds tokens[:, :-1]: 2 x 16 tokens a call
+    assert all(p.shape == (2 * 16, tcfg.top_k) for p in picks)
+    replayed_loss, replayed_grad = run(tape.replay(picks))
+    assert replayed_loss == loss and torch.equal(replayed_grad, grad)
+    assert all(torch.equal(a, b) for a, b in zip(tape.picks, picks))
+
+    # the last expert for every choice: the loss moves, and the tape
+    # still records what the run would have picked itself (the first
+    # call's input depends on no pick)
+    other = [torch.full_like(p, tcfg.n_experts - 1) for p in picks]
+    assert run(tape.replay(other))[0] != loss
+    assert torch.equal(tape.picks[0], picks[0])
+
+    with pytest.raises(AssertionError, match="recorded picks"):
+        run(tape.replay(picks[:-1]))
+    with pytest.raises(AssertionError, match="recorded picks"):
+        run(tape.replay(picks + picks[:1]))
+    with pytest.raises(RuntimeError, match="do not nest"):
+        with tape.record(), tape.record():
+            pass
+    # a failed replay leaves routing as it was
+    assert tm._route_picks is None
+    assert run(contextlib.nullcontext())[0] == loss
+
+
 def test_router_product_is_plain_f32():
     """The port turns no TF32 on: the router's f32 product stays f32."""
     import tpu_docker_api_torch.serve.__main__  # noqa: F401
@@ -566,13 +614,12 @@ def test_moe_block_through_the_kernels_matches_the_plain_path():
     """Two bench-moe-width blocks (head_dim 128), bf16, remat on, on the
     card: the loss and the router/w_gate/wq gradients through the flash
     kernels against the dense plain path, 2e-2 relative. The dense run
-    replays the kernel run's expert picks (``chip_smoke._RouteTape``):
+    replays the kernel run's expert picks (``RouteTape``):
     free-running, a near-tie of two experts' probabilities (bf16 inputs
     that differ in the last bit) picks another expert for a token, which
     moves these gradients by more than the kernels' rounding does."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    import chip_smoke
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(tm.moe_presets()["bench-moe"], n_layers=2,
@@ -581,7 +628,7 @@ def test_moe_block_through_the_kernels_matches_the_plain_path():
     tokens = torch.randint(0, cfg.vocab_size, (2, 257), device=dev,
                            generator=torch.Generator(device=dev)
                            .manual_seed(1))
-    tape = chip_smoke._RouteTape()
+    tape = tm.RouteTape()
     res = {}
     for impl in ("flash", "dense"):
         route = (tape.record() if impl == "flash"

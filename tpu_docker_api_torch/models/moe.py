@@ -22,6 +22,7 @@ parallelism.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -179,6 +180,75 @@ def _topk_lower_index_first(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+#: what ``_route_topk`` picks its experts with in place of
+#: ``_topk_lower_index_first``: None, or a ``RouteTape``'s for the span of
+#: its ``with``
+_route_picks = None
+
+
+class RouteTape:
+    """Records the expert picks of every routing call, or replays recorded
+    ones in the same order: the gate values are then the replaying run's
+    own probabilities of the replayed experts, so the gates and their
+    gradients follow its inputs.
+
+    Two attention routes (the flash kernel, the dense product) differ in
+    the last bf16 bit, and a near-tie of two experts' probabilities then
+    picks another expert; replaying one route's picks in the other holds
+    the rest of the computation to a tolerance. After either ``with``,
+    ``picks`` holds the picks each call made (or would have made). A
+    replay fails unless it made exactly as many routing calls as were
+    recorded."""
+
+    def __init__(self):
+        self.picks: list = []
+
+    @contextlib.contextmanager
+    def _routing(self, fn):
+        global _route_picks
+        if _route_picks is not None:
+            raise RuntimeError("route tapes do not nest")
+        _route_picks = fn
+        try:
+            yield self
+        finally:
+            _route_picks = None
+
+    def record(self):
+        self.picks = []
+
+        def record(probs, k):
+            vals, idx = _topk_lower_index_first(probs, k)
+            self.picks.append(idx.detach().clone())
+            return vals, idx
+
+        return self._routing(record)
+
+    @contextlib.contextmanager
+    def replay(self, picks):
+        recorded, self.picks = list(picks), []
+
+        def replayed(probs, k):
+            n = len(self.picks)
+            if n == len(recorded):
+                raise AssertionError(f"routing call {n + 1} with only {n} "
+                                     f"recorded picks")
+            idx = recorded[n]
+            if idx.shape != (*probs.shape[:-1], k):
+                raise AssertionError(f"recorded picks {tuple(idx.shape)} "
+                                     f"for probabilities "
+                                     f"{tuple(probs.shape)}, k = {k}")
+            self.picks.append(_topk_lower_index_first(probs, k)[1]
+                              .detach().clone())
+            return probs.gather(-1, idx), idx
+
+        with self._routing(replayed):
+            yield self
+        if len(self.picks) != len(recorded):
+            raise AssertionError(f"{len(self.picks)} routing calls replayed "
+                                 f"{len(recorded)} recorded picks")
+
+
 def _route_topk(x_flat: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
                 drop_free: bool = False):
     """Top-k routing decisions: (gate_vals (t,K) f32, gate_idx (t,K),
@@ -193,7 +263,8 @@ def _route_topk(x_flat: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
     C = t if drop_free else cfg.capacity(t)
     logits = x_flat.float() @ router.float()                 # (t, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = _topk_lower_index_first(probs, K)  # (t, K)
+    gate_vals, gate_idx = (_route_picks or _topk_lower_index_first)(
+        probs, K)                                            # (t, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     onehots = F.one_hot(gate_idx, E)                         # (t, K, E)
