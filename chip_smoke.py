@@ -13,8 +13,12 @@ Phases, one JSON line each; any failure exits non-zero:
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
-              and on the moe phase's f32 router at b = 8 and bf16 expert
-              leaves)
+              on the moe phase's f32 router at b = 8 and bf16 expert
+              leaves, and on the vit and encdec phases' leaves; flash
+              non-causal at the vit and encdec shapes, 128 x 256 and 32
+              x 512 with 12/12 heads, and at 257 tokens, causal at the
+              encdec decoder's 32 x 512, and non-causal at batch 1 with
+              100, 128 and 500 tokens, the encoder of encdec_generate)
               and at the edges of the kernels' tiles, with stated
               tolerances;
               times of the kernel (device time, its wrapper's host time
@@ -135,6 +139,36 @@ Phases, one JSON line each; any failure exits non-zero:
               under --moe-dispatch gather (with --profile-dir) and einsum
               (equal first loss), and the server on it (a burst, a
               stream, /healthz).
+10. vit     — vit-b16 at its published width and depth (``phase_vit``):
+              the short-encoder attention rule (flash ``causal=False``
+              against dense, forward and forward + backward, at vit-b16's
+              128 x 256 and encdec-base's 32 x 512 encoder shape); 4
+              steps under adamw-int8 on a repeated batch of 128 (losses
+              falling, launches a step: flash 12 each, adam8 one a leaf),
+              ``time_train_steps`` under adamw and adamw-int8 (images/s,
+              MFU by ``flops_per_image``, peak memory) and under adamw
+              with the dense attention forced; one block's wq/wk/wv
+              gradients through the kernels against the dense path
+              (2e-2 relative L2); the trainer CLI on vit:vit-b16 at
+              batch 128 with --profile-dir; the MNIST MLP's loss and
+              gradients on the card against the CPU (1e-5, f32).
+11. encdec  — encdec-base at its published width and full depth
+              (``phase_encdec``): 4 steps under adamw-int8 at 32 x (512,
+              512) on a repeated batch (flash 36 a step each: encoder,
+              decoder and equal-length cross-attention), then
+              ``time_train_steps`` under adamw (pairs/s, MFU by
+              ``flops_per_pair``); the trainer CLI on
+              encdec:encdec-base with --profile-dir; the server on it: a
+              burst of 8 srcTokens requests of 17-500 tokens through
+              the slot engine, /healthz, the share of streams
+              token-exact against isolated greedy ``encdec_generate``
+              (reported), the first-step logits of the slot route
+              (the server's own engine on a reused slot, its sampler
+              wrapped) against ``encdec_generate``'s on the burst's
+              500-token source (2e-2 relative L2), one
+              ``--slots 0`` request (its tokens those of
+              ``encdec_generate``, flash once an encoder layer);
+              ``bench_encdec_slot_serving`` at the JAX defaults, ``ok``.
 
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -174,6 +208,16 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 #: the serving phases' burst: one prompt of each length at max_seq 2048
 SERVE_LENGTHS = [17, 40, 100, 250, 511, 700, 1300, 1900]
+#: the vit and encdec phases' non-causal attention, (R, s, heads, d):
+#: vit-b16 at batch 128 (256 patches), encdec-base's encoder and
+#: equal-length cross-attention at batch 32 x 512, and an odd length
+FAMILY_SHAPES = [(128, 256, 12, 64), (32, 512, 12, 64), (2, 257, 12, 64)]
+#: the encdec phase's other flash calls, (R, s, heads, d, causal): the
+#: decoder's causal self-attention at 32 x 512, and the batch-1 encoder
+#: of ``encdec_generate`` (the ``--slots 0`` request's 100-token source,
+#: ``bench_encdec_slot_serving``'s 128, the first-logits check's 500)
+FAMILY_OTHER_SHAPES = [(32, 512, 12, 64, True), (1, 100, 12, 64, False),
+                       (1, 128, 12, 64, False), (1, 500, 12, 64, False)]
 
 
 def emit(obj) -> None:
@@ -269,6 +313,9 @@ def phase_kernels(dev) -> dict:
                (1, 2048, 32, 8, 128, bf, True),
                (2, 2048, 32, 8, 128, bf, True),
                (1, 512, LLAMA_HEADS, LLAMA_KV, LLAMA_HD, torch.float32, True)]
+    shapes += [(R, s, h, h, d, bf, False) for R, s, h, d in FAMILY_SHAPES]
+    shapes += [(R, s, h, h, d, bf, causal)
+               for R, s, h, d, causal in FAMILY_OTHER_SHAPES]
     cases, max_err = [], 0.0
     for R, s, h, hk, d, dtype, causal in shapes:
         q, k, v = qkv(R, s, h, hk, d, dtype)
@@ -312,6 +359,21 @@ def phase_kernels(dev) -> dict:
             "bound_by": bound_by, "roofline_share": bound_ms / kt["ms"]}
         del q, k, v
         torch.cuda.empty_cache()
+    # and non-causal at the vit and encdec families' shapes
+    for R, s, h, d in FAMILY_SHAPES[:2]:
+        q, k, v = qkv(R, s, h, h, d, bf)
+        kt = kernel_times(lambda: flash.flash_attention_fwd(q, k, v, False),
+                          50)
+        bound_ms, bound_by = flash_bound_ms(R, s, h, h, d, bf, causal=False)
+        timing[f"noncausal_R{R}_s{s}"] = {
+            "R": R, "s": s, "heads": h, **kt,
+            "plain_ms": cuda_ms(lambda: flash.flash_attention_fwd_plain(
+                q, k, v, False), 5),
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v), 50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_share": bound_ms / kt["ms"]}
+        del q, k, v
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_fwd", "cases": cases,
           "timing": timing})
     return {"max_abs_err": max_err, **timing["R1"],
@@ -347,7 +409,9 @@ def phase_flash_bwd(dev) -> dict:
     (R=2, s=2048, mixtral's 32/8 heads, d=128), ragged and small
     lengths, the edges of the tiles (64-query tiles, dq's 64-key kv
     tiles and dk/dv's 64-key blocks: seq 1, 65, 127, 128, 129, 255, 257;
-    GQA groups of 1 and 4), d=128, non-causal cases and an f32 case."""
+    GQA groups of 1 and 4), d=128, non-causal cases, the vit and encdec
+    phases' shapes (``FAMILY_SHAPES``, ``FAMILY_OTHER_SHAPES``) and an
+    f32 case."""
     from tpu_docker_api_torch.ops import flash
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -372,6 +436,10 @@ def phase_flash_bwd(dev) -> dict:
     shapes += [(2, s, 8, hk, 64, torch.bfloat16, True)
                for s in (127, 128, 255, 257) for hk in (8, 2)]
     shapes += [(2, 255, 8, 8, 128, torch.bfloat16, True)]
+    shapes += [(R, s, h, h, d, torch.bfloat16, False)
+               for R, s, h, d in FAMILY_SHAPES]
+    shapes += [(R, s, h, h, d, torch.bfloat16, causal)
+               for R, s, h, d, causal in FAMILY_OTHER_SHAPES]
     cases = []
     max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for R, s, h, hk, d, dtype, causal in shapes:
@@ -444,10 +512,34 @@ def phase_flash_bwd(dev) -> dict:
                         "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
                         "roofline_share": bounds[name][0] / kt[name]["ms"]}
+    del q, k, v, do, out, lse, delta, qr, kr, vr
+    torch.cuda.empty_cache()
+    # and non-causal at the vit and encdec families' shapes
+    family = {}
+    for fR, fs, h, d in FAMILY_SHAPES[:2]:
+        q, k, v, do = (mk(fR, fs, h, d, dt) for _ in range(4))
+        out, lse = flash.flash_attention_fwd(q, k, v, False)
+        _, delta = flash.flash_bwd_dq(q, k, v, out, lse, do, False)
+        bounds = flash_bwd_bounds(fR, fs, h, h, d, dt, causal=False)
+        row = {"R": fR, "s": fs, "heads": h, "plain_ms": cuda_ms(
+            lambda: flash.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                    False), 3, warmup=1)}
+        for name, fn in (
+                ("flash_bwd_dq", lambda: flash.flash_bwd_dq(
+                    q, k, v, out, lse, do, False)),
+                ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(
+                    q, k, v, lse, delta, do, False))):
+            kt = kernel_times(fn, 20)
+            row[name] = {**kt, "bound_ms": bounds[name][0],
+                         "bound_by": bounds[name][1],
+                         "roofline_share": bounds[name][0] / kt["ms"]}
+        family[f"noncausal_R{fR}_s{fs}"] = row
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_bwd", "cases": cases,
           "timing": {"R": R, "s": s, **result,
                      "library": "sdpa fwd+bwd - fwd",
-                     "sdpa_fwd_ms": sdpa_fwd}})
+                     "sdpa_fwd_ms": sdpa_fwd, "family_shapes": family}})
     return result
 
 
@@ -496,6 +588,24 @@ MOE_LEAVES = [("moe router", (4, 4096, 8), torch.float32),
               ("moe w_down", (1, 8, 14336, 4096), torch.bfloat16)]
 
 
+#: the vit and encdec phases' bf16 leaves that no other phase runs:
+#: vit-b16's vectors and stacked norms, biases and b1, pos_emb, its head,
+#: a 10-class head, the stacked projections and MLP matrices both
+#: families share, and encdec-base's embedding and lm_head (its norms
+#: are the vit's (768,) and (12, 768))
+FAMILY_LEAVES = [("vit final_ln / patch bias", (768,)),
+                 ("vit stacked ln / b2", (12, 768)),
+                 ("vit stacked b1", (12, 3072)),
+                 ("vit pos_emb", (256, 768)),
+                 ("vit head", (768, 1000)),
+                 ("10-class head", (768, 10)),
+                 ("vit / encdec attn wq wk wv wo", (12, 768, 768)),
+                 ("vit w1 / encdec w_gate w_up", (12, 768, 3072)),
+                 ("vit w2 / encdec w_down", (12, 3072, 768)),
+                 ("encdec embed", (32000, 768)),
+                 ("encdec lm_head", (768, 32000))]
+
+
 def _adam8_bound(shape, dtype) -> tuple[float, str]:
     """g, p, update in ``dtype``; mq, vq read and written in int8; four
     f32 scales per block; ~30 f32 operations an element."""
@@ -513,8 +623,9 @@ def phase_adam8(dev) -> dict:
     leaves of llama3-1b's own shapes (the vector path), on one leaf with
     b = 100 (the scalar path), on the LoRA adapters' f32 leaves
     (``ADAPTER_LEAVES``) and on the moe phase's router and expert leaves
-    (``MOE_LEAVES``); times over one step's 12 leaves, and of each
-    adapter and moe leaf."""
+    (``MOE_LEAVES``) and on the vit and encdec phases' leaves
+    (``FAMILY_LEAVES``); times over one step's 12 leaves, and of each
+    adapter, moe and family leaf."""
     from tpu_docker_api_torch.train import optim
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -523,7 +634,8 @@ def phase_adam8(dev) -> dict:
         "wq", "w_gate", "lm_head", "final_norm", "wk")] + [SCALAR_PATH_LEAF]
     checked = [(name, shape, torch.bfloat16) for name, shape in checked] \
         + [(name, shape, torch.float32) for name, shape in ADAPTER_LEAVES] \
-        + MOE_LEAVES
+        + MOE_LEAVES \
+        + [(name, shape, torch.bfloat16) for name, shape in FAMILY_LEAVES]
     cases, max_err = [], 0.0
     for name, shape, dtype in checked:
         args = _adam8_leaf(dev, g, shape, dtype=dtype)
@@ -604,6 +716,19 @@ def phase_adam8(dev) -> dict:
             "roofline_share": bd / kt["ms"]})
         del args
         torch.cuda.empty_cache()
+    # the vit and encdec phases' leaves, one by one
+    family_leaves = []
+    for name, shape in FAMILY_LEAVES:
+        args = _adam8_leaf(dev, g, shape)
+        kt = kernel_times(lambda: optim.adam8_update_leaf(*args, sc=sc), 50)
+        pl = cuda_ms(lambda: optim.adam8_plain(*args, sc=sc), 5, warmup=1)
+        bd, by = _adam8_bound(shape, torch.bfloat16)
+        family_leaves.append({
+            "leaf": name, "shape": list(shape),
+            "block": optim._block_of(shape[-1], 256), **kt,
+            "plain_ms": pl, "bound_ms": bd, "bound_by": by,
+            "roofline_share": bd / kt["ms"]})
+        del args
     n_leaves = len(LLAMA3_1B_LEAVES)
     bound_by = ("bytes" if all(leaf["bound_by"] == "bytes"
                                for leaf in per_leaf) else "operations")
@@ -618,6 +743,7 @@ def phase_adam8(dev) -> dict:
                      "step_bound_ms": bound_ms, "per_leaf": per_leaf,
                      "adapter_leaves": adapter_leaves,
                      "moe_leaves": moe_leaves,
+                     "family_leaves": family_leaves,
                      "library": "none: no single PyTorch call computes "
                                 "the int8-moment AdamW step",
                      **result}})
@@ -3436,6 +3562,550 @@ def phase_moe(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------ vit, encdec
+
+#: the vit phase: vit-b16 at its published width and depth (dim 768, 12
+#: layers, 12/12 heads, ffn 3072, 256 patches) at the JAX harness's batch
+#: of 128 (scripts/validate_tpu.py), in process and through the trainer
+#: CLI. A CPU rehearsal patches these to the tiny presets and small
+#: shapes.
+VIT_PRESET = "vit-b16"
+VIT_BATCH = 128
+VIT_TIMED_STEPS = 8
+#: the encdec phase: encdec-base at its published width and full depth
+#: (dim 768, 12 + 12 layers, 12/12 heads, ffn 3072, vocab 32000), trained
+#: at the JAX harness's batch 32 x (512, 512); served on a burst of 8
+#: sources of 17-500 tokens, 32 new tokens each
+ENCDEC_PRESET = "encdec-base"
+ENCDEC_BATCH, ENCDEC_SEQ = 32, 512
+ENCDEC_TIMED_STEPS = 6
+ENCDEC_SERVE_LENGTHS = [17, 40, 100, 180, 250, 333, 420, 500]
+ENCDEC_MAX_NEW = 32
+#: the JAX defaults (8 streams, 16 requests, 128-token sources, 96 new
+#: tokens) but one timed repetition: the serialized baseline alone runs
+#: 1,536 batch-1 decode steps a repetition
+ENCDEC_BENCH = {"preset": "encdec-base", "reps": 1}
+#: the attention rule's shapes: (name, batch, seq, heads, head_dim)
+ATTN_RULE_SHAPES = [("vit-b16", 128, 256, 12, 64),
+                    ("encdec-base encoder", 32, 512, 12, 64)]
+FAMILY_TOL = 2e-2   # relative L2, bf16: block gradients, first logits
+MLP_TOL = 1e-5      # f32, card against CPU, of the largest |value|
+
+
+@contextlib.contextmanager
+def _force_attention(impl: str):
+    """``multihead_attention``'s ``auto`` choice forced to ``impl`` (the
+    attention rule's measurement and the dense side of a comparison)."""
+    from tpu_docker_api_torch.ops import attention
+
+    auto = attention.auto_impl
+    attention.auto_impl = lambda *a, **k: impl
+    try:
+        yield
+    finally:
+        attention.auto_impl = auto
+
+
+def _reset_peak(dev) -> None:
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def _free(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _attention_rule(dev) -> list:
+    """The short-encoder rule (ops/attention.py): flash (causal=False)
+    against ``dense_attention`` (bf16 probabilities, as the models ask),
+    forward and forward + backward, at vit-b16's and encdec-base's
+    encoder shapes; the outputs agree within ``FAMILY_TOL``."""
+    from tpu_docker_api_torch.ops.attention import (auto_impl,
+                                                    multihead_attention)
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for name, b, s, h, d in ATTN_RULE_SHAPES:
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev)
+                       .to(bf) for _ in range(4))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        row = {"shape": name, "batch": b, "seq": s, "heads": h, "d": d,
+               "auto": auto_impl(q.shape, k.shape, False,
+                                 dev.type == "cuda", bf)}
+        outs = {}
+        for impl in ("flash", "dense"):
+            def fwd(impl=impl):
+                return multihead_attention(q, k, v, causal=False, impl=impl,
+                                           probs_dtype=bf)
+
+            def fwd_bwd(fwd=fwd):
+                torch.autograd.grad(fwd(), leaves, do)
+
+            with torch.no_grad():
+                outs[impl] = fwd().float()
+                row[f"{impl}_fwd_ms"] = cuda_ms(fwd, 10)
+            row[f"{impl}_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
+        row["out_rel_l2"] = _rel_l2(outs["flash"], outs["dense"])
+        row["dense_over_flash_fwd_bwd"] = (row["dense_fwd_bwd_ms"]
+                                           / row["flash_fwd_bwd_ms"])
+        if row["out_rel_l2"] > FAMILY_TOL:
+            raise AssertionError(f"flash vs dense attention: {row}")
+        rows.append(row)
+        del q, k, v, do, leaves, outs
+        _free(dev)
+    return rows
+
+
+def _family_train_run(dev, cfg, batch, optim_name: str) -> dict:
+    """TRAIN_STEPS steps through the trainer's entry points on one
+    repeated batch; every launch count zeroed just before, read just
+    after: losses, step ms, launches, peak memory."""
+    from tpu_docker_api_torch.models.llama import param_count
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step)
+
+    opt = optim.adamw_int8() if optim_name == "adamw-int8" else None
+    _reset_peak(dev)
+    state, opt = create_train_state(
+        cfg, dev, torch.Generator(device=dev).manual_seed(0), optimizer=opt)
+    step_fn = make_train_step(cfg, opt)
+    _sync(dev)
+    losses, step_ms = [], []
+
+    # ---- the main path: counts zeroed just before, read just after
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = {**flash.launch_count, **optim.launch_count}
+    # ---- end of the main path
+
+    n_params = param_count(state.params)
+    del state, metrics, step_fn
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{type(cfg).__name__}: non-finite loss "
+                             f"{losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{type(cfg).__name__}: loss did not fall on "
+                             f"the repeated batch: {losses}")
+    return {"optim": optim_name, "params": n_params, "losses": losses,
+            "step_ms": step_ms, "launches": launches,
+            "max_memory_allocated": _peak(dev)}
+
+
+def _timed_steps(dev, cfg, batch, optim_name: str, steps: int) -> dict:
+    """``train/benchlib.py`` ``time_train_steps`` (two warm-up steps,
+    then ``steps`` timed, closed by a host read of the loss) and the
+    peak memory of the run."""
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.benchlib import time_train_steps
+
+    _free(dev)
+    _reset_peak(dev)
+    r = time_train_steps(cfg, batch, steps=steps, device=dev,
+                         optimizer=(optim.adamw_int8()
+                                    if optim_name == "adamw-int8" else None))
+    if not math.isfinite(r["loss"]):
+        raise AssertionError(f"time_train_steps: loss {r['loss']}")
+    return {"optim": optim_name, **r, "max_memory_allocated": _peak(dev)}
+
+
+def _attn_grads_rel_l2(dev, loss_fn, params, paths) -> dict:
+    """Gradients of the leaves at ``paths`` (tuples of keys) of
+    ``loss_fn(params)`` through the kernels (the ``auto`` choice) against
+    the dense path."""
+    grads = {}
+    for impl in ("auto", "dense"):
+        live = {}
+
+        def swap(tree, path):
+            if len(path) == 1:
+                leaf = tree[path[0]].detach().requires_grad_()
+                live[path] = leaf
+                return {**tree, path[0]: leaf}
+            return {**tree, path[0]: swap(tree[path[0]], path[1:])}
+
+        p = params
+        for path in paths:
+            p = swap(p, path)
+        ctx = (_force_attention("dense") if impl == "dense"
+               else contextlib.nullcontext())
+        with ctx:
+            loss_fn(p).backward()
+        grads[impl] = {"/".join(k): t.grad.float() for k, t in live.items()}
+    return {n: _rel_l2(grads["auto"][n], grads["dense"][n])
+            for n in grads["dense"]}
+
+
+def _mlp_card_vs_cpu(dev) -> dict:
+    """The MNIST MLP (BASELINE config #2): one loss and its gradients on
+    the card against the CPU, f32, same weights and batch."""
+    from tpu_docker_api_torch.models.mlp import mlp_init, mlp_loss
+
+    params = mlp_init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(256, 784, generator=g)
+    labels = torch.randint(0, 10, (256,), generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        live = {k: {n: t.detach().to(where, copy=True).requires_grad_()
+                    for n, t in v.items()} for k, v in params.items()}
+        loss = mlp_loss(live, x.to(where), labels.to(where))
+        loss.backward()
+        out[str(where)] = (loss.detach().cpu(),
+                           {f"{k}/{n}": t.grad.cpu()
+                            for k, v in live.items() for n, t in v.items()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = out["cpu"], out[str(dev)]
+    loss_err = abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())
+    grad_err = max(((g_dev[n] - g_cpu[n]).abs().max()
+                    / g_cpu[n].abs().max()).item() for n in g_cpu)
+    if loss_err > MLP_TOL or grad_err > MLP_TOL:
+        raise AssertionError(f"mlp on the card vs the CPU: loss "
+                             f"{loss_err}, gradients {grad_err}")
+    return {"loss": l_cpu.item(), "loss_rel_err": loss_err,
+            "grad_max_rel_err": grad_err, "tol": MLP_TOL}
+
+
+def phase_vit(dev) -> dict:
+    """The ViT family (module docstring, phase 10): the attention rule's
+    timings, vit-b16 training through the trainer's entry points at
+    batch 128 (a counted run under adamw-int8 on a repeated batch,
+    ``time_train_steps`` under adamw and adamw-int8, and a whole step
+    with each attention choice forced), one block's gradients through
+    the kernels against the dense path, the trainer CLI, and the MLP."""
+    from tpu_docker_api_torch.models import param_shapes
+    from tpu_docker_api_torch.models.vit import (vit_init, vit_loss,
+                                                 vit_presets,
+                                                 vit_synthetic_batch)
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    phase_t0 = time.perf_counter()
+    seconds = {}
+    t0 = time.perf_counter()
+    rule = _attention_rule(dev)
+    seconds["attention_rule"] = time.perf_counter() - t0
+    cfg = vit_presets()[VIT_PRESET]
+    batch = vit_synthetic_batch(1, VIT_BATCH, cfg, device=dev)
+    n_leaves = len(_tensors(param_shapes(cfg)))
+
+    t0 = time.perf_counter()
+    run = _family_train_run(dev, cfg, batch, "adamw-int8")
+    want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+            "adam8": n_leaves * TRAIN_STEPS}
+    if run["launches"] != want:
+        raise AssertionError(f"vit launches {run['launches']}, expected "
+                             f"{want}")
+    if abs(run["losses"][0] - math.log(cfg.n_classes)) > 1.0:
+        raise AssertionError(f"vit: first loss {run['losses'][0]} not "
+                             f"within 1.0 of ln(classes)")
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = []
+    for optim_name in ("adamw", "adamw-int8"):
+        r = _timed_steps(dev, cfg, batch, optim_name, VIT_TIMED_STEPS)
+        ips = r["steps_per_sec"] * VIT_BATCH
+        r.update({"images_per_sec": ips,
+                  "mfu": cfg.flops_per_image() * ips
+                  / PEAK_FLOPS[torch.bfloat16]})
+        timed.append(r)
+    with _force_attention("dense"):
+        dense_step = _timed_steps(dev, cfg, batch, "adamw", VIT_TIMED_STEPS)
+    dense_step["images_per_sec"] = dense_step["steps_per_sec"] * VIT_BATCH
+    seconds["timed"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg1 = dataclasses.replace(cfg, n_layers=1, remat=False)
+    params1 = vit_init(cfg1, torch.Generator(device=dev).manual_seed(3))
+    small = vit_synthetic_batch(2, 8, cfg1, device=dev)
+    grads = _attn_grads_rel_l2(
+        dev, lambda p: vit_loss(p, small, cfg1), params1,
+        [("layers", "attn", n) for n in ("wq", "wk", "wv")])
+    if max(grads.values()) > FAMILY_TOL:
+        raise AssertionError(f"vit flash vs dense block gradients: {grads}")
+    del params1
+    _free(dev)
+    seconds["block_grads"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    lines = _run_cli(train_main, [
+        "--preset", f"vit:{VIT_PRESET}", "--device", str(dev), "--steps",
+        "4", "--batch", str(VIT_BATCH), "--log-every", "1",
+        "--profile-dir", "build/vit_profile", "--profile-steps", "2"])
+    cli_launches = {**flash.launch_count, **optim.launch_count}
+    _check_cli(lines, "vit")
+    seconds["cli"] = time.perf_counter() - t0
+    mlp = _mlp_card_vs_cpu(dev)
+    launches = {k: run["launches"][k] + cli_launches.get(k, 0)
+                for k in run["launches"]}
+    res = {"phase": "vit", "preset": VIT_PRESET, "params": run["params"],
+           "batch": VIT_BATCH, "patches": cfg.n_patches,
+           "attention_rule": rule, "train": run, "timed": timed,
+           "dense_attention_step": dense_step,
+           "flash_over_dense_images_per_sec": (
+               timed[0]["images_per_sec"] / dense_step["images_per_sec"]),
+           "block_grad_rel_l2": grads, "block_grad_tol": FAMILY_TOL,
+           "cli": {"lines": lines, "launches": cli_launches},
+           "mlp": mlp, "launches": launches, "seconds": seconds,
+           "phase_s": time.perf_counter() - phase_t0,
+           "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+    emit(res)
+    return res
+
+
+def _check_cli(lines: list, family: str) -> None:
+    """A trainer CLI run ended with "done", finite losses and one
+    profile summary."""
+    if (lines[-1].get("event") != "done"
+            or not all(math.isfinite(ln["loss"]) for ln in lines
+                       if "loss" in ln)
+            or len([ln for ln in lines
+                    if ln.get("event") == "profile_written"]) != 1):
+        raise AssertionError(f"{family} trainer CLI failed: {lines[-3:]}")
+
+
+def _post_src(port: int, body: dict) -> dict:
+    code, data = _post(port, body)
+    if code != 200:
+        raise AssertionError(f"/generate answered {code}: {data[:300]!r}")
+    return json.loads(data)
+
+
+def _encdec_first_logits(dev, srv, port: int, src: list) -> dict:
+    """First-step logits of ``src`` from the server's own slot engine
+    (one srcTokens request on a slot the burst used: the masked encode
+    at the source's bucket, the cross K/V cast into the pooled buffers
+    over the slot's stale rows, the chunk's source read bucket, the
+    decode step; its sampler wrapped to keep the logits of the chunk's
+    first step) against ``encdec_generate``'s (the unpadded encode,
+    whose attention the ``auto`` choice picks, and its own decoder
+    cache; its sampler wrapped the same way)."""
+    from tpu_docker_api_torch.infer import sampling
+    from tpu_docker_api_torch.models.encdec import encdec_generate
+
+    eng, cfg = srv.engine, srv.cfg
+    out = {"slot": [], "generate": []}
+
+    def keep_slot(logits, *rest):
+        # on the engine's thread: a slot armed and not yet dispatched is
+        # the request's, at its first decode step
+        for i, st in eng._decoding().items():
+            if st.dispatched == 0:
+                out["slot"].append(logits[i].float().clone())
+        return type(eng)._sample(logits, *rest)
+
+    eng._sample = keep_slot
+    try:
+        _post_src(port, {"srcTokens": [src], "maxNewTokens": 1})
+    finally:
+        del eng._sample
+    make = sampling.make_sampler
+
+    def make_keeping(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def sampler(logits, generator=None):
+            out["generate"].append(logits[0].float().clone())
+            return inner(logits, generator)
+        return sampler
+
+    sampling.make_sampler = make_keeping
+    try:
+        with torch.no_grad():
+            encdec_generate(srv.params, torch.tensor([src], device=dev), cfg,
+                            max_new_tokens=1)
+    finally:
+        sampling.make_sampler = make
+    if len(out["generate"]) != 1 or not out["slot"]:
+        raise AssertionError(f"encdec first-step logits: kept "
+                             f"{len(out['slot'])} from the engine and "
+                             f"{len(out['generate'])} from encdec_generate")
+    slot, gen = out["slot"][0], out["generate"][0]
+    if not (torch.isfinite(slot).all() and slot.shape == (cfg.vocab_size,)
+            and gen.shape == slot.shape):
+        raise AssertionError("encdec slot-route logits not finite")
+    return {"src_len": len(src), "rel_l2": _rel_l2(slot, gen),
+            "argmax_equal": bool(slot.argmax() == gen.argmax())}
+
+
+def _encdec_serve(dev) -> dict:
+    """The server on ``encdec:ENCDEC_PRESET``: a burst of srcTokens
+    requests through the slot engine, /healthz, one ``--slots 0``
+    request; each burst stream against an isolated greedy
+    ``encdec_generate`` (share token-exact, reported) and the first-step
+    logits of the two routes."""
+    from tpu_docker_api_torch.models.encdec import encdec_generate
+    from tpu_docker_api_torch.ops import flash
+
+    g = torch.Generator().manual_seed(11)
+    res = {}
+    with _server(dev, ["--preset", f"encdec:{ENCDEC_PRESET}"]) as (srv,
+                                                                   port):
+        cfg, eng = srv.cfg, srv.engine
+        srcs = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+                for n in ENCDEC_SERVE_LENGTHS]
+        _post_src(port, {"srcTokens": [[1, 2, 3]], "maxNewTokens": 2})
+        eng.reset_latency_stats()
+        replies: list = [None] * len(srcs)
+
+        def client(i):
+            replies[i] = _post_src(port, {"srcTokens": [srcs[i]],
+                                          "maxNewTokens": ENCDEC_MAX_NEW})
+
+        # ---- the main path: counts zeroed just before, read just after
+        flash.reset_launch_count()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(srcs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        slot_launches = flash.launch_count["flash_fwd"]
+        # ---- end of the main path
+        latency = eng.latency_stats()
+        code, health = _call(port, "GET", "/healthz")
+        if code != 200 or health["slotEngine"]["completed"] < len(srcs):
+            raise AssertionError(f"encdec /healthz: {code} {health}")
+        tokens = [r["tokens"][0] for r in replies]
+        for row, n in zip(tokens, (r["lengths"][0] for r in replies)):
+            if n != ENCDEC_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in row):
+                raise AssertionError(f"malformed encdec reply: {row}")
+        with torch.no_grad():
+            iso = [encdec_generate(srv.params,
+                                   torch.tensor([s], device=dev), cfg,
+                                   max_new_tokens=ENCDEC_MAX_NEW)[0].tolist()
+                   for s in srcs]
+        exact = sum(a == b for a, b in zip(tokens, iso))
+        logits = _encdec_first_logits(dev, srv, port, srcs[-1])
+        if logits["rel_l2"] > FAMILY_TOL:
+            raise AssertionError(f"encdec first-step logits: {logits}")
+        res.update({"burst_wall_s": wall,
+                    "ttft_p50_ms": latency["ttft_p50_ms"],
+                    "itl_p50_ms": latency["itl_p50_ms"],
+                    "decode_tok_s": len(srcs) * ENCDEC_MAX_NEW / wall,
+                    "slot_flash_launches": slot_launches,
+                    "streams_token_exact": f"{exact}/{len(srcs)}",
+                    "first_logits": logits, "logits_tol": FAMILY_TOL,
+                    "healthz": health["slotEngine"]})
+    with _server(dev, ["--preset", f"encdec:{ENCDEC_PRESET}", "--slots",
+                       "0"]) as (srv, port):
+        flash.reset_launch_count()
+        body = _post_src(port, {"srcTokens": [srcs[2]],
+                                "maxNewTokens": ENCDEC_MAX_NEW})
+        legacy_launches = flash.launch_count["flash_fwd"]
+        if body["tokens"][0] != iso[2]:
+            raise AssertionError("the --slots 0 reply differs from "
+                                 "encdec_generate's tokens")
+        if legacy_launches != srv.cfg.enc_layers:
+            raise AssertionError(f"--slots 0: {legacy_launches} flash "
+                                 f"launches, expected one a layer of the "
+                                 f"encoder")
+        res["legacy_flash_launches"] = legacy_launches
+    res["flash_launches"] = slot_launches + legacy_launches
+    return res
+
+
+def phase_encdec(dev) -> dict:
+    """The encoder-decoder family (module docstring, phase 11):
+    encdec-base trained through the trainer's entry points at 32 x
+    (512, 512) (a counted run under adamw-int8 on a repeated batch,
+    ``time_train_steps`` under adamw), the server's slot engine and
+    ``--slots 0`` path, and ``bench_encdec_slot_serving``."""
+    from tpu_docker_api_torch.infer.servebench import (
+        bench_encdec_slot_serving)
+    from tpu_docker_api_torch.models import param_shapes
+    from tpu_docker_api_torch.models.encdec import (encdec_presets,
+                                                    encdec_synthetic_batch)
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.__main__ import main as train_main
+
+    phase_t0 = time.perf_counter()
+    seconds = {}
+    cfg = encdec_presets()[ENCDEC_PRESET]
+    batch = encdec_synthetic_batch(1, ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_SEQ,
+                                   cfg, device=dev)
+    t0 = time.perf_counter()
+    run = _family_train_run(dev, cfg, batch, "adamw-int8")
+    per_step = cfg.enc_layers + 2 * cfg.dec_layers  # + equal-length cross
+    n_leaves = len(_tensors(param_shapes(cfg)))
+    want = {"flash_fwd": per_step * TRAIN_STEPS,
+            "flash_bwd_dq": per_step * TRAIN_STEPS,
+            "flash_bwd_dkv": per_step * TRAIN_STEPS,
+            "adam8": n_leaves * TRAIN_STEPS}
+    if run["launches"] != want:
+        raise AssertionError(f"encdec launches {run['launches']}, expected "
+                             f"{want}")
+    if abs(run["losses"][0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"encdec: first loss {run['losses'][0]} not "
+                             f"within 1.0 of ln(vocab)")
+    timed = _timed_steps(dev, cfg, batch, "adamw", ENCDEC_TIMED_STEPS)
+    pairs = timed["steps_per_sec"] * ENCDEC_BATCH
+    timed.update({"pairs_per_sec": pairs,
+                  "mfu": cfg.flops_per_pair(ENCDEC_SEQ, ENCDEC_SEQ) * pairs
+                  / PEAK_FLOPS[torch.bfloat16]})
+    del batch
+    _free(dev)
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    cli = _run_cli(train_main, [
+        "--preset", f"encdec:{ENCDEC_PRESET}", "--device", str(dev),
+        "--steps", "4", "--batch", str(ENCDEC_BATCH), "--seq",
+        str(ENCDEC_SEQ), "--log-every", "1", "--profile-dir",
+        "build/encdec_profile", "--profile-steps", "2"])
+    cli_launches = {**flash.launch_count, **optim.launch_count}
+    _check_cli(cli, "encdec")
+    _free(dev)
+    seconds["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = _encdec_serve(dev)
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench = bench_encdec_slot_serving(device=dev, **ENCDEC_BENCH)
+    seconds["bench"] = time.perf_counter() - t0
+    emit({"phase": "servebench", "bench": "bench_encdec_slot_serving",
+          "args": ENCDEC_BENCH, "seconds": seconds["bench"], **bench})
+    if bench["ok"] is not True:
+        raise AssertionError(f"bench_encdec_slot_serving not ok: {bench}")
+    launches = {k: run["launches"][k] + cli_launches[k]
+                for k in run["launches"]}
+    launches["flash_fwd"] += serve["flash_launches"]
+    res = {"phase": "encdec", "preset": ENCDEC_PRESET,
+           "params": run["params"], "batch": ENCDEC_BATCH,
+           "src_len": ENCDEC_SEQ, "tgt_len": ENCDEC_SEQ, "train": run,
+           "timed": timed, "cli": {"lines": cli, "launches": cli_launches},
+           "serve": serve, "launches": launches,
+           "seconds": seconds, "phase_s": time.perf_counter() - phase_t0,
+           "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3489,8 +4159,11 @@ def main() -> int:
     life_res = phase_lifecycle(dev)
     lora_res = phase_lora(dev, train_res, int8_res)
     moe_res = phase_moe(dev)
+    vit_res = phase_vit(dev)
+    encdec_res = phase_encdec(dev)
     train_n, life_n = train_res["launches"], life_res["launches"]
     lora_n, moe_n = lora_res["launches"], moe_res["launches"]
+    vit_n, encdec_n = vit_res["launches"], encdec_res["launches"]
     by_path = {
         "flash_fwd": {"serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
@@ -3500,9 +4173,12 @@ def main() -> int:
                       "train": train_n["flash_fwd"],
                       "lifecycle": life_n["flash_fwd"],
                       "lora": lora_n["flash_fwd"],
-                      "moe": moe_n["flash_fwd"]},
+                      "moe": moe_n["flash_fwd"],
+                      "vit": vit_n["flash_fwd"],
+                      "encdec": encdec_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
-                  "lora": lora_n[name], "moe": moe_n[name]}
+                  "lora": lora_n[name], "moe": moe_n[name],
+                  "vit": vit_n[name], "encdec": encdec_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

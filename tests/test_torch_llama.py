@@ -173,9 +173,11 @@ def test_presets_and_dispatch():
     assert one_b.flops_per_token(2048) == jref.flops_per_token(2048)
     assert resolve_preset("tiny") == ("llama", presets["tiny"])
     assert cached_forward_fn(one_b) is tl.llama_forward_cached
-    for spec in ("vit:tiny", "encdec:tiny"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            resolve_preset(spec)
+    for spec, family in (("vit:tiny", "vit"), ("encdec:tiny", "encdec")):
+        got_family, got_cfg = resolve_preset(spec)
+        assert got_family == family
+        assert type(got_cfg).__name__ == ("ViTConfig" if family == "vit"
+                                          else "EncDecConfig")
     family, moe_cfg = resolve_preset("moe:moe-tiny")
     assert family == "moe" and moe_cfg.n_experts == 4
     assert cached_forward_fn(moe_cfg) is not tl.llama_forward_cached

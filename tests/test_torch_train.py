@@ -229,8 +229,29 @@ def test_cli_keeps_the_jax_lora_guards(flags, msg):
 
 
 def test_cli_refuses_unported_family():
-    proc = _cli("--device", "cpu", "--preset", "vit:tiny", timeout=60)
-    assert proc.returncode != 0 and "not yet ported" in proc.stderr
+    """An unknown family prefix is still refused, by name."""
+    proc = _cli("--device", "cpu", "--preset", "resnet:tiny", timeout=60)
+    assert proc.returncode != 0 and "unknown model family" in proc.stderr
+
+
+def test_trainer_cli_trains_vit_and_resumes(tmp_path):
+    """``--preset vit:tiny``: image batches, ``n_patches`` tokens an image
+    in ``tokens_per_sec``, adamw-int8 checkpoints that resume."""
+    args = ("--device", "cpu", "--preset", "vit:tiny", "--batch", "2",
+            "--log-every", "1", "--optim", "adamw-int8", "--ckpt-dir",
+            str(tmp_path), "--save-every", "2")
+    proc = _cli(*args, "--steps", "2")
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    steps = [ln for ln in lines if "loss" in ln]
+    assert [ln["step"] for ln in steps] == [1, 2]
+    assert all(np.isfinite(ln["loss"]) for ln in steps)
+    assert lines[-1] == {"event": "done", "step": 2}
+    proc = _cli(*args, "--steps", "3")
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert lines[0]["event"] == "resumed" and lines[0]["step"] == 2
+    assert [ln["step"] for ln in lines if "loss" in ln] == [3]
 
 
 def test_cli_quiesces_on_sigterm():

@@ -1,13 +1,14 @@
 """Serving benchmarks: concurrent slot-engine throughput, prefix caching,
-chunked prefill, the decode roofline, tail latency and the paged cache
-(counterpart of ``tpu_docker_api/infer/servebench.py``): one place for
+chunked prefill, the decode roofline, tail latency, the paged cache and
+seq2seq continuous batching (counterpart of ``tpu_docker_api/infer/servebench.py``): one place for
 the metric definitions, with the JAX functions' argument names and
 result keys.
 
 Metric definitions:
 
 - ``serialized_tok_s``: N requests decoded one after another through the
-  ``--slots 0`` whole-generation engine at batch 1.
+  ``--slots 0`` whole-generation engine at batch 1 (the encoder-decoder:
+  ``encdec_generate``).
 - ``slot_tok_s``: the same N requests submitted at once to the slot
   engine (infer/slots.py), admission and chunked decode included.
 - ``decode_only_ms_per_tok``: pure decode-step cost, prefill excluded,
@@ -24,8 +25,7 @@ on the host's clock around work that ends in ``torch.cuda.synchronize``
 (or in tokens the host has read). Weights are random from a seed (or
 ``synth_quantized_params``) and prompts come from seeded ``torch``
 generators, so the JAX functions' tokens are not reproduced; their
-counts, bytes and capacities are. ``bench_encdec_slot_serving`` waits
-for the encoder-decoder family.
+counts, bytes and capacities are.
 """
 
 from __future__ import annotations
@@ -754,6 +754,93 @@ def bench_paged_capacity(
                                     if hbm_gb else None),
         "aggregate_tok_s": round(streams * new_tok / dt, 1),
         "deferred_admissions": eng.stats["deferred_admissions"],
+    }
+
+
+def bench_encdec_slot_serving(
+    preset: str = "encdec-base",
+    streams: int = 8,
+    requests: int = 16,
+    src_len: int = 128,
+    new_tok: int = 96,
+    chunk: int = 8,
+    reps: int = 2,
+    cfg=None,
+    params=None,
+    src_vocab: int = 0,
+    srcs: list | None = None,
+    return_tokens: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Seq2seq continuous batching against the serialized path:
+    ``requests`` sources submitted at once flow through ``streams`` slots
+    of the encoder-decoder slot engine, against the same sources one
+    after another through batch-1 ``encdec_generate`` (the ``--slots 0``
+    path). ``requests > streams`` and a long generation make it the
+    sustained-load shape. ``src_vocab`` draws the sources from ``[1,
+    src_vocab)`` (a trained model's data distribution; 0 is BOS); the
+    token match per row is reported, not gated (bf16 near-ties, as in
+    ``bench_concurrent_serving``)."""
+    from tpu_docker_api_torch.infer.encdec_slots import EncDecSlotEngine
+    from tpu_docker_api_torch.models.encdec import (encdec_generate,
+                                                    encdec_init,
+                                                    encdec_presets)
+
+    device = torch.device(device)
+    if cfg is None:
+        cfg = encdec_presets()[preset]
+    if params is None:
+        params = encdec_init(cfg,
+                             torch.Generator(device=device).manual_seed(0))
+    if srcs is None:
+        hi = src_vocab or cfg.vocab_size
+        lo = 1 if src_vocab else 0
+        srcs = [[lo + t for t in _tokens(50 + i, src_len, hi - lo)]
+                for i in range(requests)]
+    src_len = len(srcs[0])
+
+    def one(src):
+        return encdec_generate(params, torch.tensor([src], device=device),
+                               cfg, max_new_tokens=new_tok)
+
+    one(srcs[0])
+    _sync(device)
+    ser_times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        outs = [one(src) for src in srcs]
+        _sync(device)
+        ser_times.append(time.perf_counter() - t0)
+    ser_dt = min(ser_times)
+    ser_tokens = [o[0].tolist() for o in outs]
+
+    eng = EncDecSlotEngine(cfg, params, slots=streams, chunk=chunk,
+                           cache_dtype=cfg.dtype)
+    eng.warmup(rows=_pow2_rows(streams))
+    slot_times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        handles = _serve_all(eng, srcs, new_tok)
+        _sync(device)
+        slot_times.append(time.perf_counter() - t0)
+    slot_dt = min(slot_times)
+    slot_tokens = [h.result(0)["tokens"] for h in handles]
+
+    total = requests * new_tok
+    matches = sum(a == b for a, b in zip(slot_tokens, ser_tokens))
+    return {
+        "ok": all(len(t) == new_tok for t in slot_tokens),
+        "match_rows": f"{matches}/{requests}",
+        **({"slot_tokens": slot_tokens} if return_tokens else {}),
+        "preset": preset,
+        "streams": streams,
+        "requests": requests,
+        "src_len": src_len,
+        "new_tokens": new_tok,
+        "serialized_tok_s": round(total / ser_dt, 1),
+        "slot_tok_s": round(total / slot_dt, 1),
+        "speedup": round(ser_dt / slot_dt, 2),
+        "card": _card(device),
     }
 
 

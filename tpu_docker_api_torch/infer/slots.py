@@ -238,11 +238,8 @@ class SlotEngine:
         self.max_seq = max_seq or cfg.max_seq_len
         self.chunk = chunk
         self.pipeline = pipeline
-        self.buckets = tuple(sorted(buckets or _default_buckets(self.max_seq)))
-        if self.buckets[-1] > self.max_seq:
-            raise ValueError(
-                f"largest bucket {self.buckets[-1]} exceeds cache "
-                f"capacity {self.max_seq}")
+        self.buckets = tuple(sorted(buckets or self._default_buckets()))
+        self._check_buckets()
         self.eos_id = eos_id
         self.pad_id = pad_id
         #: admission-queue bound (0 = unbounded), checked approximately
@@ -253,7 +250,7 @@ class SlotEngine:
             raise ValueError(
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
-        self._fwd = cached_forward_fn(cfg)
+        self._fwd = self._cached_forward()
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._k, self._v = self._alloc_cache(cache_dtype)
@@ -308,6 +305,20 @@ class SlotEngine:
         #: points ``metrics_hook`` at its metrics registry
         self._lat_samples: collections.deque = collections.deque(maxlen=512)
         self.metrics_hook = None
+
+    def _cached_forward(self):
+        """The family's KV-cached forward (the encdec engine decodes
+        through its own step and has none)."""
+        return cached_forward_fn(self.cfg)
+
+    def _default_buckets(self) -> tuple[int, ...]:
+        return _default_buckets(self.max_seq)
+
+    def _check_buckets(self) -> None:
+        if self.buckets[-1] > self.max_seq:
+            raise ValueError(
+                f"largest bucket {self.buckets[-1]} exceeds cache "
+                f"capacity {self.max_seq}")
 
     def _alloc_cache(self, cache_dtype):
         """The per-slot KV buffers: dense (slots, max_seq) here; the paged
@@ -794,16 +805,27 @@ class SlotEngine:
                 self.stats["prefills"] += 1
                 for r, (prompt, max_new, temp, eos_id, tk, tp,
                         handle) in enumerate(group):
-                    st = _Slot(handle=handle, tokens=[], max_new=max_new,
-                               pos=len(prompt), temperature=temp,
-                               eos_id=eos_id, top_k=tk, top_p=tp,
-                               base_len=len(prompt))
+                    st = self._new_slot(prompt, max_new, temp, eos_id, tk,
+                                        tp, handle)
                     with self._lock:
                         self._table[slots_v[r]] = st
-                    if max_new == 1:
-                        self._emit_first(slots_v[r], st, toks[r])
+                    self._finish_admission_only(slots_v[r], st, toks, r)
                 admitted = True
         return admitted
+
+    def _new_slot(self, prompt, max_new, temp, eos_id, tk, tp,
+                  handle) -> _Slot:
+        """The state of a request admitted by a whole prefill."""
+        return _Slot(handle=handle, tokens=[], max_new=max_new,
+                     pos=len(prompt), temperature=temp, eos_id=eos_id,
+                     top_k=tk, top_p=tp, base_len=len(prompt))
+
+    def _finish_admission_only(self, slot: int, st: _Slot, toks,
+                               r: int) -> None:
+        """A request whose only token its prefill sampled completes at
+        admission."""
+        if st.max_new == 1:
+            self._emit_first(slot, st, toks[r])
 
     def _emit_first(self, slot: int, st: _Slot, tok) -> None:
         """The admission produced a request's only token: resolve it now

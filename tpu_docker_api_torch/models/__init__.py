@@ -1,6 +1,14 @@
 """Model families of the port (counterpart of
-``tpu_docker_api/models/__init__.py``): Llama and the Mixtral-style MoE
-so far; the other families' presets raise "not yet ported"."""
+``tpu_docker_api/models/__init__.py``): the Llama decoder, the
+Mixtral-style MoE, the ViT (non-causal encoder, image batches), the
+encoder-decoder (cross-attention, seq2seq pairs) and the MNIST MLP
+(models/mlp.py, BASELINE config #2, outside the registry as in JAX).
+
+``model_fns(cfg)`` is the trainer's dispatch seam: a config maps to its
+(init, loss, sharding rules); a family's ``batch`` is a token tensor for
+the decoders, an (images, labels) pair for ViT and a (src, tgt) pair for
+the encoder-decoder.
+"""
 
 from tpu_docker_api_torch.models.llama import (  # noqa: F401
     LlamaConfig,
@@ -11,6 +19,7 @@ from tpu_docker_api_torch.models.llama import (  # noqa: F401
     llama_param_specs,
     llama_presets,
 )
+from tpu_docker_api_torch.models.mlp import mlp_forward, mlp_init  # noqa: F401
 from tpu_docker_api_torch.models.moe import (  # noqa: F401
     MoEConfig,
     moe_forward,
@@ -20,20 +29,38 @@ from tpu_docker_api_torch.models.moe import (  # noqa: F401
     moe_param_specs,
     moe_presets,
 )
-
-_NOT_PORTED = ("vit", "encdec")
+from tpu_docker_api_torch.models.vit import (  # noqa: F401
+    ViTConfig,
+    vit_forward,
+    vit_init,
+    vit_loss,
+    vit_param_specs,
+    vit_presets,
+)
+from tpu_docker_api_torch.models.encdec import (  # noqa: F401
+    EncDecConfig,
+    encdec_forward,
+    encdec_init,
+    encdec_loss,
+    encdec_param_specs,
+    encdec_presets,
+)
 
 
 # every dispatch below checks MoEConfig before LlamaConfig, as the JAX
 # registry does: should it ever subclass LlamaConfig, it keeps its own
 
 def model_fns(cfg):
-    """(init_fn(cfg, generator), loss_fn(params, tokens, cfg),
+    """(init_fn(cfg, generator), loss_fn(params, batch, cfg),
     sharding_rules). The port has no sharding rules yet: None."""
     if isinstance(cfg, MoEConfig):
         return moe_init, moe_loss, None
     if isinstance(cfg, LlamaConfig):
         return llama_init, llama_loss, None
+    if isinstance(cfg, ViTConfig):
+        return vit_init, vit_loss, None
+    if isinstance(cfg, EncDecConfig):
+        return encdec_init, encdec_loss, None
     raise TypeError(f"no model registered for config type {type(cfg)!r}")
 
 
@@ -42,6 +69,10 @@ def _param_specs(cfg) -> dict:
         return moe_param_specs(cfg)
     if isinstance(cfg, LlamaConfig):
         return llama_param_specs(cfg)
+    if isinstance(cfg, ViTConfig):
+        return vit_param_specs(cfg)
+    if isinstance(cfg, EncDecConfig):
+        return encdec_param_specs(cfg)
     raise TypeError(f"no model registered for config type {type(cfg)!r}")
 
 
@@ -60,15 +91,17 @@ def param_shapes(cfg) -> dict:
 def param_dtypes(cfg) -> dict:
     """The param tree of ``cfg`` with each leaf's storage dtype in its
     place: ``cfg.dtype``, except where the family keeps a leaf in another
-    (the MoE router is f32)."""
+    (the MoE router is f32: its specs carry a third field)."""
     return _map_specs(lambda spec: spec[2] if len(spec) > 2 else cfg.dtype,
                       _param_specs(cfg))
 
 
 def cached_forward_fn(cfg):
-    """The serving dispatch seam (infer/engine.py, infer/slots.py): the
-    KV-cached forward with signature ``(params, tokens, cfg, k_cache,
-    v_cache, start_pos, last_only=False, kv_limit=None)``."""
+    """The serving dispatch seam (infer/engine.py, infer/slots.py) of the
+    decoder families (the encoder-decoder decodes through
+    infer/encdec_slots.py): the KV-cached forward with signature
+    ``(params, tokens, cfg, k_cache, v_cache, start_pos, last_only=False,
+    kv_limit=None)``."""
     if isinstance(cfg, MoEConfig):
         return moe_forward_cached
     if isinstance(cfg, LlamaConfig):
@@ -77,12 +110,16 @@ def cached_forward_fn(cfg):
 
 
 def resolve_preset(spec: str):
-    """(family, cfg) from a family-prefixed preset spec: "NAME" → llama,
-    "moe:NAME" → moe; "vit:NAME" / "encdec:NAME" are not yet ported."""
+    """(family, cfg) from a family-prefixed preset spec, the one parser
+    behind the trainer and serve CLIs: "NAME" → llama, "moe:NAME" /
+    "vit:NAME" / "encdec:NAME" → that family. An unknown name raises
+    KeyError, an unknown family ValueError."""
     family, sep, name = spec.partition(":")
-    if sep and family in _NOT_PORTED:
-        raise ValueError(f"{family} presets are not yet ported to the "
-                         f"PyTorch package")
-    if sep and family == "moe":
-        return "moe", moe_presets()[name]
-    return "llama", llama_presets()[spec]
+    if not sep:
+        return "llama", llama_presets()[spec]
+    presets = {"moe": moe_presets, "vit": vit_presets,
+               "encdec": encdec_presets}.get(family)
+    if presets is None:
+        raise ValueError(f"unknown model family {family!r} (llama, moe:, "
+                         f"vit:, encdec:)")
+    return family, presets()[name]

@@ -1,9 +1,10 @@
 """Weights carried across between the JAX package and the port.
 
 torch cannot reproduce ``jax.random`` initialisation, so parameters
-cross as numpy arrays: the JAX param pytree (stacked ``(n_layers, …)``
-leaves, named as in ``tpu_docker_api/models/llama.py``) maps onto the
-port's param dict 1:1, leaf for leaf. An int8 leaf (the JAX
+cross as numpy arrays: the JAX param pytree of any family (Llama, MoE,
+ViT, the encoder-decoder, the MLP: stacked ``(n_layers, …)`` leaves,
+named as in ``tpu_docker_api/models/``) maps onto the port's param dict
+1:1, leaf for leaf, and so does its optimizer state. An int8 leaf (the JAX
 ``QuantizedLinear``, its children as numpy arrays) becomes the port's
 ``QuantizedLinear`` of the same int8 weights and f32 scales, and a LoRA
 leaf (the JAX ``LoraLinear``) the port's ``LoraLinear``.

@@ -1,0 +1,412 @@
+"""Encoder-decoder (T5-class) seq2seq transformer, the cross-attention
+family (counterpart of ``tpu_docker_api/models/encdec.py``).
+
+A bidirectional encoder feeds a causal decoder through
+cross-attention: decoder queries against encoder keys and values, no
+causal mask and no rope on the cross path (positions live in each
+side's self-attention). The parameters keep the JAX package's pytree
+(``enc_layers`` and ``dec_layers`` stacked along a leading layer dim, a
+shared src/tgt embedding), so weights cross over 1:1
+(models/convert.py). bf16 storage with f32 norms, softmax and logits;
+a Python loop over layers in place of ``lax.scan``; with ``cfg.remat``
+each block is checkpointed under the shared selective policy
+(models/common.py).
+
+Attention goes through ``multihead_attention``: the encoder's
+self-attention (non-causal) and the decoder's (causal) take the flash
+kernel on the card, and so does cross-attention when the source and
+target have one length. Cross-attention of another length, the
+encoder's ``kv_len`` mask and the slot decode step stay on
+``dense_attention``, as in JAX. The JAX module's sequence-parallel
+(ring attention) paths wait for the port's parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from tpu_docker_api_torch.models.common import (draw_stacked, remat_call,
+                                                seeded_generator)
+from tpu_docker_api_torch.models.llama import (_write_cache, cross_entropy,
+                                               embed_lookup, unstack_layers)
+from tpu_docker_api_torch.ops.attention import (dense_attention,
+                                                multihead_attention)
+from tpu_docker_api_torch.ops.norms import rms_norm
+from tpu_docker_api_torch.ops.quant import linear
+from tpu_docker_api_torch.ops.rope import apply_rope, rope_frequencies
+from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    vocab_size: int = 32000
+    dim: int = 768
+    enc_layers: int = 12
+    dec_layers: int = 12
+    n_heads: int = 12
+    n_kv_heads: int = 12
+    ffn_dim: int = 3072
+    max_src_len: int = 512
+    max_tgt_len: int = 512
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    # >0: encdec_loss fuses the head into ops.xent.chunked_cross_entropy
+    # with this row-chunk size instead of making (b, T, vocab) logits
+    loss_chunk_rows: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    def flops_per_pair(self, src_len: int, tgt_len: int) -> float:
+        """Training FLOPs per (src, tgt) sequence pair (fwd+bwd ≈ 3×).
+        q and o act on the query-side rows, k and v on the key-side rows
+        (tgt and src on the cross path); one MLP a layer on both sides."""
+        d, hd = self.dim, self.head_dim
+        qo = 2 * 2 * d * (self.n_heads * hd)       # q + o per row
+        kv = 2 * 2 * d * (self.n_kv_heads * hd)    # k + v per row
+        mlp = 3 * 2 * d * self.ffn_dim
+        enc = self.enc_layers * (
+            src_len * (qo + kv + mlp)
+            + 2 * 2 * src_len * src_len * (self.n_heads * hd))  # full attn
+        dec = self.dec_layers * (
+            tgt_len * (qo + kv + mlp)              # self-attention + MLP
+            + 2 * 2 * tgt_len * tgt_len * (self.n_heads * hd) / 2  # causal
+            + tgt_len * qo + src_len * kv          # cross projections
+            + 2 * 2 * tgt_len * src_len * (self.n_heads * hd))     # cross
+        head = tgt_len * 2 * d * self.vocab_size
+        return 3.0 * (enc + dec + head)
+
+
+def encdec_presets() -> dict[str, EncDecConfig]:
+    return {
+        # T5-base-class geometry (~250M params), rope positions
+        "encdec-base": EncDecConfig(),
+        # CPU-fast config for tests
+        "tiny": EncDecConfig(
+            vocab_size=256, dim=64, enc_layers=2, dec_layers=2, n_heads=4,
+            n_kv_heads=2, ffn_dim=128, max_src_len=64, max_tgt_len=64,
+            remat=False),
+    }
+
+
+def encdec_param_specs(cfg: EncDecConfig) -> dict:
+    """The param tree's leaves as ``(shape, fan_in)``; ``fan_in`` None is
+    a norm scale of ones."""
+    d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn_dim
+    Le, Ld = cfg.enc_layers, cfg.dec_layers
+
+    def attn(L):
+        return {"wq": ((L, d, cfg.n_heads * hd), d),
+                "wk": ((L, d, cfg.n_kv_heads * hd), d),
+                "wv": ((L, d, cfg.n_kv_heads * hd), d),
+                "wo": ((L, cfg.n_heads * hd, d), cfg.n_heads * hd)}
+
+    def mlp(L):
+        return {"w_gate": ((L, d, f), d), "w_up": ((L, d, f), d),
+                "w_down": ((L, f, d), f)}
+
+    return {
+        "embed": {"tokens": ((cfg.vocab_size, d), d)},
+        "enc_layers": {"attn_norm": ((Le, d), None),
+                       "mlp_norm": ((Le, d), None),
+                       "attn": attn(Le), "mlp": mlp(Le)},
+        "dec_layers": {"self_norm": ((Ld, d), None),
+                       "cross_norm": ((Ld, d), None),
+                       "mlp_norm": ((Ld, d), None),
+                       "self_attn": attn(Ld), "cross_attn": attn(Ld),
+                       "mlp": mlp(Ld)},
+        "enc_final_norm": ((d,), None),
+        "final_norm": ((d,), None),
+        "lm_head": ((d, cfg.vocab_size), d),
+    }
+
+
+def encdec_init(cfg: EncDecConfig, generator: torch.Generator) -> dict:
+    """Random parameters (truncated-normal fan-in scaling) on the
+    generator's device, stacked leaves drawn matrix by matrix."""
+    def init(spec):
+        if isinstance(spec, dict):
+            return {k: init(v) for k, v in spec.items()}
+        shape, fan_in = spec
+        if fan_in is None:
+            return torch.ones(shape, dtype=cfg.dtype,
+                              device=generator.device)
+        return draw_stacked(generator, shape, fan_in, cfg.dtype)
+
+    return init(encdec_param_specs(cfg))
+
+
+def _project_qkv(x, weights, cfg: EncDecConfig, kv_from=None):
+    """q from ``x``, k/v from ``kv_from`` (defaults to x: self-attention)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    src = x if kv_from is None else kv_from
+    sk = src.shape[1]
+    q = linear(x, weights["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = linear(src, weights["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    v = linear(src, weights["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def _mlp(x, mlp):
+    gate = F.silu(linear(x, mlp["w_gate"]))
+    return linear(gate * linear(x, mlp["w_up"]), mlp["w_down"])
+
+
+def _enc_block(x, layer, cfg: EncDecConfig, rope_cos, rope_sin,
+               kv_len=None):
+    """Bidirectional self-attention + SwiGLU, pre-norm residuals.
+    ``kv_len`` ((b,)) masks right-pad positions out of the attention, so
+    a bucketed admission encodes exactly like the unpadded source."""
+    b, s, d = x.shape
+    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(y, layer["attn"], cfg)
+    q = apply_rope(q, rope_cos, rope_sin)
+    k = apply_rope(k, rope_cos, rope_sin)
+    out = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype,
+                              kv_len=kv_len)
+    x = x + linear(out.reshape(b, s, d), layer["attn"]["wo"])
+    return x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                    layer["mlp"])
+
+
+def _dec_block(x, enc_out, layer, cfg: EncDecConfig, rope_cos, rope_sin):
+    """Causal self-attention → cross-attention over ``enc_out`` (no
+    rope: the cross path is pure content lookup) → SwiGLU."""
+    b, s, d = x.shape
+    y = rms_norm(x, layer["self_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(y, layer["self_attn"], cfg)
+    q = apply_rope(q, rope_cos, rope_sin)
+    k = apply_rope(k, rope_cos, rope_sin)
+    out = multihead_attention(q, k, v, causal=True)
+    x = x + linear(out.reshape(b, s, d), layer["self_attn"]["wo"])
+    y = rms_norm(x, layer["cross_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(y, layer["cross_attn"], cfg, kv_from=enc_out)
+    # auto dispatch: q_seq != kv_seq stays dense; equal lengths may take
+    # the flash kernel
+    out = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype)
+    x = x + linear(out.reshape(b, s, d), layer["cross_attn"]["wo"])
+    return x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                    layer["mlp"])
+
+
+def encdec_encode(params, src, cfg: EncDecConfig, kv_len=None):
+    """(b, S) source tokens → (b, S, d) encoder output (final-normed, in
+    ``cfg.dtype``). ``kv_len`` ((b,)): row b's positions >= kv_len[b] are
+    right-padding, excluded from every layer's attention."""
+    x = embed_lookup(params["embed"]["tokens"], src)
+    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, src.shape[1],
+                                          cfg.rope_theta, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in unstack_layers(params["enc_layers"], cfg.enc_layers):
+        args = (x, layer, cfg, rope_cos, rope_sin, kv_len)
+        x = remat_call(_enc_block, *args) if remat else _enc_block(*args)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps).to(cfg.dtype)
+
+
+def encdec_hidden(params, batch, cfg: EncDecConfig):
+    """((b, S) src, (b, T) tgt-input) → final decoder hidden (b, T, d),
+    before the final norm."""
+    src, tgt = batch
+    enc_out = encdec_encode(params, src, cfg)
+    x = embed_lookup(params["embed"]["tokens"], tgt)
+    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, tgt.shape[1],
+                                          cfg.rope_theta, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in unstack_layers(params["dec_layers"], cfg.dec_layers):
+        args = (x, enc_out, layer, cfg, rope_cos, rope_sin)
+        x = remat_call(_dec_block, *args) if remat else _dec_block(*args)
+    return x
+
+
+def _head(params, x, cfg: EncDecConfig):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return linear(x.to(cfg.dtype), params["lm_head"],
+                  out_dtype=torch.float32)
+
+
+def encdec_forward(params, batch, cfg: EncDecConfig):
+    """((b, S) src, (b, T) tgt-input) → next-token logits (b, T, vocab)
+    in f32."""
+    return _head(params, encdec_hidden(params, batch, cfg), cfg)
+
+
+def encdec_loss(params, batch, cfg: EncDecConfig):
+    """Teacher-forced seq2seq cross-entropy: batch = (src (b, S), tgt
+    (b, T+1)); the decoder reads tgt[:, :-1] and predicts tgt[:, 1:].
+    With ``cfg.loss_chunk_rows`` the head fuses into
+    ``ops.xent.chunked_cross_entropy``, as ``llama_loss``'s does."""
+    src, tgt = batch
+    if cfg.loss_chunk_rows:
+        x = encdec_hidden(params, (src, tgt[:, :-1]), cfg)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
+        return chunked_cross_entropy(h, params["lm_head"], tgt[:, 1:],
+                                     cfg.loss_chunk_rows)
+    logits = encdec_forward(params, (src, tgt[:, :-1]), cfg)
+    return cross_entropy(logits, tgt[:, 1:])
+
+
+def encdec_synthetic_batch(seed, batch: int, src_len: int, tgt_len: int,
+                           cfg: EncDecConfig, row_offset: int = 0,
+                           device="cpu"):
+    """(src (B, src_len), tgt (B, tgt_len + 1)) int64 token pairs on
+    ``device``, each GLOBAL row drawn from ``(*seed, r)`` alone, as
+    ``vit_synthetic_batch``'s rows (models/vit.py)."""
+    key = (seed,) if isinstance(seed, int) else tuple(seed)
+    src = torch.empty((batch, src_len), dtype=torch.long, device=device)
+    tgt = torch.empty((batch, tgt_len + 1), dtype=torch.long, device=device)
+    for i in range(batch):
+        g = seeded_generator(device, *key, row_offset + i)
+        src[i] = torch.randint(0, cfg.vocab_size, (src_len,), generator=g,
+                               device=device)
+        tgt[i] = torch.randint(0, cfg.vocab_size, (tgt_len + 1,),
+                               generator=g, device=device)
+    return src, tgt
+
+
+def _cross_kv(params, enc_out, cfg: EncDecConfig):
+    """Every decoder layer's cross-attention k/v from the encoder output,
+    fixed for the whole decode and so computed once, outside the token
+    loop: (Ld, b, S, kvh, hd) each."""
+    b, S, _ = enc_out.shape
+    hd = cfg.head_dim
+    ks, vs = [], []
+    for w in unstack_layers(params["dec_layers"]["cross_attn"],
+                            cfg.dec_layers):
+        ks.append(linear(enc_out, w["wk"]).reshape(b, S, cfg.n_kv_heads, hd))
+        vs.append(linear(enc_out, w["wv"]).reshape(b, S, cfg.n_kv_heads, hd))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _decode_layers(params, x, cfg: EncDecConfig, self_attend, cross_k,
+                   cross_v, src_lens=None):
+    """The decoder stack at one position for every row:
+    ``self_attend(q, k, v, layer_idx)`` writes the new k/v into the
+    self-attention cache and attends it; cross-attention reads the
+    precomputed ``cross_k``/``cross_v`` (masked at ``src_lens``)."""
+    b, d, hd = x.shape[0], cfg.dim, cfg.head_dim
+    layers = unstack_layers(params["dec_layers"], cfg.dec_layers)
+    for i, layer in enumerate(layers):
+        y = rms_norm(x, layer["self_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(y, layer["self_attn"], cfg)
+        out = self_attend(q, k, v, i)
+        x = x + linear(out.reshape(b, 1, d), layer["self_attn"]["wo"])
+        y = rms_norm(x, layer["cross_norm"], cfg.norm_eps)
+        # q only: the cross k/v were computed once by _cross_kv
+        q = linear(y, layer["cross_attn"]["wq"]).reshape(
+            b, 1, cfg.n_heads, hd)
+        out = dense_attention(q, cross_k[i], cross_v[i], causal=False,
+                              kv_len=src_lens)
+        x = x + linear(out.reshape(b, 1, d), layer["cross_attn"]["wo"])
+        x = x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                     layer["mlp"])
+    return _head(params, x, cfg)[:, 0]
+
+
+@torch.no_grad()
+def encdec_slot_decode_step(
+    params: dict,
+    tok: torch.Tensor,       # (S,) current token per slot
+    pos: torch.Tensor,       # (S,) per-slot decode position
+    cfg: EncDecConfig,
+    k_cache: torch.Tensor,   # (Ld, S, max_tgt, kvh, hd) self-attn cache
+    v_cache: torch.Tensor,
+    cross_k: torch.Tensor,   # (Ld, S, src_cap, kvh, hd) per-slot static
+    cross_v: torch.Tensor,
+    src_lens: torch.Tensor,  # (S,) true source length per slot
+    rope_cos, rope_sin,
+    kv_limit: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ONE decoder position for S independent slot rows, the decode body
+    of the encdec slot engine (infer/encdec_slots.py): per-row positions
+    (cache writes past capacity dropped, per-row causal ``q_offset``), a
+    ``kv_limit`` read bucket on the self-attention cache, and per-row
+    ``src_lens`` masking the cross path. The caches are updated IN PLACE
+    and returned. Returns (logits (S, vocab) f32, k_cache, v_cache)."""
+    x = embed_lookup(params["embed"]["tokens"], tok[:, None])
+    positions = pos[:, None].long()
+
+    def self_attend(q, k, v, i):
+        q = apply_rope(q, rope_cos, rope_sin, positions)
+        k = apply_rope(k, rope_cos, rope_sin, positions)
+        kc, vc = k_cache[i], v_cache[i]
+        _write_cache(kc, k, pos, positions, per_row=True)
+        _write_cache(vc, v, pos, positions, per_row=True)
+        if kv_limit is not None and kv_limit < kc.shape[1]:
+            kc, vc = kc[:, :kv_limit], vc[:, :kv_limit]
+        return dense_attention(q, kc, vc, causal=True, q_offset=pos)
+
+    logits = _decode_layers(params, x, cfg, self_attend, cross_k, cross_v,
+                            src_lens)
+    return logits, k_cache, v_cache
+
+
+@torch.no_grad()
+def encdec_generate(
+    params: dict,
+    src: torch.Tensor,       # (b, S) source tokens
+    cfg: EncDecConfig,
+    max_new_tokens: int = 32,
+    bos_id: int = 0,
+    eos_id: int | None = None,
+    pad_id: int = 0,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    generator: torch.Generator | None = None,
+):
+    """Seq2seq generation: encode once, then a KV-cached decoder loop
+    (self-attention against a (Ld, b, max_new_tokens, kvh, hd) cache
+    written one position a step, cross-attention against the
+    precomputed encoder k/v). Returns (b, max_new_tokens) int64; with
+    ``eos_id`` set, {"tokens", "lengths"} with the llama engine's
+    contract (length = first eos + 1, later positions ``pad_id``).
+    Sampling is ``infer.sampling.make_sampler``'s, drawing from
+    ``generator``."""
+    from tpu_docker_api_torch.infer.sampling import make_sampler
+
+    sampler = make_sampler(temperature, top_k=top_k, top_p=top_p)
+    b = src.shape[0]
+    hd, kvh = cfg.head_dim, cfg.n_kv_heads
+    enc_out = encdec_encode(params, src, cfg)
+    cross_k, cross_v = _cross_kv(params, enc_out, cfg)
+    rope_cos, rope_sin = rope_frequencies(hd, max_new_tokens, cfg.rope_theta,
+                                          device=src.device)
+    k_cache = torch.zeros((cfg.dec_layers, b, max_new_tokens, kvh, hd),
+                          dtype=cfg.dtype, device=src.device)
+    v_cache = torch.zeros_like(k_cache)
+    tok = torch.full((b,), bos_id, dtype=torch.long, device=src.device)
+    toks = []
+    for step in range(max_new_tokens):
+        positions = torch.full((b, 1), step, dtype=torch.long,
+                               device=src.device)
+
+        def self_attend(q, k, v, i, step=step, positions=positions):
+            q = apply_rope(q, rope_cos, rope_sin, positions)
+            k = apply_rope(k, rope_cos, rope_sin, positions)
+            k_cache[i, :, step] = k[:, 0].to(k_cache.dtype)
+            v_cache[i, :, step] = v[:, 0].to(v_cache.dtype)
+            return dense_attention(q, k_cache[i], v_cache[i], causal=True,
+                                   q_offset=step)
+
+        x = embed_lookup(params["embed"]["tokens"], tok[:, None])
+        logits = _decode_layers(params, x, cfg, self_attend, cross_k,
+                                cross_v)
+        tok = sampler(logits, generator)
+        toks.append(tok)
+    toks = torch.stack(toks, dim=1)  # (b, max_new_tokens)
+    if eos_id is None:
+        return toks
+    is_eos = toks == eos_id
+    first_eos = torch.argmax(is_eos.int(), dim=1)
+    lengths = torch.where(is_eos.any(dim=1), first_eos + 1, toks.shape[1])
+    past = torch.arange(toks.shape[1], device=toks.device)[None, :] >= \
+        lengths[:, None]
+    return {"tokens": torch.where(past, pad_id, toks), "lengths": lengths}

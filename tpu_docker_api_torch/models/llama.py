@@ -31,11 +31,8 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
 
-from tpu_docker_api_torch.models.common import trunc_normal_init
-from tpu_docker_api_torch.ops import flash
+from tpu_docker_api_torch.models.common import remat_call, trunc_normal_init
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
@@ -62,7 +59,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     # checkpoint each block under a policy that keeps only the flash
-    # forward's (out, lse) (llama_hidden, _remat_policy)
+    # forward's (out, lse) (llama_hidden, models.common.remat_policy)
     remat: bool = True
     attention_impl: str = "auto"  # ops.attention impls: auto/dense/flash
     # >0: the training loss runs ops.xent.chunked_cross_entropy with this
@@ -319,25 +316,11 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, table)
 
 
-def _remat_policy(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy: keep ONLY the flash forward's
-    (out, lse) and recompute every other op, matmuls included — the JAX
-    package's ``TRAIN_REMAT_POLICY``. The backward then runs the flash
-    backward kernels on the kept residuals and never re-runs the forward
-    kernel, which plain checkpointing would (once more per layer)."""
-    return (CheckpointPolicy.MUST_SAVE if op is flash.FLASH_OP
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _remat_context():
-    return create_selective_checkpoint_contexts(_remat_policy)
-
-
 def llama_hidden(params: dict, tokens: torch.Tensor,
                  cfg: LlamaConfig) -> torch.Tensor:
     """The trunk: embed → blocks → final hidden (batch, seq, dim),
     before the final norm. With ``cfg.remat`` and autograd on, each block
-    is checkpointed under ``_remat_policy``."""
+    is checkpointed under ``models.common.remat_policy``."""
     seq = tokens.shape[1]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
@@ -346,8 +329,7 @@ def llama_hidden(params: dict, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if remat:
-            x = checkpoint(_block, x, layer, cfg, rope_cos, rope_sin,
-                           use_reentrant=False, context_fn=_remat_context)
+            x = remat_call(_block, x, layer, cfg, rope_cos, rope_sin)
         else:
             x = _block(x, layer, cfg, rope_cos, rope_sin)
     return x

@@ -29,11 +29,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from tpu_docker_api_torch.models.common import trunc_normal_init
-from tpu_docker_api_torch.models.llama import (_attention, _remat_context,
-                                               cross_entropy,
+from tpu_docker_api_torch.models.common import draw_stacked, remat_call
+from tpu_docker_api_torch.models.llama import (_attention, cross_entropy,
                                                decoder_forward_cached,
                                                embed_lookup, lm_head,
                                                unstack_layers)
@@ -144,19 +142,6 @@ def moe_param_specs(cfg: MoEConfig) -> dict:
     }
 
 
-def _draw_stacked(generator: torch.Generator, shape, fan_in: int,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """``trunc_normal_init`` of a stacked leaf, one (…, in, out) matrix
-    at a time into a tensor allocated once in ``dtype``: the f32
-    temporaries are one matrix, never the whole leaf (a Mixtral-width
-    ``w_gate`` of 16 layers is 7.5 G elements)."""
-    out = torch.empty(shape, dtype=dtype, device=generator.device)
-    mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
-    for m in mats:
-        m.copy_(trunc_normal_init(generator, m.shape, fan_in, dtype))
-    return out
-
-
 def moe_init(cfg: MoEConfig, generator: torch.Generator) -> dict:
     """Random parameters on the generator's device in the JAX package's
     pytree; expert weights carry (n_layers, n_experts, …), the router
@@ -167,7 +152,7 @@ def moe_init(cfg: MoEConfig, generator: torch.Generator) -> dict:
         shape, fan_in, dtype = spec
         if fan_in is None:
             return torch.ones(shape, dtype=dtype, device=generator.device)
-        return _draw_stacked(generator, shape, fan_in, dtype)
+        return draw_stacked(generator, shape, fan_in, dtype)
 
     return init(moe_param_specs(cfg))
 
@@ -372,8 +357,8 @@ def moe_forward(params: dict, tokens: torch.Tensor,
                 cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(logits (b, s, vocab) f32, mean router aux loss over layers). With
     ``cfg.remat`` and autograd on, each block is checkpointed under the
-    Llama module's selective policy (the flash ``(out, lse)`` kept, the
-    rest recomputed)."""
+    shared selective policy of models/common.py (the flash ``(out,
+    lse)`` kept, the rest recomputed)."""
     seq = tokens.shape[1]
     x = embed_lookup(params["embed"]["tokens"], tokens)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
@@ -382,9 +367,8 @@ def moe_forward(params: dict, tokens: torch.Tensor,
     auxes = []
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if remat:
-            x, aux = checkpoint(_moe_block, x, layer, cfg, rope_cos,
-                                rope_sin, use_reentrant=False,
-                                context_fn=_remat_context)
+            x, aux = remat_call(_moe_block, x, layer, cfg, rope_cos,
+                                rope_sin)
         else:
             x, aux = _moe_block(x, layer, cfg, rope_cos, rope_sin)
         auxes.append(aux)

@@ -9,16 +9,20 @@ Two implementations behind one call:
 - ``flash``: the hand-written CUDA forward kernel (ops/flash.py) for
   self-attention where ``q_seq == kv_seq``.
 
-``impl="auto"`` picks flash on CUDA when q and k share one sequence and
-the kernel takes the head_dim and dtype, else dense. Inputs are
-(batch, seq, heads, head_dim) — the model's layout; the flash path hands
-the kernel (batch, heads, seq, head_dim) VIEWS, whose strides the kernel
-reads, so nothing is copied.
+``impl="auto"`` asks :func:`auto_impl`: flash on CUDA when q and k
+share one sequence and the kernel takes the head_dim and dtype, causal
+or not, else dense. Inputs are (batch, seq, heads, head_dim) — the
+model's layout; the flash path hands the kernel (batch, heads, seq,
+head_dim) VIEWS, whose strides the kernel reads, so nothing is copied.
 
-The JAX dispatcher also sends short non-causal sequences (<= 256 tokens)
-to dense, a rule measured on a TPU for ViT encoders. It is dropped here:
-no family of this slice runs non-causal attention, and the boundary has
-not been measured on the H100.
+The JAX dispatcher also sends short non-causal sequences (<= 256 tokens,
+vit-b16's 256 patches) to dense, a rule measured on a TPU v5e. The port
+has no such rule: on an H100 the flash kernels took a vit-b16 attention
+forward and backward (batch 128, 256 tokens, 12/12 heads, d 64, bf16)
+in about 1/14 of ``dense_attention``'s time, 1/15 at the encdec-base
+encoder's (32, 512), and a whole vit-b16 train step ran faster with them
+(``chip_smoke.py`` ``phase_vit`` measures all three; the numbers are in
+PERF.md).
 """
 
 from __future__ import annotations
@@ -82,6 +86,19 @@ def dense_attention(
     return out.reshape(batch, seq, num_heads, head_dim).to(q.dtype)
 
 
+def auto_impl(q_shape, k_shape, causal: bool, is_cuda: bool,
+              dtype: torch.dtype) -> str:
+    """The ``impl="auto"`` choice for (batch, seq, heads, head_dim) q and
+    k shapes: "flash" on CUDA for self-attention shapes (q_seq ==
+    kv_seq: the kernel has one sequence length) that the kernel takes,
+    whatever ``causal`` and the length; else "dense"."""
+    del causal  # no short non-causal rule on the card (module docstring)
+    if (is_cuda and q_shape[1] == k_shape[1]
+            and flash.supports(q_shape[-1], dtype)):
+        return "flash"
+    return "dense"
+
+
 def multihead_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -97,8 +114,7 @@ def multihead_attention(
         return dense_attention(q, k, v, causal, probs_dtype=probs_dtype,
                                kv_len=kv_len)
     if impl == "auto":
-        impl = ("flash" if q.is_cuda and q.shape[1] == k.shape[1]
-                and flash.supports(q) else "dense")
+        impl = auto_impl(q.shape, k.shape, causal, q.is_cuda, q.dtype)
     if impl == "dense":
         return dense_attention(q, k, v, causal, probs_dtype=probs_dtype)
     if impl == "flash":

@@ -51,9 +51,9 @@ def reset_launch_count() -> None:
         launch_count[name] = 0
 
 
-def supports(q: torch.Tensor) -> bool:
+def supports(head_dim: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take this head_dim and dtype."""
-    return q.shape[-1] in _HEAD_DIMS and q.dtype in _DTYPES
+    return head_dim in _HEAD_DIMS and dtype in _DTYPES
 
 
 def _plain_scores(q, k, causal):

@@ -1,14 +1,25 @@
-"""Normalization ops (counterpart of ``tpu_docker_api/ops/norms.py``)."""
+"""Normalization ops (counterpart of ``tpu_docker_api/ops/norms.py``).
+Both compute in float32 whatever the input dtype and cast back."""
 
 from __future__ import annotations
 
 import torch
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (ViT/GPT-style: mean subtraction, scale and bias)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    normed = xc * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (Llama-style, no mean subtraction, no bias), computed in
-    float32 whatever the input dtype and cast back."""
+    """RMSNorm (Llama-style, no mean subtraction, no bias)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)

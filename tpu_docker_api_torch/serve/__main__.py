@@ -1,5 +1,6 @@
 """Inference-serving entry point of the port (counterpart of
-``tpu_docker_api/serve/__main__.py``, Llama and ``moe:`` presets).
+``tpu_docker_api/serve/__main__.py``): Llama presets and the ``moe:``
+and ``encdec:`` families (``vit:`` has no generative serving path).
 
     python -m tpu_docker_api_torch.serve --preset llama3-1b --port 8000 \
         [--ckpt-dir CKPT | --hf-ckpt HF_DIR] [--quantize] [--tokenizer TOK]
@@ -7,6 +8,7 @@
     python -m tpu_docker_api_torch.serve --device cpu --preset tiny \
         --draft-preset tiny --n-spec 4
     python -m tpu_docker_api_torch.serve --device cpu --preset moe:moe-tiny
+    python -m tpu_docker_api_torch.serve --device cpu --preset encdec:tiny
 
 HTTP surface (stdlib server):
 
@@ -64,7 +66,14 @@ such a tree is not fused). A ``moe:NAME`` preset (models/moe.py) serves
 through the same slot engine, ``/prefixes``, ``--prefill-chunk``,
 ``--ckpt-dir`` and ``--slots 0``; as in JAX, ``--quantize``,
 ``--page-size`` and ``--draft-preset`` take Llama presets only, and
-projection fusion applies to Llama trees only. Flags of the JAX
+projection fusion applies to Llama trees only. An ``encdec:NAME`` preset
+(models/encdec.py) serves seq2seq: ``/generate`` bodies carry
+``srcTokens`` rows (ragged, each its own request) in place of ``tokens``,
+decoded from BOS through the encoder-decoder slot engine
+(infer/encdec_slots.py; no /prefixes, no ``--prefill-chunk`` and no
+``--draft-preset``, as in JAX), or with ``--slots 0`` through
+``encdec_generate`` with equal-length rows (``lengths`` only with an
+``eosId``). Flags of the JAX
 entry point that the port does not have yet are refused with the ROADMAP
 item that brings them. Runs on ``cuda`` unless ``--device cpu`` is
 given.
@@ -186,7 +195,17 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                 "no page pool)")
     if args.hf_ckpt and args.ckpt_dir:
         p.error("--hf-ckpt and --ckpt-dir are exclusive")
-    if not args.hf_ckpt and args.preset.partition(":")[1]:
+    family = (args.preset.partition(":")[0] if ":" in args.preset
+              and not args.hf_ckpt else "llama")
+    if family == "vit":
+        p.error("vit presets have no generative serving path")
+    if family == "encdec":
+        if args.prefill_chunk:
+            p.error("--prefill-chunk does not apply to seq2seq admission "
+                    "(sources are bounded by max_src_len)")
+        if args.draft_preset:
+            p.error("--draft-preset is not supported with encdec presets")
+    if family != "llama":
         if args.quantize:
             p.error("--quantize currently supports llama presets only")
         if args.page_size:
@@ -306,7 +325,10 @@ class Server:
             from tpu_docker_api_torch.models.tokenizer import load_tokenizer
 
             self.tokenizer = load_tokenizer(tok_path)
-        self.max_seq = args.max_seq or cfg.max_seq_len
+        self.family = family
+        self.max_seq = args.max_seq or (cfg.max_tgt_len
+                                        if family == "encdec"
+                                        else cfg.max_seq_len)
         self.metrics = MetricsRegistry()
         self.engine = None
         if args.slots > 0:
@@ -316,7 +338,12 @@ class Server:
                 # shed load once the queue is 8x the slot count deep
                 max_pending=args.slots * 8,
                 seed=int.from_bytes(os.urandom(4), "little"))
-            if args.draft_preset:
+            if family == "encdec":
+                from tpu_docker_api_torch.infer.encdec_slots import (
+                    EncDecSlotEngine)
+
+                self.engine = EncDecSlotEngine(cfg, params, **common)
+            elif args.draft_preset:
                 from tpu_docker_api_torch.infer.slots import (
                     SpeculativeSlotEngine)
 
@@ -394,21 +421,48 @@ class Server:
 
     def generate_fn(self, max_new: int, temperature: float, top_k: int,
                     top_p: float, eos_id: int | None):
-        """``make_generate_fn`` for the legacy path, cached per sampling
-        config (bounded: 16 entries, oldest evicted)."""
+        """``make_generate_fn`` (encdec: ``encdec_generate``) for the
+        legacy path, cached per sampling config (bounded: 16 entries,
+        oldest evicted)."""
         from tpu_docker_api_torch.infer.engine import (GenerateConfig,
                                                        make_generate_fn)
 
         key = (max_new, temperature, top_k, top_p, eos_id)
         fn = self._fns.get(key)
         if fn is None:
-            fn = make_generate_fn(self.cfg, GenerateConfig(
-                max_new_tokens=max_new, temperature=temperature,
-                top_k=top_k, top_p=top_p, eos_id=eos_id,
-                max_seq=self.max_seq, cache_dtype=self.cfg.dtype))
+            if self.family == "encdec":
+                fn = self._encdec_generate_fn(*key)
+            else:
+                fn = make_generate_fn(self.cfg, GenerateConfig(
+                    max_new_tokens=max_new, temperature=temperature,
+                    top_k=top_k, top_p=top_p, eos_id=eos_id,
+                    max_seq=self.max_seq, cache_dtype=self.cfg.dtype))
             if len(self._fns) >= 16:
                 self._fns.pop(next(iter(self._fns)))
             self._fns[key] = fn
+        return fn
+
+    def _encdec_generate_fn(self, max_new, temperature, top_k, top_p,
+                            eos_id):
+        """The ``--slots 0`` seq2seq generation: ``encdec_generate`` of
+        equal-length source rows, ``{"tokens"}`` (``"lengths"`` too with
+        an ``eos_id``). The sampler's arguments are checked here, before
+        the function is cached."""
+        from tpu_docker_api_torch.infer.sampling import make_sampler
+        from tpu_docker_api_torch.models.encdec import encdec_generate
+
+        if max_new > self.max_seq:
+            raise ValueError(f"maxNewTokens {max_new} exceeds capacity "
+                             f"{self.max_seq}")
+        make_sampler(temperature, top_k=top_k, top_p=top_p)
+
+        def fn(params, src, generator):
+            out = encdec_generate(params, src, self.cfg,
+                                  max_new_tokens=max_new, eos_id=eos_id,
+                                  temperature=temperature, top_k=top_k,
+                                  top_p=top_p, generator=generator)
+            return out if eos_id is not None else {"tokens": out}
+
         return fn
 
     def close(self, drain: float = 0.0) -> None:
@@ -419,6 +473,8 @@ class Server:
 
 def _make_handler(srv: Server):
     cfg = srv.cfg
+    #: the body's field of token rows: seq2seq sources for encdec
+    rows_field = "srcTokens" if srv.family == "encdec" else "tokens"
 
     def valid_token_row(row) -> bool:
         return (isinstance(row, list) and bool(row)
@@ -547,7 +603,7 @@ def _make_handler(srv: Server):
             req = self._body()
             if not isinstance(req, dict):
                 raise ValueError("body must be a JSON object")
-            prompts = req.get("tokens")
+            prompts = req.get(rows_field)
             texts_in = req.get("text")
             tok = srv.tokenizer
             if texts_in is not None:
@@ -565,8 +621,8 @@ def _make_handler(srv: Server):
                 prompts = [tok.encode(t) for t in texts_in]
             if not prompts or not all(valid_token_row(r) for r in prompts):
                 raise ValueError(
-                    "tokens must be a non-empty list of non-empty rows of "
-                    f"token ids in [0, {cfg.vocab_size})")
+                    f"{rows_field} must be a non-empty list of non-empty "
+                    f"rows of token ids in [0, {cfg.vocab_size})")
 
             def req_float(name, default):
                 v = req.get(name, default)
@@ -648,11 +704,11 @@ def _make_handler(srv: Server):
                                   device=srv.device)
             with srv._gen_lock:
                 out = fn(srv.params, prompt, srv._rng)
-            payload = {"tokens": out["tokens"].tolist(),
-                       "lengths": out["lengths"].tolist()}
+            payload = {k: v.tolist() for k, v in out.items()}
             if texts_in is not None:
                 payload["texts"] = [tok.decode(row[:n]) for row, n in zip(
-                    payload["tokens"], payload["lengths"])]
+                    payload["tokens"], payload.get(
+                        "lengths", [max_new] * len(payload["tokens"])))]
             self._reply(200, payload)
 
         def _stream(self, handle, tok):

@@ -1,6 +1,6 @@
 """Training entry point of the port (counterpart of
-``tpu_docker_api/train/__main__.py``, Llama and ``moe:`` presets, one
-device).
+``tpu_docker_api/train/__main__.py``, one device): Llama presets and
+the ``moe:``, ``vit:`` and ``encdec:`` families.
 
     python -m tpu_docker_api_torch.train --preset llama3-1b --steps 20 \
         --batch 4 --seq 2048 --optim adamw-int8 --ckpt-dir CKPT \
@@ -10,6 +10,9 @@ device).
         --lora-rank 16 --batch 1 --seq 2048 --optim adamw-int8
     python -m tpu_docker_api_torch.train --preset moe:bench-moe \
         --moe-dispatch einsum --batch 4 --seq 2048
+    python -m tpu_docker_api_torch.train --preset vit:vit-b16 --batch 128
+    python -m tpu_docker_api_torch.train --preset encdec:encdec-base \
+        --batch 32 --seq 512
 
 Trains on a token file (``--data``, data/loader.py) or on synthetic
 tokens, from random weights (``--seed``) or from the latest checkpoint in
@@ -53,6 +56,14 @@ point:
   auto and sort are gather). As in JAX, it is refused on a Llama preset,
   and ``--qlora`` on a ``moe:`` preset (the int8 quantizer is
   Llama-shaped).
+- **ViT** (``--preset vit:NAME``, models/vit.py: vit-b16, vit-s16,
+  tiny) trains on synthetic (images, labels) batches; ``--data`` and
+  ``--seq`` are refused, and ``tokens_per_sec`` counts ``n_patches``
+  tokens an image. **Encoder-decoder** (``--preset encdec:NAME``,
+  models/encdec.py: encdec-base, tiny) trains on synthetic (src, tgt)
+  pairs with ``src_len == tgt_len == --seq`` (default ``min(max_tgt_len,
+  128)``); ``--data`` is refused. Their rows are drawn one by one from
+  the seed, the step and the row, as the JAX trainer's are.
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -82,8 +93,12 @@ _NOT_PORTED = {
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m tpu_docker_api_torch.train")
     p.add_argument("--preset", default="tiny",
-                   help="llama preset (tiny, bench-350m, llama3-1b, ...) "
-                        "or moe:NAME (moe-tiny, bench-moe, mixtral-8x7b)")
+                   help="llama preset (tiny, bench-350m, llama3-1b, ...), "
+                        "moe:NAME (moe-tiny, bench-moe, mixtral-8x7b), "
+                        "vit:NAME (tiny, vit-s16, vit-b16: image batches; "
+                        "no --data or --seq) or encdec:NAME (tiny, "
+                        "encdec-base: seq2seq pairs of --seq tokens a "
+                        "side; no --data)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=0, help="0 = preset default")
@@ -154,6 +169,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     family = args.preset.partition(":")[0] if ":" in args.preset else "llama"
     if args.moe_dispatch != "auto" and family != "moe":
         p.error("--moe-dispatch applies to moe: presets only")
+    if family == "vit" and (args.data or args.seq):
+        p.error("--data/--seq do not apply to vit: presets (image batches "
+                "are synthetic)")
+    if family == "encdec" and args.data:
+        p.error("--data does not apply to encdec: presets (seq2seq pairs "
+                "are synthetic)")
     if args.qlora and family != "llama":
         p.error("--qlora supports llama presets only (the int8 quantizer "
                 "is llama-shaped)")
@@ -205,9 +226,14 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit(f"unknown or unported preset {args.preset!r}: {e}")
     if family == "moe":
         cfg = dataclasses.replace(cfg, dispatch_impl=args.moe_dispatch)
-    if args.seq:
-        cfg = dataclasses.replace(cfg, max_seq_len=args.seq)
-    seq = args.seq or min(cfg.max_seq_len, 512)
+    if family == "vit":
+        seq = cfg.n_patches  # tokens an image, for the throughput metric
+    elif family == "encdec":
+        seq = args.seq or min(cfg.max_tgt_len, 128)  # src_len == tgt_len
+    else:
+        if args.seq:
+            cfg = dataclasses.replace(cfg, max_seq_len=args.seq)
+        seq = args.seq or min(cfg.max_seq_len, 512)
 
     opt = None
     if args.optim == "adamw-int8":
@@ -261,6 +287,18 @@ def main(argv: list[str] | None = None) -> int:
 
         def get_batch(i):
             return torch.from_numpy(batch_at(i)).long()
+    elif family == "vit":
+        from tpu_docker_api_torch.models.vit import vit_synthetic_batch
+
+        def get_batch(i):
+            return vit_synthetic_batch((args.seed + 1, i), args.batch, cfg,
+                                       device=device)
+    elif family == "encdec":
+        from tpu_docker_api_torch.models.encdec import encdec_synthetic_batch
+
+        def get_batch(i):
+            return encdec_synthetic_batch((args.seed + 1, i), args.batch,
+                                          seq, seq, cfg, device=device)
     else:
         def get_batch(i):
             return synthetic_batch(step_generator(args.seed + 1, i, device),

@@ -16,10 +16,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from tpu_docker_api_torch.models import model_fns
+from tpu_docker_api_torch.models.common import seeded_generator
 from tpu_docker_api_torch.train.optim import (GradientTransformation,
                                               adamw, apply_updates, chain,
                                               clip_by_global_norm,
@@ -66,23 +66,30 @@ def make_train_step(
     optimizer: GradientTransformation,
     loss_fn: Callable | None = None,
 ) -> Callable:
-    """(state, tokens) → (state, metrics). ``metrics`` holds ``loss`` and
-    ``grad_norm`` as device tensors (reading them waits for the device,
-    so a caller reads them only where it needs the value) and ``step``
-    as an int. Every parameter must receive a gradient: an unused one
-    raises rather than training on silently."""
+    """(state, batch) → (state, metrics). ``batch`` is whatever the
+    model's loss takes: a token tensor for the decoder families, a tuple
+    of tensors ((images, labels) for ViT, (src, tgt) for the
+    encoder-decoder), each moved to the params' device, as the JAX step
+    shards every leaf of a batch pytree on its leading axis. ``metrics``
+    holds ``loss`` and ``grad_norm`` as device tensors (reading them
+    waits for the device, so a caller reads them only where it needs the
+    value) and ``step`` as an int. Every parameter must receive a
+    gradient: an unused one raises rather than training on silently."""
     if loss_fn is None:
         _, model_loss, _ = model_fns(cfg)
 
-        def loss_fn(params, tokens):
-            return model_loss(params, tokens, cfg)
+        def loss_fn(params, batch):
+            return model_loss(params, batch, cfg)
 
-    def step(state: TrainState, tokens: torch.Tensor):
+    def step(state: TrainState, batch):
         device = tree_leaves(state.params)[0].device
-        tokens = tokens.to(device, non_blocking=True)
+        if isinstance(batch, (tuple, list)):
+            batch = tuple(t.to(device, non_blocking=True) for t in batch)
+        else:
+            batch = batch.to(device, non_blocking=True)
         live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
         leaves = tree_leaves(live)
-        loss = loss_fn(live, tokens)
+        loss = loss_fn(live, batch)
         flat = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(flat), live)
         del live, leaves
@@ -112,6 +119,4 @@ def step_generator(seed: int, step: int,
     step's batch is a pure function of the two, as the JAX trainer's
     ``synthetic_batch(PRNGKey(step), ...)``: a run resumed at step N
     draws the batch the stopped run would have drawn at step N."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(
-        int(mixed[0]) & (2**63 - 1))
+    return seeded_generator(device, seed, step)
