@@ -10,6 +10,26 @@ Phases, one JSON line each; any failure exits non-zero:
               ``-Xptxas -v`` register and shared-memory lines and the
               count of tensor-core instructions (HGMMA, HMMA) in each
               library's SASS; fails if a flash library has none.
+2b. devices — the control plane's GPU seams (``phase_devices``), cheap,
+              so a fault shows before the long phases: the gpu-detect
+              sidecar (``telemetry/sidecar.py``, real probe over NVML)
+              held against ``nvidia-smi`` (UUID, name, driver version and
+              index equal; memory within 1 MiB, power limit within 1 W;
+              ``nvml.h``'s structs against the binding's where the
+              toolkit has the header), the probe's and a GET's times; a
+              ``ChipScheduler`` on a ``SqliteKV`` under ``build/devices``
+              seeded from the reply grants the GPU, refuses a second
+              (ChipNotEnough), restores the grant after a restart;
+              ``render_gpu_attachment`` on a spec that
+              ``FakeRuntime(allow_exec=True)`` runs a child under: it
+              sees one GPU, the granted UUID, holds 4 GiB and runs the
+              flash kernel (R=4, s=2048, 32/8 heads, d 64) for ~3 s while
+              the sidecar is polled (hbm_used must rise >= 4 GiB and the
+              duty cycle be > 0 on a poll; the peak and whether the
+              child's pid showed are printed); a zero-GPU spec carries
+              no CUDA_VISIBLE_DEVICES; ``DockerRuntime`` against
+              ``runtime/fake_engine.py`` sends the reference's nvidia
+              ``DeviceRequests`` and reads the UUID back.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -197,10 +217,12 @@ import traceback
 
 import torch
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32
-#: outside them, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+#: the card's dense peaks: bf16 on the tensor cores and HBM bytes/s are
+#: filled by ``read_card_peaks`` from ``scheduler/topology.py``, the seam
+#: ``infer/servebench.py`` reads too; f32 outside the tensor cores is the
+#: H100 SXM data sheet's
+PEAK_FLOPS = {torch.float32: 67e12}
+PEAK_BYTES = 0.0
 
 LLAMA_HEADS, LLAMA_KV, LLAMA_HD = 32, 8, 64
 TRAIN_STEPS = 4
@@ -222,6 +244,20 @@ FAMILY_OTHER_SHAPES = [(32, 512, 12, 64, True), (1, 100, 12, 64, False),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def read_card_peaks(dev) -> None:
+    """Set ``PEAK_FLOPS[bf16]`` and ``PEAK_BYTES`` from
+    ``generation_for(dev)``; the card must be a part it knows."""
+    global PEAK_BYTES
+    from tpu_docker_api_torch.scheduler.topology import generation_for
+
+    gen = generation_for(dev)
+    if gen is None:
+        raise AssertionError(f"{torch.cuda.get_device_name(dev)}: no part "
+                             f"of scheduler/topology.py GENERATIONS")
+    PEAK_FLOPS[torch.bfloat16] = gen.peak_bf16_flops
+    PEAK_BYTES = gen.hbm_bytes_per_s
 
 
 def nvidia_smi() -> str:
@@ -4106,6 +4142,337 @@ def phase_encdec(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- devices
+
+DEVICES_DIR = "build/devices"
+#: the exec'd child's load: the GiB it holds, and seconds of back-to-back
+#: flash calls at the training shape (bf16; R, s, heads, kv heads, d)
+DEVICES_ALLOC_GIB = 4
+DEVICES_LOAD_S = 3.0
+DEVICES_FLASH = (4, 2048, 32, 8, 64)
+#: sidecar GETs timed for the p50
+DEVICES_GETS = 20
+NVML_HEADERS = ("/usr/local/cuda/targets/x86_64-linux/include/nvml.h",
+                "/usr/local/cuda/include/nvml.h")
+
+
+def nvml_header() -> str | None:
+    """The toolkit's nvml.h, where the card's machine has one."""
+    return next((p for p in NVML_HEADERS if os.path.exists(p)), None)
+
+
+def nvidia_smi_gpus() -> list[dict]:
+    """nvidia-smi's index, UUID, name, memory (MiB), power limit (W) and
+    driver version of each GPU: what the NVML reply is held against."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,name,memory.total,"
+         "power.limit,driver_version", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    rows = []
+    for line in out.strip().splitlines():
+        idx, uuid, name, mem, power, driver = [f.strip()
+                                               for f in line.split(",")]
+        rows.append({"index": int(idx), "uuid": uuid, "name": name,
+                     "memory_total_mib": float(mem),
+                     "power_limit_w": float(power),
+                     "driver_version": driver})
+    return rows
+
+
+#: the child a granted container runs: what CUDA shows it, then a held
+#: allocation and back-to-back flash calls (the ``csrc`` kernel) for the
+#: sidecar to see; one JSON line, last
+_DEVICES_CHILD = """
+import json, os, sys, time
+import torch
+from tpu_docker_api_torch.ops import flash
+
+gib, load_s, (R, s, h, hk, d) = json.loads(sys.argv[1])
+t_start = time.perf_counter()
+dev = torch.device("cuda")
+out = {"count": torch.cuda.device_count(), "pid": os.getpid(),
+       "uuid": str(torch.cuda.get_device_properties(0).uuid)}
+hold = torch.empty(int(gib * 2**30), dtype=torch.uint8, device=dev)
+g = torch.Generator(device=dev).manual_seed(0)
+q, k, v = (torch.randn(R, n, s, d, generator=g, device=dev)
+           .to(torch.bfloat16) for n in (h, hk, hk))
+flash.reset_launch_count()
+with torch.no_grad():
+    # the first call of a fresh process takes seconds: keep it out of
+    # the load window
+    t0 = time.perf_counter()
+    flash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < load_s:
+        for _ in range(20):
+            flash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+out.update(launches=flash.launch_count["flash_fwd"],
+           first_call_s=first_call_s, load_s=time.perf_counter() - t0,
+           seconds=time.perf_counter() - t_start)
+print(json.dumps(out))
+"""
+
+
+def _chip0(port: int) -> dict:
+    code, data = _call(port, "GET", "/api/v1/detect/gpu")
+    if code != 200:
+        raise AssertionError(f"sidecar answered {code}: {data}")
+    return data["data"]["chips"][0]
+
+
+def grant_and_exec(workdir, alloc_gib: float = DEVICES_ALLOC_GIB,
+                   load_s: float = DEVICES_LOAD_S,
+                   flash_shape=DEVICES_FLASH, port: int = 0) -> dict:
+    """One GPU through the control plane: the sidecar's reply (``port``,
+    else a sidecar started here on the real probe) seeds a
+    ``ChipScheduler`` on a ``SqliteKV`` under ``workdir``; one GPU is
+    granted, a second ask raises ChipNotEnough, a scheduler started anew
+    on the file restores the grant; ``render_gpu_attachment`` puts it on
+    a spec that ``FakeRuntime(allow_exec=True)`` runs a child under
+    while the sidecar is polled; then the grant is freed. Raises unless
+    the child saw exactly the granted GPU; returns the readings."""
+    from tpu_docker_api_torch import errors
+    from tpu_docker_api_torch.runtime import FakeRuntime
+    from tpu_docker_api_torch.runtime.spec import (ContainerSpec,
+                                                   render_gpu_attachment)
+    from tpu_docker_api_torch.scheduler.slices import ChipScheduler
+    from tpu_docker_api_torch.schemas.gpu import HostTopologyInfo
+    from tpu_docker_api_torch.state.kv import SqliteKV
+    from tpu_docker_api_torch.telemetry.probe import topology_from_info
+    from tpu_docker_api_torch.telemetry.sidecar import SidecarServer
+
+    srv = None
+    if not port:
+        srv = SidecarServer(host="127.0.0.1", port=0)
+        srv.start()
+        port = srv.port
+    workdir = str(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    db = os.path.join(workdir, "scheduler.db")
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(db + suffix):
+            os.remove(db + suffix)
+    try:
+        code, reply = _call(port, "GET", "/api/v1/detect/gpu")
+        if code != 200:
+            raise AssertionError(f"sidecar answered {code}: {reply}")
+        topo = topology_from_info(HostTopologyInfo.from_dict(reply["data"]))
+        kv = SqliteKV(db)
+        sched = ChipScheduler(topo, kv)
+        ids, contiguous = sched.apply_chips(1, owner="smoke-0")
+        uuids = sched.uuids_of(ids)
+        if ids != [0] or uuids != [reply["data"]["chips"][0]["uuid"]]:
+            raise AssertionError(f"granted {ids} {uuids}, not GPU 0")
+        try:
+            sched.apply_chips(1, owner="smoke-1")
+            raise AssertionError("a second GPU was granted on a one-GPU host")
+        except errors.ChipNotEnough:
+            pass
+        kv.close()
+        kv = SqliteKV(db)
+        sched = ChipScheduler(topo, kv)
+        if sched.owned_chips("smoke-0") != [0]:
+            raise AssertionError(f"the grant did not survive a restart: "
+                                 f"{sched.status()}")
+        spec = render_gpu_attachment(
+            ContainerSpec(name="smoke-0", image="local",
+                          env=[f"PYTHONPATH={os.getcwd()}"]),
+            ids, topo, contiguous)
+        idle = _chip0(port)
+        rt = FakeRuntime(root=os.path.join(workdir, "runtime"),
+                         allow_exec=True)
+        rt.container_create(spec)
+        rt.container_start("smoke-0")
+        result = {}
+
+        def run():
+            result["exec"] = rt.container_exec("smoke-0", [
+                sys.executable, "-c", _DEVICES_CHILD,
+                json.dumps([alloc_gib, load_s, list(flash_shape)])])
+
+        child = threading.Thread(target=run)
+        t0 = time.perf_counter()
+        child.start()
+        polls = []
+        while child.is_alive():
+            polls.append(_chip0(port))
+            time.sleep(0.1)
+        child.join()
+        exec_s = time.perf_counter() - t0
+        res = result["exec"]
+        if res.exit_code != 0:
+            raise AssertionError(f"the granted child failed "
+                                 f"({res.exit_code}): {res.output[-2000:]}")
+        seen = json.loads(res.output.strip().splitlines()[-1])
+        # torch prints the UUID without NVML's "GPU-" prefix
+        granted = uuids[0].lower().removeprefix("gpu-")
+        seen["uuid_matches"] = seen["uuid"].lower() == granted
+        if seen["count"] != 1 or not seen["uuid_matches"]:
+            raise AssertionError(f"the child saw {seen}, granted {uuids}")
+        rt.container_stop("smoke-0")
+        rt.container_remove("smoke-0")
+        rt.close()
+        sched.restore_chips(ids, owner="smoke-0")
+        freed = ChipScheduler(topo, kv).status()["freeChips"]
+        kv.close()
+        if freed != topo.n_chips:
+            raise AssertionError(f"restore_chips left {freed} of "
+                                 f"{topo.n_chips} free")
+        peak_used = max((p["hbm_used_bytes"] for p in polls), default=0)
+        return {"granted": ids, "uuids": uuids, "env": spec.env,
+                "idle": {k: idle[k] for k in ("hbm_used_bytes",
+                                              "duty_cycle_pct", "pid")},
+                "polls": len(polls),
+                "peak_hbm_used_bytes": peak_used,
+                "hbm_rise_bytes": peak_used - idle["hbm_used_bytes"],
+                "peak_duty_cycle_pct": max(
+                    (p["duty_cycle_pct"] for p in polls), default=0.0),
+                "polls_with_duty": sum(p["duty_cycle_pct"] > 0
+                                       for p in polls),
+                "pids_seen": sorted({p["pid"] for p in polls}),
+                "pid_visible": any(p["pid"] == seen["pid"] for p in polls),
+                "child": seen, "exec_s": exec_s}
+    finally:
+        if srv is not None:
+            srv.close()
+
+
+def _device_requests(uuid: str) -> dict:
+    """DockerRuntime against the fake Engine: the create body carries
+    exactly the reference's DeviceRequests for the grant, inspect reads
+    the UUID back, and a cardless spec carries none."""
+    import tempfile
+
+    from tpu_docker_api_torch.runtime.docker_http import DockerRuntime
+    from tpu_docker_api_torch.runtime.fake_engine import FakeEngine
+    from tpu_docker_api_torch.runtime.spec import ContainerSpec
+
+    sock_dir = tempfile.mkdtemp(prefix="chip-smoke-engine-")
+    eng = FakeEngine(os.path.join(sock_dir, "docker.sock"))
+    try:
+        rt = DockerRuntime(eng.docker_host)
+        rt.container_create(ContainerSpec(
+            name="g", image="jax:latest", chip_ids=[0], gpu_uuids=[uuid],
+            env=[f"CUDA_VISIBLE_DEVICES={uuid}"]))
+        body = eng.last()[3]
+        want = [{"Driver": "nvidia", "Count": 0, "DeviceIDs": [uuid],
+                 "Capabilities": [["gpu"]]}]
+        if body["HostConfig"].get("DeviceRequests") != want:
+            raise AssertionError(f"create body's DeviceRequests: "
+                                 f"{body['HostConfig']}")
+        back = rt.container_inspect("g").spec
+        if (back.gpu_uuids, back.chip_ids) != ([uuid], [0]):
+            raise AssertionError(f"inspect read back {back}")
+        rt.container_create(ContainerSpec(name="z", image="jax:latest"))
+        if "DeviceRequests" in eng.last()[3]["HostConfig"]:
+            raise AssertionError("a cardless create carried DeviceRequests")
+        rt.close()
+        return {"device_requests": want, "inspect_gpu_uuids": back.gpu_uuids}
+    finally:
+        eng.close()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+def phase_devices(dev) -> dict:
+    """The control plane's device seams on the card: the sidecar's NVML
+    reply against nvidia-smi, a grant through the scheduler and the
+    runtime to a child that sees only its GPU while NVML sees its load,
+    and the Docker runtime's DeviceRequests."""
+    from tpu_docker_api_torch.runtime.spec import (ContainerSpec,
+                                                   render_gpu_attachment)
+    from tpu_docker_api_torch.scheduler.topology import generation_for
+    from tpu_docker_api_torch.telemetry import nvml
+    from tpu_docker_api_torch.telemetry.probe import (probe_host_info,
+                                                      topology_from_info)
+    from tpu_docker_api_torch.telemetry.sidecar import SidecarServer
+
+    phase_t0 = time.perf_counter()
+    header = nvml_header()
+    if header:
+        with open(header) as f:
+            layout = nvml.header_layout_errors(f.read())
+        if layout:
+            raise AssertionError(f"nvml.h differs from the binding: {layout}")
+    t0 = time.perf_counter()
+    info = probe_host_info()
+    probe_first_ms = (time.perf_counter() - t0) * 1e3
+    probe_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        probe_host_info()
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    if info is None or not info.driver_version or not all(
+            c.uuid for c in info.chips):
+        raise AssertionError(f"NVML did not answer: {info}")
+    smi = nvidia_smi_gpus()
+    srv = SidecarServer(host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        get_ms = []
+        for _ in range(DEVICES_GETS):
+            t0 = time.perf_counter()
+            code, reply = _call(srv.port, "GET", "/api/v1/detect/gpu")
+            get_ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"sidecar answered {code}: {reply}")
+        data = reply["data"]
+        if _call(srv.port, "GET", "/api/v1/detect/tpu")[0] != 200:
+            raise AssertionError("the /api/v1/detect/tpu alias failed")
+        chips = data["chips"]
+        if len(chips) != 1 or len(smi) != 1 \
+                or torch.cuda.device_count() != 1:
+            raise AssertionError(f"want one GPU: reply {len(chips)}, "
+                                 f"nvidia-smi {len(smi)}, torch "
+                                 f"{torch.cuda.device_count()}")
+        chip, row = chips[0], smi[0]
+        checks = {
+            "index": chip["chip_id"] == row["index"],
+            "uuid": chip["uuid"] == row["uuid"],
+            "name": chip["name"] == row["name"],
+            "driver_version": data["driver_version"]
+            == row["driver_version"] != "",
+            "hbm_total_within_1_mib": abs(
+                chip["hbm_total_bytes"] / 2**20 - row["memory_total_mib"])
+            <= 1,
+            "power_limit_within_1_w": abs(
+                chip["power_limit_w"] - row["power_limit_w"]) <= 1,
+            "generation_h100": data["generation"] == "h100"
+            and generation_for(dev).name == "h100",
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"NVML reply {data} against nvidia-smi "
+                                 f"{row}: {checks}")
+        grant = grant_and_exec(DEVICES_DIR, port=srv.port)
+    finally:
+        srv.close()
+    if grant["hbm_rise_bytes"] < DEVICES_ALLOC_GIB * 2**30:
+        raise AssertionError(f"hbm_used rose {grant['hbm_rise_bytes']} "
+                             f"bytes under a {DEVICES_ALLOC_GIB} GiB load")
+    if grant["polls_with_duty"] == 0:
+        raise AssertionError(f"duty cycle 0 on all {grant['polls']} polls "
+                             f"under load")
+    cardless = render_gpu_attachment(ContainerSpec(name="z", image="i"), [],
+                                     topology_from_info(info))
+    if any(e.startswith("CUDA_VISIBLE_DEVICES=") for e in cardless.env) \
+            or cardless.gpu_uuids:
+        raise AssertionError(f"a zero-GPU spec carries a GPU: {cardless}")
+    requests = _device_requests(chip["uuid"])
+    shutil.rmtree(DEVICES_DIR, ignore_errors=True)
+    res = {"phase": "devices", "nvml_h": header, "reply": data,
+           "nvidia_smi_gpus": smi, "checks": checks,
+           "probe_first_ms": probe_first_ms,
+           "probe_ms_median": sorted(probe_ms)[len(probe_ms) // 2],
+           "sidecar_get_ms_p50": sorted(get_ms)[len(get_ms) // 2],
+           "sidecar_gets": len(get_ms), "grant": grant, **requests,
+           "flash_launches": grant["child"]["launches"],
+           "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4118,6 +4485,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    read_card_peaks(dev)
     card = nvidia_smi()
     emit({"phase": "env", "nvidia_smi": card, "python": sys.version,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4147,6 +4515,7 @@ def main() -> int:
                  if "(C75" in ln]
         if notes:
             raise AssertionError(f"{name}: ptxas serialized wgmma: {notes}")
+    devices_res = phase_devices(dev)
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -4165,7 +4534,8 @@ def main() -> int:
     lora_n, moe_n = lora_res["launches"], moe_res["launches"]
     vit_n, encdec_n = vit_res["launches"], encdec_res["launches"]
     by_path = {
-        "flash_fwd": {"serve": serve_res["flash_launches"],
+        "flash_fwd": {"devices": devices_res["flash_launches"],
+                      "serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
                       "serve_depth": depth_res["flash_launches"],
                       "speculative": spec_res["flash_launches"],

@@ -7,7 +7,8 @@ shared prefix and segments, speculative decoding (the batch-1 generator
 and the slot engine), the int8-serving benchmark, a train step (Llama
 and MoE), a QLoRA step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
-tokenizer written by ``chip_smoke.py`` run on the CPU."""
+tokenizer written by ``chip_smoke.py``, and a GPU grant from the
+scheduler through the fake runtime run on the CPU."""
 
 import os
 import subprocess
@@ -53,7 +54,23 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.infer.paged",
                    "tpu_docker_api_torch.infer.speculative",
                    "tpu_docker_api_torch.infer.servebench",
-                   "tpu_docker_api_torch.models.moe"):
+                   "tpu_docker_api_torch.models.moe",
+                   "tpu_docker_api_torch.errors",
+                   "tpu_docker_api_torch.telemetry.trace",
+                   "tpu_docker_api_torch.telemetry.nvml",
+                   "tpu_docker_api_torch.telemetry.probe",
+                   "tpu_docker_api_torch.telemetry.sidecar",
+                   "tpu_docker_api_torch.state.keys",
+                   "tpu_docker_api_torch.state.kv",
+                   "tpu_docker_api_torch.schemas.gpu",
+                   "tpu_docker_api_torch.scheduler.topology",
+                   "tpu_docker_api_torch.scheduler.slices",
+                   "tpu_docker_api_torch.scheduler.ports",
+                   "tpu_docker_api_torch.runtime.spec",
+                   "tpu_docker_api_torch.runtime.base",
+                   "tpu_docker_api_torch.runtime.fake",
+                   "tpu_docker_api_torch.runtime.docker_http",
+                   "tpu_docker_api_torch.runtime.fake_engine"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -138,6 +155,25 @@ _CHILD = textwrap.dedent("""
         tok = load_tokenizer(chip_smoke.write_llama3_shaped_tokenizer(
             d + "/tok/tokenizer.json", vocab_size=2000, n_special=4))
         assert tok.decode(tok.encode("héllo 東京")[1:]) == "héllo 東京"
+    from tpu_docker_api_torch.runtime import FakeRuntime, render_gpu_attachment
+    from tpu_docker_api_torch.runtime.spec import ContainerSpec
+    from tpu_docker_api_torch.scheduler import ChipScheduler, HostTopology
+    from tpu_docker_api_torch.state import SqliteKV
+    from tpu_docker_api_torch.telemetry.sidecar import fake_host_info
+    from tpu_docker_api_torch.telemetry.probe import topology_from_info
+    topo = topology_from_info(fake_host_info("h100-8"))
+    assert topo == HostTopology.build("h100-8")
+    with tempfile.TemporaryDirectory() as d:
+        sched = ChipScheduler(topo, SqliteKV(d + "/s.db"))
+        ids, _ = sched.apply_chips(2, owner="o")
+        spec = render_gpu_attachment(ContainerSpec(name="c", image="i"),
+                                     ids, topo)
+        rt = FakeRuntime(root=d + "/rt", allow_exec=True)
+        rt.container_create(spec)
+        rt.container_start("c")
+        out = rt.container_exec("c", ["sh", "-c",
+                                      "echo $CUDA_VISIBLE_DEVICES"]).output
+        assert out.strip() == ",".join(sched.uuids_of(ids))
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED", len(names))
 """)

@@ -20,6 +20,7 @@ from tpu_docker_api.infer import quantize as jquant
 from tpu_docker_api.infer import servebench as jbench
 from tpu_docker_api_torch.infer import quantize as tquant
 from tpu_docker_api_torch.infer import servebench as tbench
+from tpu_docker_api_torch.scheduler.topology import generation_for_name
 
 #: function → (tiny-preset arguments, fields equal to the JAX result's)
 CASES = {
@@ -132,7 +133,8 @@ def test_off_the_card_device_numbers_are_none():
     assert res["device_memory_gb"] is None
     assert res["dense_fits_with_weights"] is None
     assert tbench._hbm_bw("cpu") is None and tbench._card("cpu") == "cpu"
-    assert tbench.HBM_BW["NVIDIA H100 80GB HBM3"] == 3.35e12
+    assert generation_for_name("NVIDIA H100 80GB HBM3").hbm_bytes_per_s \
+        == 3.35e12
 
 
 def test_int8_serving_same_keys_and_fields_as_jax():

@@ -15,7 +15,8 @@ Metric definitions:
   from the difference of two whole-generation runs (new_tok tokens and
   1 token), which share one prefill.
 - ``pct_hbm_roof``: decode tok/s as a fraction of the weight-streaming
-  roof ``batch * HBM_BW / weight_bytes``: every decode step reads every
+  roof ``batch * HBM rate / weight_bytes`` (the rate of
+  ``scheduler/topology.py``'s part): every decode step reads every
   weight byte once (KV-cache reads push the real roof lower; reported
   apart as ``cache_gb_at_end``). It sits beside ``card``, the card's
   name and power limit: a card below its maximum power runs slower.
@@ -36,17 +37,15 @@ import time
 
 import torch
 
-#: HBM bandwidth in bytes/s by ``torch.cuda.get_device_name()``: the H100
-#: SXM's 3.35 TB/s (NVIDIA's data sheet). Used only for the roofline
-#: denominator; other devices report pct_hbm_roof=None.
-HBM_BW = {"NVIDIA H100 80GB HBM3": 3.35e12}
+from tpu_docker_api_torch.scheduler.topology import generation_for
 
 
 def _hbm_bw(device) -> float | None:
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return HBM_BW.get(torch.cuda.get_device_name(device))
+    """HBM bytes/s of the card ``scheduler/topology.py`` knows the device
+    as (the H100 SXM's 3.35 TB/s, NVIDIA's data sheet): the roofline
+    denominator only; other devices report pct_hbm_roof=None."""
+    gen = generation_for(device)
+    return gen.hbm_bytes_per_s if gen else None
 
 
 def _card(device) -> str:
