@@ -30,6 +30,25 @@ Phases, one JSON line each; any failure exits non-zero:
               no CUDA_VISIBLE_DEVICES; ``DockerRuntime`` against
               ``runtime/fake_engine.py`` sends the reference's nvidia
               ``DeviceRequests`` and reads the UUID back.
+2c. control_plane — the port's daemon through its entry point
+              (``phase_control_plane``): ``python -m tpu_docker_api_torch``
+              on the sqlite store and the fake runtime, the topology from
+              NVML. ``/resources/gpus`` lists nvidia-smi's one UUID; a
+              ``gpuCount: 1`` run makes ``g-0`` and a second is refused
+              (ChipNotEnough); an exec in ``g-0`` runs a child that sees
+              one GPU, the granted UUID, and holds flash_fwd at the
+              devices shape against its plain version; ``PATCH .../gpu``
+              to 0 frees the GPU (``g-1``'s child sees no device) and back
+              to 1 grants it again (``g-2``). Then 200 families (one
+              port each, replaced twice, 3 versions, the list paged) and
+              50 volumes with a 16 MiB seeded file, resized; SIGKILL
+              right after the second half's resizes are acknowledged,
+              a restart on the same file: every write reads back, the
+              journal replays every copy bit for bit, the grant and its
+              refusal hold; a teardown frees every port and the GPU.
+              Boot and restart-to-ready s, run/replace/delete p50 and p99,
+              a list page, the queue's drain times, the child's first
+              flash call.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -209,6 +228,7 @@ import math
 import os
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -4473,6 +4493,333 @@ def phase_devices(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------- control plane
+
+CONTROL_DIR = "build/control_plane"
+#: a host's worth of state: container families (gpuCount 0, one
+#: containerPort each, replaced twice by PATCH .../volume), volumes with a
+#: seeded file each, and the host port range they draw from
+CONTROL_FAMILIES = 200
+CONTROL_VOLUMES = 50
+CONTROL_VOLUME_BYTES = 16 << 20
+CONTROL_PORTS = (42000, 42999)
+CONTROL_PAGE = 50
+
+#: the child a container's exec runs: what CUDA shows it, and where a GPU
+#: is granted, the flash kernel at the devices phase's shape against its
+#: plain version; one JSON line
+_CONTROL_CHILD = """
+import json, os, sys, time
+import torch
+(R, s, h, hk, d), tol = json.loads(sys.argv[1])
+out = {"count": torch.cuda.device_count(),
+       "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+if out["count"]:
+    from tpu_docker_api_torch.ops import flash
+    dev = torch.device("cuda")
+    out["uuid"] = str(torch.cuda.get_device_properties(0).uuid)
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(R, s, n, d, generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for n in (h, hk, hk))
+    flash.reset_launch_count()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        o, _ = flash.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        out["first_call_s"] = time.perf_counter() - t0
+        out["launches"] = flash.launch_count["flash_fwd"]
+        ref, _ = flash.flash_attention_fwd_plain(q, k, v, True)
+    out["max_abs_err"] = (o.float() - ref.float()).abs().max().item()
+    out["tol"] = tol
+print(json.dumps(out))
+"""
+
+
+def _free_port() -> int:
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _Daemon:
+    """``python -m tpu_docker_api_torch -c cfg`` in a child process; the
+    seconds from spawn to its first 200 from /healthz."""
+
+    def __init__(self, cfg_path: str, port: int):
+        self.port = port
+        self.log = open(cfg_path + ".log", "ab")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_docker_api_torch", "-c", cfg_path,
+             "--host", "127.0.0.1"], stdout=self.log, stderr=self.log)
+        while True:
+            try:
+                if _call(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if self.proc.poll() is not None or time.perf_counter() - t0 > 120:
+                self.kill()
+                with open(cfg_path + ".log") as f:
+                    raise AssertionError(f"the daemon did not come up: "
+                                         f"{f.read()[-3000:]}")
+            time.sleep(0.02)
+        self.ready_s = time.perf_counter() - t0
+
+    def kill(self, sig=signal.SIGKILL) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def _api(port: int, method: str, path: str, body=None, want: int = 200,
+         times: list | None = None):
+    """One REST call; raises unless the reply's code is ``want``."""
+    t0 = time.perf_counter()
+    status, reply = _call(port, method, "/api/v1" + path, body)
+    if times is not None:
+        times.append((time.perf_counter() - t0) * 1e3)
+    if reply["code"] != want:
+        raise AssertionError(f"{method} {path} {body}: HTTP {status} "
+                             f"{reply}, want code {want}")
+    return reply["data"]
+
+
+def _pct(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _lat(xs: list) -> dict:
+    return {"n": len(xs), "p50_ms": _pct(xs, 0.5), "p99_ms": _pct(xs, 0.99)}
+
+
+def _drain_s(port: int) -> float:
+    """Seconds until the daemon's work-queue journal is empty: the
+    queue's own view, polled."""
+    t0 = time.perf_counter()
+    while _api(port, "GET", "/queue")["journal"]["entries"]:
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError("the work queue did not drain in 300 s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _gpu_exec(port: int, name: str) -> dict:
+    out = _api(port, "POST", f"/containers/{name}/execute", {"cmd": [
+        sys.executable, "-c", _CONTROL_CHILD,
+        json.dumps([list(DEVICES_FLASH), FLASH_TOL[torch.bfloat16][0]])]})
+    return json.loads(out["stdout"].strip().splitlines()[-1])
+
+
+def _volume_blob(i: int) -> bytes:
+    import numpy as np
+
+    return np.random.default_rng(1000 + i).bytes(CONTROL_VOLUME_BYTES)
+
+
+def phase_control_plane(dev) -> dict:
+    """The port's daemon through its entry point on the card
+    (``python -m tpu_docker_api_torch``, the sqlite store, the fake
+    runtime, the topology from NVML): the H100 granted by UUID through
+    the REST API to a container whose exec runs the flash kernel, taken
+    away by a rolling replacement and granted again; a host's worth of
+    families and volumes; a SIGKILL right after acknowledged resizes and
+    a restart on the same file; a teardown that frees everything."""
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(CONTROL_DIR, ignore_errors=True)
+    os.makedirs(CONTROL_DIR)
+    root = os.path.abspath(CONTROL_DIR)
+    port = _free_port()
+    cfg = os.path.join(root, "daemon.toml")
+    with open(cfg, "w") as f:
+        f.write(f'port = {port}\nstore_backend = "sqlite"\n'
+                f'sqlite_path = "{root}/state.db"\n'
+                f'runtime_backend = "fake"\n'
+                f'fake_runtime_root = "{root}/runtime"\n'
+                f"start_port = {CONTROL_PORTS[0]}\n"
+                f"end_port = {CONTROL_PORTS[1]}\n")
+    smi = nvidia_smi_gpus()
+    if len(smi) != 1:
+        raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
+    uuid = smi[0]["uuid"]
+    env = [f"PYTHONPATH={os.getcwd()}"]
+    lat = {"run": [], "replace": [], "delete": [], "history": [],
+           "list_page": [], "resize": []}
+    daemon = _Daemon(cfg, port)
+    boot_s = daemon.ready_s
+    try:
+        # -- the GPU through the API --------------------------------------
+        gpus = _api(port, "GET", "/resources/gpus")
+        if [(c["uuid"], c["used"]) for c in gpus["chips"]] != [(uuid, False)]:
+            raise AssertionError(f"the GPU view {gpus} is not nvidia-smi's "
+                                 f"one GPU {uuid}")
+        run = _api(port, "POST", "/containers", {
+            "imageName": "local", "containerName": "g", "gpuCount": 1,
+            "env": env}, times=lat["run"])
+        if run != {"name": "g-0", "chipIds": [0], "iciContiguous": True}:
+            raise AssertionError(f"run g: {run}")
+        _api(port, "POST", "/containers", {"imageName": "local",
+                                           "containerName": "h",
+                                           "gpuCount": 1}, want=10601)
+        child0 = _gpu_exec(port, "g-0")
+        granted = uuid.lower().removeprefix("gpu-")
+        if (child0["count"], child0.get("uuid", "").lower()) != (1, granted):
+            raise AssertionError(f"g-0's child saw {child0}, granted {uuid}")
+        if not child0["max_abs_err"] <= child0["tol"] \
+                or child0["launches"] < 1:
+            raise AssertionError(f"flash in g-0: {child0}")
+        if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 0},
+                times=lat["replace"])["name"] != "g-1":
+            raise AssertionError("PATCH gpuCount 0 did not make g-1")
+        _drain_s(port)
+        if _api(port, "GET", "/resources/gpus")["freeChips"] != 1:
+            raise AssertionError("g-1 still holds the GPU")
+        child1 = _gpu_exec(port, "g-1")
+        if child1["count"] != 0:
+            raise AssertionError(f"the GPU-less g-1 saw {child1}")
+        if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 1},
+                times=lat["replace"])["name"] != "g-2":
+            raise AssertionError("PATCH gpuCount 1 did not make g-2")
+        _drain_s(port)
+        child2 = _gpu_exec(port, "g-2")
+        if (child2["count"], child2.get("uuid", "").lower()) != (1, granted):
+            raise AssertionError(f"g-2's child saw {child2}, granted {uuid}")
+
+        # -- a host's state at real size -----------------------------------
+        binds = [{"src": f"{root}/data/a", "dest": "/d"},
+                 {"src": f"{root}/data/b", "dest": "/d"}]
+        for i in range(CONTROL_FAMILIES):
+            _api(port, "POST", "/containers", {
+                "imageName": "local", "containerName": f"f{i}",
+                "gpuCount": 0, "binds": [binds[0]],
+                "containerPorts": [{"containerPort": 8080}]},
+                times=lat["run"])
+        for step in range(2):
+            for i in range(CONTROL_FAMILIES):
+                _api(port, "PATCH", f"/containers/f{i}/volume", {
+                    "oldBind": binds[step % 2],
+                    "newBind": binds[(step + 1) % 2]}, times=lat["replace"])
+        replace_drain_s = _drain_s(port)
+        for i in range(CONTROL_FAMILIES):
+            hist = _api(port, "GET", f"/containers/f{i}/history",
+                        times=lat["history"])
+            if [v["name"] for v in hist["versions"]] != [
+                    f"f{i}-{v}" for v in range(3)]:
+                raise AssertionError(f"f{i} history: {hist}")
+        listed, token = [], ""
+        while True:
+            page = _api(port, "GET", f"/containers?limit={CONTROL_PAGE}"
+                        + (f"&continue={token}" if token else ""),
+                        times=lat["list_page"])
+            listed += [it["name"] for it in page["items"]]
+            token = page["continue"]
+            if not token:
+                break
+        if sorted(listed) != sorted(["g"] + [f"f{i}" for i in
+                                             range(CONTROL_FAMILIES)]):
+            raise AssertionError(f"the paged list has {len(listed)} "
+                                 f"families")
+        ports_before = _api(port, "GET", "/resources/ports")
+        if ports_before["usedCount"] != CONTROL_FAMILIES:
+            raise AssertionError(f"ports: {ports_before['usedCount']} used")
+        half = CONTROL_VOLUMES // 2
+        for i in range(CONTROL_VOLUMES):
+            _api(port, "POST", "/volumes", {"volumeName": f"vol{i}",
+                                            "size": "1GB"})
+            mount = _api(port, "GET", f"/volumes/vol{i}")["runtime"][
+                "mountpoint"]
+            with open(os.path.join(mount, "blob"), "wb") as f:
+                f.write(_volume_blob(i))
+        for i in range(half):
+            _api(port, "PATCH", f"/volumes/vol{i}-0/size", {"size": "2GB"},
+                 times=lat["resize"])
+        resize_drain_s = _drain_s(port)
+
+        # -- a crash right after a batch of acknowledged resizes ------------
+        for i in range(half, CONTROL_VOLUMES):
+            _api(port, "PATCH", f"/volumes/vol{i}-0/size", {"size": "2GB"},
+                 times=lat["resize"])
+        daemon.kill()
+        # what the dead daemon left in its journal: the work the restart
+        # must replay
+        from tpu_docker_api_torch.state import keys
+        from tpu_docker_api_torch.state.kv import SqliteKV
+
+        kv = SqliteKV(f"{root}/state.db")
+        pending_at_kill = len(kv.keys_prefix(keys.QUEUE_TASKS_PREFIX))
+        kv.close()
+        daemon = _Daemon(cfg, port)
+        restart_s = daemon.ready_s
+        queue = _api(port, "GET", "/queue")
+        dead = _api(port, "GET", "/dead-letters")
+        if queue["journal"]["entries"] or dead:
+            raise AssertionError(f"after the restart: {queue} {dead}")
+        for i in range(CONTROL_VOLUMES):
+            info = _api(port, "GET", f"/volumes/vol{i}")
+            if info["state"]["volume_name"] != f"vol{i}-1":
+                raise AssertionError(f"vol{i}: {info}")
+            with open(os.path.join(info["runtime"]["mountpoint"], "blob"),
+                      "rb") as f:
+                if f.read() != _volume_blob(i):
+                    raise AssertionError(f"vol{i}-1's data differs")
+        if _api(port, "GET", "/resources/ports") != ports_before:
+            raise AssertionError("the port grants changed across the crash")
+        for i in range(CONTROL_FAMILIES):
+            if len(_api(port, "GET", f"/containers/f{i}/history")[
+                    "versions"]) != 3:
+                raise AssertionError(f"f{i} lost a version")
+        gpus = _api(port, "GET", "/resources/gpus")
+        if [(c["uuid"], c["owner"]) for c in gpus["chips"]] != [(uuid, "g")]:
+            raise AssertionError(f"g-2's grant after the restart: {gpus}")
+        spec = _api(port, "GET", "/containers/g")["state"]["spec"]
+        if (spec["name"], spec["gpu_uuids"]) != ("g-2", [uuid]):
+            raise AssertionError(f"g's spec after the restart: {spec}")
+        _api(port, "POST", "/containers", {"imageName": "local",
+                                           "containerName": "h",
+                                           "gpuCount": 1}, want=10601)
+
+        # -- teardown --------------------------------------------------------
+        purge = {"force": True, "delEtcdInfoAndVersionRecord": True}
+        for name in ["g"] + [f"f{i}" for i in range(CONTROL_FAMILIES)]:
+            _api(port, "DELETE", f"/containers/{name}", purge,
+                 times=lat["delete"])
+        for i in range(CONTROL_VOLUMES):
+            _api(port, "DELETE", f"/volumes/vol{i}", purge,
+                 times=lat["delete"])
+        teardown_drain_s = _drain_s(port)
+        left = {"ports": _api(port, "GET", "/resources/ports")["usedCount"],
+                "gpus_free": _api(port, "GET", "/resources/gpus")[
+                    "freeChips"],
+                "containers": _api(port, "GET", "/containers")["items"],
+                "volumes": _api(port, "GET", "/volumes")["items"]}
+        if left != {"ports": 0, "gpus_free": 1, "containers": [],
+                    "volumes": []}:
+            raise AssertionError(f"after the teardown: {left}")
+    finally:
+        daemon.kill(signal.SIGTERM)
+    shutil.rmtree(CONTROL_DIR, ignore_errors=True)
+    res = {"phase": "control_plane", "boot_s": boot_s,
+           "restart_to_ready_s": restart_s,
+           "journal_records_at_kill": pending_at_kill,
+           "run": _lat(lat["run"]), "replace": _lat(lat["replace"]),
+           "delete": _lat(lat["delete"]), "history": _lat(lat["history"]),
+           "resize": _lat(lat["resize"]),
+           "list_page": {**_lat(lat["list_page"]), "limit": CONTROL_PAGE},
+           "queue_drain_s": {"replaces": replace_drain_s,
+                             "resizes": resize_drain_s,
+                             "teardown": teardown_drain_s},
+           "families": CONTROL_FAMILIES, "volumes": CONTROL_VOLUMES,
+           "volume_bytes": CONTROL_VOLUME_BYTES,
+           "children": {"g-0": child0, "g-1": child1, "g-2": child2},
+           "child_first_call_s": child0["first_call_s"],
+           "flash_launches": child0["launches"] + child2["launches"],
+           "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
+    emit(res)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4516,6 +4863,7 @@ def main() -> int:
         if notes:
             raise AssertionError(f"{name}: ptxas serialized wgmma: {notes}")
     devices_res = phase_devices(dev)
+    control_res = phase_control_plane(dev)
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -4535,6 +4883,7 @@ def main() -> int:
     vit_n, encdec_n = vit_res["launches"], encdec_res["launches"]
     by_path = {
         "flash_fwd": {"devices": devices_res["flash_launches"],
+                      "control_plane": control_res["flash_launches"],
                       "serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
                       "serve_depth": depth_res["flash_launches"],

@@ -1,14 +1,15 @@
 """The port stands alone: with ``jax``, ``tpu_docker_api`` and the
 packages the port's GPU hosts need not have (``safetensors``,
-``transformers``, ``orbax``, ``tokenizers``, ``regex``) blocked on
+``transformers``, ``orbax``, ``tokenizers``, ``regex``, ``requests``) blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
 ``chip_smoke.py`` import, and a tiny forward, a paged engine with a
 shared prefix and segments, speculative decoding (the batch-1 generator
 and the slot engine), the int8-serving benchmark, a train step (Llama
 and MoE), a QLoRA step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
-tokenizer written by ``chip_smoke.py``, and a GPU grant from the
-scheduler through the fake runtime run on the CPU."""
+tokenizer written by ``chip_smoke.py``, a GPU grant from the
+scheduler through the fake runtime, and the control-plane daemon booted
+with a container run through one REST call, on the CPU."""
 
 import os
 import subprocess
@@ -21,7 +22,7 @@ _CHILD = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
 
     BLOCKED = ("jax", "jaxlib", "tpu_docker_api", "safetensors",
-               "transformers", "orbax", "tokenizers", "regex")
+               "transformers", "orbax", "tokenizers", "regex", "requests")
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -70,7 +71,28 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.runtime.base",
                    "tpu_docker_api_torch.runtime.fake",
                    "tpu_docker_api_torch.runtime.docker_http",
-                   "tpu_docker_api_torch.runtime.fake_engine"):
+                   "tpu_docker_api_torch.runtime.fake_engine",
+                   "tpu_docker_api_torch.utils.backoff",
+                   "tpu_docker_api_torch.utils.files",
+                   "tpu_docker_api_torch.service.crashpoints",
+                   "tpu_docker_api_torch.service.container",
+                   "tpu_docker_api_torch.service.volume",
+                   "tpu_docker_api_torch.service.watch",
+                   "tpu_docker_api_torch.state.txn",
+                   "tpu_docker_api_torch.state.version",
+                   "tpu_docker_api_torch.state.store",
+                   "tpu_docker_api_torch.state.pager",
+                   "tpu_docker_api_torch.state.workqueue",
+                   "tpu_docker_api_torch.schemas.state",
+                   "tpu_docker_api_torch.schemas.container",
+                   "tpu_docker_api_torch.schemas.volume",
+                   "tpu_docker_api_torch.api.app",
+                   "tpu_docker_api_torch.api.codes",
+                   "tpu_docker_api_torch.api.response",
+                   "tpu_docker_api_torch.buildinfo",
+                   "tpu_docker_api_torch.config",
+                   "tpu_docker_api_torch.daemon",
+                   "tpu_docker_api_torch.__main__"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")
 
@@ -174,6 +196,24 @@ _CHILD = textwrap.dedent("""
         out = rt.container_exec("c", ["sh", "-c",
                                       "echo $CUDA_VISIBLE_DEVICES"]).output
         assert out.strip() == ",".join(sched.uuids_of(ids))
+    import http.client, json
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+    prg = Program(cp_config.Config(port=0, runtime_backend="fake",
+                                   health_watch_interval=0),
+                  host="127.0.0.1")
+    prg.init()
+    prg.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", prg.api_server.port,
+                                          timeout=30)
+        conn.request("POST", "/api/v1/containers", body=json.dumps(
+            {"imageName": "i", "containerName": "c", "gpuCount": 1}))
+        reply = json.loads(conn.getresponse().read())
+        conn.close()
+        assert reply["code"] == 200 and reply["data"]["name"] == "c-0", reply
+    finally:
+        prg.stop()
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED", len(names))
 """)

@@ -534,3 +534,50 @@ def test_port_errors_are_the_port_classes(rt):
     assert not isinstance(exc.value, jerrors.ApiError)
     assert isinstance(make_spec(), ContainerSpec)
     assert PortBinding(1, 2).protocol == "tcp"
+
+
+def test_unix_connect_waits_for_a_full_accept_backlog(tmp_path):
+    """A unix socket whose accept backlog is full answers a timed
+    ``connect`` with EAGAIN at once, where TCP would wait: the
+    connection waits for a slot within its timeout instead of raising
+    BlockingIOError (the stale-socket storm's intermittent failure)."""
+    from tpu_docker_api_torch.runtime.docker_http import _UnixHTTPConnection
+
+    path = str(tmp_path / "busy.sock")
+    srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    srv.bind(path)
+    srv.listen(0)
+    held = []
+    for _ in range(8):  # fill the backlog: the kernel queues a few
+        c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        c.setblocking(False)
+        try:
+            c.connect(path)
+        except BlockingIOError:
+            c.close()
+            break
+        held.append(c)
+    conn = _UnixHTTPConnection(path, timeout=5.0)
+    errs: list[Exception] = []
+
+    def dial():
+        try:
+            conn.connect()
+        except Exception as e:  # noqa: BLE001 — collected for the assert
+            errs.append(e)
+
+    t = threading.Thread(target=dial)
+    t.start()
+    t.join(0.3)  # with the backlog full, the dialer must still be waiting
+    assert errs == [] and t.is_alive()
+    accepted = []
+    while t.is_alive():  # drain the queue: a slot opens for the dialer
+        srv.settimeout(0.05)
+        try:
+            accepted.append(srv.accept()[0])
+        except socket.timeout:
+            pass
+    t.join()
+    assert errs == [] and conn.sock is not None
+    for s in held + accepted + [conn.sock, srv]:
+        s.close()

@@ -198,6 +198,9 @@ def test_chip_scheduler_scripts_match_jax(n_chips, seed):
     script = _chip_script(seed, n_chips)
     want = _run_chips(jslices, jtop, jkv.MemoryKV(), script)
     got = _run_chips(tslices, ttop, tkv.MemoryKV(), script)
+    # the port's view adds each GPU's UUID (JAX's has no such key)
+    assert [c.pop("uuid") for c in got[-1]["chips"]] == [
+        ttop.uuids[c] for c in sorted(ttop.coords)]
     assert got == want
     outcomes = {r[0] if isinstance(r[0], str) else type(r[0]).__name__
                 for r in want[:-1]}
@@ -231,6 +234,9 @@ def test_grant_restores_after_restart_from_sqlite(tmp_path):
             again.apply_chips(4)
         assert type(exc.value).__name__ == "ChipNotEnough"
         kv.close()
+    # the port's view adds each GPU's UUID (JAX's has no such key)
+    assert [c.pop("uuid") for c in outcomes[1][1]["chips"]] == [
+        ttopo.fake_uuid(i) for i in range(8)]
     assert outcomes[0] == outcomes[1]
     assert outcomes[1][0] == [([0, 1, 2], True), ([3, 4], True)]
     assert "ghost" not in outcomes[1][3]

@@ -47,7 +47,19 @@ class _UnixHTTPConnection(http.client.HTTPConnection):
     def connect(self) -> None:
         sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         sock.settimeout(self.timeout)
-        sock.connect(self._socket_path)
+        # a unix socket whose accept backlog is full answers a timed
+        # connect with EAGAIN at once, where TCP would wait: wait for a
+        # slot within the timeout, as a TCP connect does
+        deadline = time.monotonic() + (self.timeout or 0.0)
+        while True:
+            try:
+                sock.connect(self._socket_path)
+                break
+            except BlockingIOError:
+                if time.monotonic() >= deadline:
+                    sock.close()
+                    raise
+                time.sleep(0.001)
         self.sock = sock
 
 

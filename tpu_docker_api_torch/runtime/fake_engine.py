@@ -82,6 +82,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _Server(socketserver.ThreadingUnixStreamServer):
     daemon_threads = True
+    #: dockerd's listener queues up to the kernel's somaxconn; the
+    #: socketserver default of 5 would refuse a burst of 8 dials
+    request_queue_size = 128
 
     def __init__(self, path: str, engine: "FakeEngine"):
         super().__init__(path, _Handler)

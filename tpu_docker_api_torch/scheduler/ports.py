@@ -8,9 +8,7 @@ only Close, scheduler.go:80-82) and return snapshots, not the live set
 always-from-start scan so freshly released ports aren't immediately reused
 (kinder to TIME_WAIT).
 
-The port's copy of ``tpu_docker_api/scheduler/ports.py``, without the
-``txn`` argument (a deferred write into a ``StoreTxn``), which comes with
-``state/txn.py``.
+The port's copy of ``tpu_docker_api/scheduler/ports.py``.
 """
 
 from __future__ import annotations
@@ -72,7 +70,16 @@ class PortScheduler:
         return json.dumps({"used": {str(p): o for p, o in sorted(self._used.items())},
                            "cursor": self._cursor})
 
-    def _persist_locked(self) -> None:
+    def _persist_locked(self, txn=None) -> None:
+        """Immediate write, or deferred into a StoreTxn (the claim /
+        bulk-release batches; ops_fn re-snapshots under this lock at commit
+        time — see state/txn.py)."""
+        if txn is not None:
+            from tpu_docker_api_torch.state.txn import RANK_HOST
+
+            txn.enlist(RANK_HOST, self._key, self._mu,
+                       lambda: [("put", self._key, self._serialized_locked())])
+            return
         self._kv.put(self._key, self._serialized_locked())
 
     @property
@@ -81,7 +88,7 @@ class PortScheduler:
             return (self.end_port - self.start_port + 1) - len(self._used)
 
     @trace.traced("sched.ports.claim")
-    def apply_ports(self, n: int, owner: str = "") -> list[int]:
+    def apply_ports(self, n: int, owner: str = "", txn=None) -> list[int]:
         """Allocate ``n`` distinct host ports (reference ApplyPorts,
         scheduler.go:85-111)."""
         if n <= 0:
@@ -100,18 +107,19 @@ class PortScheduler:
                         break
                 p = p + 1 if p < self.end_port else self.start_port
             self._cursor = out[-1] + 1 if out[-1] < self.end_port else self.start_port
-            self._persist_locked()
+            self._persist_locked(txn)
             return out
 
-    def try_claim_ports(self, ports: list[int], owner: str) -> list[int]:
+    def try_claim_ports(self, ports: list[int], owner: str,
+                        txn=None) -> list[int]:
         """Claim SPECIFIC ports for ``owner`` (reconciler adoption/re-claim,
         mirroring ChipScheduler.try_claim_chips). All-or-nothing: returns
         conflicts and claims nothing unless empty."""
-        return self.try_claim_ports_bulk([(owner, ports)])
+        return self.try_claim_ports_bulk([(owner, ports)], txn=txn)
 
     @trace.traced("sched.ports.claim_bulk")
-    def try_claim_ports_bulk(self, claims: list[tuple[str, list[int]]]
-                             ) -> list[int]:
+    def try_claim_ports_bulk(self, claims: list[tuple[str, list[int]]],
+                             txn=None) -> list[int]:
         """Multi-member variant (mirrors try_claim_chips_bulk): every
         ``(owner, ports)`` pair claimed all-or-nothing across the batch in
         one lock hold + one persist. Returns conflicts (empty = claimed);
@@ -129,11 +137,11 @@ class PortScheduler:
             for owner, ports in claims:
                 for p in ports:
                     self._used[p] = owner
-            self._persist_locked()
+            self._persist_locked(txn)
             return []
 
-    def restore_ports(self, ports: list[int], owner: str | None = None
-                      ) -> None:
+    def restore_ports(self, ports: list[int], owner: str | None = None,
+                      txn=None) -> None:
         """Return ports to the pool (reference RestorePorts, scheduler.go:114-125).
         With ``owner`` set, only ports still held by that owner are freed
         (double-free guard, mirroring ChipScheduler.restore_chips)."""
@@ -147,7 +155,7 @@ class PortScheduler:
             # touch the store: the ledger write is what makes the flow a
             # cross-shard batch under the sharded writer plane
             if freed:
-                self._persist_locked()
+                self._persist_locked(txn)
 
     def status(self) -> dict:
         """Snapshot for GET /resources/ports (reference GetPortStatus +

@@ -19,9 +19,7 @@ Differences from the reference, all deliberate (SURVEY.md §2.3, §7 step 3):
 
 Grants are NVML indices, persisted under ``SCHEDULER_CHIPS_KEY`` as JAX
 persists chip ids; ``uuids_of`` maps them to the UUIDs the runtime renders
-(the reference's ``ApplyGpus`` hands out UUIDs directly). The JAX methods'
-``txn`` argument (a deferred write into a ``StoreTxn``) comes with
-``state/txn.py``.
+(the reference's ``ApplyGpus`` hands out UUIDs directly).
 """
 
 from __future__ import annotations
@@ -109,8 +107,17 @@ class ChipScheduler:
     def _serialized_locked(self) -> str:
         return json.dumps({str(k): v for k, v in sorted(self._used.items())})
 
-    def _persist_locked(self) -> None:
-        """Write the ownership snapshot."""
+    def _persist_locked(self, txn=None) -> None:
+        """Write the ownership snapshot — immediately, or deferred into a
+        :class:`~tpu_docker_api_torch.state.txn.StoreTxn` when the caller
+        batches this claim with the rest of a flow's writes (ops_fn
+        re-snapshots at commit time, under this lock)."""
+        if txn is not None:
+            from tpu_docker_api_torch.state.txn import RANK_HOST
+
+            txn.enlist(RANK_HOST, self._key, self._mu,
+                       lambda: [("put", self._key, self._serialized_locked())])
+            return
         self._kv.put(self._key, self._serialized_locked())
 
     # -- queries -----------------------------------------------------------------
@@ -133,8 +140,10 @@ class ChipScheduler:
         return self.topology.uuids_for(chip_ids)
 
     def status(self) -> dict:
-        """Resource view for GET /resources/tpus (reference GetGpusStatus,
-        scheduler.go:107-112 — but a snapshot, not the live map)."""
+        """Resource view for GET /resources/gpus (reference GetGpusStatus,
+        scheduler.go:107-112 — but a snapshot, not the live map). Each GPU
+        the topology has a UUID for also carries it (``uuid``, the
+        reference's key); JAX's view has no such key."""
         with self._mu:
             used = dict(self._used)
         chips = []
@@ -145,6 +154,8 @@ class ChipScheduler:
                 "used": cid in used,
                 "owner": used.get(cid, ""),
             })
+            if cid in self.topology.uuids:
+                chips[-1]["uuid"] = self.topology.uuids[cid]
         return {
             "generation": self.topology.generation.name,
             "meshShape": list(self.topology.mesh_shape),
@@ -158,7 +169,7 @@ class ChipScheduler:
 
     @trace.traced("sched.chips.claim")
     def apply_chips(
-        self, n: int, shape: str = "", owner: str = ""
+        self, n: int, shape: str = "", owner: str = "", txn=None
     ) -> tuple[list[int], bool]:
         """Allocate ``n`` chips (or an explicit ``shape`` like "2x2").
 
@@ -181,7 +192,7 @@ class ChipScheduler:
                         f"no free contiguous {shape} block "
                         f"(free={len(free)}/{self.topology.n_chips})"
                     )
-                self._claim_locked(block, owner)
+                self._claim_locked(block, owner, txn)
                 return block, True
             if n > len(free):
                 raise errors.ChipNotEnough(
@@ -191,26 +202,27 @@ class ChipScheduler:
             for cand in candidate_shapes(n, self.topology.mesh_shape):
                 block = self._find_block_locked(cand, free)
                 if block is not None:
-                    self._claim_locked(block, owner)
+                    self._claim_locked(block, owner, txn)
                     return block, True
             # scattered fallback (parity: the reference never guarantees
             # adjacency at all) — deterministic lowest-id-first
             picked = sorted(free)[:n]
-            self._claim_locked(picked, owner)
+            self._claim_locked(picked, owner, txn)
             return picked, False
 
-    def try_claim_chips(self, chip_ids: list[int], owner: str) -> list[int]:
+    def try_claim_chips(self, chip_ids: list[int], owner: str,
+                        txn=None) -> list[int]:
         """Claim SPECIFIC chips for ``owner`` — the reconciler's adoption
         path (re-own a container found in the runtime but absent from the
         allocation map). All-or-nothing: returns the conflicting chip ids
         (held by a different owner or outside the topology) and claims
         nothing unless the list is empty. Chips already owned by ``owner``
         are fine (idempotent re-adoption)."""
-        return self.try_claim_chips_bulk([(owner, chip_ids)])
+        return self.try_claim_chips_bulk([(owner, chip_ids)], txn=txn)
 
     @trace.traced("sched.chips.claim_bulk")
-    def try_claim_chips_bulk(self, claims: list[tuple[str, list[int]]]
-                             ) -> list[int]:
+    def try_claim_chips_bulk(self, claims: list[tuple[str, list[int]]],
+                             txn=None) -> list[int]:
         """Multi-member variant: claim every ``(owner, chip_ids)`` pair
         all-or-nothing ACROSS the whole batch, in one lock hold and one
         persist — a gang's members re-claim (reconciler adoption, unwind
@@ -232,11 +244,11 @@ class ChipScheduler:
             for owner, chip_ids in claims:
                 for c in chip_ids:
                     self._used[c] = owner
-            self._persist_locked()
+            self._persist_locked(txn)
             return []
 
-    def restore_chips(self, chip_ids: list[int], owner: str | None = None
-                      ) -> None:
+    def restore_chips(self, chip_ids: list[int], owner: str | None = None,
+                      txn=None) -> None:
         """Return chips to the pool (reference RestoreGpus, scheduler.go:93-104).
 
         With ``owner`` set, only chips still held by that owner are freed —
@@ -253,12 +265,13 @@ class ChipScheduler:
             # touch the store: the ledger write is what makes the flow a
             # cross-shard batch under the sharded writer plane
             if freed:
-                self._persist_locked()
+                self._persist_locked(txn)
 
-    def _claim_locked(self, chip_ids: list[int], owner: str) -> None:
+    def _claim_locked(self, chip_ids: list[int], owner: str,
+                      txn=None) -> None:
         for cid in chip_ids:
             self._used[cid] = owner
-        self._persist_locked()
+        self._persist_locked(txn)
 
     # -- block search ------------------------------------------------------------
 

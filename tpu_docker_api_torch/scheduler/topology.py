@@ -19,8 +19,6 @@ from __future__ import annotations
 import dataclasses
 import itertools
 
-import torch
-
 from tpu_docker_api_torch import errors
 
 
@@ -66,6 +64,8 @@ def generation_for(device) -> "Generation | None":
     ``torch.cuda.get_device_name``), or None off the card or for an
     unknown part — THE device probe (servebench and chip_smoke read the
     card's peaks off the result)."""
+    import torch  # here: the control-plane daemon imports this module
+
     device = torch.device(device)
     if device.type != "cuda":
         return None

@@ -8,8 +8,7 @@ Parity: reference ``internal/etcd/{client,common}.go`` — a clientv3 wrapper wi
 
 The port's copy of ``tpu_docker_api/state/kv.py`` without ``EtcdKV`` and
 ``CountingKV`` (they come with the rest of the control plane, ROADMAP Queue
-1 item 10; ``open_store("etcd")`` refuses by name) and without the chaos
-harness's crash points around ``apply``, which come with ``service/``.
+1 item 10; ``open_store("etcd")`` refuses by name).
 
 Both backends add ``range_prefix``/``delete_prefix``, which the reference lacks
 and which per-version key layout (state/keys.py) needs, and ``apply`` — an
@@ -185,7 +184,10 @@ class KV(abc.ABC):
 
     def apply(self, ops: list[tuple], guards: list[tuple] | None = None) -> None:
         """Atomically apply a batch of ``("put", k, v)`` / ``("delete", k)``
-        / ``("delete_prefix", p)`` ops — all land or none do.
+        / ``("delete_prefix", p)`` ops — all land or none do. The two
+        ``txn.*`` crash points bracket the commit so the chaos suite can
+        prove both halves of the contract: a crash BEFORE the txn leaves
+        nothing applied, a crash AFTER leaves everything applied.
 
         ``guards`` are compare preconditions — ``("value", key, expected)``
         where ``expected`` is the exact current value (str) or None for
@@ -202,8 +204,14 @@ class KV(abc.ABC):
             want = _APPLY_OPS.get(op[0])
             if want is None or len(op) != want:
                 raise ValueError(f"malformed apply op {op!r}")
+        from tpu_docker_api_torch.service.crashpoints import crash_point
+
+        # the crash points sit INSIDE the span, so a simulated kill at
+        # either txn boundary closes it as status="lost"
         with trace.child("kv.apply", ops=len(ops), guards=len(guards)):
+            crash_point("txn.before_apply")
             self._apply(ops, guards)
+            crash_point("txn.after_apply")
 
     def cas(self, key: str, expected: str | None, new: str) -> None:
         """Compare-and-swap convenience: write ``new`` iff the key's current

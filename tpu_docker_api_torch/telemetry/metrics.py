@@ -1,8 +1,8 @@
 """In-process metrics registry with Prometheus text exposition — the
 port's own copy of the subset of ``tpu_docker_api/telemetry/metrics.py``
-that serving uses: histograms (``observe``), counters (``counter_inc``,
-pull-time ``counter_fn``), pull-time gauges (``gauge_fn``) and
-``render``. Stdlib only.
+that serving and the control plane use: histograms (``observe``),
+counters (``counter_inc``, pull-time ``counter_fn``), pull-time gauges
+(``gauge_fn``), ``render`` and the process-wide ``REGISTRY``. Stdlib only.
 """
 
 from __future__ import annotations
@@ -133,3 +133,8 @@ class MetricsRegistry:
                                    f"{total:g}")
                         out.append(f"{name}_count{_fmt_labels(labels)} {n}")
         return "\n".join(out) + "\n"
+
+
+#: process-wide default registry (the work queue and the health watcher
+#: when no registry is handed in)
+REGISTRY = MetricsRegistry()
