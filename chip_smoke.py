@@ -209,6 +209,37 @@ Phases, one JSON line each; any failure exits non-zero:
               ``encdec_generate``, flash once an encoder layer);
               ``bench_encdec_slot_serving`` at the JAX defaults, ``ok``.
 
+- parallel: the mesh path (parallel/, one process a device) at world
+              size 1 over NCCL, full width: llama3-1b trained 3 steps of
+              4 x 2048 under adamw-int8 twice from one seed, on a
+              ``--dp 1 --fsdp 1 --tp 1`` mesh (DTensor leaves) and on
+              the single-device path: the sharded init bit-equal, the
+              losses within 1e-3 relative, step 1's gradients within
+              2e-2 (relative L2 per leaf), the launches of the four
+              kernels in a step equal; step ms and peak memory of both.
+              Then ``attention_impl`` forced to ring, ring-zigzag and
+              ulysses at sp 1: logits within 2e-2 of the flash path,
+              ulysses through flash_fwd; one moe:bench-moe step on an
+              ``--ep 1`` mesh with ``sort`` against the single-device
+              sort step (1e-3 relative); ``serve --tp 1`` (the slot
+              engine mirrored over the mesh) against the one-device
+              server on a 1,900-token greedy request of 32 tokens:
+              tokens equal, TTFT and ITL p50 of both (the engine's,
+              over 3 requests one after another); the mesh state's
+              checkpoint restored on the single-device path bit-equal.
+              Multi-rank speed is not measured on one card.
+- mesh:       only where more than one card is visible, or alone with
+              ``python3 chip_smoke.py --mesh`` (``phase_mesh``): one rank
+              a card (``python -m chip_smoke --mesh-rank``, NCCL)
+              trains llama3-1b at a global 8 x 2048 on dp, fsdp, tp,
+              fsdp x tp, tp x sp and sp (zigzag ring, Ulysses),
+              bench-moe at ep, vit-b16 (128) and encdec-base (32 x 512)
+              at tp, 3 steps each, against the same runs on one card
+              (losses within 1e-3 relative); ``serve --tp N`` against
+              one card's stream, ``serve --dp N --slots 0`` on N rows
+              (one a rank, each equal to one card's row). Step ms,
+              peaks, launches a step, TTFT and ITL of each.
+
 Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -589,8 +620,20 @@ def phase_flash_bwd(dev) -> dict:
             row[name] = {**kt, "bound_ms": bounds[name][0],
                          "bound_by": bounds[name][1],
                          "roofline_share": bounds[name][0] / kt["ms"]}
+        # SDPA's backward at this shape, as above: forward + backward
+        # less forward (yardstick only)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def fam_fwd_bwd():
+            o = sdpa(qr, kr, vr)
+            torch.autograd.grad(o, (qr, kr, vr), do)
+
+        with torch.no_grad():
+            fam_fwd = cuda_ms(lambda: sdpa(q, k, v), 20)
+        row["library_ms"] = cuda_ms(fam_fwd_bwd, 20) - fam_fwd
+        row["sdpa_fwd_ms"] = fam_fwd
         family[f"noncausal_R{fR}_s{fs}"] = row
-        del q, k, v, do, out, lse, delta
+        del q, k, v, do, out, lse, delta, qr, kr, vr
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_bwd", "cases": cases,
           "timing": {"R": R, "s": s, **result,
@@ -2071,7 +2114,8 @@ def _qlora_big(dev, preset: str, seq: int, steps: int) -> dict:
     real = lora.make_lora_train_step
     seen: dict = {"step_ms": []}
 
-    def wrapped(cfg, optimizer, base, alpha=16.0, forward="merged"):
+    def wrapped(cfg, optimizer, base, alpha=16.0, forward="merged",
+                mesh=None):
         seen["base"], seen["before"] = base, _host_copy(base)
         if dev.type == "cuda":
             # the load (random bf16 base, then int8) peaks apart from the
@@ -2080,7 +2124,7 @@ def _qlora_big(dev, preset: str, seq: int, steps: int) -> dict:
                 "load_peak": torch.cuda.max_memory_allocated(dev),
                 "allocated_before_steps": torch.cuda.memory_allocated(dev)}
             torch.cuda.reset_peak_memory_stats(dev)
-        step = real(cfg, optimizer, base, alpha, forward)
+        step = real(cfg, optimizer, base, alpha, forward, mesh=mesh)
 
         def timed(state, tokens):
             _sync(dev)
@@ -4820,7 +4864,560 @@ def phase_control_plane(dev) -> dict:
     return res
 
 
+PAR_DIR = "build/parallel"
+PAR_PRESET = "llama3-1b"
+PAR_STEPS = 3
+PAR_MOE_PRESET = "moe:bench-moe"
+PAR_MOE_BATCH, PAR_MOE_SEQ = 2, 2048
+PAR_SERVE_PROMPT, PAR_SERVE_NEW, PAR_SERVE_REPS = 1900, 32, 3
+PAR_SP_SEQ = 2048
+PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_LOGIT_TOL = 1e-3, 2e-2, 2e-2
+
+
+def _par_run(dev, cfg, mesh, tokens, optim_name: str) -> dict:
+    """PAR_STEPS steps of ``cfg`` from seed 0 on ``mesh`` (None: the
+    single-device path), counts zeroed just before and read just after;
+    the state comes back too. ``peak_above_entry`` is the peak less what
+    was allocated when the call began (another run's live state), so
+    two runs' peaks compare."""
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step)
+
+    entry = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    opt = optim.adamw_int8() if optim_name == "adamw-int8" else None
+    state, opt = create_train_state(
+        cfg, dev, torch.Generator(device=dev).manual_seed(0),
+        optimizer=opt, mesh=mesh)
+    step_fn = make_train_step(cfg, opt, mesh=mesh)
+    _par_sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, per_step = [], [], []
+    flash.reset_launch_count()
+    optim.reset_launch_count()
+    for _ in range(PAR_STEPS):
+        before = {**flash.launch_count, **optim.launch_count}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        _par_sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+        after = {**flash.launch_count, **optim.launch_count}
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = {**flash.launch_count, **optim.launch_count}
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "launches_per_step": per_step,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None),
+            "peak_above_entry": (torch.cuda.max_memory_allocated(dev) - entry
+                                 if dev.type == "cuda" else None),
+            "state": state, "optimizer": opt}
+
+
+def _par_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_empty_cache(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _par_grads(dev, cfg, params, tokens, mesh) -> dict:
+    """Gradients of the loss at ``params`` (step 1's), by leaf path."""
+    from tpu_docker_api_torch.models import model_fns
+    from tpu_docker_api_torch.parallel import sharding
+    from tpu_docker_api_torch.train.optim import tree_leaves, tree_map
+
+    _, loss, _ = model_fns(cfg)
+    live = tree_map(lambda p: sharding.local(p).detach().requires_grad_(),
+                    params)
+    if mesh is None:
+        value = loss(live, tokens, cfg)
+    else:
+        value = loss(live, sharding.split_batch(tokens, mesh), cfg,
+                     mesh=mesh)
+    grads = torch.autograd.grad(value, tree_leaves(live))
+    paths = list(sharding.flatten_paths(params))
+    return dict(zip(paths, grads))
+
+
+def _par_server(argv: list, prompt: list) -> dict:
+    """An in-process server of ``argv``: after a short warm request,
+    PAR_SERVE_REPS streamed greedy requests of ``prompt`` one after
+    another; the tokens of the first, the engine's TTFT and ITL p50
+    over them, the flash launches of the first. On a rank other than 0
+    of a mesh server: {} once rank 0 stops."""
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    srv = Server(parse_args(argv + ["--host", "127.0.0.1", "--port", "0"]))
+    if srv.rank != 0:   # a rank of a mesh server: step with rank 0
+        srv.follow()
+        return {}
+    port = srv.httpd.server_address[1]
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        _post(port, {"tokens": [[1, 2, 3]], "maxNewTokens": 2})
+        srv.engine.reset_latency_stats()
+        streams, launches = [], None
+        for _ in range(PAR_SERVE_REPS):
+            flash.reset_launch_count()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/generate", body=json.dumps(
+                {"tokens": [prompt], "maxNewTokens": PAR_SERVE_NEW,
+                 "stream": True}))
+            resp = conn.getresponse()
+            streams.append([json.loads(raw)["t"] for raw in resp
+                            if b'"t"' in raw])
+            conn.close()
+            if launches is None:
+                launches = flash.launch_count["flash_fwd"]
+        lat = srv.engine.latency_stats()
+        if any(s != streams[0] for s in streams):
+            raise AssertionError(f"one greedy prompt, several streams: "
+                                 f"{streams}")
+        return {"tokens": streams[0], "ttft_p50_ms": lat["ttft_p50_ms"],
+                "itl_p50_ms": lat["itl_p50_ms"], "requests": lat["n"],
+                "flash_launches": launches, "mesh": srv.mesh is not None,
+                "engine": type(srv.engine).__name__}
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+
+
+def phase_parallel(dev) -> dict:
+    """The mesh path at world size 1 (module docstring)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.models.llama import llama_forward
+    from tpu_docker_api_torch.ops import flash
+    from tpu_docker_api_torch.parallel import sharding
+    from tpu_docker_api_torch.parallel.mesh import MeshPlan, build_mesh
+    from tpu_docker_api_torch.train.checkpoint import CheckpointManager
+    from tpu_docker_api_torch.train.trainer import synthetic_batch
+    from tpu_docker_api_torch.workload.torchenv import bootstrap_torch
+
+    t_phase = time.perf_counter()
+    bootstrap_torch(dev.type, force=True)
+    try:
+        mesh = build_mesh(MeshPlan(dp=1, fsdp=1, tp=1))
+        _, cfg = resolve_preset(PAR_PRESET)
+        tokens = synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                                 TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+
+        # ---- the main path: the mesh run's counts are zeroed just
+        # before its steps and read just after (_par_run)
+        runs = {}
+        for name, m in (("mesh", mesh), ("single", None)):
+            runs[name] = _par_run(dev, cfg, m, tokens, "adamw-int8")
+        par_launches = dict(runs["mesh"]["launches"])
+        # ---- end of the main path
+
+        mesh_state, single_state = (runs["mesh"].pop("state"),
+                                    runs["single"].pop("state"))
+        leaves = sharding.flatten_paths(mesh_state.params)
+        if not all(isinstance(v, DTensor) for v in leaves.values()):
+            raise AssertionError("mesh-path params are not DTensors")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            runs["mesh"]["losses"], runs["single"]["losses"]))
+        if loss_rel > PAR_LOSS_TOL:
+            raise AssertionError(f"mesh vs single losses: "
+                                 f"{runs['mesh']['losses']} "
+                                 f"{runs['single']['losses']}")
+        if runs["mesh"]["launches_per_step"] != runs["single"][
+                "launches_per_step"]:
+            raise AssertionError(f"launches a step differ: "
+                                 f"{runs['mesh']['launches_per_step']} vs "
+                                 f"{runs['single']['launches_per_step']}")
+        if any(n <= 0 for n in par_launches.values()):
+            raise AssertionError(f"a kernel never launched: {par_launches}")
+
+        # step 1's gradients, from the shared init (bit-equal)
+        from tpu_docker_api_torch.train.trainer import create_train_state
+
+        init_m, _ = create_train_state(
+            cfg, dev, torch.Generator(device=dev).manual_seed(0), mesh=mesh)
+        init_s, _ = create_train_state(
+            cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        flat_m = sharding.flatten_paths(init_m.params)
+        flat_s = sharding.flatten_paths(init_s.params)
+        init_equal = all(torch.equal(flat_m[k].to_local(), flat_s[k])
+                         for k in flat_s)
+        if not init_equal:
+            raise AssertionError("the sharded init differs from the "
+                                 "single-device init")
+        g_m = _par_grads(dev, cfg, init_m.params, tokens, mesh)
+        g_s = _par_grads(dev, cfg, init_s.params, tokens, None)
+        grad_rel = {k: _rel_l2(g_m[k].float(), g_s[k].float())
+                    for k in g_s}
+        del g_m, g_s, init_m, init_s, flat_m, flat_s
+        _par_empty_cache(dev)
+        if max(grad_rel.values()) > PAR_GRAD_TOL:
+            raise AssertionError(f"mesh vs single step-1 gradients: "
+                                 f"{grad_rel}")
+
+        # sequence parallelism at sp 1: ring, zigzag and ulysses against
+        # the flash path, on the mesh run's trained params
+        params = mesh_state.params
+
+        def tree_local(t):
+            return ({k: tree_local(v) for k, v in t.items()}
+                    if isinstance(t, dict) else sharding.local(t))
+
+        lparams = tree_local(params)
+        sp_tokens = tokens[:1, :PAR_SP_SEQ]
+        sp = {}
+        with torch.no_grad():
+            ref = llama_forward(lparams, sp_tokens, dataclasses.replace(
+                cfg, attention_impl="flash"), mesh)
+            for impl in ("ring", "ring-zigzag", "ulysses"):
+                flash.reset_launch_count()
+                got = llama_forward(lparams, sp_tokens, dataclasses.replace(
+                    cfg, attention_impl=impl), mesh)
+                sp[impl] = {"rel_l2": _rel_l2(got, ref),
+                            "max_abs_err": (got - ref).abs().max().item(),
+                            "flash_launches":
+                                flash.launch_count["flash_fwd"]}
+                del got
+            del ref
+        if max(v["rel_l2"] for v in sp.values()) > PAR_LOGIT_TOL:
+            raise AssertionError(f"sp=1 logits against flash: {sp}")
+        if sp["ulysses"]["flash_launches"] != cfg.n_layers:
+            raise AssertionError(f"ulysses did not run flash_fwd: {sp}")
+        par_launches["flash_fwd"] += sp["ulysses"]["flash_launches"]
+
+        # the mesh state's checkpoint, restored on the single-device path
+        ck = os.path.join(PAR_DIR, "ckpt")
+        shutil.rmtree(ck, ignore_errors=True)
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(ck)
+        mgr.save(mesh_state)
+        mgr.close()
+        save_s = time.perf_counter() - t0
+        restored = CheckpointManager(ck).restore(
+            cfg, runs["mesh"].pop("optimizer"), device=dev)
+        from tpu_docker_api_torch.train.checkpoint import (_file_shape,
+                                                           _flatten)
+
+        want: dict = {}
+        got: dict = {}
+        _flatten(mesh_state.params, "", want, {})
+        _flatten(mesh_state.opt_state, "opt/", want, {})
+        _flatten(restored.params, "", got, {})
+        _flatten(restored.opt_state, "opt/", got, {})
+        ckpt_equal = set(want) == set(got) and all(
+            torch.equal(sharding.local(want[k]).reshape(
+                _file_shape(k, want[k])), got[k]) for k in want)
+        del restored, want, got, mesh_state, single_state, params, lparams
+        runs["single"].pop("optimizer")
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+        _par_empty_cache(dev)
+        if not ckpt_equal:
+            raise AssertionError("the mesh checkpoint did not restore "
+                                 "bit-equal on the single-device path")
+
+        # expert parallelism: one bench-moe step on an --ep 1 mesh, sort
+        _, mcfg = resolve_preset(PAR_MOE_PRESET)
+        mcfg = dataclasses.replace(mcfg, dispatch_impl="sort")
+        moe_tokens = synthetic_batch(
+            torch.Generator(device=dev).manual_seed(2), PAR_MOE_BATCH,
+            PAR_MOE_SEQ, mcfg.vocab_size)
+        emesh = build_mesh(MeshPlan(dp=1, ep=1))
+        moe = {}
+        for name, m in (("mesh", emesh), ("single", None)):
+            from tpu_docker_api_torch.train.trainer import (
+                create_train_state as cts, make_train_step)
+
+            st, opt = cts(mcfg, dev, torch.Generator(device=dev)
+                          .manual_seed(0), mesh=m)
+            st, metrics = make_train_step(mcfg, opt, mesh=m)(st, moe_tokens)
+            moe[name] = metrics["loss"].item()
+            del st, opt
+            _par_empty_cache(dev)
+        moe_rel = abs(moe["mesh"] - moe["single"]) / abs(moe["single"])
+        if moe_rel > PAR_LOSS_TOL:
+            raise AssertionError(f"moe ep 1 vs single: {moe}")
+
+        # serving: --tp 1 (the mirrored slot engine) against one device
+        prompt = torch.randint(0, cfg.vocab_size, (PAR_SERVE_PROMPT,),
+                               generator=torch.Generator().manual_seed(5)
+                               ).tolist()
+        base = ["--preset", PAR_PRESET, "--max-seq", str(PAR_SP_SEQ),
+                "--slots", "4", "--seed", "0", "--device", dev.type]
+        serve = {"single": _par_server(base, prompt),
+                 "mesh": _par_server(base + ["--tp", "1"], prompt)}
+        if not serve["mesh"]["mesh"] or serve["mesh"]["engine"] != \
+                "SlotEngine":
+            raise AssertionError(f"--tp 1 did not serve through the slot "
+                                 f"engine on a mesh: {serve['mesh']}")
+        if serve["mesh"]["tokens"] != serve["single"]["tokens"]:
+            raise AssertionError(f"tp 1 stream differs from one device: "
+                                 f"{serve}")
+        if serve["mesh"]["flash_launches"] <= 0:
+            raise AssertionError("the tp 1 server's prefill launched no "
+                                 "flash_fwd")
+        par_launches["flash_fwd"] += serve["mesh"]["flash_launches"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result = {"phase": "parallel", "world_size": 1, "preset": PAR_PRESET,
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": PAR_STEPS,
+              "optim": "adamw-int8", "runs": runs,
+              "loss_max_rel": loss_rel, "loss_tol": PAR_LOSS_TOL,
+              "init_bit_equal": init_equal,
+              "grad_max_rel_l2": max(grad_rel.values()),
+              "grad_tol": PAR_GRAD_TOL, "sp1": sp,
+              "logit_tol": PAR_LOGIT_TOL, "moe": {**moe, "rel": moe_rel},
+              "serve": serve, "ckpt_bit_equal": ckpt_equal,
+              "ckpt_save_s": save_s, "launches": par_launches,
+              "multi_rank_speed": "not measured (one card)",
+              "phase_s": time.perf_counter() - t_phase,
+              "card": nvidia_smi()}
+    emit(result)
+    return result
+
+
+# ---- the mesh path across every visible card (phase_mesh)
+MESH_BATCH = 8                  # global rows of TRAIN_SEQ tokens
+MESH_FAMILY_BATCH = {"vit:vit-b16": 128, "encdec:encdec-base": 32}
+
+
+def mesh_jobs(world: int) -> list[dict]:
+    """The multi-rank runs of ``world`` ranks: llama3-1b on pure dp,
+    fsdp, tp, fsdp × tp, tp × sp with zigzag ring, sp with zigzag ring
+    and with Ulysses (shapes whose kv heads do not split left out);
+    bench-moe at ep = world (sort); vit-b16 and encdec-base at tp =
+    world (their products split over tp)."""
+    from tpu_docker_api_torch.models import resolve_preset
+
+    _, cfg = resolve_preset(PAR_PRESET)
+    half = world // 2
+    llama = [({"dp": world}, "auto"), ({"dp": 1, "fsdp": world}, "auto"),
+             ({"dp": 1, "tp": world}, "auto")]
+    if half > 1:
+        llama += [({"dp": 1, "fsdp": 2, "tp": half}, "auto"),
+                  ({"dp": 1, "tp": 2, "sp": half}, "ring-zigzag")]
+    llama += [({"dp": 1, "sp": world}, "ring-zigzag"),
+              ({"dp": 1, "sp": world}, "ulysses")]
+
+    def fits(plan, impl):
+        tp = plan.get("tp", 1)
+        heads = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 0
+        return heads and (impl != "ulysses" or heads % plan["sp"] == 0)
+
+    jobs = [{"preset": PAR_PRESET, "plan": p, "impl": i,
+             "optim": "adamw-int8"} for p, i in llama if fits(p, i)]
+    jobs.append({"preset": PAR_MOE_PRESET, "plan": {"dp": 1, "ep": world},
+                 "impl": "sort", "optim": "adamw"})
+    for preset in MESH_FAMILY_BATCH:
+        jobs.append({"preset": preset, "plan": {"dp": 1, "tp": world},
+                     "impl": "auto", "optim": "adamw-int8"})
+    return jobs
+
+
+def _mesh_inputs(job: dict, dev):
+    """(config, global batch) of a ``mesh_jobs`` run, the same on every
+    rank and on the single-device reference."""
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.models.encdec import encdec_synthetic_batch
+    from tpu_docker_api_torch.models.vit import vit_synthetic_batch
+    from tpu_docker_api_torch.train.trainer import synthetic_batch
+
+    family, cfg = resolve_preset(job["preset"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if family == "vit":
+        return cfg, vit_synthetic_batch(1, MESH_FAMILY_BATCH[job["preset"]],
+                                        cfg, device=dev)
+    if family == "encdec":
+        return cfg, encdec_synthetic_batch(
+            1, MESH_FAMILY_BATCH[job["preset"]], ENCDEC_SEQ, ENCDEC_SEQ,
+            cfg, device=dev)
+    if family == "moe":
+        cfg = dataclasses.replace(cfg, dispatch_impl=job["impl"])
+        return cfg, synthetic_batch(gen, PAR_MOE_BATCH, PAR_MOE_SEQ,
+                                    cfg.vocab_size)
+    cfg = dataclasses.replace(cfg, attention_impl=job["impl"])
+    return cfg, synthetic_batch(gen, MESH_BATCH, TRAIN_SEQ, cfg.vocab_size)
+
+
+def _mesh_prompts(vocab: int, rows: int) -> list:
+    g = torch.Generator().manual_seed(5)
+    return [torch.randint(0, vocab, (PAR_SERVE_PROMPT,), generator=g)
+            .tolist() for _ in range(rows)]
+
+
+def _par_generate(argv: list, requests: list) -> dict:
+    """An in-process ``--slots 0`` server of ``argv``: greedy
+    ``requests`` (lists of rows) one after another; their rows' tokens,
+    the ms of each and ``/healthz``'s ``meshRows`` (a rank other than 0
+    steps with rank 0 and returns {})."""
+    from tpu_docker_api_torch.serve.__main__ import Server, parse_args
+
+    srv = Server(parse_args(argv + ["--host", "127.0.0.1", "--port", "0"]))
+    if srv.rank != 0:
+        srv.follow()
+        return {}
+    port = srv.httpd.server_address[1]
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        rows, ms = [], []
+        for req in requests:
+            t0 = time.perf_counter()
+            code, data = _post(port, {"tokens": req,
+                                      "maxNewTokens": PAR_SERVE_NEW})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                raise AssertionError(f"/generate answered {code}: "
+                                     f"{data[:300]!r}")
+            rows += json.loads(data)["tokens"]
+        return {"tokens": rows, "ms": ms,
+                "mesh_rows": _get(port, "/healthz").get("meshRows")}
+    finally:
+        srv.httpd.shutdown()
+        srv.close()
+        thread.join(timeout=30)
+
+
+def mesh_rank() -> int:
+    """One rank of ``phase_mesh`` (``python -m chip_smoke --mesh-rank``,
+    started by ``workload/torchenv.py``'s launcher): every
+    ``mesh_jobs`` run through ``_par_run``, then ``serve --tp world``
+    (the mirrored slot engine) on one 1,900-token greedy request and
+    ``serve --dp world --slots 0`` on one request of ``world`` such rows;
+    rank 0 writes what it saw to PAR_DIR/mesh.json."""
+    import torch.distributed as dist
+
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.parallel.mesh import MeshPlan, build_mesh
+    from tpu_docker_api_torch.workload.torchenv import bootstrap_torch
+
+    dev, rank, world = bootstrap_torch("cuda", force=True)
+    runs = []
+    for job in mesh_jobs(world):
+        cfg, batch = _mesh_inputs(job, dev)
+        run = _par_run(dev, cfg, build_mesh(MeshPlan(**job["plan"])), batch,
+                       job["optim"])
+        del run["state"], run["optimizer"], batch
+        runs.append({**job, **run})
+        _par_empty_cache(dev)
+    _, cfg = resolve_preset(PAR_PRESET)
+    base = ["--preset", PAR_PRESET, "--max-seq", str(PAR_SP_SEQ),
+            "--seed", "0", "--device", "cuda"]
+    prompts = _mesh_prompts(cfg.vocab_size, world)
+    tp = (_par_server(base + ["--slots", "4", "--tp", str(world)],
+                      prompts[0]) if cfg.n_kv_heads % world == 0 else
+          {"skipped": f"{cfg.n_kv_heads} kv heads, {world} ranks"})
+    _par_empty_cache(dev)
+    dp = _par_generate(base + ["--slots", "0", "--dp", str(world)],
+                       [prompts])
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(PAR_DIR, "mesh.json"), "w") as f:
+            json.dump({"world": world, "runs": runs, "serve_tp": tp,
+                       "serve_dp": dp}, f)
+    return 0
+
+
+def phase_mesh(dev) -> dict:
+    """The mesh path on every visible card against this process's card
+    alone: ``mesh_rank`` on each card, then the same runs and requests
+    on the single-device path here. Hard: every run's losses within
+    PAR_LOSS_TOL of one card's, the ``--dp`` rows split one a rank and
+    equal to one card's generation of each row alone. The tp server's
+    stream is reported against one card's (bf16 partial sums reduced
+    over tp may round otherwise)."""
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.workload.torchenv import launch_workers
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    os.makedirs(PAR_DIR, exist_ok=True)
+    path = os.path.join(PAR_DIR, "mesh.json")
+    if os.path.exists(path):
+        os.remove(path)
+    code = launch_workers("chip_smoke", ["--mesh-rank"], world, "cuda")
+    if code:
+        raise AssertionError(f"a mesh rank exited with {code}")
+    with open(path) as f:
+        got = json.load(f)
+    ranks_s = time.perf_counter() - t0
+    single: dict = {}
+    rows = []
+    for run in got["runs"]:
+        # one card runs llama on its own attention rule (flash)
+        job = {**run, "impl": ("auto" if run["preset"] == PAR_PRESET
+                               else run["impl"])}
+        key = (job["preset"], job["impl"], job["optim"])
+        if key not in single:
+            cfg, batch = _mesh_inputs(job, dev)
+            ref = _par_run(dev, cfg, None, batch, run["optim"])
+            del ref["state"], ref["optimizer"], batch
+            single[key] = ref
+            _par_empty_cache(dev)
+        ref = single[key]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                       ref["losses"]))
+        rows.append({"preset": run["preset"], "plan": run["plan"],
+                     "impl": run["impl"], "losses": run["losses"],
+                     "step_ms": run["step_ms"],
+                     "max_memory_allocated": run["max_memory_allocated"],
+                     "peak_above_entry": run["peak_above_entry"],
+                     "launches_per_step": run["launches_per_step"][-1],
+                     "single_step_ms": ref["step_ms"],
+                     "single_max_memory_allocated":
+                         ref["max_memory_allocated"],
+                     "single_peak_above_entry": ref["peak_above_entry"],
+                     "loss_max_rel": rel})
+    _, cfg = resolve_preset(PAR_PRESET)
+    base = ["--preset", PAR_PRESET, "--max-seq", str(PAR_SP_SEQ),
+            "--seed", "0", "--device", "cuda"]
+    prompts = _mesh_prompts(cfg.vocab_size, world)
+    tp = got["serve_tp"]
+    if "tokens" in tp:
+        one = _par_server(base + ["--slots", "4"], prompts[0])
+        tp.update(single_tokens=one["tokens"],
+                  equal_tokens=sum(a == b for a, b in zip(tp["tokens"],
+                                                          one["tokens"])),
+                  single_ttft_p50_ms=one["ttft_p50_ms"],
+                  single_itl_p50_ms=one["itl_p50_ms"])
+    dp = got["serve_dp"]
+    one = _par_generate(base + ["--slots", "0"], [[p] for p in prompts])
+    dp.update(single_tokens=one["tokens"], single_ms=one["ms"])
+    res = {"phase": "mesh", "world": world, "runs": rows, "serve_tp": tp,
+           "serve_dp": dp, "loss_tol": PAR_LOSS_TOL,
+           "ranks_s": ranks_s, "seconds": time.perf_counter() - t0,
+           "card": nvidia_smi()}
+    emit(res)
+    bad = [r for r in rows if r["loss_max_rel"] > PAR_LOSS_TOL]
+    if bad:
+        raise AssertionError(f"mesh losses off one card's: {bad}")
+    if dp["mesh_rows"] != [1] * world or dp["tokens"] != one["tokens"]:
+        raise AssertionError(f"--dp {world} rows not split one a rank, or "
+                             f"not one card's: {dp}")
+    return res
+
+
 def main() -> int:
+    """No arguments: every phase on the first card (``phase_mesh`` too
+    where more than one card is visible). ``--mesh``: the build and
+    ``phase_mesh`` alone. ``--mesh-rank``: one of its ranks."""
+    args = sys.argv[1:]
+    if args == ["--mesh-rank"]:
+        return mesh_rank()
+    if args not in ([], ["--mesh"]):
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4862,6 +5459,12 @@ def main() -> int:
                  if "(C75" in ln]
         if notes:
             raise AssertionError(f"{name}: ptxas serialized wgmma: {notes}")
+    if args == ["--mesh"]:
+        if torch.cuda.device_count() < 2:
+            raise AssertionError("--mesh needs more than one card")
+        phase_mesh(dev)
+        print(card, flush=True)
+        return 0
     devices_res = phase_devices(dev)
     control_res = phase_control_plane(dev)
     fwd_res = phase_kernels(dev)
@@ -4878,6 +5481,9 @@ def main() -> int:
     moe_res = phase_moe(dev)
     vit_res = phase_vit(dev)
     encdec_res = phase_encdec(dev)
+    par_n = phase_parallel(dev)["launches"]
+    if torch.cuda.device_count() > 1:
+        phase_mesh(dev)
     train_n, life_n = train_res["launches"], life_res["launches"]
     lora_n, moe_n = lora_res["launches"], moe_res["launches"]
     vit_n, encdec_n = vit_res["launches"], encdec_res["launches"]
@@ -4894,10 +5500,12 @@ def main() -> int:
                       "lora": lora_n["flash_fwd"],
                       "moe": moe_n["flash_fwd"],
                       "vit": vit_n["flash_fwd"],
-                      "encdec": encdec_n["flash_fwd"]},
+                      "encdec": encdec_n["flash_fwd"],
+                      "parallel": par_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
                   "lora": lora_n[name], "moe": moe_n[name],
-                  "vit": vit_n[name], "encdec": encdec_n[name]}
+                  "vit": vit_n[name], "encdec": encdec_n[name],
+                  "parallel": par_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

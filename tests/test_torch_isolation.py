@@ -92,6 +92,13 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.buildinfo",
                    "tpu_docker_api_torch.config",
                    "tpu_docker_api_torch.daemon",
+                   "tpu_docker_api_torch.parallel.mesh",
+                   "tpu_docker_api_torch.parallel.sharding",
+                   "tpu_docker_api_torch.parallel.comm",
+                   "tpu_docker_api_torch.parallel.ring",
+                   "tpu_docker_api_torch.parallel.ulysses",
+                   "tpu_docker_api_torch.workload.torchenv",
+                   "tpu_docker_api_torch.infer.mirror",
                    "tpu_docker_api_torch.__main__"):
         assert needed in names, needed
     importlib.import_module("chip_smoke")

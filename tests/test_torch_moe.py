@@ -157,7 +157,8 @@ def test_init_tree_matches_specs_and_stays_in_range():
 
 def test_registry_dispatches_the_moe_family():
     cfg = tm.moe_presets()["moe-tiny"]
-    assert tmodels.model_fns(cfg) == (tm.moe_init, tm.moe_loss, None)
+    assert tmodels.model_fns(cfg) == (tm.moe_init, tm.moe_loss,
+                                      tm.MOE_RULES)
     assert tmodels.cached_forward_fn(cfg) is tm.moe_forward_cached
     assert tmodels.resolve_preset("moe:moe-tiny") == ("moe", cfg)
     assert tmodels.resolve_preset("moe:bench-moe")[1].dim == 1024

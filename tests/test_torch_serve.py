@@ -256,7 +256,7 @@ def test_serves_checkpoint_weights(trained, source):
     (["--draft-preset", "tiny", "--prefill-chunk", "8"],
      "--prefill-chunk is not supported with --draft-preset"),
     (["--draft-preset", "moe:moe-tiny"], "requires llama presets"),
-    (["--tp", "2"], "ROADMAP Queue 1 item 9"),
+    (["--tp", "2", "--quantize"], "single-device only"),
     (["--platform", "cpu", "--virtual-devices", "4"], "use --device"),
     (["--ckpt-dir", "a", "--hf-ckpt", "b"], "exclusive")])
 def test_refused_flags(capsys, flags, msg):

@@ -116,8 +116,11 @@ def test_remat_keeps_flash_residuals(setup, monkeypatch, remat):
 
 
 def test_model_fns_returns_the_loss():
+    from tpu_docker_api_torch.parallel.sharding import LLAMA_RULES
+
     init, loss, rules = model_fns(tl.llama_presets()["tiny"])
-    assert init is tl.llama_init and loss is tl.llama_loss and rules is None
+    assert (init is tl.llama_init and loss is tl.llama_loss
+            and rules is LLAMA_RULES)
 
 
 def test_presets_carry_remat_and_chunk_fields():
@@ -207,10 +210,24 @@ def test_cli_runs_on_cpu_and_prints_json_lines():
                                   ["--ep", "2"],
                                   ["--dp", "2"], ["--pp", "2"]])
 def test_cli_refuses_unported_flags(flag):
-    proc = _cli("--device", "cpu", *flag, timeout=60)
-    assert proc.returncode == 2
-    assert "not in the PyTorch package yet" in proc.stderr
-    assert "ROADMAP" in proc.stderr
+    """The mesh flags run on two gloo ranks (``--nproc-per-node 2``;
+    rank 0 alone prints the JAX line contract, tests/
+    test_torch_parallel*.py hold their numbers against JAX); ``--pp``
+    is still refused, naming the ROADMAP item that brings it."""
+    if flag[0] == "--pp":
+        proc = _cli("--device", "cpu", *flag, timeout=60)
+        assert proc.returncode == 2
+        assert "not in the PyTorch package yet" in proc.stderr
+        assert "ROADMAP" in proc.stderr and "item 9" in proc.stderr
+        return
+    proc = _cli("--device", "cpu", "--preset", "tiny", "--steps", "1",
+                "--batch", "2", "--seq", "8", "--log-every", "1",
+                "--nproc-per-node", "2", *flag, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    assert set(lines[0]) == {"step", "loss", "tokens_per_sec"}
+    assert np.isfinite(lines[0]["loss"])
+    assert lines[-1] == {"event": "done", "step": 1}
 
 
 @pytest.mark.parametrize("flags,msg", [
@@ -219,7 +236,9 @@ def test_cli_refuses_unported_flags(flag):
      "--qlora requires the attached forward"),
     (["--lora-alpha", "8"], "require --lora-rank > 0"),
     (["--moe-dispatch", "gather"],
-     "--moe-dispatch applies to moe: presets only")])
+     "--moe-dispatch applies to moe: presets only"),
+    (["--preset", "encdec:tiny", "--sp", "2"],
+     "--sp does not apply to encdec: presets yet")])
 def test_cli_keeps_the_jax_lora_guards(flags, msg):
     """The JAX entry point's guards: a LoRA flag without a rank, --qlora
     over the merged forward, and --moe-dispatch on a Llama preset are

@@ -28,10 +28,12 @@ class KVCache:
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_seq: int | None = None,
                   dtype: Any = torch.bfloat16,
-                  device: torch.device | str | None = None) -> KVCache:
-    """Zero-filled cache."""
+                  device: torch.device | str | None = None,
+                  kv_heads: int | None = None) -> KVCache:
+    """Zero-filled cache (of ``kv_heads``, a tp rank's part, if given)."""
     max_seq = max_seq or cfg.max_seq_len
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_seq, kv_heads or cfg.n_kv_heads,
+             cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 

@@ -156,7 +156,8 @@ class PagedSlotEngine(SlotEngine):
         # pool rows are pages (usable + trash page 0); page_size is the
         # position dim
         cache = init_kv_cache(self.cfg, usable + 1, self.page_size,
-                              dtype=cache_dtype, device=self.device)
+                              dtype=cache_dtype, device=self.device,
+                              kv_heads=self._kv_heads)
         return cache.k, cache.v
 
     def _pages_needed(self, prompt_len: int, max_new: int,
@@ -235,8 +236,11 @@ class PagedSlotEngine(SlotEngine):
         """Prefill ``tokens`` once into SHARED pool pages. With the engine
         thread running, the work goes through its command queue, so the
         pool writes are ordered with every other pool program; directly
-        otherwise (before :meth:`start`, or when the caller steps)."""
+        otherwise (before :meth:`start`, or when the caller steps). A
+        mirrored engine registers on every rank at its next step."""
         tokens = list(tokens)
+        if self._mirror is not None:
+            return self._mirror.call(self, "register", tokens)
         if self._thread is None:
             return self._do_register_prefix(tokens)
         reply: queue.SimpleQueue = queue.SimpleQueue()
@@ -251,6 +255,9 @@ class PagedSlotEngine(SlotEngine):
         if not ok:
             raise val
         return val
+
+    def _op_register(self, tokens: list[int]) -> str:
+        return self._do_register_prefix(tokens)
 
     def _do_register_prefix(self, tokens: list[int]) -> str:
         """Engine-thread half of registration: registry checks, page
@@ -375,7 +382,7 @@ class PagedSlotEngine(SlotEngine):
                 kept.append(req)
         self._deferred = kept
 
-    def unregister_prefix(self, pid: str) -> bool:
+    def _op_unregister(self, pid: str) -> bool:
         """Remove from the registry (no new admission attaches); the
         shared pages return once the last live reader completes."""
         with self._px_lock, self._lock:
@@ -572,7 +579,7 @@ class PagedSlotEngine(SlotEngine):
         pool pages ``page_ids`` (n distinct ids, row-major)."""
         cfg, page = self.cfg, self.page_size
         ids = self._to_device(np.asarray(page_ids, np.int64).reshape(-1))
-        shape = (cfg.n_layers, ids.numel(), page, cfg.n_kv_heads,
+        shape = (cfg.n_layers, ids.numel(), page, self._kv_heads,
                  cfg.head_dim)
         self._k[:, ids] = kc.reshape(shape)
         self._v[:, ids] = vc.reshape(shape)
@@ -583,7 +590,7 @@ class PagedSlotEngine(SlotEngine):
         cfg = self.cfg
         ids = self._to_device(np.asarray(page_ids, np.int64))
         shape = (cfg.n_layers, 1, ids.numel() * self.page_size,
-                 cfg.n_kv_heads, cfg.head_dim)
+                 self._kv_heads, cfg.head_dim)
         return self._k[:, ids].reshape(shape), self._v[:, ids].reshape(shape)
 
     @torch.no_grad()
@@ -635,7 +642,7 @@ class PagedSlotEngine(SlotEngine):
     def _forward_step(self, tok, pos, view):
         logits, self._k, self._v = llama_forward_paged(
             self.params, tok[:, None], self.cfg, self._k, self._v, view,
-            pos, max_pos=self.max_seq)
+            pos, max_pos=self.max_seq, mesh=self.mesh)
         return logits
 
     # ---- engine loop --------------------------------------------------------
@@ -705,7 +712,7 @@ class PagedSlotEngine(SlotEngine):
         n_redeferred = len(batch)  # re-attempts don't re-count in stats
         while len(batch) < len(free_slots):
             try:
-                batch.append(self._pending.get_nowait())
+                batch.append(self._take_request())
             except queue.Empty:
                 break
         if not batch:

@@ -66,6 +66,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -198,6 +199,10 @@ class _Prefix:
     nbytes: int = 0            # device bytes both tensors pin
 
 
+class _Stopped(Exception):
+    """Rank 0 stopped a mirrored engine."""
+
+
 class SlotEngine:
     """Slot-based continuous-batching engine for the decoder families
     (Llama, MoE) on one device (the device of ``params``). For MoE the
@@ -224,7 +229,22 @@ class SlotEngine:
         max_prefixes: int = 8,
         max_prefix_bytes: int = 0,
         prefill_chunk: int = 0,
+        mesh=None,
+        mirror=None,
     ):
+        if mesh is not None:
+            bad = {ax: n for ax, n in mesh.shape.items()
+                   if ax not in ("tp", "fsdp") and n > 1}
+            if bad:
+                raise ValueError(
+                    f"slot engine meshes are tp/fsdp-only (slots stay "
+                    f"replicated; decode seq is 1): got {bad}")
+        #: a tp/fsdp mesh (parallel/mesh.py): ``params`` are this rank's
+        #: local shards and the caches hold its kv heads; ``mirror``
+        #: (infer/mirror.py) keeps the ranks' engines in step
+        self.mesh = mesh
+        self._mirror = mirror
+        self._admitq: collections.deque = collections.deque()
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
@@ -308,8 +328,17 @@ class SlotEngine:
 
     def _cached_forward(self):
         """The family's KV-cached forward (the encdec engine decodes
-        through its own step and has none)."""
-        return cached_forward_fn(self.cfg)
+        through its own step and has none), bound to the mesh."""
+        fwd = cached_forward_fn(self.cfg)
+        if self.mesh is None:
+            return fwd
+        return functools.partial(fwd, mesh=self.mesh)
+
+    @property
+    def _kv_heads(self) -> int:
+        """The kv heads this rank's caches hold (its tp part)."""
+        tp = 1 if self.mesh is None else self.mesh.shape["tp"]
+        return self.cfg.n_kv_heads // tp
 
     def _default_buckets(self) -> tuple[int, ...]:
         return _default_buckets(self.max_seq)
@@ -324,7 +353,8 @@ class SlotEngine:
         """The per-slot KV buffers: dense (slots, max_seq) here; the paged
         engine (infer/paged.py) allocates a page pool instead."""
         cache = init_kv_cache(self.cfg, self.slots, self.max_seq,
-                              dtype=cache_dtype, device=self.device)
+                              dtype=cache_dtype, device=self.device,
+                              kv_heads=self._kv_heads)
         return cache.k, cache.v
 
     def _on_stream(self):
@@ -380,7 +410,7 @@ class SlotEngine:
         cache dtype: the cache a prefill forward writes before its rows
         move into the engine's cache."""
         cfg = self.cfg
-        shape = (cfg.n_layers, rows, length, cfg.n_kv_heads, cfg.head_dim)
+        shape = (cfg.n_layers, rows, length, self._kv_heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=self._k.dtype, device=self.device),
                 torch.zeros(shape, dtype=self._k.dtype, device=self.device))
 
@@ -540,8 +570,13 @@ class SlotEngine:
         prefix; returns its id. Later submits whose prompt STRICTLY starts
         with these tokens prefill only the suffix. Registering a sequence
         again returns the existing id. Callable from any thread: the
-        build runs on the engine's stream before the entry is visible."""
-        tokens = list(tokens)
+        build runs on the engine's stream before the entry is visible.
+        A mirrored engine registers on every rank at its next step."""
+        if self._mirror is not None:
+            return self._mirror.call(self, "register", list(tokens))
+        return self._op_register(list(tokens))
+
+    def _op_register(self, tokens: list[int]) -> str:
         if not tokens:
             raise ValueError("prefix must be non-empty")
         if len(tokens) + 2 > self.max_seq:
@@ -593,6 +628,11 @@ class SlotEngine:
             return pid
 
     def unregister_prefix(self, pid: str) -> bool:
+        if self._mirror is not None:
+            return self._mirror.call(self, "unregister", pid)
+        return self._op_unregister(pid)
+
+    def _op_unregister(self, pid: str) -> bool:
         with self._px_lock, self._lock:
             ent = self._prefixes.pop(pid, None)
             if ent is not None:
@@ -734,7 +774,7 @@ class SlotEngine:
         batch = []
         while len(batch) < len(free):
             try:
-                batch.append(self._pending.get_nowait())
+                batch.append(self._take_request())
             except queue.Empty:
                 break
         if not batch:
@@ -1004,10 +1044,12 @@ class SlotEngine:
         decode chunk if any slot is active, and process chunk outputs at
         the pipeline lag (drain fully when idle). Returns True if any
         work was done."""
+        if self._mirror is not None:
+            self._mirror_sync()
         did = False
         # a waiting request with no free slot: process ONE outstanding
         # chunk (completions hide in them), but only one per step
-        if not self._pending.empty() and not any(
+        if self._has_request() and not any(
                 s is None for s in self._table.values()):
             if self._outstanding:
                 self._process_oldest()
@@ -1024,6 +1066,58 @@ class SlotEngine:
             did = True
         return did
 
+    def _take_request(self):
+        """The next request to admit; raises queue.Empty."""
+        if self._mirror is None:
+            return self._pending.get_nowait()
+        if not self._admitq:
+            raise queue.Empty
+        return self._admitq.popleft()
+
+    def _has_request(self) -> bool:
+        if self._mirror is None:
+            return not self._pending.empty()
+        return bool(self._admitq)
+
+    def _mirror_sync(self) -> None:
+        """The top of a mirrored step (infer/mirror.py): rank 0 sends the
+        requests and prefix ops that came in since the last step, every
+        rank queues the requests and runs the ops in order."""
+        m = self._mirror
+        ops, reqs = [], []
+        if m.leads:
+            ops = m.drain_ops()
+            while True:
+                try:
+                    reqs.append(self._pending.get_nowait())
+                except queue.Empty:
+                    break
+            m.broadcast({"reqs": [r[:-1] for r in reqs],
+                         "ops": [(name, args) for name, args, _ in ops]})
+        else:
+            msg = m.broadcast(None)
+            if msg.get("stop"):
+                raise _Stopped()
+            reqs = [(*r, Handle()) for r in msg["reqs"]]
+            ops = [(name, args, None) for name, args in msg["ops"]]
+        self._admitq.extend(reqs)
+        for name, args, reply in ops:
+            try:
+                val = (True, getattr(self, "_op_" + name)(*args))
+            except Exception as e:  # noqa: BLE001 — the caller's error
+                val = (False, e)
+            if reply is not None:
+                reply.put(val)
+
+    def follow(self) -> None:
+        """A rank other than 0: run rank 0's steps until it stops."""
+        with self._on_stream():
+            while True:
+                try:
+                    self.step()
+                except _Stopped:
+                    return
+
     def _loop(self) -> None:
         try:
             with self._on_stream():
@@ -1035,7 +1129,8 @@ class SlotEngine:
         while not self._closed:
             try:
                 if not self.step():
-                    if self._draining and self._pending.empty():
+                    if (self._draining and self._pending.empty()
+                            and not self._has_request()):
                         return
                     self._wake.clear()
                     self._wake.wait(timeout=0.05)
@@ -1052,6 +1147,9 @@ class SlotEngine:
                 if s is not None:
                     s.handle._fail(RuntimeError(f"engine failed: {err!r}"))
                     self._table[i] = None
+        while self._admitq:
+            self._admitq.popleft()[-1]._fail(
+                RuntimeError(f"engine failed: {err!r}"))
         while True:
             try:
                 *_, handle = self._pending.get_nowait()
@@ -1086,12 +1184,16 @@ class SlotEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._mirror is not None and self._dead is None:
+            self._mirror.stop()
         while True:
             try:
                 *_, handle = self._pending.get_nowait()
             except queue.Empty:
                 break
             handle._fail(RuntimeError("engine closed"))
+        while self._admitq:
+            self._admitq.popleft()[-1]._fail(RuntimeError("engine closed"))
         for i, s in list(self._table.items()):
             if s is not None:
                 s.handle._fail(RuntimeError("engine closed"))

@@ -21,6 +21,7 @@ from tpu_docker_api_torch.models.llama import (  # noqa: F401
 )
 from tpu_docker_api_torch.models.mlp import mlp_forward, mlp_init  # noqa: F401
 from tpu_docker_api_torch.models.moe import (  # noqa: F401
+    MOE_RULES,
     MoEConfig,
     moe_forward,
     moe_forward_cached,
@@ -30,6 +31,7 @@ from tpu_docker_api_torch.models.moe import (  # noqa: F401
     moe_presets,
 )
 from tpu_docker_api_torch.models.vit import (  # noqa: F401
+    VIT_RULES,
     ViTConfig,
     vit_forward,
     vit_init,
@@ -38,6 +40,7 @@ from tpu_docker_api_torch.models.vit import (  # noqa: F401
     vit_presets,
 )
 from tpu_docker_api_torch.models.encdec import (  # noqa: F401
+    ENCDEC_RULES,
     EncDecConfig,
     encdec_forward,
     encdec_init,
@@ -47,20 +50,23 @@ from tpu_docker_api_torch.models.encdec import (  # noqa: F401
 )
 
 
+from tpu_docker_api_torch.parallel.sharding import LLAMA_RULES  # noqa: E402
+
 # every dispatch below checks MoEConfig before LlamaConfig, as the JAX
 # registry does: should it ever subclass LlamaConfig, it keeps its own
 
 def model_fns(cfg):
-    """(init_fn(cfg, generator), loss_fn(params, batch, cfg),
-    sharding_rules). The port has no sharding rules yet: None."""
+    """(init_fn(cfg, generator, place=None), loss_fn(params, batch, cfg,
+    mesh=None), sharding_rules): the family's rules of
+    parallel/sharding.py (the JAX package's, row for row)."""
     if isinstance(cfg, MoEConfig):
-        return moe_init, moe_loss, None
+        return moe_init, moe_loss, MOE_RULES
     if isinstance(cfg, LlamaConfig):
-        return llama_init, llama_loss, None
+        return llama_init, llama_loss, LLAMA_RULES
     if isinstance(cfg, ViTConfig):
-        return vit_init, vit_loss, None
+        return vit_init, vit_loss, VIT_RULES
     if isinstance(cfg, EncDecConfig):
-        return encdec_init, encdec_loss, None
+        return encdec_init, encdec_loss, ENCDEC_RULES
     raise TypeError(f"no model registered for config type {type(cfg)!r}")
 
 

@@ -48,6 +48,23 @@ def draw_stacked(generator: torch.Generator, shape, fan_in: int,
     return out
 
 
+def init_tree(specs: dict, draw, place=None, prefix: str = "") -> dict:
+    """The param tree of ``specs`` with every leaf ``draw(spec)`` in the
+    specs' order (the order each family's generator stream follows).
+    ``place(path, leaf)``, if given, replaces a leaf as soon as it is
+    drawn: the sharded init keeps a rank's slice there and lets the rest
+    go, so a rank never holds more than one whole leaf."""
+    out = {}
+    for k, v in specs.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out[k] = init_tree(v, draw, place, path)
+        else:
+            leaf = draw(v)
+            out[k] = leaf if place is None else place(path, leaf)
+    return out
+
+
 def remat_policy(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy: keep ONLY the flash forward's
     (out, lse) and recompute every other op, matmuls included — the JAX

@@ -17,8 +17,11 @@ self-attention (non-causal) and the decoder's (causal) take the flash
 kernel on the card, and so does cross-attention when the source and
 target have one length. Cross-attention of another length, the
 encoder's ``kv_len`` mask and the slot decode step stay on
-``dense_attention``, as in JAX. The JAX module's sequence-parallel
-(ring attention) paths wait for the port's parallelism.
+``dense_attention``, as in JAX. On a mesh the weights shard by
+``ENCDEC_RULES``, gather over fsdp a layer at a time, and tp splits the
+heads and MLP columns as llama's blocks do; the JAX module's
+sequence-parallel (ring attention) paths wait for ROADMAP Queue 1 item
+9's second part.
 """
 
 from __future__ import annotations
@@ -29,16 +32,42 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_docker_api_torch.models.common import (draw_stacked, remat_call,
+from tpu_docker_api_torch.models.common import (draw_stacked, init_tree,
+                                                remat_call,
                                                 seeded_generator)
-from tpu_docker_api_torch.models.llama import (_write_cache, cross_entropy,
-                                               embed_lookup, unstack_layers)
+from tpu_docker_api_torch.models.llama import (_write_cache, embed_lookup,
+                                               gather_layer, layer_specs,
+                                               loss_denominator,
+                                               unstack_layers,
+                                               vocab_parallel_xent)
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
 from tpu_docker_api_torch.ops.quant import linear
+from tpu_docker_api_torch.parallel import comm
+from tpu_docker_api_torch.parallel.sharding import P, spec_for, unshard
 from tpu_docker_api_torch.ops.rope import apply_rope, rope_frequencies
 from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
+
+
+#: param-path sharding rules, first match wins (the JAX ENCDEC_RULES). On
+#: a mesh the batch splits over dp and fsdp; the layers gather over fsdp
+#: one at a time and their column-/row-parallel products split over tp;
+#: the embedding and the head are vocab-parallel, as llama's
+ENCDEC_RULES: list = [
+    ("embed/tokens",            P("tp", "fsdp")),
+    ("enc_layers/attn/wo",      P(None, "tp", "fsdp")),
+    ("enc_layers/attn/w*",      P(None, "fsdp", "tp")),
+    ("enc_layers/mlp/w_down",   P(None, "tp", "fsdp")),
+    ("enc_layers/mlp/w*",       P(None, "fsdp", "tp")),
+    ("dec_layers/*attn/wo",     P(None, "tp", "fsdp")),
+    ("dec_layers/*attn/w*",     P(None, "fsdp", "tp")),
+    ("dec_layers/mlp/w_down",   P(None, "tp", "fsdp")),
+    ("dec_layers/mlp/w*",       P(None, "fsdp", "tp")),
+    ("*norm*",                  P()),
+    ("lm_head",                 P("fsdp", "tp")),
+    ("*",                       P()),
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,19 +157,19 @@ def encdec_param_specs(cfg: EncDecConfig) -> dict:
     }
 
 
-def encdec_init(cfg: EncDecConfig, generator: torch.Generator) -> dict:
+def encdec_init(cfg: EncDecConfig, generator: torch.Generator,
+                place=None) -> dict:
     """Random parameters (truncated-normal fan-in scaling) on the
-    generator's device, stacked leaves drawn matrix by matrix."""
+    generator's device, stacked leaves drawn matrix by matrix. ``place``:
+    models/common.py ``init_tree``."""
     def init(spec):
-        if isinstance(spec, dict):
-            return {k: init(v) for k, v in spec.items()}
         shape, fan_in = spec
         if fan_in is None:
             return torch.ones(shape, dtype=cfg.dtype,
                               device=generator.device)
         return draw_stacked(generator, shape, fan_in, cfg.dtype)
 
-    return init(encdec_param_specs(cfg))
+    return init_tree(encdec_param_specs(cfg), init, place)
 
 
 def _project_qkv(x, weights, cfg: EncDecConfig, kv_from=None):
@@ -149,86 +178,114 @@ def _project_qkv(x, weights, cfg: EncDecConfig, kv_from=None):
     hd = cfg.head_dim
     src = x if kv_from is None else kv_from
     sk = src.shape[1]
-    q = linear(x, weights["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = linear(src, weights["wk"]).reshape(b, sk, cfg.n_kv_heads, hd)
-    v = linear(src, weights["wv"]).reshape(b, sk, cfg.n_kv_heads, hd)
+    q = linear(x, weights["wq"]).reshape(b, s, -1, hd)
+    k = linear(src, weights["wk"]).reshape(b, sk, -1, hd)
+    v = linear(src, weights["wv"]).reshape(b, sk, -1, hd)
     return q, k, v
 
 
-def _mlp(x, mlp):
+def _mlp(x, mlp, tp=None):
+    """SwiGLU; ``tp``: the gate/up columns and down rows are this rank's
+    part (``copy_to`` in, ``reduce_from`` out)."""
+    x = comm.copy_to(x, tp)
     gate = F.silu(linear(x, mlp["w_gate"]))
-    return linear(gate * linear(x, mlp["w_up"]), mlp["w_down"])
+    return comm.reduce_from(linear(gate * linear(x, mlp["w_up"]),
+                                   mlp["w_down"]), tp)
+
+
+def _layer_on(layer, prefix: str, mesh):
+    """(the layer gathered over fsdp, the tp group): inside the remat
+    region, as llama's ``_block``; (layer, None) off a mesh."""
+    if mesh is None:
+        return layer, None
+    return (gather_layer(layer, layer_specs(layer, ENCDEC_RULES, prefix),
+                         mesh), mesh.group("tp"))
 
 
 def _enc_block(x, layer, cfg: EncDecConfig, rope_cos, rope_sin,
-               kv_len=None):
+               kv_len=None, mesh=None):
     """Bidirectional self-attention + SwiGLU, pre-norm residuals.
     ``kv_len`` ((b,)) masks right-pad positions out of the attention, so
-    a bucketed admission encodes exactly like the unpadded source."""
-    b, s, d = x.shape
-    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    a bucketed admission encodes exactly like the unpadded source. On a
+    ``mesh``: this rank's tp heads and MLP columns."""
+    layer, tp = _layer_on(layer, "enc_layers", mesh)
+    b, s, _ = x.shape
+    y = comm.copy_to(rms_norm(x, layer["attn_norm"], cfg.norm_eps), tp)
     q, k, v = _project_qkv(y, layer["attn"], cfg)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
     out = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype,
                               kv_len=kv_len)
-    x = x + linear(out.reshape(b, s, d), layer["attn"]["wo"])
+    x = x + comm.reduce_from(linear(out.reshape(b, s, -1),
+                                    layer["attn"]["wo"]), tp)
     return x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
-                    layer["mlp"])
+                    layer["mlp"], tp)
 
 
-def _dec_block(x, enc_out, layer, cfg: EncDecConfig, rope_cos, rope_sin):
+def _dec_block(x, enc_out, layer, cfg: EncDecConfig, rope_cos, rope_sin,
+               mesh=None):
     """Causal self-attention → cross-attention over ``enc_out`` (no
-    rope: the cross path is pure content lookup) → SwiGLU."""
-    b, s, d = x.shape
-    y = rms_norm(x, layer["self_norm"], cfg.norm_eps)
+    rope: the cross path is pure content lookup) → SwiGLU. On a
+    ``mesh``: this rank's tp heads and MLP columns."""
+    layer, tp = _layer_on(layer, "dec_layers", mesh)
+    b, s, _ = x.shape
+    y = comm.copy_to(rms_norm(x, layer["self_norm"], cfg.norm_eps), tp)
     q, k, v = _project_qkv(y, layer["self_attn"], cfg)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
     out = multihead_attention(q, k, v, causal=True)
-    x = x + linear(out.reshape(b, s, d), layer["self_attn"]["wo"])
-    y = rms_norm(x, layer["cross_norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(y, layer["cross_attn"], cfg, kv_from=enc_out)
+    x = x + comm.reduce_from(linear(out.reshape(b, s, -1),
+                                    layer["self_attn"]["wo"]), tp)
+    y = comm.copy_to(rms_norm(x, layer["cross_norm"], cfg.norm_eps), tp)
+    q, k, v = _project_qkv(y, layer["cross_attn"], cfg,
+                           kv_from=comm.copy_to(enc_out, tp))
     # auto dispatch: q_seq != kv_seq stays dense; equal lengths may take
     # the flash kernel
     out = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype)
-    x = x + linear(out.reshape(b, s, d), layer["cross_attn"]["wo"])
+    x = x + comm.reduce_from(linear(out.reshape(b, s, -1),
+                                    layer["cross_attn"]["wo"]), tp)
     return x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
-                    layer["mlp"])
+                    layer["mlp"], tp)
 
 
-def encdec_encode(params, src, cfg: EncDecConfig, kv_len=None):
+def encdec_encode(params, src, cfg: EncDecConfig, kv_len=None, mesh=None):
     """(b, S) source tokens → (b, S, d) encoder output (final-normed, in
     ``cfg.dtype``). ``kv_len`` ((b,)): row b's positions >= kv_len[b] are
-    right-padding, excluded from every layer's attention."""
-    x = embed_lookup(params["embed"]["tokens"], src)
+    right-padding, excluded from every layer's attention. On a ``mesh``
+    the params are this rank's local shards and ``src`` its rows."""
+    x = embed_lookup(params["embed"]["tokens"], src, mesh)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, src.shape[1],
                                           cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["enc_layers"], cfg.enc_layers):
-        args = (x, layer, cfg, rope_cos, rope_sin, kv_len)
+        args = (x, layer, cfg, rope_cos, rope_sin, kv_len, mesh)
         x = remat_call(_enc_block, *args) if remat else _enc_block(*args)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps).to(cfg.dtype)
 
 
-def encdec_hidden(params, batch, cfg: EncDecConfig):
+def encdec_hidden(params, batch, cfg: EncDecConfig, mesh=None):
     """((b, S) src, (b, T) tgt-input) → final decoder hidden (b, T, d),
     before the final norm."""
     src, tgt = batch
-    enc_out = encdec_encode(params, src, cfg)
-    x = embed_lookup(params["embed"]["tokens"], tgt)
+    enc_out = encdec_encode(params, src, cfg, mesh=mesh)
+    x = embed_lookup(params["embed"]["tokens"], tgt, mesh)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, tgt.shape[1],
                                           cfg.rope_theta, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["dec_layers"], cfg.dec_layers):
-        args = (x, enc_out, layer, cfg, rope_cos, rope_sin)
+        args = (x, enc_out, layer, cfg, rope_cos, rope_sin, mesh)
         x = remat_call(_dec_block, *args) if remat else _dec_block(*args)
     return x
 
 
-def _head(params, x, cfg: EncDecConfig):
+def _head(params, x, cfg: EncDecConfig, mesh=None):
+    """Final norm + logits in f32; on a ``mesh`` this rank's tp columns
+    of the vocabulary (the head gathered over fsdp)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear(x.to(cfg.dtype), params["lm_head"],
+    head = unshard(params["lm_head"], spec_for("lm_head", ENCDEC_RULES),
+                   mesh)
+    tp = None if mesh is None else mesh.group("tp")
+    return linear(comm.copy_to(x.to(cfg.dtype), tp), head,
                   out_dtype=torch.float32)
 
 
@@ -238,19 +295,29 @@ def encdec_forward(params, batch, cfg: EncDecConfig):
     return _head(params, encdec_hidden(params, batch, cfg), cfg)
 
 
-def encdec_loss(params, batch, cfg: EncDecConfig):
+def encdec_loss(params, batch, cfg: EncDecConfig, mesh=None):
     """Teacher-forced seq2seq cross-entropy: batch = (src (b, S), tgt
     (b, T+1)); the decoder reads tgt[:, :-1] and predicts tgt[:, 1:].
     With ``cfg.loss_chunk_rows`` the head fuses into
-    ``ops.xent.chunked_cross_entropy``, as ``llama_loss``'s does."""
+    ``ops.xent.chunked_cross_entropy``, as ``llama_loss``'s does. On a
+    ``mesh``: this rank's share of the global mean from its rows and its
+    tp columns of the vocabulary; the sequence-parallel paths are not in
+    the port yet."""
+    if mesh is not None and mesh.shape["sp"] > 1:
+        raise ValueError("sp does not apply to encdec: presets yet "
+                         "(ROADMAP Queue 1 item 9, second part)")
     src, tgt = batch
+    targets = tgt[:, 1:]
+    denom = loss_denominator(targets, mesh)
+    x = encdec_hidden(params, (src, tgt[:, :-1]), cfg, mesh)
     if cfg.loss_chunk_rows:
-        x = encdec_hidden(params, (src, tgt[:, :-1]), cfg)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
-        return chunked_cross_entropy(h, params["lm_head"], tgt[:, 1:],
-                                     cfg.loss_chunk_rows)
-    logits = encdec_forward(params, (src, tgt[:, :-1]), cfg)
-    return cross_entropy(logits, tgt[:, 1:])
+        head = unshard(params["lm_head"], spec_for("lm_head", ENCDEC_RULES),
+                       mesh)
+        return chunked_cross_entropy(h, head, targets, cfg.loss_chunk_rows,
+                                     mesh=mesh, denom=denom)
+    return vocab_parallel_xent(_head(params, x, cfg, mesh), targets, mesh,
+                               denom)
 
 
 def encdec_synthetic_batch(seed, batch: int, src_len: int, tgt_len: int,

@@ -140,6 +140,12 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def write_order(tensors: dict) -> list[str]:
+    """The order ``save_file`` writes (and brings to the host) tensors
+    in: falling element size, then name."""
+    return sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+
+
 def save_file(tensors: dict[str, torch.Tensor], path: str | os.PathLike,
               metadata: dict[str, str] | None = None) -> int:
     """Write ``tensors`` (any device; each is brought to the host one at
@@ -148,7 +154,7 @@ def save_file(tensors: dict[str, torch.Tensor], path: str | os.PathLike,
     padded to 8 bytes, so every tensor starts aligned to its element
     size. The file appears under ``path`` only once complete (a
     temporary name, fsync, then a rename)."""
-    names = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    names = write_order(tensors)
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}

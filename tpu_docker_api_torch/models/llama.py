@@ -32,7 +32,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_docker_api_torch.models.common import remat_call, trunc_normal_init
+from tpu_docker_api_torch.models.common import (init_tree, remat_call,
+                                                trunc_normal_init)
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
@@ -43,6 +44,9 @@ from tpu_docker_api_torch.ops.quant import (LoraLinear, QuantizedLinear,
 from tpu_docker_api_torch.ops.rope import (RopeScaling, apply_rope,
                                            rope_frequencies)
 from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
+from tpu_docker_api_torch.parallel import comm
+from tpu_docker_api_torch.parallel.sharding import (LLAMA_RULES, P,
+                                                    spec_for, unshard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,18 +148,73 @@ def llama_param_specs(cfg: LlamaConfig) -> dict:
     }
 
 
-def llama_init(cfg: LlamaConfig, generator: torch.Generator) -> dict:
+def llama_init(cfg: LlamaConfig, generator: torch.Generator,
+               place=None) -> dict:
     """Random parameters (truncated-normal fan-in scaling) on the
-    generator's device, in the JAX package's pytree layout."""
-    def init(spec):
-        if isinstance(spec, dict):
-            return {k: init(v) for k, v in spec.items()}
+    generator's device, in the JAX package's pytree layout. ``place(path,
+    leaf)``, if given, replaces each leaf as soon as it is drawn (the
+    sharded init keeps a rank's slice: models/common.py ``init_tree``)."""
+    def draw(spec):
         shape, fan_in = spec
         if fan_in is None:
             return torch.ones(shape, dtype=cfg.dtype, device=generator.device)
         return trunc_normal_init(generator, shape, fan_in, cfg.dtype)
 
-    return init(llama_param_specs(cfg))
+    return init_tree(llama_param_specs(cfg), draw, place)
+
+
+def layer_specs(layer: dict, rules, prefix: str = "layers") -> dict:
+    """The spec of every leaf of one layer's slice of the stacked tree
+    (the stacked leaf's rule without its leading layer entry). A
+    ``LoraLinear`` leaf gets (base, A, B) specs: A keeps the base's input
+    axis, B its output axis (train/lora.py ``lora_specs``)."""
+    out = {}
+    for k, v in layer.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out[k] = layer_specs(v, rules, path)
+            continue
+        spec = tuple(spec_for(path, rules))[1:]
+        if isinstance(v, LoraLinear):
+            nd = v.a.ndim
+            spec = (None,) * (nd - len(spec)) + spec
+            out[k] = (spec, P(*spec[:-1], None), P(*spec[:-2], None, spec[-1]))
+        else:
+            out[k] = spec
+    return out
+
+
+def gather_layer(layer: dict, specs: dict, mesh) -> dict:
+    """One layer's local shards gathered whole over every axis but tp and
+    ep (the ZeRO-3 all-gather of fsdp; parallel/sharding.py
+    ``unshard``)."""
+    out = {}
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            out[k] = gather_layer(v, specs[k], mesh)
+        elif isinstance(v, LoraLinear):
+            sb, sa, sbb = specs[k]
+            out[k] = LoraLinear(unshard(v.base, sb, mesh),
+                                unshard(v.a, sa, mesh),
+                                unshard(v.b, sbb, mesh), v.scale)
+        elif isinstance(v, QuantizedLinear):
+            raise ValueError("int8 weights do not run on a mesh")
+        else:
+            out[k] = unshard(v, specs[k], mesh)
+    return out
+
+
+def _tp(mesh):
+    return None if mesh is None else mesh.group("tp")
+
+
+def _local_heads(cfg, mesh) -> tuple[int, int]:
+    """(q heads, kv heads) this rank holds: the tp-th part of each."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"tp = {tp} must divide n_heads {cfg.n_heads} and "
+                         f"n_kv_heads {cfg.n_kv_heads}")
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
 
 
 def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
@@ -205,15 +264,24 @@ def _write_cache(kc: torch.Tensor, new: torch.Tensor,
 
 
 def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
-               cache=None, start_pos=None, kv_limit=None):
+               cache=None, start_pos=None, kv_limit=None, mesh=None):
     """Self-attention. With ``cache=(k_all, v_all, layer_idx)`` — the
     full (n_layers, batch, max_seq, n_kv_heads, head_dim) buffers and
     this layer's index — writes the new k/v into the layer's slots at
     ``start_pos`` (an int or 0-d tensor for the whole batch, or a
     (batch,) tensor per row) and attends against the layer's buffer.
-    Returns (out, (k_all, v_all)) instead of out."""
+    Returns (out, (k_all, v_all)) instead of out.
+
+    On a ``mesh`` (parallel/mesh.py), ``layer`` holds this rank's tp
+    columns of wq/wk/wv and rows of wo (Megatron): ``x`` enters through
+    ``comm.copy_to`` and the output leaves through ``comm.reduce_from``
+    over tp; the heads, the cache's kv heads and the attention are the
+    rank's own. A sequence sharded on sp (training) attends by ring or
+    Ulysses attention, or by a gathered k/v."""
     b, s, _ = x.shape
     hd = cfg.head_dim
+    nh, nkv_h = _local_heads(cfg, mesh)
+    x = comm.copy_to(x, _tp(mesh))
     if "w_qkv" in layer["attn"]:
         # serving-fused projections (infer/quantize.py)
         nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -222,9 +290,9 @@ def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
         k = qkv[..., nq:nq + nkv].reshape(b, s, cfg.n_kv_heads, hd)
         v = qkv[..., nq + nkv:].reshape(b, s, cfg.n_kv_heads, hd)
     else:
-        q = linear(x, layer["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
-        k = linear(x, layer["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-        v = linear(x, layer["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        q = linear(x, layer["attn"]["wq"]).reshape(b, s, nh, hd)
+        k = linear(x, layer["attn"]["wk"]).reshape(b, s, nkv_h, hd)
+        v = linear(x, layer["attn"]["wv"]).reshape(b, s, nkv_h, hd)
     if isinstance(cache, PagedRef):
         # paged decode (ops/paged.py; infer/paged.py drives it): s == 1,
         # per-row positions; the write goes into the slot's current
@@ -242,8 +310,7 @@ def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
         v_cache = gather_pages(v_pool, cache.layer_idx, cache.table)
         out = dense_attention(q, k_cache, v_cache, causal=True,
                               q_offset=start_pos)
-        return linear(out.reshape(b, s, cfg.n_heads * hd),
-                      layer["attn"]["wo"]), (k_pool, v_pool)
+        return _out_proj(out, layer, mesh), (k_pool, v_pool)
     if cache is not None:
         k_all, v_all, layer_idx = cache
         per_row = torch.is_tensor(start_pos) and start_pos.ndim == 1
@@ -276,69 +343,144 @@ def _attention(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
                 v_cache = v_cache[:, :kv_limit]
             out = dense_attention(q, k_cache, v_cache, causal=True,
                                   q_offset=start_pos)
-        return linear(out.reshape(b, s, cfg.n_heads * hd),
-                      layer["attn"]["wo"]), (k_all, v_all)
+        return _out_proj(out, layer, mesh), (k_all, v_all)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
-    out = multihead_attention(q, k, v, causal=True, impl=cfg.attention_impl)
-    return linear(out.reshape(b, s, cfg.n_heads * hd), layer["attn"]["wo"])
+    out = _self_attention(q, k, v, cfg.attention_impl, mesh)
+    return _out_proj(out, layer, mesh)
 
 
-def _mlp(x, layer):
+def _out_proj(out, layer, mesh):
+    b, s, h, hd = out.shape
+    return comm.reduce_from(linear(out.reshape(b, s, h * hd),
+                                   layer["attn"]["wo"]), _tp(mesh))
+
+
+def _self_attention(q, k, v, impl: str, mesh):
+    """Causal training attention on this rank's heads and rows. On a real
+    sp axis ``auto`` is ring-zigzag, the JAX rule: ring keeps the sharded
+    sequence local, zigzag evens out the causal work. ``dense`` and
+    ``flash`` there gather q, k and v along sp, attend over the whole
+    sequence with that implementation (the JAX package's GSPMD gathers it
+    so) and keep this rank's rows."""
+    sp = 1 if mesh is None else mesh.shape["sp"]
+    if impl == "auto" and sp > 1:
+        impl = "ring-zigzag"
+    if impl in ("ring", "ring-zigzag"):
+        from tpu_docker_api_torch.parallel.ring import ring_attention
+
+        return ring_attention(
+            q, k, v, mesh, causal=True,
+            placement="zigzag" if impl == "ring-zigzag" else "contiguous")
+    if impl == "ulysses":
+        from tpu_docker_api_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh, causal=True)
+    if sp == 1:
+        return multihead_attention(q, k, v, causal=True, impl=impl)
+    # every rank's rows attend here, so the gathers' backward sums the
+    # ranks' gradients (a reduce-scatter)
+    grp, s = mesh.group("sp"), q.shape[1]
+    qf, kf, vf = (comm.all_gather(t, 1, grp, bwd="sum") for t in (q, k, v))
+    out = multihead_attention(qf, kf, vf, causal=True, impl=impl)
+    return out[:, mesh.coords["sp"] * s:(mesh.coords["sp"] + 1) * s]
+
+
+def _mlp(x, layer, mesh=None):
+    """SwiGLU; on a mesh the gate/up columns and down rows are this
+    rank's tp part (``copy_to`` in, ``reduce_from`` out)."""
+    x = comm.copy_to(x, _tp(mesh))
     if "w_gu" in layer["mlp"]:
         gu = linear(x, layer["mlp"]["w_gu"])  # serving-fused gate|up
         gate, up = gu.chunk(2, dim=-1)
         return linear(F.silu(gate) * up, layer["mlp"]["w_down"])
     gate = F.silu(linear(x, layer["mlp"]["w_gate"]))
     up = linear(x, layer["mlp"]["w_up"])
-    return linear(gate * up, layer["mlp"]["w_down"])
+    return comm.reduce_from(linear(gate * up, layer["mlp"]["w_down"]),
+                            _tp(mesh))
 
 
 def _block(x, layer, cfg: LlamaConfig, rope_cos, rope_sin,
-           cache=None, start_pos=None, kv_limit=None):
+           cache=None, start_pos=None, kv_limit=None, mesh=None,
+           rules=None):
     """One transformer block: the residual/norm wiring of both the
-    uncached forward and the KV-cached path (returns (x, cache))."""
+    uncached forward and the KV-cached path (returns (x, cache)). On a
+    mesh the layer's local shards are gathered over fsdp here, inside the
+    remat region, so the backward gathers them again (ZeRO-3)."""
+    if mesh is not None:
+        layer = gather_layer(layer, layer_specs(layer, rules or LLAMA_RULES),
+                             mesh)
     attn_out = _attention(
         rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
         rope_cos, rope_sin, cache=cache, start_pos=start_pos,
-        kv_limit=kv_limit,
+        kv_limit=kv_limit, mesh=mesh,
     )
     new_cache = None
     if cache is not None:
         attn_out, new_cache = attn_out
     x = x + attn_out
-    x = x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer)
+    x = x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer, mesh)
     return x if cache is None else (x, new_cache)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token-embedding gather (the JAX function's single-device branch)."""
-    return F.embedding(tokens, table)
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Token-embedding gather. On a mesh ``table`` is this rank's
+    (vocab/tp, d/fsdp) shard (``LLAMA_RULES``): gathered over fsdp, then
+    a masked local gather of the rows this rank owns, summed over tp —
+    the JAX function's one-hot × table product, whose partial sums over
+    the vocab shards are these rows and zeros."""
+    if mesh is None:
+        return F.embedding(tokens, table)
+    table = unshard(table, spec_for("embed/tokens"), mesh)
+    rows = table.shape[0]
+    idx = tokens - mesh.index("tp") * rows
+    own = (idx >= 0) & (idx < rows)
+    out = F.embedding(torch.where(own, idx, 0), table)
+    out = out * own[..., None].to(out.dtype)
+    return comm.reduce_from(out, _tp(mesh))
+
+
+def rope_slice(cfg, seq: int, device, mesh=None):
+    """(cos, sin) rows of this rank's positions: the whole ``seq`` off a
+    mesh; on sp the rows of its contiguous chunk of the sequence, so rope
+    rotates in the activations' dtype as on one device."""
+    sp = 1 if mesh is None else mesh.shape["sp"]
+    cos, sin = rope_frequencies(cfg.head_dim, seq * sp, cfg.rope_theta,
+                                getattr(cfg, "rope_scaling", None),
+                                device=device)
+    if sp == 1:
+        return cos, sin
+    start = mesh.coords["sp"] * seq
+    return cos[start:start + seq], sin[start:start + seq]
 
 
 def llama_hidden(params: dict, tokens: torch.Tensor,
-                 cfg: LlamaConfig) -> torch.Tensor:
+                 cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """The trunk: embed → blocks → final hidden (batch, seq, dim),
     before the final norm. With ``cfg.remat`` and autograd on, each block
-    is checkpointed under ``models.common.remat_policy``."""
+    is checkpointed under ``models.common.remat_policy``. On a ``mesh``
+    the params are this rank's local shards, ``tokens`` its rows and its
+    sp chunk of the sequence, and the result its rows of the hidden."""
     seq = tokens.shape[1]
-    x = embed_lookup(params["embed"]["tokens"], tokens)
-    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
-                                          getattr(cfg, "rope_scaling", None),
-                                          device=x.device)
+    x = embed_lookup(params["embed"]["tokens"], tokens, mesh)
+    rope_cos, rope_sin = rope_slice(cfg, seq, x.device, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if remat:
-            x = remat_call(_block, x, layer, cfg, rope_cos, rope_sin)
+            x = remat_call(_block, x, layer, cfg, rope_cos, rope_sin,
+                           None, None, None, mesh)
         else:
-            x = _block(x, layer, cfg, rope_cos, rope_sin)
+            x = _block(x, layer, cfg, rope_cos, rope_sin, mesh=mesh)
     return x
 
 
 def llama_forward(params: dict, tokens: torch.Tensor,
-                  cfg: LlamaConfig) -> torch.Tensor:
-    """Next-token logits (batch, seq, vocab) in f32."""
-    return lm_head(params, llama_hidden(params, tokens, cfg), cfg)
+                  cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """Next-token logits (batch, seq, vocab) in f32 (on a mesh: this
+    rank's rows and sp chunk, the whole vocabulary)."""
+    return lm_head(params, llama_hidden(params, tokens, cfg, mesh), cfg,
+                   mesh)
 
 
 def llama_forward_cached(
@@ -352,15 +494,17 @@ def llama_forward_cached(
     last_only=False,          # True: final position; int/0-d tensor: that
     #                           position; (batch,) tensor: one per row
     kv_limit: int | None = None,  # attend cache[:kv_limit] only
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """KV-cached forward: logits for the new tokens + the caches (updated
-    in place and returned)."""
+    in place and returned). On a tp ``mesh`` the params are this rank's
+    shards and the caches hold its kv heads; the logits are whole."""
     def block_fn(x, layer, cache, rope_cos, rope_sin):
         return _block(x, layer, cfg, rope_cos, rope_sin, cache=cache,
-                      start_pos=start_pos, kv_limit=kv_limit)
+                      start_pos=start_pos, kv_limit=kv_limit, mesh=mesh)
 
     return decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
-                                  last_only, block_fn)
+                                  last_only, block_fn, mesh=mesh)
 
 
 def llama_forward_paged(
@@ -372,6 +516,7 @@ def llama_forward_paged(
     table: torch.Tensor,      # (S, mp) long page ids; 0 = trash
     pos: torch.Tensor,        # (S,) per-slot positions
     max_pos: int,             # position capacity (sizes the rope tables)
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Paged-KV decode step: logits (S, 1, vocab) + the pools (updated in
     place and returned). Block math is ``_block`` through the shared
@@ -382,14 +527,15 @@ def llama_forward_paged(
         ref = PagedRef(k_pool=kc, v_pool=vc, layer_idx=layer_idx,
                        table=table)
         return _block(x, layer, cfg, rope_cos, rope_sin, cache=ref,
-                      start_pos=pos)
+                      start_pos=pos, mesh=mesh)
 
     return decoder_forward_cached(params, tokens, cfg, k_pool, v_pool,
-                                  False, block_fn, max_pos=max_pos)
+                                  False, block_fn, max_pos=max_pos,
+                                  mesh=mesh)
 
 
 def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
-                           last_only, block_fn, max_pos=None):
+                           last_only, block_fn, max_pos=None, mesh=None):
     """The shared KV-cached decoder skeleton: embed → cache-threading
     layer loop → lm_head. ``block_fn(x, layer, (kc, vc, layer_idx),
     rope_cos, rope_sin) -> (x, (kc, vc))`` supplies the block body.
@@ -397,7 +543,7 @@ def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
     ``cfg`` may be another family's (models/moe.py): one without a
     ``rope_scaling`` field runs unscaled rope."""
     max_seq = max_pos or k_cache.shape[2]
-    x = embed_lookup(params["embed"]["tokens"], tokens)
+    x = embed_lookup(params["embed"]["tokens"], tokens, mesh)
     rope_cos, rope_sin = rope_frequencies(cfg.head_dim, max_seq,
                                           cfg.rope_theta,
                                           getattr(cfg, "rope_scaling", None),
@@ -418,44 +564,103 @@ def decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
         else:
             idx = torch.as_tensor(last_only, device=x.device).reshape(1)
             x = x.index_select(1, idx)
-    return lm_head(params, x, cfg), kc, vc
+    return lm_head(params, x, cfg, mesh), kc, vc
 
 
-def lm_head(params: dict, h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def lm_head(params: dict, h: torch.Tensor, cfg: LlamaConfig,
+            mesh=None, whole: bool = True) -> torch.Tensor:
     """Final norm + logits projection: operands in the storage dtype,
-    f32 result."""
+    f32 result. On a mesh the head is this rank's (d/fsdp, vocab/tp)
+    shard: gathered over fsdp, the product is the rank's vocab columns,
+    gathered over tp unless ``whole`` is False (the loss reduces them
+    where they are)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return linear(h.to(cfg.dtype), params["lm_head"],
-                  out_dtype=torch.float32)
+    if mesh is None:
+        return linear(h.to(cfg.dtype), params["lm_head"],
+                      out_dtype=torch.float32)
+    head = unshard(params["lm_head"], spec_for("lm_head"), mesh)
+    logits = linear(comm.copy_to(h.to(cfg.dtype), _tp(mesh)), head,
+                    out_dtype=torch.float32)
+    if not whole:
+        return logits
+    return comm.all_gather(logits, logits.ndim - 1, _tp(mesh), bwd="slice")
+
+
+def loss_denominator(targets: torch.Tensor, mesh) -> int:
+    """Token positions of the GLOBAL batch: this rank's count times the
+    ranks that split rows (dp, fsdp) and the sequence (sp)."""
+    n = targets.numel()
+    if mesh is not None:
+        n *= mesh.size_of(("dp", "fsdp", "sp"))
+    return n
+
+
+def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor,
+                        mesh, denom: int) -> torch.Tensor:
+    """Sum of next-token cross-entropy over this rank's positions,
+    divided by ``denom``, from this rank's tp columns of the logits: the
+    max and the sum of exponentials reduce over tp, and the target's
+    logit comes from the rank that owns its column. The full vocabulary
+    is never gathered. Off a mesh (no tp group) it is the mean
+    cross-entropy in logsumexp form, shifted by the detached row max."""
+    grp = _tp(mesh)
+    cols = logits.shape[-1]
+    m = comm.all_reduce_max(logits.amax(dim=-1), grp)
+    sumexp = comm.reduce_from(torch.exp(logits - m[..., None]).sum(-1), grp)
+    lse = torch.log(sumexp) + m
+    idx = targets.long() - (0 if mesh is None else mesh.index("tp")) * cols
+    own = (idx >= 0) & (idx < cols)
+    tl = logits.gather(-1, torch.where(own, idx, 0)[..., None])[..., 0]
+    tl = comm.reduce_from(torch.where(own, tl, 0.0), grp)
+    return (lse - tl).sum() / denom
+
+
+def seq_slice(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's contiguous sp chunk of ``x``'s seq dim (dim 1)."""
+    sp = 1 if mesh is None else mesh.shape["sp"]
+    if sp == 1:
+        return x
+    if x.shape[1] % sp:
+        raise ValueError(f"seq {x.shape[1]} is not divisible by sp = {sp}")
+    n = x.shape[1] // sp
+    return x[:, mesh.coords["sp"] * n:(mesh.coords["sp"] + 1) * n]
 
 
 def cross_entropy(logits: torch.Tensor,
                   targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy, in logsumexp form: reduces straight
-    off the logits instead of making the (batch, seq, vocab) log-softmax."""
-    lse = torch.logsumexp(logits, dim=-1)
-    target_logit = logits.gather(-1, targets[..., None].long())[..., 0]
-    return (lse - target_logit).mean()
+    """Mean next-token cross-entropy (the JAX function): the one-device
+    case of ``vocab_parallel_xent``."""
+    return vocab_parallel_xent(logits, targets, None, targets.numel())
 
 
 def llama_loss(params: dict, tokens: torch.Tensor,
-               cfg: LlamaConfig) -> torch.Tensor:
+               cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1]. With
     ``cfg.loss_chunk_rows`` set, the logits projection and the loss fuse
     into ``ops.xent.chunked_cross_entropy``, which never makes the
-    (batch, seq, vocab) logits. An int8 head (QLoRA's frozen base) is
+    (batch, seq, vocab) logits; without it the logits go through
+    ``vocab_parallel_xent``. An int8 head (QLoRA's frozen base) is
     dequantized to ``cfg.dtype`` once a call for it, as in the JAX
-    function."""
+    function.
+
+    On a ``mesh`` ``params`` are this rank's local shards and ``tokens``
+    its rows (parallel/sharding.py ``split_batch``); the sequence splits
+    over sp here, and the result is this rank's share of the GLOBAL mean
+    (its positions' sum over the global count), so the sum over ranks
+    is the loss and the sum of their gradients the gradient."""
+    inputs = seq_slice(tokens[:, :-1], mesh)
+    targets = seq_slice(tokens[:, 1:], mesh)
+    denom = loss_denominator(targets, mesh)
+    x = llama_hidden(params, inputs, cfg, mesh)
     if cfg.loss_chunk_rows:
-        x = llama_hidden(params, tokens[:, :-1], cfg)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
-        head = params["lm_head"]
+        head = unshard(params["lm_head"], spec_for("lm_head"), mesh)
         if isinstance(head, QuantizedLinear):
             head = dequantize_weight(head, cfg.dtype)
-        return chunked_cross_entropy(h, head, tokens[:, 1:],
-                                     cfg.loss_chunk_rows)
-    logits = llama_forward(params, tokens[:, :-1], cfg)
-    return cross_entropy(logits, tokens[:, 1:])
+        return chunked_cross_entropy(h, head, targets, cfg.loss_chunk_rows,
+                                     mesh=mesh, denom=denom)
+    return vocab_parallel_xent(lm_head(params, x, cfg, mesh, whole=False),
+                               targets, mesh, denom)
 
 
 def param_count(params: dict) -> int:

@@ -15,9 +15,15 @@ lower expert index first on ties, as ``lax.top_k`` does. The scatter and
 gather of the dispatch never index out of range: a dropped choice writes
 into one trash row past the expert buffers and reads a zero.
 
-The port has no mesh yet: ``sort`` is the ``gather`` path, as the JAX
-function is with ``mesh=None``, and ``MOE_RULES`` waits for the port's
-parallelism.
+On one device ``sort`` is the ``gather`` path, as the JAX function is
+with ``mesh=None``. On a mesh (``MOE_RULES``) the experts shard on
+``ep`` and, within an expert, the ffn dim on ``tp`` and the model dim on
+``fsdp``. Tokens are not split over ep: every ep rank routes the same
+tokens, runs its own experts on its slots of the dispatch, and the
+expert outputs are summed over tp and gathered over ep before the
+combine. Routing is over the GLOBAL flat batch, as under GSPMD: a batch
+split over dp/fsdp/sp is gathered for it, so every capacity and drop
+matches the JAX function on the same mesh.
 """
 
 from __future__ import annotations
@@ -30,13 +36,28 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_docker_api_torch.models.common import draw_stacked, remat_call
-from tpu_docker_api_torch.models.llama import (_attention, cross_entropy,
+from tpu_docker_api_torch.models.common import (draw_stacked, init_tree,
+                                                remat_call)
+from tpu_docker_api_torch.models.llama import (_attention,
                                                decoder_forward_cached,
-                                               embed_lookup, lm_head,
-                                               unstack_layers)
+                                               embed_lookup, gather_layer,
+                                               layer_specs, lm_head,
+                                               loss_denominator, rope_slice,
+                                               seq_slice, unstack_layers,
+                                               vocab_parallel_xent)
 from tpu_docker_api_torch.ops.norms import rms_norm
-from tpu_docker_api_torch.ops.rope import rope_frequencies
+from tpu_docker_api_torch.parallel import comm
+from tpu_docker_api_torch.parallel.sharding import LLAMA_RULES, P
+
+#: param-path sharding rules, first match wins (the JAX MOE_RULES): the
+#: MoE rows, then LLAMA_RULES for everything shared with Llama
+MOE_RULES: list = [
+    ("layers/moe/router",    P(None, "fsdp", None)),
+    ("layers/moe/w_gate",    P(None, "ep", "fsdp", "tp")),
+    ("layers/moe/w_up",      P(None, "ep", "fsdp", "tp")),
+    ("layers/moe/w_down",    P(None, "ep", "tp", "fsdp")),
+    *LLAMA_RULES,
+]
 
 DISPATCH_IMPLS = ("auto", "gather", "einsum", "sort")
 
@@ -142,19 +163,18 @@ def moe_param_specs(cfg: MoEConfig) -> dict:
     }
 
 
-def moe_init(cfg: MoEConfig, generator: torch.Generator) -> dict:
+def moe_init(cfg: MoEConfig, generator: torch.Generator,
+             place=None) -> dict:
     """Random parameters on the generator's device in the JAX package's
     pytree; expert weights carry (n_layers, n_experts, …), the router
-    stays f32."""
-    def init(spec):
-        if isinstance(spec, dict):
-            return {k: init(v) for k, v in spec.items()}
+    stays f32. ``place``: models/common.py ``init_tree``."""
+    def draw(spec):
         shape, fan_in, dtype = spec
         if fan_in is None:
             return torch.ones(shape, dtype=dtype, device=generator.device)
         return draw_stacked(generator, shape, fan_in, dtype)
 
-    return init(moe_param_specs(cfg))
+    return init_tree(moe_param_specs(cfg), draw, place)
 
 
 def _topk_lower_index_first(probs: torch.Tensor, k: int):
@@ -293,8 +313,36 @@ def _expert_swiglu(xe: torch.Tensor, layer_moe: dict) -> torch.Tensor:
     return torch.bmm(gate * up, layer_moe["w_down"])
 
 
+def _experts_on_mesh(xe: torch.Tensor, layer_moe: dict, mesh):
+    """(E, C, d) dispatched tokens, replicated → (E, C, d) expert outputs,
+    replicated: this rank's experts on its slots (its tp part of the ffn
+    dim), summed over tp and gathered over ep. The tokens enter through
+    ``copy_to`` over both axes: each rank's backward is partial."""
+    ep, tp = mesh.group("ep"), mesh.group("tp")
+    xe = comm.copy_to(comm.copy_to(xe, tp), ep)
+    e_loc = layer_moe["w_gate"].shape[0]
+    xe = xe[mesh.index("ep") * e_loc:(mesh.index("ep") + 1) * e_loc]
+    ye = comm.reduce_from(_expert_swiglu(xe, layer_moe), tp)
+    return comm.all_gather(ye, 0, ep, bwd="slice")
+
+
+def _gather_tokens(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global (batch, seq, d) from this rank's rows and sp chunk."""
+    x = comm.all_gather(x, 1, mesh.group("sp"), bwd="sum")
+    for a in ("fsdp", "dp"):
+        x = comm.all_gather(x, 0, mesh.group(a), bwd="sum")
+    return x
+
+
+def _own_tokens(x: torch.Tensor, b: int, s: int, mesh) -> torch.Tensor:
+    """This rank's rows and sp chunk of a global (batch, seq, d)."""
+    r0 = mesh.index(("dp", "fsdp")) * b
+    s0 = mesh.coords["sp"] * s
+    return x[r0:r0 + b, s0:s0 + s]
+
+
 def _moe_mlp(x: torch.Tensor, layer_moe: dict, cfg: MoEConfig,
-             drop_free: bool = False):
+             drop_free: bool = False, mesh=None):
     """Sparse FFN: route → dispatch → batched expert SwiGLU → combine.
     Returns (out, aux_loss).
 
@@ -303,18 +351,43 @@ def _moe_mlp(x: torch.Tensor, layer_moe: dict, cfg: MoEConfig,
       slot id and the expert outputs gather back; a dropped choice writes
       the trash row E·C (sliced off) and reads a zero.
     - ``einsum``: the one-hot (t, E, C) dispatch and combine products.
+
+    On a mesh with more than one rank ``auto`` is ``sort`` and
+    ``gather`` raises, as in JAX; ``sort`` is the gather path with the
+    expert compute split over ep and tp (:func:`_experts_on_mesh`).
     """
-    b, s, d = x.shape
-    x_flat = x.reshape(b * s, d)
     if cfg.dispatch_impl not in DISPATCH_IMPLS:
         raise ValueError(f"unknown dispatch impl {cfg.dispatch_impl!r}")
+    if (mesh is not None and mesh.size > 1
+            and cfg.dispatch_impl == "gather"):
+        raise ValueError(
+            "dispatch_impl='gather' is single-device only; use 'auto', "
+            "'einsum', or 'sort' on a multi-device mesh")
+    b_own, s_own = x.shape[:2]
+    split = mesh is not None and mesh.size_of(("dp", "fsdp", "sp")) > 1
+    if split:
+        x = _gather_tokens(x, mesh)
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+
+    def experts(xe):
+        if mesh is None:
+            return _expert_swiglu(xe, layer_moe)
+        return _experts_on_mesh(xe, layer_moe, mesh)
+
+    def own(out, aux):
+        out = out.reshape(b, s, d)
+        if split:
+            out = _own_tokens(out, b_own, s_own, mesh)
+        return out, aux
+
     if cfg.dispatch_impl == "einsum":
         dispatch, combine, aux = _route(x_flat, layer_moe["router"], cfg,
                                         drop_free=drop_free)
         xe = torch.einsum("tec,td->ecd", dispatch, x_flat)
-        ye = _expert_swiglu(xe, layer_moe)
+        ye = experts(xe)
         out = torch.einsum("tec,ecd->td", combine, ye)
-        return out.reshape(b, s, d), aux
+        return own(out, aux)
 
     gate_vals, gate_idx, pos, keep, aux, C = _route_topk(
         x_flat, layer_moe["router"], cfg, drop_free=drop_free)
@@ -323,56 +396,63 @@ def _moe_mlp(x: torch.Tensor, layer_moe: dict, cfg: MoEConfig,
     slot = torch.where(keep, gate_idx * C + pos, E * C).reshape(-1)
     src = x_flat[:, None, :].expand(t, K, d).reshape(t * K, d)
     xe = x_flat.new_zeros((E * C + 1, d)).index_copy(0, slot, src)
-    ye = _expert_swiglu(xe[:E * C].reshape(E, C, d), layer_moe)
+    ye = experts(xe[:E * C].reshape(E, C, d))
     picked = ye.reshape(E * C, d).index_select(0, slot.clamp_max(E * C - 1))
     picked = torch.where(keep.reshape(-1, 1), picked, 0).reshape(t, K, d)
     w = (gate_vals * keep).to(x.dtype)                       # (t, K)
     out = torch.einsum("tk,tkd->td", w, picked)
-    return out.reshape(b, s, d), aux
+    return own(out, aux)
 
 
 def _moe_block(x, layer, cfg: MoEConfig, rope_cos, rope_sin, cache=None,
-               start_pos=None, kv_limit=None):
+               start_pos=None, kv_limit=None, mesh=None):
     """Transformer block: Llama attention (shared code) + sparse FFN.
     Returns (x, aux_loss), or (x, aux_loss, new_cache) on the KV-cached
     path (``cache=(k_all, v_all, layer_idx)``, llama's ``_attention``
     contract). A cached call of one token a row (decode) routes
     drop-free; prefill and training keep the capacity."""
+    if mesh is not None:
+        layer = gather_layer(layer, layer_specs(layer, MOE_RULES), mesh)
     attn_out = _attention(
         rms_norm(x, layer["attn_norm"], cfg.norm_eps), layer, cfg,
         rope_cos, rope_sin, cache=cache, start_pos=start_pos,
-        kv_limit=kv_limit)
+        kv_limit=kv_limit, mesh=mesh)
     new_cache = None
     if cache is not None:
         attn_out, new_cache = attn_out
     x = x + attn_out
     moe_out, aux = _moe_mlp(
         rms_norm(x, layer["mlp_norm"], cfg.norm_eps), layer["moe"], cfg,
-        drop_free=(cache is not None and x.shape[1] == 1))
+        drop_free=(cache is not None and x.shape[1] == 1), mesh=mesh)
     x = x + moe_out
     return (x, aux) if cache is None else (x, aux, new_cache)
 
 
-def moe_forward(params: dict, tokens: torch.Tensor,
-                cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
+                mesh=None, whole: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(logits (b, s, vocab) f32, mean router aux loss over layers). With
     ``cfg.remat`` and autograd on, each block is checkpointed under the
     shared selective policy of models/common.py (the flash ``(out,
-    lse)`` kept, the rest recomputed)."""
+    lse)`` kept, the rest recomputed). On a ``mesh`` the params are
+    local shards and ``tokens`` this rank's rows and sp chunk
+    (models/llama.py ``llama_hidden``); ``whole=False`` keeps the logits'
+    tp columns."""
     seq = tokens.shape[1]
-    x = embed_lookup(params["embed"]["tokens"], tokens)
-    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, seq, cfg.rope_theta,
-                                          device=x.device)
+    x = embed_lookup(params["embed"]["tokens"], tokens, mesh)
+    rope_cos, rope_sin = rope_slice(cfg, seq, x.device, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for layer in unstack_layers(params["layers"], cfg.n_layers):
         if remat:
             x, aux = remat_call(_moe_block, x, layer, cfg, rope_cos,
-                                rope_sin)
+                                rope_sin, None, None, None, mesh)
         else:
-            x, aux = _moe_block(x, layer, cfg, rope_cos, rope_sin)
+            x, aux = _moe_block(x, layer, cfg, rope_cos, rope_sin,
+                                mesh=mesh)
         auxes.append(aux)
-    return lm_head(params, x, cfg), torch.stack(auxes).mean()
+    return (lm_head(params, x, cfg, mesh, whole=whole),
+            torch.stack(auxes).mean())
 
 
 def moe_forward_cached(
@@ -384,6 +464,7 @@ def moe_forward_cached(
     start_pos,
     last_only=False,
     kv_limit: int | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """KV-cached forward for serving: the shared decoder skeleton
     (models/llama.py ``decoder_forward_cached``, caches updated in place)
@@ -391,15 +472,23 @@ def moe_forward_cached(
     def block_fn(x, layer, cache, rope_cos, rope_sin):
         x, _aux, new_cache = _moe_block(
             x, layer, cfg, rope_cos, rope_sin, cache=cache,
-            start_pos=start_pos, kv_limit=kv_limit)
+            start_pos=start_pos, kv_limit=kv_limit, mesh=mesh)
         return x, new_cache
 
     return decoder_forward_cached(params, tokens, cfg, k_cache, v_cache,
-                                  last_only, block_fn)
+                                  last_only, block_fn, mesh=mesh)
 
 
-def moe_loss(params: dict, tokens: torch.Tensor,
-             cfg: MoEConfig) -> torch.Tensor:
-    """Causal LM loss + the router's load-balance penalty."""
-    logits, aux = moe_forward(params, tokens[:, :-1], cfg)
-    return cross_entropy(logits, tokens[:, 1:]) + cfg.router_aux_coef * aux
+def moe_loss(params: dict, tokens: torch.Tensor, cfg: MoEConfig,
+             mesh=None) -> torch.Tensor:
+    """Causal LM loss + the router's load-balance penalty. On a mesh,
+    this rank's share (models/llama.py ``llama_loss``): the aux loss is
+    computed whole on every rank that splits the batch, so each carries
+    its 1/n part."""
+    inputs = seq_slice(tokens[:, :-1], mesh)
+    targets = seq_slice(tokens[:, 1:], mesh)
+    logits, aux = moe_forward(params, inputs, cfg, mesh, whole=False)
+    ce = vocab_parallel_xent(logits, targets, mesh,
+                             loss_denominator(targets, mesh))
+    n = 1 if mesh is None else mesh.size_of(("dp", "fsdp", "sp"))
+    return ce + cfg.router_aux_coef * aux / n

@@ -21,13 +21,36 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from tpu_docker_api_torch.models.common import (draw_stacked, remat_call,
+from tpu_docker_api_torch.models.common import (draw_stacked, init_tree,
+                                                remat_call,
                                                 seeded_generator,
                                                 trunc_normal_init)
-from tpu_docker_api_torch.models.llama import unstack_layers
+from tpu_docker_api_torch.models.llama import (gather_layer, layer_specs,
+                                               unstack_layers)
 from tpu_docker_api_torch.ops.attention import multihead_attention
 from tpu_docker_api_torch.ops.norms import layer_norm
 from tpu_docker_api_torch.ops.quant import linear
+from tpu_docker_api_torch.parallel import comm
+from tpu_docker_api_torch.parallel.sharding import P, spec_for, unshard
+
+
+#: param-path sharding rules, first match wins (the JAX VIT_RULES). On
+#: a mesh the batch splits over dp and fsdp, the weights gather over fsdp
+#: a layer at a time, and tp splits the products as the rules lay them
+#: out: the patch embedding's and the blocks' column-parallel products
+#: make this rank's columns, the row-parallel ones sum over tp
+VIT_RULES: list = [
+    ("patch_embed/w",   P("fsdp", "tp")),           # (P²C, d) column
+    ("layers/attn/wq",  P(None, "fsdp", "tp")),     # (L, d, d) column
+    ("layers/attn/wk",  P(None, "fsdp", "tp")),
+    ("layers/attn/wv",  P(None, "fsdp", "tp")),
+    ("layers/attn/wo",  P(None, "tp", "fsdp")),     # row
+    ("layers/mlp/w1",   P(None, "fsdp", "tp")),     # (L, d, ff) column
+    ("layers/mlp/w2",   P(None, "tp", "fsdp")),     # (L, ff, d) row
+    ("head",            P("fsdp", None)),           # (d, classes)
+    ("pos_emb",         P()),
+    ("*",               P()),                       # biases, norms
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,14 +124,13 @@ def vit_param_specs(cfg: ViTConfig) -> dict:
     }
 
 
-def vit_init(cfg: ViTConfig, generator: torch.Generator) -> dict:
+def vit_init(cfg: ViTConfig, generator: torch.Generator,
+             place=None) -> dict:
     """Random parameters on the generator's device, stacked leaves drawn
-    matrix by matrix."""
+    matrix by matrix. ``place``: models/common.py ``init_tree``."""
     dev, dt = generator.device, cfg.dtype
 
     def init(spec):
-        if isinstance(spec, dict):
-            return {k: init(v) for k, v in spec.items()}
         shape, how = spec
         if how == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
@@ -122,7 +144,7 @@ def vit_init(cfg: ViTConfig, generator: torch.Generator) -> dict:
                 * torch.tensor(0.02, dtype=dt)
         return draw_stacked(generator, shape, how, dt)
 
-    return init(vit_param_specs(cfg))
+    return init_tree(vit_param_specs(cfg), init, place)
 
 
 def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
@@ -133,48 +155,78 @@ def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(b, (h // p) * (w // p), p * p * c)
 
 
-def _block(x, layer, cfg: ViTConfig):
-    """Pre-LN transformer encoder block (non-causal attention)."""
-    b, n, d = x.shape
+def _block(x, layer, cfg: ViTConfig, mesh=None):
+    """Pre-LN transformer encoder block (non-causal attention). On a
+    ``mesh`` the layer's local shards are gathered over fsdp here (inside
+    the remat region, as llama's) and the attention heads and MLP columns
+    are this rank's tp part (``copy_to`` in, ``reduce_from`` out)."""
+    tp = None if mesh is None else mesh.group("tp")
+    if mesh is not None:
+        layer = gather_layer(layer, layer_specs(layer, VIT_RULES), mesh)
+    b, n, _ = x.shape
     hd = cfg.head_dim
-    y = layer_norm(x, layer["ln1_w"], layer["ln1_b"], cfg.norm_eps)
-    q = linear(y, layer["attn"]["wq"]).reshape(b, n, cfg.n_heads, hd)
-    k = linear(y, layer["attn"]["wk"]).reshape(b, n, cfg.n_heads, hd)
-    v = linear(y, layer["attn"]["wv"]).reshape(b, n, cfg.n_heads, hd)
+    y = comm.copy_to(layer_norm(x, layer["ln1_w"], layer["ln1_b"],
+                                cfg.norm_eps), tp)
+    q = linear(y, layer["attn"]["wq"]).reshape(b, n, -1, hd)
+    k = linear(y, layer["attn"]["wk"]).reshape(b, n, -1, hd)
+    v = linear(y, layer["attn"]["wv"]).reshape(b, n, -1, hd)
     attn = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype)
-    x = x + linear(attn.reshape(b, n, d), layer["attn"]["wo"])
-    y = layer_norm(x, layer["ln2_w"], layer["ln2_b"], cfg.norm_eps)
-    y = F.gelu(linear(y, layer["mlp"]["w1"]) + layer["mlp"]["b1"],
+    x = x + comm.reduce_from(linear(attn.reshape(b, n, -1),
+                                    layer["attn"]["wo"]), tp)
+    y = comm.copy_to(layer_norm(x, layer["ln2_w"], layer["ln2_b"],
+                                cfg.norm_eps), tp)
+    b1 = comm.scatter_to(layer["mlp"]["b1"], 0, tp)
+    y = F.gelu(linear(y, layer["mlp"]["w1"]) + b1,
                approximate="tanh")  # jax.nn.gelu's default
-    return x + (linear(y, layer["mlp"]["w2"]) + layer["mlp"]["b2"])
+    return x + (comm.reduce_from(linear(y, layer["mlp"]["w2"]), tp)
+                + layer["mlp"]["b2"])
 
 
 def vit_forward(params: dict, images: torch.Tensor,
-                cfg: ViTConfig) -> torch.Tensor:
+                cfg: ViTConfig, mesh=None) -> torch.Tensor:
     """Class logits (B, n_classes) in f32 (mean-pooled, no CLS token)
-    from (B, H, W, C) images of any float dtype."""
+    from (B, H, W, C) images of any float dtype. On a ``mesh`` the params
+    are this rank's local shards and ``images`` its rows."""
+    if mesh is not None:
+        tp = mesh.shape["tp"]
+        if cfg.n_heads % tp or cfg.ffn_dim % tp:
+            raise ValueError(f"tp = {tp} must divide n_heads {cfg.n_heads} "
+                             f"and ffn_dim {cfg.ffn_dim}")
     x = _patchify(images.to(cfg.dtype), cfg)
-    x = linear(x, params["patch_embed"]["w"]) + params["patch_embed"]["b"]
+    w = params["patch_embed"]["w"]
+    if mesh is None:
+        x = linear(x, w)
+    else:
+        # this rank's columns of the embedding, then the whole width
+        x = linear(x, unshard(w, spec_for("patch_embed/w", VIT_RULES),
+                              mesh))
+        x = comm.all_gather(x, x.ndim - 1, mesh.group("tp"), bwd="slice")
+    x = x + params["patch_embed"]["b"]
     x = x + params["pos_emb"][None]
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["layers"], cfg.n_layers):
-        x = remat_call(_block, x, layer, cfg) if remat else \
-            _block(x, layer, cfg)
+        x = remat_call(_block, x, layer, cfg, mesh) if remat else \
+            _block(x, layer, cfg, mesh)
     x = layer_norm(x, params["final_ln_w"], params["final_ln_b"],
                    cfg.norm_eps)
     pooled = x.float().mean(dim=1)   # (B, d)
-    return linear(pooled.to(cfg.dtype), params["head"],
-                  out_dtype=torch.float32)
+    head = unshard(params["head"], spec_for("head", VIT_RULES), mesh)
+    return linear(pooled.to(cfg.dtype), head, out_dtype=torch.float32)
 
 
-def vit_loss(params: dict, batch, cfg: ViTConfig) -> torch.Tensor:
+def vit_loss(params: dict, batch, cfg: ViTConfig,
+             mesh=None) -> torch.Tensor:
     """Mean softmax cross-entropy over classes; ``batch`` is (images
-    (B, H, W, C), labels (B,))."""
+    (B, H, W, C), labels (B,)). On a ``mesh``: this rank's share of the
+    global mean from its rows (``vit_forward``'s mesh path)."""
+    if mesh is not None and mesh.shape["sp"] > 1:
+        raise ValueError("sp does not apply to vit: presets yet")
     images, labels = batch
-    logits = vit_forward(params, images, cfg)
+    logits = vit_forward(params, images, cfg, mesh)
     lse = torch.logsumexp(logits, dim=-1)
     target = logits.gather(-1, labels[:, None].long())[:, 0]
-    return (lse - target).mean()
+    loss = (lse - target).mean()
+    return loss if mesh is None else loss / mesh.size_of(("dp", "fsdp"))
 
 
 def vit_synthetic_batch(seed, batch: int, cfg: ViTConfig,

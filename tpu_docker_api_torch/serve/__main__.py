@@ -73,7 +73,22 @@ decoded from BOS through the encoder-decoder slot engine
 (infer/encdec_slots.py; no /prefixes, no ``--prefill-chunk`` and no
 ``--draft-preset``, as in JAX), or with ``--slots 0`` through
 ``encdec_generate`` with equal-length rows (``lengths`` only with an
-``eosId``). Flags of the JAX
+``eosId``).
+
+Meshes (``--dp --fsdp --tp``, one process a device; parallel/): given
+any of them, or started as one rank of a larger job, the server loads
+its weights as shards (random from ``--seed``, or ``--ckpt-dir``
+restored into them, whatever mesh wrote it). Rank 0 answers HTTP; one
+command started without ``RANK`` starts a rank for every visible GPU,
+or ``--nproc-per-node N`` gloo ranks with ``--device cpu``. A tp/fsdp
+mesh serves llama and moe presets through the slot engine (the cache's
+kv heads split over tp, slots replicated; dense or ``--page-size``),
+every rank stepping it in lockstep with rank 0 (infer/mirror.py). A dp
+mesh, an ``encdec:`` preset and ``--slots 0`` serve through the
+``--slots 0`` path: every rank holds the weights gathered whole, and
+the rows of each request split over the ranks (``Server.generate``;
+``/healthz`` counts each rank's rows as ``meshRows``). ``--quantize``, ``--hf-ckpt``,
+``--lora-ckpt`` and ``--draft-preset`` are single-device only. Flags of the JAX
 entry point that the port does not have yet are refused with the ROADMAP
 item that brings them. Runs on ``cuda`` unless ``--device cpu`` is
 given.
@@ -96,11 +111,13 @@ from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
 
 #: JAX-CLI flags the port does not take yet → what brings them
 _NOT_PORTED = {
-    "it comes with parallelism (ROADMAP Queue 1 item 9)": ("dp", "fsdp",
-                                                          "tp"),
-    "it selects a JAX platform; use --device": ("platform",
-                                                "virtual_devices"),
+    "it selects a JAX platform; use --device": ("platform",),
+    "it makes JAX CPU devices; use --device cpu --nproc-per-node N":
+        ("virtual_devices",),
 }
+
+#: the mesh axes the server takes
+MESH_FLAGS = ("dp", "fsdp", "tp")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -180,6 +197,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "step, params only); '' = random weights")
     p.add_argument("--n-spec", type=int, default=4,
                    help="draft tokens proposed per speculative round")
+    for name in MESH_FLAGS:
+        p.add_argument("--" + name, type=int, default=None,
+                       help="mesh axis size (dp -1 = the ranks left); any "
+                            "of them serves on a mesh")
+    p.add_argument("--nproc-per-node", type=int, default=1,
+                   help="with --device cpu: start N gloo ranks")
     for names in _NOT_PORTED.values():
         for name in names:
             p.add_argument("--" + name.replace("_", "-"),
@@ -236,7 +259,26 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.lora_ckpt and args.lora_rank < 1:
         p.error("--lora-ckpt requires --lora-rank (the rank the adapters "
                 "were trained at)")
+    if args.nproc_per_node > 1 and args.device != "cpu":
+        p.error("--nproc-per-node is for --device cpu (on cuda one rank "
+                "starts for every visible GPU)")
+    if mesh_wanted(args):
+        given = [f for f, on in (("--quantize", args.quantize),
+                                 ("--hf-ckpt", args.hf_ckpt),
+                                 ("--lora-ckpt", args.lora_ckpt),
+                                 ("--draft-preset", args.draft_preset)) if on]
+        if given:
+            p.error(f"{', '.join(given)}: single-device only in the PyTorch "
+                    f"package (no mesh)")
     return args
+
+
+def mesh_wanted(args) -> bool:
+    """The mesh path: a mesh flag given, or more than one rank."""
+    from tpu_docker_api_torch.workload.torchenv import world_size
+
+    return (any(getattr(args, a) is not None for a in MESH_FLAGS)
+            or args.nproc_per_node > 1 or world_size() > 1)
 
 
 def _as_int(value, field: str) -> int:
@@ -259,7 +301,21 @@ class Server:
         from tpu_docker_api_torch.models import model_fns, resolve_preset
 
         self.args = args
-        self.device = resolve_device(args.device)
+        #: on a mesh: the mesh, this rank, and the engine's mirror
+        self.mesh, self.rank, self.mirror = None, 0, None
+        if mesh_wanted(args):
+            from tpu_docker_api_torch.parallel.mesh import (MeshPlan,
+                                                            build_mesh)
+            from tpu_docker_api_torch.workload.torchenv import (
+                bootstrap_torch)
+
+            self.device, self.rank, _ = bootstrap_torch(args.device,
+                                                        force=True)
+            self.mesh = build_mesh(MeshPlan(**{
+                a: getattr(args, a) for a in MESH_FLAGS
+                if getattr(args, a) is not None}))
+        else:
+            self.device = resolve_device(args.device)
         #: the checkpoint step served (0 for HF and random weights)
         self.step = 0
         # the JAX load order: a merged --lora-ckpt folds into the float
@@ -285,12 +341,25 @@ class Server:
                     restore_model_params)
 
                 params, self.step = restore_model_params(
-                    args.ckpt_dir, cfg, self.device)
+                    args.ckpt_dir, cfg, self.device, mesh=self.mesh)
             else:
-                init_fn, _, _ = model_fns(cfg)
-                params = init_fn(cfg, torch.Generator(
-                    device=self.device).manual_seed(args.seed))
+                init_fn, _, rules = model_fns(cfg)
+                gen = torch.Generator(device=self.device).manual_seed(
+                    args.seed)
+                if self.mesh is None:
+                    params = init_fn(cfg, gen)
+                else:
+                    from tpu_docker_api_torch.parallel import sharding
+
+                    params = init_fn(cfg, gen, place=lambda path, t: (
+                        sharding.distribute(
+                            t, sharding.spec_for(path, rules), self.mesh)))
         self.cfg = cfg
+        slot_mesh = (self.mesh is not None and args.slots > 0
+                     and family in ("llama", "moe")
+                     and self.mesh.shape["dp"] == 1)
+        if self.mesh is not None:
+            params = self._mesh_params(params, cfg, slot_mesh)
         if args.lora_ckpt:
             from tpu_docker_api_torch.train.lora import (attach_lora,
                                                          merge_lora,
@@ -313,7 +382,8 @@ class Server:
         # fusion concatenates the projections an attached tree keeps
         # apart (its adapters hang off the unfused leaves); it is
         # Llama-shaped (an MoE tree has no dense gate|up to fuse)
-        if family == "llama" and not args.no_fuse_proj and not attached:
+        if (family == "llama" and not args.no_fuse_proj and not attached
+                and self.mesh is None):
             params = fuse_llama_projections(params)
         self.params = params
         tok_path = args.tokenizer
@@ -331,13 +401,20 @@ class Server:
                                         else cfg.max_seq_len)
         self.metrics = MetricsRegistry()
         self.engine = None
-        if args.slots > 0:
+        seed = int.from_bytes(os.urandom(4), "little")
+        if self.mesh is not None:
+            from tpu_docker_api_torch.infer.mirror import Mirror
+
+            self.mirror = Mirror()
+            seed = self.mirror.broadcast(seed)  # one engine seed a job
+        if args.slots > 0 and (self.mesh is None or slot_mesh):
             common = dict(
                 slots=args.slots, max_seq=self.max_seq, chunk=args.chunk,
                 prefill_chunk=args.prefill_chunk, cache_dtype=cfg.dtype,
                 # shed load once the queue is 8x the slot count deep
-                max_pending=args.slots * 8,
-                seed=int.from_bytes(os.urandom(4), "little"))
+                max_pending=args.slots * 8, seed=seed)
+            if slot_mesh:
+                common.update(mesh=self.mesh, mirror=self.mirror)
             if family == "encdec":
                 from tpu_docker_api_torch.infer.encdec_slots import (
                     EncDecSlotEngine)
@@ -362,13 +439,103 @@ class Server:
                     cfg, params, max_prefix_bytes=args.max_prefix_bytes,
                     **common)
             self._wire_metrics(self.engine)
-            self.engine.start()
+            if self.rank == 0:
+                self.engine.start()
         self._fns: dict[tuple, object] = {}
         self._gen_lock = threading.Lock()  # one legacy generation at a time
         self._rng = torch.Generator(device=self.device).manual_seed(
             int.from_bytes(os.urandom(4), "little"))
-        self.httpd = ThreadingHTTPServer((args.host, args.port),
-                                         _make_handler(self))
+        #: on a mesh: the ``--slots 0`` rows each rank generated
+        self.mesh_rows = [0] * (self.mesh.size if self.mesh else 0)
+        self.httpd = None
+        if self.rank == 0:
+            self.httpd = ThreadingHTTPServer((args.host, args.port),
+                                             _make_handler(self))
+
+    def _mesh_params(self, params, cfg, slot_mesh: bool) -> dict:
+        """The tree a rank serves from on a mesh: its local shards for
+        the mirrored slot engine; for the ``--slots 0`` path, whose rows
+        split over the ranks, the weights gathered whole."""
+        from tpu_docker_api_torch.parallel import sharding
+
+        def walk(tree, fn):
+            if isinstance(tree, dict):
+                return {k: walk(v, fn) for k, v in tree.items()}
+            return fn(tree)
+
+        if slot_mesh:
+            return walk(params, sharding.local)
+        return walk(params, sharding.full_tensor)
+
+    def follow(self) -> None:
+        """A rank other than 0: step the mirrored engine with rank 0, or
+        generate its rows of each ``--slots 0`` request rank 0 sends,
+        until rank 0 stops the job."""
+        if self.engine is not None:
+            self.engine.follow()
+            return
+        while True:
+            msg = self.mirror.broadcast(None)
+            if msg.get("stop"):
+                return
+            self._gather_rows(self._my_rows(msg))
+
+    def generate(self, key: tuple, prompts: list) -> dict:
+        """The ``--slots 0`` generation of ``prompts`` (equal-length token
+        rows) under the sampling config ``key``, as lists. On a mesh rank
+        0 sends the request to every rank, each generates its contiguous
+        block of the rows on its whole copy of the weights (the rows
+        split over the ranks, as JAX splits the batch over dp), and rank
+        0 joins the blocks in rank order."""
+        fn = self.generate_fn(*key)   # checks the arguments on rank 0
+        with self._gen_lock:
+            if self.mesh is None:
+                out = fn(self.params, torch.tensor(
+                    prompts, dtype=torch.long, device=self.device),
+                    self._rng)
+                return {k: v.tolist() for k, v in out.items()}
+            msg = {"gen": key, "prompts": prompts,
+                   "seed": int.from_bytes(os.urandom(4), "little")}
+            self.mirror.broadcast(msg)
+            parts = self._gather_rows(self._my_rows(msg))
+            out: dict = {}
+            for r, part in enumerate(parts):
+                if "error" in part:   # a bad request stays a 400
+                    kind = ValueError if part["kind"] == "ValueError" \
+                        else RuntimeError
+                    raise kind(f"rank {r}: {part['error']}")
+                self.mesh_rows[r] += part.pop("rows")
+                for k, v in part.items():
+                    out.setdefault(k, []).extend(v)
+        return out
+
+    def _my_rows(self, msg: dict) -> dict:
+        """This rank's block of ``msg``'s rows, generated: its lists and
+        ``rows``, or ``error`` and its ``kind``."""
+        import torch.distributed as dist
+
+        world, prompts = dist.get_world_size(), msg["prompts"]
+        lo = self.rank * len(prompts) // world
+        hi = (self.rank + 1) * len(prompts) // world
+        if lo == hi:
+            return {"rows": 0}
+        try:
+            gen = torch.Generator(device=self.device).manual_seed(
+                msg["seed"] + self.rank)
+            out = self.generate_fn(*msg["gen"])(self.params, torch.tensor(
+                prompts[lo:hi], dtype=torch.long, device=self.device), gen)
+            return {"rows": hi - lo, **{k: v.tolist() for k, v in out.items()}}
+        except Exception as e:  # noqa: BLE001 — rank 0 reports it
+            return {"error": str(e), "kind": type(e).__name__}
+
+    def _gather_rows(self, part: dict):
+        """Every rank's part on rank 0 (None elsewhere)."""
+        import torch.distributed as dist
+
+        parts = ([None] * dist.get_world_size() if self.rank == 0
+                 else None)
+        dist.gather_object(part, parts, dst=0, group=self.mirror.group)
+        return parts
 
     def _load_draft(self, args) -> tuple:
         """The draft's config and params: ``--draft-ckpt`` restored, else
@@ -466,9 +633,13 @@ class Server:
         return fn
 
     def close(self, drain: float = 0.0) -> None:
-        self.httpd.server_close()
+        if self.httpd is not None:
+            self.httpd.server_close()
         if self.engine is not None:
             self.engine.close(drain=drain)
+        if self.mirror is not None:
+            with self._gen_lock:   # after the generation in flight
+                self.mirror.stop()
 
 
 def _make_handler(srv: Server):
@@ -527,8 +698,11 @@ def _make_handler(srv: Server):
                        "step": srv.step, "quantized": srv.args.quantize,
                        "tokenizer": srv.tokenizer is not None,
                        "device": str(srv.device),
-                       "devices": (torch.cuda.device_count()
+                       "devices": (srv.mesh.size if srv.mesh is not None
+                                   else torch.cuda.device_count()
                                    if srv.device.type == "cuda" else 1)}
+            if srv.mesh is not None and srv.engine is None:
+                payload["meshRows"] = list(srv.mesh_rows)
             code = 200
             eng = srv.engine
             if eng is not None:
@@ -655,6 +829,11 @@ def _make_handler(srv: Server):
             if slot_ok and hasattr(eng, "n_spec") and (
                     temperature != 0.0 or top_k != 0 or top_p != 1.0):
                 slot_ok = False
+            if eng is not None and not slot_ok and srv.mesh is not None:
+                # the mesh engine's ranks hold shards, not whole weights
+                self._reply(503, {"error": f"slot engine stopped: "
+                                           f"{eng.dead}"})
+                return
             if do_stream and not slot_ok:
                 raise ValueError("stream requires the slot engine path "
                                  "(--slots > 0)")
@@ -699,12 +878,8 @@ def _make_handler(srv: Server):
                 # greedy ignores the filters; don't cache a program per
                 # assorted topK/topP
                 top_k, top_p = 0, 1.0
-            fn = srv.generate_fn(max_new, temperature, top_k, top_p, eos_id)
-            prompt = torch.tensor(prompts, dtype=torch.long,
-                                  device=srv.device)
-            with srv._gen_lock:
-                out = fn(srv.params, prompt, srv._rng)
-            payload = {k: v.tolist() for k, v in out.items()}
+            payload = srv.generate(
+                (max_new, temperature, top_k, top_p, eos_id), prompts)
             if texts_in is not None:
                 payload["texts"] = [tok.decode(row[:n]) for row, n in zip(
                     payload["tokens"], payload.get(
@@ -735,8 +910,32 @@ def _make_handler(srv: Server):
     return Handler
 
 
-def main(argv: list[str] | None = None) -> None:
-    srv = Server(parse_args(argv))
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if mesh_wanted(args):
+        from tpu_docker_api_torch.workload.torchenv import (launch_workers,
+                                                            without_flag,
+                                                            workers_wanted)
+
+        n = workers_wanted(args.device, args.nproc_per_node)
+        if n > 1:
+            return launch_workers("tpu_docker_api_torch.serve",
+                                  without_flag(argv, "--nproc-per-node"), n,
+                                  "cpu" if args.device == "cpu" else "cuda")
+    srv = Server(args)
+    if srv.rank != 0:
+        # rank 0 stops the job (its close releases the others); a signal
+        # the launcher passes on must not end a rank mid-step
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        try:
+            srv.follow()
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        return 0
 
     def _stop(signum, _frame):
         threading.Thread(target=srv.httpd.shutdown, daemon=True).start()
@@ -753,6 +952,11 @@ def main(argv: list[str] | None = None) -> None:
     # drain: handler threads may still wait on handles after shutdown()
     srv.close(drain=8)
     print(json.dumps({"event": "stopped"}), flush=True)
+    if srv.mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return 0
 
 
 if __name__ == "__main__":

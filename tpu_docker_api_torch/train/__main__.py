@@ -1,6 +1,6 @@
 """Training entry point of the port (counterpart of
-``tpu_docker_api/train/__main__.py``, one device): Llama presets and
-the ``moe:``, ``vit:`` and ``encdec:`` families.
+``tpu_docker_api/train/__main__.py``): Llama presets and the ``moe:``,
+``vit:`` and ``encdec:`` families, on one device or on a mesh.
 
     python -m tpu_docker_api_torch.train --preset llama3-1b --steps 20 \
         --batch 4 --seq 2048 --optim adamw-int8 --ckpt-dir CKPT \
@@ -13,6 +13,9 @@ the ``moe:``, ``vit:`` and ``encdec:`` families.
     python -m tpu_docker_api_torch.train --preset vit:vit-b16 --batch 128
     python -m tpu_docker_api_torch.train --preset encdec:encdec-base \
         --batch 32 --seq 512
+    python -m tpu_docker_api_torch.train --preset llama3-8b --fsdp 2 --tp 4
+    python -m tpu_docker_api_torch.train --device cpu --preset tiny \
+        --tp 2 --nproc-per-node 2 --steps 3
 
 Trains on a token file (``--data``, data/loader.py) or on synthetic
 tokens, from random weights (``--seed``) or from the latest checkpoint in
@@ -65,6 +68,18 @@ point:
   128)``); ``--data`` is refused. Their rows are drawn one by one from
   the seed, the step and the row, as the JAX trainer's are.
 
+- **Meshes** (``--dp --fsdp --tp --sp --ep``, parallel/): one process
+  a device. Given any of them, or started as one rank of a larger job
+  (``WORLD_SIZE`` > 1, workload/torchenv.py), the trainer runs on a
+  (pp, dp, fsdp, ep, tp, sp) mesh; ``--dp`` -1 (the default) takes the
+  ranks the others leave. One command started without ``RANK`` starts
+  a rank for every visible GPU itself, or ``--nproc-per-node N`` gloo
+  ranks with ``--device cpu`` (JAX's ``--virtual-devices``). Each rank
+  takes its rows of the same global batch; only rank 0 prints.
+  Checkpoints keep the one format: a run on any mesh resumes from a
+  step any other mesh (or one device) wrote. ``--sp`` takes llama and
+  moe presets; ``--qlora`` is refused on a mesh.
+
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
 """
@@ -79,15 +94,17 @@ import signal
 import sys
 import time
 
-import torch
-
 #: JAX-CLI flags the port does not take yet → why, and what brings them
 _NOT_PORTED = {
-    "it comes with parallelism (ROADMAP Queue 1)": ("dp", "fsdp", "tp",
-                                                    "sp", "pp", "ep"),
-    "it selects a JAX platform; use --device": ("platform",
-                                                "virtual_devices"),
+    "pipeline parallelism comes with ROADMAP Queue 1 item 9, second part":
+        ("pp",),
+    "it selects a JAX platform; use --device": ("platform",),
+    "it makes JAX CPU devices; use --device cpu --nproc-per-node N":
+        ("virtual_devices",),
 }
+
+#: the mesh axes the trainer takes (parallel/mesh.py MeshPlan)
+MESH_FLAGS = ("dp", "fsdp", "tp", "sp", "ep")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -147,7 +164,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--moe-dispatch", default="auto",
                    choices=["auto", "gather", "einsum", "sort"],
                    help="moe: presets: expert dispatch (models/moe.py "
-                        "_moe_mlp; auto and sort are gather on one device)")
+                        "_moe_mlp; auto and sort are gather on one device, "
+                        "auto is sort on a mesh)")
+    for name in MESH_FLAGS:
+        p.add_argument("--" + name, type=int, default=None,
+                       help="mesh axis size (default: dp -1 = the ranks "
+                            "left, the others 1); any of them runs the "
+                            "mesh path")
+    p.add_argument("--nproc-per-node", type=int, default=1,
+                   help="with --device cpu: start N gloo ranks")
     for names in _NOT_PORTED.values():
         for name in names:
             p.add_argument("--" + name.replace("_", "-"),
@@ -178,6 +203,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.qlora and family != "llama":
         p.error("--qlora supports llama presets only (the int8 quantizer "
                 "is llama-shaped)")
+    if family in ("vit", "encdec") and args.sp not in (None, 1):
+        p.error(f"--sp does not apply to {family}: presets yet (their "
+                f"sequence-parallel paths come with ROADMAP Queue 1 item "
+                f"9, second part)")
+    if args.nproc_per_node > 1 and args.device != "cpu":
+        p.error("--nproc-per-node is for --device cpu (on cuda one rank "
+                "starts for every visible GPU)")
+    if args.qlora and mesh_wanted(args):
+        p.error("--qlora does not run on a mesh in the PyTorch package yet")
     if args.qlora and args.lora_forward == "merged":
         # merging onto an int8 base would quantize the delta away
         p.error("--qlora requires the attached forward; drop "
@@ -187,7 +221,22 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return args
 
 
-def _lora_base(args, cfg, device, gen) -> dict:
+def mesh_wanted(args) -> bool:
+    """The mesh path: a mesh flag given, or more than one rank."""
+    from tpu_docker_api_torch.workload.torchenv import world_size
+
+    return (any(getattr(args, a) is not None for a in MESH_FLAGS)
+            or args.nproc_per_node > 1 or world_size() > 1)
+
+
+def mesh_plan(args):
+    from tpu_docker_api_torch.parallel.mesh import MeshPlan
+
+    return MeshPlan(**{a: getattr(args, a) for a in MESH_FLAGS
+                       if getattr(args, a) is not None})
+
+
+def _lora_base(args, cfg, device, gen, mesh=None) -> dict:
     """The frozen base of a LoRA run: random from ``gen``, or the params of
     ``--lora-base-ckpt``; int8 under ``--qlora``."""
     from tpu_docker_api_torch.train import lora
@@ -196,9 +245,10 @@ def _lora_base(args, cfg, device, gen) -> dict:
         # params only, whatever optimizer wrote them; a missing or empty
         # directory raises: fine-tuning a random base would be garbage
         # with exit 0
-        base = lora.restore_base_params(args.lora_base_ckpt, cfg, device)
+        base = lora.restore_base_params(args.lora_base_ckpt, cfg, device,
+                                        mesh=mesh)
     else:
-        base = lora.init_base_params(cfg, gen)
+        base = lora.init_base_params(cfg, gen, mesh=mesh)
     if args.qlora:
         # the serving quantizer: adapters train against the numerics of
         # serve --quantize --lora-forward attached
@@ -207,9 +257,33 @@ def _lora_base(args, cfg, device, gen) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
+    on_mesh = mesh_wanted(args)
+    if on_mesh:
+        from tpu_docker_api_torch.workload.torchenv import (launch_workers,
+                                                            without_flag,
+                                                            workers_wanted)
 
-    from tpu_docker_api_torch import resolve_device
+        n = workers_wanted(args.device, args.nproc_per_node)
+        if n > 1:
+            return launch_workers("tpu_docker_api_torch.train",
+                                  without_flag(argv, "--nproc-per-node"), n,
+                                  "cpu" if args.device == "cpu" else "cuda")
+    try:
+        return _run(args, on_mesh)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, on_mesh: bool) -> int:
+    # torch is imported here, not with the module: the launcher and a
+    # refused command line never pay its import
+    import torch
+
     from tpu_docker_api_torch.models import resolve_preset
     from tpu_docker_api_torch.ops.quant import STE_BACKWARD_RANGE
     from tpu_docker_api_torch.telemetry.profile import device_time_summary
@@ -219,7 +293,28 @@ def main(argv: list[str] | None = None) -> int:
                                                     step_generator,
                                                     synthetic_batch)
 
-    device = resolve_device(args.device)
+    mesh, rank, stop_group = None, 0, None
+    if on_mesh:
+        import torch.distributed as dist
+
+        from tpu_docker_api_torch.parallel.mesh import build_mesh
+        from tpu_docker_api_torch.workload.torchenv import bootstrap_torch
+
+        device, rank, ws = bootstrap_torch(args.device, force=True)
+        mesh = build_mesh(mesh_plan(args))
+        if ws > 1:
+            # the ranks agree on a quiesce through a host-side group, so
+            # no step reads a device value to decide it
+            stop_group = dist.new_group(backend="gloo")
+    else:
+        from tpu_docker_api_torch import resolve_device
+
+        device = resolve_device(args.device)
+
+    def emit(obj) -> None:
+        if rank == 0:
+            print(json.dumps(obj), flush=True)
+
     try:
         family, cfg = resolve_preset(args.preset)
     except (KeyError, ValueError) as e:
@@ -246,7 +341,7 @@ def main(argv: list[str] | None = None) -> int:
 
         targets = tuple(t.strip() for t in args.lora_targets.split(",")
                         if t.strip())
-        base = _lora_base(args, cfg, device, gen)
+        base = _lora_base(args, cfg, device, gen, mesh)
     mgr = None
     if args.ckpt_dir:
         # under LoRA the directory holds adapter-only checkpoints
@@ -254,26 +349,27 @@ def main(argv: list[str] | None = None) -> int:
         if args.lora_rank > 0:
             state, optimizer, mgr = lora.lora_resume_or_init(
                 args.ckpt_dir, cfg, device, gen, args.lora_rank, targets,
-                opt)
+                opt, mesh=mesh)
         else:
             state, optimizer, mgr = resume_or_init(args.ckpt_dir, cfg,
-                                                   device, gen, optimizer=opt)
+                                                   device, gen, optimizer=opt,
+                                                   mesh=mesh)
         if state.step:
-            print(json.dumps({"event": "resumed", "step": state.step,
-                              "restore_s": time.perf_counter() - t_boot}),
-                  flush=True)
+            emit({"event": "resumed", "step": state.step,
+                  "restore_s": time.perf_counter() - t_boot})
     elif args.lora_rank > 0:
         state, optimizer = lora.create_lora_state(cfg, gen, args.lora_rank,
-                                                  targets, opt)
+                                                  targets, opt, mesh=mesh)
     else:
         state, optimizer = create_train_state(cfg, device, gen,
-                                              optimizer=opt)
+                                              optimizer=opt, mesh=mesh)
     if args.lora_rank > 0:
         step_fn = lora.make_lora_train_step(cfg, optimizer, base,
                                             alpha=args.lora_alpha,
-                                            forward=args.lora_forward)
+                                            forward=args.lora_forward,
+                                            mesh=mesh)
     else:
-        step_fn = make_train_step(cfg, optimizer)
+        step_fn = make_train_step(cfg, optimizer, mesh=mesh)
     start_step = state.step
 
     if args.data:
@@ -320,7 +416,7 @@ def main(argv: list[str] | None = None) -> int:
         if final:
             mgr.wait()
             for rec in mgr.history:
-                print(json.dumps({"event": "saved", **rec}), flush=True)
+                emit({"event": "saved", **rec})
 
     def _sync():
         if device.type == "cuda":
@@ -328,8 +424,8 @@ def main(argv: list[str] | None = None) -> int:
 
     # trace a window of steps after the first of this run (cuBLAS
     # handles, allocator pools and kernel builds land in the first)
-    profile_at = (min(start_step + 1, args.steps - 1) if args.profile_dir
-                  else -1)
+    profile_at = (min(start_step + 1, args.steps - 1)
+                  if args.profile_dir and rank == 0 else -1)
     prof, prof_t0 = None, 0.0
 
     def _stop_profile():
@@ -340,11 +436,9 @@ def main(argv: list[str] | None = None) -> int:
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir,
                                               "trace.json"))
-        print(json.dumps({"event": "profile_written",
-                          "dir": args.profile_dir,
-                          **device_time_summary(
-                              prof, wall, ranges=(STE_BACKWARD_RANGE,))}),
-              flush=True)
+        emit({"event": "profile_written", "dir": args.profile_dir,
+              **device_time_summary(prof, wall,
+                                    ranges=(STE_BACKWARD_RANGE,))})
         prof = None
 
     tokens_per_step = args.batch * seq
@@ -363,22 +457,24 @@ def main(argv: list[str] | None = None) -> int:
             if prof is not None and i >= profile_at + args.profile_steps - 1:
                 _stop_profile()
             done = i + 1  # host counter: no device read per step
+            if stop_group is not None:
+                flag = torch.tensor([int(stop["now"])])
+                torch.distributed.all_reduce(
+                    flag, op=torch.distributed.ReduceOp.MAX,
+                    group=stop_group)
+                stop["now"] = bool(flag.item())
             if stop["now"]:
                 if prof is not None:
                     _stop_profile()
                 _save(final=True)
-                print(json.dumps({"event": "quiesced", "step": done}),
-                      flush=True)
+                emit({"event": "quiesced", "step": done})
                 return 0
             if done % args.log_every == 0 or done == args.steps:
                 loss = float(metrics["loss"])
                 dt = time.monotonic() - t0
-                print(json.dumps({
-                    "step": done,
-                    "loss": round(loss, 4),
-                    "tokens_per_sec": round(
-                        (done - start_step) * tokens_per_step / dt, 1),
-                }), flush=True)
+                emit({"step": done, "loss": round(loss, 4),
+                      "tokens_per_sec": round(
+                          (done - start_step) * tokens_per_step / dt, 1)})
             if done % args.save_every == 0:
                 _save()
         if prof is not None:  # the window outran the step budget
@@ -387,7 +483,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if mgr is not None:
             mgr.close()
-    print(json.dumps({"event": "done", "step": state.step}), flush=True)
+    emit({"event": "done", "step": state.step})
     return 0
 
 

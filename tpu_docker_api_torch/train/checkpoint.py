@@ -1,5 +1,5 @@
 """Checkpoint and resume of the training state (counterpart of
-``tpu_docker_api/train/checkpoint.py``, one device, no orbax).
+``tpu_docker_api/train/checkpoint.py``, no orbax).
 
 A checkpoint is one directory a step, ``<dir>/<step>/``, holding
 
@@ -34,6 +34,16 @@ Retention deletes only complete step directories.
 
 The files carry no device: a checkpoint written on the card restores on
 the CPU and the other way round.
+
+Sharded states (the mesh path: DTensor leaves) keep the one format, so
+a checkpoint written on any mesh restores on one device, or on another
+mesh, and the other way round (the JAX rescale contract). The save is
+then made in the caller's thread: every rank gathers the leaves one at
+a time, in the writer's order, and rank 0 streams each to the file as
+it comes, so host memory holds one whole leaf at a time. A restore onto
+a mesh maps the files and copies each rank's own slice of every leaf.
+An int8 moment's scales, ``(*lead, blocks)`` on a mesh, are the
+``(rows, blocks)`` of one device on disk.
 """
 
 from __future__ import annotations
@@ -49,8 +59,11 @@ from typing import Any
 import torch
 
 from tpu_docker_api_torch.models import param_dtypes, param_shapes
+from tpu_docker_api_torch.models import model_fns
 from tpu_docker_api_torch.models.import_weights import (SafeTensorsFile,
-                                                        save_file)
+                                                        save_file,
+                                                        write_order)
+from tpu_docker_api_torch.parallel import sharding
 from tpu_docker_api_torch.train.optim import tree_map
 from tpu_docker_api_torch.train.trainer import (TrainState,
                                                 create_train_state,
@@ -128,6 +141,50 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _is_dt(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _file_shape(path: str, t) -> tuple:
+    """A leaf's shape on disk: an int8 moment's scales are (rows,
+    blocks) whatever the mesh keeps."""
+    if _is_dt(t) and t.ndim > 2 and ("mu_scale/" in path
+                                     or "nu_scale/" in path):
+        return (t.numel() // t.shape[-1], t.shape[-1])
+    return tuple(t.shape)
+
+
+class _Gathered:
+    """A DTensor leaf that ``save_file`` brings to the host whole: the
+    gather runs when the writer reaches it (``detach``)."""
+
+    def __init__(self, t, shape):
+        self.t, self.shape, self.dtype = t, torch.Size(shape), t.dtype
+
+    def element_size(self) -> int:
+        return self.t.element_size()
+
+    def numel(self) -> int:
+        return self.t.numel()
+
+    def detach(self) -> torch.Tensor:
+        return self.t.full_tensor().reshape(self.shape).cpu()
+
+
+def _local_of(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's slice of ``full`` (reshaped to ``like``'s global
+    shape) under DTensor ``like``'s placements."""
+    full = full.reshape(like.shape)
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    out = full
+    for i, pl in enumerate(like.placements):
+        if pl.is_shard() and mesh.size(i) > 1:
+            n = out.shape[pl.dim] // mesh.size(i)
+            out = out.narrow(pl.dim, coord[i] * n, n)
+    return out
+
+
 class _Job:
     def __init__(self, step, params, opt, ints, ready, device):
         self.step, self.params, self.opt, self.ints = step, params, opt, ints
@@ -155,6 +212,7 @@ class CheckpointManager:
         self._error: BaseException | None = None
         self._error_step: int | None = None
         self._stream = None
+        self._sharded_last: int | None = None
         #: one record per completed save: step, blocked_s (the caller's
         #: time in ``save``), d2h_s, write_s (the writer's time), bytes
         self.history: list[dict] = []
@@ -168,11 +226,17 @@ class CheckpointManager:
         t0 = time.perf_counter()
         self._raise_error()
         step = int(state.step) if step is None else int(step)
+        params, opt, ints = {}, {}, {}
+        _flatten(state.params, "", params, ints)
+        if _is_dt(next(iter(params.values()))):
+            if not self._should_save_sharded(step):
+                return False
+            _flatten(state.opt_state, "", opt, ints)
+            self._save_sharded(step, params, opt, ints, t0)
+            return True
         if not self._should_save(step):
             return False
         self.wait()  # one save in flight: at most one extra state held
-        params, opt, ints = {}, {}, {}
-        _flatten(state.params, "", params, ints)
         _flatten(state.opt_state, "", opt, ints)
         device = next(iter(params.values())).device
         ready = None
@@ -194,6 +258,47 @@ class CheckpointManager:
         job.record["blocked_s"] = time.perf_counter() - t0
         self._queue.put(job)
         return True
+
+    def _save_sharded(self, step, params, opt, ints, t0) -> None:
+        """The mesh save (module docstring): rank 0 writes, gathering
+        one leaf at a time; the other ranks join the same gathers."""
+        import torch.distributed as dist
+
+        trees = [{k: _Gathered(t, _file_shape(k, t)) for k, t in tree.items()}
+                 for tree in (params, opt)]
+        job = _Job(step, trees[0], trees[1], ints, None,
+                   torch.device("cpu"))
+        if dist.get_rank() == 0:
+            if self._thread is None:
+                for name in os.listdir(self.directory):
+                    if name.startswith(_TMP_PREFIX):
+                        shutil.rmtree(os.path.join(self.directory, name),
+                                      ignore_errors=True)
+            self._write(job)
+            job.record["blocked_s"] = time.perf_counter() - t0
+            self.history.append(job.record)
+        else:
+            for tree in trees:
+                for name in write_order(tree):
+                    tree[name].t.full_tensor()
+        job.done.set()
+        self._job = job
+        self._sharded_last = step
+
+    def _should_save_sharded(self, step: int) -> bool:
+        """``_should_save`` for the mesh save, which every rank must
+        decide alike: the directory is read once, before this manager
+        writes (rank 0 may rename a step while another rank decides),
+        and then the steps this manager saved count."""
+        if self._sharded_last is None:
+            last = self.latest_step()
+            self._sharded_last = -1 if last is None else last
+            first = last is None
+        else:
+            first = False
+        if self._sharded_last >= step:
+            return False
+        return first or step % self.save_interval_steps == 0
 
     def _should_save(self, step: int) -> bool:
         # the job's state first, the directory second: a job that finishes
@@ -327,27 +432,44 @@ class CheckpointManager:
         return step
 
     def restore_params(self, step: int | None = None,
-                       device: str | torch.device = "cuda") -> dict:
+                       device: str | torch.device = "cuda", mesh=None,
+                       rules=None) -> dict:
         """The params tree of ``step`` (latest if None) on ``device``,
         whichever optimizer wrote it: only the params file is read, no
-        optimizer byte."""
+        optimizer byte. On a ``mesh`` each leaf is this rank's slice
+        under ``rules``, as a DTensor."""
         d = self._step_dir(self._resolve(step))
         f = SafeTensorsFile(os.path.join(d, PARAMS_FILE))
         with open(os.path.join(d, META_FILE)) as fh:
             order = json.load(fh)["params"]
-        return _nest({k: f.tensor(k).to(device, copy=True) for k in order})
+        if mesh is None:
+            return _nest({k: f.tensor(k).to(device, copy=True)
+                          for k in order})
+        out = {}
+        for k in order:
+            full = f.tensor(k)
+            spec = sharding.spec_for(k, rules)
+            out[k] = sharding.to_dtensor(
+                sharding.local_slice(full, spec, mesh).to(device, copy=True)
+                .contiguous(), spec, mesh, full.shape)
+        return _nest(out)
 
     def restore(self, cfg, optimizer, step: int | None = None,
-                device: str | torch.device = "cuda") -> TrainState:
+                device: str | torch.device = "cuda",
+                mesh=None) -> TrainState:
         """The ``TrainState`` of ``step`` (latest if None) on ``device``;
         the params must fit ``cfg`` and the optimizer state ``optimizer``
-        (its structure comes from ``optimizer.init`` on meta tensors)."""
+        (its structure comes from ``optimizer.init`` on meta tensors, or,
+        on a ``mesh``, on the restored shards)."""
         step = self._resolve(step)
-        params = self.restore_params(step, device)
+        params = self.restore_params(step, device, mesh, model_fns(cfg)[2])
         check_params(params, cfg, f"checkpoint step {step}")
-        opt_target = optimizer.init(tree_map(
-            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
-            params))
+        if mesh is None:
+            opt_target = optimizer.init(tree_map(
+                lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                params))
+        else:
+            opt_target = optimizer.init(params)
         meta_step, opt_state = self._restore_opt(step, opt_target, device)
         return TrainState(meta_step, params, opt_state)
 
@@ -409,6 +531,16 @@ def _reader(f: SafeTensorsFile, step: int, what: str, device):
                              f"{path!r}: it was written by another "
                              f"optimizer or model")
         got = f.tensor(path)
+        if _is_dt(like):
+            if (got.numel() != like.numel() or got.dtype != like.dtype
+                    or tuple(got.shape) != _file_shape(path, like)):
+                raise ValueError(f"{what} tensor {path!r}: "
+                                 f"{got.dtype}{tuple(got.shape)} on disk, "
+                                 f"{like.dtype}{tuple(like.shape)} expected")
+            return like.__class__.from_local(
+                _local_of(got, like).to(device, copy=True).contiguous(),
+                like.device_mesh, like.placements, run_check=False,
+                shape=like.shape, stride=like.stride())
         if got.shape != like.shape or got.dtype != like.dtype:
             raise ValueError(f"{what} tensor {path!r}: "
                              f"{got.dtype}{tuple(got.shape)} on disk, "
@@ -446,17 +578,17 @@ def _collect_leaves(tree, prefix: str, out: dict, leaf) -> None:
             out[path] = leaf(v)
 
 
-def restore_model_params(directory, cfg, device: str | torch.device = "cuda"
-                         ) -> tuple[dict, int]:
+def restore_model_params(directory, cfg, device: str | torch.device = "cuda",
+                         mesh=None) -> tuple[dict, int]:
     """(params, step) of the latest checkpoint in ``directory``,
     params-only, checked against ``cfg``: what serving's ``--ckpt-dir``
-    and the export CLI load. Raises FileNotFoundError for a missing or
-    empty directory."""
+    and the export CLI load (on a ``mesh``: this rank's shards). Raises
+    FileNotFoundError for a missing or empty directory."""
     if not os.path.isdir(directory):
         raise FileNotFoundError(f"no checkpoint directory {directory}")
     mgr = CheckpointManager(directory)
     step = mgr._resolve(None)
-    params = mgr.restore_params(step, device)
+    params = mgr.restore_params(step, device, mesh, model_fns(cfg)[2])
     check_params(params, cfg, f"checkpoint step {step} in {directory}")
     return params, step
 
@@ -468,13 +600,16 @@ def resume_or_init(
     generator: torch.Generator | None = None,
     optimizer=None,
     max_to_keep: int = 3,
+    mesh=None,
 ) -> tuple[TrainState, Any, CheckpointManager]:
     """Restore the latest step of ``directory`` if there is one, else
     start fresh from ``generator``: the entry point a restarted trainer
-    boots through."""
+    boots through (on a ``mesh``, whatever mesh wrote the step)."""
     optimizer = optimizer or default_optimizer()
     mgr = CheckpointManager(directory, max_to_keep=max_to_keep)
     if mgr.latest_step() is not None:
-        return mgr.restore(cfg, optimizer, device=device), optimizer, mgr
-    state, optimizer = create_train_state(cfg, device, generator, optimizer)
+        return (mgr.restore(cfg, optimizer, device=device, mesh=mesh),
+                optimizer, mgr)
+    state, optimizer = create_train_state(cfg, device, generator, optimizer,
+                                          mesh=mesh)
     return state, optimizer, mgr

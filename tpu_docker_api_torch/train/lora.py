@@ -1,5 +1,5 @@
 """LoRA fine-tuning: frozen base weights + trainable low-rank adapters
-(counterpart of ``tpu_docker_api/train/lora.py``, one device).
+(counterpart of ``tpu_docker_api/train/lora.py``).
 
 - **Two forwards, one model.** ``forward="merged"`` computes
   ``W' = W + (alpha/rank)·A@B`` for each adapted projection and runs the
@@ -22,8 +22,15 @@
 Targets match by leaf name anywhere in the tree (default ``("wq",
 "wv")``). The adapters are a pure function of the seed: pair i of the
 matched projections draws from its own generator seeded from ``(seed,
-i)``. ``lora_specs`` and ``lora_shardings`` wait for the port's
-parallelism (ROADMAP Queue 1 item 9).
+i)``.
+
+- **Adapters shard like their base.** On a mesh ``A (L, d_in, r)``
+  keeps the base weight's leading and input axes and ``B (L, r, d_out)``
+  its leading and output axes (``lora_specs``), so the merge and the
+  attached branch run on local shards: ``A_loc @ B_loc`` is the merged
+  weight's local block. A factor is partial over the base's axes that
+  do not shard it (A of a column-parallel base over tp, B over fsdp):
+  its gradient is summed over them too (``mesh_lora_specs``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import torch
 from tpu_docker_api_torch.models import model_fns, param_dtypes, param_shapes
 from tpu_docker_api_torch.models.common import trunc_normal_init
 from tpu_docker_api_torch.ops.quant import LoraLinear
+from tpu_docker_api_torch.parallel import sharding
+from tpu_docker_api_torch.parallel.sharding import P
 from tpu_docker_api_torch.train.trainer import (TrainState,
                                                 default_optimizer,
                                                 make_train_step,
@@ -167,12 +176,73 @@ def quantize_base(base_params: dict) -> dict:
     return quantize_llama_params(base_params)
 
 
-def init_base_params(cfg, generator: torch.Generator) -> dict:
+def init_base_params(cfg, generator: torch.Generator, mesh=None) -> dict:
     """Random base params on ``generator``'s device: the params-only half
     of ``trainer.create_train_state`` (the base is frozen, so it has no
-    optimizer state)."""
-    model_init, _, _ = model_fns(cfg)
-    return model_init(cfg, generator)
+    optimizer state); DTensors of this rank's slices on a ``mesh``."""
+    model_init, _, rules = model_fns(cfg)
+    if mesh is None:
+        return model_init(cfg, generator)
+    return model_init(cfg, generator, place=lambda path, t: (
+        sharding.distribute(t, sharding.spec_for(path, rules), mesh)))
+
+
+def lora_specs(adapters: dict, rules=None, prefix: str = "") -> dict:
+    """Specs of an adapter tree, from the BASE weight's rule: A keeps the
+    base's leading and input axes (rank dim unsharded), B its leading
+    and output axes."""
+    out = {}
+    for k, v in adapters.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) and "a" in v and not isinstance(v["a"], dict):
+            base = sharding.spec_for(path, rules)
+            nd = len(v["a"].shape)
+            spec = (None,) * (nd - len(base)) + tuple(base)
+            out[k] = {"a": P(*spec[:-1], None),
+                      "b": P(*spec[:-2], None, spec[-1])}
+        elif isinstance(v, dict):
+            out[k] = lora_specs(v, rules, path)
+    return out
+
+
+def lora_shardings(adapters: dict, mesh, rules=None) -> dict:
+    """Tree of DTensor placements for an adapter tree."""
+    def walk(a, s):
+        if isinstance(a, dict):
+            return {k: walk(a[k], s[k]) for k in a}
+        return sharding.placements(s, mesh, a.ndim)
+
+    return walk(adapters, lora_specs(adapters, rules))
+
+
+def mesh_lora_specs(adapters: dict, rules=None, prefix: str = "") -> dict:
+    """(spec, gradient-reduction axes) of every adapter leaf
+    (``trainer.mesh_specs``): the batch axes, and the axes that shard
+    the base but not the factor, over which the factor's local gradient
+    is a partial sum."""
+    out = {}
+    for k, v in adapters.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if _is_pair(v):
+            specs = lora_specs({k: v}, rules, prefix)[k]
+            base = sharding.sharded_axes(sharding.spec_for(path, rules))
+            out[k] = {n: (specs[n], sharding.grad_reduce_axes(
+                specs[n], tuple(base - sharding.sharded_axes(specs[n]))))
+                for n in ("a", "b")}
+        else:
+            out[k] = mesh_lora_specs(v, rules, path)
+    return out
+
+
+def _distribute_adapters(adapters: dict, mesh, rules) -> dict:
+    specs = lora_specs(adapters, rules)
+
+    def walk(a, s):
+        if isinstance(a, dict):
+            return {k: walk(a[k], s[k]) for k in a}
+        return sharding.distribute(a, s, mesh)
+
+    return walk(adapters, specs)
 
 
 def _meta_base(cfg) -> dict:
@@ -186,18 +256,22 @@ def _meta_base(cfg) -> dict:
 
 
 def create_lora_state(cfg, generator: torch.Generator, rank: int,
-                      targets=DEFAULT_TARGETS, optimizer=None
+                      targets=DEFAULT_TARGETS, optimizer=None, mesh=None
                       ) -> tuple[TrainState, object]:
     """(TrainState over the adapters, optimizer): the trainable half, on
-    ``generator``'s device. The frozen base comes separately
-    (``init_base_params``, ``restore_base_params``)."""
+    ``generator``'s device (DTensors under ``lora_specs`` on a
+    ``mesh``). The frozen base comes separately (``init_base_params``,
+    ``restore_base_params``)."""
     optimizer = optimizer or default_optimizer()
     adapters = lora_init(_meta_base(cfg), rank, generator, targets)
+    if mesh is not None:
+        adapters = _distribute_adapters(adapters, mesh, model_fns(cfg)[2])
     return TrainState(0, adapters, optimizer.init(adapters)), optimizer
 
 
 def make_lora_train_step(cfg, optimizer, base_params: dict,
-                         alpha: float = 16.0, forward: str = "merged"):
+                         alpha: float = 16.0, forward: str = "merged",
+                         mesh=None):
     """(state, tokens) → (state, metrics) where ``state.params`` are the
     adapters. ``"merged"`` merges every step and runs the family's
     ordinary loss (a transient weight-sized copy); ``"attached"`` runs
@@ -206,13 +280,28 @@ def make_lora_train_step(cfg, optimizer, base_params: dict,
     moments, never copied."""
     if forward not in ("merged", "attached"):
         raise ValueError(f"forward must be merged|attached, got {forward!r}")
-    _, model_loss, _ = model_fns(cfg)
+    _, model_loss, rules = model_fns(cfg)
     combine = merge_lora if forward == "merged" else attach_lora
+    if mesh is None:
+        def loss_fn(adapters, tokens):
+            return model_loss(combine(base_params, adapters, alpha), tokens,
+                              cfg)
 
-    def loss_fn(adapters, tokens):
-        return model_loss(combine(base_params, adapters, alpha), tokens, cfg)
+        return make_train_step(cfg, optimizer, loss_fn=loss_fn)
+    base_local = _map_leaves(sharding.local, base_params)
 
-    return make_train_step(cfg, optimizer, loss_fn=loss_fn)
+    def mesh_loss(adapters, tokens):
+        return model_loss(combine(base_local, adapters, alpha), tokens, cfg,
+                          mesh=mesh)
+
+    return make_train_step(cfg, optimizer, loss_fn=mesh_loss, mesh=mesh,
+                           specs=lambda a: mesh_lora_specs(a, rules))
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def lora_abstract_state(cfg, rank: int, targets, optimizer) -> TrainState:
@@ -246,21 +335,22 @@ def restore_adapters(directory, cfg, device: str | torch.device, rank: int,
         _meta_adapters(cfg, rank, targets), device=device)
 
 
-def restore_base_params(directory, cfg, device: str | torch.device) -> dict:
+def restore_base_params(directory, cfg, device: str | torch.device,
+                        mesh=None) -> dict:
     """The frozen base from a full training checkpoint: params only, so a
     base trained under any optimizer (``adamw-int8`` too) loads; raises
     FileNotFoundError for a missing or empty directory, so an explicit
     base never falls back to random weights."""
     from tpu_docker_api_torch.train.checkpoint import restore_model_params
 
-    params, _ = restore_model_params(directory, cfg, device)
+    params, _ = restore_model_params(directory, cfg, device, mesh=mesh)
     return params
 
 
 def lora_resume_or_init(directory, cfg, device: str | torch.device,
                         generator: torch.Generator, rank: int,
                         targets=DEFAULT_TARGETS, optimizer=None,
-                        max_to_keep: int = 3):
+                        max_to_keep: int = 3, mesh=None):
     """(state, optimizer, manager): the latest adapter checkpoint of
     ``directory`` if there is one, else fresh adapters from
     ``generator`` (``train.checkpoint.resume_or_init`` for adapters)."""
@@ -269,8 +359,14 @@ def lora_resume_or_init(directory, cfg, device: str | torch.device,
     optimizer = optimizer or default_optimizer()
     mgr = CheckpointManager(directory, max_to_keep=max_to_keep)
     if mgr.latest_step() is not None:
+        if mesh is not None:
+            # a target of this mesh's shards: the fresh state, overwritten
+            fresh, _ = create_lora_state(cfg, generator, rank, targets,
+                                         optimizer, mesh)
+            return (mgr.restore_with_target(fresh, device=device), optimizer,
+                    mgr)
         target = lora_abstract_state(cfg, rank, targets, optimizer)
         return mgr.restore_with_target(target, device=device), optimizer, mgr
     state, optimizer = create_lora_state(cfg, generator, rank, targets,
-                                         optimizer)
+                                         optimizer, mesh)
     return state, optimizer, mgr

@@ -21,6 +21,21 @@ Scale layout: the port keeps a leaf's scales as ``(rows, last_dim // b)``
 f32 — block i of the flattened leaf has scale i. The JAX package's
 ``(segments, blocks_per_segment, rows)`` is a TPU lane-density trick;
 ``scales_to_jax`` / ``scales_from_jax`` convert between the two.
+
+Sharded leaves (the mesh path, parallel/): params, gradients and
+moments are ``DTensor``s. Every element-wise transform runs on the local
+shards (``_lmap``); ``global_norm`` sums each leaf's local squares and
+all-reduces them over the mesh dims that shard it. The int8 moments keep
+JAX's blocks along the GLOBAL last dim (b from the global width), so a
+leaf's update does not depend on the mesh: where the shards of the last
+dim hold whole blocks, the kernel runs on each shard and the scales
+shard with it; where a shard boundary falls inside a block (tiny widths,
+a vocab of 128256 = 501 blocks of 256 split over tp), that leaf's
+gradient, moments and param are gathered along the last dim, the kernel
+runs on the whole rows, each rank keeps its slice, and its scales stay
+whole on every rank. A sharded leaf's scales are ``(*lead, blocks)``, the
+leaf's leading dims kept so that they shard like it; on disk they are
+the same ``(rows, blocks)`` as on one device.
 """
 
 from __future__ import annotations
@@ -44,6 +59,45 @@ _MAX_BLOCK = 256  # the kernel keeps at most 8 elements a lane
 
 def reset_launch_count() -> None:
     launch_count["adam8"] = 0
+
+
+# ------------------------------------------------------------ DTensors
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def _is_dt(x) -> bool:
+    return (type(x).__name__ == "DTensor"
+            and isinstance(x, _dtensor_type()))
+
+
+def _wrap(local: torch.Tensor, like, placements=None, shape=None):
+    """``local`` as the DTensor of ``like``'s mesh (and placements and
+    global shape unless given)."""
+    shape = torch.Size(like.shape if shape is None else shape)
+    return _dtensor_type().from_local(
+        local, like.device_mesh,
+        like.placements if placements is None else placements,
+        run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _lmap(fn: Callable, *xs):
+    """``fn`` on the local shards of DTensor leaves (rewrapped like the
+    first), or on plain tensors as they are."""
+    if not _is_dt(xs[0]):
+        return fn(*xs)
+    return _wrap(fn(*(x.to_local() if _is_dt(x) else x for x in xs)), xs[0])
+
+
+def _shard_dims(x, dim: int) -> list[int]:
+    """Mesh dims that shard tensor dim ``dim`` of DTensor ``x``."""
+    return [i for i, pl in enumerate(x.placements)
+            if pl.is_shard() and pl.dim == dim]
 
 
 # ---------------------------------------------------------------- trees
@@ -97,8 +151,29 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, each leaf summed
     in its own dtype (``optax.global_norm``). A device tensor: reading it
-    is the caller's choice."""
-    return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
+    is the caller's choice. DTensor leaves sum their local squares, and
+    the sums are all-reduced over the mesh dims that shard them (one
+    all-reduce for each set of such dims); the result is a plain tensor
+    of the same value on every rank."""
+    leaves = tree_leaves(tree)
+    if not leaves or not _is_dt(leaves[0]):
+        return torch.sqrt(sum((x * x).sum() for x in leaves))
+    import torch.distributed as dist
+
+    by_dims: dict = {}
+    for x in leaves:
+        loc = x.to_local()
+        dims = tuple(i for i, pl in enumerate(x.placements) if pl.is_shard())
+        sq = (loc * loc).sum().float()
+        by_dims[dims] = by_dims[dims] + sq if dims in by_dims else sq
+    total = None
+    mesh = leaves[0].device_mesh
+    for dims, sq in by_dims.items():
+        for i in dims:
+            if mesh.size(i) > 1:
+                dist.all_reduce(sq, group=mesh.get_group(i))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -109,7 +184,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         def clip(t):
             return torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)
 
-        return tree_map(clip, updates), state
+        return tree_map(lambda t: _lmap(clip, t), updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -130,14 +205,19 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     """``optax.scale_by_adam`` with ``eps_root=0``: moments in the
     parameter dtype, the bias correction rounded to that dtype before it
     divides."""
+    def zeros(p):
+        return _lmap(torch.zeros_like, p)
+
     def init(params):
-        return ScaleByAdamState(0, tree_map(torch.zeros_like, params),
-                                tree_map(torch.zeros_like, params))
+        return ScaleByAdamState(0, tree_map(zeros, params),
+                                tree_map(zeros, params))
 
     def update(updates, state, params=None):
-        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
-        nu = tree_map(lambda g, t: (1 - b2) * (g * g) + b2 * t, updates,
-                      state.nu)
+        mu = tree_map(lambda g, t: _lmap(lambda g, t: (1 - b1) * g + b1 * t,
+                                         g, t), updates, state.mu)
+        nu = tree_map(lambda g, t: _lmap(
+            lambda g, t: (1 - b2) * (g * g) + b2 * t, g, t), updates,
+            state.nu)
         count = state.count + 1
         bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
 
@@ -146,7 +226,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
             v_hat = v / _in_dtype(bc2, v.dtype)
             return m_hat / (torch.sqrt(v_hat) + eps)
 
-        return tree_map(step, mu, nu), ScaleByAdamState(count, mu, nu)
+        return (tree_map(lambda m, v: _lmap(step, m, v), mu, nu),
+                ScaleByAdamState(count, mu, nu))
 
     return GradientTransformation(init, update)
 
@@ -160,15 +241,15 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(updates, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs params")
-        return tree_map(lambda g, p: g + weight_decay * p, updates,
-                        params), state
+        return tree_map(lambda g, p: _lmap(lambda g, p: g + weight_decay * p,
+                                           g, p), updates, params), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
 def scale_by_learning_rate(lr: float) -> GradientTransformation:
     def update(updates, state, params=None):
-        return tree_map(lambda g: -lr * g, updates), state
+        return tree_map(lambda g: _lmap(lambda g: -lr * g, g), updates), state
 
     return GradientTransformation(lambda params: EmptyState(), update)
 
@@ -182,7 +263,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    return tree_map(lambda p, u: _lmap(lambda p, u: (p + u).to(p.dtype),
+                                       p, u), params, updates)
 
 
 # ------------------------------------------------------ int8 quantization
@@ -347,6 +429,89 @@ def adam8_update_leaf(g, mq, ms, vq, vs, p=None, *, sc: Adam8Scalars,
     return upd, mq2, ms2, vq2, vs2
 
 
+def _scale_layout(p, block: int):
+    """For a DTensor leaf ``p``: (b, aligned, scale shape, scale
+    placements). b is the block of the GLOBAL last dim; ``aligned`` is
+    whether every shard of the last dim holds whole blocks."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = p.ndim - 1
+    b = _block_of(p.shape[-1], block)
+    n_last = 1
+    for i in _shard_dims(p, last):
+        n_last *= p.device_mesh.size(i)
+    aligned = (p.shape[-1] // n_last) % b == 0
+    nb = p.shape[-1] // b
+    if p.ndim == 1:
+        if n_last > 1:
+            raise ValueError("adam8: a 1-D leaf sharded on its only dim")
+        return b, True, (1, nb), [Replicate()] * p.device_mesh.ndim
+    pls = [Shard(pl.dim) if pl.is_shard() and (pl.dim < last or aligned)
+           else Replicate() for pl in p.placements]
+    return b, aligned, (*p.shape[:-1], nb), pls
+
+
+def adam8_route(shape, last_ranks: int, block: int = 256) -> str:
+    """How the int8 moments of a leaf of global ``shape`` update when
+    its last dim is split over ``last_ranks`` ranks: ``"shard"`` (each
+    shard holds whole blocks: the kernel runs on it) or ``"gather"``
+    (a boundary falls inside a block: the leaf's rows are gathered)."""
+    b = _block_of(shape[-1], block)
+    return "shard" if (shape[-1] // last_ranks) % b == 0 else "gather"
+
+
+def _last_dim_index(p) -> tuple[list[int], int, int]:
+    """(mesh dims sharding ``p``'s last dim, this rank's index along
+    them (the first major), their size)."""
+    dims = _shard_dims(p, p.ndim - 1)
+    mesh, idx, n = p.device_mesh, 0, 1
+    coord = mesh.get_coordinate()
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    return dims, idx, n
+
+
+def _adam8_sharded(g, mq, ms, vq, vs, p, *, sc: Adam8Scalars, block: int):
+    """``adam8_update_leaf`` on DTensor leaves: the kernel on each local
+    shard where the last dim's shards hold whole blocks, else on the
+    leaf's rows gathered along the last dim (module docstring)."""
+    from tpu_docker_api_torch.parallel import comm
+
+    b, aligned, _, _ = _scale_layout(g, block)  # adam8_route's rule
+    loc = [x.to_local() if x is not None else None
+           for x in (g, mq, ms, vq, vs, p)]
+    gl, mql, msl, vql, vsl, pl = loc
+    if aligned:
+        upd, mq2, ms2, vq2, vs2 = adam8_update_leaf(
+            gl, mql, msl.reshape(-1, msl.shape[-1]), vql,
+            vsl.reshape(-1, vsl.shape[-1]), pl, sc=sc, block=b)
+    else:
+        dims, idx, n = _last_dim_index(g)
+        mesh, last = g.device_mesh, g.ndim - 1
+
+        def whole(x):
+            if x is None:
+                return None
+            for i in reversed(dims):
+                x = comm.gather_nograd(x, last, mesh.get_group(i))
+            return x
+
+        upd, mq2, ms2, vq2, vs2 = adam8_update_leaf(
+            whole(gl), whole(mql), msl.reshape(-1, msl.shape[-1]),
+            whole(vql), vsl.reshape(-1, vsl.shape[-1]), whole(pl),
+            sc=sc, block=b)
+        width = gl.shape[-1]
+
+        def mine(x):
+            return x.narrow(-1, idx * width, width).contiguous()
+
+        upd, mq2, vq2 = mine(upd), mine(mq2), mine(vq2)
+    return (_wrap(upd, g), _wrap(mq2, mq),
+            _wrap(ms2.reshape(msl.shape), ms),
+            _wrap(vq2, vq), _wrap(vs2.reshape(vsl.shape), vs))
+
+
 class ScaleByAdamInt8State(NamedTuple):
     count: int
     mu_q: dict
@@ -365,12 +530,22 @@ def scale_by_adam_int8(
     ``params`` at update time)."""
     def init(params):
         def zs(p):
+            if _is_dt(p):
+                _, _, shape, pls = _scale_layout(p, block)
+                local_shape = list(shape)
+                for i, pl in enumerate(pls):
+                    if pl.is_shard():
+                        local_shape[pl.dim] //= p.device_mesh.size(i)
+                return _wrap(torch.zeros(local_shape, dtype=torch.float32,
+                                         device=p.to_local().device),
+                             p, pls, shape)
             return torch.zeros((_rows(p), p.shape[-1]
                                 // _block_of(p.shape[-1], block)),
                                dtype=torch.float32, device=p.device)
 
         def zq(p):
-            return torch.zeros(p.shape, dtype=torch.int8, device=p.device)
+            return _lmap(lambda t: torch.zeros(t.shape, dtype=torch.int8,
+                                               device=t.device), p)
 
         return ScaleByAdamInt8State(0, tree_map(zq, params),
                                     tree_map(zs, params),
@@ -385,6 +560,9 @@ def scale_by_adam_int8(
         sc = adam8_scalars(count, b1, b2, eps, lr, wd)
 
         def one(g, mq, ms, vq, vs, p=None):
+            if _is_dt(g):
+                return _adam8_sharded(g, mq, ms, vq, vs, p, sc=sc,
+                                      block=block)
             return adam8_update_leaf(g, mq, ms, vq, vs, p, sc=sc,
                                      block=block)
 

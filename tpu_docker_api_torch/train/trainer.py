@@ -1,14 +1,20 @@
-"""Single-device training step (counterpart of
-``tpu_docker_api/train/trainer.py``).
+"""Training step (counterpart of ``tpu_docker_api/train/trainer.py``).
 
 The JAX step is one jitted function over sharded state. The port's step
-runs eagerly on one device: autograd through the model's loss, then the
-optimizer's pure update and ``apply_updates``, all under the caller's
-stream with no host sync. The JAX step's ``const_args`` (a frozen tree
-passed as a jit operand, LoRA's base) is a closure here: train/lora.py's
-``loss_fn`` closes over the base, outside ``state.params``, so it never
-requires a gradient and gets no moments. The mesh, the shardings and the
-``grad_fn`` seam wait for the port's parallelism.
+runs eagerly: autograd through the model's loss, then the optimizer's
+pure update and ``apply_updates``, all under the caller's stream with no
+host sync. The JAX step's ``const_args`` (a frozen tree passed as a jit
+operand, LoRA's base) is a closure here: train/lora.py's ``loss_fn``
+closes over the base, outside ``state.params``, so it never requires a
+gradient and gets no moments.
+
+With a ``mesh`` (parallel/mesh.py; one process a device) the params and
+the optimizer state are ``DTensor``s placed by the family's rules, the
+moments like their params. Each rank takes its rows of the same global
+batch, runs the family's sharded loss on its local shards (its share of
+the global mean), and sums each gradient over the axes that split the
+batch where the leaf is not sharded (``grad_reduce_axes``) before the
+optimizer sees it, exactly once.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from tpu_docker_api_torch.models import model_fns
 from tpu_docker_api_torch.models.common import seeded_generator
+from tpu_docker_api_torch.parallel import sharding
 from tpu_docker_api_torch.train.optim import (GradientTransformation,
                                               adamw, apply_updates, chain,
                                               clip_by_global_norm,
@@ -45,10 +52,15 @@ def create_train_state(
     device: str | torch.device,
     generator: torch.Generator | None = None,
     optimizer: GradientTransformation | None = None,
+    mesh=None,
 ) -> tuple[TrainState, GradientTransformation]:
     """Random parameters on ``device`` (from ``generator``, seed 0 if
     None) and the optimizer's initial state. ``cfg`` may be any
-    registered model config."""
+    registered model config. On a ``mesh`` every rank draws each leaf
+    as the single-device init does, keeps its slice as a DTensor and
+    lets the rest go (models/common.py ``init_tree``), so the params are
+    the single-device ones bit for bit and no rank holds more than one
+    whole leaf."""
     device = torch.device(device)
     optimizer = optimizer or default_optimizer()
     if generator is None:
@@ -56,15 +68,38 @@ def create_train_state(
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, state asked "
                          f"on {device}")
-    model_init, _, _ = model_fns(cfg)
-    params = model_init(cfg, generator)
+    model_init, _, rules = model_fns(cfg)
+    if mesh is None:
+        params = model_init(cfg, generator)
+    else:
+        params = model_init(cfg, generator, place=lambda path, t: (
+            sharding.distribute(t, sharding.spec_for(path, rules), mesh)))
     return TrainState(0, params, optimizer.init(params)), optimizer
+
+
+def mesh_specs(params: dict, rules) -> dict:
+    """(spec, gradient-reduction axes) for every leaf of ``params``: the
+    rule's spec and its ``grad_reduce_axes``."""
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = walk(v, path)
+            else:
+                spec = sharding.spec_for(path, rules)
+                out[k] = (spec, sharding.grad_reduce_axes(spec))
+        return out
+
+    return walk(params, "")
 
 
 def make_train_step(
     cfg,
     optimizer: GradientTransformation,
     loss_fn: Callable | None = None,
+    mesh=None,
+    specs: Callable | None = None,
 ) -> Callable:
     """(state, batch) → (state, metrics). ``batch`` is whatever the
     model's loss takes: a token tensor for the decoder families, a tuple
@@ -74,7 +109,16 @@ def make_train_step(
     holds ``loss`` and ``grad_norm`` as device tensors (reading them
     waits for the device, so a caller reads them only where it needs the
     value) and ``step`` as an int. Every parameter must receive a
-    gradient: an unused one raises rather than training on silently."""
+    gradient: an unused one raises rather than training on silently.
+
+    With a ``mesh`` the state's leaves are DTensors; ``loss_fn(local
+    params, local batch)`` (default: the family's loss with ``mesh``)
+    returns this rank's share of the global mean, and ``specs(params)``
+    (default: :func:`mesh_specs` under the family's rules), read at the
+    first step, names each leaf's gradient reduction.
+    ``metrics["loss"]`` is the global loss on every rank."""
+    if mesh is not None:
+        return _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs)
     if loss_fn is None:
         _, model_loss, _ = model_fns(cfg)
 
@@ -99,6 +143,57 @@ def make_train_step(
             new_params = apply_updates(state.params, updates)
             metrics = {"loss": loss.detach(),
                        "grad_norm": global_norm(grads),
+                       "step": state.step + 1}
+        return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    return step
+
+
+def _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs):
+    import torch.distributed as dist
+
+    _, model_loss, rules = model_fns(cfg)
+    if loss_fn is None:
+        def loss_fn(params, batch):
+            return model_loss(params, batch, cfg, mesh=mesh)
+    if specs is None:
+        def specs(params):
+            return mesh_specs(params, rules)
+    known: dict = {}
+
+    def step(state: TrainState, batch):
+        device = sharding.local(tree_leaves(state.params)[0]).device
+        if "reduce" not in known:
+            known["reduce"] = specs(state.params)
+        reduce = known["reduce"]
+
+        def mine(t):
+            return sharding.split_batch(t, mesh).to(device,
+                                                    non_blocking=True)
+
+        batch = (tuple(mine(t) for t in batch)
+                 if isinstance(batch, (tuple, list)) else mine(batch))
+        live = tree_map(lambda p: sharding.local(p).detach()
+                        .requires_grad_(), state.params)
+        leaves = tree_leaves(live)
+        loss = loss_fn(live, batch)
+        flat = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _: next(flat), live)
+        del live, leaves
+        with torch.no_grad():
+            grads = tree_map(
+                lambda g, p, r: sharding.to_dtensor(
+                    sharding.reduce_grad(g.contiguous(), r[1], mesh),
+                    r[0], mesh, p.shape),
+                grads, state.params, reduce)
+            loss = loss.detach().clone()
+            for a in ("dp", "fsdp", "sp"):
+                if mesh.group(a) is not None:
+                    dist.all_reduce(loss, group=mesh.group(a))
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                state.params)
+            new_params = apply_updates(state.params, updates)
+            metrics = {"loss": loss, "grad_norm": global_norm(grads),
                        "step": state.step + 1}
         return TrainState(state.step + 1, new_params, new_opt), metrics
 
