@@ -228,13 +228,28 @@ Phases, one JSON line each; any failure exits non-zero:
               over 3 requests one after another); the mesh state's
               checkpoint restored on the single-device path bit-equal.
               Multi-rank speed is not measured on one card.
+- pipeline: ``--pp``'s path at pp 1 (``phase_pipeline``): llama3-1b, 3
+              steps of 4 x 2048 under adamw-int8 through the trainer
+              CLI's ``pipeline_parts`` (``pipeline_rules`` and
+              ``make_train_step(grad_fn=pipeline_1f1b_grads)``, 4
+              microbatches of a row: every forward, stash, recompute,
+              autograd backward, f32 accumulation and the deferred
+              embedding backward of the schedule, no send) against the
+              parallel phase's single-device run of the same batch:
+              losses within 1e-3 relative, step 1's gradients within 2e-2
+              (relative L2 per leaf), each step's launches those the
+              schedule implies (flash_fwd 2·L·M, dq and dk/dv L·M, adam8
+              once a leaf); step ms and peak memory of both. The bubble
+              and the sends of pp > 1 are not measured on one card.
 - mesh:       only where more than one card is visible, or alone with
               ``python3 chip_smoke.py --mesh`` (``phase_mesh``): one rank
               a card (``python -m chip_smoke --mesh-rank``, NCCL)
               trains llama3-1b at a global 8 x 2048 on dp, fsdp, tp,
-              fsdp x tp, tp x sp and sp (zigzag ring, Ulysses),
+              fsdp x tp, tp x sp and sp (zigzag ring, Ulysses), and
+              through the 1F1B pipeline on pp, pp 2 x tp and pp 2 x dp,
               bench-moe at ep, vit-b16 (128) and encdec-base (32 x 512)
-              at tp, 3 steps each, against the same runs on one card
+              at tp, encdec-base on sp and sp 2 x tp (its rings), 3
+              steps each, against the same runs on one card
               (losses within 1e-3 relative); ``serve --tp N`` against
               one card's stream, ``serve --dp N --slots 0`` on N rows
               (one a rank, each equal to one card's row). Step ms,
@@ -4874,23 +4889,30 @@ PAR_SP_SEQ = 2048
 PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_LOGIT_TOL = 1e-3, 2e-2, 2e-2
 
 
-def _par_run(dev, cfg, mesh, tokens, optim_name: str) -> dict:
+def _par_run(dev, cfg, mesh, tokens, optim_name: str,
+             pipeline: bool = False) -> dict:
     """PAR_STEPS steps of ``cfg`` from seed 0 on ``mesh`` (None: the
     single-device path), counts zeroed just before and read just after;
-    the state comes back too. ``peak_above_entry`` is the peak less what
-    was allocated when the call began (another run's live state), so
-    two runs' peaks compare."""
+    the state comes back too. ``pipeline``: the trainer CLI's ``--pp``
+    path (its ``pipeline_parts``: the pp rules and the 1F1B
+    ``grad_fn``). ``peak_above_entry`` is the peak less what was
+    allocated when the call began (another run's live state), so two
+    runs' peaks compare."""
     from tpu_docker_api_torch.ops import flash
     from tpu_docker_api_torch.train import optim
+    from tpu_docker_api_torch.train.__main__ import pipeline_parts
     from tpu_docker_api_torch.train.trainer import (create_train_state,
                                                     make_train_step)
 
     entry = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
     opt = optim.adamw_int8() if optim_name == "adamw-int8" else None
+    rules, grad_fn = (pipeline_parts(cfg, mesh, tokens.shape[0]) if pipeline
+                      else (None, None))
     state, opt = create_train_state(
         cfg, dev, torch.Generator(device=dev).manual_seed(0),
-        optimizer=opt, mesh=mesh)
-    step_fn = make_train_step(cfg, opt, mesh=mesh)
+        optimizer=opt, mesh=mesh, rules=rules)
+    step_fn = make_train_step(cfg, opt, mesh=mesh, grad_fn=grad_fn,
+                              rules=rules)
     _par_sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5186,6 +5208,111 @@ def phase_parallel(dev) -> dict:
     return result
 
 
+# ---- --pp's 1F1B pipeline on one card (phase_pipeline)
+PIPE_MICRO = TRAIN_BATCH   # the CLI's n_micro at dp·fsdp 1: a row each
+
+
+def pipeline_launches(cfg, n_micro: int, adam8: int) -> dict:
+    """The launches one 1F1B step implies on a stage of every layer:
+    each microbatch's forward and its recompute in the backward run
+    flash_fwd once a layer, the backward dq and dk/dv once a layer;
+    adam8 once a leaf (``adam8``: the plain step's count)."""
+    L = cfg.n_layers
+    return {"flash_fwd": 2 * L * n_micro, "flash_bwd_dq": L * n_micro,
+            "flash_bwd_dkv": L * n_micro, "adam8": adam8}
+
+
+def phase_pipeline(dev, par: dict) -> dict:
+    """``--pp``'s path at pp 1 (module docstring): llama3-1b at the
+    parallel phase's batch through the trainer CLI's ``pipeline_parts``
+    (``make_train_step(grad_fn=pipeline_1f1b_grads)``), held against
+    that phase's single-device run of the same steps."""
+    import torch.distributed as dist
+
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.parallel import sharding
+    from tpu_docker_api_torch.parallel.mesh import MeshPlan, build_mesh
+    from tpu_docker_api_torch.train.__main__ import pipeline_parts
+    from tpu_docker_api_torch.train.optim import tree_map
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    synthetic_batch)
+    from tpu_docker_api_torch.workload.torchenv import bootstrap_torch
+
+    t_phase = time.perf_counter()
+    bootstrap_torch(dev.type, force=True)
+    try:
+        mesh = build_mesh(MeshPlan(dp=1, pp=1))
+        _, cfg = resolve_preset(PAR_PRESET)
+        # phase_parallel's batch, so its single-device run is the
+        # reference
+        tokens = synthetic_batch(torch.Generator(device=dev).manual_seed(1),
+                                 TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+
+        # ---- the main path: the counts are zeroed just before its
+        # steps and read just after (_par_run)
+        run = _par_run(dev, cfg, mesh, tokens, "adamw-int8", pipeline=True)
+        launches = dict(run["launches"])
+        # ---- end of the main path
+
+        del run["state"], run["optimizer"]
+        _par_empty_cache(dev)
+        single = par["runs"]["single"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            run["losses"], single["losses"]))
+        want = pipeline_launches(cfg, PIPE_MICRO,
+                                 single["launches_per_step"][0]["adam8"])
+
+        # step 1's gradients, from the shared init
+        rules, grad_fn = pipeline_parts(cfg, mesh, TRAIN_BATCH)
+        init_p, _ = create_train_state(
+            cfg, dev, torch.Generator(device=dev).manual_seed(0),
+            mesh=mesh, rules=rules)
+        _, g_p = grad_fn(tree_map(sharding.local, init_p.params), tokens)
+        g_p = sharding.flatten_paths(g_p)
+        del init_p
+        init_s, _ = create_train_state(
+            cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        g_s = _par_grads(dev, cfg, init_s.params, tokens, None)
+        del init_s
+        grad_rel = {k: _rel_l2(g_p[k].float(), g_s[k].float())
+                    for k in g_s}
+        del g_p, g_s
+        _par_empty_cache(dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    result = {"phase": "pipeline", "preset": PAR_PRESET, "pp": 1,
+              "n_micro": PIPE_MICRO, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": PAR_STEPS, "optim": "adamw-int8",
+              "losses": run["losses"], "single_losses": single["losses"],
+              "loss_max_rel": loss_rel, "loss_tol": PAR_LOSS_TOL,
+              "grad_max_rel_l2": max(grad_rel.values()),
+              "grad_rel_l2": grad_rel, "grad_tol": PAR_GRAD_TOL,
+              "step_ms": run["step_ms"], "single_step_ms": single["step_ms"],
+              "step_ms_over_single": (run["step_ms"][-1]
+                                      / single["step_ms"][-1]),
+              "max_memory_allocated": run["max_memory_allocated"],
+              "peak_above_entry": run["peak_above_entry"],
+              "single_peak_above_entry": single["peak_above_entry"],
+              "launches_per_step": run["launches_per_step"],
+              "launches_per_step_expected": want, "launches": launches,
+              "bubble_and_sends": "not measured (one card: pp 1)",
+              "phase_s": time.perf_counter() - t_phase,
+              "card": nvidia_smi()}
+    emit(result)
+    if loss_rel > PAR_LOSS_TOL:
+        raise AssertionError(f"pipeline vs single losses: {run['losses']} "
+                             f"{single['losses']}")
+    if max(grad_rel.values()) > PAR_GRAD_TOL:
+        raise AssertionError(f"pipeline vs single step-1 gradients: "
+                             f"{grad_rel}")
+    if any(n != want for n in run["launches_per_step"]):
+        raise AssertionError(f"pipeline launches a step "
+                             f"{run['launches_per_step']}, the schedule "
+                             f"implies {want}")
+    return result
+
+
 # ---- the mesh path across every visible card (phase_mesh)
 MESH_BATCH = 8                  # global rows of TRAIN_SEQ tokens
 MESH_FAMILY_BATCH = {"vit:vit-b16": 128, "encdec:encdec-base": 32}
@@ -5194,9 +5321,11 @@ MESH_FAMILY_BATCH = {"vit:vit-b16": 128, "encdec:encdec-base": 32}
 def mesh_jobs(world: int) -> list[dict]:
     """The multi-rank runs of ``world`` ranks: llama3-1b on pure dp,
     fsdp, tp, fsdp × tp, tp × sp with zigzag ring, sp with zigzag ring
-    and with Ulysses (shapes whose kv heads do not split left out);
-    bench-moe at ep = world (sort); vit-b16 and encdec-base at tp =
-    world (their products split over tp)."""
+    and with Ulysses (shapes whose kv heads do not split left out), and
+    through ``--pp``'s 1F1B pipeline at pp = world, pp 2 × tp and
+    pp 2 × dp; bench-moe at ep = world (sort); vit-b16 and encdec-base
+    at tp = world (their products split over tp); encdec-base on its
+    rings at sp = world and sp 2 × tp."""
     from tpu_docker_api_torch.models import resolve_preset
 
     _, cfg = resolve_preset(PAR_PRESET)
@@ -5216,10 +5345,25 @@ def mesh_jobs(world: int) -> list[dict]:
 
     jobs = [{"preset": PAR_PRESET, "plan": p, "impl": i,
              "optim": "adamw-int8"} for p, i in llama if fits(p, i)]
+    # --pp: the 1F1B pipeline through the CLI's pipeline_parts
+    pipe = [{"dp": 1, "pp": world}]
+    if half > 1:
+        pipe += [{"dp": 1, "pp": 2, "tp": half}, {"dp": half, "pp": 2}]
+    jobs += [{"preset": PAR_PRESET, "plan": p, "impl": "auto",
+              "optim": "adamw-int8", "pipeline": True} for p in pipe
+             if cfg.n_layers % p["pp"] == 0 and fits(p, "auto")]
     jobs.append({"preset": PAR_MOE_PRESET, "plan": {"dp": 1, "ep": world},
                  "impl": "sort", "optim": "adamw"})
     for preset in MESH_FAMILY_BATCH:
         jobs.append({"preset": preset, "plan": {"dp": 1, "tp": world},
+                     "impl": "auto", "optim": "adamw-int8"})
+    # the encoder-decoder's rings: sp over the source and the target
+    encdec = "encdec:" + ENCDEC_PRESET
+    jobs.append({"preset": encdec, "plan": {"dp": 1, "sp": world},
+                 "impl": "auto", "optim": "adamw-int8"})
+    if half > 1:
+        jobs.append({"preset": encdec, "plan": {"dp": 1, "sp": 2,
+                                                "tp": half},
                      "impl": "auto", "optim": "adamw-int8"})
     return jobs
 
@@ -5306,7 +5450,7 @@ def mesh_rank() -> int:
     for job in mesh_jobs(world):
         cfg, batch = _mesh_inputs(job, dev)
         run = _par_run(dev, cfg, build_mesh(MeshPlan(**job["plan"])), batch,
-                       job["optim"])
+                       job["optim"], pipeline=job.get("pipeline", False))
         del run["state"], run["optimizer"], batch
         runs.append({**job, **run})
         _par_empty_cache(dev)
@@ -5369,7 +5513,9 @@ def phase_mesh(dev) -> dict:
         rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
                                                        ref["losses"]))
         rows.append({"preset": run["preset"], "plan": run["plan"],
-                     "impl": run["impl"], "losses": run["losses"],
+                     "impl": run["impl"],
+                     "pipeline": run.get("pipeline", False),
+                     "losses": run["losses"],
                      "step_ms": run["step_ms"],
                      "max_memory_allocated": run["max_memory_allocated"],
                      "peak_above_entry": run["peak_above_entry"],
@@ -5481,7 +5627,9 @@ def main() -> int:
     moe_res = phase_moe(dev)
     vit_res = phase_vit(dev)
     encdec_res = phase_encdec(dev)
-    par_n = phase_parallel(dev)["launches"]
+    par_res = phase_parallel(dev)
+    par_n = par_res["launches"]
+    pipe_n = phase_pipeline(dev, par_res)["launches"]
     if torch.cuda.device_count() > 1:
         phase_mesh(dev)
     train_n, life_n = train_res["launches"], life_res["launches"]
@@ -5501,11 +5649,12 @@ def main() -> int:
                       "moe": moe_n["flash_fwd"],
                       "vit": vit_n["flash_fwd"],
                       "encdec": encdec_n["flash_fwd"],
-                      "parallel": par_n["flash_fwd"]},
+                      "parallel": par_n["flash_fwd"],
+                      "pipeline": pipe_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
                   "lora": lora_n[name], "moe": moe_n[name],
                   "vit": vit_n[name], "encdec": encdec_n[name],
-                  "parallel": par_n[name]}
+                  "parallel": par_n[name], "pipeline": pipe_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

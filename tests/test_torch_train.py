@@ -212,14 +212,9 @@ def test_cli_runs_on_cpu_and_prints_json_lines():
 def test_cli_refuses_unported_flags(flag):
     """The mesh flags run on two gloo ranks (``--nproc-per-node 2``;
     rank 0 alone prints the JAX line contract, tests/
-    test_torch_parallel*.py hold their numbers against JAX); ``--pp``
-    is still refused, naming the ROADMAP item that brings it."""
-    if flag[0] == "--pp":
-        proc = _cli("--device", "cpu", *flag, timeout=60)
-        assert proc.returncode == 2
-        assert "not in the PyTorch package yet" in proc.stderr
-        assert "ROADMAP" in proc.stderr and "item 9" in proc.stderr
-        return
+    test_torch_parallel*.py and test_torch_pipeline.py hold their
+    numbers against JAX); ``--pp 2`` trains tiny's two layers through
+    the 1F1B pipeline, a layer a stage."""
     proc = _cli("--device", "cpu", "--preset", "tiny", "--steps", "1",
                 "--batch", "2", "--seq", "8", "--log-every", "1",
                 "--nproc-per-node", "2", *flag, timeout=180)
@@ -237,12 +232,21 @@ def test_cli_refuses_unported_flags(flag):
     (["--lora-alpha", "8"], "require --lora-rank > 0"),
     (["--moe-dispatch", "gather"],
      "--moe-dispatch applies to moe: presets only"),
-    (["--preset", "encdec:tiny", "--sp", "2"],
-     "--sp does not apply to encdec: presets yet")])
+    (["--preset", "vit:tiny", "--sp", "2"],
+     "--sp does not apply to vit: presets: JAX's ViT has no "
+     "sequence-parallel path"),
+    (["--preset", "vit:tiny", "--pp", "2"],
+     "--pp does not apply to vit: presets: the pipeline is Llama's"),
+    (["--pp", "2", "--lora-rank", "4"], "--pp does not compose with LoRA"),
+    (["--pp", "2", "--sp", "2"], "--pp does not compose with --sp"),
+    (["--pp", "2", "--ep", "2"], "--pp does not compose with --ep")])
 def test_cli_keeps_the_jax_lora_guards(flags, msg):
     """The JAX entry point's guards: a LoRA flag without a rank, --qlora
     over the merged forward, and --moe-dispatch on a Llama preset are
-    refused before any work."""
+    refused before any work; so are the port's mesh refusals, each with
+    its reason: --sp on vit (JAX's sp axis only replicates there), --pp
+    on a family other than Llama, with LoRA, with --sp and with --ep
+    (ROADMAP Queue 1 item 9's remainder)."""
     proc = _cli("--device", "cpu", *flags, timeout=60)
     assert proc.returncode == 2 and msg in proc.stderr
 

@@ -232,7 +232,8 @@ def attention(plan: dict, q, k, v, cot, impl: str, causal: bool = True):
 
 def loss_value(plan: dict, host: dict, tokens, preset: str = "tiny",
                over: dict | None = None):
-    """The family's mesh loss (summed over the ranks) on ``tokens``."""
+    """The family's mesh loss (summed over the ranks) on ``tokens`` (an
+    array, or a tuple of them: the encoder-decoder's pairs)."""
     import torch
     import torch.distributed as dist
 
@@ -250,8 +251,10 @@ def loss_value(plan: dict, host: dict, tokens, preset: str = "tiny",
                 else local(t))
 
     loc = walk(params)
-    share = loss_fn(loc, split_batch(torch.from_numpy(tokens).long(), mesh),
-                    cfg, mesh=mesh).detach()
+    rows = _batch(tokens)
+    rows = (tuple(split_batch(x, mesh) for x in rows)
+            if isinstance(rows, tuple) else split_batch(rows, mesh))
+    share = loss_fn(loc, rows, cfg, mesh=mesh).detach()
     for a in ("dp", "fsdp", "sp"):
         if mesh.group(a) is not None:
             dist.all_reduce(share, group=mesh.group(a))
@@ -487,3 +490,224 @@ def slot_stream(plan: dict, host: dict, prompts: list, max_new: int,
         return {"tokens": tokens, "stats": dict(eng.stats)}
     finally:
         eng.close()
+
+
+# ------------------------------------------------------ pipeline (pp)
+
+
+def _pcfg(over: dict | None = None):
+    """The tiny llama with ``over`` (``dtype`` by name, f32 default)."""
+    import torch
+
+    from tpu_docker_api_torch.models import resolve_preset
+
+    over = dict(over or {})
+    dtype = getattr(torch, over.pop("dtype", "float32"))
+    _, cfg = resolve_preset("tiny")
+    return dataclasses.replace(cfg, dtype=dtype, **over)
+
+
+def _np32(t):
+    from tpu_docker_api_torch.parallel.sharding import full_tensor
+
+    return full_tensor(t).detach().float().numpy()
+
+
+def _global_loss(share, mesh) -> float:
+    """The train step's reading of a loss share: summed over the batch
+    and sequence axes, the last pp stage's broadcast over pp."""
+    import torch.distributed as dist
+
+    share = share.detach().float().clone()
+    for a in ("dp", "fsdp", "sp"):
+        if mesh.group(a) is not None:
+            dist.all_reduce(share, group=mesh.group(a))
+    grp = mesh.group("pp")
+    if grp is not None:
+        dist.broadcast(share, src=dist.get_global_rank(
+            grp, mesh.shape["pp"] - 1), group=grp)
+    return float(share)
+
+
+def _pipe_setup(plan: dict, host: dict, over):
+    from tpu_docker_api_torch.models.convert import params_from_numpy
+    from tpu_docker_api_torch.parallel import pipeline as pl
+    from tpu_docker_api_torch.parallel import sharding as sh
+
+    cfg, mesh = _pcfg(over), _mesh(**plan)
+    rules = pl.pipeline_rules(sh.LLAMA_RULES)
+    params = sh.distribute_params(params_from_numpy(host, "cpu"), mesh,
+                                  rules)
+    return cfg, mesh, rules, params
+
+
+def pipe_grads(plan: dict, host: dict, tokens, n_micro: int, schedule: str,
+               over: dict | None = None):
+    """One call of ``pipeline_1f1b_grads`` ("1f1b") or autograd of
+    ``pipeline_loss`` ("gpipe") under ``pipeline_rules``: the global
+    loss and the whole gradients, reduced as the train step reduces
+    them (f32); with "gpipe" also ``pipeline_forward``'s logits (this
+    rank's rows: the mesh has no dp) from the last stage, and whether
+    rank 0 (stage 0) got any."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_docker_api_torch.parallel import pipeline as pl
+    from tpu_docker_api_torch.parallel import sharding as sh
+    from tpu_docker_api_torch.train.optim import tree_leaves, tree_map
+    from tpu_docker_api_torch.train.trainer import mesh_specs
+
+    cfg, mesh, rules, params = _pipe_setup(plan, host, over)
+    rows = sh.split_batch(torch.from_numpy(tokens).long(), mesh)
+    if schedule == "1f1b":
+        loss, grads = pl.pipeline_1f1b_grads(tree_map(sh.local, params),
+                                             rows, cfg, mesh, n_micro)
+    else:
+        live = tree_map(lambda p: sh.local(p).detach().requires_grad_(),
+                        params)
+        loss = pl.pipeline_loss(live, rows, cfg, mesh, n_micro)
+        flat = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        grads = tree_map(lambda _: next(flat), live)
+    whole = tree_map(lambda g, p, r: _np32(sh.to_dtensor(
+        sh.reduce_grad(g.contiguous(), r[1], mesh), r[0], mesh, p.shape)),
+        grads, params, mesh_specs(params, rules))
+    out = {"loss": _global_loss(loss, mesh), "grads": whole}
+    if schedule == "gpipe":
+        # the forward's logits: the last stage's rows, None on the others
+        with torch.no_grad():
+            logits = pl.pipeline_forward(tree_map(sh.local, params),
+                                         rows[:, :-1], cfg, mesh, n_micro)
+        out["logits_here"] = logits is not None
+        held = [None if logits is None else logits.numpy()]
+        last = dist.get_global_rank(mesh.group("pp"), mesh.shape["pp"] - 1)
+        dist.broadcast_object_list(held, src=last, group=mesh.group("pp"))
+        out["last_stage_logits"] = held[0]
+    return out
+
+
+def pipe_train(plan: dict, host: dict, tokens, n_micro: int, steps: int):
+    """``steps`` train steps on ``tokens`` through ``make_train_step(
+    grad_fn=pipeline_1f1b_grads)``: the losses and grad norms, and the
+    params after the first step."""
+    import torch
+
+    from tpu_docker_api_torch.parallel import pipeline as pl
+    from tpu_docker_api_torch.train.trainer import (TrainState,
+                                                    default_optimizer,
+                                                    make_train_step)
+
+    cfg, mesh, rules, params = _pipe_setup(plan, host, None)
+    opt = default_optimizer()
+    state = TrainState(0, params, opt.init(params))
+    step = make_train_step(
+        cfg, opt, mesh=mesh, rules=rules,
+        grad_fn=lambda p, b: pl.pipeline_1f1b_grads(p, b, cfg, mesh,
+                                                    n_micro))
+    batch = torch.from_numpy(tokens).long()
+    losses, norms, first = [], [], None
+    for i in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            first = _full(state.params)
+    return {"losses": losses, "grad_norms": norms, "params": first,
+            "wq_shard_dims": [p.dim if p.is_shard() else None for p in
+                              state.params["layers"]["attn"]["wq"]
+                              .placements]}
+
+
+def pipe_global_norm(plan: dict, host: dict):
+    """``global_norm`` of the params placed by ``pipeline_rules``."""
+    from tpu_docker_api_torch.train.optim import global_norm
+
+    _, _, _, params = _pipe_setup(plan, host, None)
+    return {"norm": float(global_norm(params))}
+
+
+def pipe_ckpt_write(plan: dict, directory: str, tokens):
+    """One adamw-int8 pipeline step from a fresh pp-sharded state, saved:
+    the saved state, whole."""
+    import torch
+
+    from tpu_docker_api_torch.parallel import pipeline as pl
+    from tpu_docker_api_torch.parallel import sharding as sh
+    from tpu_docker_api_torch.train.checkpoint import CheckpointManager
+    from tpu_docker_api_torch.train.optim import adamw_int8
+    from tpu_docker_api_torch.train.trainer import (create_train_state,
+                                                    make_train_step)
+
+    cfg, mesh = _pcfg(), _mesh(**plan)
+    rules = pl.pipeline_rules(sh.LLAMA_RULES)
+    st, opt = create_train_state(cfg, "cpu", torch.Generator().manual_seed(5),
+                                 optimizer=adamw_int8(), mesh=mesh,
+                                 rules=rules)
+    step = make_train_step(
+        cfg, opt, mesh=mesh, rules=rules,
+        grad_fn=lambda p, b: pl.pipeline_1f1b_grads(
+            p, b, cfg, mesh, b.shape[0]))
+    st, _ = step(st, torch.from_numpy(tokens).long())
+    mgr = CheckpointManager(directory)
+    mgr.save(st)
+    mgr.wait()
+    mgr.close()
+    return {"params": _full(st.params), "opt": _opt_full(st.opt_state)}
+
+
+def pipe_ckpt_resume(plan: dict, directory: str, tokens):
+    """Resume onto a pp mesh: the restored state (whole) and the loss of
+    one more pipeline step on ``tokens``."""
+    import torch
+
+    from tpu_docker_api_torch.parallel import pipeline as pl
+    from tpu_docker_api_torch.parallel import sharding as sh
+    from tpu_docker_api_torch.train.checkpoint import resume_or_init
+    from tpu_docker_api_torch.train.optim import adamw_int8
+    from tpu_docker_api_torch.train.trainer import make_train_step
+
+    cfg, mesh = _pcfg(), _mesh(**plan)
+    rules = pl.pipeline_rules(sh.LLAMA_RULES)
+    st, opt, mgr = resume_or_init(directory, cfg, "cpu",
+                                  torch.Generator().manual_seed(9),
+                                  optimizer=adamw_int8(), mesh=mesh,
+                                  rules=rules)
+    restored = {"step": st.step, "params": _full(st.params),
+                "opt": _opt_full(st.opt_state)}
+    step = make_train_step(
+        cfg, opt, mesh=mesh, rules=rules,
+        grad_fn=lambda p, b: pl.pipeline_1f1b_grads(
+            p, b, cfg, mesh, b.shape[0]))
+    _, m = step(st, torch.from_numpy(tokens).long())
+    mgr.close()
+    return {"restored": restored, "loss": float(m["loss"])}
+
+
+# ------------------------------------------- encoder-decoder on sp
+
+
+def encdec_sp_errors(plan: dict, host: dict, src, tgt):
+    """The errors of an sp mesh's encoder-decoder: ``kv_len`` on the
+    encoder's ring, and a target whose local chunk is odd on the
+    decoder's zigzag ring."""
+    import torch
+
+    from tpu_docker_api_torch.models import encdec as te
+    from tpu_docker_api_torch.models.convert import params_from_numpy
+    from tpu_docker_api_torch.parallel import sharding as sh
+    from tpu_docker_api_torch.train.optim import tree_map
+
+    cfg, mesh = _cfg("encdec:tiny"), _mesh(**plan)
+    params = tree_map(sh.local, sh.distribute_params(
+        params_from_numpy(host, "cpu"), mesh, te.ENCDEC_RULES))
+    src, tgt = _batch((src, tgt))
+    out = {}
+    try:
+        te.encdec_encode(params, _seq_chunk(src, mesh), cfg,
+                         kv_len=torch.full((src.shape[0],), 3), mesh=mesh)
+    except NotImplementedError as e:
+        out["kv_len"] = str(e)
+    try:
+        te.encdec_loss(params, (src, tgt), cfg, mesh)
+    except ValueError as e:
+        out["zigzag"] = str(e)
+    return out

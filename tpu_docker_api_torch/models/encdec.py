@@ -19,9 +19,15 @@ target have one length. Cross-attention of another length, the
 encoder's ``kv_len`` mask and the slot decode step stay on
 ``dense_attention``, as in JAX. On a mesh the weights shard by
 ``ENCDEC_RULES``, gather over fsdp a layer at a time, and tp splits the
-heads and MLP columns as llama's blocks do; the JAX module's
-sequence-parallel (ring attention) paths wait for ROADMAP Queue 1 item
-9's second part.
+heads and MLP columns as llama's blocks do. On a real sp axis each rank
+holds a contiguous chunk of the source and of the target, rope rotates
+it at its global positions, the encoder's self-attention rides the
+non-causal contiguous ring and the decoder's the causal zigzag ring
+(parallel/ring.py), and the encoder output is gathered over sp once a
+forward, so every decoder layer's cross-attention reads the whole
+encoder k/v with this rank's query chunk (lengths differ: the dense
+path, as JAX's ``auto`` takes it). The slot engine and the server stay
+off sp: JAX's server has no ``--sp``.
 """
 
 from __future__ import annotations
@@ -37,14 +43,15 @@ from tpu_docker_api_torch.models.common import (draw_stacked, init_tree,
                                                 seeded_generator)
 from tpu_docker_api_torch.models.llama import (_write_cache, embed_lookup,
                                                gather_layer, layer_specs,
-                                               loss_denominator,
-                                               unstack_layers,
+                                               loss_denominator, rope_slice,
+                                               seq_slice, unstack_layers,
                                                vocab_parallel_xent)
 from tpu_docker_api_torch.ops.attention import (dense_attention,
                                                 multihead_attention)
 from tpu_docker_api_torch.ops.norms import rms_norm
 from tpu_docker_api_torch.ops.quant import linear
 from tpu_docker_api_torch.parallel import comm
+from tpu_docker_api_torch.parallel.ring import ring_attention
 from tpu_docker_api_torch.parallel.sharding import P, spec_for, unshard
 from tpu_docker_api_torch.ops.rope import apply_rope, rope_frequencies
 from tpu_docker_api_torch.ops.xent import chunked_cross_entropy
@@ -202,20 +209,34 @@ def _layer_on(layer, prefix: str, mesh):
                          mesh), mesh.group("tp"))
 
 
+def _has_sp(mesh) -> bool:
+    return mesh is not None and mesh.shape["sp"] > 1
+
+
 def _enc_block(x, layer, cfg: EncDecConfig, rope_cos, rope_sin,
                kv_len=None, mesh=None):
     """Bidirectional self-attention + SwiGLU, pre-norm residuals.
     ``kv_len`` ((b,)) masks right-pad positions out of the attention, so
     a bucketed admission encodes exactly like the unpadded source. On a
-    ``mesh``: this rank's tp heads and MLP columns."""
+    ``mesh``: this rank's tp heads and MLP columns; on sp its chunk of
+    the source, attending by the non-causal ring."""
     layer, tp = _layer_on(layer, "enc_layers", mesh)
     b, s, _ = x.shape
     y = comm.copy_to(rms_norm(x, layer["attn_norm"], cfg.norm_eps), tp)
     q, k, v = _project_qkv(y, layer["attn"], cfg)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
-    out = multihead_attention(q, k, v, causal=False, probs_dtype=cfg.dtype,
-                              kv_len=kv_len)
+    if _has_sp(mesh):
+        if kv_len is not None:
+            # the ring has no length mask; dropping it would corrupt
+            # every real position's softmax (JAX's refusal)
+            raise NotImplementedError(
+                "kv_len masking is not supported on sp-mesh encodes "
+                "(ring attention path)")
+        out = ring_attention(q, k, v, mesh, causal=False)
+    else:
+        out = multihead_attention(q, k, v, causal=False,
+                                  probs_dtype=cfg.dtype, kv_len=kv_len)
     x = x + comm.reduce_from(linear(out.reshape(b, s, -1),
                                     layer["attn"]["wo"]), tp)
     return x + _mlp(rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
@@ -226,14 +247,19 @@ def _dec_block(x, enc_out, layer, cfg: EncDecConfig, rope_cos, rope_sin,
                mesh=None):
     """Causal self-attention → cross-attention over ``enc_out`` (no
     rope: the cross path is pure content lookup) → SwiGLU. On a
-    ``mesh``: this rank's tp heads and MLP columns."""
+    ``mesh``: this rank's tp heads and MLP columns; on sp its chunk of
+    the target, self-attending by the causal zigzag ring, its queries
+    against the whole (gathered) ``enc_out``."""
     layer, tp = _layer_on(layer, "dec_layers", mesh)
     b, s, _ = x.shape
     y = comm.copy_to(rms_norm(x, layer["self_norm"], cfg.norm_eps), tp)
     q, k, v = _project_qkv(y, layer["self_attn"], cfg)
     q = apply_rope(q, rope_cos, rope_sin)
     k = apply_rope(k, rope_cos, rope_sin)
-    out = multihead_attention(q, k, v, causal=True)
+    if _has_sp(mesh):
+        out = ring_attention(q, k, v, mesh, causal=True, placement="zigzag")
+    else:
+        out = multihead_attention(q, k, v, causal=True)
     x = x + comm.reduce_from(linear(out.reshape(b, s, -1),
                                     layer["self_attn"]["wo"]), tp)
     y = comm.copy_to(rms_norm(x, layer["cross_norm"], cfg.norm_eps), tp)
@@ -252,15 +278,19 @@ def encdec_encode(params, src, cfg: EncDecConfig, kv_len=None, mesh=None):
     """(b, S) source tokens → (b, S, d) encoder output (final-normed, in
     ``cfg.dtype``). ``kv_len`` ((b,)): row b's positions >= kv_len[b] are
     right-padding, excluded from every layer's attention. On a ``mesh``
-    the params are this rank's local shards and ``src`` its rows."""
+    the params are this rank's local shards and ``src`` its rows (on sp,
+    its contiguous chunk of them); the output is whole along the
+    sequence, gathered over sp once (its backward a reduce-scatter)."""
     x = embed_lookup(params["embed"]["tokens"], src, mesh)
-    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, src.shape[1],
-                                          cfg.rope_theta, device=x.device)
+    rope_cos, rope_sin = rope_slice(cfg, src.shape[1], x.device, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["enc_layers"], cfg.enc_layers):
         args = (x, layer, cfg, rope_cos, rope_sin, kv_len, mesh)
         x = remat_call(_enc_block, *args) if remat else _enc_block(*args)
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps).to(cfg.dtype)
+    out = rms_norm(x, params["enc_final_norm"], cfg.norm_eps).to(cfg.dtype)
+    if _has_sp(mesh):
+        out = comm.all_gather(out, 1, mesh.group("sp"), bwd="sum")
+    return out
 
 
 def encdec_hidden(params, batch, cfg: EncDecConfig, mesh=None):
@@ -269,8 +299,7 @@ def encdec_hidden(params, batch, cfg: EncDecConfig, mesh=None):
     src, tgt = batch
     enc_out = encdec_encode(params, src, cfg, mesh=mesh)
     x = embed_lookup(params["embed"]["tokens"], tgt, mesh)
-    rope_cos, rope_sin = rope_frequencies(cfg.head_dim, tgt.shape[1],
-                                          cfg.rope_theta, device=x.device)
+    rope_cos, rope_sin = rope_slice(cfg, tgt.shape[1], x.device, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in unstack_layers(params["dec_layers"], cfg.dec_layers):
         args = (x, enc_out, layer, cfg, rope_cos, rope_sin, mesh)
@@ -300,16 +329,14 @@ def encdec_loss(params, batch, cfg: EncDecConfig, mesh=None):
     (b, T+1)); the decoder reads tgt[:, :-1] and predicts tgt[:, 1:].
     With ``cfg.loss_chunk_rows`` the head fuses into
     ``ops.xent.chunked_cross_entropy``, as ``llama_loss``'s does. On a
-    ``mesh``: this rank's share of the global mean from its rows and its
-    tp columns of the vocabulary; the sequence-parallel paths are not in
-    the port yet."""
-    if mesh is not None and mesh.shape["sp"] > 1:
-        raise ValueError("sp does not apply to encdec: presets yet "
-                         "(ROADMAP Queue 1 item 9, second part)")
+    ``mesh``: this rank's share of the global mean from its rows, its
+    contiguous sp chunk of the source and of the target, and its tp
+    columns of the vocabulary."""
     src, tgt = batch
-    targets = tgt[:, 1:]
+    targets = seq_slice(tgt[:, 1:], mesh)
     denom = loss_denominator(targets, mesh)
-    x = encdec_hidden(params, (src, tgt[:, :-1]), cfg, mesh)
+    x = encdec_hidden(params, (seq_slice(src, mesh),
+                               seq_slice(tgt[:, :-1], mesh)), cfg, mesh)
     if cfg.loss_chunk_rows:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
         head = unshard(params["lm_head"], spec_for("lm_head", ENCDEC_RULES),

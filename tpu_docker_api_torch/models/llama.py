@@ -465,8 +465,18 @@ def llama_hidden(params: dict, tokens: torch.Tensor,
     seq = tokens.shape[1]
     x = embed_lookup(params["embed"]["tokens"], tokens, mesh)
     rope_cos, rope_sin = rope_slice(cfg, seq, x.device, mesh)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer in unstack_layers(params["layers"], cfg.n_layers):
+    return run_layers(x, params["layers"], cfg.n_layers, cfg, rope_cos,
+                      rope_sin, mesh,
+                      remat=cfg.remat and torch.is_grad_enabled())
+
+
+def run_layers(x, layers: dict, n_layers: int, cfg: LlamaConfig, rope_cos,
+               rope_sin, mesh=None, remat: bool = False):
+    """``_block`` over each of the ``n_layers`` layers of the stacked
+    ``layers`` tree in turn: the whole trunk (``llama_hidden``) or one
+    pipeline stage's block of it (parallel/pipeline.py). ``remat``
+    checkpoints each block under ``models.common.remat_policy``."""
+    for layer in unstack_layers(layers, n_layers):
         if remat:
             x = remat_call(_block, x, layer, cfg, rope_cos, rope_sin,
                            None, None, None, mesh)
@@ -650,8 +660,18 @@ def llama_loss(params: dict, tokens: torch.Tensor,
     is the loss and the sum of their gradients the gradient."""
     inputs = seq_slice(tokens[:, :-1], mesh)
     targets = seq_slice(tokens[:, 1:], mesh)
-    denom = loss_denominator(targets, mesh)
     x = llama_hidden(params, inputs, cfg, mesh)
+    return head_loss(params, x, targets, cfg, mesh)
+
+
+def head_loss(params: dict, x: torch.Tensor, targets: torch.Tensor,
+              cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """Final norm, head and cross-entropy of the final hidden ``x`` (this
+    rank's rows and sp chunk) against ``targets``: this rank's share of
+    the global mean (``loss_denominator``). ``params`` needs only
+    ``final_norm`` and ``lm_head``: ``llama_loss``'s tail, and the last
+    pipeline stage's (parallel/pipeline.py)."""
+    denom = loss_denominator(targets, mesh)
     if cfg.loss_chunk_rows:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps).to(cfg.dtype)
         head = unshard(params["lm_head"], spec_for("lm_head"), mesh)

@@ -1,6 +1,6 @@
 """Parallelism layer of the port (counterpart of
-``tpu_docker_api/parallel/``): the device mesh, the sharding rules, and
-ring and Ulysses attention over the ``sp`` axis.
+``tpu_docker_api/parallel/``): the device mesh, the sharding rules, ring
+and Ulysses attention over the ``sp`` axis, and the pipeline.
 
 One process per device; the axes are the JAX package's:
 
@@ -10,9 +10,10 @@ One process per device; the axes are the JAX package's:
   gradients reduce-scattered),
 - ``tp``   — tensor parallel (Megatron column/row splits),
 - ``sp``   — sequence parallel (ring or Ulysses attention),
-- ``ep``   — expert parallel (MoE experts sharded).
-
-Pipeline parallelism (``pp``) is not in this package yet.
+- ``ep``   — expert parallel (MoE experts sharded),
+- ``pp``   — pipeline parallel (parallel/pipeline.py: GPipe and 1F1B
+  over point-to-point sends; imported from there, as it needs the
+  Llama model).
 """
 
 from tpu_docker_api_torch.parallel.mesh import (  # noqa: F401

@@ -22,6 +22,10 @@ backward is the collective the JAX transpose rule would run:
   inverse exchange;
 - :func:`ppermute`: ``lax.ppermute`` over ``batch_isend_irecv``;
   backward sends the gradients the other way round.
+
+:func:`exchange` is the point-to-point step under ``ppermute``, outside
+autograd: the 1F1B pipeline sends a tick's activation and cotangent in
+one batch with it (parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -145,17 +149,27 @@ def _permute(x: torch.Tensor, perm, group) -> torch.Tensor:
     dst) of ``perm``; a rank no pair sends to receives zeros."""
     me = _rank(group)
     x = x.contiguous()
-    out = torch.zeros_like(x)
-    ops = []
-    for src, dst in perm:
-        if src == me and dst == me:
-            out.copy_(x)
-        elif src == me:
-            ops.append(dist.P2POp(dist.isend, x,
-                                  dist.get_global_rank(group, dst), group))
-        elif dst == me:
-            ops.append(dist.P2POp(dist.irecv, out,
-                                  dist.get_global_rank(group, src), group))
+    if (me, me) in perm:
+        return x.clone()
+    got = exchange([(x, dst) for src, dst in perm if src == me],
+                   [(x, src) for src, dst in perm if dst == me], group)
+    return got[0] if got else torch.zeros_like(x)
+
+
+def exchange(sends, recvs, group) -> list[torch.Tensor]:
+    """One step of point-to-point traffic outside autograd, in one
+    ``batch_isend_irecv``: ``sends`` is [(tensor, dst)], ``recvs``
+    [(like, src)] with ranks of ``group``; returns the received tensors
+    (shaped and typed as their ``like``) in ``recvs``' order. The peer
+    of each entry must post the matching one in the same step."""
+    ops, out = [], []
+    for x, dst in sends:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                              dist.get_global_rank(group, dst), group))
+    for like, src in recvs:
+        out.append(torch.empty_like(like))
+        ops.append(dist.P2POp(dist.irecv, out[-1],
+                              dist.get_global_rank(group, src), group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

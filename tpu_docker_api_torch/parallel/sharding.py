@@ -59,6 +59,9 @@ LLAMA_RULES: list[tuple[str, P]] = [
 
 #: the axes a batch's rows split over; activations (batch, seq, ...)
 BATCH_AXES = ("dp", "fsdp")
+#: the axes whose ranks each compute a part of the loss: a gradient is
+#: summed over those that do not shard its leaf (grad_reduce_axes)
+SPLIT_AXES = ("pp",) + BATCH_AXES + ("sp",)
 
 
 def flatten_paths(params: dict, prefix: str = "") -> dict[str, Any]:
@@ -246,22 +249,23 @@ def unshard(w: torch.Tensor, spec, mesh: Mesh | None,
         # gather the innermost axis first: the major axis then
         # concatenates whole blocks of the minor one
         for a in reversed(axes):
-            bwd = "sum" if a in BATCH_AXES + ("sp",) else "slice"
+            bwd = "sum" if a in SPLIT_AXES else "slice"
             w = comm.all_gather(w, d, mesh.group(a), bwd=bwd)
     return w
 
 
 def grad_reduce_axes(spec, extra: tuple[str, ...] = ()) -> tuple[str, ...]:
     """The axes a leaf's local gradient is summed over after the
-    backward: every axis that splits the batch or the sequence (dp,
-    fsdp, sp) and does not shard the leaf (a gather over an axis that
-    shards it already reduce-scattered there), plus ``extra`` axes the
-    caller knows it is partial over (a LoRA factor of a tp-sharded
-    base)."""
+    backward: every axis that splits the batch, the sequence or the
+    layers (dp, fsdp, sp, pp) and does not shard the leaf (a gather over
+    an axis that shards it already reduce-scattered there), plus
+    ``extra`` axes the caller knows it is partial over (a LoRA factor of
+    a tp-sharded base). A leaf replicated over pp is touched by one
+    pipeline stage, or by each stage in its own rows (the stacked norms
+    of ``pipeline_rules``): the sum over pp is the whole gradient."""
     have = sharded_axes(spec)
     return tuple(a for a in AXES
-                 if (a in BATCH_AXES + ("sp",) or a in extra)
-                 and a not in have)
+                 if (a in SPLIT_AXES or a in extra) and a not in have)
 
 
 def reduce_grad(g: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:

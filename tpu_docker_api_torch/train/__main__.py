@@ -16,6 +16,10 @@
     python -m tpu_docker_api_torch.train --preset llama3-8b --fsdp 2 --tp 4
     python -m tpu_docker_api_torch.train --device cpu --preset tiny \
         --tp 2 --nproc-per-node 2 --steps 3
+    python -m tpu_docker_api_torch.train --device cpu --preset tiny \
+        --pp 2 --nproc-per-node 2 --steps 3
+    python -m tpu_docker_api_torch.train --device cpu --preset \
+        encdec:tiny --sp 2 --nproc-per-node 2 --steps 3
 
 Trains on a token file (``--data``, data/loader.py) or on synthetic
 tokens, from random weights (``--seed``) or from the latest checkpoint in
@@ -68,8 +72,8 @@ point:
   128)``); ``--data`` is refused. Their rows are drawn one by one from
   the seed, the step and the row, as the JAX trainer's are.
 
-- **Meshes** (``--dp --fsdp --tp --sp --ep``, parallel/): one process
-  a device. Given any of them, or started as one rank of a larger job
+- **Meshes** (``--dp --fsdp --tp --sp --ep --pp``, parallel/): one
+  process a device. Given any of them, or started as one rank of a larger job
   (``WORLD_SIZE`` > 1, workload/torchenv.py), the trainer runs on a
   (pp, dp, fsdp, ep, tp, sp) mesh; ``--dp`` -1 (the default) takes the
   ranks the others leave. One command started without ``RANK`` starts
@@ -77,8 +81,23 @@ point:
   ranks with ``--device cpu`` (JAX's ``--virtual-devices``). Each rank
   takes its rows of the same global batch; only rank 0 prints.
   Checkpoints keep the one format: a run on any mesh resumes from a
-  step any other mesh (or one device) wrote. ``--sp`` takes llama and
-  moe presets; ``--qlora`` is refused on a mesh.
+  step any other mesh (or one device) wrote. ``--sp`` takes llama, moe
+  and encdec presets (the encoder's contiguous ring, the decoder's
+  zigzag ring); on vit it is refused: JAX's ViT has no sequence-parallel
+  path, so its sp axis would only replicate. ``--qlora`` is refused on
+  a mesh.
+- **Pipeline** (``--pp N``, parallel/pipeline.py): a llama preset
+  trains through the 1F1B schedule, each rank a stage of
+  ``n_layers/N`` layers (``pipeline_rules``, ``make_train_step``'s
+  ``grad_fn=pipeline_1f1b_grads``), composing with ``--dp``, ``--fsdp``
+  and ``--tp``. The JAX CLI takes ``--pp`` but never reaches its
+  pipeline (its ``pp`` axis holds replicas of the same work); the loss
+  is the same, the pipeline being exact. There is no microbatch flag,
+  as in JAX: ``n_micro = batch / (dp·fsdp)``, one row a microbatch on
+  each data rank, which keeps the 1F1B bubble (N-1)/(n_micro+N-1) as
+  small as the batch allows. ``--pp`` is refused on moe, vit and
+  encdec presets (JAX's pipeline is Llama's), with LoRA, and with
+  ``--sp`` or ``--ep`` above 1 (ROADMAP Queue 1 item 9's remainder).
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -96,15 +115,13 @@ import time
 
 #: JAX-CLI flags the port does not take yet → why, and what brings them
 _NOT_PORTED = {
-    "pipeline parallelism comes with ROADMAP Queue 1 item 9, second part":
-        ("pp",),
     "it selects a JAX platform; use --device": ("platform",),
     "it makes JAX CPU devices; use --device cpu --nproc-per-node N":
         ("virtual_devices",),
 }
 
 #: the mesh axes the trainer takes (parallel/mesh.py MeshPlan)
-MESH_FLAGS = ("dp", "fsdp", "tp", "sp", "ep")
+MESH_FLAGS = ("dp", "fsdp", "tp", "sp", "ep", "pp")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -203,10 +220,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.qlora and family != "llama":
         p.error("--qlora supports llama presets only (the int8 quantizer "
                 "is llama-shaped)")
-    if family in ("vit", "encdec") and args.sp not in (None, 1):
-        p.error(f"--sp does not apply to {family}: presets yet (their "
-                f"sequence-parallel paths come with ROADMAP Queue 1 item "
-                f"9, second part)")
+    if family == "vit" and args.sp not in (None, 1):
+        p.error("--sp does not apply to vit: presets: JAX's ViT has no "
+                "sequence-parallel path (its sp axis only replicates)")
+    if args.pp is not None:
+        if family != "llama":
+            p.error(f"--pp does not apply to {family}: presets: the "
+                    f"pipeline is Llama's (ROADMAP Queue 1 item 9's "
+                    f"remainder)")
+        if args.lora_rank > 0:
+            p.error("--pp does not compose with LoRA yet (ROADMAP Queue 1 "
+                    "item 9's remainder)")
+        for ax in ("sp", "ep"):
+            if getattr(args, ax) not in (None, 1):
+                p.error(f"--pp does not compose with --{ax} yet (ROADMAP "
+                        f"Queue 1 item 9's remainder)")
     if args.nproc_per_node > 1 and args.device != "cpu":
         p.error("--nproc-per-node is for --device cpu (on cuda one rank "
                 "starts for every visible GPU)")
@@ -234,6 +262,23 @@ def mesh_plan(args):
 
     return MeshPlan(**{a: getattr(args, a) for a in MESH_FLAGS
                        if getattr(args, a) is not None})
+
+
+def pipeline_parts(cfg, mesh, batch: int):
+    """(rules, grad_fn) of ``--pp``: ``pipeline_rules(LLAMA_RULES)`` and
+    the 1F1B schedule at ``n_micro = batch / (dp·fsdp)``, one row a
+    microbatch on each data rank (module docstring)."""
+    from tpu_docker_api_torch.parallel.pipeline import (pipeline_1f1b_grads,
+                                                        pipeline_rules)
+    from tpu_docker_api_torch.parallel.sharding import LLAMA_RULES
+
+    rules = pipeline_rules(LLAMA_RULES)
+    n_micro = batch // mesh.size_of(("dp", "fsdp"))
+
+    def grad_fn(params, rows):
+        return pipeline_1f1b_grads(params, rows, cfg, mesh, n_micro)
+
+    return rules, grad_fn
 
 
 def _lora_base(args, cfg, device, gen, mesh=None) -> dict:
@@ -336,6 +381,9 @@ def _run(args, on_mesh: bool) -> int:
 
         opt = adamw_int8()
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    rules = grad_fn = None
+    if args.pp is not None:
+        rules, grad_fn = pipeline_parts(cfg, mesh, args.batch)
     if args.lora_rank > 0:
         from tpu_docker_api_torch.train import lora
 
@@ -353,7 +401,7 @@ def _run(args, on_mesh: bool) -> int:
         else:
             state, optimizer, mgr = resume_or_init(args.ckpt_dir, cfg,
                                                    device, gen, optimizer=opt,
-                                                   mesh=mesh)
+                                                   mesh=mesh, rules=rules)
         if state.step:
             emit({"event": "resumed", "step": state.step,
                   "restore_s": time.perf_counter() - t_boot})
@@ -362,14 +410,16 @@ def _run(args, on_mesh: bool) -> int:
                                                   targets, opt, mesh=mesh)
     else:
         state, optimizer = create_train_state(cfg, device, gen,
-                                              optimizer=opt, mesh=mesh)
+                                              optimizer=opt, mesh=mesh,
+                                              rules=rules)
     if args.lora_rank > 0:
         step_fn = lora.make_lora_train_step(cfg, optimizer, base,
                                             alpha=args.lora_alpha,
                                             forward=args.lora_forward,
                                             mesh=mesh)
     else:
-        step_fn = make_train_step(cfg, optimizer, mesh=mesh)
+        step_fn = make_train_step(cfg, optimizer, mesh=mesh,
+                                  grad_fn=grad_fn, rules=rules)
     start_step = state.step
 
     if args.data:

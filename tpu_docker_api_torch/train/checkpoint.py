@@ -456,13 +456,15 @@ class CheckpointManager:
 
     def restore(self, cfg, optimizer, step: int | None = None,
                 device: str | torch.device = "cuda",
-                mesh=None) -> TrainState:
+                mesh=None, rules=None) -> TrainState:
         """The ``TrainState`` of ``step`` (latest if None) on ``device``;
         the params must fit ``cfg`` and the optimizer state ``optimizer``
         (its structure comes from ``optimizer.init`` on meta tensors, or,
-        on a ``mesh``, on the restored shards)."""
+        on a ``mesh``, on the restored shards, placed by ``rules``: the
+        family's if None)."""
         step = self._resolve(step)
-        params = self.restore_params(step, device, mesh, model_fns(cfg)[2])
+        params = self.restore_params(step, device, mesh,
+                                     rules or model_fns(cfg)[2])
         check_params(params, cfg, f"checkpoint step {step}")
         if mesh is None:
             opt_target = optimizer.init(tree_map(
@@ -601,15 +603,17 @@ def resume_or_init(
     optimizer=None,
     max_to_keep: int = 3,
     mesh=None,
+    rules=None,
 ) -> tuple[TrainState, Any, CheckpointManager]:
     """Restore the latest step of ``directory`` if there is one, else
     start fresh from ``generator``: the entry point a restarted trainer
-    boots through (on a ``mesh``, whatever mesh wrote the step)."""
+    boots through (on a ``mesh``, whatever mesh wrote the step; its
+    leaves placed by ``rules``, the family's if None)."""
     optimizer = optimizer or default_optimizer()
     mgr = CheckpointManager(directory, max_to_keep=max_to_keep)
     if mgr.latest_step() is not None:
-        return (mgr.restore(cfg, optimizer, device=device, mesh=mesh),
-                optimizer, mgr)
+        return (mgr.restore(cfg, optimizer, device=device, mesh=mesh,
+                            rules=rules), optimizer, mgr)
     state, optimizer = create_train_state(cfg, device, generator, optimizer,
-                                          mesh=mesh)
+                                          mesh=mesh, rules=rules)
     return state, optimizer, mgr

@@ -14,7 +14,9 @@ moments like their params. Each rank takes its rows of the same global
 batch, runs the family's sharded loss on its local shards (its share of
 the global mean), and sums each gradient over the axes that split the
 batch where the leaf is not sharded (``grad_reduce_axes``) before the
-optimizer sees it, exactly once.
+optimizer sees it, exactly once. A ``grad_fn`` in place of the loss
+(parallel/pipeline.py's 1F1B schedule) hands back the loss and the
+gradients itself; they are reduced the same way.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ def create_train_state(
     generator: torch.Generator | None = None,
     optimizer: GradientTransformation | None = None,
     mesh=None,
+    rules=None,
 ) -> tuple[TrainState, GradientTransformation]:
     """Random parameters on ``device`` (from ``generator``, seed 0 if
     None) and the optimizer's initial state. ``cfg`` may be any
@@ -60,7 +63,8 @@ def create_train_state(
     as the single-device init does, keeps its slice as a DTensor and
     lets the rest go (models/common.py ``init_tree``), so the params are
     the single-device ones bit for bit and no rank holds more than one
-    whole leaf."""
+    whole leaf. ``rules`` overrides the family's sharding rules (e.g.
+    parallel/pipeline.py's pp-aware ``pipeline_rules``)."""
     device = torch.device(device)
     optimizer = optimizer or default_optimizer()
     if generator is None:
@@ -68,7 +72,8 @@ def create_train_state(
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, state asked "
                          f"on {device}")
-    model_init, _, rules = model_fns(cfg)
+    model_init, _, model_rules = model_fns(cfg)
+    rules = model_rules if rules is None else rules
     if mesh is None:
         params = model_init(cfg, generator)
     else:
@@ -100,6 +105,8 @@ def make_train_step(
     loss_fn: Callable | None = None,
     mesh=None,
     specs: Callable | None = None,
+    grad_fn: Callable | None = None,
+    rules=None,
 ) -> Callable:
     """(state, batch) → (state, metrics). ``batch`` is whatever the
     model's loss takes: a token tensor for the decoder families, a tuple
@@ -110,16 +117,26 @@ def make_train_step(
     waits for the device, so a caller reads them only where it needs the
     value) and ``step`` as an int. Every parameter must receive a
     gradient: an unused one raises rather than training on silently.
+    ``grad_fn(params, batch) -> (loss, grads)`` bypasses autograd for
+    schedules that hand-compute their backward (parallel/pipeline.py's
+    1F1B); it excludes ``loss_fn``, as in JAX.
 
     With a ``mesh`` the state's leaves are DTensors; ``loss_fn(local
     params, local batch)`` (default: the family's loss with ``mesh``)
-    returns this rank's share of the global mean, and ``specs(params)``
-    (default: :func:`mesh_specs` under the family's rules), read at the
-    first step, names each leaf's gradient reduction.
-    ``metrics["loss"]`` is the global loss on every rank."""
+    returns this rank's share of the global mean, or ``grad_fn`` that
+    share and the local gradients, and ``specs(params)`` (default:
+    :func:`mesh_specs` under ``rules``, the family's if None), read at
+    the first step, names each leaf's gradient reduction.
+    ``metrics["loss"]`` is the global loss on every rank; on a pp mesh
+    the last stage holds it and broadcasts it over pp. A pp mesh needs
+    the pipeline's ``loss_fn`` or ``grad_fn``: the family's loss would
+    run the whole model on every stage."""
+    if grad_fn is not None and loss_fn is not None:
+        raise ValueError("pass loss_fn or grad_fn, not both")
     if mesh is not None:
-        return _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs)
-    if loss_fn is None:
+        return _make_mesh_step(cfg, optimizer, loss_fn, grad_fn, mesh,
+                               specs, rules)
+    if loss_fn is None and grad_fn is None:
         _, model_loss, _ = model_fns(cfg)
 
         def loss_fn(params, batch):
@@ -131,12 +148,8 @@ def make_train_step(
             batch = tuple(t.to(device, non_blocking=True) for t in batch)
         else:
             batch = batch.to(device, non_blocking=True)
-        live = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-        leaves = tree_leaves(live)
-        loss = loss_fn(live, batch)
-        flat = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(flat), live)
-        del live, leaves
+        loss, grads = _loss_and_grads(loss_fn, grad_fn, state.params,
+                                      batch)
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 state.params)
@@ -149,17 +162,38 @@ def make_train_step(
     return step
 
 
-def _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs):
+def _loss_and_grads(loss_fn, grad_fn, params, batch):
+    """(loss, grads) at the params' local shards: ``grad_fn``'s own, or
+    ``torch.autograd.grad`` of ``loss_fn``."""
+    local = sharding.local
+    if grad_fn is not None:
+        return grad_fn(tree_map(lambda p: local(p).detach(), params), batch)
+    live = tree_map(lambda p: local(p).detach().requires_grad_(), params)
+    leaves = tree_leaves(live)
+    loss = loss_fn(live, batch)
+    flat = iter(torch.autograd.grad(loss, leaves))
+    return loss, tree_map(lambda _: next(flat), live)
+
+
+def _make_mesh_step(cfg, optimizer, loss_fn, grad_fn, mesh, specs, rules):
     import torch.distributed as dist
 
-    _, model_loss, rules = model_fns(cfg)
-    if loss_fn is None:
+    _, model_loss, model_rules = model_fns(cfg)
+    rules = model_rules if rules is None else rules
+    if loss_fn is None and grad_fn is None:
+        if mesh.shape["pp"] > 1:
+            raise ValueError("a pp mesh needs the pipeline's loss_fn or "
+                             "grad_fn (parallel/pipeline.py)")
+
         def loss_fn(params, batch):
             return model_loss(params, batch, cfg, mesh=mesh)
     if specs is None:
         def specs(params):
             return mesh_specs(params, rules)
     known: dict = {}
+    pp_group = mesh.group("pp")
+    last_stage = (None if pp_group is None else
+                  dist.get_global_rank(pp_group, mesh.shape["pp"] - 1))
 
     def step(state: TrainState, batch):
         device = sharding.local(tree_leaves(state.params)[0]).device
@@ -173,13 +207,7 @@ def _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs):
 
         batch = (tuple(mine(t) for t in batch)
                  if isinstance(batch, (tuple, list)) else mine(batch))
-        live = tree_map(lambda p: sharding.local(p).detach()
-                        .requires_grad_(), state.params)
-        leaves = tree_leaves(live)
-        loss = loss_fn(live, batch)
-        flat = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(flat), live)
-        del live, leaves
+        loss, grads = _loss_and_grads(loss_fn, grad_fn, state.params, batch)
         with torch.no_grad():
             grads = tree_map(
                 lambda g, p, r: sharding.to_dtensor(
@@ -187,9 +215,11 @@ def _make_mesh_step(cfg, optimizer, loss_fn, mesh, specs):
                     r[0], mesh, p.shape),
                 grads, state.params, reduce)
             loss = loss.detach().clone()
-            for a in ("dp", "fsdp", "sp"):
+            for a in sharding.BATCH_AXES + ("sp",):
                 if mesh.group(a) is not None:
                     dist.all_reduce(loss, group=mesh.group(a))
+            if pp_group is not None:
+                dist.broadcast(loss, src=last_stage, group=pp_group)
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 state.params)
             new_params = apply_updates(state.params, updates)
