@@ -49,6 +49,27 @@ Phases, one JSON line each; any failure exits non-zero:
               Boot and restart-to-ready s, run/replace/delete p50 and p99,
               a list page, the queue's drain times, the child's first
               flash call.
+2d. reconcile — the port's reconciler (``phase_reconcile``): JAX's 13
+              container crash cases (tests/test_chaos.py, grow gpuCount 0
+              -> 1, shrink 1 -> 0, a bind swap) in this process on the
+              sqlite store and a persisting fake runtime under
+              ``build/reconcile``, the NVML topology: the flow dies at its
+              crash point, a fresh Program boots on the same file and
+              root, and its startup reconcile leaves ``check_invariants``
+              empty, one running version, the H100 owned by exactly the
+              latest spec or free, the data in place. Then the daemon by
+              its entry point with ``reconcile_on_start``, a 1 s periodic
+              pass, the watch-fed dirty mode and ``fanout_workers = 4``
+              (a pool nothing on the container path submits to yet): 200
+              families and ``g`` holding the H100, a SIGKILL, ``g-0``
+              removed from the fake runtime while the daemon is down, a
+              restart whose startup repair (``/api/v1/reconcile/events``)
+              frees the H100; ``h`` is granted it by UUID and its exec
+              runs flash_fwd against the plain version; a dry run finds
+              no drift. Medians of 5 of a full pass's ``durationMs``, of
+              a dirty pass's over 20 families stopped through the API
+              just before it (each pass visits exactly those 20), and of
+              restart-to-ready.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -4879,6 +4900,306 @@ def phase_control_plane(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- reconcile
+
+RECONCILE_DIR = "build/reconcile"
+#: the daemon half's host: control_plane's 200 families (gpuCount 0,
+#: one containerPort each) beside one family holding the GPU
+RECONCILE_FAMILIES = CONTROL_FAMILIES
+#: repeats behind each median (full pass, dirty pass, restart-to-ready)
+RECONCILE_REPEATS = 5
+#: families stopped through the API before each timed dirty pass, which
+#: then visits exactly these; a pass the periodic one beat to some marks
+#: is retried on the next batch, at most this many times in all
+RECONCILE_DIRTY_CHANGES = 20
+RECONCILE_DIRTY_RETRIES = 3
+#: JAX's container crash matrix (tests/test_chaos.py CASES) on the one
+#: GPU: grow is gpuCount 0 -> 1, shrink 1 -> 0, volume a bind swap at 1
+_RECONCILE_REPLACE = ("replace.after_version_bump", "replace.after_create_new",
+                      "replace.after_quiesce_old")
+_RECONCILE_PATCH = ("patch.after_alloc", "patch.after_replace")
+RECONCILE_CASES = ([("grow", p) for p in _RECONCILE_REPLACE + _RECONCILE_PATCH]
+                   + [("shrink", p) for p in _RECONCILE_REPLACE
+                      + _RECONCILE_PATCH]
+                   + [("volume", p) for p in _RECONCILE_REPLACE])
+
+
+def _reconcile_program(root: str, start: bool):
+    """The port's ``Program`` in this process over ``root``'s sqlite file
+    and persisting fake runtime, the topology from NVML (``h100-1`` where
+    NVML answers nothing); ``start=False`` leaves its work queue unstarted
+    (the chaos suite's crash model)."""
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+    from tpu_docker_api_torch.runtime.fake import FakeRuntime
+    from tpu_docker_api_torch.state.kv import SqliteKV
+
+    cfg = cp_config.Config(port=0, store_backend="sqlite",
+                           runtime_backend="fake", health_watch_interval=0,
+                           accelerator_type="h100-1",
+                           start_port=CONTROL_PORTS[0],
+                           end_port=CONTROL_PORTS[1])
+    prg = Program(cfg, host="127.0.0.1", kv=SqliteKV(f"{root}/state.db"),
+                  runtime=FakeRuntime(root=f"{root}/runtime", allow_exec=True,
+                                      persist=True))
+    prg.init()
+    if start:
+        prg.start()
+    return prg
+
+
+def _reconcile_case(flow: str, point: str, root: str) -> dict:
+    """One crash of the matrix: the flow dies at ``point`` (SimulatedCrash,
+    a BaseException: no rollback runs), a fresh Program boots on the same
+    file and root, and its startup reconcile repairs the wreckage."""
+    from tpu_docker_api_torch.runtime.spec import ContainerSpec
+    from tpu_docker_api_torch.schemas.container import (
+        Bind, ContainerPatchChips, ContainerPatchVolume, ContainerPort,
+        ContainerRun)
+    from tpu_docker_api_torch.service.crashpoints import SimulatedCrash, armed
+    from tpu_docker_api_torch.service.invariants import check_invariants
+
+    os.makedirs(f"{root}/v1")
+    os.makedirs(f"{root}/v2")
+    dead = _reconcile_program(root, start=False)
+    dead.container_svc.run_container(ContainerRun(
+        image_name="local", container_name="train",
+        chip_count=0 if flow == "grow" else 1,
+        container_ports=[ContainerPort(8080)],
+        binds=[Bind(f"{root}/v1", "/data")]))
+    with open(f"{dead.runtime.container_data_dir('train-0')}/ckpt.txt",
+              "w") as f:
+        f.write("step=100")
+    try:
+        with armed(point):
+            if flow == "volume":
+                dead.container_svc.patch_container_volume(
+                    "train", ContainerPatchVolume(
+                        old_bind=Bind(f"{root}/v1", "/data"),
+                        new_bind=Bind(f"{root}/v2", "/data")))
+            else:
+                dead.container_svc.patch_container_chips(
+                    "train", ContainerPatchChips(
+                        chip_count=1 if flow == "grow" else 0))
+        raise AssertionError(f"{flow}@{point}: no crash")
+    except SimulatedCrash:
+        pass
+    dead.kv.close()
+    prg = _reconcile_program(root, start=True)
+    try:
+        report = prg.reconciler.last_report()
+        if report is None:
+            raise AssertionError(f"{flow}@{point}: no startup reconcile")
+        failed = [a for a in report["actions"] if "error" in a]
+        problems = check_invariants(prg.runtime, prg.store,
+                                    prg.container_versions,
+                                    prg.chip_scheduler, prg.port_scheduler)
+        rt = prg.runtime
+        running = [n for n in rt.container_list()
+                   if rt.container_inspect(n).running]
+        latest = prg.container_versions.get("train")
+        state = prg.store.get_container(f"train-{latest}")
+        want = (["train"] if state.desired_running
+                and ContainerSpec.from_dict(state.spec).chip_ids else [""])
+        owners = [c["owner"] for c in prg.chip_scheduler.status()["chips"]]
+        with open(f"{rt.container_data_dir(f'train-{latest}')}/ckpt.txt") as f:
+            data = f.read()
+        if (failed or problems or running != [f"train-{latest}"]
+                or owners != want or data != "step=100"):
+            raise AssertionError(
+                f"{flow}@{point}: failed {failed}, invariants {problems}, "
+                f"running {running} (latest {latest}), GPU {owners} "
+                f"(want {want}), data {data!r}")
+        return {"case": f"{flow}@{point}", "ms": report["durationMs"],
+                "actions": [a["action"] for a in report["actions"]],
+                "gpu_owner": owners[0]}
+    finally:
+        prg.stop()
+
+
+def _metric_sum(port: int, name: str) -> float:
+    """The sum of ``name``'s series on the daemon's ``/metrics``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/metrics")
+    text = conn.getresponse().read().decode()
+    conn.close()
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith((name + "{", name + " ")))
+
+
+def _changed_dirty_pass(port: int, names: list) -> dict:
+    """A dirty pass just after ``names`` were stopped through the API. The
+    1 s periodic pass drains the same marks, so the stops begin right
+    after one of its passes (``reconcile_runs_total`` moved), and the pass
+    is posted once ``/healthz`` shows every stopped family marked."""
+    runs = _metric_sum(port, "reconcile_runs_total")
+    t0 = time.perf_counter()
+    while _metric_sum(port, "reconcile_runs_total") == runs:
+        if time.perf_counter() - t0 > 10:
+            raise AssertionError("no periodic reconcile pass in 10 s")
+        time.sleep(0.005)
+    for name in names:
+        _api(port, "POST", f"/containers/{name}/stop")
+    t0 = time.perf_counter()
+    while (_call(port, "GET", "/healthz")[1]["data"]["reconcileDirty"]
+           ["dirty"]["containers"] < len(names)):
+        if time.perf_counter() - t0 > 10:
+            break  # the periodic pass took some: the caller sees it
+        time.sleep(0.002)
+    return _api(port, "POST", "/reconcile?mode=dirty")
+
+
+def _daemon_log_has(cfg_path: str, needle: str) -> bool:
+    with open(cfg_path + ".log", errors="replace") as f:
+        return needle in f.read()
+
+
+def phase_reconcile(dev) -> dict:
+    """The port's reconciler at one card host's size (``phase_reconcile``):
+    JAX's container crash matrix in this process, then the daemon by its
+    entry point with ``reconcile_on_start``, a 1 s periodic pass, the
+    watch-fed dirty mode and ``fanout_workers = 4``: 200 families and ``g``
+    holding the H100, a SIGKILL, ``g``'s container removed out of band
+    while the daemon is down, a restart whose startup reconcile frees the
+    H100, a new container granted it by UUID whose exec runs flash_fwd,
+    and a dry run that finds no drift. Medians of 5: a full pass, a dirty
+    pass over RECONCILE_DIRTY_CHANGES families stopped just before it,
+    restart-to-ready."""
+    from tpu_docker_api_torch.runtime.fake import FakeRuntime
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(RECONCILE_DIR, ignore_errors=True)
+    os.makedirs(RECONCILE_DIR)
+    root = os.path.abspath(RECONCILE_DIR)
+    smi = nvidia_smi_gpus()
+    if len(smi) != 1:
+        raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
+    uuid = smi[0]["uuid"]
+
+    # -- (a) the crash matrix, in process -----------------------------------
+    matrix = [_reconcile_case(flow, point, f"{root}/case{i}")
+              for i, (flow, point) in enumerate(RECONCILE_CASES)]
+    matrix_ms = sorted(c["ms"] for c in matrix)
+
+    # -- (b) the daemon by its entry point ------------------------------------
+    port = _free_port()
+    cfg = os.path.join(root, "daemon.toml")
+    with open(cfg, "w") as f:
+        f.write(f'port = {port}\nstore_backend = "sqlite"\n'
+                f'sqlite_path = "{root}/state.db"\n'
+                f'runtime_backend = "fake"\n'
+                f'fake_runtime_root = "{root}/runtime"\n'
+                f'accelerator_type = "h100-1"\n'
+                f"start_port = {CONTROL_PORTS[0]}\n"
+                f"end_port = {CONTROL_PORTS[1]}\n"
+                "reconcile_on_start = true\nreconcile_interval = 1.0\n"
+                "reconcile_full_interval_s = 30.0\nfanout_workers = 4\n")
+    env = [f"PYTHONPATH={os.getcwd()}"]
+    daemon = _Daemon(cfg, port)
+    try:
+        if _api(port, "GET", "/reconcile/events"):
+            raise AssertionError("a fresh daemon's startup reconcile "
+                                 "repaired something")
+        for i in range(RECONCILE_FAMILIES):
+            _api(port, "POST", "/containers", {
+                "imageName": "local", "containerName": f"f{i}",
+                "gpuCount": 0, "containerPorts": [{"containerPort": 8080}]})
+        run = _api(port, "POST", "/containers", {
+            "imageName": "local", "containerName": "g", "gpuCount": 1,
+            "env": env})
+        if run["name"] != "g-0":
+            raise AssertionError(f"run g: {run}")
+        daemon.kill()
+        # while the daemon is down, the engine loses g's container
+        FakeRuntime(root=f"{root}/runtime", persist=True).container_remove(
+            "g-0", force=True)
+        daemon = _Daemon(cfg, port)
+        restart_s = [daemon.ready_s]
+        events = _api(port, "GET", "/reconcile/events")
+        repairs = [(e["action"], e["target"]) for e in events
+                   if not e.get("dryRun")]
+        if ("mark-family-lost", "g-0") not in repairs \
+                or ("free-leaked-chips", "g") not in repairs \
+                or any("error" in e for e in events):
+            raise AssertionError(f"the startup repair: {events}")
+        if _daemon_log_has(cfg, "startup reconcile failed"):
+            raise AssertionError("the startup reconcile failed")
+        gpus = _api(port, "GET", "/resources/gpus")
+        if [(c["uuid"], c["used"]) for c in gpus["chips"]] != [(uuid, False)]:
+            raise AssertionError(f"the H100 after the repair: {gpus}")
+        if _api(port, "POST", "/containers", {
+                "imageName": "local", "containerName": "h", "gpuCount": 1,
+                "env": env})["name"] != "h-0":
+            raise AssertionError("run h after the repair")
+        spec = _api(port, "GET", "/containers/h")["state"]["spec"]
+        if spec["gpu_uuids"] != [uuid]:
+            raise AssertionError(f"h's grant: {spec['gpu_uuids']}")
+        child = _gpu_exec(port, "h-0")
+        granted = uuid.lower().removeprefix("gpu-")
+        if (child["count"], child.get("uuid", "").lower()) != (1, granted) \
+                or not child["max_abs_err"] <= child["tol"] \
+                or child["launches"] < 1:
+            raise AssertionError(f"flash in h-0: {child}")
+        dry = _api(port, "GET", "/reconcile?dryRun=true&mode=full")
+        if dry["actions"] or dry["visitedFamilies"] < RECONCILE_FAMILIES:
+            raise AssertionError(f"drift after the repair: {dry}")
+        full, dirty, dirty_visited, dirty_missed = [], [], [], []
+        batches = iter(range(0, RECONCILE_FAMILIES, RECONCILE_DIRTY_CHANGES))
+        for _ in range(RECONCILE_REPEATS):
+            rep = _api(port, "POST", "/reconcile?mode=full")
+            if rep["mode"] != "full" or rep["actions"]:
+                raise AssertionError(f"a full pass: {rep}")
+            full.append(rep["durationMs"])
+            while True:
+                b = next(batches)
+                rep = _changed_dirty_pass(port, [
+                    f"f{i}-0" for i in range(b, b + RECONCILE_DIRTY_CHANGES)])
+                if rep["mode"] != "dirty" or rep["actions"] \
+                        or rep["visitedFamilies"] > RECONCILE_DIRTY_CHANGES:
+                    raise AssertionError(f"a dirty pass: {rep}")
+                if rep["visitedFamilies"] == RECONCILE_DIRTY_CHANGES:
+                    break
+                dirty_missed.append(rep["visitedFamilies"])
+                if len(dirty_missed) > RECONCILE_DIRTY_RETRIES:
+                    raise AssertionError(
+                        f"the periodic pass drained the marks of "
+                        f"{len(dirty_missed)} timed dirty passes: "
+                        f"visited {dirty_missed}")
+            dirty.append(rep["durationMs"])
+            dirty_visited.append(rep["visitedFamilies"])
+        health = _call(port, "GET", "/healthz")[1]["data"]
+        if (health["fanout"]["workers"], health["storeHealth"]["mode"]) \
+                != (4, "healthy") or "reconcileDirty" not in health:
+            raise AssertionError(f"/healthz: {health}")
+        for _ in range(RECONCILE_REPEATS - 1):
+            daemon.kill()
+            daemon = _Daemon(cfg, port)
+            restart_s.append(daemon.ready_s)
+            if _api(port, "GET", "/reconcile/events"):
+                raise AssertionError("a clean restart repaired something")
+        if _daemon_log_has(cfg, "startup reconcile failed"):
+            raise AssertionError("a startup reconcile failed")
+    finally:
+        daemon.kill(signal.SIGTERM)
+    shutil.rmtree(RECONCILE_DIR, ignore_errors=True)
+    res = {"phase": "reconcile",
+           "matrix": matrix, "matrix_startup_ms_median":
+               matrix_ms[len(matrix_ms) // 2],
+           "families": RECONCILE_FAMILIES, "startup_repair": repairs,
+           "full_pass_ms_median": sorted(full)[len(full) // 2],
+           "dirty_pass_ms_median": sorted(dirty)[len(dirty) // 2],
+           "full_pass_ms": full, "dirty_pass_ms": dirty,
+           "dirty_pass_visited": dirty_visited,
+           "dirty_pass_retried_visited": dirty_missed,
+           "restart_to_ready_s_median": sorted(restart_s)[len(restart_s) // 2],
+           "restart_to_ready_s": restart_s,
+           "dry_run_visited": dry["visitedFamilies"],
+           "child": child, "flash_launches": child["launches"],
+           "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
+    emit(res)
+    return res
+
+
 PAR_DIR = "build/parallel"
 PAR_PRESET = "llama3-1b"
 PAR_STEPS = 3
@@ -5613,6 +5934,7 @@ def main() -> int:
         return 0
     devices_res = phase_devices(dev)
     control_res = phase_control_plane(dev)
+    reconcile_res = phase_reconcile(dev)
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -5638,6 +5960,7 @@ def main() -> int:
     by_path = {
         "flash_fwd": {"devices": devices_res["flash_launches"],
                       "control_plane": control_res["flash_launches"],
+                      "reconcile": reconcile_res["flash_launches"],
                       "serve": serve_res["flash_launches"],
                       "serve_int8_text": int8_res["flash_launches"],
                       "serve_depth": depth_res["flash_launches"],

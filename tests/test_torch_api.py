@@ -5,7 +5,8 @@ and an HGX line of 8 GPUs. HTTP statuses and reply bodies must match key
 for key, apart from the logged differences (the grant's attachment in a
 stored spec, the GPU view's ``uuid``, the random ids). The routes of the
 families the port lacks answer 501 with code 10002, naming the missing
-service and ROADMAP Queue 1 item 10."""
+service and ROADMAP Queue 1 item 10; the reconcile routes answer as
+JAX's."""
 
 import http.client
 import json
@@ -187,8 +188,6 @@ NOT_PORTED = [
     ("POST", "/hosts/h/cordon", "hosts"), ("POST", "/hosts/h/drain", "hosts"),
     ("GET", "/health/hosts", "hosts"), ("GET", "/gateway", "gateway"),
     ("GET", "/leader", "leader election"), ("GET", "/shards", "shards"),
-    ("GET", "/reconcile", "reconcile"), ("POST", "/reconcile", "reconcile"),
-    ("GET", "/reconcile/events", "reconcile"),
     ("POST", "/compact", "history compaction"),
 ]
 
@@ -207,6 +206,63 @@ def test_unported_routes_are_refused_by_name(tmp_path):
     finally:
         server.close()
         w.wq.close()
+
+
+def _strip_clock(obj):
+    """Drop what differs run to run: timestamps, trace ids, durations."""
+    if isinstance(obj, dict):
+        return {k: _strip_clock(v) for k, v in obj.items()
+                if k not in ("ts", "traceId", "spanId", "durationMs")}
+    if isinstance(obj, list):
+        return [_strip_clock(v) for v in obj]
+    return obj
+
+
+def _reconcile_script(pkg, root):
+    from tpu_docker_api.service import reconcile as jrec
+    from tpu_docker_api_torch.service import reconcile as trec
+
+    w = svc.World(pkg, root)
+    rec = (jrec if pkg is svc.JAX else trec).Reconciler(
+        w.runtime, w.csvc.store, w.chips, w.ports, w.csvc.versions,
+        container_svc=w.csvc, work_queue=w.wq)
+    app = japp if pkg is svc.JAX else tapp
+    server = app.ApiServer(app.build_router(
+        w.csvc, w.vsvc, w.chips, w.ports, work_queue=w.wq,
+        reconciler=rec), port=0)
+    server.start()
+    out = []
+    try:
+        call(server.port, "POST", B + "/containers", {
+            "imageName": "i", "containerName": "t", "gpuCount": 2,
+            "containerPorts": [{"containerPort": 80}]})
+        w.runtime.crash_container("t-0")
+        for method, path in [("GET", "/reconcile?dryRun=true"),
+                             ("POST", "/reconcile?mode=full"),
+                             ("GET", "/reconcile/events"),
+                             ("GET", "/reconcile?mode=bogus"),
+                             ("GET", "/reconcile")]:
+            status, reply = call(server.port, method, B + path)
+            reply.pop("requestId", None)
+            out.append((method, path, status, _strip_clock(reply)))
+        out.append(w.runtime.container_inspect("t-0").running)
+    finally:
+        server.close()
+        w.wq.close()
+    return out
+
+
+def test_reconcile_routes_answer_as_jax(tmp_path):
+    """``GET``/``POST /api/v1/reconcile`` (``?dryRun=`` and ``?mode=``)
+    and ``GET /api/v1/reconcile/events`` on a crashed container: the
+    port's replies equal JAX's, and the repair restarts it."""
+    got = _reconcile_script(svc.PORT, str(tmp_path / "port"))
+    want = _reconcile_script(svc.JAX, str(tmp_path / "jax"))
+    assert got == want
+    assert got[-1] is True
+    assert [a["action"] for a in got[1][3]["data"]["actions"]] == [
+        "restart-dead"]
+    assert got[3][3]["code"] != 200
 
 
 @pytest.mark.parametrize("path", ["/metrics", B + "/debug/threads",

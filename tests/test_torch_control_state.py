@@ -156,8 +156,9 @@ def test_sqlite_watch_crosses_instances_on_one_file(tmp_path):
 
 
 def test_open_store_refuses_etcd_by_name(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 10"):
-        tkv.open_store("etcd")
+    # etcd is ported: an unreachable address fails the dial, typed
+    with pytest.raises(terrors.StoreUnavailable):
+        tkv.open_store("etcd", etcd_addr="http://127.0.0.1:9")
     with pytest.raises(ValueError, match="unknown store backend"):
         tkv.open_store("redis")
     assert isinstance(tkv.open_store("memory"), tkv.MemoryKV)

@@ -329,7 +329,8 @@ def test_kv_apply_fires_crash_points_where_jax_does(backend, tmp_path):
 def test_port_knows_the_slice_crash_points_jax_fires():
     assert tcrash.KNOWN_CRASH_POINTS == (
         jcrash.CONTAINER_CRASH_POINTS + jcrash.QUEUE_CRASH_POINTS
-        + jcrash.TXN_CRASH_POINTS)
+        + jcrash.TXN_CRASH_POINTS + jcrash.FANOUT_CRASH_POINTS
+        + jcrash.RECONCILE_CRASH_POINTS)
     assert issubclass(tcrash.SimulatedCrash, BaseException)
     assert not issubclass(tcrash.SimulatedCrash, Exception)
 

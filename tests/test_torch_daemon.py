@@ -5,7 +5,8 @@ lacks are refused by name; ``python -m tpu_docker_api_torch``
 answers the verify recipe's container and volume flow as JAX's daemon
 does; a daemon killed with SIGKILL on SQLite restarts with every
 acknowledged write; a crash at a labeled point (modeled on
-``tests/test_chaos.py``) converges through the boot's journal replay; and
+``tests/test_chaos.py``) converges through the startup reconcile's
+journal replay; and
 a GPU-less container's exec sees no GPU even when the daemon's own
 environment names one."""
 
@@ -38,7 +39,6 @@ B = "/api/v1"
 #: the port's defaults that differ from JAX's: features the port lacks
 #: are off, and the synthesized host is an H100 one
 PORT_DEFAULTS = {
-    "reconcile_on_start": (True, False),
     "job_supervise_interval": (5.0, 0.0),
     "host_probe_interval_s": (5.0, 0.0),
     "autoscale_interval_s": (2.0, 0.0),
@@ -122,13 +122,9 @@ def test_config_validation_errors_as_jax(line, tmp_path):
 
 
 @pytest.mark.parametrize("lines,key", [
-    ('store_backend = "etcd"', "store_backend"),
     ("leader_election = true", "leader_election"),
     ("leader_election = true\nshard_count = 2", "shard_count"),
     ('[[pod_hosts]]\nhost_id = "h0"\naddress = "a"', "pod_hosts"),
-    ("reconcile_on_start = true", "reconcile_on_start"),
-    ("reconcile_interval = 5.0", "reconcile_interval"),
-    ("reconcile_full_interval_s = 30.0", "reconcile_full_interval_s"),
     ("job_supervise_interval = 5.0", "job_supervise_interval"),
     ("host_probe_interval_s = 5.0", "host_probe_interval_s"),
     ("admission_enabled = true", "admission_enabled"),
@@ -136,14 +132,55 @@ def test_config_validation_errors_as_jax(line, tmp_path):
     ("workflow_interval_s = 2.0", "workflow_interval_s"),
     ("gateway_enabled = true", "gateway_enabled"),
     ("history_retention_versions = 3", "history_retention_versions"),
-    ("fanout_workers = 4", "fanout_workers"),
-    ("store_health_fail_threshold = 5", "store_health_fail_threshold"),
 ])
 def test_unported_features_are_refused_by_name(lines, key, tmp_path):
     path = _toml(tmp_path, lines)
     jconfig.load(path)  # JAX takes every one
     with pytest.raises(ValueError, match=f"{key}.*ROADMAP Queue 1 item 10"):
         tconfig.load(path)
+
+
+@pytest.fixture(scope="module")
+def gateway():
+    from etcd_gateway import start_gateway, stop_gateway
+
+    server, _ = start_gateway()
+    yield server
+    stop_gateway(server)
+
+
+@pytest.mark.parametrize("lines", [
+    'store_backend = "etcd"',
+    "reconcile_on_start = true",
+    "reconcile_interval = 5.0",
+    "reconcile_full_interval_s = 30.0",
+    "fanout_workers = 4",
+    "store_health_fail_threshold = 5",
+])
+def test_reconcile_store_and_fanout_keys_load_as_jax(lines, gateway,
+                                                     tmp_path):
+    """The keys of the reconciler, the store's failure domain, the etcd
+    store and the fan-out load as JAX's do, and a daemon boots on them."""
+    addr = f"http://127.0.0.1:{gateway.server_address[1]}"
+    path = _toml(tmp_path, f'{lines}\netcd_addr = "{addr}"\n'
+                 'runtime_backend = "fake"\nhealth_watch_interval = 0\n')
+    j = dataclasses.asdict(jconfig.load(path))
+    t = dataclasses.asdict(tconfig.load(path))
+    t.pop("fake_runtime_root")
+    for k in PORT_DEFAULTS:
+        j.pop(k), t.pop(k)
+    assert t == j
+    prg = Program(tconfig.load(path), host="127.0.0.1")
+    prg.init()
+    try:
+        assert prg.fanout.workers == j["fanout_workers"]
+        assert (prg.reconcile_informer is not None) == (
+            j["reconcile_full_interval_s"] > 0)
+        assert prg.store_health.status_view()["failThreshold"] == j[
+            "store_health_fail_threshold"]
+        assert prg.reconciler.reconcile()["actions"] == []
+    finally:
+        prg.stop()
 
 
 def test_libtpu_path_has_no_gpu_counterpart(tmp_path):
@@ -288,12 +325,14 @@ health_watch_interval = 0
         want = _verify_flow(prg.api_server.port, prg.wq.drain)
     finally:
         prg.stop()
-    # JAX's /healthz also reports the subsystems the port lacks
+    # JAX's /healthz also reports admission, which the port lacks; the
+    # store-health views differ only in their clock and op counts
     jhealth, thealth = want[0][3]["data"], got[0][3]["data"]
-    assert set(jhealth) - set(thealth) == {"fanout", "admission",
-                                           "storeHealth"}
-    for k in ("fanout", "admission", "storeHealth"):
-        jhealth.pop(k)
+    assert set(jhealth) - set(thealth) == {"admission"}
+    jhealth.pop("admission")
+    for health in (jhealth, thealth):
+        for k in ("lastTransitionTs", "opsOk"):
+            health["storeHealth"].pop(k)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g == w, g[:2]

@@ -8,8 +8,11 @@ and the slot engine), the int8-serving benchmark, a train step (Llama
 and MoE), a QLoRA step,
 checkpoint save and restore, HF export and import (int8 at load too), and a
 tokenizer written by ``chip_smoke.py``, a GPU grant from the
-scheduler through the fake runtime, and the control-plane daemon booted
-with a container run through one REST call, on the CPU."""
+scheduler through the fake runtime, the control-plane daemon booted
+with a container run through one REST call, and an ``EtcdKV`` (over the
+standard library, ``requests`` blocked) against the fake gateway, on the
+CPU. With ``torch`` blocked too, the daemon boots on etcd with its
+reconciler and answers ``/api/v1/reconcile``."""
 
 import os
 import subprocess
@@ -83,6 +86,14 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.state.store",
                    "tpu_docker_api_torch.state.pager",
                    "tpu_docker_api_torch.state.workqueue",
+                   "tpu_docker_api_torch.state.informer",
+                   "tpu_docker_api_torch.state.faulty",
+                   "tpu_docker_api_torch.runtime.fanout",
+                   "tpu_docker_api_torch.runtime.faulty",
+                   "tpu_docker_api_torch.service.reconcile",
+                   "tpu_docker_api_torch.service.store_health",
+                   "tpu_docker_api_torch.service.invariants",
+                   "tpu_docker_api_torch.schemas.job",
                    "tpu_docker_api_torch.schemas.state",
                    "tpu_docker_api_torch.schemas.container",
                    "tpu_docker_api_torch.schemas.volume",
@@ -221,8 +232,83 @@ _CHILD = textwrap.dedent("""
         assert reply["code"] == 200 and reply["data"]["name"] == "c-0", reply
     finally:
         prg.stop()
+    sys.path.insert(0, "tests")
+    from etcd_gateway import start_gateway, stop_gateway
+    from tpu_docker_api_torch.state.kv import CountingKV, EtcdKV
+    server, _ = start_gateway()
+    try:
+        etcd = CountingKV(EtcdKV(f"http://127.0.0.1:{server.server_address[1]}"))
+        w = etcd.watch("/x/", etcd.current_rev())
+        etcd.apply([("put", "/x/a", "1"), ("put", "/x/b", "2")])
+        assert etcd.range_prefix("/x/") == {"/x/a": "1", "/x/b": "2"}
+        got = []
+        for _ in range(50):
+            got += w.poll(0.1)
+            if len(got) == 2:
+                break
+        assert [e.key for e in got] == ["/x/a", "/x/b"], got
+        w.close()
+        etcd.close()
+        assert etcd.snapshot()["apply"] == 1
+    finally:
+        stop_gateway(server)
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("ISOLATED", len(names))
+""")
+
+#: the control-plane daemon with torch blocked too: it boots on an etcd
+#: store (the fake gateway) with its reconciler on, and answers the
+#: reconcile route
+_NO_TORCH_CHILD = textwrap.dedent("""
+    import http.client, json, sys, tempfile
+
+    BLOCKED = ("jax", "jaxlib", "tpu_docker_api", "torch", "requests")
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, "tests")
+    from etcd_gateway import start_gateway, stop_gateway
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+
+    server, _ = start_gateway()
+    addr = f"http://127.0.0.1:{server.server_address[1]}"
+    prg = Program(cp_config.Config(
+        port=0, runtime_backend="fake", store_backend="etcd", etcd_addr=addr,
+        health_watch_interval=0, reconcile_interval=0.2,
+        reconcile_full_interval_s=30.0, fanout_workers=4,
+        fake_runtime_root=tempfile.mkdtemp()), host="127.0.0.1")
+    prg.init()
+    prg.start()
+    try:
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1",
+                                              prg.api_server.port, timeout=30)
+            conn.request(method, path, body=json.dumps(body).encode()
+                         if body is not None else None)
+            reply = json.loads(conn.getresponse().read())
+            conn.close()
+            return reply
+        assert call("POST", "/api/v1/containers", {
+            "imageName": "i", "containerName": "c",
+            "gpuCount": 1})["code"] == 200
+        prg.runtime.crash_container("c-0")
+        report = call("POST", "/api/v1/reconcile?mode=full")["data"]
+        assert [a["action"] for a in report["actions"]] == ["restart-dead"]
+        health = call("GET", "/healthz")["data"]
+        assert health["fanout"]["workers"] == 4
+        assert health["storeHealth"]["mode"] == "healthy"
+        assert "reconcileDirty" in health
+    finally:
+        prg.stop()
+        stop_gateway(server)
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+    print("NO-TORCH DAEMON OK")
 """)
 
 
@@ -232,6 +318,13 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr
     assert "ISOLATED" in proc.stdout
     assert int(proc.stdout.split()[-1]) >= 25  # every module was walked
+
+
+def test_daemon_boots_without_torch_on_etcd():
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH_CHILD], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "NO-TORCH DAEMON OK" in proc.stdout
 
 
 def test_entry_points_refuse_cuda_without_a_card():

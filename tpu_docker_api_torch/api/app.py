@@ -9,11 +9,12 @@ fall-through validation bugs cannot happen here.
 
 The port's copy of ``tpu_docker_api/api/app.py`` for the single-host
 container path: the container, volume, resource, queue, dead-letter,
-event, trace and health routes, with JAX's bodies and codes. The routes of
-families whose services the port lacks (jobs, services, workflows, hosts
-and slices, gateway, leader, shards, reconcile, admission, compaction)
-answer with :class:`NotPorted` naming the missing service and ROADMAP
-Queue 1 item 10, not a bare "no route".
+reconcile, event, trace and health routes, with JAX's bodies and codes,
+and the store-outage gate (503 + ``Retry-After``, the stale-read envelope).
+The routes of families whose services the port lacks (jobs, services,
+workflows, hosts and slices, gateway, leader, shards, admission,
+compaction) answer with :class:`NotPorted` naming the missing service and
+ROADMAP Queue 1 item 10, not a bare "no route".
 
 Route table:
 
@@ -41,7 +42,9 @@ Route table:
     GET    /api/v1/queue                       durable work-queue stats
     GET    /api/v1/dead-letters                durable dead-letter set
     POST   /api/v1/dead-letters/retry          re-enqueue the dead letters
-    GET    /api/v1/events                      health-watcher and trace events
+    GET    /api/v1/reconcile                   drift sweep (?dryRun= ?mode=; POST too)
+    GET    /api/v1/reconcile/events            the sweep's repair events
+    GET    /api/v1/events                      health-watcher, trace and store events
     GET    /api/v1/health/containers           health-watcher view
     GET    /api/v1/traces[/{traceId}]          trace summaries / one trace
     GET    /api/v1/debug/threads               per-thread stack dump
@@ -54,6 +57,7 @@ import collections
 import heapq
 import json
 import logging
+import math
 import re
 import threading
 import time
@@ -81,6 +85,7 @@ from tpu_docker_api_torch.schemas.volume import (
     VolumeSize,
 )
 from tpu_docker_api_torch.service.container import ContainerService
+from tpu_docker_api_torch.service.store_health import consume_stale_read
 from tpu_docker_api_torch.service.volume import VolumeService
 from tpu_docker_api_torch.state.keys import BASE_NAME_RE as _NAME_RE
 from tpu_docker_api_torch.telemetry import trace
@@ -105,7 +110,6 @@ NOT_PORTED_ROUTES = (
     ("/api/v1/gateway", "the gateway (service/gateway.py)"),
     ("/api/v1/leader", "leader election (service/leader.py)"),
     ("/api/v1/shards", "shards (service/shard.py)"),
-    ("/api/v1/reconcile", "reconcile (service/reconcile.py)"),
     ("/api/v1/compact", "history compaction (service/compactor.py)"),
 )
 
@@ -175,6 +179,7 @@ class Router:
 def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  chip_scheduler, port_scheduler, work_queue=None,
                  health_watcher=None, metrics=None,
+                 reconciler=None, fanout=None, store_health=None,
                  list_default_limit: int = 0,
                  list_max_limit: int = 5000,
                  tracer=None) -> Router:
@@ -183,6 +188,12 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
 
     r = Router(metrics=metrics)
     r.tracer = tracer
+    # store brownout gate (service/store_health.py): while the store is in
+    # outage mode every mutation is refused up front — typed 503 +
+    # Retry-After, zero store round trips — except the single-flight heal
+    # probe; reads served from the informer mirror are marked stale
+    # (envelope field + X-Stale-Read header). None gates nothing.
+    r.store_health = store_health
 
     def _page_params(body) -> tuple[int, str]:
         """(effective limit, continue token) for a list request. No (or
@@ -367,14 +378,32 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
 
     def healthz(body, **_):
         # one process, no election: the role is always "single"
-        return {"status": "ok", "role": "single", **build_info()}
+        out = {"status": "ok", "role": "single", **build_info()}
+        if fanout is not None:
+            # fan-out saturation (workers/in-flight/batches): a pool pinned
+            # at its worker cap is the "lifecycle flows are serializing
+            # again" smell, surfaced next to liveness
+            out["fanout"] = fanout.status_view()
+        if reconciler is not None:
+            dirty = reconciler.dirty_view()
+            if dirty is not None:
+                # event-driven reconcile health: pending dirty families +
+                # whether the next pass is forced full (startup/relist)
+                out["reconcileDirty"] = dirty
+        if store_health is not None:
+            # the store failure domain rides liveness too: mode (healthy/
+            # degraded/outage), failure streak and the op/outage counters
+            # read back from the registry
+            out["storeHealth"] = store_health.status_view()
+        return out
 
     r.add("GET", "/healthz", healthz)
 
-    if health_watcher is not None or tracer is not None:
+    if (health_watcher is not None or tracer is not None
+            or store_health is not None):
         # one events ring for the operator: container liveness transitions
-        # (health watcher) merged with slow-trace events, ordered by
-        # timestamp (SURVEY.md §5.3)
+        # (health watcher) merged with slow-trace events and store-mode
+        # transitions, ordered by timestamp (SURVEY.md §5.3)
         def h_events(body, **_):
             try:
                 limit = int(body.get("limit", 100))
@@ -388,7 +417,8 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             trace_id = str(body.get("traceId", "") or "")
             per_ring = 1 << 20 if trace_id else limit
             rings = [src.events_view(limit=per_ring)
-                     for src in (health_watcher, tracer) if src is not None]
+                     for src in (health_watcher, tracer, store_health)
+                     if src is not None]
             merged = heapq.merge(*rings, key=lambda e: e.get("ts", 0))
             if trace_id:
                 merged = (e for e in merged
@@ -413,6 +443,26 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
               lambda body, **_: {"requeued": work_queue.retry_dead_letters()})
         # queue depth / journal lifecycle / degradation counters
         r.add("GET", "/api/v1/queue", lambda body, **_: work_queue.stats())
+    if reconciler is not None:
+        # KV-vs-runtime drift sweep (service/reconcile.py); ?dryRun=true
+        # reports the planned repairs without mutating anything; ?mode=
+        # forces the event-driven split (full = anti-entropy O(objects)
+        # scan, dirty = O(changes) watch-fed pass, auto = cadence) and
+        # the report names which one actually ran
+        def reconcile_view(body, **_):
+            dry = str(body.get("dryRun", "false")).lower() in ("1", "true", "yes")
+            mode = str(body.get("mode", "auto"))
+            if mode not in ("auto", "full", "dirty"):
+                raise errors.BadRequest(
+                    f"mode must be auto|full|dirty, got {mode!r}")
+            return reconciler.reconcile(dry_run=dry, mode=mode)
+
+        r.add("GET", "/api/v1/reconcile", reconcile_view)
+        # canonical mutating trigger (GET kept for the reference-style
+        # always-200 tooling; prefer POST from anything GET-assuming)
+        r.add("POST", "/api/v1/reconcile", reconcile_view)
+        r.add("GET", "/api/v1/reconcile/events",
+              lambda body, **_: reconciler.events_view())
 
     if tracer is not None:
         # recent trace summaries + one full span tree, served from the
@@ -498,6 +548,10 @@ def build_handler(router: Router):
             log.debug("http: " + fmt, *args)
 
         def _handle(self, method: str) -> None:
+            # drop any stale-read marker a previous request on this
+            # keep-alive thread left behind — staleness must never bleed
+            # across requests
+            consume_stale_read()
             # request identity (SURVEY.md §5.1): a W3C traceparent names the
             # remote trace context exactly; otherwise the caller's
             # X-Request-Id doubles as the trace id; otherwise both are new
@@ -522,6 +576,8 @@ def build_handler(router: Router):
             t0 = time.perf_counter()
             app_code = codes.SUCCESS
             http_status = 200
+            stale_lag_ms = None
+            retry_after_s = None
             tracer = router.tracer
             span_scope = (tracer.span(
                 f"http:{method} {route}",
@@ -541,6 +597,13 @@ def build_handler(router: Router):
                     # leftover bytes would desync a keep-alive connection
                     length = int(self.headers.get("Content-Length") or 0)
                     raw = self.rfile.read(length) if length else b""
+                    # store brownout gate: in outage mode a mutation that
+                    # cannot journal its intent must never half-apply —
+                    # fail fast with the typed 503 + Retry-After (zero
+                    # store round trips), except the single-flight heal
+                    # probe admit_mutation lets through
+                    if method != "GET" and router.store_health is not None:
+                        router.store_health.admit_mutation()
                     body = json.loads(raw) if raw else {}
                     if not isinstance(body, dict):
                         raise errors.BadRequest("body must be a JSON object")
@@ -550,12 +613,22 @@ def build_handler(router: Router):
                         body.setdefault(k, vs[-1])
                     with trace.child(f"dispatch:{route}"):
                         data = handler(body=body, **params)
-                    payload = response.success(data)
+                    # a read served from the informer mirror during a store
+                    # outage marked this thread — surface the staleness
+                    # explicitly (envelope + header below)
+                    stale_lag_ms = consume_stale_read()
+                    payload = response.success(
+                        data, stale=(None if stale_lag_ms is None
+                                     else {"lagMs": stale_lag_ms}))
                 except errors.ApiError as e:
                     app_code = e.code
                     # the deviations from always-200: backpressure (429),
-                    # a moved list snapshot (410), a route not ported (501)
+                    # a moved list snapshot (410), a route not ported (501),
+                    # a store outage (503)
                     http_status = e.http_status or 200
+                    # typed backoff hint (StoreDegraded): surfaced as the
+                    # Retry-After header so retry-aware clients hold off
+                    retry_after_s = getattr(e, "retry_after_s", None)
                     payload = response.error(e.code, str(e), data=e.data,
                                              request_id=req_id)
                 except json.JSONDecodeError as e:
@@ -596,6 +669,14 @@ def build_handler(router: Router):
             self.send_response(http_status)
             self.send_header("Content-Type", "application/json")
             self.send_header("X-Request-Id", req_id)
+            if retry_after_s is not None:
+                # integer seconds, never 0 — Retry-After: 0 reads as
+                # "retry immediately", the opposite of the hint
+                self.send_header("Retry-After",
+                                 str(max(1, math.ceil(retry_after_s))))
+            if stale_lag_ms is not None:
+                # the header twin of the envelope's stale field
+                self.send_header("X-Stale-Read", str(stale_lag_ms))
             if root_span is not None:
                 # the W3C echo: tell the caller which span served them
                 tp_out = trace.format_traceparent(root_span)

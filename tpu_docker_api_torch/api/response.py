@@ -10,10 +10,17 @@ from typing import Any
 from tpu_docker_api_torch.api import codes
 
 
-def success(data: Any = None) -> bytes:
-    return json.dumps({"code": codes.SUCCESS,
-                       "msg": codes.message(codes.SUCCESS),
-                       "data": data}).encode()
+def success(data: Any = None, stale: dict | None = None) -> bytes:
+    """``stale`` defaults to None — the plain success shape. During a store
+    outage the HTTP layer attaches ``{"lagMs": ...}`` so a read served from
+    the informer mirror (service/store_health.py) is EXPLICITLY marked: the
+    caller learns both that the answer is cached and how far behind the
+    dead store's last proven instant it may be."""
+    body = {"code": codes.SUCCESS, "msg": codes.message(codes.SUCCESS),
+            "data": data}
+    if stale is not None:
+        body["stale"] = stale
+    return json.dumps(body).encode()
 
 
 def error(code: int, msg: str = "", data: Any = None,

@@ -7,13 +7,13 @@ by ``python -m tpu_docker_api_torch -c cfg.toml``. The GPU count is an
 accelerator type (``h100-8``: a generation and a per-host GPU count),
 ``detect_tpu_addr`` (the JAX key's name) is the gpu-detect sidecar's address.
 
-The port has the single-host container path. A key that turns on a
-feature the port lacks fails :func:`load` with a ValueError naming the key
-and ROADMAP Queue 1 item 10 (``_NOT_PORTED``). Where JAX's default turns such
-a feature on, the port's default is off (``reconcile_on_start``,
-``job_supervise_interval``, ``host_probe_interval_s``,
-``autoscale_interval_s``, ``workflow_interval_s``), and
-``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
+The port has the single-host container path with its reconciler, fan-out,
+store-health machine and etcd store. A key that turns on a feature the
+port lacks fails :func:`load` with a ValueError naming the key and ROADMAP
+Queue 1 item 10 (``_NOT_PORTED``). Where JAX's default turns such a feature
+on, the port's default is off (``job_supervise_interval``,
+``host_probe_interval_s``, ``autoscale_interval_s``,
+``workflow_interval_s``), and ``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
 ``fake_runtime_root``.
 """
 
@@ -75,8 +75,7 @@ class Config:
     health_watch_interval: float = 5.0
     # startup reconcile (service/reconcile.py): sweep KV desired state vs
     # runtime actual state before serving — repairs drift left by a crash
-    # (JAX: True; the port has no reconciler yet)
-    reconcile_on_start: bool = False
+    reconcile_on_start: bool = True
     # periodic reconcile interval; 0 disables the background sweep (the
     # startup pass still runs when reconcile_on_start is true)
     reconcile_interval: float = 0.0
@@ -560,22 +559,16 @@ def load(path: str | None = None) -> Config:
         raise ValueError(
             f"autoscale_down_watermark must be in (0, 1], "
             f"got {cfg.autoscale_down_watermark}")
-    _refuse_not_ported(cfg, data)
+    _refuse_not_ported(cfg)
     return cfg
 
 
 #: (key, test that the value turns the feature on, what the port lacks)
 _NOT_PORTED = (
-    ("store_backend", lambda v: v == "etcd", "EtcdKV (state/kv.py)"),
     ("shard_count", lambda v: v > 1, "the sharded writer plane "
      "(service/shard.py)"),
     ("leader_election", bool, "leader election (service/leader.py)"),
     ("pod_hosts", bool, "multi-host pods (scheduler/pod.py)"),
-    ("reconcile_on_start", bool, "the reconciler (service/reconcile.py)"),
-    ("reconcile_interval", lambda v: v > 0,
-     "the reconciler (service/reconcile.py)"),
-    ("reconcile_full_interval_s", lambda v: v > 0,
-     "the informer-fed reconcile (state/informer.py)"),
     ("job_supervise_interval", lambda v: v > 0,
      "the job supervisor (service/job_supervisor.py)"),
     ("host_probe_interval_s", lambda v: v > 0,
@@ -588,17 +581,10 @@ _NOT_PORTED = (
     ("gateway_enabled", bool, "the gateway (service/gateway.py)"),
     ("history_retention_versions", lambda v: v > 0,
      "the history compactor (service/compactor.py)"),
-    ("fanout_workers", lambda v: v > 1, "runtime fan-out (runtime/fanout.py)"),
 )
 
-#: keys that configure the store-health machine (service/store_health.py),
-#: which the port does not install: setting any of them is refused
-_STORE_HEALTH_KEYS = ("store_health_fail_threshold",
-                      "store_health_outage_grace_s",
-                      "store_health_probe_interval_s")
 
-
-def _refuse_not_ported(cfg: Config, data: dict) -> None:
+def _refuse_not_ported(cfg: Config) -> None:
     """Fail the boot on a feature the port lacks, naming the key
     (the serve CLI's ``_NOT_PORTED`` pattern)."""
     for key, turns_on, what in _NOT_PORTED:
@@ -607,12 +593,6 @@ def _refuse_not_ported(cfg: Config, data: dict) -> None:
             raise ValueError(
                 f"{key} = {value!r}: {what} is not ported to "
                 "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
-    for key in _STORE_HEALTH_KEYS:
-        if key in data:
-            raise ValueError(
-                f"{key}: the store-health machine (service/store_health.py) "
-                "is not ported to tpu_docker_api_torch yet (ROADMAP Queue 1 "
-                "item 10)")
     if cfg.libtpu_path:
         raise ValueError(
             f"libtpu_path = {cfg.libtpu_path!r}: a TPU key with no GPU "

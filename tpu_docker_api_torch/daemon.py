@@ -9,13 +9,13 @@ every mutation, so Stop is not load-bearing for correctness.
 
 The port's copy of ``tpu_docker_api/daemon.py`` for one host: the wiring
 order of ``Program.init/start/stop`` reduced to the modules the port
-has (store, runtime, work queue, GPU and port schedulers, version maps,
-the container and volume services, the health watcher, the tracer, the
-API). Leader election, shards, informers, pods, jobs, admission, serving,
-workflows, the gateway, the compactor, the reconciler and the store-health
-wrapper come with the rest of the control plane (ROADMAP Queue 1 item 10);
-``config.load`` refuses a config that turns one on. With no reconciler, the
-boot replays the work-queue journal itself (``_start_writers``).
+has (store and its health machine, fan-out, runtime, work queue, GPU and
+port schedulers, version maps, the container and volume services, the
+health watcher, the reconciler and its dirty feed, the tracer, the API).
+Leader election, shards, the informer read path, pods, jobs, admission,
+serving, workflows, the gateway and the compactor come with the rest of
+the control plane (ROADMAP Queue 1 item 10); ``config.load`` refuses a
+config that turns one on.
 
 CLI: ``python -m tpu_docker_api_torch -c cfg.toml``.
 """
@@ -34,10 +34,14 @@ from tpu_docker_api_torch import config as config_mod
 from tpu_docker_api_torch.api.app import ApiServer, build_router
 from tpu_docker_api_torch.buildinfo import build_info
 from tpu_docker_api_torch.runtime import open_runtime
+from tpu_docker_api_torch.runtime.fanout import Fanout
 from tpu_docker_api_torch.scheduler.ports import PortScheduler
 from tpu_docker_api_torch.scheduler.slices import ChipScheduler
 from tpu_docker_api_torch.scheduler.topology import HostTopology
 from tpu_docker_api_torch.service.container import ContainerService
+from tpu_docker_api_torch.service.reconcile import Reconciler
+from tpu_docker_api_torch.service.store_health import (StoreHealth,
+                                                       StoreHealthKV)
 from tpu_docker_api_torch.service.volume import VolumeService
 from tpu_docker_api_torch.state import keys
 from tpu_docker_api_torch.state.kv import open_store
@@ -72,10 +76,40 @@ class Program:
                              enabled=cfg.tracing_enabled,
                              registry=self.metrics,
                              slow_ms=cfg.trace_slow_ms)
-        self.kv = self._injected_kv or open_store(
-            cfg.store_backend, sqlite_path=cfg.sqlite_path,
+        raw_kv = self._injected_kv or open_store(
+            cfg.store_backend, etcd_addr=cfg.etcd_addr,
+            sqlite_path=cfg.sqlite_path,
+            retry_attempts=cfg.store_retry_attempts,
+            retry_base_s=cfg.store_retry_base_s,
+            retry_max_s=cfg.store_retry_max_s,
             op_deadline_s=cfg.store_op_deadline_s)
+        # store failure domain (service/store_health.py): every op through
+        # this daemon is measured and classified — zero extra round trips
+        # on the healthy path — feeding the healthy→degraded→outage machine
+        # that gates mutations and the writer loops. Installed under every
+        # other wrapper, so the informer's relists double as outage probes
+        self.store_health = StoreHealth(
+            fail_threshold=cfg.store_health_fail_threshold,
+            outage_grace_s=cfg.store_health_outage_grace_s,
+            probe_interval_s=cfg.store_health_probe_interval_s,
+            registry=self.metrics,
+        )
+        raw_kv = StoreHealthKV(raw_kv, self.store_health)
+        #: the writer-loop hold: observe, don't act, while the store is out
+        store_gate = self.store_health.allows_writes
+        self.kv = raw_kv
         self.store = StateStore(self.kv)
+        # runtime fan-out: ONE bounded pool for the whole process, so
+        # total engine concurrency is capped by fanout_workers rather than
+        # multiplied across subsystems; workers=1 (default) is serial
+        self.fanout = Fanout(cfg.fanout_workers, registry=self.metrics,
+                             name="pod")
+        self.metrics.gauge_fn(
+            "fanout_inflight", self.fanout.inflight,
+            help="Engine calls currently submitted to the fan-out pool")
+        self.metrics.gauge_fn(
+            "fanout_workers", lambda: self.fanout.workers,
+            help="Fan-out pool size (config fanout_workers)")
         self.runtime = self._injected_runtime or (
             open_runtime("docker", docker_host=cfg.docker_host,
                          pool_size=cfg.engine_pool_size)
@@ -91,6 +125,7 @@ class Program:
             dead_letter_retry_budget=cfg.queue_dead_letter_retry_budget,
             metrics=self.metrics,
             tracer=self.tracer,
+            store_gate=store_gate,
         )
         topology = self._discover_topology()
         self.chip_scheduler = ChipScheduler(topology, self.kv)
@@ -120,6 +155,36 @@ class Program:
                 restart_backoff_max_s=cfg.restart_backoff_max_s,
                 registry=self.metrics,
             )
+        self.reconciler = Reconciler(
+            self.runtime, self.store, self.chip_scheduler,
+            self.port_scheduler, self.container_versions,
+            container_svc=self.container_svc,
+            registry=self.metrics,
+            # durable-queue adoption: the startup sweep replays the journal
+            # a dead daemon left (pending/in-flight records) before judging
+            # family state
+            work_queue=self.wq,
+            fanout=self.fanout,
+            full_interval_s=cfg.reconcile_full_interval_s,
+            tracer=self.tracer,
+            store_gate=store_gate,
+        )
+        # loss-free recovery: the instant the store heals, treat EVERYTHING
+        # as changed (an outage swallows an unknown set of events) — the
+        # next reconcile pass replays the journal and repairs whatever
+        # drifted while the writers held
+        self.store_health.on_recover(self._on_store_recover)
+        # event-driven reconcile: feed the reconciler's dirty-set from the
+        # store's watch stream so periodic passes are O(changes), through a
+        # reflector over the store. reconcile_full_interval_s = 0 (default)
+        # skips it: every pass stays a full scan
+        self.reconcile_informer = None
+        if cfg.reconcile_full_interval_s > 0:
+            from tpu_docker_api_torch.state.informer import Informer
+
+            self.reconcile_informer = Informer(
+                raw_kv, keys.PREFIX + "/", registry=self.metrics)
+            self.reconciler.attach_dirty_feed(self.reconcile_informer)
 
     def _discover_topology(self) -> HostTopology:
         """Topology from the gpu-detect sidecar if configured (the
@@ -143,19 +208,36 @@ class Program:
                  cfg.accelerator_type)
         return HostTopology.build(cfg.accelerator_type)
 
+    def _on_store_recover(self) -> None:
+        """StoreHealth outage→healthy hook (fires on the thread whose op
+        proved the heal — must stay cheap and non-blocking): mark every
+        family dirty. The repair work — journal replay, drift sweep —
+        rides the reconciler's own passes."""
+        self.reconciler.mark_all_dirty("store-recovered")
+
     def _start_writers(self) -> None:
-        """The writer role: the work queue's sync loop, then the journal a
-        previous incarnation left (JAX's reconciler replays it on a startup
-        reconcile; the port replays it here), then the health watcher."""
+        """The writer role: every subsystem that MUTATES shared state —
+        the work queue's sync loop, the startup reconcile (which replays
+        the journal a previous incarnation left), the periodic reconcile
+        and the health watcher."""
         self.wq.start()
-        try:
-            outcomes = self.wq.replay_journal()
-            if outcomes:
-                log.warning("boot replayed %d journaled task(s): %s",
-                            len(outcomes),
-                            [o["target"] for o in outcomes])
-        except Exception:  # noqa: BLE001 — a failed replay must not block boot
-            log.exception("boot journal replay failed; serving anyway")
+        if self.cfg.reconcile_on_start:
+            # repair whatever a previous incarnation left half-done BEFORE
+            # serving traffic (an interrupted rolling replace must not be
+            # visible as two live versions). A failed sweep must not block
+            # boot — a recovery feature that crash-loops the daemon is
+            # worse than the drift it would repair
+            try:
+                report = self.reconciler.reconcile()
+                if report["actions"]:
+                    log.warning("startup reconcile repaired %d drift(s): %s",
+                                report["driftCount"],
+                                [a["action"] for a in report["actions"]])
+            except Exception:  # noqa: BLE001
+                log.exception("startup reconcile failed; serving anyway "
+                              "(rerun via /api/v1/reconcile)")
+        if self.cfg.reconcile_interval > 0:
+            self.reconciler.start_periodic(self.cfg.reconcile_interval)
         if self.health_watcher is not None:
             self.health_watcher.start()
 
@@ -163,15 +245,23 @@ class Program:
         """Halt the writer role; every close is guarded and restartable."""
         if getattr(self, "health_watcher", None) is not None:
             self.health_watcher.close()
+        if getattr(self, "reconciler", None) is not None:
+            self.reconciler.close()
         if getattr(self, "wq", None) is not None:
             self.wq.close()
 
     def start(self) -> None:
+        if self.reconcile_informer is not None:
+            # the dirty feed warms before the first pass, so the initial
+            # list's events are in the set it judges
+            self.reconcile_informer.start()
         self._start_writers()
         router = build_router(
             self.container_svc, self.volume_svc,
             self.chip_scheduler, self.port_scheduler, work_queue=self.wq,
             health_watcher=self.health_watcher, metrics=self.metrics,
+            reconciler=self.reconciler, fanout=self.fanout,
+            store_health=self.store_health,
             list_default_limit=self.cfg.list_default_limit,
             list_max_limit=self.cfg.list_max_limit,
             tracer=self.tracer,
@@ -192,7 +282,11 @@ class Program:
         of masking it with an AttributeError during cleanup."""
         if getattr(self, "api_server", None) is not None:
             self.api_server.close()
+        if getattr(self, "reconcile_informer", None) is not None:
+            self.reconcile_informer.close()
         self._stop_writers()
+        if getattr(self, "fanout", None) is not None:
+            self.fanout.close()
         if getattr(self, "runtime", None) is not None:
             self.runtime.close()
         if getattr(self, "kv", None) is not None:

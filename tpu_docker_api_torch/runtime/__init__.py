@@ -7,8 +7,8 @@ stacks in SURVEY.md §3) is an abstract ``ContainerRuntime`` with two
 implementations: ``DockerRuntime`` (Engine REST API over the unix socket, no
 SDK dependency; GPUs attached as nvidia ``DeviceRequests``) and
 ``FakeRuntime`` (in-memory, real tmp dirs, optional real exec) for hermetic
-tests. The JAX package's ``faulty`` and ``fanout`` wrappers come with the
-rest of the control plane (ROADMAP Queue 1 item 10).
+tests; ``faulty`` wraps either with scripted faults for the chaos tests, and
+``fanout`` runs a batch of engine calls on a bounded pool.
 """
 
 from tpu_docker_api_torch.runtime.base import (  # noqa: F401
@@ -18,6 +18,7 @@ from tpu_docker_api_torch.runtime.base import (  # noqa: F401
     VolumeInfo,
 )
 from tpu_docker_api_torch.runtime.fake import FakeRuntime  # noqa: F401
+from tpu_docker_api_torch.runtime.faulty import FaultPlan, FaultRule, FaultyRuntime, fail_nth  # noqa: F401
 from tpu_docker_api_torch.runtime.spec import ContainerSpec, PortBinding, render_gpu_attachment  # noqa: F401
 
 

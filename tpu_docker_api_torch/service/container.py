@@ -124,6 +124,12 @@ class ContainerService:
                             on_fail=self._task_copy_failed)
         work_queue.register("start_version", self._task_start_version)
 
+    def family_lock(self, base: str):
+        """Context manager serializing against this family's user flows —
+        the reconciler holds it while repairing, so repair cannot race a
+        concurrent patch/stop/delete."""
+        return self._locks.hold(base)
+
     # -- helpers -----------------------------------------------------------------
 
     def _resolve_latest(self, name: str) -> tuple[str, int, str]:

@@ -7,15 +7,15 @@ tests arm a label and the call raises :class:`SimulatedCrash`, which
 deliberately derives from ``BaseException`` so the services' ``except
 Exception`` rollback paths do NOT run — exactly like ``kill -9``, the
 in-process compensation never gets a chance. The test then boots a fresh
-``Program`` over the same KV + runtime; in the JAX package its reconciler
-(service/reconcile.py) repairs the drift, in the port the boot's journal
-replay finishes the queued work (the reconciler is not ported yet).
+``Program`` over the same KV + runtime and its reconciler
+(service/reconcile.py) repairs the drift.
 
 The port's copy of ``tpu_docker_api/service/crashpoints.py`` with the
-labels its modules fire: the container service, the work queue and the
-``KV.apply`` boundary. The job, leader, shard, fan-out, admission, resize,
-service, gateway, reconcile, compactor and workflow labels come with those
-services (ROADMAP Queue 1 item 10); arming one raises ValueError.
+labels its modules fire: the container service, the work queue, the
+``KV.apply`` boundary, the runtime fan-out and the reconciler's dirty
+pass. The job, leader, shard, admission, resize, service, gateway,
+compactor and workflow labels come with those services (ROADMAP Queue 1
+item 10); arming one raises ValueError.
 """
 
 from __future__ import annotations
@@ -62,8 +62,26 @@ TXN_CRASH_POINTS = (
     "txn.after_apply",
 )
 
+#: runtime fan-out layer (runtime/fanout.py): fires after the FIRST call
+#: of a batch completes, while the rest are un-dispatched (serial mode) or
+#: genuinely in flight (parallel mode) — the "concurrent create batch is
+#: half-landed" daemon death the reconciler must converge from
+FANOUT_CRASH_POINTS = (
+    "fanout.mid_batch",
+)
+
+#: event-driven reconcile (service/reconcile.py): the dirty-set is
+#: in-process state derived from the watch stream — a daemon death after
+#: the pass DRAINED it but before the repairs ran must not lose the
+#: families it held. The contract is restart ⇒ full pass (everything is
+#: dirty once), proven by killing here and reconverging from a fresh boot
+RECONCILE_CRASH_POINTS = (
+    "reconcile.dirty_drained",
+)
+
 KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + QUEUE_CRASH_POINTS
-                      + TXN_CRASH_POINTS)
+                      + TXN_CRASH_POINTS + FANOUT_CRASH_POINTS
+                      + RECONCILE_CRASH_POINTS)
 
 
 class SimulatedCrash(BaseException):

@@ -1,24 +1,28 @@
 """Pluggable key-value backends.
 
 Parity: reference ``internal/etcd/{client,common}.go`` — a clientv3 wrapper with
-``Put/Get/Del``. Here the surface is an abstract ``KV`` with two backends:
+``Put/Get/Del``. Here the surface is an abstract ``KV`` with three backends:
 
 - ``MemoryKV`` — hermetic tests (the seam SURVEY.md §4 calls for),
-- ``SqliteKV`` — durable single-host deployments without an etcd cluster.
+- ``SqliteKV`` — durable single-host deployments without an etcd cluster,
+- ``EtcdKV``  — etcd v3 via its grpc-gateway JSON API (``/v3/kv/*``), keeping
+  the reference's deployment shape without a grpc/protobuf dependency.
 
-The port's copy of ``tpu_docker_api/state/kv.py`` without ``EtcdKV`` and
-``CountingKV`` (they come with the rest of the control plane, ROADMAP Queue
-1 item 10; ``open_store("etcd")`` refuses by name).
+The port's copy of ``tpu_docker_api/state/kv.py``. Its ``EtcdKV`` speaks
+HTTP through the standard library's ``http.client`` where JAX's uses
+``requests``: one keep-alive connection per calling thread for the unary
+calls, and a dedicated connection per watch stream, cancelled by shutting
+its socket down.
 
-Both backends add ``range_prefix``/``delete_prefix``, which the reference lacks
+All backends add ``range_prefix``/``delete_prefix``, which the reference lacks
 and which per-version key layout (state/keys.py) needs, and ``apply`` — an
 atomic multi-key put/delete batch (the etcd txn / Kubernetes-apiserver write
 pattern) so a version transition is ONE store round trip instead of a
 sequence of windows a crash can land between.
 
 ``apply`` also takes **guards** — compare preconditions evaluated atomically
-with the batch (sqlite/memory check under the same txn/lock that applies
-the ops). A failed guard applies NOTHING and raises the typed
+with the batch (etcd's native txn compares; sqlite/memory check under the
+same txn/lock that applies the ops). A failed guard applies NOTHING and raises the typed
 :class:`errors.GuardFailed`. This is the primitive the HA control plane
 rides: leader-lease CAS and epoch fencing of a deposed leader's writes are
 both one guarded apply.
@@ -30,22 +34,29 @@ the store per request (the client-go informer pattern).
 ``MemoryKV`` notifies in-process subscribers under the same lock hold that
 applies the mutation; ``SqliteKV`` appends to a changelog table INSIDE the
 same transaction as the data write (watchers — including ones in other
-processes sharing the file — tail it by indexed rev). ``delete_prefix``
-expands to one delete event per existing key, so a watch-fed cache never
-needs a relist on the happy path; a gap (compaction, slow-consumer
-overflow) surfaces as the typed :class:`errors.WatchLost`, whose only
-correct recovery is relist-then-rewatch.
+processes sharing the file — tail it by indexed rev); ``EtcdKV`` rides the
+native ``/v3/watch`` stream. ``delete_prefix`` expands to one delete event
+per existing key, so a watch-fed cache never needs a relist on the happy
+path; a gap (compaction, slow-consumer overflow, canceled stream) surfaces
+as the typed :class:`errors.WatchLost`, whose only correct recovery is
+relist-then-rewatch.
 """
 
 from __future__ import annotations
 
 import abc
+import base64
 import bisect
 import collections
 import contextlib
+import http.client
+import json
+import select
+import socket
 import sqlite3
 import threading
 import time
+import urllib.parse
 from typing import NamedTuple
 
 from tpu_docker_api_torch import errors
@@ -807,6 +818,558 @@ class SqliteKV(KV):
             self._conn.close()
 
 
+class EtcdHTTPError(Exception):
+    """The gateway answered with a non-2xx status: the store is reachable
+    (not an outage), the request was refused. ``status`` and the decoded
+    ``error`` field of the grpc-gateway's JSON body ride along."""
+
+    def __init__(self, status: int, body: bytes) -> None:
+        try:
+            detail = json.loads(body).get("error", "")
+        except (ValueError, AttributeError):
+            detail = body[:200].decode("utf-8", "replace")
+        super().__init__(f"HTTP {status}: {detail}")
+        self.status = status
+        self.detail = detail
+
+
+#: what a dead, hung or restarting gateway raises on a connection: refused,
+#: reset, timed out, or a reply cut off mid-way
+_CONN_ERRORS = (OSError, http.client.HTTPException)
+
+
+class EtcdKV(KV):
+    """etcd v3 over its grpc-gateway JSON API.
+
+    The reference dials etcd gRPC with a 2 s blocking connect and 1 s per-op
+    timeout (etcd/client.go:14-23, common.go:31); we keep the same budgets on
+    HTTP. Keys/values are base64 on the wire per the gateway contract.
+
+    Store-outage tolerance (docs/robustness.md "Durable work queue"): every
+    connection-class failure (refused/reset/timeout) is normalized to
+    :class:`errors.StoreUnavailable` — the KV analog of the host layer's
+    ``HostUnreachable`` — so callers classify store-path failures with one
+    except clause. Idempotent READS (``get``/``range_prefix``) additionally
+    retry up to ``retry_attempts`` times with capped exponential backoff
+    before giving up; writes are normalized but never retried here (the
+    work queue owns write retry policy, and a blind double-put hides real
+    outages).
+
+    Connections: a shared pool of idle keep-alive ``http.client``
+    connections, at most ``POOL_SIZE`` of them (the counterpart of a
+    ``requests.Session``'s pool). Each request checks one out, or dials a
+    new one when none is idle, and hands it back when its reply has been
+    read; a connection handed back to a full pool is closed. So the open
+    sockets are the busy ones plus at most ``POOL_SIZE`` idle, however many
+    threads have come and gone. An idle connection is checked for a peer
+    close before reuse (a request is never sent down a socket the gateway
+    already closed); any connection-class failure drops it, so the next
+    attempt dials anew.
+    """
+
+    DIAL_TIMEOUT_S = 2.0
+    OP_TIMEOUT_S = 1.0
+    RETRY_ATTEMPTS = 3
+    RETRY_BASE_S = 0.05
+    RETRY_MAX_S = 1.0
+    POOL_SIZE = 10  # urllib3's default pool_maxsize, as a Session uses
+
+    def __init__(self, addr: str, retry_attempts: int = RETRY_ATTEMPTS,
+                 retry_base_s: float = RETRY_BASE_S,
+                 retry_max_s: float = RETRY_MAX_S,
+                 op_deadline_s: float = 0.0) -> None:
+        self._addr = addr.rstrip("/")
+        url = urllib.parse.urlsplit(self._addr)
+        if url.scheme not in ("http", "https") or not url.hostname:
+            raise ValueError(f"etcd address {addr!r}: want http(s)://host:port")
+        self._conn_cls = (http.client.HTTPSConnection if url.scheme == "https"
+                          else http.client.HTTPConnection)
+        self._host, self._port = url.hostname, url.port
+        self._path = url.path
+        #: idle connections, newest last; every open one, busy or idle, is
+        #: in ``_conns`` so close() reaches those other threads hold
+        self._idle: list = []
+        self._conns: set = set()
+        self._conns_mu = threading.Lock()
+        self._closed = False
+        self._retry_attempts = max(1, retry_attempts)
+        self._retry_base_s = retry_base_s
+        self._retry_max_s = retry_max_s
+        # per-op deadline (config store_op_deadline_s): the socket timeout
+        # every request rides, so a hung store surfaces as a typed
+        # StoreUnavailable in bounded time instead of wedging an API
+        # thread that holds a family lock. <= 0 keeps the reference's 1 s
+        # OP_TIMEOUT_S
+        self._op_timeout_s = op_deadline_s if op_deadline_s > 0 else self.OP_TIMEOUT_S
+        # fail fast if unreachable, like the reference's blocking dial
+        # (no retry: a daemon pointed at a dead store must error at boot,
+        # not spin through a backoff schedule before reporting it)
+        self._post("/v3/kv/range", {"key": _b64("probe"), "limit": 1},
+                   timeout=self.DIAL_TIMEOUT_S)
+
+    def _checkout(self, timeout: float):
+        """An idle connection, or a new one, its socket timeout set to
+        ``timeout``. An idle socket that reads as ready has been closed
+        (or written to) by the peer: it is dropped, not reused."""
+        while True:
+            with self._conns_mu:
+                conn = self._idle.pop() if self._idle else None
+            if conn is None:
+                conn = self._conn_cls(self._host, self._port, timeout=timeout)
+                with self._conns_mu:
+                    self._conns.add(conn)
+                break
+            try:
+                ready, _, _ = select.select([conn.sock], [], [], 0)
+            except (OSError, ValueError, TypeError):
+                ready = [conn.sock]
+            if not ready:
+                break
+            self._drop(conn)
+        conn.timeout = timeout
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        return conn
+
+    def _checkin(self, conn) -> None:
+        """Hand a connection whose reply was read in full back to the pool,
+        or close it when the pool is full or the store closed."""
+        with self._conns_mu:
+            if (not self._closed and conn in self._conns
+                    and len(self._idle) < self.POOL_SIZE):
+                self._idle.append(conn)
+                return
+        self._drop(conn)
+
+    def _drop(self, conn) -> None:
+        conn.close()
+        with self._conns_mu:
+            self._conns.discard(conn)
+
+    def _post(self, path: str, body: dict, timeout: float | None = None,
+              idempotent: bool = False) -> dict:
+        from tpu_docker_api_torch.utils.backoff import backoff_delay_s
+
+        attempts = self._retry_attempts if idempotent else 1
+        data = json.dumps(body).encode()
+        last: Exception | None = None
+        for attempt in range(attempts):
+            conn = self._checkout(timeout or self._op_timeout_s)
+            try:
+                conn.request("POST", self._path + path, body=data,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                raw = resp.read()
+            except _CONN_ERRORS as e:
+                self._drop(conn)
+                last = e
+                if attempt + 1 < attempts:
+                    time.sleep(backoff_delay_s(
+                        attempt, self._retry_base_s, self._retry_max_s))
+                continue
+            except BaseException:
+                self._drop(conn)
+                raise
+            if resp.will_close:
+                self._drop(conn)
+            else:
+                self._checkin(conn)
+            if not 200 <= resp.status < 300:
+                raise EtcdHTTPError(resp.status, raw)
+            return json.loads(raw)
+        raise errors.StoreUnavailable(
+            f"etcd {self._addr}{path}: {type(last).__name__}: {last}"
+        ) from last
+
+    def put(self, key: str, value: str) -> None:
+        self._post("/v3/kv/put", {"key": _b64(key), "value": _b64(value)})
+
+    def get(self, key: str) -> str:
+        resp = self._post("/v3/kv/range", {"key": _b64(key)}, idempotent=True)
+        kvs = resp.get("kvs", [])
+        if not kvs:
+            raise errors.NotExistInStore(key)
+        return _unb64(kvs[0]["value"])
+
+    def delete(self, key: str) -> None:
+        self._post("/v3/kv/deleterange", {"key": _b64(key)})
+
+    def range_prefix(self, prefix: str) -> dict[str, str]:
+        resp = self._post(
+            "/v3/kv/range",
+            {"key": _b64(prefix), "range_end": _b64(_prefix_end(prefix))},
+            idempotent=True,
+        )
+        out = {_unb64_key(kv["key"]): _unb64(kv["value"])
+               for kv in resp.get("kvs", [])}
+        return dict(sorted(out.items()))
+
+    def keys_prefix(self, prefix: str, limit: int = 0,
+                    start_after: str = "") -> list[str]:
+        """Native ``keys_only`` range: the server never ships a value byte."""
+        body = {"key": _b64(max(prefix, start_after + "\0")),
+                "range_end": _b64(_prefix_end(prefix)), "keys_only": True}
+        if limit > 0:
+            body["limit"] = str(limit)
+        resp = self._post("/v3/kv/range", body, idempotent=True)
+        return sorted(_unb64_key(kv["key"]) for kv in resp.get("kvs", []))
+
+    def range_prefix_page(self, prefix: str, limit: int,
+                          start_after: str = "",
+                          at_rev: int = 0) -> tuple[dict[str, str], int]:
+        """Native MVCC page: ``limit`` + ``key`` (start_after + one NUL =
+        the smallest strictly-greater key) + ``revision`` on
+        ``/v3/kv/range``, so etcd itself serves every page of a walk at
+        the first page's revision. A compacted revision comes back as the
+        gateway's 400 ``...required revision has been compacted`` —
+        mapped to the typed ContinueExpired, exactly like Kubernetes'
+        410 Gone."""
+        if limit <= 0:
+            raise ValueError("range_prefix_page requires limit > 0")
+        body = {"key": _b64(max(prefix, start_after + "\0")),
+                "range_end": _b64(_prefix_end(prefix)),
+                "limit": str(limit)}
+        if at_rev > 0:
+            body["revision"] = str(at_rev)
+        try:
+            resp = self._post("/v3/kv/range", body, idempotent=True)
+        except EtcdHTTPError as e:
+            if "compacted" in e.detail:
+                raise errors.ContinueExpired(
+                    f"revision {at_rev} compacted: {e.detail}") from e
+            raise
+        out = {_unb64_key(kv["key"]): _unb64(kv["value"])
+               for kv in resp.get("kvs", [])}
+        return (dict(sorted(out.items())),
+                at_rev or int(resp.get("header", {}).get("revision", 0)))
+
+    def current_rev(self) -> int:
+        resp = self._post("/v3/kv/range", {"key": _b64("\0"), "limit": 1},
+                          idempotent=True)
+        return int(resp.get("header", {}).get("revision", 0))
+
+    def range_prefix_with_rev(self, prefix: str) -> tuple[dict[str, str], int]:
+        """One range call: the response header's revision IS the snapshot's
+        revision (etcd's own list-then-watch handshake)."""
+        resp = self._post(
+            "/v3/kv/range",
+            {"key": _b64(prefix), "range_end": _b64(_prefix_end(prefix))},
+            idempotent=True,
+        )
+        out = {_unb64_key(kv["key"]): _unb64(kv["value"])
+               for kv in resp.get("kvs", [])}
+        return dict(sorted(out.items())), int(
+            resp.get("header", {}).get("revision", 0))
+
+    def watch(self, prefix: str, start_rev: int = 0) -> Watch:
+        """Native ``/v3/watch`` stream on the gateway: the server pushes
+        events (deletes already expanded per key by etcd itself); a
+        compacted start revision comes back as a cancel response carrying
+        ``compact_revision``, surfaced as the typed WatchLost."""
+        return _EtcdWatch(self, prefix, start_rev)
+
+    def delete_prefix(self, prefix: str) -> None:
+        self._post(
+            "/v3/kv/deleterange",
+            {"key": _b64(prefix), "range_end": _b64(_prefix_end(prefix))},
+        )
+
+    def _apply(self, ops: list[tuple], guards: list[tuple] | None = None) -> None:
+        """Native etcd transaction (``/v3/kv/txn``): guards map to the txn's
+        ``compare`` list — a value guard is a VALUE compare, an absence
+        guard (expected None) is ``VERSION == 0``, etcd's "key was never
+        put" sentinel — so the compare-and-commit is ONE server-side atomic
+        round trip, with no failure branch (a lost compare changes
+        nothing). A txn is a WRITE, so it rides the normalize-but-never-
+        retry path — a blind re-apply after an ambiguous timeout could
+        double-commit a batch whose first attempt landed
+        (``idempotent=False`` is load-bearing, not a default)."""
+        compare = []
+        for _, key, expected in guards or []:
+            if expected is None:
+                compare.append({"key": _b64(key), "result": "EQUAL",
+                                "target": "VERSION", "version": "0"})
+            else:
+                compare.append({"key": _b64(key), "result": "EQUAL",
+                                "target": "VALUE", "value": _b64(expected)})
+        success = []
+        for op in ops:
+            if op[0] == "put":
+                success.append({"requestPut": {
+                    "key": _b64(op[1]), "value": _b64(op[2])}})
+            elif op[0] == "delete":
+                success.append({"requestDeleteRange": {"key": _b64(op[1])}})
+            else:
+                success.append({"requestDeleteRange": {
+                    "key": _b64(op[1]),
+                    "range_end": _b64(_prefix_end(op[1]))}})
+        body: dict = {"success": success}
+        if compare:
+            body["compare"] = compare
+        resp = self._post("/v3/kv/txn", body, idempotent=False)
+        # proto3 JSON omits false booleans: an absent ``succeeded`` on a
+        # guarded txn IS the failed compare
+        if compare and not resp.get("succeeded"):
+            raise errors.GuardFailed(
+                f"etcd txn compare failed on "
+                f"{[g[1] for g in guards or []]}")
+
+    def close(self) -> None:
+        with self._conns_mu:
+            self._closed = True
+            conns, self._conns, self._idle = self._conns, set(), []
+        for conn in conns:
+            conn.close()
+
+
+class _EtcdWatch(Watch):
+    """One ``/v3/watch`` stream on a connection of its own. A dedicated
+    reader thread blocks on the chunked HTTP response and feeds a queue;
+    poll drains it — the informer loop never blocks on a socket it cannot
+    time-bound. The stream dying (connection reset, gateway restart) is a
+    StoreUnavailable at the next poll; a cancel/compaction response is a
+    WatchLost. Either way the consumer relists. ``close`` shuts the socket
+    down: the reader's blocked read returns at once, and the reader, which
+    owns the response, closes it."""
+
+    def __init__(self, kv: "EtcdKV", prefix: str, start_rev: int) -> None:
+        self.prefix = prefix
+        self._cv = threading.Condition()
+        self._q: collections.deque[WatchEvent] = collections.deque()
+        self._error: Exception | None = None
+        self._closed = False
+        body = {"create_request": {
+            "key": _b64(prefix),
+            "range_end": _b64(_prefix_end(prefix)),
+            # etcd's start_revision is INCLUSIVE; our contract is
+            # "events with rev > start_rev"
+            "start_revision": str(start_rev + 1),
+        }}
+        # the dial and the reply's head ride the dial budget; the stream
+        # itself then blocks without a deadline, like the reference's
+        # (connect, read) = (2 s, none) watch call
+        self._conn = kv._conn_cls(kv._host, kv._port,
+                                  timeout=kv.DIAL_TIMEOUT_S)
+        try:
+            self._conn.connect()
+            # held apart from the connection: http.client drops its own
+            # reference once the response owns the stream
+            self._sock = self._conn.sock
+            self._conn.request("POST", kv._path + "/v3/watch",
+                               body=json.dumps(body).encode(),
+                               headers={"Content-Type": "application/json"})
+            self._resp = self._conn.getresponse()
+            if not 200 <= self._resp.status < 300:
+                raise EtcdHTTPError(self._resp.status, self._resp.read())
+            self._sock.settimeout(None)
+        except (*_CONN_ERRORS, EtcdHTTPError) as e:
+            self._conn.close()
+            raise errors.StoreUnavailable(
+                f"etcd watch {kv._addr}: {type(e).__name__}: {e}") from e
+        self._thread = threading.Thread(
+            target=self._read_loop, name="etcd-watch", daemon=True)
+        self._thread.start()
+
+    def _read_loop(self) -> None:
+        try:
+            self._read_stream()
+        finally:
+            # the reader OWNS the response: closing it from another thread
+            # would contend for the buffered reader this thread holds while
+            # blocked mid-read (close() unblocks us by shutting the socket
+            # down instead)
+            for res in (self._resp, self._conn):
+                try:
+                    res.close()
+                except Exception:  # noqa: BLE001
+                    pass
+
+    def _read_stream(self) -> None:
+        try:
+            while True:
+                line = self._resp.readline()
+                if not line:
+                    # http.client's chunked readline reads a stream cut off
+                    # mid-way as a plain end: a watch the server ended
+                    # without a cancel is dead either way
+                    raise ConnectionError("the watch stream ended")
+                line = line.strip()
+                if not line:
+                    continue
+                result = json.loads(line).get("result", {})
+                if result.get("compact_revision") or result.get("canceled"):
+                    self._fail(errors.WatchLost(
+                        f"watch canceled (compacted at "
+                        f"{result.get('compact_revision')})"))
+                    return
+                if result.get("created"):
+                    continue
+                header_rev = int(result.get("header", {}).get("revision", 0))
+                events = []
+                for ev in result.get("events", []):
+                    kv_ = ev.get("kv", {})
+                    # proto3 JSON omits default enum values: no "type" IS PUT
+                    is_put = ev.get("type", "PUT") == "PUT"
+                    events.append(WatchEvent(
+                        int(kv_.get("mod_revision", header_rev)),
+                        "put" if is_put else "delete",
+                        _unb64_key(kv_["key"]),
+                        _unb64(kv_.get("value", "")) if is_put else None))
+                if events:
+                    with self._cv:
+                        self._q.extend(events)
+                        self._cv.notify_all()
+        except Exception as e:  # noqa: BLE001 — stream death
+            if not self._closed:
+                self._fail(errors.StoreUnavailable(
+                    f"etcd watch stream died: {type(e).__name__}: {e}"))
+
+    def _fail(self, err: Exception) -> None:
+        with self._cv:
+            self._error = err
+            self._cv.notify_all()
+
+    def poll(self, timeout_s: float = 0.0) -> list[WatchEvent]:
+        with self._cv:
+            if not self._q and self._error is None and not self._closed \
+                    and timeout_s > 0:
+                self._cv.wait(timeout_s)
+            if self._q:
+                out = list(self._q)
+                self._q.clear()
+                return out
+            if self._error is not None and not self._closed:
+                raise self._error
+            return []
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # already dead is fine
+        with self._cv:
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+
+
+class CountingKV(KV):
+    """Instrumentation wrapper: counts store round trips per KV method.
+
+    The churn benchmark (bench.py ``--cp-family churn``) wraps the daemon's
+    store in one of these to report **round trips per control-plane flow**
+    — the regression gate that keeps "batched" an invariant instead of an
+    adjective. Each counted unit is one network round trip on etcd: an
+    ``apply`` of 40 ops counts once, which is the whole point."""
+
+    def __init__(self, inner: KV) -> None:
+        self.inner = inner
+        self._mu = threading.Lock()
+        self.counts: dict[str, int] = {}
+
+    def _count(self, method: str) -> None:
+        with self._mu:
+            self.counts[method] = self.counts.get(method, 0) + 1
+
+    def snapshot(self) -> dict[str, int]:
+        with self._mu:
+            return dict(self.counts)
+
+    @staticmethod
+    def delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
+        """Per-method round trips between two snapshots (zeroes dropped)."""
+        out = {k: after[k] - before.get(k, 0) for k in after}
+        return {k: v for k, v in out.items() if v}
+
+    def put(self, key: str, value: str) -> None:
+        self._count("put")
+        self.inner.put(key, value)
+
+    def get(self, key: str) -> str:
+        self._count("get")
+        return self.inner.get(key)
+
+    def delete(self, key: str) -> None:
+        self._count("delete")
+        self.inner.delete(key)
+
+    def range_prefix(self, prefix: str) -> dict[str, str]:
+        self._count("range_prefix")
+        return self.inner.range_prefix(prefix)
+
+    def range_prefix_with_rev(self, prefix: str) -> tuple[dict[str, str], int]:
+        self._count("range_prefix")
+        return self.inner.range_prefix_with_rev(prefix)
+
+    def keys_prefix(self, prefix: str, limit: int = 0,
+                    start_after: str = "") -> list[str]:
+        self._count("keys_prefix")
+        return self.inner.keys_prefix(prefix, limit=limit,
+                                      start_after=start_after)
+
+    def range_prefix_page(self, prefix: str, limit: int,
+                          start_after: str = "",
+                          at_rev: int = 0) -> tuple[dict[str, str], int]:
+        self._count("range_prefix_page")
+        return self.inner.range_prefix_page(prefix, limit,
+                                            start_after=start_after,
+                                            at_rev=at_rev)
+
+    READ_METHODS = ("get", "range_prefix", "keys_prefix",
+                    "range_prefix_page")
+
+    def reads(self) -> int:
+        """Total store read round trips so far (the scale family's gated
+        quantity; watch streams are amortized and deliberately excluded)."""
+        with self._mu:
+            return sum(self.counts.get(m, 0) for m in self.READ_METHODS)
+
+    def current_rev(self) -> int:
+        return self.inner.current_rev()
+
+    def watch(self, prefix: str, start_rev: int = 0) -> Watch:
+        # counted once per stream OPEN — the whole point of watch is that
+        # the events themselves are not per-request round trips
+        self._count("watch")
+        return self.inner.watch(prefix, start_rev)
+
+    def delete_prefix(self, prefix: str) -> None:
+        self._count("delete_prefix")
+        self.inner.delete_prefix(prefix)
+
+    def _apply(self, ops: list[tuple], guards: list[tuple] | None = None) -> None:
+        # delegate to the inner BACKEND's atomic _apply (not its public
+        # apply: the base template already validated and fired the crash
+        # points once — they must not fire twice per batch)
+        self._count("apply")
+        self.inner._apply(ops, guards)
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+def _b64(s: str) -> str:
+    # surrogateescape: _prefix_end may produce lone surrogates for non-ascii
+    # prefix ends; they round-trip to the intended raw bytes on the wire
+    # (identical to strict encoding for any valid-unicode input)
+    return base64.b64encode(s.encode("utf-8", "surrogateescape")).decode()
+
+
+def _unb64_key(s: str) -> str:
+    """Keys decode leniently: an incremented range-end byte can make a key
+    non-UTF-8, and it must round-trip back through ``_b64``."""
+    return base64.b64decode(s).decode("utf-8", "surrogateescape")
+
+
+def _unb64(s: str) -> str:
+    """Values decode strictly: this store only ever writes UTF-8 (JSON), so
+    a non-UTF-8 value is corruption by a foreign writer and must fail loudly
+    at the read site, not surface as lone surrogates downstream."""
+    return base64.b64decode(s).decode()
+
+
+
+
 def _prefix_end(prefix: str) -> str:
     """etcd range_end for a prefix scan: prefix with last byte incremented.
     Operates on the key's raw utf-8 bytes (etcd compares bytes); raw bytes
@@ -820,12 +1383,16 @@ def _prefix_end(prefix: str) -> str:
     return "\0"  # prefix was all 0xff: scan everything
 
 
-def open_store(backend: str, *, sqlite_path: str = "",
+def open_store(backend: str, *, etcd_addr: str = "", sqlite_path: str = "",
+               retry_attempts: int = EtcdKV.RETRY_ATTEMPTS,
+               retry_base_s: float = EtcdKV.RETRY_BASE_S,
+               retry_max_s: float = EtcdKV.RETRY_MAX_S,
                op_deadline_s: float = 0.0) -> KV:
-    """Open a KV backend by name (config.store_backend).
-    ``op_deadline_s`` (config ``store_op_deadline_s``) bounds the sqlite
-    busy wait; <= 0 keeps its 5 s budget. ``"etcd"`` is refused by name
-    until ``EtcdKV`` is ported."""
+    """Open a KV backend by name (config.store_backend); ``retry_*`` maps
+    from the ``store_retry_*`` config keys (etcd idempotent-read retry).
+    ``op_deadline_s`` (config ``store_op_deadline_s``) bounds every op: the
+    etcd socket timeout and the sqlite busy wait. <= 0 keeps each backend's
+    historical budget (1 s etcd ops, 5 s sqlite busy)."""
     if backend == "memory":
         return MemoryKV()
     if backend == "sqlite":
@@ -833,8 +1400,7 @@ def open_store(backend: str, *, sqlite_path: str = "",
                         busy_timeout_s=(op_deadline_s if op_deadline_s > 0
                                         else SqliteKV.BUSY_TIMEOUT_S))
     if backend == "etcd":
-        raise ValueError(
-            "store backend 'etcd': not in the PyTorch package yet; EtcdKV "
-            "comes with the rest of the control plane (ROADMAP Queue 1 "
-            "item 10); use 'memory' or 'sqlite'")
+        return EtcdKV(etcd_addr, retry_attempts=retry_attempts,
+                      retry_base_s=retry_base_s, retry_max_s=retry_max_s,
+                      op_deadline_s=op_deadline_s)
     raise ValueError(f"unknown store backend {backend!r}")

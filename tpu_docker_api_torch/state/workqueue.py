@@ -39,13 +39,12 @@ daemon crash lost every queued persist, data copy and compensation:
 
 The port's copy of ``tpu_docker_api/state/workqueue.py`` for one writer:
 without JAX's legacy closure tasks (``PutKVTask``/``DelKeyTask``/
-``CopyTask``/``FnTask`` through ``submit``), the sharded writer plane's
-``shard_fn``/``owned_shards`` and the store-outage ``store_gate``, which
-no caller of the port has (they come with ``service/shard`` and
-``service/store_health``, ROADMAP Queue 1 item 10). A record's ``shard``
+``CopyTask``/``FnTask`` through ``submit``) and the sharded writer plane's
+``shard_fn``/``owned_shards``, which no caller of the port has (they come
+with ``service/shard``, ROADMAP Queue 1 item 10). A record's ``shard``
 stays in its format, so a journal one package wrote reads the same in
-the other. With no reconciler ported yet, the port's daemon replays the
-journal itself at boot (``daemon.py`` ``Program._start_writers``).
+the other. The reconciler (service/reconcile.py) replays the journal a
+dead daemon left on its startup pass.
 """
 
 from __future__ import annotations
@@ -179,6 +178,7 @@ class WorkQueue:
         dead_letter_retry_budget: int = DEFAULT_DEAD_LETTER_RETRY_BUDGET,
         metrics=None,
         tracer=None,
+        store_gate=None,
     ) -> None:
         from tpu_docker_api_torch.utils.files import copy_dir_contents
 
@@ -223,6 +223,14 @@ class WorkQueue:
         #: failing the boot)
         self._seq: int | None = None
         self._seq_mu = threading.Lock()
+        #: store-outage hold (service/store_health.py): the sync loop keeps
+        #: draining submits into its hands but PAUSES execution while the
+        #: gate holds — a task run against a dead store would burn its
+        #: bounded retries on guaranteed failures and dead-letter work that
+        #: only needed to wait. Close overrides the hold: an unexecuted
+        #: journaled record is exactly what replay adopts. None ⇒ ungated.
+        self._store_gate = store_gate
+        self.store_skips = 0
         self._journal_failures = 0
         self._events: collections.deque = collections.deque(maxlen=128)
         if metrics is None:
@@ -473,6 +481,21 @@ class WorkQueue:
 
     # -- consumer side ------------------------------------------------------------
 
+    def _hold_for_store(self) -> None:
+        """Pause task execution while the store gate holds (edge-triggered
+        event, per-episode counter). Returns immediately once the gate
+        lifts OR the queue is closing — a task executed against a down
+        store on shutdown simply fails into the journal for replay."""
+        if self._store_gate is None or self._store_gate():
+            return
+        self.store_skips += 1
+        self._events.append(trace_mod.stamp(
+            {"ts": time.time(), "event": "store-outage-hold", "detail": ""}))
+        while not self._closed and not self._store_gate():
+            time.sleep(0.05)
+        self._events.append(trace_mod.stamp(
+            {"ts": time.time(), "event": "store-outage-over", "detail": ""}))
+
     def _sync_loop(self) -> None:
         while True:
             task = self._q.get()
@@ -480,6 +503,7 @@ class WorkQueue:
                 self._q.task_done()
                 return
             try:
+                self._hold_for_store()
                 self._run_record(task)
             finally:
                 self._q.task_done()
@@ -641,6 +665,15 @@ class WorkQueue:
             except (ValueError, KeyError, TypeError):
                 log.warning("workqueue: unreadable journal entry at %s", key)
         return out  # key-sorted == seq order (zero-padded)
+
+    def journal_replayable(self, include_local: bool = False
+                           ) -> list[TaskRecord]:
+        """Pending/in-flight records in submit order. By default records
+        owned by THIS process (queued or executing right now) are excluded
+        — they are not adoptable, they are simply not done yet.
+        ``include_local=True`` processes them too (test hook: drive the
+        sync loop's work inline, under armed crash points)."""
+        return self._filter_replayable(self._journal_records(), include_local)
 
     def _filter_replayable(self, records: list[TaskRecord],
                            include_local: bool) -> list[TaskRecord]:

@@ -1,8 +1,9 @@
 """In-process metrics registry with Prometheus text exposition — the
 port's own copy of the subset of ``tpu_docker_api/telemetry/metrics.py``
 that serving and the control plane use: histograms (``observe``),
-counters (``counter_inc``, pull-time ``counter_fn``), pull-time gauges
-(``gauge_fn``), ``render`` and the process-wide ``REGISTRY``. Stdlib only.
+counters (``counter_inc``, pull-time ``counter_fn``, ``counter_value``),
+pull-time gauges (``gauge_fn``), ``render`` and the process-wide
+``REGISTRY``. Stdlib only.
 """
 
 from __future__ import annotations
@@ -64,6 +65,13 @@ class MetricsRegistry:
             series = self._counters.setdefault(name, {})
             key = tuple(sorted((labels or {}).items()))
             series[key] = series.get(key, 0.0) + value
+
+    def counter_value(self, name: str, labels: dict | None = None) -> float:
+        """Read a counter's current value (0.0 if never incremented), so
+        a status view reads back the very counters /metrics exports."""
+        with self._lock:
+            series = self._counters.get(name, {})
+            return series.get(tuple(sorted((labels or {}).items())), 0.0)
 
     def gauge_fn(self, name: str, fn: Callable[[], float],
                  help: str = "") -> None:
