@@ -70,6 +70,30 @@ Phases, one JSON line each; any failure exits non-zero:
               a dirty pass's over 20 families stopped through the API
               just before it (each pass visits exactly those 20), and of
               restart-to-ready.
+2e. jobs    — gangs over a pod (``phase_jobs``). (a) The daemon's
+              ``Program`` from a TOML config, serving in this process
+              (sqlite, a persisting fake runtime under ``build/jobs``, the
+              NVML topology, the job supervisor, host monitor and health
+              watcher at 1 s, 4 fan-out workers): ``POST /api/v1/jobs``
+              of one GPU; ``j-0-p0``'s rendered environment launches the
+              trainer verbatim (llama3-1b at its published width and
+              depth, adamw-int8, 2 steps, ``--dp 1``: it joins an NCCL
+              group at the rendered master), losses within 1e-3 of the
+              same command without the job's environment, flash fwd, dq,
+              dk/dv and adam8 counted in it; the member is marked exited
+              and the supervisor restarts the gang within 3 intervals
+              (``/health/jobs`` restarts 1, the same GPU UUID); DELETE
+              frees the H100 in ``/resources/gpus`` and ``/slices``. (b)
+              JAX's job crash matrix (tests/test_chaos.py JOB_CASES and
+              the migrate points) on a 32-host pod of h100-8 fake engines
+              (one DGX SuperPOD scalable unit): each case repaired by a
+              fresh Program's startup reconcile, both oracles empty, at
+              most one live version; each repair's ms. (c) Medians of 5
+              there, with 1 and 8 fan-out workers, at no engine latency
+              and at 1 ms a call: run_job of a 16-host 128-GPU gang, its
+              rescale to 256 GPUs, a 4-host gang's migration from the down
+              verdict to the new gang started, a supervisor poll over 32
+              hosts, a full reconcile pass.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -4900,6 +4924,409 @@ def phase_control_plane(dev) -> dict:
     return res
 
 
+# --------------------------------------------------------------------- jobs
+
+JOBS_DIR = "build/jobs"
+#: the simulated pod of (b) and (c): one DGX SuperPOD scalable unit, 32
+#: DGX H100 hosts of 8 GPUs each (NVIDIA DGX SuperPOD reference
+#: architecture), as fake engines; hosts tile along y
+JOBS_HOSTS = 32
+#: the job supervisor's, host monitor's and health watcher's interval in
+#: (a), seconds; the gang restart must land within 3 of them
+JOBS_INTERVAL_S = 1.0
+JOBS_TRAIN_STEPS = 2
+JOBS_LOSS_TOL = 1e-3
+JOBS_REPEATS = 5
+#: JAX's JOB_CASES (tests/test_chaos.py): flow × the crash points it
+#: traverses, and the feasible migrate points
+_JOBS_RUN = ("job.run.after_version_bump", "job.run.after_create")
+_JOBS_PATCH = ("job.patch.after_quiesce_old", "job.patch.after_start_new")
+_JOBS_GANG = ("job.gang.after_mark_restarting", "job.gang.after_stop_all")
+JOBS_CASES = ([("run", p) for p in _JOBS_RUN]
+              + [("rescale", p) for p in _JOBS_RUN + _JOBS_PATCH]
+              + [("gang", p) for p in _JOBS_GANG]
+              + [("migrate", p) for p in (
+                  "job.migrate.after_mark", "job.migrate.after_create_new",
+                  "job.migrate.after_quiesce_old",
+                  "job.migrate.after_start_new")])
+#: the engine calls a member flow makes: (c) times them at no latency and
+#: at JOBS_ENGINE_LATENCY_S a call (a modelled round trip to a remote
+#: engine), so the fan-out pool's effect shows
+JOBS_ENGINE_OPS = ("container_create", "container_start", "container_stop",
+                   "container_inspect", "container_remove", "container_list")
+JOBS_ENGINE_LATENCY_S = 1e-3
+
+_JOBS_CHILD = """
+import json, sys
+import torch.distributed as dist
+from tpu_docker_api_torch.ops import flash
+from tpu_docker_api_torch.train import optim
+from tpu_docker_api_torch.train.__main__ import main
+seen = {}
+init = dist.init_process_group
+def recording(backend=None, init_method=None, **kw):
+    seen.update(backend=backend, init_method=init_method)
+    return init(backend, init_method=init_method, **kw)
+dist.init_process_group = recording
+flash.reset_launch_count()
+optim.reset_launch_count()
+rc = main(sys.argv[1:])
+print(json.dumps({"rc": rc, "group": seen,
+                  "launches": {**flash.launch_count, **optim.launch_count}}),
+      flush=True)
+sys.exit(rc)
+"""
+
+_DIST_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK", "NODE_RANK", "LOCAL_WORLD_SIZE",
+              "CUDA_VISIBLE_DEVICES")
+
+
+def _free_range(n: int = 16) -> int:
+    """The first of ``n`` consecutive localhost TCP ports that were all
+    free a moment ago (the job's master port comes from the range)."""
+    for _ in range(50):
+        base, socks = _free_port(), []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("no free port range")
+
+
+def _member_train(env: list[str] | None) -> dict:
+    """The port's trainer (llama3-1b, published width and depth, adamw-int8,
+    ``--dp 1``: the mesh path, so it joins a process group) in a child
+    process, under a member's rendered environment verbatim, or with no
+    job environment at all (``env`` None). Its losses, launch counts and
+    the process group it joined."""
+    penv = {k: v for k, v in os.environ.items() if k not in _DIST_VARS}
+    penv.update(dict(e.split("=", 1) for e in env or []))
+    penv["PYTHONPATH"] = os.getcwd()
+    proc = subprocess.run(
+        [sys.executable, "-c", _JOBS_CHILD, "--preset", "llama3-1b",
+         "--steps", str(JOBS_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+         "--seq", str(TRAIN_SEQ), "--optim", "adamw-int8", "--log-every",
+         "1", "--dp", "1"], env=penv, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the member's trainer failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    losses = [ln["loss"] for ln in lines if "loss" in ln and "step" in ln]
+    return {"losses": losses, **lines[-1]}
+
+
+def _jobs_pod(kv, rts: dict, workers: int = 1, **cfg):
+    """A ``Program`` over a pod of ``len(rts)`` fake h100-8 hosts (h0 this
+    machine's synthesized host, the rest ``[[pod_hosts]]``), init only."""
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+    from tpu_docker_api_torch.scheduler.topology import HostTopology
+
+    conf = cp_config.Config(
+        port=0, store_backend="memory", runtime_backend="fake",
+        accelerator_type="h100-8", health_watch_interval=0,
+        fanout_workers=workers, start_port=CONTROL_PORTS[0],
+        end_port=CONTROL_PORTS[1], pod_hosts=[
+            {"host_id": f"h{i}", "address": f"10.1.0.{i + 1}",
+             "grid_coord": [0, i, 0],
+             **({"local": True} if i == 0 else {"runtime_backend": "fake"})}
+            for i in range(len(rts))], **cfg)
+    prg = Program(conf, host="127.0.0.1", kv=kv, runtime=rts["h0"],
+                  pod_runtimes={h: r for h, r in rts.items() if h != "h0"})
+    prg._discover_topology = lambda: HostTopology.build("h100-8")
+    prg.init()
+    return prg
+
+
+def _jobs_engines(n: int, latency_s: float = 0.0) -> dict:
+    """Host id → a FaultyRuntime over a fake engine (unreachable on
+    demand; ``latency_s`` on every member call)."""
+    from tpu_docker_api_torch.runtime.fake import FakeRuntime
+    from tpu_docker_api_torch.runtime.faulty import (FaultPlan, FaultRule,
+                                                     FaultyRuntime)
+
+    return {f"h{i}": FaultyRuntime(FakeRuntime(), FaultPlan(rules=[
+        FaultRule(op=op, mode="latency", latency_s=latency_s, times=-1)
+        for op in JOBS_ENGINE_OPS] if latency_s else []))
+        for i in range(n)}
+
+
+def _jobs_case(flow: str, point: str) -> dict:
+    """One crash of JAX's job matrix on the 32-host pod: the flow dies at
+    ``point``; a fresh Program on the same store and engines boots and its
+    startup reconcile repairs the wreckage; both oracles must be empty and
+    at most one version of the family may run."""
+    from tpu_docker_api_torch.schemas.job import JobPatchChips, JobRun
+    from tpu_docker_api_torch.service.crashpoints import SimulatedCrash, armed
+    from tpu_docker_api_torch.service.invariants import (
+        check_invariants, check_job_invariants)
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    kv, rts = MemoryKV(), _jobs_engines(JOBS_HOSTS)
+    # no supervisor or monitor threads: the startup reconcile alone repairs
+    quiet = {"job_supervise_interval": 0, "host_probe_interval_s": 0}
+    dead = _jobs_pod(kv, rts, **quiet)
+    svc = dead.job_svc
+    if flow == "rescale":
+        svc.run_job(JobRun(image_name="local", job_name="train",
+                           chip_count=4))
+    elif flow in ("gang", "migrate"):
+        svc.run_job(JobRun(image_name="local", job_name="train",
+                           chip_count=128 if flow == "gang" else 32))
+    try:
+        with armed(point):
+            if flow == "run":
+                svc.run_job(JobRun(image_name="local", job_name="train",
+                                   chip_count=128))
+            elif flow == "rescale":
+                svc.patch_job_chips("train", JobPatchChips(chip_count=8))
+            elif flow == "gang":
+                rts["h1"].crash_container("train-0-p1")
+                dead.job_supervisor.poll_once()
+            else:
+                rts["h1"].set_unreachable(True)
+                svc.migrate_gang("train", {"h1"}, reason="host down")
+        raise AssertionError(f"{flow}@{point}: no crash")
+    except SimulatedCrash:
+        pass
+    prg = _jobs_pod(kv, rts, **quiet)
+    prg.start()
+    try:
+        report = prg.reconciler.last_report()
+        if report is None or not report["actions"]:
+            raise AssertionError(f"{flow}@{point}: no startup repair "
+                                 f"({report})")
+        failed = [a for a in report["actions"] if "error" in a]
+        problems = check_job_invariants(prg.pod, prg.pod_scheduler,
+                                        prg.store, prg.job_versions)
+        problems += check_invariants(
+            prg.runtime, prg.store, prg.container_versions,
+            prg.chip_scheduler, prg.port_scheduler,
+            job_versions=prg.job_versions)
+        live = set()
+        for hid, rt in rts.items():
+            if hid == "h1" and flow == "migrate":
+                continue  # still unreachable
+            live |= {n.split("-p")[0] for n in rt.container_list()
+                     if rt.container_inspect(n).running}
+        latest = prg.job_versions.get("train")
+        if failed or problems or len(live) > 1 or (
+                latest is not None and live - {f"train-{latest}"}):
+            raise AssertionError(f"{flow}@{point}: failed {failed}, "
+                                 f"invariants {problems}, live {live} "
+                                 f"(latest {latest})")
+        return {"case": f"{flow}@{point}", "ms": report["durationMs"],
+                "actions": [a["action"] for a in report["actions"]],
+                "live": sorted(live)}
+    finally:
+        prg.stop()
+
+
+def _jobs_timings(workers: int, latency_s: float) -> dict:
+    """(c) on the 32-host pod, JOBS_REPEATS each: ``run_job`` of a 16-host
+    128-GPU gang; its rescale to 256 GPUs; a 4-host gang's migration from
+    the monitor's down verdict to the new gang started; a supervisor poll
+    over every host; a full reconcile pass. Times in ms."""
+    from tpu_docker_api_torch.schemas.job import (JobDelete, JobPatchChips,
+                                                  JobRun)
+    from tpu_docker_api_torch.service.host_health import HostMonitor
+    from tpu_docker_api_torch.service.job_supervisor import JobSupervisor
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    out = {k: [] for k in ("run_job_128", "rescale_to_256",
+                           "host_down_migration_4_hosts",
+                           "supervisor_poll_32_hosts", "full_reconcile")}
+    for rep in range(JOBS_REPEATS):
+        rts = _jobs_engines(JOBS_HOSTS, latency_s)
+        prg = _jobs_pod(MemoryKV(), rts, workers,
+                        job_supervise_interval=0, host_probe_interval_s=0)
+        svc = prg.job_svc
+        try:
+            t0 = time.perf_counter()
+            info = svc.run_job(JobRun(image_name="local", job_name="big",
+                                      chip_count=128))
+            out["run_job_128"].append((time.perf_counter() - t0) * 1e3)
+            if len(info["processes"]) != 16:
+                raise AssertionError(f"the 128-GPU gang: {info}")
+            t0 = time.perf_counter()
+            info = svc.patch_job_chips("big", JobPatchChips(chip_count=256))
+            out["rescale_to_256"].append((time.perf_counter() - t0) * 1e3)
+            if (info["chipCount"], len(info["processes"])) != (256, 32):
+                raise AssertionError(f"the rescale: {info}")
+            svc.delete_job("big", JobDelete(
+                force=True, del_state_and_version_record=True))
+            svc.run_job(JobRun(image_name="local", job_name="small",
+                               chip_count=32))
+            svc.run_job(JobRun(image_name="local", job_name="big",
+                               chip_count=128))
+            clock = {"now": 0.0}
+            mon = HostMonitor(prg.pod, prg.pod_scheduler, down_grace_s=10.0,
+                              fanout=prg.fanout, clock=lambda: clock["now"])
+            sup = JobSupervisor(prg.pod, svc, prg.store, prg.job_versions,
+                                backoff_jitter=0.0, host_monitor=mon,
+                                fanout=prg.fanout, clock=lambda: clock["now"])
+            t0 = time.perf_counter()
+            sup.poll_once()
+            out["supervisor_poll_32_hosts"].append(
+                (time.perf_counter() - t0) * 1e3)
+            victim = prg.store.get_job("small-0").placements[1][0]
+            rts[victim].set_unreachable(True)
+            mon.probe_once()
+            clock["now"] = 30.0
+            mon.probe_once()
+            if not mon.is_down(victim):
+                raise AssertionError(f"{victim} not down")
+            t0 = time.perf_counter()
+            sup.poll_once()
+            out["host_down_migration_4_hosts"].append(
+                (time.perf_counter() - t0) * 1e3)
+            st = prg.store.get_job(
+                f"small-{prg.job_versions.get('small')}")
+            if st.migrations != 1 or victim in {h for h, *_ in st.placements}:
+                raise AssertionError(f"the migration: {st}")
+            rts[victim].set_unreachable(False)
+            t0 = time.perf_counter()
+            rep_ = prg.reconciler.reconcile(mode="full")
+            out["full_reconcile"].append((time.perf_counter() - t0) * 1e3)
+            if any("error" in a for a in rep_["actions"]):
+                raise AssertionError(f"the full pass: {rep_}")
+        finally:
+            prg.stop()
+    return {k: {"median_ms": sorted(v)[len(v) // 2], "ms": v}
+            for k, v in out.items()}
+
+
+def phase_jobs(dev) -> dict:
+    """The port's gangs over a pod (``phase_jobs``). (a) The daemon's
+    ``Program`` from a TOML config, as ``python -m tpu_docker_api_torch``
+    builds it, serving in this process over sqlite, a persisting fake
+    runtime under ``build/jobs`` and the NVML topology, with the job
+    supervisor, the host monitor and the health watcher at 1 s and 4
+    fan-out workers: ``POST /api/v1/jobs`` of one GPU; ``j-0-p0``'s
+    rendered environment launches the trainer verbatim (llama3-1b,
+    adamw-int8, ``--dp 1``: NCCL at the rendered master), held to the
+    same command without the job's environment (losses within 1e-3) and
+    counting all four kernels; the member is marked exited and the
+    supervisor restarts the gang within 3 intervals, the same GPU UUID
+    attached; ``DELETE`` frees the H100. (b) JAX's job crash matrix and
+    migrate points on a 32-host pod of h100-8 fake engines, each repaired
+    by a fresh Program's startup reconcile. (c) Medians of 5 at that size
+    with 1 and 8 fan-out workers, at no engine latency and at 1 ms a
+    call."""
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(JOBS_DIR, ignore_errors=True)
+    os.makedirs(JOBS_DIR)
+    root = os.path.abspath(JOBS_DIR)
+    smi = nvidia_smi_gpus()
+    if len(smi) != 1:
+        raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
+    uuid = smi[0]["uuid"]
+
+    # -- (a) the gang on the H100 ---------------------------------------------
+    start = _free_range()
+    cfg_path = os.path.join(root, "daemon.toml")
+    with open(cfg_path, "w") as f:
+        f.write(f'port = 0\nstore_backend = "sqlite"\n'
+                f'sqlite_path = "{root}/state.db"\n'
+                f'runtime_backend = "fake"\n'
+                f'fake_runtime_root = "{root}/runtime"\n'
+                f"start_port = {start}\nend_port = {start + 15}\n"
+                f"job_supervise_interval = {JOBS_INTERVAL_S}\n"
+                f"host_probe_interval_s = {JOBS_INTERVAL_S}\n"
+                f"health_watch_interval = {JOBS_INTERVAL_S}\n"
+                "fanout_workers = 4\n")
+    prg = Program(cp_config.load(cfg_path), host="127.0.0.1")
+    prg.init()
+    prg.start()
+    try:
+        port = prg.api_server.port
+        info = _api(port, "POST", "/jobs", {
+            "imageName": "local", "jobName": "j", "chipCount": 1})
+        if [p["container"] for p in info["processes"]] != ["j-0-p0"]:
+            raise AssertionError(f"POST /jobs: {info}")
+        spec = prg.runtime.container_inspect("j-0-p0").spec
+        if spec.gpu_uuids != [uuid]:
+            raise AssertionError(f"j-0-p0's grant: {spec.gpu_uuids}")
+        env = dict(e.split("=", 1) for e in spec.env)
+        master = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        if (master != f"127.0.0.1:{info['coordinatorPort']}"
+                or (env["WORLD_SIZE"], env["RANK"]) != ("1", "0")):
+            raise AssertionError(f"j-0-p0's environment: {spec.env}")
+        member = _member_train(spec.env)
+        plain = _member_train(None)
+        diff = max(abs(a - b) for a, b in zip(member["losses"],
+                                             plain["losses"]))
+        want = {"flash_fwd": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dq": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dkv": 16 * JOBS_TRAIN_STEPS,
+                "adam8": len(LLAMA3_1B_LEAVES) * JOBS_TRAIN_STEPS}
+        if (len(member["losses"]) != JOBS_TRAIN_STEPS
+                or not all(math.isfinite(x) for x in member["losses"])
+                or diff > JOBS_LOSS_TOL or member["launches"] != want
+                or member["group"] != {"backend": "nccl",
+                                       "init_method": f"tcp://{master}"}):
+            raise AssertionError(f"the member's trainer: {member}, the "
+                                 f"plain run {plain}, want launches {want}")
+        # the member exits: the watcher hands it to the supervisor, which
+        # restarts the whole gang
+        t0 = time.perf_counter()
+        prg.runtime.crash_container("j-0-p0", exit_code=137)
+        while True:
+            health = _api(port, "GET", "/health/jobs")["jobs"]["j"]
+            if (health["restarts"] == 1 and prg.runtime.container_inspect(
+                    "j-0-p0").running):
+                break
+            if time.perf_counter() - t0 > 3 * JOBS_INTERVAL_S:
+                raise AssertionError(f"no gang restart in 3 intervals: "
+                                     f"{health}")
+            time.sleep(0.01)
+        restart_s = time.perf_counter() - t0
+        after = prg.runtime.container_inspect("j-0-p0").spec.gpu_uuids
+        if after != [uuid] or _api(port, "GET", "/jobs/j")["restarts"] != 1:
+            raise AssertionError(f"after the restart: {after}")
+        _api(port, "DELETE", "/jobs/j", {"force": True,
+                                         "delStateAndVersionRecord": True})
+        gpus = _api(port, "GET", "/resources/gpus")
+        slices = _api(port, "GET", "/resources/slices")
+        if ([(c["uuid"], c["used"]) for c in gpus["chips"]] != [(uuid, False)]
+                or slices["slices"] or slices["freeSchedulableChips"] != 1):
+            raise AssertionError(f"after DELETE: {gpus} {slices}")
+    finally:
+        prg.stop()
+
+    # -- (b) the crash matrix on 32 hosts ---------------------------------------
+    matrix = [_jobs_case(flow, point) for flow, point in JOBS_CASES]
+    matrix_ms = sorted(c["ms"] for c in matrix)
+
+    # -- (c) timings at that size -----------------------------------------------
+    timings = {f"workers{w}_latency{lat * 1e3:g}ms":
+               _jobs_timings(w, lat)
+               for lat in (0.0, JOBS_ENGINE_LATENCY_S) for w in (1, 8)}
+    shutil.rmtree(JOBS_DIR, ignore_errors=True)
+    res = {"phase": "jobs", "member": member, "plain": plain,
+           "loss_max_abs_diff": diff, "loss_tol": JOBS_LOSS_TOL,
+           "gang_restart_s": restart_s, "hosts": JOBS_HOSTS,
+           "matrix": matrix,
+           "matrix_startup_ms_median": matrix_ms[len(matrix_ms) // 2],
+           "timings": timings, "launches": member["launches"],
+           "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
+    emit(res)
+    return res
+
+
 # ---------------------------------------------------------------- reconcile
 
 RECONCILE_DIR = "build/reconcile"
@@ -5935,6 +6362,7 @@ def main() -> int:
     devices_res = phase_devices(dev)
     control_res = phase_control_plane(dev)
     reconcile_res = phase_reconcile(dev)
+    jobs_n = phase_jobs(dev)["launches"]
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -5973,11 +6401,13 @@ def main() -> int:
                       "vit": vit_n["flash_fwd"],
                       "encdec": encdec_n["flash_fwd"],
                       "parallel": par_n["flash_fwd"],
-                      "pipeline": pipe_n["flash_fwd"]},
+                      "pipeline": pipe_n["flash_fwd"],
+                      "jobs": jobs_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
                   "lora": lora_n[name], "moe": moe_n[name],
                   "vit": vit_n[name], "encdec": encdec_n[name],
-                  "parallel": par_n[name], "pipeline": pipe_n[name]}
+                  "parallel": par_n[name], "pipeline": pipe_n[name],
+                  "jobs": jobs_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

@@ -5,8 +5,8 @@ and an HGX line of 8 GPUs. HTTP statuses and reply bodies must match key
 for key, apart from the logged differences (the grant's attachment in a
 stored spec, the GPU view's ``uuid``, the random ids). The routes of the
 families the port lacks answer 501 with code 10002, naming the missing
-service and ROADMAP Queue 1 item 10; the reconcile routes answer as
-JAX's."""
+service and ROADMAP Queue 1 item 10; the reconcile, job, slice and host
+routes answer as JAX's."""
 
 import http.client
 import json
@@ -177,16 +177,11 @@ def test_api_gpu_view_carries_the_uuids(tmp_path):
 
 
 NOT_PORTED = [
-    ("POST", "/jobs", "jobs"), ("GET", "/jobs", "jobs"),
-    ("GET", "/jobs/j", "jobs"), ("PATCH", "/jobs/j/tpu", "jobs"),
-    ("DELETE", "/jobs/j", "jobs"), ("GET", "/health/jobs", "job supervisor"),
     ("GET", "/admission", "admission"), ("POST", "/services", "services"),
     ("GET", "/services/s", "services"), ("POST", "/services/s/load",
                                           "services"),
     ("POST", "/workflows", "workflows"), ("GET", "/workflows", "workflows"),
-    ("GET", "/resources/slices", "pod slices"),
-    ("POST", "/hosts/h/cordon", "hosts"), ("POST", "/hosts/h/drain", "hosts"),
-    ("GET", "/health/hosts", "hosts"), ("GET", "/gateway", "gateway"),
+    ("GET", "/gateway", "gateway"),
     ("GET", "/leader", "leader election"), ("GET", "/shards", "shards"),
     ("POST", "/compact", "history compaction"),
 ]
@@ -208,11 +203,102 @@ def test_unported_routes_are_refused_by_name(tmp_path):
         w.wq.close()
 
 
+#: the routes of item 10 part iv, which answered 501 before the pod, the
+#: job service, the supervisor and the host monitor were ported: each
+#: group is one script sent to both packages' daemons over HTTP
+POD_SCRIPTS = {
+    "jobs": [
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "j",
+                           "chipCount": 16, "binds": ["/n:/n"]}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "j",
+                           "chipCount": 8}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "bad-1",
+                           "chipCount": 8}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "k",
+                           "chipCount": 12}),
+        ("GET", "/jobs", None), ("GET", "/jobs?limit=1", None),
+        ("GET", "/jobs/j", None), ("GET", "/jobs/j-3", None),
+        ("PATCH", "/jobs/j/tpu", {"chipCount": 8}),
+        ("PATCH", "/jobs/j/tpu", {"chipCount": 8}),
+        ("GET", "/jobs/j", None), ("POST", "/jobs/j/stop", {}),
+        ("PATCH", "/jobs/j/restart", {}),
+        ("DELETE", "/jobs/j", {"force": True,
+                               "delStateAndVersionRecord": True}),
+        ("GET", "/jobs/j", None),
+    ],
+    "health": [
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "j",
+                           "chipCount": 8}),
+        ("GET", "/health/jobs", None), ("GET", "/health/hosts", None),
+    ],
+    "slices": [
+        ("GET", "/resources/slices", None),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "j",
+                           "chipCount": 4}),
+        ("GET", "/resources/slices", None),
+    ],
+    "hosts": [
+        ("POST", "/hosts/h1/cordon", {}), ("POST", "/hosts/h9/cordon", {}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "j",
+                           "chipCount": 16}),
+        ("GET", "/resources/slices", None),
+        ("POST", "/hosts/h1/uncordon", {}), ("POST", "/hosts/h1/drain", {}),
+        ("GET", "/resources/slices", None),
+    ],
+}
+
+
+def _pod_daemon(pkg):
+    import torch_control as tc
+
+    cfg = pkg.config.Config(
+        port=0, store_backend="memory", runtime_backend="fake",
+        accelerator_type="h100-8", health_watch_interval=0,
+        reconcile_on_start=False, job_supervise_interval=3600,
+        host_probe_interval_s=3600, pod_hosts=[
+            {"host_id": "h0", "address": "10.0.0.1",
+             "grid_coord": [0, 0, 0], "local": True},
+            {"host_id": "h1", "address": "10.0.0.2",
+             "grid_coord": [1, 0, 0], "runtime_backend": "fake"}])
+    prg = pkg.daemon.Program(cfg, host="127.0.0.1", kv=pkg.kv.MemoryKV(),
+                             runtime=pkg.fake.FakeRuntime())
+    prg._discover_topology = lambda: tc.topology(pkg)
+    prg.init()
+    prg.start()
+    return prg
+
+
+@pytest.mark.parametrize("group", sorted(POD_SCRIPTS))
+def test_job_slice_and_host_routes_answer_as_jax(group):
+    import torch_control as tc
+
+    got = []
+    with tc.jax_knows_h100():
+        for pkg in tc.PKGS:
+            prg = _pod_daemon(pkg)
+            try:
+                got.append([[m, path, *call(prg.api_server.port, m, B + path,
+                                            body)]
+                            for m, path, body in POD_SCRIPTS[group]])
+                status, health = call(prg.api_server.port, "GET",
+                                      "/healthz")
+                # fake engines keep no connection pool: no enginePools
+                assert "enginePools" not in health["data"]
+            finally:
+                prg.stop()
+    jax, port = (_strip_clock(g) for g in got)
+    for j, p in zip(jax, port):
+        assert p == j, p[:2]
+    assert all(status != 501 for _, _, status, _ in port)
+    assert port[0][3]["code"] == 200
+
+
 def _strip_clock(obj):
     """Drop what differs run to run: timestamps, trace ids, durations."""
     if isinstance(obj, dict):
         return {k: _strip_clock(v) for k, v in obj.items()
-                if k not in ("ts", "traceId", "spanId", "durationMs")}
+                if k not in ("ts", "traceId", "spanId", "durationMs",
+                             "sinceS", "requestId")}
     if isinstance(obj, list):
         return [_strip_clock(v) for v in obj]
     return obj

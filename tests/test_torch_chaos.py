@@ -94,11 +94,13 @@ def test_case_matrix_covers_every_crash_point():
     assert set(TXN_POINTS) == set(c.TXN_CRASH_POINTS)
     assert set(c.FANOUT_CRASH_POINTS) == {"fanout.mid_batch"}
     assert set(c.RECONCILE_CRASH_POINTS) == {RECONCILE_DIRTY_POINT}
+    # the job and resize labels are test_torch_job_chaos.py's matrix
     assert (set(p for _, p in CASES) | set(QUEUE_POINTS) | set(TXN_POINTS)
             | {"fanout.mid_batch", RECONCILE_DIRTY_POINT}
+            | set(c.JOB_CRASH_POINTS) | set(c.RESIZE_CRASH_POINTS)
             == set(c.KNOWN_CRASH_POINTS))
     # every label the port knows is one JAX knows, under the same group
-    for group in ("CONTAINER", "QUEUE", "TXN", "FANOUT", "RECONCILE"):
+    for group in ("CONTAINER", "JOB", "QUEUE", "TXN", "FANOUT", "RECONCILE"):
         name = f"{group}_CRASH_POINTS"
         assert getattr(c, name) == getattr(tc.JAX.crash, name)
 
@@ -332,5 +334,5 @@ def test_crashed_flow_without_reconcile_violates_invariants(tmp_path):
 def test_unknown_crash_label_is_refused():
     """A label of a service the port lacks is not armed silently."""
     with pytest.raises(ValueError, match="unknown crash points"):
-        with tc.PORT.crash.armed("job.run.after_create"):
+        with tc.PORT.crash.armed("admission.enqueue"):
             pass

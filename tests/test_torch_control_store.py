@@ -11,9 +11,11 @@ import types
 import numpy as np
 import pytest
 
+from tpu_docker_api import errors as jerrors
 from tpu_docker_api.scheduler import ports as jports
 from tpu_docker_api.scheduler import slices as jslices
 from tpu_docker_api.scheduler import topology as jtopo
+from tpu_docker_api.schemas import job as jjob
 from tpu_docker_api.schemas import state as jstate
 from tpu_docker_api.service import crashpoints as jcrash
 from tpu_docker_api.state import keys as jkeys
@@ -22,9 +24,11 @@ from tpu_docker_api.state import pager as jpager
 from tpu_docker_api.state import store as jstore
 from tpu_docker_api.state import txn as jtxn
 from tpu_docker_api.state import version as jversion
+from tpu_docker_api_torch import errors as terrors
 from tpu_docker_api_torch.scheduler import ports as tports
 from tpu_docker_api_torch.scheduler import slices as tslices
 from tpu_docker_api_torch.scheduler import topology as ttopo
+from tpu_docker_api_torch.schemas import job as tjob
 from tpu_docker_api_torch.schemas import state as tstate
 from tpu_docker_api_torch.service import crashpoints as tcrash
 from tpu_docker_api_torch.state import keys as tkeys
@@ -36,10 +40,12 @@ from tpu_docker_api_torch.state import version as tversion
 
 JAX = types.SimpleNamespace(
     kv=jkv, keys=jkeys, txn=jtxn, version=jversion, store=jstore,
-    pager=jpager, state=jstate, crash=jcrash, slices=jslices, ports=jports)
+    pager=jpager, state=jstate, crash=jcrash, slices=jslices, ports=jports,
+    job=jjob, errors=jerrors)
 PORT = types.SimpleNamespace(
     kv=tkv, keys=tkeys, txn=ttxn, version=tversion, store=tstore,
-    pager=tpager, state=tstate, crash=tcrash, slices=tslices, ports=tports)
+    pager=tpager, state=tstate, crash=tcrash, slices=tslices, ports=tports,
+    job=tjob, errors=terrors)
 H100 = ttopo.GENERATIONS["h100"]
 
 
@@ -237,10 +243,37 @@ def test_state_store_scripts_match_jax(backend, seed, tmp_path):
     ("get_service", ("s",)), ("put_workflow", (None,)),
     ("get_workflow", ("w",))])
 def test_store_refuses_unported_families_by_name(method, args):
+    """The service and workflow records refuse by name; the job record is
+    ported and round-trips as JAX's does, key for key (``pointer=False``
+    rewrites a retired version without moving the family's pointer, and a
+    missing version is JAX's NotExistInStore)."""
+    if method.endswith("_job"):
+        got = [_job_round_trip(pkg, method) for pkg in (JAX, PORT)]
+        assert got[1] == got[0]
+        assert got[1][1]["version"] == 2
+        return
     st = tstore.StateStore(tkv.MemoryKV())
     with pytest.raises(NotImplementedError,
                        match=f"{method}.*ROADMAP Queue 1 item 10"):
         getattr(st, method)(*args)
+
+
+def _job_round_trip(pkg, method):
+    kv = pkg.kv.MemoryKV()
+    st = pkg.store.StateStore(kv)
+    rec = pkg.job.JobState(
+        job_name="j-2", version=2, image="i", cmd=["python"], env=["A=1"],
+        binds=["/n:/n"], chip_count=16, coordinator_port=40001,
+        placements=[["h0", "j-2-p0", 0, [0, 1], 40000]], phase="restarting",
+        restarts=1, elastic=True, min_members=1, members_desired=2,
+        last_resize={"direction": "down"})
+    st.put_job(rec)
+    st.put_job(pkg.job.JobState.from_dict(
+        {**rec.to_dict(), "version": 1, "job_name": "j-1"}), pointer=False)
+    with pytest.raises(pkg.errors.NotExistInStore):
+        st.get_job("j-9")
+    return (method, st.get_job("j").to_dict(), st.get_job("j-1").version,
+            st.get_job("j-2") == rec, kv.range_prefix("/"))
 
 
 # -- pager ---------------------------------------------------------------------
@@ -308,7 +341,7 @@ def _run_crashes(pkg, kv):
                 out.append(kv.range_prefix("/k/"))
     kv.apply([("put", "/k/free", "1")])  # disarmed again
     out.append(kv.range_prefix("/k/"))
-    out.append(_outcome(lambda: crash.armed("job.run.after_create")
+    out.append(_outcome(lambda: crash.armed("admission.enqueue")
                         .__enter__()))
     return out
 
@@ -322,15 +355,18 @@ def test_kv_apply_fires_crash_points_where_jax_does(backend, tmp_path):
     assert got[:-1] == want[:-1]
     assert got[0] == "txn.before_apply" and got[1] == {}
     assert got[4] == "txn.after_apply" and len(got[5]) == 2
-    # the job labels come with the job service: the port refuses them
+    # the admission labels come with the capacity market: the port refuses
+    # them
     assert want[-1] is None and got[-1] == "ValueError"
 
 
 def test_port_knows_the_slice_crash_points_jax_fires():
     assert tcrash.KNOWN_CRASH_POINTS == (
-        jcrash.CONTAINER_CRASH_POINTS + jcrash.QUEUE_CRASH_POINTS
-        + jcrash.TXN_CRASH_POINTS + jcrash.FANOUT_CRASH_POINTS
-        + jcrash.RECONCILE_CRASH_POINTS)
+        jcrash.CONTAINER_CRASH_POINTS + jcrash.JOB_CRASH_POINTS
+        + jcrash.QUEUE_CRASH_POINTS + jcrash.TXN_CRASH_POINTS
+        + tuple(p for p in jcrash.RESIZE_CRASH_POINTS
+                if not p.startswith("admission."))
+        + jcrash.FANOUT_CRASH_POINTS + jcrash.RECONCILE_CRASH_POINTS)
     assert issubclass(tcrash.SimulatedCrash, BaseException)
     assert not issubclass(tcrash.SimulatedCrash, Exception)
 

@@ -39,8 +39,6 @@ B = "/api/v1"
 #: the port's defaults that differ from JAX's: features the port lacks
 #: are off, and the synthesized host is an H100 one
 PORT_DEFAULTS = {
-    "job_supervise_interval": (5.0, 0.0),
-    "host_probe_interval_s": (5.0, 0.0),
     "autoscale_interval_s": (2.0, 0.0),
     "workflow_interval_s": (2.0, 0.0),
     "accelerator_type": ("v5e-8", "h100-8"),
@@ -135,9 +133,42 @@ def test_config_validation_errors_as_jax(line, tmp_path):
 ])
 def test_unported_features_are_refused_by_name(lines, key, tmp_path):
     path = _toml(tmp_path, lines)
-    jconfig.load(path)  # JAX takes every one
+    j = jconfig.load(path)  # JAX takes every one
+    if key in PORTED_POD_KEYS:
+        # pods, the job supervisor and the host monitor are ported: the
+        # port loads the same TOML to the same values, and boots on it
+        t = tconfig.load(path)
+        assert getattr(t, key) == getattr(j, key)
+        diff = {k: (v, getattr(t, k))
+                for k, v in dataclasses.asdict(j).items()
+                if v != getattr(t, k)}
+        assert diff == PORT_DEFAULTS
+        prg = Program(t, kv=None, runtime=FakeRuntime(),
+                      pod_runtimes={"h0": FakeRuntime()})
+        prg._discover_topology = lambda: _h100_topology()
+        prg.init()
+        try:
+            assert sorted(prg.pod.hosts) == (["h0"] if key == "pod_hosts"
+                                             else ["local"])
+            assert (prg.host_monitor is not None) == (
+                t.host_probe_interval_s > 0)
+        finally:
+            prg.stop()
+        return
     with pytest.raises(ValueError, match=f"{key}.*ROADMAP Queue 1 item 10"):
         tconfig.load(path)
+
+
+#: the keys of item 10 part iv, refused before the pod and its services
+#: were ported
+PORTED_POD_KEYS = ("pod_hosts", "job_supervise_interval",
+                   "host_probe_interval_s")
+
+
+def _h100_topology():
+    from tpu_docker_api_torch.scheduler.topology import HostTopology
+
+    return HostTopology.build("h100-8")
 
 
 @pytest.fixture(scope="module")

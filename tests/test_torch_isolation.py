@@ -93,6 +93,10 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.service.reconcile",
                    "tpu_docker_api_torch.service.store_health",
                    "tpu_docker_api_torch.service.invariants",
+                   "tpu_docker_api_torch.service.job",
+                   "tpu_docker_api_torch.service.job_supervisor",
+                   "tpu_docker_api_torch.service.host_health",
+                   "tpu_docker_api_torch.scheduler.pod",
                    "tpu_docker_api_torch.schemas.job",
                    "tpu_docker_api_torch.schemas.state",
                    "tpu_docker_api_torch.schemas.container",

@@ -276,8 +276,8 @@ def test_lora_specs_match_jax():
 def test_render_distributed_env_as_jax():
     """workload/torchenv.py renders, for each process of a job, the
     torch.distributed counterparts of JAX's variables: the coordinator
-    is process 0's host wherever it sits in the list, one process a
-    GPU."""
+    is process 0's host wherever it sits in the list; a one-GPU member
+    is one rank, a k-GPU member a node of k ranks."""
     from tpu_docker_api.workload import jaxenv
     from tpu_docker_api_torch.workload import torchenv
 
@@ -300,11 +300,28 @@ def test_render_distributed_env_as_jax():
         assert tenv["WORLD_SIZE"] == jenv["JAX_NUM_PROCESSES"]
         assert tenv["RANK"] == jenv["JAX_PROCESS_ID"]
         assert tenv["LOCAL_RANK"] == "0"
-    two = torchenv.ProcessPlacement(process_id=0, host="h",
-                                    gpu_uuids=["GPU-a", "GPU-b"])
-    with pytest.raises(ValueError, match="one process a GPU"):
+    # a member holding k > 1 GPUs runs k ranks (workload/torchenv.py
+    # launch_workers): its node rank and k, the job's GPUs as the world,
+    # and no RANK
+    two = [torchenv.ProcessPlacement(process_id=i, host=h,
+                                     gpu_uuids=[f"GPU-{i}a", f"GPU-{i}b"])
+           for i, h in zip((1, 0), hosts)]
+    job = torchenv.DistributedJob("k", two, 8470)
+    for jp, tp in zip(jjob.placements, two):
+        jenv = dict(e.split("=", 1) for e in jaxenv.render_distributed_env(
+            jjob, jp))
+        tenv = dict(e.split("=", 1) for e in torchenv.render_distributed_env(
+            job, tp))
+        assert (f"{tenv['MASTER_ADDR']}:{tenv['MASTER_PORT']}"
+                == jenv["JAX_COORDINATOR_ADDRESS"])
+        assert tenv["NODE_RANK"] == jenv["JAX_PROCESS_ID"]
+        assert (tenv["WORLD_SIZE"], tenv["LOCAL_WORLD_SIZE"]) == ("4", "2")
+        assert "RANK" not in tenv
+    mixed = [two[0], torchenv.ProcessPlacement(process_id=0, host="h",
+                                               gpu_uuids=["GPU-c"])]
+    with pytest.raises(ValueError, match="every member must hold as many"):
         torchenv.render_distributed_env(
-            torchenv.DistributedJob("k", [two], 1), two)
+            torchenv.DistributedJob("m", mixed, 1), mixed[0])
 
 
 @pytest.mark.parametrize("forward", ["merged", "attached"])

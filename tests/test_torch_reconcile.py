@@ -526,18 +526,45 @@ def test_watch_lost_relist_marks_everything_dirty_once(tmp_path):
 
 
 def test_reconciler_refuses_the_unported_collaborators():
-    """The job, admission, serving and workflow repairs and the sharded
-    plane's filter come with their services: handing one in raises."""
+    """The admission, serving and workflow repairs and the sharded plane's
+    filter come with their services: handing one in raises."""
     import types
 
     from tpu_docker_api_torch.service.reconcile import Reconciler
 
-    for arg in ("job_svc", "admission", "serving", "workflow", "owns",
-                "owned_shards"):
+    for arg in ("admission", "serving", "workflow", "owns", "owned_shards"):
         with pytest.raises(NotImplementedError,
                            match=f"{arg}.*ROADMAP Queue 1 item 10"):
             Reconciler(None, None, None, None, None,
                        **{arg: types.SimpleNamespace()})
+
+
+def test_reconciler_takes_the_job_service():
+    """The job repair is ported: the reconciler takes ``job_svc`` and
+    ``job_versions`` and, handed a half-created job version, scrubs it as
+    JAX's does (the daemon wires it; here by hand, over one host's pod)."""
+    got = []
+    with tc.jax_knows_h100():
+        for pkg in tc.PKGS:
+            kv, rt = pkg.kv.MemoryKV(), pkg.fake.FakeRuntime()
+            prg = tc.boot(pkg, kv, rt)
+            with pkg.crash.armed("job.run.after_create"):
+                with pytest.raises(pkg.crash.SimulatedCrash):
+                    prg.job_svc.run_job(pkg.js.JobRun(
+                        image_name="jax", job_name="train", chip_count=4))
+            prg2 = tc.boot(pkg, kv, rt)
+            rec = pkg.rec.Reconciler(
+                rt, prg2.store, prg2.chip_scheduler, prg2.port_scheduler,
+                prg2.container_versions, job_svc=prg2.job_svc,
+                job_versions=prg2.job_versions)
+            report = rec.reconcile()
+            got.append(([(a["action"], a["target"])
+                         for a in report["actions"]], tc.job_world(prg2),
+                        tc.job_invariants(pkg, prg2)))
+    assert got[1] == got[0]
+    actions, world, problems = got[1]
+    assert ("scrub-half-created-job", "train-0") in actions
+    assert world["versions"] == {} and problems == []
 
 
 def test_job_phases_are_jax_s():

@@ -1,9 +1,13 @@
 """Shared harness of the control-plane tests that hold the port against the
 JAX package (test_torch_reconcile, _chaos, _fanout, _informer, _faulty,
-_etcd_kv, _store_health): each package's modules under one namespace, so a
-test runs one script through ``JAX`` and ``PORT`` and compares what each
-left behind. Both packages get the same host: an HGX line of 8 GPUs."""
+_etcd_kv, _store_health, _pod, _job_supervisor, _host_health, _job_chaos,
+_job_e2e): each package's modules under one namespace, so a test runs one
+script through ``JAX`` and ``PORT`` and compares what each left behind.
+Both packages get the same host: an HGX line of 8 GPUs. JAX's topology
+knows no GPU part, so the job tests teach it ``h100`` for their duration
+(``jax_knows_h100``): a JAX pod then has the port's hosts, GPU for GPU."""
 
+import contextlib
 import re
 import types
 
@@ -14,21 +18,28 @@ from tpu_docker_api.runtime import fake as jfake
 from tpu_docker_api.runtime import fanout as jfanout
 from tpu_docker_api.runtime import faulty as jfaulty
 from tpu_docker_api.runtime import spec as jspec
+from tpu_docker_api.scheduler import pod as jpod
 from tpu_docker_api.scheduler import ports as jports
 from tpu_docker_api.scheduler import slices as jslices
 from tpu_docker_api.scheduler import topology as jtopo
 from tpu_docker_api.schemas import container as jcontainer
+from tpu_docker_api.schemas import job as jjobschema
 from tpu_docker_api.schemas import volume as jvolume
 from tpu_docker_api.service import container as jcsvc
 from tpu_docker_api.service import crashpoints as jcrash
+from tpu_docker_api.service import host_health as jhosthealth
 from tpu_docker_api.service import invariants as jinv
+from tpu_docker_api.service import job as jjob
+from tpu_docker_api.service import job_supervisor as jsup
 from tpu_docker_api.service import reconcile as jrec
 from tpu_docker_api.service import store_health as jhealth
+from tpu_docker_api.service import watch as jwatch
 from tpu_docker_api.state import faulty as jfaultykv
 from tpu_docker_api.state import informer as jinformer
 from tpu_docker_api.state import keys as jkeys
 from tpu_docker_api.state import kv as jkv
 from tpu_docker_api.state import store as jstore
+from tpu_docker_api.state import txn as jtxn
 from tpu_docker_api.state import version as jversion
 from tpu_docker_api.state import workqueue as jwq
 from tpu_docker_api.telemetry import metrics as jmetrics
@@ -39,21 +50,28 @@ from tpu_docker_api_torch.runtime import fake as tfake
 from tpu_docker_api_torch.runtime import fanout as tfanout
 from tpu_docker_api_torch.runtime import faulty as tfaulty
 from tpu_docker_api_torch.runtime import spec as tspec
+from tpu_docker_api_torch.scheduler import pod as tpod
 from tpu_docker_api_torch.scheduler import ports as tports
 from tpu_docker_api_torch.scheduler import slices as tslices
 from tpu_docker_api_torch.scheduler import topology as ttopo
 from tpu_docker_api_torch.schemas import container as tcontainer
+from tpu_docker_api_torch.schemas import job as tjobschema
 from tpu_docker_api_torch.schemas import volume as tvolume
 from tpu_docker_api_torch.service import container as tcsvc
 from tpu_docker_api_torch.service import crashpoints as tcrash
+from tpu_docker_api_torch.service import host_health as thosthealth
 from tpu_docker_api_torch.service import invariants as tinv
+from tpu_docker_api_torch.service import job as tjob
+from tpu_docker_api_torch.service import job_supervisor as tsup
 from tpu_docker_api_torch.service import reconcile as trec
 from tpu_docker_api_torch.service import store_health as thealth
+from tpu_docker_api_torch.service import watch as twatch
 from tpu_docker_api_torch.state import faulty as tfaultykv
 from tpu_docker_api_torch.state import informer as tinformer
 from tpu_docker_api_torch.state import keys as tkeys
 from tpu_docker_api_torch.state import kv as tkv
 from tpu_docker_api_torch.state import store as tstore
+from tpu_docker_api_torch.state import txn as ttxn
 from tpu_docker_api_torch.state import version as tversion
 from tpu_docker_api_torch.state import workqueue as twq
 from tpu_docker_api_torch.telemetry import metrics as tmetrics
@@ -64,27 +82,42 @@ JAX = types.SimpleNamespace(
     slices=jslices, c=jcontainer, v=jvolume, csvc=jcsvc, crash=jcrash,
     inv=jinv, rec=jrec, health=jhealth, faultykv=jfaultykv,
     informer=jinformer, keys=jkeys, kv=jkv, store=jstore, version=jversion,
-    wq=jwq, metrics=jmetrics)
+    wq=jwq, metrics=jmetrics, topo=jtopo, pod=jpod, js=jjobschema,
+    job=jjob, sup=jsup, hh=jhosthealth, watch=jwatch, txn=jtxn)
 PORT = types.SimpleNamespace(
     name="port", config=tconfig, daemon=tdaemon, errors=terrors, fake=tfake,
     fanout=tfanout, faulty=tfaulty, spec=tspec, ports=tports,
     slices=tslices, c=tcontainer, v=tvolume, csvc=tcsvc, crash=tcrash,
     inv=tinv, rec=trec, health=thealth, faultykv=tfaultykv,
     informer=tinformer, keys=tkeys, kv=tkv, store=tstore, version=tversion,
-    wq=twq, metrics=tmetrics)
+    wq=twq, metrics=tmetrics, topo=ttopo, pod=tpod, js=tjobschema,
+    job=tjob, sup=tsup, hh=thosthealth, watch=twatch, txn=ttxn)
 PKGS = (JAX, PORT)
 H100 = ttopo.GENERATIONS["h100"]
+#: the H100 as JAX's topology module spells a generation
+JAX_H100 = jtopo.Generation(H100.name, H100.cores_per_chip, H100.host_mesh,
+                            H100.hbm_bytes_per_chip, H100.peak_bf16_flops,
+                            H100.torus_dims)
 
 
-def topology(pkg):
-    """An HGX line of 8 H100s in either package's topology type."""
-    top = ttopo.HostTopology.build("h100-8")
+@contextlib.contextmanager
+def jax_knows_h100():
+    """JAX's ``parse_accelerator_type`` and ``HostTopology.build`` take
+    ``"h100-N"`` inside the block (its GENERATIONS table is restored
+    after)."""
+    jtopo.GENERATIONS["h100"] = JAX_H100
+    try:
+        yield
+    finally:
+        jtopo.GENERATIONS.pop("h100", None)
+
+
+def topology(pkg, acc: str = "h100-8"):
+    """An HGX line of H100s in either package's topology type."""
+    top = ttopo.HostTopology.build(acc)
     if pkg is PORT:
         return top
-    gen = jtopo.Generation(H100.name, H100.cores_per_chip, H100.host_mesh,
-                           H100.hbm_bytes_per_chip, H100.peak_bf16_flops,
-                           H100.torus_dims)
-    return jtopo.HostTopology(gen, top.mesh_shape, dict(top.coords))
+    return jtopo.HostTopology(JAX_H100, top.mesh_shape, dict(top.coords))
 
 
 def boot(pkg, kv, runtime, **cfg):
@@ -143,3 +176,67 @@ def scrub(obj):
 def shape(report) -> dict:
     """A reconcile report without its clock and random ids."""
     return scrub({k: v for k, v in report.items() if k != "durationMs"})
+
+
+def outcome(fn, *args, **kwargs):
+    """``("ok", value)`` or ``("raise", error class name)``: a call's
+    result in a form two packages' calls compare by."""
+    try:
+        return ("ok", fn(*args, **kwargs))
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        return ("raise", type(e).__name__)
+
+
+def pod_world(pod, sched, versions=None) -> dict:
+    """What a pod holds, host by host: the containers and their states,
+    the GPU and port owners, the slice registry, cordons and down hosts,
+    and the job versions — comparable across packages."""
+    hosts = {}
+    for hid in sorted(pod.hosts):
+        h = pod.hosts[hid]
+        rt = {}
+        try:
+            names = sorted(h.runtime.container_list())
+        except Exception as e:  # noqa: BLE001 — an unreachable engine
+            names, rt = [], {"<unreachable>": type(e).__name__}
+        for name in names:
+            info = h.runtime.container_inspect(name)
+            rt[name] = (info.running, info.status)
+        hosts[hid] = {
+            "runtime": rt,
+            "gpus": [(c["chipId"], c["owner"])
+                     for c in h.chips.status()["chips"] if c["used"]],
+            "ports": dict(sorted(h.ports.status()["owners"].items())),
+        }
+    st = sched.status()
+    out = {"hosts": hosts, "slices": st["slices"],
+           "cordoned": st["cordonedHosts"], "down": st["downHosts"]}
+    if versions is not None:
+        out["versions"] = dict(sorted(versions.snapshot().items()))
+    return out
+
+
+def job_world(prg) -> dict:
+    return pod_world(prg.pod, prg.pod_scheduler, prg.job_versions)
+
+
+def job_invariants(pkg, prg) -> list:
+    return pkg.inv.check_job_invariants(prg.pod, prg.pod_scheduler,
+                                        prg.store, prg.job_versions)
+
+
+def dist_env(env: list[str]) -> dict:
+    """A member's distributed bootstrap in one vocabulary for both
+    packages: the rendezvous, this member's index, the members of the job
+    and the GPUs this member holds."""
+    e = dict(x.split("=", 1) for x in env)
+    if "JAX_COORDINATOR_ADDRESS" in e:
+        return {"master": e["JAX_COORDINATOR_ADDRESS"],
+                "member": int(e["JAX_PROCESS_ID"]),
+                "members": int(e["JAX_NUM_PROCESSES"]),
+                "gpus": len(e.get("TPU_VISIBLE_CHIPS", "").split(","))}
+    k = int(e.get("LOCAL_WORLD_SIZE", "1"))
+    return {"master": f"{e['MASTER_ADDR']}:{e['MASTER_PORT']}",
+            "member": int(e.get("NODE_RANK", e.get("RANK", "0"))),
+            "members": int(e["WORLD_SIZE"]) // k,
+            "gpus": k}

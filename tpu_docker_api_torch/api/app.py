@@ -7,14 +7,13 @@ follows the reference: base names must not contain ``-`` on create
 ``name-version`` (optimistic check). Validation raises, so the reference's
 fall-through validation bugs cannot happen here.
 
-The port's copy of ``tpu_docker_api/api/app.py`` for the single-host
-container path: the container, volume, resource, queue, dead-letter,
-reconcile, event, trace and health routes, with JAX's bodies and codes,
-and the store-outage gate (503 + ``Retry-After``, the stale-read envelope).
-The routes of families whose services the port lacks (jobs, services,
-workflows, hosts and slices, gateway, leader, shards, admission,
-compaction) answer with :class:`NotPorted` naming the missing service and
-ROADMAP Queue 1 item 10, not a bare "no route".
+The port's copy of ``tpu_docker_api/api/app.py``: the container, volume,
+job, resource, slice, host, queue, dead-letter, reconcile, event, trace and
+health routes, with JAX's bodies and codes, and the store-outage gate (503
++ ``Retry-After``, the stale-read envelope). The routes of families whose
+services the port lacks (services, workflows, gateway, leader, shards,
+admission, compaction) answer with :class:`NotPorted` naming the missing
+service and ROADMAP Queue 1 item 10, not a bare "no route".
 
 Route table:
 
@@ -37,6 +36,19 @@ Route table:
     PATCH  /api/v1/volumes/{name}/size         resize
     GET    /api/v1/volumes/{name}/history      stored version history
     PATCH  /api/v1/volumes/{name}/rollback     roll to an older version's size
+    POST   /api/v1/jobs                        run a distributed job (gang)
+    GET    /api/v1/jobs                        list families (paged)
+    GET    /api/v1/jobs/{name}                 info (members live)
+    DELETE /api/v1/jobs/{name}                 delete
+    PATCH  /api/v1/jobs/{name}/tpu             rolling rescale (JAX's path)
+    POST   /api/v1/jobs/{name}/stop            gang stop
+    PATCH  /api/v1/jobs/{name}/restart         gang restart
+    GET    /api/v1/resources/slices            pod scheduler view
+    POST   /api/v1/hosts/{name}/cordon         cordon a pod host
+    POST   /api/v1/hosts/{name}/uncordon       uncordon it
+    POST   /api/v1/hosts/{name}/drain          cordon + migrate its gangs
+    GET    /api/v1/health/hosts                host monitor view
+    GET    /api/v1/health/jobs                 job supervisor view
     GET    /api/v1/resources/gpus              GPU scheduler view (alias: /tpus)
     GET    /api/v1/resources/ports             port scheduler view
     GET    /api/v1/queue                       durable work-queue stats
@@ -44,7 +56,7 @@ Route table:
     POST   /api/v1/dead-letters/retry          re-enqueue the dead letters
     GET    /api/v1/reconcile                   drift sweep (?dryRun= ?mode=; POST too)
     GET    /api/v1/reconcile/events            the sweep's repair events
-    GET    /api/v1/events                      health-watcher, trace and store events
+    GET    /api/v1/events                      health-watcher, job, host, trace and store events
     GET    /api/v1/health/containers           health-watcher view
     GET    /api/v1/traces[/{traceId}]          trace summaries / one trace
     GET    /api/v1/debug/threads               per-thread stack dump
@@ -99,14 +111,9 @@ _VERSIONED_RE = re.compile(_NAME_RE.pattern.rstrip("$") + r"(-\d+)?$")
 #: route prefixes of the families this port has no service for yet, and
 #: the JAX service each needs (ROADMAP Queue 1 item 10)
 NOT_PORTED_ROUTES = (
-    ("/api/v1/jobs", "jobs (service/job.py)"),
-    ("/api/v1/health/jobs", "the job supervisor (service/job_supervisor.py)"),
     ("/api/v1/admission", "admission (service/admission.py)"),
     ("/api/v1/services", "services (service/serving.py)"),
     ("/api/v1/workflows", "workflows (service/workflow.py)"),
-    ("/api/v1/resources/slices", "pod slices (scheduler/pod.py)"),
-    ("/api/v1/hosts", "hosts (service/host_health.py)"),
-    ("/api/v1/health/hosts", "hosts (service/host_health.py)"),
     ("/api/v1/gateway", "the gateway (service/gateway.py)"),
     ("/api/v1/leader", "leader election (service/leader.py)"),
     ("/api/v1/shards", "shards (service/shard.py)"),
@@ -179,7 +186,9 @@ class Router:
 def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  chip_scheduler, port_scheduler, work_queue=None,
                  health_watcher=None, metrics=None,
-                 reconciler=None, fanout=None, store_health=None,
+                 job_svc=None, pod_scheduler=None, reconciler=None,
+                 job_supervisor=None, host_monitor=None,
+                 fanout=None, store_health=None,
                  list_default_limit: int = 0,
                  list_max_limit: int = 5000,
                  tracer=None) -> Router:
@@ -370,6 +379,74 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
     r.add("GET", "/api/v1/volumes/{name}/history", v_history)
     r.add("PATCH", "/api/v1/volumes/{name}/rollback", v_rollback)
 
+    # -- distributed jobs (multi-host slices, SURVEY.md hard part #3; no
+    #    reference analog) ----------------------------------------------------
+
+    if job_svc is not None:
+        from tpu_docker_api_torch.schemas.job import (JobDelete,
+                                                      JobPatchChips, JobRun)
+
+        def j_run(body, **_):
+            req = JobRun.from_dict(body)
+            _validate_base_name(req.job_name)
+            return job_svc.run_job(req)
+
+        def j_info(body, name):
+            _validate_ref_name(name)
+            return job_svc.get_job_info(name)
+
+        def j_delete(body, name):
+            _validate_ref_name(name)
+            job_svc.delete_job(name, JobDelete.from_dict(body))
+            return None
+
+        def j_patch_chips(body, name):
+            _validate_ref_name(name)
+            return job_svc.patch_job_chips(name, JobPatchChips.from_dict(body))
+
+        def j_stop(body, name):
+            _validate_ref_name(name)
+            job_svc.stop_job(name)
+            return None
+
+        def j_restart(body, name):
+            _validate_ref_name(name)
+            return job_svc.restart_job(name)
+
+        r.add("POST", "/api/v1/jobs", j_run)
+        r.add("GET", "/api/v1/jobs", _family_list(Resource.JOBS))
+        r.add("GET", "/api/v1/jobs/{name}", j_info)
+        r.add("DELETE", "/api/v1/jobs/{name}", j_delete)
+        r.add("PATCH", "/api/v1/jobs/{name}/tpu", j_patch_chips)
+        r.add("POST", "/api/v1/jobs/{name}/stop", j_stop)
+        r.add("PATCH", "/api/v1/jobs/{name}/restart", j_restart)
+    if pod_scheduler is not None:
+        r.add("GET", "/api/v1/resources/slices",
+              lambda body, **_: pod_scheduler.status())
+
+        # -- host failure domains (docs/robustness.md): cordon/uncordon are
+        #    pure scheduler state (persisted in KV); drain + health need
+        #    the monitor --------------------------------------------------------
+        def h_cordon(body, name):
+            if host_monitor is not None:
+                return host_monitor.cordon(name)
+            return pod_scheduler.cordon_host(name)
+
+        def h_uncordon(body, name):
+            if host_monitor is not None:
+                return host_monitor.uncordon(name)
+            return pod_scheduler.uncordon_host(name)
+
+        r.add("POST", "/api/v1/hosts/{name}/cordon", h_cordon)
+        r.add("POST", "/api/v1/hosts/{name}/uncordon", h_uncordon)
+    if host_monitor is not None:
+        # async drain: cordon now, gang migrations ride the work queue
+        r.add("POST", "/api/v1/hosts/{name}/drain",
+              lambda body, name: host_monitor.drain(name))
+        # per-host probe state + breaker + schedulability
+        r.add("GET", "/api/v1/health/hosts",
+              lambda body, **_: host_monitor.status_view())
+
     # -- resource views (reference api/resource.go:12-29) ------------------------
 
     r.add("GET", "/api/v1/resources/tpus", lambda body, **_: chip_scheduler.status())
@@ -390,6 +467,16 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                 # event-driven reconcile health: pending dirty families +
                 # whether the next pass is forced full (startup/relist)
                 out["reconcileDirty"] = dirty
+        if job_svc is not None:
+            pools = {}
+            for hid, host in sorted(job_svc.pod.hosts.items()):
+                try:
+                    view = host.runtime.pool_view()
+                except AttributeError:
+                    continue  # engine without a connection pool (fake)
+                pools[hid] = view
+            if pools:
+                out["enginePools"] = pools
         if store_health is not None:
             # the store failure domain rides liveness too: mode (healthy/
             # degraded/outage), failure streak and the op/outage counters
@@ -399,11 +486,14 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
 
     r.add("GET", "/healthz", healthz)
 
-    if (health_watcher is not None or tracer is not None
+    if (health_watcher is not None or job_supervisor is not None
+            or host_monitor is not None or tracer is not None
             or store_health is not None):
         # one events ring for the operator: container liveness transitions
-        # (health watcher) merged with slow-trace events and store-mode
-        # transitions, ordered by timestamp (SURVEY.md §5.3)
+        # (health watcher) merged with gang lifecycle events (job
+        # supervisor), host health transitions (host monitor), slow-trace
+        # events and store-mode transitions, ordered by timestamp
+        # (SURVEY.md §5.3)
         def h_events(body, **_):
             try:
                 limit = int(body.get("limit", 100))
@@ -417,7 +507,8 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             trace_id = str(body.get("traceId", "") or "")
             per_ring = 1 << 20 if trace_id else limit
             rings = [src.events_view(limit=per_ring)
-                     for src in (health_watcher, tracer, store_health)
+                     for src in (health_watcher, job_supervisor,
+                                 host_monitor, tracer, store_health)
                      if src is not None]
             merged = heapq.merge(*rings, key=lambda e: e.get("ts", 0))
             if trace_id:
@@ -430,6 +521,10 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
     if health_watcher is not None:
         r.add("GET", "/api/v1/health/containers",
               lambda body, **_: health_watcher.status_view())
+    if job_supervisor is not None:
+        # per-gang phase / restart budget / backoff state
+        r.add("GET", "/api/v1/health/jobs",
+              lambda body, **_: job_supervisor.status_view())
     if work_queue is not None:
         # failed async tasks must be observable (fix for the reference's
         # silent infinite-retry loop, workQueue.go:33-47) — and, since the

@@ -7,14 +7,16 @@ by ``python -m tpu_docker_api_torch -c cfg.toml``. The GPU count is an
 accelerator type (``h100-8``: a generation and a per-host GPU count),
 ``detect_tpu_addr`` (the JAX key's name) is the gpu-detect sidecar's address.
 
-The port has the single-host container path with its reconciler, fan-out,
-store-health machine and etcd store. A key that turns on a feature the
-port lacks fails :func:`load` with a ValueError naming the key and ROADMAP
-Queue 1 item 10 (``_NOT_PORTED``). Where JAX's default turns such a feature
-on, the port's default is off (``job_supervise_interval``,
-``host_probe_interval_s``, ``autoscale_interval_s``,
-``workflow_interval_s``), and ``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
-``fake_runtime_root``.
+The port has the container path with its reconciler, fan-out,
+store-health machine and etcd store, and distributed jobs over a pod of
+hosts (``[[pod_hosts]]``, whose ``accelerator_type`` is the port's
+``<part>-<N>``) with the job supervisor and the host monitor on by JAX's
+defaults. A key that turns on a feature the port lacks fails :func:`load`
+with a ValueError naming the key and ROADMAP Queue 1 item 10 part v
+(``_NOT_PORTED``). Where JAX's default turns such a feature on, the
+port's default is off (``autoscale_interval_s``, ``workflow_interval_s``),
+and ``accelerator_type`` defaults to ``h100-8``. One key is the port's
+own: ``fake_runtime_root``.
 """
 
 from __future__ import annotations
@@ -110,8 +112,7 @@ class Config:
     restart_backoff_max_s: float = 30.0
     # gang supervisor (service/job_supervisor.py): member-liveness poll
     # interval over all pod hosts; 0 disables supervision
-    # (JAX: 5.0; the port has no job supervisor yet)
-    job_supervise_interval: float = 0.0
+    job_supervise_interval: float = 5.0
     # whole-gang restarts before a crash-looping job goes terminal "failed"
     job_max_restarts: int = 3
     # exponential backoff between gang restarts: base·2^n seconds, clamped
@@ -124,8 +125,7 @@ class Config:
     # host-down detection / gang migration, the drain route, and
     # GET /api/v1/health/hosts; cordon/uncordon (pure scheduler state)
     # keep working
-    # (JAX: 5.0; the port has no host monitor yet)
-    host_probe_interval_s: float = 0.0
+    host_probe_interval_s: float = 5.0
     # continuous probe failure longer than this confirms a host "down"
     # (scheduler stops placing, gangs migrate off); anything shorter is a
     # blip and causes ZERO restarts
@@ -568,11 +568,6 @@ _NOT_PORTED = (
     ("shard_count", lambda v: v > 1, "the sharded writer plane "
      "(service/shard.py)"),
     ("leader_election", bool, "leader election (service/leader.py)"),
-    ("pod_hosts", bool, "multi-host pods (scheduler/pod.py)"),
-    ("job_supervise_interval", lambda v: v > 0,
-     "the job supervisor (service/job_supervisor.py)"),
-    ("host_probe_interval_s", lambda v: v > 0,
-     "the host monitor (service/host_health.py)"),
     ("admission_enabled", bool, "admission (service/admission.py)"),
     ("autoscale_interval_s", lambda v: v > 0,
      "the serving service (service/serving.py)"),
@@ -592,7 +587,8 @@ def _refuse_not_ported(cfg: Config) -> None:
         if turns_on(value):
             raise ValueError(
                 f"{key} = {value!r}: {what} is not ported to "
-                "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
+                "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10 "
+                "part v)")
     if cfg.libtpu_path:
         raise ValueError(
             f"libtpu_path = {cfg.libtpu_path!r}: a TPU key with no GPU "

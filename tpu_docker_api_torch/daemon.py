@@ -7,14 +7,15 @@ the work-queue sync loop (main.go:88-115); Stop drains and closes every
 subsystem (main.go:117-130). Scheduler and version state is persisted on
 every mutation, so Stop is not load-bearing for correctness.
 
-The port's copy of ``tpu_docker_api/daemon.py`` for one host: the wiring
-order of ``Program.init/start/stop`` reduced to the modules the port
-has (store and its health machine, fan-out, runtime, work queue, GPU and
-port schedulers, version maps, the container and volume services, the
+The port's copy of ``tpu_docker_api/daemon.py``: the wiring order of
+``Program.init/start/stop`` reduced to the modules the port has (store
+and its health machine, fan-out, runtime, work queue, GPU and port
+schedulers, version maps, the container and volume services, the pod and
+its scheduler, the job service, the host monitor, the job supervisor, the
 health watcher, the reconciler and its dirty feed, the tracer, the API).
-Leader election, shards, the informer read path, pods, jobs, admission,
-serving, workflows, the gateway and the compactor come with the rest of
-the control plane (ROADMAP Queue 1 item 10); ``config.load`` refuses a
+Leader election, shards, the informer read path, admission, serving,
+workflows, the gateway and the compactor come with the rest of the
+control plane (ROADMAP Queue 1 item 10 part v); ``config.load`` refuses a
 config that turns one on.
 
 CLI: ``python -m tpu_docker_api_torch -c cfg.toml``.
@@ -35,10 +36,14 @@ from tpu_docker_api_torch.api.app import ApiServer, build_router
 from tpu_docker_api_torch.buildinfo import build_info
 from tpu_docker_api_torch.runtime import open_runtime
 from tpu_docker_api_torch.runtime.fanout import Fanout
+from tpu_docker_api_torch.scheduler.pod import Pod, PodHost, PodScheduler
 from tpu_docker_api_torch.scheduler.ports import PortScheduler
 from tpu_docker_api_torch.scheduler.slices import ChipScheduler
 from tpu_docker_api_torch.scheduler.topology import HostTopology
 from tpu_docker_api_torch.service.container import ContainerService
+from tpu_docker_api_torch.service.host_health import HostMonitor
+from tpu_docker_api_torch.service.job import JobService
+from tpu_docker_api_torch.service.job_supervisor import JobSupervisor
 from tpu_docker_api_torch.service.reconcile import Reconciler
 from tpu_docker_api_torch.service.store_health import (StoreHealth,
                                                        StoreHealthKV)
@@ -54,14 +59,18 @@ log = logging.getLogger(__name__)
 
 class Program:
     def __init__(self, cfg: config_mod.Config, host: str = "0.0.0.0",
-                 kv=None, runtime=None) -> None:
+                 kv=None, runtime=None, pod_runtimes=None) -> None:
         self.cfg = cfg
         self.host = host
         self.api_server: ApiServer | None = None
         # injection seam for the crash-consistency tests: a "restarted"
-        # Program must boot over the SAME KV + runtime the dead one used
+        # Program must boot over the SAME KV + runtime the dead one used.
+        # ``pod_runtimes`` extends the seam to multi-host pods: host_id →
+        # runtime for non-local [[pod_hosts]] entries, so a "restarted"
+        # daemon sees the same remote engines the dead one drove
         self._injected_kv = kv
         self._injected_runtime = runtime
+        self._injected_pod_runtimes = pod_runtimes or {}
 
     def init(self) -> None:
         cfg = self.cfg
@@ -142,6 +151,67 @@ class Program:
         self.volume_svc = VolumeService(
             self.runtime, self.store, self.volume_versions, self.wq
         )
+        self.pod = self._build_pod(topology)
+        self.pod_scheduler = PodScheduler(self.pod, self.kv)
+        self.job_versions = VersionMap(self.kv, keys.VERSIONS_JOB_KEY)
+        self.job_svc = JobService(
+            self.pod, self.pod_scheduler, self.store, self.job_versions,
+            fanout=self.fanout, registry=self.metrics,
+            # elastic gangs: one gate + one loop bound, consulted by every
+            # resize decision site (supervisor, drain) through the service
+            resize_enabled=cfg.job_resize_enabled,
+            resize_max=cfg.job_resize_max,
+        )
+        # engine-pool saturation gauges: one labeled sample per DISTINCT
+        # engine behind this pod (the local runtime is shared by several
+        # PodHost entries; BreakerRuntime/FaultyRuntime delegate pool_view
+        # to the transport underneath)
+        self.metrics.gauge_series_fn(
+            "engine_pool_in_use",
+            lambda: self._engine_pool_series("inUse"),
+            help="Engine keep-alive connections currently in use, "
+                 "per engine endpoint")
+        self.metrics.gauge_series_fn(
+            "engine_pool_idle",
+            lambda: self._engine_pool_series("idle"),
+            help="Idle engine keep-alive connections retained, "
+                 "per engine endpoint")
+        # host failure domains: engine probing + healthy→suspect→down per
+        # host; built before the supervisor so its down-verdicts gate the
+        # supervisor's migrate-vs-hands-off decision from the first poll
+        self.host_monitor = None
+        if cfg.host_probe_interval_s > 0:
+            self.host_monitor = HostMonitor(
+                self.pod, self.pod_scheduler,
+                interval_s=cfg.host_probe_interval_s,
+                down_grace_s=cfg.host_down_grace_s,
+                job_svc=self.job_svc, job_versions=self.job_versions,
+                work_queue=self.wq,
+                registry=self.metrics,
+                fanout=self.fanout,
+                # late-bound: the supervisor is constructed just below — a
+                # confirmed-down host must wake it immediately, not wait
+                # out the poll interval
+                on_down=lambda hid: self.job_supervisor.wake(hid),
+                store_gate=store_gate,
+            )
+        # gang supervision (whole-gang restart with backoff, crash-loop →
+        # terminal failed; host-down → migration): built in init so the
+        # startup reconcile and the watcher's delegation hook can use it
+        # before start()
+        self.job_supervisor = JobSupervisor(
+            self.pod, self.job_svc, self.store, self.job_versions,
+            interval_s=cfg.job_supervise_interval,
+            max_restarts=cfg.job_max_restarts,
+            max_migrations=cfg.job_max_migrations,
+            backoff_base_s=cfg.job_backoff_base_s,
+            backoff_max_s=cfg.job_backoff_max_s,
+            backoff_jitter=cfg.job_backoff_jitter,
+            registry=self.metrics,
+            host_monitor=self.host_monitor,
+            fanout=self.fanout,
+            store_gate=store_gate,
+        )
         self.health_watcher = None
         if cfg.health_watch_interval > 0:
             from tpu_docker_api_torch.service.watch import HealthWatcher
@@ -151,6 +221,14 @@ class Program:
                 interval_s=cfg.health_watch_interval,
                 restart_policy=cfg.restart_policy,
                 crash_handler=self.container_svc.handle_crash,
+                # gang members are the supervisor's: the container path
+                # declines them (never restart one member in isolation).
+                # Only wired when the supervisor loop actually runs —
+                # delegating to a stopped supervisor would strand crashed
+                # members with no recovery path at all
+                job_crash_handler=(
+                    self.job_supervisor.handle_member_death
+                    if cfg.job_supervise_interval > 0 else None),
                 restart_backoff_s=cfg.restart_backoff_s,
                 restart_backoff_max_s=cfg.restart_backoff_max_s,
                 registry=self.metrics,
@@ -159,6 +237,12 @@ class Program:
             self.runtime, self.store, self.chip_scheduler,
             self.port_scheduler, self.container_versions,
             container_svc=self.container_svc,
+            # job families allocate from the same local chip/port pools,
+            # so their claims are off-limits to the leak sweep
+            shared_version_maps=[self.job_versions],
+            job_svc=self.job_svc, job_versions=self.job_versions,
+            job_max_restarts=cfg.job_max_restarts,
+            job_max_migrations=cfg.job_max_migrations,
             registry=self.metrics,
             # durable-queue adoption: the startup sweep replays the journal
             # a dead daemon left (pending/in-flight records) before judging
@@ -186,6 +270,114 @@ class Program:
                 raw_kv, keys.PREFIX + "/", registry=self.metrics)
             self.reconciler.attach_dirty_feed(self.reconcile_informer)
 
+    def _build_pod(self, local_topology: HostTopology) -> Pod:
+        """Multi-host pod from [[pod_hosts]] config, else a single-host pod
+        wrapping this host's runtime + schedulers (SURVEY.md hard part #3 —
+        the reference is locked to one docker socket). A host that is not
+        this machine has a topology synthesized from its
+        ``accelerator_type``, its GPUs named by NVML index (a real engine
+        takes an index as a ``DeviceIDs`` entry; it would refuse a
+        made-up UUID)."""
+        cfg = self.cfg
+        if not cfg.pod_hosts:
+            return Pod.single_host(PodHost(
+                host_id="local", address="127.0.0.1", grid_coord=(0, 0, 0),
+                topology=local_topology, runtime=self.runtime,
+                chips=self.chip_scheduler, ports=self.port_scheduler,
+            ))
+        hosts = []
+        for entry in cfg.pod_hosts:
+            host_id = entry["host_id"]
+            if entry.get("local", False):
+                # THIS machine: share the container service's runtime and
+                # schedulers so local GPUs have exactly one accounting
+                # (otherwise POST /containers and POST /jobs would both
+                # hand out the same physical GPUs from separate pools)
+                hosts.append(PodHost(
+                    host_id=host_id,
+                    address=entry["address"],
+                    grid_coord=tuple(entry.get("grid_coord", [0, 0, 0])),
+                    topology=local_topology,
+                    runtime=self.runtime,
+                    chips=self.chip_scheduler,
+                    ports=self.port_scheduler,
+                ))
+                continue
+            runtime = self._injected_pod_runtimes.get(host_id) or (
+                open_runtime("docker", docker_host=entry.get(
+                    "docker_host", cfg.docker_host),
+                    pool_size=cfg.engine_pool_size)
+                if entry.get("runtime_backend", cfg.runtime_backend) == "docker"
+                else open_runtime("fake", allow_exec=True)
+            )
+            if cfg.breaker_threshold > 0:
+                # circuit breaker per REMOTE engine: a dead socket must
+                # cost one timeout, not one per caller per poll. The local
+                # host's runtime stays unwrapped — it is shared with the
+                # container service, and a local dockerd outage takes the
+                # daemon with it anyway
+                from tpu_docker_api_torch.service.host_health import (
+                    BreakerRuntime)
+
+                runtime = BreakerRuntime(
+                    runtime, host_id=host_id,
+                    threshold=cfg.breaker_threshold,
+                    # cooldown tied to the probe interval so every monitor
+                    # tick past it doubles as the half-open recovery probe
+                    cooldown_s=cfg.host_probe_interval_s or 5.0,
+                )
+            topo = HostTopology.build(
+                entry.get("accelerator_type", cfg.accelerator_type),
+                index_names=True)
+            hosts.append(PodHost(
+                host_id=host_id,
+                address=entry["address"],
+                grid_coord=tuple(entry.get("grid_coord", [0, 0, 0])),
+                topology=topo,
+                runtime=runtime,
+                chips=ChipScheduler(topo, self.kv, keys.host_chips_key(host_id)),
+                ports=PortScheduler(self.kv, cfg.start_port, cfg.end_port,
+                                    store_key=keys.host_ports_key(host_id)),
+            ))
+        grid = tuple(
+            max(h.grid_coord[d] for h in hosts) + 1 for d in range(3)
+        )
+        gen = hosts[0].topology.generation
+        return Pod(gen, grid, hosts)  # type: ignore[arg-type]
+
+    def _engine_pool_series(self, key: str) -> list[tuple[dict, float]]:
+        """Per-engine connection-pool stat series for /metrics: one
+        ``{endpoint=...}`` sample per DISTINCT engine (dedupe by runtime
+        identity — the local engine backs several PodHost entries once).
+        The endpoint label value is the sorted host-id set the engine
+        serves, so cardinality is bounded by pod size."""
+        by_engine: dict[int, tuple] = {}
+        for host_id in sorted(self.pod.hosts):
+            rt = self.pod.hosts[host_id].runtime
+            by_engine.setdefault(id(rt), (rt, []))[1].append(host_id)
+        out = []
+        for rt, host_ids in by_engine.values():
+            try:
+                v = rt.pool_view().get(key, 0)
+            except AttributeError:
+                continue
+            out.append(({"endpoint": ",".join(host_ids)}, float(v)))
+        return out
+
+    def _reload_caches(self) -> None:
+        """Re-read every stateful mirror (version maps, slice registry +
+        cordons, per-host GPU/port maps — the local host's schedulers are
+        shared with the pod, so the host walk covers them): JAX's
+        leadership-handoff refresh, which leader election (part v of
+        ROADMAP Queue 1 item 10) calls."""
+        for vm in (self.container_versions, self.volume_versions,
+                   self.job_versions):
+            vm.reload_from_store()
+        self.pod_scheduler.reload_from_store()
+        for host in self.pod.hosts.values():
+            host.chips.reload_from_store()
+            host.ports.reload_from_store()
+
     def _discover_topology(self) -> HostTopology:
         """Topology from the gpu-detect sidecar if configured (the
         reference's first-boot detect-gpu fetch, gpuscheduler/
@@ -212,8 +404,9 @@ class Program:
         """StoreHealth outage→healthy hook (fires on the thread whose op
         proved the heal — must stay cheap and non-blocking): mark every
         family dirty. The repair work — journal replay, drift sweep —
-        rides the reconciler's own passes."""
+        rides the reconciler's own passes; the supervisor wakes to re-poll."""
         self.reconciler.mark_all_dirty("store-recovered")
+        self.job_supervisor.wake()
 
     def _start_writers(self) -> None:
         """The writer role: every subsystem that MUTATES shared state —
@@ -238,6 +431,10 @@ class Program:
                               "(rerun via /api/v1/reconcile)")
         if self.cfg.reconcile_interval > 0:
             self.reconciler.start_periodic(self.cfg.reconcile_interval)
+        if self.cfg.job_supervise_interval > 0:
+            self.job_supervisor.start()
+        if self.host_monitor is not None:
+            self.host_monitor.start()
         if self.health_watcher is not None:
             self.health_watcher.start()
 
@@ -245,6 +442,10 @@ class Program:
         """Halt the writer role; every close is guarded and restartable."""
         if getattr(self, "health_watcher", None) is not None:
             self.health_watcher.close()
+        if getattr(self, "host_monitor", None) is not None:
+            self.host_monitor.close()
+        if getattr(self, "job_supervisor", None) is not None:
+            self.job_supervisor.close()
         if getattr(self, "reconciler", None) is not None:
             self.reconciler.close()
         if getattr(self, "wq", None) is not None:
@@ -260,7 +461,9 @@ class Program:
             self.container_svc, self.volume_svc,
             self.chip_scheduler, self.port_scheduler, work_queue=self.wq,
             health_watcher=self.health_watcher, metrics=self.metrics,
-            reconciler=self.reconciler, fanout=self.fanout,
+            job_svc=self.job_svc, pod_scheduler=self.pod_scheduler,
+            reconciler=self.reconciler, job_supervisor=self.job_supervisor,
+            host_monitor=self.host_monitor, fanout=self.fanout,
             store_health=self.store_health,
             list_default_limit=self.cfg.list_default_limit,
             list_max_limit=self.cfg.list_max_limit,
@@ -287,6 +490,10 @@ class Program:
         self._stop_writers()
         if getattr(self, "fanout", None) is not None:
             self.fanout.close()
+        if getattr(self, "pod", None) is not None:
+            for host in self.pod.hosts.values():
+                if host.runtime is not self.runtime:
+                    host.runtime.close()
         if getattr(self, "runtime", None) is not None:
             self.runtime.close()
         if getattr(self, "kv", None) is not None:

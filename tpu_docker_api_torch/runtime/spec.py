@@ -95,11 +95,19 @@ def render_gpu_attachment(
     earlier one rendered. Chip count 0 clears every GPU artifact — the
     "cardless" container (service/container.go RunGpuContainer with
     gpuCount 0). Raises TopologyUnknown when a GPU has no UUID.
+
+    A host whose topology names its GPUs by NVML index
+    (``HostTopology.build(..., index_names=True)``) gets those indices in
+    ``gpu_uuids``, and ``CUDA_VISIBLE_DEVICES`` counts the container's own
+    GPUs, ``0..n-1``: the NVIDIA runtime numbers a container's GPUs so, and
+    a host index would name a GPU the container does not see.
     """
     spec.env = [e for e in spec.env if not e.startswith(_GPU_ENV_PREFIXES)]
     spec.chip_ids = sorted(chip_ids)
     spec.ici_contiguous = ici_contiguous
     spec.gpu_uuids = topology.uuids_for(spec.chip_ids)
     if spec.gpu_uuids:
-        spec.env.append("CUDA_VISIBLE_DEVICES=" + ",".join(spec.gpu_uuids))
+        visible = (spec.gpu_uuids if not spec.gpu_uuids[0].isdigit()
+                   else [str(i) for i in range(len(spec.gpu_uuids))])
+        spec.env.append("CUDA_VISIBLE_DEVICES=" + ",".join(visible))
     return spec

@@ -155,9 +155,12 @@ class HostTopology:
     uuids: dict[int, str] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def build(acc_type: str) -> "HostTopology":
+    def build(acc_type: str, index_names: bool = False) -> "HostTopology":
         """Synthesize a topology from an accelerator-type string (the path
-        used when no telemetry sidecar is configured), with fake UUIDs."""
+        used when no telemetry sidecar is configured), with fake UUIDs —
+        or, with ``index_names``, each GPU named by its NVML index
+        (``"0"``..), which a real engine takes as a ``DeviceIDs`` entry:
+        the naming of a ``[[pod_hosts]]`` host the daemon cannot probe."""
         gen, n_chips = parse_accelerator_type(acc_type)
         shape = default_mesh_shape(gen, n_chips)
         coords: dict[int, tuple[int, int, int]] = {}
@@ -169,8 +172,9 @@ class HostTopology:
                         break
                     coords[cid] = (x, y, z)
                     cid += 1
+        name = str if index_names else fake_uuid
         return HostTopology(generation=gen, mesh_shape=shape, coords=coords,
-                            uuids={c: fake_uuid(c) for c in coords})
+                            uuids={c: name(c) for c in coords})
 
     @staticmethod
     def from_chips(gen: Generation, chips: dict[int, tuple[int, int, int]],

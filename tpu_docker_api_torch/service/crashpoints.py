@@ -11,11 +11,11 @@ in-process compensation never gets a chance. The test then boots a fresh
 (service/reconcile.py) repairs the drift.
 
 The port's copy of ``tpu_docker_api/service/crashpoints.py`` with the
-labels its modules fire: the container service, the work queue, the
-``KV.apply`` boundary, the runtime fan-out and the reconciler's dirty
-pass. The job, leader, shard, admission, resize, service, gateway,
-compactor and workflow labels come with those services (ROADMAP Queue 1
-item 10); arming one raises ValueError.
+labels its modules fire: the container service, the job service and its
+supervisor, the elastic resize, the work queue, the ``KV.apply`` boundary,
+the runtime fan-out and the reconciler's dirty pass. The leader, shard,
+admission, service, gateway, compactor and workflow labels come with those
+services (ROADMAP Queue 1 item 10 part v); arming one raises ValueError.
 """
 
 from __future__ import annotations
@@ -36,6 +36,36 @@ CONTAINER_CRASH_POINTS = (
     "patch.after_alloc",
     # patch_container_chips: replacement rolled, shrink chips not yet released
     "patch.after_replace",
+)
+
+#: gang-level crash points (service/job.py + service/job_supervisor.py)
+JOB_CRASH_POINTS = (
+    # _run_version: job version pointer bumped, no slices/containers yet
+    "job.run.after_version_bump",
+    # _run_version: slices claimed + all member containers created (and, on
+    # the run path, started), JobState NOT yet persisted
+    "job.run.after_create",
+    # patch_job_chips fast path: new gang created (not started), old gang
+    # quiesced and marked stopped, new members not started
+    "job.patch.after_quiesce_old",
+    # patch_job_chips fast path: new gang started, old slice/ports not freed
+    "job.patch.after_start_new",
+    # restart_gang: phase=restarting persisted, members not yet stopped
+    "job.gang.after_mark_restarting",
+    # restart_gang: every member stopped, none started again
+    "job.gang.after_stop_all",
+    # migrate_gang: phase=migrating persisted, nothing else touched
+    "job.migrate.after_mark",
+    # migrate_gang fast path: new gang created (not started) on healthy
+    # hosts, old gang still holds its slice
+    "job.migrate.after_create_new",
+    # migrate_gang release-first path: old gang stopped and its slices and
+    # ports freed, new version not yet allocated
+    "job.migrate.after_release",
+    # migrate_gang: old gang quiesced and marked stopped, new not started
+    "job.migrate.after_quiesce_old",
+    # migrate_gang: new gang started, old slice/ports not yet freed
+    "job.migrate.after_start_new",
 )
 
 #: durable work-queue lifecycle (state/workqueue.py _run_record): the
@@ -79,8 +109,36 @@ RECONCILE_CRASH_POINTS = (
     "reconcile.dirty_drained",
 )
 
-KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + QUEUE_CRASH_POINTS
-                      + TXN_CRASH_POINTS + FANOUT_CRASH_POINTS
+#: elastic-gang resize lifecycle (service/job.py ``resize_gang``; JAX's
+#: ``admission.partial_preempt`` comes with the capacity market): the resize chaos matrix
+#: kills the daemon at each of these and proves a fresh Program's
+#: reconcile converges to ONE live version with zero leaks and the gang
+#: at either the old or the new size — never half-resized — with the
+#: grow-back record surviving (or being re-journaled) so the gang still
+#: grows back once pressure lifts
+RESIZE_CRASH_POINTS = (
+    # the resize intent (phase scaling_down/scaling_up + last_resize) is
+    # durable; every member still runs at the old size
+    "job.resize.after_mark",
+    # the gang is quiesced (workers first, coordinator last) but the old
+    # version still owns every slice and port — the release+claim delta
+    # apply has not committed
+    "job.resize.after_quiesce",
+    # the ONE-apply delta (old version released + new smaller/larger
+    # version claimed) is durable and the new member containers exist
+    # (created, not started); the old version is not yet marked stopped
+    "job.resize.after_create_new",
+    # fires up to TWICE per shrink (target with armed(..., skip=k)):
+    # skip=0 — the resized gang is started (coordinator first) but the
+    # grow-back admission record is not yet journaled (reconcile must
+    # re-journal it); skip=1 — the grow-back record is durable, only the
+    # response/event bookkeeping is lost
+    "job.resize.after_start_new",
+)
+
+KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + JOB_CRASH_POINTS
+                      + QUEUE_CRASH_POINTS + TXN_CRASH_POINTS
+                      + RESIZE_CRASH_POINTS + FANOUT_CRASH_POINTS
                       + RECONCILE_CRASH_POINTS)
 
 

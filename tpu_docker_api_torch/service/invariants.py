@@ -11,13 +11,24 @@ control plane satisfies, for every container family,
 5. the same for host ports;
 6. every chip/port owner maps to a known family.
 
-It returns human-readable violations (empty list = consistent) rather than
+``check_job_invariants`` is the distributed-job analog over a whole pod:
+
+1. the latest job pointer has a persisted ``JobState`` with a legal phase;
+2. a ``running`` job's members ALL run, on one single version (gang
+   atomicity — a half-restarted gang is a violation);
+3. a ``failed``/``stopped``-undesired job has no member running, and a
+   ``failed`` job owns ZERO slices and ZERO ports across every host;
+4. a live job's slice grants and host-port claims match its placements
+   exactly; retired versions own nothing;
+5. every slice grant maps to a known job family.
+
+Both return human-readable violations (empty list = consistent) rather than
 raising, so tests can assert on the whole set and operators can surface it
 verbatim.
 
-The port's copy of ``tpu_docker_api/service/invariants.py`` with
-``check_invariants`` alone: the job, service and workflow oracles come with
-their services (ROADMAP Queue 1 item 10).
+The port's copy of ``tpu_docker_api/service/invariants.py`` with the
+container and job oracles: the service and workflow oracles come with their
+services (ROADMAP Queue 1 item 10 part v).
 """
 
 from __future__ import annotations
@@ -27,7 +38,9 @@ from tpu_docker_api_torch.runtime.base import ContainerRuntime
 from tpu_docker_api_torch.runtime.spec import ContainerSpec
 from tpu_docker_api_torch.scheduler.ports import PortScheduler
 from tpu_docker_api_torch.scheduler.slices import ChipScheduler
+from tpu_docker_api_torch.schemas.job import DORMANT_PHASES, JOB_PHASES
 from tpu_docker_api_torch.state.keys import (
+    Resource,
     job_owner_base,
     split_versioned_name,
     versioned_name,
@@ -115,3 +128,176 @@ def check_invariants(
             problems.append(f"port {p} owned by unknown {o!r}")
     return problems
 
+
+def check_job_invariants(
+    pod,
+    slices,
+    store: StateStore,
+    versions: VersionMap,
+) -> list[str]:
+    """Gang-consistency oracle over a pod (``pod``: scheduler.pod.Pod,
+    ``slices``: the PodScheduler whose grants back the jobs)."""
+    problems: list[str] = []
+    families = versions.snapshot()
+
+    # family → resources actually held anywhere in the pod
+    slice_owners: dict[str, list[str]] = {}
+    for owner in slices.status()["slices"]:
+        slice_owners.setdefault(job_owner_base(owner), []).append(owner)
+    port_owners: dict[str, list[tuple[str, int]]] = {}  # base → (host, port)
+    for host_id, host in pod.hosts.items():
+        for p, o in host.ports.status()["owners"].items():
+            port_owners.setdefault(job_owner_base(o), []).append((host_id, p))
+
+    for base, latest in sorted(families.items()):
+        latest_name = versioned_name(base, latest)
+        try:
+            st = store.get_job(latest_name)
+        except errors.NotExistInStore:
+            problems.append(
+                f"job {base}: latest pointer v{latest} has no stored state")
+            continue
+        if st.phase not in JOB_PHASES:
+            problems.append(f"job {base}: unknown phase {st.phase!r}")
+        if st.phase in ("scaling_down", "scaling_up"):
+            # like a service stuck "deleting": the phase only exists
+            # mid-resize — at rest the reconciler/supervisor must have
+            # finished the resize forward (or parked/failed the gang)
+            problems.append(
+                f"job {base}: stuck in phase {st.phase} (resize "
+                f"unfinished)")
+        if st.draining and st.phase not in DORMANT_PHASES:
+            # the gateway drain marker only exists between mark and the
+            # stopped write — at rest the reconciler must have finished
+            # the stop the marker recorded (a half-drained replica would
+            # sit unroutable yet holding its slice forever)
+            problems.append(
+                f"job {base}: draining marker at rest (quiesce "
+                f"unfinished)")
+        if st.elastic:
+            floor = max(st.min_members, 1)
+            if st.placements and len(st.placements) < floor:
+                problems.append(
+                    f"job {base}: elastic gang below minMembers "
+                    f"({len(st.placements)} < {floor})")
+            if (st.members_desired
+                    and len(st.placements) > st.members_desired):
+                problems.append(
+                    f"job {base}: elastic gang above membersDesired "
+                    f"({len(st.placements)} > {st.members_desired})")
+
+        # queued/preempted are dormant like failed/stopped: no member may
+        # run (the capacity-market quiesce is complete or never started)
+        live = st.desired_running and st.phase not in DORMANT_PHASES
+        member_running: dict[str, bool] = {}
+        for host_id, cname, *_ in st.placements:
+            host = pod.hosts.get(host_id)
+            if host is None:
+                member_running[cname] = False
+                if live:
+                    problems.append(
+                        f"job {base}: member {cname} placed on missing "
+                        f"host {host_id}")
+                continue
+            try:
+                member_running[cname] = host.runtime.container_inspect(
+                    cname).running
+            except errors.ContainerNotExist:
+                member_running[cname] = False
+                if live:
+                    problems.append(f"job {base}: member {cname} missing")
+            except errors.HOST_PATH_ERRORS:
+                # state unknown, not provably dead — but a live gang with a
+                # member behind a dead engine is not converged either: it
+                # awaits migration (host down) or recovery (blip)
+                member_running[cname] = False
+                if live:
+                    problems.append(
+                        f"job {base}: member {cname} on unreachable "
+                        f"host {host_id}")
+
+        if live and st.phase == "running":
+            dead = sorted(c for c, r in member_running.items() if not r)
+            if dead:
+                problems.append(
+                    f"job {base}: running phase but dead members {dead}")
+        if not live:
+            up = sorted(c for c, r in member_running.items() if r)
+            if up:
+                problems.append(
+                    f"job {base}: phase {st.phase} but members {up} run")
+
+        # gang atomicity: no member of any OTHER version may run
+        for version in store.history(Resource.JOBS, base):
+            if version == latest:
+                continue
+            vname = versioned_name(base, version)
+            try:
+                vst = store.get_job(vname)
+            except errors.NotExistInStore:
+                continue
+            for host_id, cname, *_ in vst.placements:
+                host = pod.hosts.get(host_id)
+                if host is None:
+                    continue
+                try:
+                    if host.runtime.container_inspect(cname).running:
+                        problems.append(
+                            f"job {base}: retired version member {cname} "
+                            f"is running alongside latest v{latest}")
+                except (errors.ContainerNotExist, *errors.HOST_PATH_ERRORS):
+                    # unreachable: unverifiable — a retired member stranded
+                    # behind a dead engine is quiesced when the host
+                    # returns, never a live-gang violation from here
+                    pass
+
+        # resource accounting: failed owns nothing; live owns exactly the
+        # latest version's grants/ports; retired versions own nothing
+        held_slices = slice_owners.get(base, [])
+        held_ports = port_owners.get(base, [])
+        if st.phase in ("failed", "preempted", "queued"):
+            # failed is terminal; preempted was released to make room for
+            # a higher-priority gang; queued never claimed anything —
+            # all three must own ZERO slices and ports across every host
+            if held_slices:
+                problems.append(
+                    f"job {base}: {st.phase} but owns slices "
+                    f"{sorted(held_slices)}")
+            if held_ports:
+                problems.append(
+                    f"job {base}: {st.phase} but owns ports "
+                    f"{sorted(held_ports)}")
+            continue
+        expected_owners = {
+            latest_name if st.num_slices == 1 else f"{latest_name}#s{k}"
+            for k in range(st.num_slices)}
+        stale = sorted(set(held_slices) - expected_owners)
+        if stale:
+            problems.append(f"job {base}: stale slice grants {stale}")
+        expected_ports: set[tuple[str, int]] = set()
+        for host_id, cname, pid, _, member_port in st.placements:
+            expected_ports.add((host_id, member_port))
+            if pid == 0:
+                expected_ports.add((host_id, st.coordinator_port))
+                if st.megascale_port:
+                    expected_ports.add((host_id, st.megascale_port))
+        extra_p = sorted(set(held_ports) - expected_ports)
+        if extra_p:
+            problems.append(f"job {base}: leaked ports {extra_p}")
+        if live:
+            # a live gang must hold its full claim; a stopped job may hold
+            # either its grant (stop_job retains for resume) or nothing
+            # (delete_job kept the spec for re-run) — but never more
+            missing_grants = sorted(expected_owners - set(held_slices))
+            if missing_grants:
+                problems.append(
+                    f"job {base}: missing slice grants {missing_grants}")
+            missing_p = sorted(expected_ports - set(held_ports))
+            if missing_p:
+                problems.append(f"job {base}: unclaimed ports {missing_p}")
+
+    for base in sorted(set(slice_owners) - set(families)):
+        problems.append(
+            f"slice grants {sorted(slice_owners[base])} owned by unknown "
+            f"job {base!r}")
+    return problems

@@ -35,12 +35,14 @@ Every action is recorded as a HealthWatcher-style event, counted in
 in the report served at ``GET /api/v1/reconcile``. ``dry_run=True`` reports
 the planned repairs without mutating anything.
 
-The port's copy of ``tpu_docker_api/service/reconcile.py`` for the
-container families: ``DirtySet``, the journal replay, the family and orphan
-passes, the resource and foreign-owner sweeps, the modes, the periodic loop
-and the store-outage hold, with JAX's constructor. The job-family repair,
-the serving, admission and workflow adoption and the sharded plane's
-``owns`` filter come with their services (ROADMAP Queue 1 item 10);
+The port's copy of ``tpu_docker_api/service/reconcile.py``: ``DirtySet``,
+the journal replay, the container and job family passes (JAX's gang
+adoption: half-created job versions scrubbed, interrupted restarts,
+migrations and resizes finished, crash loops failed, stale versions
+retired), the orphan passes, the resource and foreign-owner sweeps, the
+modes, the periodic loop and the store-outage hold, with JAX's constructor.
+The serving, admission and workflow adoption and the sharded plane's
+``owns`` filter come with their services (ROADMAP Queue 1 item 10 part v);
 handing the constructor one of them raises NotImplementedError.
 """
 
@@ -56,6 +58,7 @@ from tpu_docker_api_torch import errors
 from tpu_docker_api_torch.runtime.base import ContainerRuntime
 from tpu_docker_api_torch.runtime.fanout import SERIAL, Fanout
 from tpu_docker_api_torch.runtime.spec import ContainerSpec
+from tpu_docker_api_torch.schemas.job import DORMANT_PHASES
 from tpu_docker_api_torch.scheduler.ports import PortScheduler
 from tpu_docker_api_torch.scheduler.slices import ChipScheduler
 from tpu_docker_api_torch.state.keys import (
@@ -195,9 +198,9 @@ class Reconciler:
         owned_shards=None,
         store_gate=None,
     ) -> None:
-        for arg, value in (("job_svc", job_svc), ("admission", admission),
-                           ("serving", serving), ("workflow", workflow),
-                           ("owns", owns), ("owned_shards", owned_shards)):
+        for arg, value in (("admission", admission), ("serving", serving),
+                           ("workflow", workflow), ("owns", owns),
+                           ("owned_shards", owned_shards)):
             if value is not None:
                 raise NotImplementedError(
                     f"Reconciler({arg}=...): not ported to "
@@ -206,8 +209,9 @@ class Reconciler:
         #: trace sink for self-rooted per-pass spans (daemon wires the
         #: Program's tracer); an idle pass's trace is trimmed, not buffered
         self._tracer = tracer
-        #: runtime fan-out, the process's one bounded pool (the job scans
-        #: that batch through it in JAX come with the job service)
+        #: runtime fan-out: the gang member scans, stale-version sweeps
+        #: and half-created-job scrubs batch their per-member engine calls
+        #: so a sweep's wall time is O(slowest host), not O(sum)
         self._fanout = fanout or SERIAL
         self.store = store
         self.chips = chips
@@ -217,13 +221,33 @@ class Reconciler:
         #: other owners of the SAME schedulers (the job service shares the
         #: local chip/port pools) — their claims are off-limits to the sweep
         self._shared_maps = shared_version_maps or []
-        # job_versions, job_max_restarts and job_max_migrations are the job
-        # repair's, which comes with the job service (item 10 iv)
+        #: distributed-job repair (gang adoption) when wired by the daemon
+        self._job_svc = job_svc
+        self._job_versions = job_versions
+        self._job_max_restarts = job_max_restarts
+        self._job_max_migrations = job_max_migrations
         #: durable work queue: the startup sweep adopts its journal and
         #: replays pending/in-flight records BEFORE the family passes, so
         #: an interrupted copy/drain finishes forward instead of being
         #: misread as structural drift
         self._wq = work_queue
+        #: gangs this reconciler already adopted (mirror of the supervisor's
+        #: _attempted set): a first sight of phase == "restarting" is a
+        #: daemon-death adoption and does not consume budget; if the family
+        #: is STILL restarting on a later sweep, our own adoption failed and
+        #: further attempts must count — else a persistently failing start
+        #: would be retried forever past job_max_restarts
+        self._job_adopted: set[str] = set()
+        #: same adoption bookkeeping for interrupted migrations (phase ==
+        #: "migrating"): first sight finishes without counting, repeats
+        #: count so a never-satisfiable migration converges to failed
+        self._mig_adopted: set[str] = set()
+        #: and for interrupted elastic resizes (phase == "scaling_down"/
+        #: "scaling_up"): first sight finishes forward without counting
+        #: (releasing exactly the delta — the resize's one-apply contract
+        #: makes a replayed release an owner-guarded no-op), repeats count
+        #: toward ``job_resize_max`` so a thrashing resize converges
+        self._resize_adopted: set[str] = set()
         self._registry = registry if registry is not None else REGISTRY
         #: event-driven mode: with a dirty feed attached,
         #: periodic passes visit only watch-dirtied families and the full
@@ -413,6 +437,14 @@ class Reconciler:
         for base in sorted(set(members) - set(families)):
             self._reconcile_orphan(base, actions, dry_run,
                                    hint=members.get(base, {}))
+        if self._job_svc is not None and self._job_versions is not None:
+            for base in sorted(self._job_versions.snapshot()):
+                try:
+                    self._reconcile_job_family(base, actions, dry_run)
+                except Exception:  # noqa: BLE001 — one family must not
+                    # abort the sweep (SimulatedCrash, a BaseException,
+                    # still propagates — that is the chaos harness's kill)
+                    log.exception("job reconcile of %s failed", base)
         self._sweep_foreign_owners(actions, dry_run)
         if not dry_run:
             self._last_full = time.monotonic()
@@ -446,6 +478,12 @@ class Reconciler:
                     # (unadoptable runtime leftovers have no KV trace and
                     # therefore no event — the full pass removes those)
                     self._reconcile_orphan(base, actions, dry_run)
+            if self._job_svc is not None and self._job_versions is not None:
+                for base in sorted(drained[Resource.JOBS.value]):
+                    try:
+                        self._reconcile_job_family(base, actions, dry_run)
+                    except Exception:  # noqa: BLE001 — as in the full pass
+                        log.exception("job reconcile of %s failed", base)
         except BaseException:
             # the pass died mid-way (SimulatedCrash, store outage): the
             # un-repaired families must not vanish from the books — give
@@ -785,6 +823,376 @@ class Reconciler:
             self._act(actions, dry_run, "remove-orphan", name,
                       fn=lambda n=name: self.runtime.container_remove(
                           n, force=True))
+
+    # -- distributed jobs (gang adoption) -----------------------------------------
+
+    def _reconcile_job_family(self, base: str, actions: list[dict],
+                              dry_run: bool) -> None:
+        """Repair one job family after a daemon death mid-flow:
+
+        - a version pointer with no stored ``JobState`` (crash between bump
+          and persist) has its half-made artifacts scrubbed — member
+          containers removed, slices and ports freed — and the pointer rolls
+          back (or the family drops);
+        - a gang with dead-but-present members, or one stuck in phase
+          ``restarting`` (daemon died mid gang-restart), is adopted: the
+          whole gang restarts through the same coordinator-first path the
+          supervisor uses, without re-counting the attempt;
+        - a gang stuck in phase ``migrating`` (daemon died mid host-fault
+          migration) is adopted the same way: the migration re-runs
+          excluding whatever hosts are unreachable NOW, without
+          re-counting; once ``job_max_migrations`` is exhausted it
+          converges to terminal ``failed``. Members behind an unreachable
+          engine are otherwise LEFT ALONE (state unknown — down-vs-blip
+          is the host monitor's verdict, migration the supervisor's job);
+        - members gone entirely ⇒ the job converges to terminal ``failed``
+          (zero slices, zero ports);
+        - stale older versions (interrupted rescale) are quiesced and their
+          resources freed — the latest version is authoritative.
+        """
+        lock = (self._job_svc.family_lock(base) if not dry_run
+                else contextlib.nullcontext())
+        with lock:
+            latest = self._job_versions.get(base)
+            if latest is None:
+                return
+            latest_name = versioned_name(base, latest)
+            try:
+                st = self.store.get_job(latest_name)
+            except self.POISON_ERRORS as e:
+                self._quarantine(actions, dry_run, "jobs", latest_name, e)
+                return
+            except errors.NotExistInStore:
+                self._act(actions, dry_run, "scrub-half-created-job",
+                          latest_name,
+                          fn=lambda: self._scrub_job_version(latest_name))
+                stored = self.store.history(Resource.JOBS, base)
+                prev = max((v for v in stored if v < latest), default=None)
+                if prev is None:
+                    self._act(actions, dry_run, "drop-empty-job-family", base,
+                              fn=lambda: self._job_versions.remove(base))
+                else:
+                    self._act(actions, dry_run, "rollback-job-pointer",
+                              latest_name, to=prev,
+                              fn=lambda: self._job_versions.rollback(base, prev))
+                return
+
+            def probe(host_id: str, cname: str):
+                host = self._job_svc.pod.hosts.get(host_id)
+                if host is None:
+                    return (host, None)
+                try:
+                    return (host, host.runtime.container_inspect(cname))
+                except errors.ContainerNotExist:
+                    return (host, None)
+                except errors.HOST_PATH_ERRORS:
+                    # the member's state is UNKNOWN, not missing — a
+                    # connectivity fault must never read as a lost
+                    # container (fail-job-missing-members would
+                    # condemn the job on a network blip)
+                    return (host, "unreachable")
+
+            # one concurrent batch over the gang (results positional, so
+            # the member/unreachable lists keep placement order)
+            scanned = self._fanout.run([
+                (cname, "container_inspect",
+                 lambda h=host_id, c=cname: probe(h, c))
+                for host_id, cname, *_ in st.placements])
+            members = []  # (host, cname, info | None | "unreachable")
+            unreachable: list[str] = []  # host ids whose engine is down
+            for (host_id, cname, *_), r in zip(st.placements, scanned):
+                host, info = r.unwrap()
+                if info == "unreachable" and host_id not in unreachable:
+                    unreachable.append(host_id)
+                members.append((host, cname, info))
+
+            if st.desired_running and st.phase in ("scaling_down",
+                                                   "scaling_up"):
+                # daemon died mid-resize: finish it FORWARD toward the
+                # persisted last_resize target — the one-apply delta
+                # contract means the gang is at the old size (claims
+                # intact) or the new size (delta committed); either way
+                # resize_gang re-quiesces idempotently and releases
+                # exactly the delta (replayed releases are owner-guarded
+                # no-ops). First sight does not re-count; a repeat means
+                # OUR adoption failed and counts toward job_resize_max,
+                # converging a never-settling resize to terminal failed
+                finishing = base not in self._resize_adopted
+                resize_max = getattr(self._job_svc, "resize_max", 8)
+                lr = st.last_resize or {}
+                attempts = int(lr.get("attempts", 1))
+                if attempts >= resize_max and not finishing:
+                    self._act(actions, dry_run, "fail-job-resize-loop",
+                              latest_name, attempts=attempts,
+                              fn=lambda: self._job_svc.fail_job(
+                                  base, f"resize loop: {attempts} "
+                                  "attempts exhausted",
+                                  only_if_resize_attempts_ge=resize_max))
+                    return
+                if not dry_run:
+                    self._resize_adopted.add(base)
+                target = int(lr.get("toMembers")
+                             or max(len(st.placements), 1))
+                # exclude what the intent recorded PLUS whatever is
+                # unreachable now (the adoption-time rule migrations use)
+                excl = set(lr.get("excludeHosts") or ()) | set(unreachable)
+                self._act(actions, dry_run, "finish-resize", latest_name,
+                          toMembers=target, excluding=sorted(excl),
+                          fn=lambda: self._job_svc.resize_gang(
+                              base, target, exclude_hosts=excl,
+                              reason="adoption",
+                              count_resize=not finishing))
+                return
+            if st.desired_running and st.phase == "migrating":
+                # daemon died mid-migration: finish it, excluding whatever
+                # is unreachable NOW (the original bad host, if still
+                # down; nothing, if it recovered — re-placing is safe
+                # either way). First sight does not re-count the
+                # migration; a repeat means OUR adoption failed and must
+                # count, so a never-satisfiable migration converges to
+                # failed via the budget
+                finishing = base not in self._mig_adopted
+                if (st.migrations >= self._job_max_migrations
+                        and not finishing):
+                    self._act(actions, dry_run, "fail-job-migration-loop",
+                              latest_name, migrations=st.migrations,
+                              fn=lambda: self._job_svc.fail_job(
+                                  base, f"host fault: {st.migrations} "
+                                  "migrations exhausted",
+                                  only_if_migrations_ge=(
+                                      self._job_max_migrations)))
+                    return
+                if not dry_run:
+                    self._mig_adopted.add(base)
+                self._act(actions, dry_run, "finish-migration", latest_name,
+                          excluding=sorted(unreachable),
+                          fn=lambda: self._job_svc.migrate_gang(
+                              base, exclude_hosts=set(unreachable),
+                              reason="reconcile adoption",
+                              count_migration=not finishing))
+                return
+            if unreachable and st.desired_running and (
+                    st.phase not in DORMANT_PHASES):
+                # members behind a dead engine: their liveness is
+                # unknowable from here. Down-vs-blip is the monitor's
+                # verdict and migration is the supervisor's repair — the
+                # reconciler must not guess (restarting or failing a gang
+                # on a blip is the exact misclassification this layer
+                # exists to prevent). Deliberately NOT an action: waiting
+                # is not drift, and the fixpoint contract ("a clean sweep
+                # reports zero actions") must hold while a host blips
+                log.info("reconcile: job %s has members on unreachable "
+                         "host(s) %s; leaving to the host monitor/"
+                         "supervisor", latest_name, sorted(unreachable))
+                with self._mu:
+                    self._events.append(trace.stamp({
+                        "ts": time.time(), "dryRun": dry_run,
+                        "action": "skip-unreachable-job",
+                        "target": latest_name,
+                        "hosts": sorted(unreachable)}))
+                return
+
+            if st.draining and st.phase not in DORMANT_PHASES:
+                # the gateway drain marker is durable stop intent: a
+                # daemon that died between marking and quiescing left a
+                # half-drained replica serving nothing (the gateway
+                # already stopped picking it) — finish the stop. stop_job
+                # re-runs the gateway handshake (idempotent: the marker
+                # is already set, so only the stop itself runs) and
+                # clears the marker with the stopped write
+                self._act(actions, dry_run, "finish-draining-job-stop",
+                          latest_name,
+                          fn=lambda: self._job_svc.stop_job(base))
+                return
+
+            if st.desired_running and st.phase not in DORMANT_PHASES:
+                missing = [c for _, c, i in members if i is None]
+                dead = [c for _, c, i in members if i is not None
+                        and i != "unreachable" and not i.running]
+                # a dead member CRASHED if it exited nonzero or never got
+                # past "created" (interrupted launch); mid-restart gangs
+                # (phase == "restarting") are always adoptable — their
+                # members were stopped by the restart itself
+                crashed = (st.phase == "restarting" or any(
+                    i is not None and i != "unreachable" and not i.running
+                    and (i.exit_code != 0 or i.status == "created")
+                    for _, _, i in members))
+                finishing = (st.phase == "restarting"
+                             and base not in self._job_adopted)
+                if missing:
+                    self._act(actions, dry_run, "fail-job-missing-members",
+                              latest_name, members=missing,
+                              fn=lambda: self._job_svc.fail_job(
+                                  base, f"member container(s) {missing} "
+                                  "lost while the daemon was down"))
+                elif dead and not crashed:
+                    # every dead member exited 0: completion, not a crash —
+                    # settle the whole-gang exit; a partial clean exit is an
+                    # early finisher, left alone
+                    if len(dead) == len(members):
+                        self._act(actions, dry_run, "settle-completed-job",
+                                  latest_name,
+                                  fn=lambda: self._job_svc.
+                                  mark_gang_completed(base))
+                elif dead:
+                    if (st.restarts >= self._job_max_restarts
+                            and not finishing):
+                        # budget already exhausted: a daemon reboot must not
+                        # hand a crash-looping gang a fresh life — converge
+                        # to terminal failed, same as the supervisor would
+                        self._act(actions, dry_run, "fail-job-crash-loop",
+                                  latest_name, restarts=st.restarts,
+                                  fn=lambda: self._job_svc.fail_job(
+                                      base, f"crash loop: {st.restarts} gang "
+                                      f"restarts exhausted (dead members: "
+                                      f"{dead})"))
+                    else:
+                        # half-restarted gang (phase == "restarting") or
+                        # members that died with the daemon: finish/redo the
+                        # whole-gang restart; a restart the dying daemon
+                        # already counted is not counted again
+                        if not dry_run:
+                            self._job_adopted.add(base)
+                        self._act(actions, dry_run, "restart-gang",
+                                  latest_name, members=dead,
+                                  fn=lambda: self._job_svc.restart_gang(
+                                      base, reason="reconcile adoption",
+                                      count_restart=not finishing))
+                elif st.phase == "restarting":
+                    # daemon died between the last member start and the
+                    # phase flip — every member runs; settle the record
+                    self._act(actions, dry_run, "settle-restarting-job",
+                              latest_name,
+                              fn=lambda: self._job_svc.mark_gang_running(base))
+            else:
+                running = [c for _, c, i in members
+                           if i is not None and i != "unreachable"
+                           and i.running]
+                if running:
+                    # for a preempted gang this is the daemon-died-between-
+                    # intent-and-quiesce repair: finish the gang-ordered
+                    # stop the admission controller never got to run
+                    self._act(actions, dry_run, "stop-undesired-job-members",
+                              latest_name, members=running,
+                              fn=lambda: self._job_svc._stop_members(
+                                  st, reverse=True))
+                if st.phase in ("failed", "preempted", "queued"):
+                    # failed AND preempted/queued jobs own nothing — the
+                    # preemption's release (or the never-placed queue
+                    # entry's absence of claims) must hold after any crash
+                    self._job_resource_release(base, actions, dry_run,
+                                               phase=st.phase)
+
+            # stale older versions: a completed (or crashed-after-start)
+            # rescale leaves the old gang quiesced — it must hold nothing
+            for version in self.store.history(Resource.JOBS, base):
+                if version == latest:
+                    continue
+                vname = versioned_name(base, version)
+                try:
+                    vst = self.store.get_job(vname)
+                except errors.NotExistInStore:
+                    continue
+                def stale_probe(host_id: str, cname: str) -> bool:
+                    host = self._job_svc.pod.hosts.get(host_id)
+                    if host is None:
+                        return False
+                    try:
+                        return host.runtime.container_inspect(cname).running
+                    except (errors.ContainerNotExist,
+                            *errors.HOST_PATH_ERRORS):
+                        # unreachable: unverifiable, and unquiesceable —
+                        # but the KV-side resource frees below must still
+                        # run (a migrated-away gang's old slice is pure
+                        # control-plane state)
+                        return False
+
+                stale_scan = self._fanout.run([
+                    (cname, "container_inspect",
+                     lambda h=host_id, c=cname: stale_probe(h, c))
+                    for host_id, cname, *_ in vst.placements])
+                stale_running = [
+                    cname for (_, cname, *_), r
+                    in zip(vst.placements, stale_scan) if r.unwrap()]
+                if stale_running:
+                    self._act(actions, dry_run, "retire-stale-job-version",
+                              vname, members=stale_running,
+                              fn=lambda v=vst: self._job_svc._stop_members(
+                                  v, reverse=True))
+                holds_slices = (
+                    self._job_svc.slices.get_grant(vname) is not None
+                    or any(self._job_svc.slices.get_grant(f"{vname}#s{k}")
+                           is not None for k in range(vst.num_slices)))
+                holds_ports = any(
+                    o == vname
+                    for host in self._job_svc.pod.hosts.values()
+                    for o in host.ports.status()["owners"].values())
+                if holds_slices or holds_ports:
+                    self._act(actions, dry_run, "free-stale-job-resources",
+                              vname,
+                              fn=lambda v=vst, n=vname: (
+                                  self._job_svc._restore_slices(
+                                      n, v.num_slices),
+                                  self._job_svc._free_state_ports(v)))
+
+    def _scrub_job_version(self, vname: str) -> None:
+        """Remove every artifact a half-created job version left: member
+        containers (named ``<vname>-p<i>``) on any pod host, slice grants
+        (``<vname>`` or ``<vname>#s<k>``), and host ports owned by it."""
+        svc = self._job_svc
+        prefix = f"{vname}-p"
+
+        def scrub_host(host) -> None:
+            try:
+                names = list(host.runtime.container_list())
+            except errors.HOST_PATH_ERRORS:
+                # can't enumerate a dead engine; the KV-side frees below
+                # still run, and any member it holds is swept when (if)
+                # the host returns
+                names = []
+            for cname in names:
+                if cname.startswith(prefix) and cname[len(prefix):].isdigit():
+                    try:
+                        host.runtime.container_remove(cname, force=True)
+                    except (errors.ContainerNotExist,
+                            *errors.HOST_PATH_ERRORS):
+                        pass
+
+        # the engine half of the scrub fans out (one task per host: list +
+        # member removes); port restores stay on this thread — they are KV
+        # writes, and concurrent frees would just contend on the store txn
+        for r in self._fanout.run([
+                (hid, "host_scrub", lambda h=host: scrub_host(h))
+                for hid, host in sorted(svc.pod.hosts.items())]):
+            r.unwrap()
+        for host in svc.pod.hosts.values():
+            owned = [p for p, o in host.ports.status()["owners"].items()
+                     if o == vname]
+            if owned:
+                host.ports.restore_ports(owned, owner=vname)
+        for owner in list(svc.slices.status()["slices"]):
+            if owner == vname or owner.startswith(f"{vname}#s"):
+                svc.slices.restore_slice(owner)
+
+    def _job_resource_release(self, base: str, actions: list[dict],
+                              dry_run: bool, phase: str = "failed") -> None:
+        """A terminal ``failed`` job — and a ``preempted``/``queued`` one
+        (the capacity market's whole point is that their claims are
+        free) — owns nothing: release whatever any of its versions still
+        holds (owner-guarded; no-op when already clean)."""
+        svc = self._job_svc
+        held = [o for o in svc.slices.status()["slices"]
+                if job_owner_base(o) == base]
+        held_ports = any(
+            job_owner_base(o) == base
+            for host in svc.pod.hosts.values()
+            for o in host.ports.status()["owners"].values())
+        if held or held_ports:
+            action = ("release-failed-job-resources" if phase == "failed"
+                      else "release-preempted-job-resources")
+            self._act(actions, dry_run, action, base,
+                      slices=held,
+                      fn=lambda: svc._release_job_resources(base))
 
     # -- resource accounting ------------------------------------------------------
 

@@ -11,9 +11,7 @@ the reference's infinite re-enqueue, workQueue.go:33-47).
 Events are a ring buffer served at ``GET /api/v1/events`` — the control-plane
 analog of ``kubectl get events``.
 
-The port's copy of ``tpu_docker_api/service/watch.py`` without the
-``job_crash_handler`` hook, which comes with the job supervisor (ROADMAP
-Queue 1 item 10).
+The port's copy of ``tpu_docker_api/service/watch.py``.
 """
 
 from __future__ import annotations
@@ -44,6 +42,12 @@ class HealthWatcher:
     checks declarative liveness, and refuses retired versions. The direct
     runtime restart is only a fallback for standalone use of the watcher.
 
+    ``job_crash_handler`` (JobSupervisor.handle_member_death when wired) is
+    consulted FIRST on every death: a container that belongs to a
+    distributed job must never be restarted in isolation — one member
+    rejoining a wedged ``torch.distributed`` collective helps nobody — so the
+    watcher delegates it to the gang supervisor and stays hands-off.
+
     ``restart_backoff_s`` > 0 spaces restart attempts exponentially
     (``base·2^n``, clamped to ``restart_backoff_max_s``): without it a tight
     crash loop burns the whole ``max_restarts`` budget in a few poll ticks.
@@ -59,6 +63,7 @@ class HealthWatcher:
         max_restarts: int = 3,
         max_events: int = 512,
         crash_handler=None,
+        job_crash_handler=None,
         restart_backoff_s: float = 0.0,
         restart_backoff_max_s: float = 30.0,
         clock=time.monotonic,
@@ -71,6 +76,7 @@ class HealthWatcher:
         self._policy = restart_policy
         self._max_restarts = max_restarts
         self._crash_handler = crash_handler
+        self._job_crash_handler = job_crash_handler
         self._backoff_s = restart_backoff_s
         self._backoff_max_s = restart_backoff_max_s
         self._clock = clock
@@ -138,7 +144,14 @@ class HealthWatcher:
                 self._registry.counter_inc(
                     "containers_died_total",
                     help="Containers observed transitioning running→dead")
-                if self._policy == "on-failure" and info.exit_code != 0:
+                if (self._job_crash_handler is not None
+                        and self._job_crash_handler(name)):
+                    # job member: gang supervision owns recovery — the
+                    # container path must never restart it in isolation
+                    self._record(name, "delegated-to-job-supervisor", False)
+                    with self._mu:
+                        self._pending_restart.pop(name, None)
+                elif self._policy == "on-failure" and info.exit_code != 0:
                     now = self._try_restart(name)
                 else:
                     # deliberately not restarted (clean exit / observe-only

@@ -4,9 +4,9 @@ The service layer's one stop for persisted specs. Wraps `state.kv.KV` with the
 per-version key layout from `state.keys`, giving the rollback-capable history
 the reference advertises but cannot deliver (SURVEY.md appendix, etcd quirk).
 
-The port's copy of ``tpu_docker_api/state/store.py``: the container and
-volume families. The job, service and workflow families refuse by name
-until their schemas are ported (ROADMAP Queue 1 item 10).
+The port's copy of ``tpu_docker_api/state/store.py``: the container, volume
+and job families. The service and workflow families refuse by name until
+their schemas are ported (ROADMAP Queue 1 item 10 part v).
 """
 
 from __future__ import annotations
@@ -98,14 +98,24 @@ class StateStore:
     def get_container(self, name: str) -> ContainerState:
         return ContainerState.from_dict(self._get(Resource.CONTAINERS, name))
 
-    # -- jobs, services, workflows: their schemas and services are not
-    # ported (ROADMAP Queue 1 item 10); the methods refuse by name -----------
+    # -- jobs -------------------------------------------------------------------
 
     def put_job(self, st, pointer: bool = True) -> None:
-        _not_ported("put_job", "schemas/job")
+        """``pointer=False`` rewrites a retired version's record (e.g. the
+        old gang marked stopped after a swap) without rewinding the
+        family's latest pointer onto it — a bare-name ``GET`` must keep
+        serving the version that actually superseded it."""
+        base, _ = keys.split_versioned_name(st.job_name)
+        self._put(Resource.JOBS, base, st.version, st.to_dict(),
+                  pointer=pointer)
 
     def get_job(self, name: str):
-        _not_ported("get_job", "schemas/job")
+        from tpu_docker_api_torch.schemas.job import JobState
+
+        return JobState.from_dict(self._get(Resource.JOBS, name))
+
+    # -- services, workflows: their schemas and services are not ported
+    # (ROADMAP Queue 1 item 10 part v); the methods refuse by name -------------
 
     def put_service(self, st) -> None:
         _not_ported("put_service", "schemas/service")

@@ -31,6 +31,13 @@ class VersionMap:
     def _persist_locked(self) -> None:
         self._kv.put(self._key, json.dumps(self._m, sort_keys=True))
 
+    def reload_from_store(self) -> None:
+        """Replace the in-memory mirror with the store's truth — the
+        daemon's cache refresh (``Program._reload_caches``)."""
+        raw = self._kv.get_or(self._key)
+        with self._mu:
+            self._m = json.loads(raw) if raw else {}
+
     def get(self, name: str) -> int | None:
         with self._mu:
             return self._m.get(name)

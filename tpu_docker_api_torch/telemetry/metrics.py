@@ -2,7 +2,7 @@
 port's own copy of the subset of ``tpu_docker_api/telemetry/metrics.py``
 that serving and the control plane use: histograms (``observe``),
 counters (``counter_inc``, pull-time ``counter_fn``, ``counter_value``),
-pull-time gauges (``gauge_fn``), ``render`` and the process-wide
+pull-time gauges (``gauge_fn``, labeled ``gauge_series_fn``), ``render`` and the process-wide
 ``REGISTRY``. Stdlib only.
 """
 
@@ -45,6 +45,7 @@ class MetricsRegistry:
         self._hist_buckets: dict[str, tuple[float, ...]] = {}
         self._help: dict[str, tuple[str, str]] = {}  # name -> (type, help)
         self._gauge_fns: dict[str, Callable[[], float]] = {}
+        self._gauge_series_fns: dict[str, Callable[[], list]] = {}
         self._counter_fns: dict[str, Callable[[], float]] = {}
 
     def _declare(self, name: str, typ: str, help: str) -> None:
@@ -79,6 +80,15 @@ class MetricsRegistry:
         with self._lock:
             self._declare(name, "gauge", help)
             self._gauge_fns[name] = fn
+
+    def gauge_series_fn(self, name: str,
+                        fn: Callable[[], list], help: str = "") -> None:
+        """Register a pull-time LABELED gauge family: ``fn()`` returns
+        ``[(labels_dict, value), ...]``, rendered fresh at every scrape
+        (per-engine pool stats: the engine set is the pod's)."""
+        with self._lock:
+            self._declare(name, "gauge", help)
+            self._gauge_series_fns[name] = fn
 
     def counter_fn(self, name: str, fn: Callable[[], float],
                    help: str = "") -> None:
@@ -122,6 +132,15 @@ class MetricsRegistry:
                         except Exception:  # noqa: BLE001 — never break
                             continue       # /metrics on one bad source
                         out.append(f"{name} {v:g}")
+                    if name in self._gauge_series_fns:
+                        try:
+                            series = list(self._gauge_series_fns[name]())
+                        except Exception:  # noqa: BLE001 — never break
+                            series = []    # /metrics on one bad source
+                        for labels, v in sorted(
+                                series, key=lambda s: sorted(s[0].items())):
+                            out.append(
+                                f"{name}{_fmt_labels(labels)} {float(v):g}")
                     for key, v in sorted(self._counters.get(name, {}).items()):
                         out.append(f"{name}{_fmt_labels(dict(key))} {v:g}")
                 else:  # histogram; counts are already cumulative
