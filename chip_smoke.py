@@ -94,6 +94,31 @@ Phases, one JSON line each; any failure exits non-zero:
               rescale to 256 GPUs, a 4-host gang's migration from the down
               verdict to the new gang started, a supervisor poll over 32
               hosts, a full reconcile pass.
+2f. services — the capacity market and the Service resource
+              (``phase_services``). (a) The daemon's ``Program`` as in
+              jobs, with ``admission_enabled`` and the admission loop and
+              autoscaler at 1 s: a batch job of one GPU (its member trains
+              llama3-1b 2 steps); ``POST /api/v1/services`` at
+              ``production``, one replica of one GPU: it queues, the
+              market preempts the batch gang, the replica lands on the
+              same GPU UUID; the port's server (``serve``'s ``main``,
+              llama3-1b) from the replica member's environment on the
+              job's coordinator port answers 4 greedy requests token for
+              token as without that environment, flash_fwd counted;
+              offered load above a replica's capacity scales the service
+              to 2, the second replica queued (nothing lower to preempt)
+              and kept by the autoscaler at no load (JAX's rule: never
+              shed a replica still materializing); a ``maxReplicas``
+              clamp takes it to 1; DELETE re-admits the batch job on the
+              GPU within 3 admission intervals; the container, job and
+              service oracles are empty after every step. (b) JAX's
+              admission crash cases, every ``service.*`` label and
+              ``admission.partial_preempt`` on the 32-host pod, each
+              repaired by a fresh Program's startup reconcile. (c)
+              Medians of 5 there, 1 ms an engine call, 1 and 8 fan-out
+              workers: a preempting admission pass for a 16-host ask, a
+              pass over 64 blocked jobs, autoscaler ticks over 16
+              services (steady, every one up to 2, back to 1).
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -5327,6 +5352,527 @@ def phase_jobs(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- services
+
+SERVICES_DIR = "build/services"
+#: the admission loop's and the autoscaler's interval in (a), seconds
+SERVICES_INTERVAL_S = 1.0
+SERVICES_UP_COOLDOWN_S = 1.0
+SERVICES_DOWN_COOLDOWN_S = 2.0
+#: the replica's server: the published model at full width and depth,
+#: random weights from --seed 0
+SERVICES_PRESET = "llama3-1b"
+SERVICES_DEVICE = "cuda"
+SERVICES_MAX_SEQ = 1024
+SERVICES_PROMPTS = [17, 100, 250, 511]
+SERVICES_MAX_NEW = 16
+#: a replica's synthetic capacity (requests/s) and the offered load that
+#: breaches it (ceil(1 x 250/100) = 3, capped at maxReplicas 2)
+SERVICES_CAPACITY_RPS = 100.0
+SERVICES_LOAD_RPS = 250.0
+#: (c): a queue of this many jobs none of which can place, and a fleet of
+#: this many one-host services
+SERVICES_QUEUE = 64
+SERVICES_FLEET = 16
+#: JAX's ADMISSION_CASES (tests/test_chaos.py): the label and which of
+#: its firings dies (admission.preempt fires after the preempted-intent
+#: apply, then after the quiesce)
+#: (b) and (c)'s Programs: the market on, every loop off (passes and
+#: ticks run inline), no cooldown
+SERVICES_INLINE = {"job_supervise_interval": 0, "host_probe_interval_s": 0,
+                   "admission_enabled": True, "admission_interval_s": 0,
+                   "autoscale_interval_s": 0, "autoscale_up_cooldown_s": 0,
+                   "autoscale_down_cooldown_s": 0}
+SERVICES_ADMISSION_CASES = (("admission.enqueue", 0),
+                            ("admission.select_victims", 0),
+                            ("admission.preempt", 0), ("admission.preempt", 1),
+                            ("admission.readmit", 0))
+
+_SERVE_CHILD = """
+import json, sys
+from tpu_docker_api_torch.ops import flash
+from tpu_docker_api_torch.serve.__main__ import main
+flash.reset_launch_count()
+rc = main(sys.argv[1:])
+print(json.dumps({"rc": rc, "launches": dict(flash.launch_count)}),
+      flush=True)
+sys.exit(rc)
+"""
+
+
+def _serve_member(env: list[str] | None, port: int, prompts: list,
+                  vocab: int) -> dict:
+    """``python -m tpu_docker_api_torch.serve``'s ``main`` (SERVICES_PRESET,
+    random weights from seed 0) in a child process under a replica
+    member's rendered environment verbatim, or with no job environment
+    (``env`` None), on ``port``: its ready time, the tokens of one greedy
+    request a prompt (sent one at a time, so both servers see the same
+    batch shapes) and its flash launches, read when SIGTERM stops it."""
+    penv = {k: v for k, v in os.environ.items() if k not in _DIST_VARS}
+    penv.update(dict(e.split("=", 1) for e in env or []))
+    penv["PYTHONPATH"] = os.getcwd()
+    log_path = os.path.join(SERVICES_DIR, f"serve-{port}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _SERVE_CHILD, "--preset", SERVICES_PRESET,
+             "--device", SERVICES_DEVICE, "--max-seq", str(SERVICES_MAX_SEQ),
+             "--slots", "4", "--chunk", "8", "--seed", "0",
+             "--host", "127.0.0.1", "--port", str(port)],
+            env=penv, stdout=subprocess.PIPE, stderr=log, text=True)
+        try:
+            while True:
+                try:
+                    if _call(port, "GET", "/healthz")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"the replica's server did not "
+                                         f"come up on {port}")
+                time.sleep(0.1)
+            ready_s = time.perf_counter() - t0
+            tokens = [_check_reply(*_post(port, {
+                "tokens": [p], "maxNewTokens": SERVICES_MAX_NEW}), 1,
+                SERVICES_MAX_NEW, vocab)["tokens"][0] for p in prompts]
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                out, _ = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"the replica's server exited "
+                                 f"{proc.returncode}: {f.read()[-3000:]}")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    serving = next(ln for ln in lines if ln.get("event") == "serving")
+    return {"ready_s": ready_s, "tokens": tokens,
+            "launches": lines[-1]["launches"], "device": serving["device"]}
+
+
+def _market_oracle(prg) -> list:
+    """The container, job and service oracles of one Program."""
+    from tpu_docker_api_torch.service.invariants import (
+        check_invariants, check_job_invariants, check_service_invariants)
+
+    return (check_invariants(prg.runtime, prg.store, prg.container_versions,
+                             prg.chip_scheduler, prg.port_scheduler,
+                             job_versions=prg.job_versions)
+            + check_job_invariants(prg.pod, prg.pod_scheduler, prg.store,
+                                   prg.job_versions)
+            + check_service_invariants(prg.store, prg.service_versions,
+                                       prg.job_versions))
+
+
+def _until(what: str, fn, limit_s: float, poll_s: float = 0.01) -> float:
+    """Seconds until ``fn()`` is true; raises past ``limit_s``."""
+    t0 = time.perf_counter()
+    while not fn():
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"{what}: not within {limit_s} s")
+        time.sleep(poll_s)
+    return time.perf_counter() - t0
+
+
+def _services_case(kind: str, point: str, skip: int = 0) -> dict:
+    """One crash on the 32-host pod with the market on and its loops off:
+    ``kind`` "admission" (JAX's ADMISSION_CASES: a preemptible gang over
+    every host, a production ask of half of them), "partial" (an elastic
+    preemptible gang over every host donates one to a one-host production
+    ask) or "service" (JAX's TestServiceChaos flows, one host a
+    replica). A fresh Program's startup reconcile repairs the wreckage;
+    admission passes drain the queue; every oracle must then be empty and
+    a second pass find nothing."""
+    from tpu_docker_api_torch.schemas.job import JobRun
+    from tpu_docker_api_torch.schemas.service import (ServiceCreate,
+                                                      ServicePatch)
+    from tpu_docker_api_torch.service.crashpoints import SimulatedCrash, armed
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    kv, rts = MemoryKV(), _jobs_engines(JOBS_HOSTS)
+    dead = _jobs_pod(kv, rts, **SERVICES_INLINE)
+    svc, serving = dead.job_svc, dead.serving
+    everything = 8 * JOBS_HOSTS
+
+    def create(replicas):
+        serving.create_service(ServiceCreate(
+            service_name="web", image_name="local", chips_per_replica=8,
+            replicas=replicas, max_replicas=3))
+
+    if kind == "admission":
+        svc.run_job(JobRun(image_name="local", job_name="low",
+                           chip_count=everything,
+                           priority_class="preemptible"))
+    elif kind == "partial":
+        svc.run_job(JobRun(image_name="local", job_name="don",
+                           chip_count=everything,
+                           priority_class="preemptible", elastic=True,
+                           min_members=1))
+        svc.run_job(JobRun(image_name="local", job_name="prod",
+                           chip_count=8, priority_class="production"))
+    try:
+        with armed(point, skip=skip):
+            if kind == "admission":
+                svc.run_job(JobRun(image_name="local", job_name="high",
+                                   chip_count=everything // 2,
+                                   priority_class="production"))
+                dead.admission.admit_once()
+            elif kind == "partial":
+                dead.admission.admit_once()
+            elif point == "service.create.after_record":
+                create(2)
+            elif point == "service.scale_up.after_mark":
+                create(1)
+                serving.set_offered_load("web", 250)
+                serving.tick()
+            elif point.startswith("service.scale_down"):
+                create(2)
+                serving.patch_service("web", ServicePatch(replicas=1))
+            elif point == "service.roll.after_version":
+                create(2)
+                serving.patch_service("web", ServicePatch(
+                    image_name="local:v2"))
+            else:
+                create(2)
+                serving.delete_service("web")
+        raise AssertionError(f"{kind}@{point}: no crash")
+    except SimulatedCrash:
+        pass
+    prg = _jobs_pod(kv, rts, **SERVICES_INLINE)
+    prg.start()
+    try:
+        report = prg.reconciler.last_report()
+        if report is None:
+            raise AssertionError(f"{kind}@{point}: no startup pass")
+        passes = 0
+        while prg.admission.admit_once() and passes < 4:
+            passes += 1
+        failed = [a for a in report["actions"] if "error" in a]
+        problems = _market_oracle(prg)
+        fixpoint = prg.reconciler.reconcile()["actions"]
+        placed = {base: prg.store.get_job(f"{base}-{v}").phase
+                  for base, v in prg.job_versions.snapshot().items()}
+        want = {"admission": {"low", "high"}, "partial": {"don", "prod"},
+                "service": set()}[kind]
+        if (failed or problems or fixpoint or not want <= set(placed)
+                or any(placed[b] != "running" for b in want - {"low"})):
+            raise AssertionError(f"{kind}@{point}@{skip}: failed {failed}, "
+                                 f"invariants {problems}, fixpoint "
+                                 f"{fixpoint}, phases {placed}")
+        return {"case": f"{point}@skip{skip}", "ms": report["durationMs"],
+                "actions": [a["action"] for a in report["actions"]],
+                "admission_passes": passes, "phases": placed}
+    finally:
+        prg.stop()
+
+
+def _services_timings(workers: int) -> dict:
+    """(c) on the 32-host pod at JOBS_ENGINE_LATENCY_S a call,
+    JOBS_REPEATS each: an admission pass that preempts four 4-host batch
+    gangs for a 16-host production ask; a pass over a queue of
+    SERVICES_QUEUE one-host batch jobs none of which can place (a
+    production gang holds every host); autoscaler ticks over
+    SERVICES_FLEET one-host services: steady, scaling every one up to 2
+    replicas (placed on the other 16 hosts) and back to 1. Times in ms."""
+    from tpu_docker_api_torch.schemas.job import JobRun
+    from tpu_docker_api_torch.schemas.service import ServiceCreate
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    keys_ = ("preempting_pass_16_hosts", f"blocked_pass_{SERVICES_QUEUE}",
+             f"tick_{SERVICES_FLEET}_steady", f"tick_{SERVICES_FLEET}_up",
+             f"tick_{SERVICES_FLEET}_down")
+    out = {k: [] for k in keys_}
+
+    def pod():
+        return _jobs_pod(MemoryKV(), _jobs_engines(
+            JOBS_HOSTS, JOBS_ENGINE_LATENCY_S), workers, **SERVICES_INLINE)
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        out[key].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    for _ in range(JOBS_REPEATS):
+        prg = pod()
+        svc = prg.job_svc
+        try:
+            for i in range(8):
+                svc.run_job(JobRun(image_name="local", job_name=f"b{i}",
+                                   chip_count=32, priority_class="batch"))
+            svc.run_job(JobRun(image_name="local", job_name="prod",
+                               chip_count=128, priority_class="production"))
+            placed = timed("preempting_pass_16_hosts",
+                           prg.admission.admit_once)
+            preempted = sorted(b for b, v in prg.job_versions.snapshot()
+                               .items() if prg.store.get_job(
+                                   f"{b}-{v}").phase == "preempted")
+            if ([o["job"] for o in placed] != ["prod"]
+                    or preempted != ["b4", "b5", "b6", "b7"]):
+                raise AssertionError(f"the preempting pass: {placed}, "
+                                     f"preempted {preempted}")
+        finally:
+            prg.stop()
+        prg = pod()
+        svc = prg.job_svc
+        try:
+            svc.run_job(JobRun(image_name="local", job_name="all",
+                               chip_count=8 * JOBS_HOSTS,
+                               priority_class="production"))
+            for i in range(SERVICES_QUEUE):
+                if svc.run_job(JobRun(image_name="local", job_name=f"q{i}",
+                                      chip_count=8))["phase"] != "queued":
+                    raise AssertionError(f"q{i} placed on a full pool")
+            if timed(f"blocked_pass_{SERVICES_QUEUE}",
+                     prg.admission.admit_once) != []:
+                raise AssertionError("a blocked pass placed a job")
+        finally:
+            prg.stop()
+        prg = pod()
+        serving = prg.serving
+        try:
+            names = [f"s{i}" for i in range(SERVICES_FLEET)]
+            for name in names:
+                serving.create_service(ServiceCreate(
+                    service_name=name, image_name="local",
+                    chips_per_replica=8, replicas=1, max_replicas=2,
+                    replica_capacity_rps=SERVICES_CAPACITY_RPS))
+                serving.set_offered_load(name, 0.75 * SERVICES_CAPACITY_RPS)
+            timed(f"tick_{SERVICES_FLEET}_steady", serving.tick)
+            for name in names:
+                serving.set_offered_load(name, SERVICES_LOAD_RPS)
+            timed(f"tick_{SERVICES_FLEET}_up", serving.tick)
+            up = [serving.service_info(n)["readyReplicas"] for n in names]
+            for name in names:
+                serving.set_offered_load(name, 0.0)
+            timed(f"tick_{SERVICES_FLEET}_down", serving.tick)
+            down = [serving.service_info(n)["replicas"] for n in names]
+            problems = _market_oracle(prg)
+            if up != [2] * SERVICES_FLEET or down != [1] * SERVICES_FLEET \
+                    or problems:
+                raise AssertionError(f"the fleet ticks: up {up}, down "
+                                     f"{down}, invariants {problems}")
+        finally:
+            prg.stop()
+    return {k: {"median_ms": sorted(v)[len(v) // 2], "ms": v}
+            for k, v in out.items()}
+
+
+def phase_services(dev) -> dict:
+    """The capacity market and the Service resource (``phase_services``).
+    (a) The daemon's ``Program`` from a TOML config, serving in this
+    process over sqlite, a persisting fake runtime under
+    ``build/services`` and the NVML topology, the market on, the admission
+    loop and the autoscaler at 1 s: a batch job of one GPU (its member's
+    rendered environment trains llama3-1b 2 steps, all four kernels
+    counted); a production service of one replica of one GPU queues and
+    the market preempts the batch gang for it, the replica landing on the
+    GPU's UUID; the port's server from the replica member's environment,
+    on the job's coordinator port, answers 4 greedy requests token for
+    token as the same server without the job environment does, through
+    flash_fwd; offered load above a replica's capacity scales the service
+    to 2, the second replica queued (nothing lower is left to preempt) and
+    held there by the autoscaler with the load at 0 (it never sheds a
+    replica that is still materializing); an audited ``maxReplicas`` clamp
+    takes it back to 1; DELETE re-admits the batch job onto the GPU within
+    3 admission intervals. Every oracle is empty after each step. (b)
+    JAX's admission crash cases, every ``service.*`` label and
+    ``admission.partial_preempt`` on the 32-host pod of h100-8 fake
+    engines, each repaired by a fresh Program's startup reconcile. (c)
+    Medians of 5 there at 1 ms an engine call, 1 and 8 fan-out workers."""
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.service.crashpoints import SERVICE_CRASH_POINTS
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(SERVICES_DIR, ignore_errors=True)
+    os.makedirs(SERVICES_DIR)
+    root = os.path.abspath(SERVICES_DIR)
+    smi = nvidia_smi_gpus()
+    if len(smi) != 1:
+        raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
+    uuid = smi[0]["uuid"]
+    vocab = resolve_preset(SERVICES_PRESET)[1].vocab_size
+
+    # -- (a) the market on the H100 -------------------------------------------
+    start = _free_range()
+    cfg_path = os.path.join(root, "daemon.toml")
+    with open(cfg_path, "w") as f:
+        # accelerator_type is the fallback when NVML does not answer
+        f.write(f'port = 0\nstore_backend = "sqlite"\n'
+                f'sqlite_path = "{root}/state.db"\n'
+                f'runtime_backend = "fake"\n'
+                f'fake_runtime_root = "{root}/runtime"\n'
+                f'accelerator_type = "h100-1"\n'
+                f"start_port = {start}\nend_port = {start + 15}\n"
+                "admission_enabled = true\n"
+                f"admission_interval_s = {SERVICES_INTERVAL_S}\n"
+                f"autoscale_interval_s = {SERVICES_INTERVAL_S}\n"
+                f"autoscale_up_cooldown_s = {SERVICES_UP_COOLDOWN_S}\n"
+                f"autoscale_down_cooldown_s = {SERVICES_DOWN_COOLDOWN_S}\n")
+    prg = Program(cp_config.load(cfg_path), host="127.0.0.1")
+    prg.init()
+    preempt_s: list[float] = []
+    timed_preempt = prg.admission._preempt_one
+
+    def preempt_one(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return timed_preempt(*args, **kwargs)
+        finally:
+            preempt_s.append(time.perf_counter() - t0)
+
+    prg.admission._preempt_one = preempt_one
+    prg.start()
+    oracles: dict = {}
+    try:
+        port = prg.api_server.port
+
+        def phase_of(base):
+            return _api(port, "GET", f"/jobs/{base}")["phase"]
+
+        def member_spec(name):
+            return prg.runtime.container_inspect(name).spec
+
+        info = _api(port, "POST", "/jobs", {
+            "imageName": "local", "jobName": "train", "chipCount": 1,
+            "priorityClass": "batch"})
+        spec = member_spec("train-0-p0")
+        if spec.gpu_uuids != [uuid] or info["priorityClass"] != "batch":
+            raise AssertionError(f"the batch job: {info} {spec.gpu_uuids}")
+        member = _member_train(spec.env)
+        want = {"flash_fwd": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dq": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dkv": 16 * JOBS_TRAIN_STEPS,
+                "adam8": len(LLAMA3_1B_LEAVES) * JOBS_TRAIN_STEPS}
+        if (len(member["losses"]) != JOBS_TRAIN_STEPS
+                or not all(math.isfinite(x) for x in member["losses"])
+                or member["launches"] != want):
+            raise AssertionError(f"the batch member's trainer: {member}")
+        oracles["batch"] = _market_oracle(prg)
+
+        # the production service: its replica queues, the market preempts
+        t0 = time.perf_counter()
+        created = _api(port, "POST", "/services", {
+            "serviceName": "s", "imageName": "local", "chipsPerReplica": 1,
+            "replicas": 1, "maxReplicas": 2,
+            "replicaCapacityRps": SERVICES_CAPACITY_RPS})
+        queued = [e for e in prg.admission.events_view()
+                  if e["event"] == "job-queued" and e["job"] == "s.r0"]
+        if created["priorityClass"] != "production" or not queued:
+            raise AssertionError(f"POST /services: {created}")
+        _until("the replica running", lambda: _api(
+            port, "GET", "/services/s")["readyReplicas"] == 1,
+            3 * SERVICES_INTERVAL_S + 5)
+        post_to_running_s = time.perf_counter() - t0
+        rjob = _api(port, "GET", "/jobs/s.r0")
+        rspec = member_spec(rjob["processes"][0]["container"])
+        adm = _api(port, "GET", "/admission")
+        if (rspec.gpu_uuids != [uuid] or phase_of("train") != "preempted"
+                or [e["name"] for e in adm["entries"]] != ["train"]
+                or adm["preemptionsTotal"] != 1 or len(preempt_s) != 1):
+            raise AssertionError(f"the preemption: replica on "
+                                 f"{rspec.gpu_uuids}, admission {adm}")
+        oracles["preempted"] = _market_oracle(prg)
+
+        # the replica's server, from its member's environment
+        env = dict(e.split("=", 1) for e in rspec.env)
+        if (env.get("CUDA_VISIBLE_DEVICES") != uuid
+                or env.get("TPU_DOCKER_API_SERVICE") != "s"):
+            raise AssertionError(f"the replica's environment: {rspec.env}")
+        g = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
+                   for n in SERVICES_PROMPTS]
+        replica = _serve_member(rspec.env, rjob["coordinatorPort"], prompts,
+                                vocab)
+        plain = _serve_member(None, _free_port(), prompts, vocab)
+        if (replica["tokens"] != plain["tokens"]
+                or replica["launches"]["flash_fwd"] <= 0
+                or replica["device"] != plain["device"]):
+            raise AssertionError(f"the replica's server: {replica}, the "
+                                 f"plain one {plain}")
+
+        # traffic above a replica's capacity: the autoscaler scales to 2
+        _api(port, "POST", "/services/s/load", {"rps": SERVICES_LOAD_RPS})
+        up_s = _until("the scale-up", lambda: _api(
+            port, "GET", "/services/s")["replicas"] == 2,
+            3 * SERVICES_INTERVAL_S + 5)
+        _until("the second replica queued", lambda: phase_of(
+            "s.r1") == "queued", 3 * SERVICES_INTERVAL_S)
+        time.sleep(2 * SERVICES_INTERVAL_S)  # two admission passes
+        scaled = _api(port, "GET", "/services/s")
+        if (phase_of("s.r1") != "queued" or phase_of("train") != "preempted"
+                or scaled["lastScale"]["trigger"] != "autoscale"
+                or scaled["readyReplicas"] != 1):
+            raise AssertionError(f"after the scale-up: {scaled}")
+        oracles["scaled_up"] = _market_oracle(prg)
+        # no traffic: a replica still materializing is never shed
+        _api(port, "POST", "/services/s/load", {"rps": 0})
+        time.sleep(SERVICES_DOWN_COOLDOWN_S + 3 * SERVICES_INTERVAL_S)
+        held = _api(port, "GET", "/services/s")
+        if held["replicas"] != 2 or held["autoscaleTotal"] != 1:
+            raise AssertionError(f"the autoscaler shed a queued replica: "
+                                 f"{held}")
+        clamped = _api(port, "PATCH", "/services/s", {"maxReplicas": 1})
+        adm = _api(port, "GET", "/admission")
+        if (clamped["replicas"] != 1 or clamped["readyReplicas"] != 1
+                or clamped["lastScale"]["trigger"] != "manual"
+                or [e["name"] for e in adm["entries"]] != ["train"]
+                or prg.job_versions.get("s.r1") is not None):
+            raise AssertionError(f"the clamp to 1: {clamped}, {adm}")
+        oracles["scaled_down"] = _market_oracle(prg)
+
+        # DELETE: the batch job re-admits onto the GPU
+        t0 = time.perf_counter()
+        _api(port, "DELETE", "/services/s")
+        readmit_s = _until("the re-admission", lambda: phase_of(
+            "train") == "running", 3 * SERVICES_INTERVAL_S)
+        tjob = _api(port, "GET", "/jobs/train")
+        after = member_spec(tjob["processes"][0]["container"]).gpu_uuids
+        if after != [uuid] or _api(port, "GET", "/admission")["depth"]:
+            raise AssertionError(f"after the re-admission: {tjob}")
+        oracles["readmitted"] = _market_oracle(prg)
+        health = _call(port, "GET", "/healthz")[1]["data"]["admission"]
+        _api(port, "DELETE", "/jobs/train", {
+            "force": True, "delStateAndVersionRecord": True})
+        gpus = _api(port, "GET", "/resources/gpus")
+        if [(c["uuid"], c["used"]) for c in gpus["chips"]] != [(uuid, False)]:
+            raise AssertionError(f"after DELETE: {gpus}")
+        oracles["teardown"] = _market_oracle(prg)
+    finally:
+        prg.stop()
+    if any(oracles.values()):
+        raise AssertionError(f"invariants: {oracles}")
+
+    # -- (b) the crash cases on 32 hosts ----------------------------------------
+    matrix = ([_services_case("admission", p, k)
+               for p, k in SERVICES_ADMISSION_CASES]
+              + [_services_case("service", p) for p in SERVICE_CRASH_POINTS]
+              + [_services_case("partial", "admission.partial_preempt")])
+    matrix_ms = sorted(c["ms"] for c in matrix)
+
+    # -- (c) timings at that size -------------------------------------------------
+    timings = {f"workers{w}_latency{JOBS_ENGINE_LATENCY_S * 1e3:g}ms":
+               _services_timings(w) for w in (1, 8)}
+    shutil.rmtree(SERVICES_DIR, ignore_errors=True)
+    launches = {name: member["launches"][name] + (
+        replica["launches"].get(name, 0)) for name in member["launches"]}
+    res = {"phase": "services", "member": member, "replica": replica,
+           "plain": plain, "post_to_replica_running_s": post_to_running_s,
+           "preemption_s": preempt_s[0], "scale_up_s": up_s,
+           "delete_to_readmitted_s": readmit_s, "healthz_admission": health,
+           "hosts": JOBS_HOSTS, "matrix": matrix,
+           "matrix_startup_ms_median": matrix_ms[len(matrix_ms) // 2],
+           "timings": timings, "launches": launches,
+           "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
+    emit(res)
+    return res
+
+
 # ---------------------------------------------------------------- reconcile
 
 RECONCILE_DIR = "build/reconcile"
@@ -6363,6 +6909,7 @@ def main() -> int:
     control_res = phase_control_plane(dev)
     reconcile_res = phase_reconcile(dev)
     jobs_n = phase_jobs(dev)["launches"]
+    services_n = phase_services(dev)["launches"]
     fwd_res = phase_kernels(dev)
     bwd_res = phase_flash_bwd(dev)
     adam_res = phase_adam8(dev)
@@ -6402,12 +6949,13 @@ def main() -> int:
                       "encdec": encdec_n["flash_fwd"],
                       "parallel": par_n["flash_fwd"],
                       "pipeline": pipe_n["flash_fwd"],
-                      "jobs": jobs_n["flash_fwd"]},
+                      "jobs": jobs_n["flash_fwd"],
+                      "services": services_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
                   "lora": lora_n[name], "moe": moe_n[name],
                   "vit": vit_n[name], "encdec": encdec_n[name],
                   "parallel": par_n[name], "pipeline": pipe_n[name],
-                  "jobs": jobs_n[name]}
+                  "jobs": jobs_n[name], "services": services_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

@@ -5,8 +5,8 @@ and an HGX line of 8 GPUs. HTTP statuses and reply bodies must match key
 for key, apart from the logged differences (the grant's attachment in a
 stored spec, the GPU view's ``uuid``, the random ids). The routes of the
 families the port lacks answer 501 with code 10002, naming the missing
-service and ROADMAP Queue 1 item 10; the reconcile, job, slice and host
-routes answer as JAX's."""
+service and ROADMAP Queue 1 item 10; the reconcile, job, slice, host,
+admission and service routes answer as JAX's."""
 
 import http.client
 import json
@@ -177,9 +177,6 @@ def test_api_gpu_view_carries_the_uuids(tmp_path):
 
 
 NOT_PORTED = [
-    ("GET", "/admission", "admission"), ("POST", "/services", "services"),
-    ("GET", "/services/s", "services"), ("POST", "/services/s/load",
-                                          "services"),
     ("POST", "/workflows", "workflows"), ("GET", "/workflows", "workflows"),
     ("GET", "/gateway", "gateway"),
     ("GET", "/leader", "leader election"), ("GET", "/shards", "shards"),
@@ -198,6 +195,12 @@ def test_unported_routes_are_refused_by_name(tmp_path):
             assert "ROADMAP Queue 1 item 10" in reply["msg"], path
         status, reply = call(server.port, "GET", B + "/nowhere")
         assert (status, reply["code"]) == (200, 10001)
+        # the capacity market's and the services' routes are ported: a
+        # router without those services has no such route (JAX's answer)
+        for method, path in (("GET", "/admission"), ("POST", "/services"),
+                             ("GET", "/services/s")):
+            status, reply = call(server.port, method, B + path, {})
+            assert (status, reply["code"]) == (200, 10001), path
     finally:
         server.close()
         w.wq.close()
@@ -245,10 +248,47 @@ POD_SCRIPTS = {
         ("POST", "/hosts/h1/uncordon", {}), ("POST", "/hosts/h1/drain", {}),
         ("GET", "/resources/slices", None),
     ],
+    # the routes of item 10 part v ported with the capacity market and
+    # the Service resource (POD_CONFIG turns the market on)
+    "market": [
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "low",
+                           "chipCount": 16, "priorityClass": "preemptible"}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "high",
+                           "chipCount": 8, "priorityClass": "production"}),
+        ("POST", "/jobs", {"imageName": "jax", "jobName": "x",
+                           "chipCount": 8, "priorityClass": "gold"}),
+        ("GET", "/admission", None), ("GET", "/jobs/high", None),
+        ("POST", "/jobs/high/stop", {}), ("GET", "/admission", None),
+        ("POST", "/reconcile?mode=full", {}), ("GET", "/health/jobs", None),
+    ],
+    "services": [
+        ("POST", "/services", {"serviceName": "s", "imageName": "serve",
+                               "chipsPerReplica": 8, "replicas": 1,
+                               "maxReplicas": 3}),
+        ("POST", "/services", {"serviceName": "s", "imageName": "serve",
+                               "chipsPerReplica": 8}),
+        ("POST", "/services", {"serviceName": "bad-1", "imageName": "i",
+                               "chipsPerReplica": 8}),
+        ("GET", "/services", None), ("GET", "/services/s", None),
+        ("POST", "/services/s/load", {"rps": 500}),
+        ("POST", "/services/s/load", {"rps": "lots"}),
+        ("PATCH", "/services/s", {"replicas": 3}),
+        ("GET", "/services/s-0", None), ("GET", "/admission", None),
+        ("PATCH", "/services/s", {"imageName": "serve:v2"}),
+        ("PATCH", "/services/s-0", {"replicas": 1}),
+        ("DELETE", "/services/s", None), ("GET", "/services/s", None),
+        ("GET", "/jobs", None),
+    ],
 }
+#: the config a group's daemons take beside _pod_daemon's
+POD_CONFIG = {"market": {"admission_enabled": True,
+                         "admission_interval_s": 0},
+              "services": {"admission_enabled": True,
+                           "admission_interval_s": 0,
+                           "autoscale_interval_s": 0}}
 
 
-def _pod_daemon(pkg):
+def _pod_daemon(pkg, **extra):
     import torch_control as tc
 
     cfg = pkg.config.Config(
@@ -259,7 +299,7 @@ def _pod_daemon(pkg):
             {"host_id": "h0", "address": "10.0.0.1",
              "grid_coord": [0, 0, 0], "local": True},
             {"host_id": "h1", "address": "10.0.0.2",
-             "grid_coord": [1, 0, 0], "runtime_backend": "fake"}])
+             "grid_coord": [1, 0, 0], "runtime_backend": "fake"}], **extra)
     prg = pkg.daemon.Program(cfg, host="127.0.0.1", kv=pkg.kv.MemoryKV(),
                              runtime=pkg.fake.FakeRuntime())
     prg._discover_topology = lambda: tc.topology(pkg)
@@ -275,7 +315,7 @@ def test_job_slice_and_host_routes_answer_as_jax(group):
     got = []
     with tc.jax_knows_h100():
         for pkg in tc.PKGS:
-            prg = _pod_daemon(pkg)
+            prg = _pod_daemon(pkg, **POD_CONFIG.get(group, {}))
             try:
                 got.append([[m, path, *call(prg.api_server.port, m, B + path,
                                             body)]

@@ -94,13 +94,16 @@ def test_case_matrix_covers_every_crash_point():
     assert set(TXN_POINTS) == set(c.TXN_CRASH_POINTS)
     assert set(c.FANOUT_CRASH_POINTS) == {"fanout.mid_batch"}
     assert set(c.RECONCILE_CRASH_POINTS) == {RECONCILE_DIRTY_POINT}
-    # the job and resize labels are test_torch_job_chaos.py's matrix
+    # the job, resize and admission labels are test_torch_job_chaos.py's
+    # matrix, the service labels test_torch_service.py's
     assert (set(p for _, p in CASES) | set(QUEUE_POINTS) | set(TXN_POINTS)
             | {"fanout.mid_batch", RECONCILE_DIRTY_POINT}
             | set(c.JOB_CRASH_POINTS) | set(c.RESIZE_CRASH_POINTS)
+            | set(c.ADMISSION_CRASH_POINTS) | set(c.SERVICE_CRASH_POINTS)
             == set(c.KNOWN_CRASH_POINTS))
     # every label the port knows is one JAX knows, under the same group
-    for group in ("CONTAINER", "JOB", "QUEUE", "TXN", "FANOUT", "RECONCILE"):
+    for group in ("CONTAINER", "JOB", "QUEUE", "TXN", "FANOUT", "RECONCILE",
+                  "ADMISSION", "RESIZE", "SERVICE"):
         name = f"{group}_CRASH_POINTS"
         assert getattr(c, name) == getattr(tc.JAX.crash, name)
 
@@ -332,7 +335,13 @@ def test_crashed_flow_without_reconcile_violates_invariants(tmp_path):
 
 
 def test_unknown_crash_label_is_refused():
-    """A label of a service the port lacks is not armed silently."""
-    with pytest.raises(ValueError, match="unknown crash points"):
-        with tc.PORT.crash.armed("admission.enqueue"):
+    """A label of a service the port lacks is not armed silently; the
+    capacity market's and the Service resource's are armed."""
+    for label in ("workflow.create.after_record", "gateway.drain.after_mark",
+                  "compact.before_trim", "leader.after_acquire"):
+        with pytest.raises(ValueError, match="unknown crash points"):
+            with tc.PORT.crash.armed(label):
+                pass
+    for label in ("admission.enqueue", "service.create.after_record"):
+        with tc.PORT.crash.armed(label):
             pass

@@ -16,6 +16,7 @@ from tpu_docker_api.scheduler import ports as jports
 from tpu_docker_api.scheduler import slices as jslices
 from tpu_docker_api.scheduler import topology as jtopo
 from tpu_docker_api.schemas import job as jjob
+from tpu_docker_api.schemas import service as jservice
 from tpu_docker_api.schemas import state as jstate
 from tpu_docker_api.service import crashpoints as jcrash
 from tpu_docker_api.state import keys as jkeys
@@ -29,6 +30,7 @@ from tpu_docker_api_torch.scheduler import ports as tports
 from tpu_docker_api_torch.scheduler import slices as tslices
 from tpu_docker_api_torch.scheduler import topology as ttopo
 from tpu_docker_api_torch.schemas import job as tjob
+from tpu_docker_api_torch.schemas import service as tservice
 from tpu_docker_api_torch.schemas import state as tstate
 from tpu_docker_api_torch.service import crashpoints as tcrash
 from tpu_docker_api_torch.state import keys as tkeys
@@ -243,14 +245,22 @@ def test_state_store_scripts_match_jax(backend, seed, tmp_path):
     ("get_service", ("s",)), ("put_workflow", (None,)),
     ("get_workflow", ("w",))])
 def test_store_refuses_unported_families_by_name(method, args):
-    """The service and workflow records refuse by name; the job record is
-    ported and round-trips as JAX's does, key for key (``pointer=False``
-    rewrites a retired version without moving the family's pointer, and a
-    missing version is JAX's NotExistInStore)."""
+    """The workflow records refuse by name; the job and service records
+    are ported and round-trip as JAX's do, key for key (``pointer=False``
+    rewrites a retired job version without moving the family's pointer,
+    and a missing version is JAX's NotExistInStore)."""
     if method.endswith("_job"):
         got = [_job_round_trip(pkg, method) for pkg in (JAX, PORT)]
         assert got[1] == got[0]
         assert got[1][1]["version"] == 2
+        return
+    if method.endswith("_service"):
+        got = [_service_round_trip(kv, store, schema, errs, method)
+               for kv, store, schema, errs in (
+                   (jkv, jstore, jservice, jerrors),
+                   (tkv, tstore, tservice, terrors))]
+        assert got[1] == got[0]
+        assert got[1][1]["version"] == 1 and got[1][1]["replicas"] == 3
         return
     st = tstore.StateStore(tkv.MemoryKV())
     with pytest.raises(NotImplementedError,
@@ -274,6 +284,28 @@ def _job_round_trip(pkg, method):
         st.get_job("j-9")
     return (method, st.get_job("j").to_dict(), st.get_job("j-1").version,
             st.get_job("j-2") == rec, kv.range_prefix("/"))
+
+
+def _service_round_trip(kv_mod, store_mod, schema, errs, method):
+    kv = kv_mod.MemoryKV()
+    st = store_mod.StateStore(kv)
+    rec = schema.ServiceState(
+        service_name="s-1", version=1, image="serve", cmd=["serve"],
+        env=["A=1"], binds=["/n:/n"], chips_per_replica=8,
+        accelerator_type="h100-8", replicas=3, max_replicas=4,
+        phase="deleting", last_scale={"direction": "up", "to": 3},
+        manual_scales=1)
+    st.put_service(schema.ServiceState.from_dict(
+        {**rec.to_dict(), "version": 0, "service_name": "s-0"}))
+    st.put_service(rec)
+    try:
+        st.get_service("s-9")
+        missing = None
+    except errs.NotExistInStore:
+        missing = "NotExistInStore"
+    return (method, st.get_service("s").to_dict(),
+            st.get_service("s-0").version, st.get_service("s-1") == rec,
+            missing, kv.range_prefix("/"))
 
 
 # -- pager ---------------------------------------------------------------------
@@ -341,7 +373,7 @@ def _run_crashes(pkg, kv):
                 out.append(kv.range_prefix("/k/"))
     kv.apply([("put", "/k/free", "1")])  # disarmed again
     out.append(kv.range_prefix("/k/"))
-    out.append(_outcome(lambda: crash.armed("admission.enqueue")
+    out.append(_outcome(lambda: crash.armed("workflow.create.after_record")
                         .__enter__()))
     return out
 
@@ -355,7 +387,7 @@ def test_kv_apply_fires_crash_points_where_jax_does(backend, tmp_path):
     assert got[:-1] == want[:-1]
     assert got[0] == "txn.before_apply" and got[1] == {}
     assert got[4] == "txn.after_apply" and len(got[5]) == 2
-    # the admission labels come with the capacity market: the port refuses
+    # the workflow labels come with the workflow service: the port refuses
     # them
     assert want[-1] is None and got[-1] == "ValueError"
 
@@ -364,9 +396,9 @@ def test_port_knows_the_slice_crash_points_jax_fires():
     assert tcrash.KNOWN_CRASH_POINTS == (
         jcrash.CONTAINER_CRASH_POINTS + jcrash.JOB_CRASH_POINTS
         + jcrash.QUEUE_CRASH_POINTS + jcrash.TXN_CRASH_POINTS
-        + tuple(p for p in jcrash.RESIZE_CRASH_POINTS
-                if not p.startswith("admission."))
-        + jcrash.FANOUT_CRASH_POINTS + jcrash.RECONCILE_CRASH_POINTS)
+        + jcrash.FANOUT_CRASH_POINTS + jcrash.ADMISSION_CRASH_POINTS
+        + jcrash.RESIZE_CRASH_POINTS + jcrash.SERVICE_CRASH_POINTS
+        + jcrash.RECONCILE_CRASH_POINTS)
     assert issubclass(tcrash.SimulatedCrash, BaseException)
     assert not issubclass(tcrash.SimulatedCrash, Exception)
 

@@ -39,7 +39,6 @@ B = "/api/v1"
 #: the port's defaults that differ from JAX's: features the port lacks
 #: are off, and the synthesized host is an H100 one
 PORT_DEFAULTS = {
-    "autoscale_interval_s": (2.0, 0.0),
     "workflow_interval_s": (2.0, 0.0),
     "accelerator_type": ("v5e-8", "h100-8"),
 }
@@ -134,9 +133,10 @@ def test_config_validation_errors_as_jax(line, tmp_path):
 def test_unported_features_are_refused_by_name(lines, key, tmp_path):
     path = _toml(tmp_path, lines)
     j = jconfig.load(path)  # JAX takes every one
-    if key in PORTED_POD_KEYS:
-        # pods, the job supervisor and the host monitor are ported: the
-        # port loads the same TOML to the same values, and boots on it
+    if key in PORTED_POD_KEYS + PORTED_MARKET_KEYS:
+        # pods, the job supervisor, the host monitor, the capacity market
+        # and the autoscaler are ported: the port loads the same TOML to
+        # the same values, and boots on it
         t = tconfig.load(path)
         assert getattr(t, key) == getattr(j, key)
         diff = {k: (v, getattr(t, k))
@@ -152,6 +152,14 @@ def test_unported_features_are_refused_by_name(lines, key, tmp_path):
                                              else ["local"])
             assert (prg.host_monitor is not None) == (
                 t.host_probe_interval_s > 0)
+            # the market and the Service resource are always built; the
+            # keys gate the policy and the loops
+            assert prg.admission.enabled is t.admission_enabled
+            assert prg.job_svc.admission is prg.admission
+            assert prg.serving is not None
+            assert prg.reconciler._serving is prg.serving
+            assert prg.reconciler._admission is (
+                prg.admission if t.admission_enabled else None)
         finally:
             prg.stop()
         return
@@ -163,6 +171,8 @@ def test_unported_features_are_refused_by_name(lines, key, tmp_path):
 #: were ported
 PORTED_POD_KEYS = ("pod_hosts", "job_supervise_interval",
                    "host_probe_interval_s")
+#: the keys of item 10 part v's capacity market and Service resource
+PORTED_MARKET_KEYS = ("admission_enabled", "autoscale_interval_s")
 
 
 def _h100_topology():
@@ -356,11 +366,13 @@ health_watch_interval = 0
         want = _verify_flow(prg.api_server.port, prg.wq.drain)
     finally:
         prg.stop()
-    # JAX's /healthz also reports admission, which the port lacks; the
-    # store-health views differ only in their clock and op counts
+    # the store-health views differ only in their clock and op counts;
+    # the admission block is JAX's, key for key
     jhealth, thealth = want[0][3]["data"], got[0][3]["data"]
-    assert set(jhealth) - set(thealth) == {"admission"}
-    jhealth.pop("admission")
+    assert set(jhealth) == set(thealth)
+    assert thealth["admission"] == jhealth["admission"] == {
+        "enabled": False, "depth": 0, "preemptionsTotal": 0,
+        "partialPreemptionsTotal": 0, "admissionsTotal": 0}
     for health in (jhealth, thealth):
         for k in ("lastTransitionTs", "opsOk"):
             health["storeHealth"].pop(k)

@@ -55,13 +55,6 @@ def kinds(src, limit=100) -> list:
     return [e.get("event") for e in src.events_view(limit=limit)]
 
 
-def both(script):
-    """``script(pkg)`` through each package; equal results required."""
-    got = [script(pkg) for pkg in tc.PKGS]
-    assert got[1] == got[0]
-    return got[1]
-
-
 def raised(pkg, exc, fn, *a, match=None, **kw):
     with pytest.raises(getattr(pkg.errors, exc), match=match):
         fn(*a, **kw)
@@ -89,7 +82,7 @@ class TestBreaker:
             raised(pkg, "HostUnreachable", br.container_list,
                    match="circuit open")
             return state, len(inner.calls) - n, br.view()
-        state, extra, _ = both(script)
+        state, extra, _ = tc.both(script)
         assert state == "open" and extra == 0
 
     def test_half_open_probe_closes_on_success(self):
@@ -104,7 +97,7 @@ class TestBreaker:
                    match="circuit open")
             clock["now"] = 6.0
             return br.container_list(), br.view()
-        listed, view = both(script)
+        listed, view = tc.both(script)
         assert listed == [] and view["state"] == "closed"
         assert view["consecutiveFailures"] == 0
 
@@ -121,7 +114,7 @@ class TestBreaker:
             raised(pkg, "HostUnreachable", br.container_list,
                    match="circuit open")
             return state
-        assert both(script) == "open"
+        assert tc.both(script) == "open"
 
     def test_application_errors_prove_the_host_alive(self):
         def script(pkg):
@@ -134,7 +127,7 @@ class TestBreaker:
             inner.set_unreachable(True)
             raised(pkg, "HostUnreachable", br.container_list)
             return streak, br.view()["state"]
-        assert both(script) == (0, "closed")
+        assert tc.both(script) == (0, "closed")
 
     def test_normalizes_connection_errors(self):
         def script(pkg):
@@ -145,7 +138,7 @@ class TestBreaker:
             br = pkg.hh.BreakerRuntime(Sock(), host_id="h9", threshold=3)
             return raised(pkg, "HostUnreachable", br.container_list,
                           match="h9")
-        both(script)
+        tc.both(script)
 
 
 class TestHostStateMachine:
@@ -177,7 +170,7 @@ class TestHostStateMachine:
             mon.probe_once()
             seen.append(mon.host_state("h1"))
             return seen, kinds(mon), mon.status_view()
-        seen, ev, _ = both(script)
+        seen, ev, _ = tc.both(script)
         assert seen == ["healthy", "suspect", "suspect", False, set(),
                         "healthy"]
         assert "host-suspect" in ev and "host-blip-over" in ev
@@ -199,7 +192,7 @@ class TestHostStateMachine:
             mon.probe_once()
             return down, mon.host_state("h1"), \
                 prg.pod_scheduler.down_hosts(), kinds(mon)
-        down, state, after, ev = both(script)
+        down, state, after, ev = tc.both(script)
         assert down == (True, {"h1"}, False, ["h1"])
         assert state == "healthy" and after == set()
         assert "host-down" in ev and "host-recovered" in ev
@@ -249,7 +242,7 @@ class TestCordon:
             s.uncordon_host("h1")
             g2 = s.apply_slice(n_chips=8, owner="b")
             return g1.to_dict(), errs, view, g2.to_dict(), tc.job_world(prg)
-        g1, _, view, g2, _ = both(script)
+        g1, _, view, g2, _ = tc.both(script)
         assert [h for h, _ in g1["hosts"]] == ["h0"]
         assert view["cordoned"] and not view["schedulable"]
         assert [h for h, _ in g2["hosts"]] == ["h1"]
@@ -266,7 +259,7 @@ class TestCordon:
             s2.uncordon_host("h1")
             return seen, boot_pod(pkg, kv, rt0, rt1) \
                 .pod_scheduler.cordoned_hosts()
-        seen, after = both(script)
+        seen, after = tc.both(script)
         assert seen[:2] == ({"h1"}, False) and after == set()
 
     def test_reload_caches_rereads_cordons_grants_and_versions(self):
@@ -285,12 +278,12 @@ class TestCordon:
             before = tc.job_world(stale)
             stale._reload_caches()
             return before, tc.job_world(stale), tc.job_world(live)
-        before, after, live = both(script)
+        before, after, live = tc.both(script)
         assert before["versions"] == {} and before["slices"] == {}
         assert after == live and after["cordoned"] == ["h1"]
 
     def test_cordon_unknown_host_rejected(self):
-        both(lambda pkg: raised(pkg, "ContainerNotExist", boot_pod(
+        tc.both(lambda pkg: raised(pkg, "ContainerNotExist", boot_pod(
             pkg, pkg.kv.MemoryKV(), pkg.fake.FakeRuntime(),
             pkg.fake.FakeRuntime()).pod_scheduler.cordon_host, "nope"))
 
@@ -304,7 +297,7 @@ class TestCordon:
             s.set_host_down("h0", True)
             views.append(s.status())
             return views
-        a, b, c = both(script)
+        a, b, c = tc.both(script)
         assert (a["freeHosts"], a["schedulableChips"]) == (2, 16)
         assert (b["freeHosts"], b["schedulableChips"],
                 b["freeSchedulableChips"], b["cordonedHosts"]) == (
@@ -318,7 +311,7 @@ class TestCordon:
             g = s.apply_slice(n_chips=8, owner="a", exclude_hosts={"h0"})
             return g.to_dict(), s.apply_slice(n_chips=8,
                                               owner="b").to_dict()
-        g, g2 = both(script)
+        g, g2 = tc.both(script)
         assert [h for h, _ in g["hosts"]] == ["h1"]
         assert [h for h, _ in g2["hosts"]] == ["h0"]
 
@@ -357,7 +350,7 @@ class TestOperatorSurface:
                 return out
             finally:
                 prg.stop()
-        cordon, cordoned, sched, uncordon, drain, ev = both(script)
+        cordon, cordoned, sched, uncordon, drain, ev = tc.both(script)
         assert cordon["code"] == 200 and cordon["data"]["cordoned"]
         assert cordoned and not sched
         assert not uncordon["data"]["cordoned"]
@@ -380,7 +373,7 @@ class TestOperatorSurface:
             return (out, cordoned, st.phase, [p[0] for p in st.placements],
                     st.migrations, tc.job_world(prg),
                     tc.job_invariants(pkg, prg))
-        out, cordoned, phase, hosts, migrations, _, inv = both(script)
+        out, cordoned, phase, hosts, migrations, _, inv = tc.both(script)
         assert out["drainingJobs"] == ["train"] and cordoned == {"h0"}
         assert phase == "running" and hosts == ["h1"]
         assert migrations == 0 and inv == []
@@ -430,7 +423,7 @@ class TestDrainShrink:
             r = self.drained(pkg, prg, "h3")
             r.st.pop("last_resize")  # stamped with the wall clock
             return vars(r)
-        r = both(script)
+        r = tc.both(script)
         assert r["out"]["drainingJobs"] == ["train"]
         st = r["st"]
         assert st["phase"] == "running" and len(st["placements"]) == 3
@@ -446,7 +439,7 @@ class TestDrainShrink:
                 elastic=True, min_members=2))
             host = prg.store.get_job("train-0").placements[0][0]
             return host, vars(self.drained(pkg, prg, host))
-        host, r = both(script)
+        host, r = tc.both(script)
         st = r["st"]
         assert st["phase"] == "running" and len(st["placements"]) == 2
         assert all(p[0] != host for p in st["placements"])

@@ -8,13 +8,16 @@ Covered: ``JOB_CASES`` (run, rescale and gang-restart points), the gang
 fan-out cases (a daemon killed inside a concurrent create or quiesce
 batch), the ``KV.apply`` boundary of a gang create, the crash loop, host
 failures (blip vs dead, every feasible migrate point, the release-first
-path, the supervisor's adoption, a drain against a full pool) and an
-elastic gang's host-death shrink through every ``job.resize.*`` point.
+path, the supervisor's adoption, a drain against a full pool), an
+elastic gang's host-death shrink through every ``job.resize.*`` point,
+and the capacity market: JAX's ``ADMISSION_CASES`` (a preemption killed
+at every ``admission.*`` label, the readmit window alone) and its
+partial-preemption ``RESIZE_CASES``.
 The reports' ``(action, target)`` lists, the end state (versions, slices,
 GPU and port owners per host, each engine's containers and states) and
 the events must be JAX's; ``check_job_invariants`` and
 ``check_invariants`` must be empty and a second pass must find nothing.
-The matrix covers every job and resize label the port knows."""
+The matrix covers every job, resize and admission label the port knows."""
 
 import time
 
@@ -99,14 +102,6 @@ def end_state(pkg, prg) -> dict:
             "fixpoint": prg.reconciler.reconcile()["actions"]}
 
 
-def both(case):
-    """``case(pkg)`` through each package: equal results required; the
-    port's is returned."""
-    got = [case(pkg) for pkg in tc.PKGS]
-    assert got[1] == got[0]
-    return got[1]
-
-
 _JOB_RUN_POINTS = ("job.run.after_version_bump", "job.run.after_create")
 _JOB_PATCH_POINTS = ("job.patch.after_quiesce_old",
                      "job.patch.after_start_new")
@@ -126,17 +121,36 @@ FANOUT_CASES = (("run", "fanout.mid_batch"),
 #: an elastic gang's host-death shrink, killed at each resize point
 RESIZE_POINTS = ("job.resize.after_mark", "job.resize.after_quiesce",
                  "job.resize.after_create_new", "job.resize.after_start_new")
+#: JAX's ADMISSION_CASES (tests/test_chaos.py): every capacity-market
+#: label; skip=k picks admission.preempt's firing (0: after the
+#: preempted-intent apply, the gang still running; 1: after its quiesce,
+#: before its release)
+ADMISSION_CASES = (("admission.enqueue", 0), ("admission.select_victims", 0),
+                   ("admission.preempt", 0), ("admission.preempt", 1),
+                   ("admission.readmit", 0))
+#: JAX's RESIZE_CASES: a partial preemption killed at each resize label;
+#: job.resize.after_start_new fires twice on a shrink (0: before the
+#: grow-back record, 1: with it durable)
+MARKET_RESIZE_CASES = (("admission.partial_preempt", 0),
+                       ("job.resize.after_mark", 0),
+                       ("job.resize.after_quiesce", 0),
+                       ("job.resize.after_create_new", 0),
+                       ("job.resize.after_start_new", 0),
+                       ("job.resize.after_start_new", 1))
 
 
 def test_case_matrix_covers_every_job_and_resize_label():
     c = tc.tcrash
     assert ({p for _, p in JOB_CASES} | set(MIGRATE_POINTS)
             | {INFEASIBLE_MIGRATE_POINT} == set(c.JOB_CRASH_POINTS))
-    assert set(RESIZE_POINTS) == set(c.RESIZE_CRASH_POINTS)
-    assert c.JOB_CRASH_POINTS == tc.JAX.crash.JOB_CRASH_POINTS
-    # JAX's resize group adds the capacity market's partial-preempt label
-    assert (set(tc.JAX.crash.RESIZE_CRASH_POINTS) - set(RESIZE_POINTS)
-            == {"admission.partial_preempt"})
+    # the resize group holds the capacity market's partial-preempt label,
+    # which the partial-preemption matrix below reaches with the others
+    assert set(RESIZE_POINTS) | {"admission.partial_preempt"} == set(
+        c.RESIZE_CRASH_POINTS) == {p for p, _ in MARKET_RESIZE_CASES}
+    assert {p for p, _ in ADMISSION_CASES} == set(c.ADMISSION_CRASH_POINTS)
+    for group in ("JOB", "RESIZE", "ADMISSION"):
+        name = f"{group}_CRASH_POINTS"
+        assert getattr(c, name) == getattr(tc.JAX.crash, name)
 
 
 @pytest.mark.parametrize("flow,point", JOB_CASES,
@@ -170,7 +184,7 @@ def test_job_crash_restart_reconcile_converges(flow, point):
         assert mutations(rts) == muts
         report = prg2.reconciler.reconcile()
         return acts(dry), acts(report), end_state(pkg, prg2)
-    dry, repaired, end = both(case)
+    dry, repaired, end = tc.both(case)
     assert dry and repaired, f"no drift at {flow}@{point}"
     assert end["oracle"] == [] and end["fixpoint"] == []
     if flow == "run":
@@ -190,7 +204,7 @@ def test_job_crash_without_reconcile_violates_invariants():
                 prg.job_svc.patch_job_chips(
                     "train", pkg.js.JobPatchChips(chip_count=8))
         return oracle(pkg, boot(pkg, kv, rts))
-    assert both(case) != []
+    assert tc.both(case) != []
 
 
 @pytest.mark.parametrize("flow,point", FANOUT_CASES,
@@ -223,7 +237,7 @@ def test_fanout_mid_batch_crash_reconcile_converges(flow, point):
         finally:
             prg.fanout.close()
             prg2.fanout.close()
-    end = both(case)
+    end = tc.both(case)
     assert end["oracle"] == [] and end["fixpoint"] == []
     if flow == "run":
         assert end["state"] is None
@@ -254,7 +268,7 @@ def test_gang_create_txn_boundary_crash_converges():
                 report = prg2.reconciler.reconcile()
                 out.append((acts(report), end_state(pkg, prg2)))
             pytest.fail("the gang create never completed")
-        runs = both(case)
+        runs = tc.both(case)
         assert runs, point
         for _, end in runs:
             assert end["oracle"] == [] and end["fixpoint"] == []
@@ -292,7 +306,7 @@ class TestJobCrashLoop:
                 image_name="jax", job_name="train2", chip_count=16))
             return (delays, st, failed, out, prg.job_svc.get_job_info(
                 "train-0"), tc.job_world(prg))
-        delays, st, (inv, grant), out, info, _ = both(case)
+        delays, st, (inv, grant), out, info, _ = tc.both(case)
         assert st["phase"] == "failed" and "crash loop" in st["failure_reason"]
         assert st["restarts"] == 3 and delays == [1.0, 2.0, 4.0]
         assert inv == [] and grant is None
@@ -311,7 +325,7 @@ class TestJobCrashLoop:
             rts["h1"].crash_container("train-0-p1")
             prg2 = boot(pkg, kv, rts)
             return acts(prg2.reconciler.reconcile()), end_state(pkg, prg2)
-        repaired, end = both(case)
+        repaired, end = tc.both(case)
         assert ("fail-job-crash-loop", "train-0") in repaired
         assert end["state"]["phase"] == "failed"
         assert end["state"]["restarts"] == 3
@@ -342,7 +356,7 @@ class TestJobCrashLoop:
             seen += [prg.store.get_job("train-0").restarts,
                      rts["h1"].container_inspect("train-0-p1").running]
             return seen, [e["event"] for e in sup.events_view()]
-        seen, events = both(case)
+        seen, events = tc.both(case)
         assert seen == [1, 1, False, 2, True]
         assert "gang-restart-deferred" in events
 
@@ -411,7 +425,7 @@ class TestHostFailureChaos:
             mon.uncordon("h1")
             g2 = prg.pod_scheduler.apply_slice(n_chips=8, owner="y")
             return blip, breaker, migrated, g.to_dict(), g2.to_dict()
-        (blip_st, blip_ev), breaker, (st, inv, _), g, g2 = both(case)
+        (blip_st, blip_ev), breaker, (st, inv, _), g, g2 = tc.both(case)
         assert blip_st["phase"] == "running" and blip_st["restarts"] == 0
         assert "host-blip" in blip_ev and "gang-migrating" not in blip_ev
         assert breaker == "open"
@@ -440,7 +454,7 @@ class TestHostFailureChaos:
             assert mutations(rts) == muts
             report = prg2.reconciler.reconcile()
             return acts(dry), acts(report), end_state(pkg, prg2)
-        dry, repaired, end = both(case)
+        dry, repaired, end = tc.both(case)
         assert dry and repaired
         st = end["state"]
         assert st["phase"] == "running" and st["restarts"] <= 1
@@ -463,7 +477,7 @@ class TestHostFailureChaos:
             st = prg2.store.get_job(
                 f"train-{prg2.job_versions.get('train')}").to_dict()
             return st, tc.job_world(prg2)
-        st, _ = both(case)
+        st, _ = tc.both(case)
         assert st["phase"] == "running" and st["migrations"] == 1
         assert "h1" not in {p[0] for p in st["placements"]}
 
@@ -486,7 +500,7 @@ class TestHostFailureChaos:
                 if prg2.store.get_job("train-0").phase == "failed":
                     break
             return reports, end_state(pkg, prg2)
-        _, end = both(case)
+        _, end = tc.both(case)
         st = end["state"]
         assert st["phase"] == "failed"
         assert "migrations exhausted" in st["failure_reason"]
@@ -512,7 +526,7 @@ class TestHostFailureChaos:
                     [e["event"] for e in mon.events_view()],
                     prg.store.get_job("train-0").to_dict(),
                     tc.job_world(prg), oracle(pkg, prg))
-        out, letters, events, st, world, inv = both(case)
+        out, letters, events, st, world, inv = tc.both(case)
         assert out["drainingJobs"] == ["train"] and letters == [True]
         assert "host-drain-failed" in events
         assert st["phase"] == "running" and st["desired_running"]
@@ -556,7 +570,7 @@ def test_host_death_mid_shrink_converges(point):
         end = end_state(pkg, prg2)
         end["oracle"] = [p for p in end["oracle"] if "unreachable" not in p]
         return mid, acts(report), end
-    mid, _, end = both(case)
+    mid, _, end = tc.both(case)
     st = end["state"]
     assert st["phase"] == "running" and len(st["placements"]) == 3
     assert all(p[0] != "h3" for p in st["placements"])
@@ -567,3 +581,166 @@ def test_host_death_mid_shrink_converges(point):
     assert end["oracle"] == [] and end["fixpoint"] == []
     if point in ("job.resize.after_mark", "job.resize.after_quiesce"):
         assert mid == "scaling_down"  # the crash window under test
+
+
+# -- the capacity market (JAX's TestAdmissionChaos and TestResizeChaos) ------
+
+
+def market_boot(pkg, kv, rts):
+    """A pod of ``len(rts)`` hosts with the capacity market on and its loop
+    off (passes run inline, under armed crash points)."""
+    return boot(pkg, kv, rts, admission_enabled=True, admission_interval_s=0)
+
+
+def market_end(pkg, prg, rts, families) -> dict:
+    """The books after a repair: each family's stored state (the resize's
+    clock left out), the journal, the pod, the oracles, the fixpoint."""
+    states = {}
+    for base in families:
+        v = prg.job_versions.get(base)
+        st = prg.store.get_job(f"{base}-{v}").to_dict() if v is not None \
+            else None
+        states[base] = tc.unclocked(st)
+    return {"states": states, "world": tc.job_world(prg),
+            "records": [(r.base, r.kind, r.klass, r.skips)
+                        for r in prg.admission._ordered()],
+            "placed_versions": sorted({
+                n.split("-p")[0] for rt in rts.values()
+                for n in rt.container_list()}),
+            "oracle": oracle(pkg, prg),
+            "fixpoint": prg.reconciler.reconcile()["actions"]}
+
+
+def _running(prg, st) -> list:
+    return [c for h, c, *_ in st["placements"]
+            if prg.pod.hosts[h].runtime.container_inspect(c).running]
+
+
+@pytest.mark.parametrize("point,skip", ADMISSION_CASES,
+                         ids=[f"{p}@skip{s}" for p, s in ADMISSION_CASES])
+def test_preemption_crash_converges(point, skip):
+    """A daemon killed mid-preemption: a fresh Program reconciles to one
+    live version with zero leaks, the victim FULLY preempted (members
+    stopped, nothing held, a re-admission record) or FULLY running, and
+    the journal replays exactly once."""
+    def case(pkg):
+        kv, rts = pkg.kv.MemoryKV(), engines(pkg)
+        prg = market_boot(pkg, kv, rts)
+        run = pkg.js.JobRun
+        prg.job_svc.run_job(run(image_name="jax", job_name="low",
+                                chip_count=16, priority_class="preemptible"))
+        with pkg.crash.armed(point, skip=skip):
+            with pytest.raises(pkg.crash.SimulatedCrash):
+                prg.job_svc.run_job(run(image_name="jax", job_name="high",
+                                        chip_count=16,
+                                        priority_class="production"))
+                prg.admission.admit_once()
+        prg2 = market_boot(pkg, kv, rts)
+        report = prg2.reconciler.reconcile()
+        repaired = market_end(pkg, prg2, rts, ("low", "high"))
+        low = repaired["states"]["low"]
+        victim = (low["phase"], len(_running(prg2, low)),
+                  len(low["placements"]))
+        for _ in range(4):
+            if not prg2.admission.admit_once():
+                break
+        return acts(report), repaired, victim, market_end(
+            pkg, prg2, rts, ("low", "high"))
+
+    _, repaired, victim, end = tc.both(case)
+    assert repaired["oracle"] == [], f"{point}@skip{skip}"
+    recs = {r[0]: r[1] for r in repaired["records"]}
+    if victim[0] == "preempted":
+        assert victim[1] == 0 and recs["low"] == "preempted"
+    else:
+        assert victim[0] == "running" and victim[1] == victim[2]
+    high = end["states"]["high"]
+    assert high["phase"] == "running"
+    assert all(r[0] != "high" for r in end["records"])
+    assert len([v for v in end["placed_versions"]
+                if v.startswith("high-")]) == 1
+    assert end["oracle"] == [] and end["fixpoint"] == []
+
+
+def test_readmit_crash_settles_record_without_double_place():
+    """The job PLACED but its record survived the crash: the next
+    daemon's reconcile settles the record, never re-places it."""
+    def case(pkg):
+        kv, rts = pkg.kv.MemoryKV(), engines(pkg)
+        prg = market_boot(pkg, kv, rts)
+        run = pkg.js.JobRun
+        prg.job_svc.run_job(run(image_name="jax", job_name="low",
+                                chip_count=16, priority_class="preemptible"))
+        prg.job_svc.run_job(run(image_name="jax", job_name="high",
+                                chip_count=16, priority_class="production"))
+        prg.job_svc.delete_job("low", pkg.js.JobDelete(
+            force=True, del_state_and_version_record=True))
+        with pkg.crash.armed("admission.readmit"):
+            with pytest.raises(pkg.crash.SimulatedCrash):
+                prg.admission.admit_once()
+        window = [r.base for r in prg.admission.records()]
+        prg2 = market_boot(pkg, kv, rts)
+        report = prg2.reconciler.reconcile()
+        return (window, acts(report), prg2.admission.admit_once(),
+                prg2.job_versions.get("high"),
+                market_end(pkg, prg2, rts, ("high",)))
+
+    window, report, again, version, end = tc.both(case)
+    assert "high" in window
+    assert ("settle-admission-record", "high") in report
+    assert again == [] and version == 1 and end["records"] == []
+    assert end["states"]["high"]["phase"] == "running"
+    assert end["oracle"] == [] and end["fixpoint"] == []
+
+
+@pytest.mark.parametrize("point,skip", MARKET_RESIZE_CASES,
+                         ids=[f"{p}@skip{s}" for p, s in MARKET_RESIZE_CASES])
+def test_partial_preemption_crash_converges(point, skip):
+    """A partial preemption (an elastic preemptible gang over 4 hosts
+    donates one to a production ask) killed at each resize label: the
+    donor runs at the old or the new size, never half-resized, the ask
+    places exactly once, the grow-back record survives (or is
+    re-journaled) and the gang grows back once pressure lifts."""
+    def case(pkg):
+        kv, rts = pkg.kv.MemoryKV(), engines(pkg, 4)
+        prg = market_boot(pkg, kv, rts)
+        run = pkg.js.JobRun
+        prg.job_svc.run_job(run(image_name="jax", job_name="don",
+                                chip_count=32, priority_class="preemptible",
+                                elastic=True, min_members=1))
+        prg.job_svc.run_job(run(image_name="jax", job_name="prod",
+                                chip_count=8, priority_class="production"))
+        with pkg.crash.armed(point, skip=skip):
+            with pytest.raises(pkg.crash.SimulatedCrash):
+                prg.admission.admit_once()
+        prg2 = market_boot(pkg, kv, rts)
+        report = prg2.reconciler.reconcile()
+        repaired = market_end(pkg, prg2, rts, ("don", "prod"))
+        don = repaired["states"]["don"]
+        donor = (don["phase"], len(don["placements"]),
+                 len(_running(prg2, don)))
+        for _ in range(4):
+            if not prg2.admission.admit_once():
+                break
+        pressed = market_end(pkg, prg2, rts, ("don", "prod"))
+        prg2.job_svc.delete_job("prod", pkg.js.JobDelete(
+            force=True, del_state_and_version_record=True))
+        for _ in range(4):
+            if not prg2.admission.admit_once():
+                break
+        return (acts(report), repaired["oracle"], donor, pressed,
+                market_end(pkg, prg2, rts, ("don",)))
+
+    _, problems, donor, pressed, lifted = tc.both(case)
+    assert problems == [], f"{point}@skip{skip}: {problems}"
+    assert donor[0] == "running" and donor[1] in (3, 4)
+    assert donor[2] == donor[1]
+    assert pressed["states"]["prod"]["phase"] == "running"
+    assert len(pressed["states"]["don"]["placements"]) == 3
+    assert {r[0]: r[1] for r in pressed["records"]}.get("don") == "growback"
+    assert len([v for v in pressed["placed_versions"]
+                if v.startswith("prod-")]) == 1
+    don = lifted["states"]["don"]
+    assert (don["phase"], len(don["placements"])) == ("running", 4)
+    assert lifted["records"] == []
+    assert lifted["oracle"] == [] and lifted["fixpoint"] == []

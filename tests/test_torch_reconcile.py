@@ -526,17 +526,22 @@ def test_watch_lost_relist_marks_everything_dirty_once(tmp_path):
 
 
 def test_reconciler_refuses_the_unported_collaborators():
-    """The admission, serving and workflow repairs and the sharded plane's
-    filter come with their services: handing one in raises."""
+    """The workflow repair and the sharded plane's filter come with their
+    services: handing one in raises. The admission and serving adoption
+    are ported: the reconciler takes both."""
     import types
 
     from tpu_docker_api_torch.service.reconcile import Reconciler
 
-    for arg in ("admission", "serving", "workflow", "owns", "owned_shards"):
+    for arg in ("workflow", "owns", "owned_shards"):
         with pytest.raises(NotImplementedError,
                            match=f"{arg}.*ROADMAP Queue 1 item 10"):
             Reconciler(None, None, None, None, None,
                        **{arg: types.SimpleNamespace()})
+    adm, srv = types.SimpleNamespace(), types.SimpleNamespace()
+    rec = Reconciler(None, None, None, None, None, admission=adm,
+                     serving=srv)
+    assert (rec._admission, rec._serving) == (adm, srv)
 
 
 def test_reconciler_takes_the_job_service():

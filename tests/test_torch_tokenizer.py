@@ -183,7 +183,10 @@ def test_random_unicode_equals_hf(files, text):
     and a character one of them does not know has no category there."""
     hf, mine = _pair(files["llama3"])
     _assert_same(hf, mine, text)
-    assert mine.decode(mine.encode(text)) == text
+    # decoding skips special tokens (HF's skip_special_tokens=True), so a
+    # drawn text holding one round-trips without it, as above
+    assert mine.decode(mine.encode(text)) == text.replace(
+        "<|end_of_text|>", "").replace("<|begin_of_text|>", "")
 
 
 def test_split_scanner_equals_the_regex(files):

@@ -1,8 +1,9 @@
 """Shared harness of the control-plane tests that hold the port against the
 JAX package (test_torch_reconcile, _chaos, _fanout, _informer, _faulty,
 _etcd_kv, _store_health, _pod, _job_supervisor, _host_health, _job_chaos,
-_job_e2e): each package's modules under one namespace, so a test runs one
-script through ``JAX`` and ``PORT`` and compares what each left behind.
+_job_e2e, _admission, _service): each package's modules under one
+namespace, so a test runs one script through ``JAX`` and ``PORT`` and
+compares what each left behind.
 Both packages get the same host: an HGX line of 8 GPUs. JAX's topology
 knows no GPU part, so the job tests teach it ``h100`` for their duration
 (``jax_knows_h100``): a JAX pod then has the port's hosts, GPU for GPU."""
@@ -24,7 +25,9 @@ from tpu_docker_api.scheduler import slices as jslices
 from tpu_docker_api.scheduler import topology as jtopo
 from tpu_docker_api.schemas import container as jcontainer
 from tpu_docker_api.schemas import job as jjobschema
+from tpu_docker_api.schemas import service as jsvcschema
 from tpu_docker_api.schemas import volume as jvolume
+from tpu_docker_api.service import admission as jadmission
 from tpu_docker_api.service import container as jcsvc
 from tpu_docker_api.service import crashpoints as jcrash
 from tpu_docker_api.service import host_health as jhosthealth
@@ -32,6 +35,7 @@ from tpu_docker_api.service import invariants as jinv
 from tpu_docker_api.service import job as jjob
 from tpu_docker_api.service import job_supervisor as jsup
 from tpu_docker_api.service import reconcile as jrec
+from tpu_docker_api.service import serving as jserving
 from tpu_docker_api.service import store_health as jhealth
 from tpu_docker_api.service import watch as jwatch
 from tpu_docker_api.state import faulty as jfaultykv
@@ -56,7 +60,9 @@ from tpu_docker_api_torch.scheduler import slices as tslices
 from tpu_docker_api_torch.scheduler import topology as ttopo
 from tpu_docker_api_torch.schemas import container as tcontainer
 from tpu_docker_api_torch.schemas import job as tjobschema
+from tpu_docker_api_torch.schemas import service as tsvcschema
 from tpu_docker_api_torch.schemas import volume as tvolume
+from tpu_docker_api_torch.service import admission as tadmission
 from tpu_docker_api_torch.service import container as tcsvc
 from tpu_docker_api_torch.service import crashpoints as tcrash
 from tpu_docker_api_torch.service import host_health as thosthealth
@@ -64,6 +70,7 @@ from tpu_docker_api_torch.service import invariants as tinv
 from tpu_docker_api_torch.service import job as tjob
 from tpu_docker_api_torch.service import job_supervisor as tsup
 from tpu_docker_api_torch.service import reconcile as trec
+from tpu_docker_api_torch.service import serving as tserving
 from tpu_docker_api_torch.service import store_health as thealth
 from tpu_docker_api_torch.service import watch as twatch
 from tpu_docker_api_torch.state import faulty as tfaultykv
@@ -83,7 +90,8 @@ JAX = types.SimpleNamespace(
     inv=jinv, rec=jrec, health=jhealth, faultykv=jfaultykv,
     informer=jinformer, keys=jkeys, kv=jkv, store=jstore, version=jversion,
     wq=jwq, metrics=jmetrics, topo=jtopo, pod=jpod, js=jjobschema,
-    job=jjob, sup=jsup, hh=jhosthealth, watch=jwatch, txn=jtxn)
+    job=jjob, sup=jsup, hh=jhosthealth, watch=jwatch, txn=jtxn,
+    adm=jadmission, serving=jserving, ss=jsvcschema)
 PORT = types.SimpleNamespace(
     name="port", config=tconfig, daemon=tdaemon, errors=terrors, fake=tfake,
     fanout=tfanout, faulty=tfaulty, spec=tspec, ports=tports,
@@ -91,7 +99,8 @@ PORT = types.SimpleNamespace(
     inv=tinv, rec=trec, health=thealth, faultykv=tfaultykv,
     informer=tinformer, keys=tkeys, kv=tkv, store=tstore, version=tversion,
     wq=twq, metrics=tmetrics, topo=ttopo, pod=tpod, js=tjobschema,
-    job=tjob, sup=tsup, hh=thosthealth, watch=twatch, txn=ttxn)
+    job=tjob, sup=tsup, hh=thosthealth, watch=twatch, txn=ttxn,
+    adm=tadmission, serving=tserving, ss=tsvcschema)
 PKGS = (JAX, PORT)
 H100 = ttopo.GENERATIONS["h100"]
 #: the H100 as JAX's topology module spells a generation
@@ -240,3 +249,94 @@ def dist_env(env: list[str]) -> dict:
             "member": int(e.get("NODE_RANK", e.get("RANK", "0"))),
             "members": int(e["WORLD_SIZE"]) // k,
             "gpus": k}
+
+
+def pod_program(pkg, n_hosts: int = 1, kv=None, rts=None, **cfg):
+    """A Program over a row of ``n_hosts`` 8-GPU hosts (h0 the daemon's
+    local host sharing the injected engine, the others remote fake
+    engines; one host is a single-host pod), init only: no loop or HTTP
+    server runs, so a test drives ``admit_once``/``tick`` inline. Used
+    inside ``jax_knows_h100``."""
+    kv = kv if kv is not None else pkg.kv.MemoryKV()
+    rts = rts or {f"h{i}": pkg.fake.FakeRuntime() for i in range(n_hosts)}
+    conf = pkg.config.Config(
+        store_backend="memory", runtime_backend="fake",
+        accelerator_type="h100-8", health_watch_interval=0, end_port=40099,
+        pod_hosts=[] if len(rts) == 1 else [
+            {"host_id": f"h{i}", "address": f"10.0.0.{i + 1}",
+             "grid_coord": [i, 0, 0],
+             **({"local": True} if i == 0 else {"runtime_backend": "fake"})}
+            for i in range(len(rts))], **cfg)
+    prg = pkg.daemon.Program(conf, kv=kv, runtime=rts["h0"],
+                             pod_runtimes={h: r for h, r in rts.items()
+                                           if h != "h0"})
+    prg._discover_topology = lambda: topology(pkg)
+    prg.init()
+    return prg
+
+
+def market_oracle(pkg, prg) -> list:
+    """The service, job and container oracles of one Program."""
+    return (pkg.inv.check_service_invariants(
+        prg.store, prg.service_versions, prg.job_versions)
+        + job_invariants(pkg, prg)
+        + pkg.inv.check_invariants(
+            prg.runtime, prg.store, prg.container_versions,
+            prg.chip_scheduler, prg.port_scheduler,
+            job_versions=prg.job_versions))
+
+
+#: event fields stamped from a clock or a trace, left out of a comparison
+_CLOCKED = ("ts", "wait_ms", "traceId", "waitingS")
+
+
+def unclocked(obj):
+    """``obj`` without the clock- and trace-stamped fields (a resize's
+    ``ts``, an event's ``wait_ms``, ``traceId``, an entry's
+    ``waitingS``, a service's ``lastScale.ts`` and signal ``ts``)."""
+    if isinstance(obj, dict):
+        return {k: unclocked(v) for k, v in obj.items()
+                if k not in _CLOCKED}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(unclocked(v) for v in obj)
+    return obj
+
+
+def market_books(pkg, prg) -> dict:
+    """What the capacity market and the services left behind: every job
+    family's stored latest state, the admission journal in precedence
+    order, the service records, the pod (containers, GPU and port owners,
+    slices, versions), the market's event ring and the oracles."""
+    jobs = {}
+    for base, v in sorted(prg.job_versions.snapshot().items()):
+        try:
+            jobs[base] = prg.store.get_job(f"{base}-{v}").to_dict()
+        except Exception as e:  # noqa: BLE001 — a half-made version
+            jobs[base] = type(e).__name__
+    services = {}
+    for base, v in sorted(prg.service_versions.snapshot().items()):
+        try:
+            services[base] = prg.store.get_service(f"{base}-{v}").to_dict()
+        except Exception as e:  # noqa: BLE001 — a half-made version
+            services[base] = type(e).__name__
+    return unclocked({
+        "jobs": jobs, "services": services,
+        "records": [(r.base, r.kind, r.klass, r.skips, r.seq)
+                    for r in prg.admission._ordered()],
+        "world": job_world(prg),
+        "admission_events": prg.admission.events_view(1000),
+        "service_events": prg.serving.events_view(1000),
+        "oracle": market_oracle(pkg, prg)})
+
+
+def both(case):
+    """``case(pkg)`` through each package: equal results required; the
+    port's is returned."""
+    got = [case(pkg) for pkg in PKGS]
+    if isinstance(got[0], dict) and isinstance(got[1], dict):
+        differ = {k: (got[0].get(k), got[1].get(k))
+                  for k in set(got[0]) | set(got[1])
+                  if got[0].get(k) != got[1].get(k)}
+        assert not differ, f"jax vs port: {differ}"
+    assert got[1] == got[0]
+    return got[1]

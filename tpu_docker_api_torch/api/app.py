@@ -8,12 +8,12 @@ follows the reference: base names must not contain ``-`` on create
 fall-through validation bugs cannot happen here.
 
 The port's copy of ``tpu_docker_api/api/app.py``: the container, volume,
-job, resource, slice, host, queue, dead-letter, reconcile, event, trace and
-health routes, with JAX's bodies and codes, and the store-outage gate (503
-+ ``Retry-After``, the stale-read envelope). The routes of families whose
-services the port lacks (services, workflows, gateway, leader, shards,
-admission, compaction) answer with :class:`NotPorted` naming the missing
-service and ROADMAP Queue 1 item 10, not a bare "no route".
+job, admission, service, resource, slice, host, queue, dead-letter,
+reconcile, event, trace and health routes, with JAX's bodies and codes, and
+the store-outage gate (503 + ``Retry-After``, the stale-read envelope). The
+routes of families whose services the port lacks (workflows, gateway,
+leader, shards, compaction) answer with :class:`NotPorted` naming the
+missing service and ROADMAP Queue 1 item 10, not a bare "no route".
 
 Route table:
 
@@ -43,6 +43,13 @@ Route table:
     PATCH  /api/v1/jobs/{name}/tpu             rolling rescale (JAX's path)
     POST   /api/v1/jobs/{name}/stop            gang stop
     PATCH  /api/v1/jobs/{name}/restart         gang restart
+    GET    /api/v1/admission                   capacity-market queue view
+    POST   /api/v1/services                    create a replicated service
+    GET    /api/v1/services                    list services
+    GET    /api/v1/services/{name}             replica fleet + last autoscale decision
+    PATCH  /api/v1/services/{name}             manual scale / policy / spec roll
+    DELETE /api/v1/services/{name}             tear down every replica
+    POST   /api/v1/services/{name}/load        synthetic offered-load injection
     GET    /api/v1/resources/slices            pod scheduler view
     POST   /api/v1/hosts/{name}/cordon         cordon a pod host
     POST   /api/v1/hosts/{name}/uncordon       uncordon it
@@ -56,7 +63,7 @@ Route table:
     POST   /api/v1/dead-letters/retry          re-enqueue the dead letters
     GET    /api/v1/reconcile                   drift sweep (?dryRun= ?mode=; POST too)
     GET    /api/v1/reconcile/events            the sweep's repair events
-    GET    /api/v1/events                      health-watcher, job, host, trace and store events
+    GET    /api/v1/events                      watcher, job, host, market, service, trace, store events
     GET    /api/v1/health/containers           health-watcher view
     GET    /api/v1/traces[/{traceId}]          trace summaries / one trace
     GET    /api/v1/debug/threads               per-thread stack dump
@@ -111,8 +118,6 @@ _VERSIONED_RE = re.compile(_NAME_RE.pattern.rstrip("$") + r"(-\d+)?$")
 #: route prefixes of the families this port has no service for yet, and
 #: the JAX service each needs (ROADMAP Queue 1 item 10)
 NOT_PORTED_ROUTES = (
-    ("/api/v1/admission", "admission (service/admission.py)"),
-    ("/api/v1/services", "services (service/serving.py)"),
     ("/api/v1/workflows", "workflows (service/workflow.py)"),
     ("/api/v1/gateway", "the gateway (service/gateway.py)"),
     ("/api/v1/leader", "leader election (service/leader.py)"),
@@ -188,7 +193,8 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  health_watcher=None, metrics=None,
                  job_svc=None, pod_scheduler=None, reconciler=None,
                  job_supervisor=None, host_monitor=None,
-                 fanout=None, store_health=None,
+                 fanout=None, admission=None, serving=None,
+                 store_health=None,
                  list_default_limit: int = 0,
                  list_max_limit: int = 5000,
                  tracer=None) -> Router:
@@ -420,6 +426,71 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
         r.add("PATCH", "/api/v1/jobs/{name}/tpu", j_patch_chips)
         r.add("POST", "/api/v1/jobs/{name}/stop", j_stop)
         r.add("PATCH", "/api/v1/jobs/{name}/restart", j_restart)
+    if admission is not None:
+        # capacity market: queue depth, per-class counts, positions and the
+        # preemption/admission counters (the same books /metrics exports)
+        r.add("GET", "/api/v1/admission",
+              lambda body, **_: admission.status_view())
+
+    # -- Services (declarative replicated serving, service/serving.py) ------------
+
+    if serving is not None:
+        from tpu_docker_api_torch.schemas.service import ServiceCreate, ServicePatch
+
+        def s_create(body, **_):
+            req = ServiceCreate.from_dict(body)
+            _validate_base_name(req.service_name)
+            return serving.create_service(req)
+
+        def s_info(body, name):
+            _validate_ref_name(name)
+            return serving.service_info(name)
+
+        def s_patch(body, name):
+            _validate_ref_name(name)
+            return serving.patch_service(name, ServicePatch.from_dict(body))
+
+        def s_delete(body, name):
+            _validate_ref_name(name)
+            serving.delete_service(name)
+            return None
+
+        def s_load(body, name):
+            # synthetic traffic injection (fake-runtime replicas): the
+            # load generator states offered rps; the autoscaler's next
+            # tick synthesizes per-replica SLO signals from it
+            _validate_ref_name(name)
+            if "rps" not in body:
+                raise errors.BadRequest("rps is required")
+            try:
+                rps = float(body["rps"])
+            except (TypeError, ValueError):
+                raise errors.BadRequest("rps must be a number") from None
+            return serving.set_offered_load(name, rps)
+
+        def s_list(body, **_):
+            limit, token = _page_params(body)
+            if limit <= 0 and not token:
+                # legacy shape: the unbounded flat list
+                return serving.list_services()
+            page = pager.list_families(
+                container_svc.store.kv, Resource.SERVICES,
+                limit=limit, token=token)
+            items = []
+            for it in page["items"]:
+                s = serving.service_summary(it["name"])
+                if s is not None:
+                    items.append(s)
+            return {"items": items, "continue": page["continue"],
+                    "rev": page["rev"]}
+
+        r.add("POST", "/api/v1/services", s_create)
+        r.add("GET", "/api/v1/services", s_list)
+        r.add("GET", "/api/v1/services/{name}", s_info)
+        r.add("PATCH", "/api/v1/services/{name}", s_patch)
+        r.add("DELETE", "/api/v1/services/{name}", s_delete)
+        r.add("POST", "/api/v1/services/{name}/load", s_load)
+
     if pod_scheduler is not None:
         r.add("GET", "/api/v1/resources/slices",
               lambda body, **_: pod_scheduler.status())
@@ -461,6 +532,11 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             # at its worker cap is the "lifecycle flows are serializing
             # again" smell, surfaced next to liveness
             out["fanout"] = fanout.status_view()
+        if admission is not None:
+            # capacity-market health: queue depth + the admission/
+            # preemption counters read back from the metrics registry
+            # (one set of books — /healthz and /metrics cannot disagree)
+            out["admission"] = admission.health_view()
         if reconciler is not None:
             dirty = reconciler.dirty_view()
             if dirty is not None:
@@ -487,13 +563,15 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
     r.add("GET", "/healthz", healthz)
 
     if (health_watcher is not None or job_supervisor is not None
-            or host_monitor is not None or tracer is not None
+            or host_monitor is not None or admission is not None
+            or serving is not None or tracer is not None
             or store_health is not None):
         # one events ring for the operator: container liveness transitions
         # (health watcher) merged with gang lifecycle events (job
-        # supervisor), host health transitions (host monitor), slow-trace
-        # events and store-mode transitions, ordered by timestamp
-        # (SURVEY.md §5.3)
+        # supervisor), host health transitions (host monitor),
+        # capacity-market admissions/preemptions, service scaling,
+        # slow-trace events and store-mode transitions, ordered by
+        # timestamp (SURVEY.md §5.3)
         def h_events(body, **_):
             try:
                 limit = int(body.get("limit", 100))
@@ -508,7 +586,8 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             per_ring = 1 << 20 if trace_id else limit
             rings = [src.events_view(limit=per_ring)
                      for src in (health_watcher, job_supervisor,
-                                 host_monitor, tracer, store_health)
+                                 host_monitor, admission, serving, tracer,
+                                 store_health)
                      if src is not None]
             merged = heapq.merge(*rings, key=lambda e: e.get("ts", 0))
             if trace_id:

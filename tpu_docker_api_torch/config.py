@@ -8,15 +8,17 @@ accelerator type (``h100-8``: a generation and a per-host GPU count),
 ``detect_tpu_addr`` (the JAX key's name) is the gpu-detect sidecar's address.
 
 The port has the container path with its reconciler, fan-out,
-store-health machine and etcd store, and distributed jobs over a pod of
+store-health machine and etcd store, distributed jobs over a pod of
 hosts (``[[pod_hosts]]``, whose ``accelerator_type`` is the port's
 ``<part>-<N>``) with the job supervisor and the host monitor on by JAX's
-defaults. A key that turns on a feature the port lacks fails :func:`load`
-with a ValueError naming the key and ROADMAP Queue 1 item 10 part v
-(``_NOT_PORTED``). Where JAX's default turns such a feature on, the
-port's default is off (``autoscale_interval_s``, ``workflow_interval_s``),
-and ``accelerator_type`` defaults to ``h100-8``. One key is the port's
-own: ``fake_runtime_root``.
+defaults, and the capacity market (``admission_*``, the priority ladder)
+and the Service resource with its autoscaler (``service_default_class``,
+``autoscale_*``) at JAX's defaults. A key that turns on a feature the port
+lacks fails :func:`load` with a ValueError naming the key and ROADMAP
+Queue 1 item 10 part v (``_NOT_PORTED``). Where JAX's default turns such
+a feature on, the port's default is off (``workflow_interval_s``), and
+``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
+``fake_runtime_root``.
 """
 
 from __future__ import annotations
@@ -252,8 +254,7 @@ class Config:
     # autoscaler tick (a writer: leader-only under leader_election);
     # 0 disables the loop — services still converge via the reconciler's
     # adoption and explicit tick() calls (test/bench hook)
-    # (JAX: 2.0; the port has no serving service yet)
-    autoscale_interval_s: float = 0.0
+    autoscale_interval_s: float = 2.0
     # minimum seconds between scale-UPs of one service (a breach inside
     # the window waits; the pending scale-up usually resolves it)
     autoscale_up_cooldown_s: float = 10.0
@@ -568,9 +569,6 @@ _NOT_PORTED = (
     ("shard_count", lambda v: v > 1, "the sharded writer plane "
      "(service/shard.py)"),
     ("leader_election", bool, "leader election (service/leader.py)"),
-    ("admission_enabled", bool, "admission (service/admission.py)"),
-    ("autoscale_interval_s", lambda v: v > 0,
-     "the serving service (service/serving.py)"),
     ("workflow_interval_s", lambda v: v > 0,
      "the workflow service (service/workflow.py)"),
     ("gateway_enabled", bool, "the gateway (service/gateway.py)"),

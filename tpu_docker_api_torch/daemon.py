@@ -11,12 +11,12 @@ The port's copy of ``tpu_docker_api/daemon.py``: the wiring order of
 ``Program.init/start/stop`` reduced to the modules the port has (store
 and its health machine, fan-out, runtime, work queue, GPU and port
 schedulers, version maps, the container and volume services, the pod and
-its scheduler, the job service, the host monitor, the job supervisor, the
-health watcher, the reconciler and its dirty feed, the tracer, the API).
-Leader election, shards, the informer read path, admission, serving,
-workflows, the gateway and the compactor come with the rest of the
-control plane (ROADMAP Queue 1 item 10 part v); ``config.load`` refuses a
-config that turns one on.
+its scheduler, the job service, the capacity market, the Service resource
+and its autoscaler, the host monitor, the job supervisor, the health
+watcher, the reconciler and its dirty feed, the tracer, the API). Leader
+election, shards, the informer read path, workflows, the gateway and the
+compactor come with the rest of the control plane (ROADMAP Queue 1 item
+10 part v); ``config.load`` refuses a config that turns one on.
 
 CLI: ``python -m tpu_docker_api_torch -c cfg.toml``.
 """
@@ -162,6 +162,45 @@ class Program:
             resize_enabled=cfg.job_resize_enabled,
             resize_max=cfg.job_resize_max,
         )
+        # capacity market (service/admission.py): constructed
+        # unconditionally — priority-class validation and submit-seq
+        # seniority stamping apply even without the market — while
+        # admission_enabled gates the policy itself (queue/preempt/
+        # backfill); disabled keeps the legacy hard refusal byte-for-byte
+        from tpu_docker_api_torch.service.admission import AdmissionController
+
+        self.admission = AdmissionController(
+            self.job_svc, self.store, self.job_versions,
+            self.pod_scheduler, self.kv,
+            enabled=cfg.admission_enabled,
+            classes=cfg.priority_class_weights,
+            default_class=cfg.priority_class_default,
+            max_skips=cfg.admission_max_skips,
+            interval_s=cfg.admission_interval_s,
+            registry=self.metrics,
+            tracer=self.tracer,
+            store_gate=store_gate,
+        )
+        self.job_svc.admission = self.admission
+        # Service resource (service/serving.py): declarative replicated
+        # serving over replica gangs, scaled by the SLO-driven autoscaler
+        # through the capacity market at the service's priority class
+        from tpu_docker_api_torch.service.serving import ServingService
+
+        self.service_versions = VersionMap(self.kv,
+                                           keys.VERSIONS_SERVICE_KEY)
+        self.serving = ServingService(
+            self.job_svc, self.store, self.service_versions,
+            self.job_versions, admission=self.admission,
+            default_class=cfg.service_default_class,
+            interval_s=cfg.autoscale_interval_s,
+            up_cooldown_s=cfg.autoscale_up_cooldown_s,
+            down_cooldown_s=cfg.autoscale_down_cooldown_s,
+            down_watermark=cfg.autoscale_down_watermark,
+            registry=self.metrics,
+            tracer=self.tracer,
+            store_gate=store_gate,
+        )
         # engine-pool saturation gauges: one labeled sample per DISTINCT
         # engine behind this pod (the local runtime is shared by several
         # PodHost entries; BreakerRuntime/FaultyRuntime delegate pool_view
@@ -249,6 +288,14 @@ class Program:
             # family state
             work_queue=self.wq,
             fanout=self.fanout,
+            # admission-journal adoption (enabled deployments only): purge/
+            # settle/re-journal records after the family passes repaired
+            # any half-preempted gang
+            admission=self.admission if cfg.admission_enabled else None,
+            # Service adoption: converge every service to one fully-owned
+            # replica set after a crash (missing/surplus/orphan replicas,
+            # interrupted deletes and spec rolls)
+            serving=self.serving,
             full_interval_s=cfg.reconcile_full_interval_s,
             tracer=self.tracer,
             store_gate=store_gate,
@@ -371,7 +418,7 @@ class Program:
         leadership-handoff refresh, which leader election (part v of
         ROADMAP Queue 1 item 10) calls."""
         for vm in (self.container_versions, self.volume_versions,
-                   self.job_versions):
+                   self.job_versions, self.service_versions):
             vm.reload_from_store()
         self.pod_scheduler.reload_from_store()
         for host in self.pod.hosts.values():
@@ -411,8 +458,9 @@ class Program:
     def _start_writers(self) -> None:
         """The writer role: every subsystem that MUTATES shared state —
         the work queue's sync loop, the startup reconcile (which replays
-        the journal a previous incarnation left), the periodic reconcile
-        and the health watcher."""
+        the journal a previous incarnation left), the periodic reconcile,
+        the supervisors, the health watcher, the admission loop and the
+        autoscaler."""
         self.wq.start()
         if self.cfg.reconcile_on_start:
             # repair whatever a previous incarnation left half-done BEFORE
@@ -437,9 +485,21 @@ class Program:
             self.host_monitor.start()
         if self.health_watcher is not None:
             self.health_watcher.start()
+        if self.cfg.admission_enabled and self.cfg.admission_interval_s > 0:
+            # the admission loop mutates shared state (preemption, gang
+            # placement) — a writer like the supervisor
+            self.admission.start()
+        if self.cfg.autoscale_interval_s > 0:
+            # the autoscaler mutates shared state (replica gangs, service
+            # records) — a writer like the admission loop
+            self.serving.start()
 
     def _stop_writers(self) -> None:
         """Halt the writer role; every close is guarded and restartable."""
+        if getattr(self, "serving", None) is not None:
+            self.serving.close()
+        if getattr(self, "admission", None) is not None:
+            self.admission.close()
         if getattr(self, "health_watcher", None) is not None:
             self.health_watcher.close()
         if getattr(self, "host_monitor", None) is not None:
@@ -464,6 +524,7 @@ class Program:
             job_svc=self.job_svc, pod_scheduler=self.pod_scheduler,
             reconciler=self.reconciler, job_supervisor=self.job_supervisor,
             host_monitor=self.host_monitor, fanout=self.fanout,
+            admission=self.admission, serving=self.serving,
             store_health=self.store_health,
             list_default_limit=self.cfg.list_default_limit,
             list_max_limit=self.cfg.list_max_limit,

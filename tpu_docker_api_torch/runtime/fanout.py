@@ -44,9 +44,8 @@ mode), modeling a daemon death while a concurrent batch is half-landed —
 the chaos tier proves the reconciler converges from that state.
 
 The port's copy of ``tpu_docker_api/runtime/fanout.py``, whole. The
-port's daemon builds one pool and hands it to the reconciler; the job
-service, supervisor and host monitor that share it in JAX come with ROADMAP
-Queue 1 item 10.
+port's daemon builds one pool and shares it, as JAX's does, between the
+reconciler, the job service, the supervisor and the host monitor.
 """
 
 from __future__ import annotations

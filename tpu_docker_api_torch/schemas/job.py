@@ -9,10 +9,7 @@ job's GPU count creates ``job-(n+1)`` on a fresh slice and retires ``job-n``.
 
 The port's copy of ``tpu_docker_api/schemas/job.py``: the same fields and
 JSON keys. ``acceleratorType`` takes the port's ``<part>-<N>`` strings
-(``"h100-8"``, scheduler/topology.py). The default priority ladder lives
-here too (JAX keeps it in ``service/admission.py``, which the port does not
-have yet): without the capacity market a job's ``priorityClass`` is still
-validated against it.
+(``"h100-8"``, scheduler/topology.py).
 """
 
 from __future__ import annotations
@@ -97,14 +94,6 @@ class JobDelete:
                 d.get("delStateAndVersionRecord", d.get("delEtcdInfoAndVersionRecord", False))
             ),
         )
-
-
-#: the capacity market's default priority ladder (JAX
-#: ``service/admission.py`` DEFAULT_PRIORITY_CLASSES / DEFAULT_CLASS)
-DEFAULT_PRIORITY_CLASSES: dict[str, int] = {
-    "system": 1000, "production": 100, "batch": 10, "preemptible": 1,
-}
-DEFAULT_CLASS = "batch"
 
 
 #: gang lifecycle phases (service/job_supervisor.py): a job is ``running``

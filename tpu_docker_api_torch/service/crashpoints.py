@@ -12,10 +12,11 @@ in-process compensation never gets a chance. The test then boots a fresh
 
 The port's copy of ``tpu_docker_api/service/crashpoints.py`` with the
 labels its modules fire: the container service, the job service and its
-supervisor, the elastic resize, the work queue, the ``KV.apply`` boundary,
-the runtime fan-out and the reconciler's dirty pass. The leader, shard,
-admission, service, gateway, compactor and workflow labels come with those
-services (ROADMAP Queue 1 item 10 part v); arming one raises ValueError.
+supervisor, the elastic resize, the capacity market, the Service resource,
+the work queue, the ``KV.apply`` boundary, the runtime fan-out and the
+reconciler's dirty pass. The leader, shard, gateway, compactor and workflow
+labels come with those services (ROADMAP Queue 1 item 10 part v); arming
+one raises ValueError.
 """
 
 from __future__ import annotations
@@ -109,8 +110,34 @@ RECONCILE_CRASH_POINTS = (
     "reconcile.dirty_drained",
 )
 
-#: elastic-gang resize lifecycle (service/job.py ``resize_gang``; JAX's
-#: ``admission.partial_preempt`` comes with the capacity market): the resize chaos matrix
+#: capacity-market admission lifecycle (service/admission.py): the chaos
+#: matrix kills the daemon at each of these mid-preemption and proves a
+#: fresh Program reconciles to one live version with zero leaks, the
+#: victim either fully preempted (queued for re-admission) or fully
+#: running — never half-quiesced — and the admission journal replays
+#: exactly-once
+ADMISSION_CRASH_POINTS = (
+    # the queued JobState + admission record are durable (ONE apply); the
+    # HTTP response was never sent — the record alone drives admission
+    "admission.enqueue",
+    # victims are chosen and re-validated under the victim's family lock;
+    # NOTHING durable has changed — a crash here leaves the victim fully
+    # running and the requester fully queued
+    "admission.select_victims",
+    # fires TWICE per victim (target with armed(..., skip=k)): skip=0 —
+    # the preempted-intent apply (JobState phase flip + re-admission
+    # record, atomic) is durable but the gang still runs; skip=1 — the
+    # gang is quiesced (workers first, coordinator last) but its slices
+    # and ports are not yet released
+    "admission.preempt",
+    # the queued/preempted job is PLACED (claims committed, gang created
+    # and started, JobState running) but its admission record is not yet
+    # deleted — replay must settle the record, never double-place
+    "admission.readmit",
+)
+
+#: elastic-gang resize lifecycle (service/job.py ``resize_gang`` +
+#: service/admission.py partial preemption): the resize chaos matrix
 #: kills the daemon at each of these and proves a fresh Program's
 #: reconcile converges to ONE live version with zero leaks and the gang
 #: at either the old or the new size — never half-resized — with the
@@ -134,12 +161,45 @@ RESIZE_CRASH_POINTS = (
     # re-journal it); skip=1 — the grow-back record is durable, only the
     # response/event bookkeeping is lost
     "job.resize.after_start_new",
+    # partial preemption: victims and spare-member counts are chosen;
+    # NOTHING durable has changed — a crash here leaves every victim
+    # fully running at full size and the requester fully queued
+    "admission.partial_preempt",
+)
+
+#: Service / autoscaler lifecycle (service/serving.py): the chaos matrix
+#: kills the daemon at each of these and proves a fresh Program's
+#: reconcile converges to exactly ONE fully-owned replica set — every
+#: replica family 0..replicas-1 exists and nothing beyond it, zero leaked
+#: chips/ports — never a half-scaled orphan fleet
+SERVICE_CRASH_POINTS = (
+    # the v0 ServiceState (replicas=N intent included) is durable in ONE
+    # apply; zero replica gangs exist yet — reconcile creates all N
+    "service.create.after_record",
+    # the scale-up decision (replicas=N+1 + lastScale) is durable; the
+    # new replica gang was never submitted — reconcile submits it
+    # (placing directly, or queueing through the admission market)
+    "service.scale_up.after_mark",
+    # the scale-down decision (replicas=N-1) is durable; the surplus
+    # replica gang still runs — reconcile tears it down
+    "service.scale_down.after_mark",
+    # the surplus gang is quiesced (workers first, coordinator last) but
+    # its family, slices and ports still exist — reconcile finishes the
+    # delete and release
+    "service.scale_down.after_quiesce",
+    # the new spec version + latest pointer are durable; every replica
+    # still runs the OLD spec — reconcile rolls them forward
+    "service.roll.after_version",
+    # phase "deleting" is durable; replica gangs still exist — reconcile
+    # finishes the teardown and drops the family
+    "service.delete.after_mark",
 )
 
 KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + JOB_CRASH_POINTS
                       + QUEUE_CRASH_POINTS + TXN_CRASH_POINTS
-                      + RESIZE_CRASH_POINTS + FANOUT_CRASH_POINTS
-                      + RECONCILE_CRASH_POINTS)
+                      + FANOUT_CRASH_POINTS
+                      + ADMISSION_CRASH_POINTS + RESIZE_CRASH_POINTS
+                      + SERVICE_CRASH_POINTS + RECONCILE_CRASH_POINTS)
 
 
 class SimulatedCrash(BaseException):

@@ -33,9 +33,7 @@ Down-ness is deliberately in-memory (re-observed after a restart) while
 cordons persist — an operator decision outlives the process, a network
 observation does not.
 
-The port's copy of ``tpu_docker_api/service/host_health.py``, whole. The
-capacity market is not ported (ROADMAP Queue 1 item 10 part v), so the
-drain's elastic shrink records no grow-back.
+The port's copy of ``tpu_docker_api/service/host_health.py``, whole.
 """
 
 from __future__ import annotations

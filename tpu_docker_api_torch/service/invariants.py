@@ -27,8 +27,8 @@ raising, so tests can assert on the whole set and operators can surface it
 verbatim.
 
 The port's copy of ``tpu_docker_api/service/invariants.py`` with the
-container and job oracles: the service and workflow oracles come with their
-services (ROADMAP Queue 1 item 10 part v).
+container, job and service oracles: the workflow oracle comes with its
+service (ROADMAP Queue 1 item 10 part v).
 """
 
 from __future__ import annotations
@@ -126,6 +126,87 @@ def check_invariants(
     for p, o in sorted(ports.status()["owners"].items()):
         if o not in known and job_owner_base(o) not in known:
             problems.append(f"port {p} owned by unknown {o!r}")
+    return problems
+
+
+def check_service_invariants(
+    store: StateStore,
+    service_versions: VersionMap,
+    job_versions: VersionMap,
+) -> list[str]:
+    """Replicated-service oracle (service/serving.py):
+
+    1. the latest service pointer has a persisted ``ServiceState`` with a
+       legal phase;
+    2. an ``active`` service owns exactly replica gang families
+       ``0..replicas-1`` — none missing, none surplus (a converged fleet,
+       never half-scaled);
+    3. every replica-marked job family (``SERVICE_OWNER_ENV`` in its
+       stored env) maps to a known service — a deleted service never
+       strands an orphan fleet;
+    4. a ``deleting`` service is a violation at rest: the reconciler must
+       have finished the sweep (the phase only exists mid-teardown).
+    """
+    from tpu_docker_api_torch.schemas.service import (
+        SERVICE_PHASES,
+        owner_from_env,
+    )
+    from tpu_docker_api_torch.service.serving import split_replica_base
+
+    problems: list[str] = []
+    families = service_versions.snapshot()
+
+    def job_owner(job_base: str) -> str | None:
+        if split_replica_base(job_base) is None:
+            return None
+        latest = job_versions.get(job_base)
+        if latest is None:
+            return None
+        try:
+            jst = store.get_job(versioned_name(job_base, latest))
+        except errors.NotExistInStore:
+            return None
+        return owner_from_env(jst.env)
+
+    owned: dict[str, list[tuple[int, str]]] = {}
+    for jb in job_versions.snapshot():
+        owner = job_owner(jb)
+        if owner is not None:
+            owned.setdefault(owner, []).append(
+                (split_replica_base(jb)[1], jb))
+
+    for base, latest in sorted(families.items()):
+        latest_name = versioned_name(base, latest)
+        try:
+            st = store.get_service(latest_name)
+        except errors.NotExistInStore:
+            problems.append(
+                f"service {base}: latest pointer v{latest} has no stored "
+                f"record")
+            continue
+        if st.phase not in SERVICE_PHASES:
+            problems.append(f"service {base}: unknown phase {st.phase!r}")
+        if st.phase == "deleting":
+            problems.append(
+                f"service {base}: stuck in phase deleting (teardown "
+                f"unfinished)")
+            continue
+        have = {idx for idx, _ in owned.get(base, [])}
+        missing = sorted(set(range(st.replicas)) - have)
+        if missing:
+            problems.append(
+                f"service {base}: missing replica gang(s) {missing} "
+                f"(want {st.replicas})")
+        surplus = sorted(i for i in have if i >= st.replicas)
+        if surplus:
+            problems.append(
+                f"service {base}: surplus replica gang(s) {surplus} "
+                f"(want {st.replicas})")
+
+    for owner in sorted(set(owned) - set(families)):
+        problems.append(
+            f"replica gang(s) {sorted(jb for _, jb in owned[owner])} owned "
+            f"by unknown service {owner!r}")
     return problems
 
 

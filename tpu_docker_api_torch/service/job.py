@@ -36,13 +36,12 @@ process of every version mounts the same ``binds``, so ``job-(n+1)`` resumes
 from the step ``job-n`` checkpointed at quiesce.
 
 The port's copy of ``tpu_docker_api/service/job.py``: the same flows,
-crash points, fan-out batches, state and ports. The capacity market and the
-serving gateway are not ported yet (ROADMAP Queue 1 item 10 part v):
-``admission`` stays ``None``, JAX's behaviour without it (a capacity refusal
-is a hard refusal, priority classes validate against the default ladder, no
-grow-back record is journaled); and no gang is a service replica, so a
-quiesce writes no gateway ``draining`` marker and waits for no drain (JAX's
-``_predrain`` does neither for a plain gang).
+crash points, fan-out batches, state and ports. The daemon wires the
+capacity market (service/admission.py) into ``admission``: queueing, grow-back
+records and re-admission of parked gangs. A service replica's quiesce writes
+the durable ``draining`` marker first, as JAX's ``_predrain`` does; the
+serving gateway is not ported yet (ROADMAP Queue 1 item 10 part v), so
+``drain_coordinator`` stays None and nothing waits for a drain ack.
 """
 
 from __future__ import annotations
@@ -57,8 +56,6 @@ from tpu_docker_api_torch.runtime.spec import ContainerSpec
 from tpu_docker_api_torch.scheduler.pod import Pod, PodScheduler, SliceAllocation
 from tpu_docker_api_torch.scheduler.slices import candidate_shapes
 from tpu_docker_api_torch.schemas.job import (
-    DEFAULT_CLASS,
-    DEFAULT_PRIORITY_CLASSES,
     SCALING_PHASES,
     JobDelete,
     JobPatchChips,
@@ -138,6 +135,11 @@ class JobService:
         #: None keeps the legacy refusal byte-for-byte (and validates
         #: classes against the default ladder)
         self.admission = None
+        #: serving-gateway drain handshake (JAX's service/gateway.py
+        #: DrainCoordinator, not ported yet): None = mark-only, the durable
+        #: marker still lands and nothing waits
+        self.drain_coordinator = None
+        self.drain_deadline_s = 0.0
 
     # -- helpers -----------------------------------------------------------------
 
@@ -455,6 +457,39 @@ class JobService:
         self.store.put_job(st)
         return st
 
+    def _predrain(self, st: JobState, pointer: bool = True) -> JobState:
+        """Persist the gateway ``draining`` marker BEFORE the first member
+        stop of a service-owned replica quiesce, then wait (deadline-
+        bounded) for every live gateway instance to ack it — so in-flight
+        streamed responses finish before the members die and zero
+        requests drop across rolls, scale-downs and stops.
+
+        Gated on service ownership (``owner_from_env``): plain gangs keep
+        their exact store-apply counts — no gateway routes to them, so
+        the extra write would buy nothing. Preemptions don't come through
+        here: their atomic phase→preempted flip (admission.py) IS the
+        mark-before-stop, folded by the routing table the same way."""
+        from tpu_docker_api_torch.schemas.service import owner_from_env
+
+        if (st.draining or not st.placements or st.phase != "running"
+                or owner_from_env(st.env) is None):
+            return st
+        st = JobState.from_dict({**st.to_dict(), "draining": True})
+        self.store.put_job(st, pointer=pointer)
+        crash_point("gateway.drain.after_mark")
+        base, version = split_versioned_name(st.job_name)
+        self._emit("job-draining", st.job_name)
+        if self.drain_coordinator is not None:
+            # version-scoped: only an ack that quiesced THIS version (or
+            # observed a newer one — the roll path, where the marker
+            # lands on the old record behind the latest pointer) counts
+            acked = self.drain_coordinator.wait_drained(
+                base, self.drain_deadline_s, version=version)
+            self._emit("job-drain-acked" if acked else "job-drain-deadline",
+                       st.job_name)
+        crash_point("gateway.drain.after_ack")
+        return st
+
     def _swap_version(self, base: str, old: JobState, carry: dict,
                       run_new) -> JobState:
         """THE rolling-replace state machine — one copy, shared by the
@@ -481,9 +516,10 @@ class JobService:
             # it (a bare-name GET would serve the retired version); on
             # the in-place path the pointer already names the old
             # version, so skipping the rewrite changes nothing
-            self._stop_members(old, reverse=True)
+            drained = self._predrain(old, pointer=False)
+            self._stop_members(drained, reverse=True)
             self.store.put_job(JobState.from_dict(
-                {**old.to_dict(), "desired_running": False,
+                {**drained.to_dict(), "desired_running": False,
                  "phase": "stopped", "draining": False}), pointer=False)
 
         def _resume_old() -> None:
@@ -785,6 +821,11 @@ class JobService:
         silently-accepted typo."""
         if self.admission is not None:
             return self.admission.resolve_class(name)
+        from tpu_docker_api_torch.service.admission import (
+            DEFAULT_CLASS,
+            DEFAULT_PRIORITY_CLASSES,
+        )
+
         pc = name or DEFAULT_CLASS
         if pc not in DEFAULT_PRIORITY_CLASSES:
             raise errors.BadRequest(
@@ -996,6 +1037,10 @@ class JobService:
         base, _, latest_name = self._resolve_latest(name)
         with self._locks.hold(base):
             st = self.store.get_job(latest_name)
+            # gateway handshake first: a service-owned replica's draining
+            # marker is durable (and acked by live gateways) strictly
+            # before the first member stop; plain gangs skip the write
+            st = self._predrain(st)
             # gang quiesce: workers drain first, the coordinator last, so
             # collective peers never outlive their rendezvous point (a
             # queued job has no members — the batch is empty — and a

@@ -41,9 +41,10 @@ adoption: half-created job versions scrubbed, interrupted restarts,
 migrations and resizes finished, crash loops failed, stale versions
 retired), the orphan passes, the resource and foreign-owner sweeps, the
 modes, the periodic loop and the store-outage hold, with JAX's constructor.
-The serving, admission and workflow adoption and the sharded plane's
-``owns`` filter come with their services (ROADMAP Queue 1 item 10 part v);
-handing the constructor one of them raises NotImplementedError.
+The serving and admission adoption passes run after the family passes, as
+JAX's do. The workflow adoption and the sharded plane's ``owns`` filter
+come with their services (ROADMAP Queue 1 item 10 part v); handing the
+constructor one of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -198,8 +199,7 @@ class Reconciler:
         owned_shards=None,
         store_gate=None,
     ) -> None:
-        for arg, value in (("admission", admission), ("serving", serving),
-                           ("workflow", workflow), ("owns", owns),
+        for arg, value in (("workflow", workflow), ("owns", owns),
                            ("owned_shards", owned_shards)):
             if value is not None:
                 raise NotImplementedError(
@@ -249,6 +249,17 @@ class Reconciler:
         #: toward ``job_resize_max`` so a thrashing resize converges
         self._resize_adopted: set[str] = set()
         self._registry = registry if registry is not None else REGISTRY
+        #: capacity-market admission controller (service/admission.py):
+        #: the sweep adopts its journal — purging records whose family is
+        #: gone, settling records whose job already placed (the
+        #: readmit-crash exactly-once), re-journaling stranded intent
+        self._admission = admission
+        #: Service adoption (service/serving.py): after the job family
+        #: passes repaired every replica gang, the serving sweep converges
+        #: each service to exactly one fully-owned replica set — missing
+        #: replicas created, surplus/orphan fleets torn down, interrupted
+        #: deletes and spec rolls finished
+        self._serving = serving
         #: event-driven mode: with a dirty feed attached,
         #: periodic passes visit only watch-dirtied families and the full
         #: scan is demoted to a rare anti-entropy pass every
@@ -445,6 +456,7 @@ class Reconciler:
                     # abort the sweep (SimulatedCrash, a BaseException,
                     # still propagates — that is the chaos harness's kill)
                     log.exception("job reconcile of %s failed", base)
+        self._adoption_passes(actions, dry_run)
         self._sweep_foreign_owners(actions, dry_run)
         if not dry_run:
             self._last_full = time.monotonic()
@@ -484,6 +496,7 @@ class Reconciler:
                         self._reconcile_job_family(base, actions, dry_run)
                     except Exception:  # noqa: BLE001 — as in the full pass
                         log.exception("job reconcile of %s failed", base)
+            self._adoption_passes(actions, dry_run)
         except BaseException:
             # the pass died mid-way (SimulatedCrash, store outage): the
             # un-repaired families must not vanish from the books — give
@@ -493,6 +506,34 @@ class Reconciler:
                 self._dirty.reinsert(drained)
             raise
         return sum(len(s) for s in drained.values())
+
+    def _adoption_passes(self, actions: list[dict], dry_run: bool) -> None:
+        if self._serving is not None:
+            # Service adoption AFTER the job family passes (a half-created
+            # replica version is scrubbed first, so the serving sweep sees
+            # only adoptable gangs) and BEFORE admission adoption (replica
+            # creation may enqueue new admission records this same sweep
+            # then settles)
+            try:
+                for a in self._serving.reconcile_services(dry_run=dry_run):
+                    a = dict(a)
+                    self._act(actions, dry_run, a.pop("action"),
+                              a.pop("target"), **a)
+            except Exception as e:  # noqa: BLE001 — one subsystem must
+                # not abort the sweep; services are re-read next pass
+                log.warning("reconcile: service adoption failed: %s", e)
+        if self._admission is not None:
+            # admission-journal adoption AFTER the family passes: a
+            # half-preempted victim is fully quiesced and released first,
+            # so record settlement judges the post-repair world
+            try:
+                for a in self._admission.reconcile_records(dry_run=dry_run):
+                    a = dict(a)
+                    self._act(actions, dry_run, a.pop("action"),
+                              a.pop("target"), **a)
+            except Exception as e:  # noqa: BLE001 — a store outage must
+                # not abort the sweep; records are re-read next pass
+                log.warning("reconcile: admission adoption failed: %s", e)
 
     def _replay_queue_journal(self, actions: list[dict],
                               dry_run: bool) -> None:

@@ -4,9 +4,9 @@ The service layer's one stop for persisted specs. Wraps `state.kv.KV` with the
 per-version key layout from `state.keys`, giving the rollback-capable history
 the reference advertises but cannot deliver (SURVEY.md appendix, etcd quirk).
 
-The port's copy of ``tpu_docker_api/state/store.py``: the container, volume
-and job families. The service and workflow families refuse by name until
-their schemas are ported (ROADMAP Queue 1 item 10 part v).
+The port's copy of ``tpu_docker_api/state/store.py``: the container, volume,
+job and service families. The workflow family refuses by name until its
+schema is ported (ROADMAP Queue 1 item 10 part v).
 """
 
 from __future__ import annotations
@@ -114,14 +114,19 @@ class StateStore:
 
         return JobState.from_dict(self._get(Resource.JOBS, name))
 
-    # -- services, workflows: their schemas and services are not ported
-    # (ROADMAP Queue 1 item 10 part v); the methods refuse by name -------------
+    # -- services ---------------------------------------------------------------
 
     def put_service(self, st) -> None:
-        _not_ported("put_service", "schemas/service")
+        base, _ = keys.split_versioned_name(st.service_name)
+        self._put(Resource.SERVICES, base, st.version, st.to_dict())
 
     def get_service(self, name: str):
-        _not_ported("get_service", "schemas/service")
+        from tpu_docker_api_torch.schemas.service import ServiceState
+
+        return ServiceState.from_dict(self._get(Resource.SERVICES, name))
+
+    # -- workflows: the schema and its service are not ported (ROADMAP
+    # Queue 1 item 10 part v); the methods refuse by name ----------------------
 
     def put_workflow(self, st) -> None:
         _not_ported("put_workflow", "schemas/workflow")

@@ -23,9 +23,8 @@ so POD < HOST keeps commit compatible with that ordering; no code path
 nests the other way. Non-batched mutators hold a single lock only, so they
 can never complete a cycle.
 
-The port's copy of ``tpu_docker_api/state/txn.py``: the ranks stay the JAX
-package's, though the pod scheduler (RANK_POD) comes with
-``scheduler/pod`` (ROADMAP Queue 1 item 10).
+The port's copy of ``tpu_docker_api/state/txn.py``, with the JAX package's
+ranks (``scheduler/pod`` takes RANK_POD).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 port's own copy of the subset of ``tpu_docker_api/telemetry/metrics.py``
 that serving and the control plane use: histograms (``observe``),
 counters (``counter_inc``, pull-time ``counter_fn``, ``counter_value``),
-pull-time gauges (``gauge_fn``, labeled ``gauge_series_fn``), ``render`` and the process-wide
-``REGISTRY``. Stdlib only.
+gauges (labeled ``gauge_set``, pull-time ``gauge_fn``, labeled
+``gauge_series_fn``), ``render`` and the process-wide ``REGISTRY``. Stdlib
+only.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counters: dict[str, dict[tuple, float]] = {}
+        self._gauges: dict[str, dict[tuple, float]] = {}
         self._hists: dict[str, dict[tuple, list]] = {}
         self._hist_buckets: dict[str, tuple[float, ...]] = {}
         self._help: dict[str, tuple[str, str]] = {}  # name -> (type, help)
@@ -73,6 +75,15 @@ class MetricsRegistry:
         with self._lock:
             series = self._counters.get(name, {})
             return series.get(tuple(sorted((labels or {}).items())), 0.0)
+
+    def gauge_set(self, name: str, value: float, labels: dict | None = None,
+                  help: str = "") -> None:
+        """Set a labeled gauge (the capacity market's queue depth, a
+        service's replica counts)."""
+        with self._lock:
+            self._declare(name, "gauge", help)
+            self._gauges.setdefault(name, {})[
+                tuple(sorted((labels or {}).items()))] = value
 
     def gauge_fn(self, name: str, fn: Callable[[], float],
                  help: str = "") -> None:
@@ -141,7 +152,9 @@ class MetricsRegistry:
                                 series, key=lambda s: sorted(s[0].items())):
                             out.append(
                                 f"{name}{_fmt_labels(labels)} {float(v):g}")
-                    for key, v in sorted(self._counters.get(name, {}).items()):
+                    values = self._counters if typ == "counter" \
+                        else self._gauges
+                    for key, v in sorted(values.get(name, {}).items()):
                         out.append(f"{name}{_fmt_labels(dict(key))} {v:g}")
                 else:  # histogram; counts are already cumulative
                     bks = self._hist_buckets.get(name, ())
