@@ -66,7 +66,7 @@ Phases, one JSON line each; any failure exits non-zero:
               restart whose startup repair (``/api/v1/reconcile/events``)
               frees the H100; ``h`` is granted it by UUID and its exec
               runs flash_fwd against the plain version; a dry run finds
-              no drift. Medians of 5 of a full pass's ``durationMs``, of
+              no drift. Medians of 3 of a full pass's ``durationMs``, of
               a dirty pass's over 20 families stopped through the API
               just before it (each pass visits exactly those 20), and of
               restart-to-ready.
@@ -79,7 +79,8 @@ Phases, one JSON line each; any failure exits non-zero:
               trainer verbatim (llama3-1b at its published width and
               depth, adamw-int8, 2 steps, ``--dp 1``: it joins an NCCL
               group at the rendered master), losses within 1e-3 of the
-              same command without the job's environment, flash fwd, dq,
+              same command without the job's environment (the two run
+              at once on the card), flash fwd, dq,
               dk/dv and adam8 counted in it; the member is marked exited
               and the supervisor restarts the gang within 3 intervals
               (``/health/jobs`` restarts 1, the same GPU UUID); DELETE
@@ -88,7 +89,7 @@ Phases, one JSON line each; any failure exits non-zero:
               the migrate points) on a 32-host pod of h100-8 fake engines
               (one DGX SuperPOD scalable unit): each case repaired by a
               fresh Program's startup reconcile, both oracles empty, at
-              most one live version; each repair's ms. (c) Medians of 5
+              most one live version; each repair's ms. (c) Medians of 3
               there, with 1 and 8 fan-out workers, at no engine latency
               and at 1 ms a call: run_job of a 16-host 128-GPU gang, its
               rescale to 256 GPUs, a 4-host gang's migration from the down
@@ -115,10 +116,39 @@ Phases, one JSON line each; any failure exits non-zero:
               admission crash cases, every ``service.*`` label and
               ``admission.partial_preempt`` on the 32-host pod, each
               repaired by a fresh Program's startup reconcile. (c)
-              Medians of 5 there, 1 ms an engine call, 1 and 8 fan-out
+              Medians of 3 there, 1 ms an engine call, 1 and 8 fan-out
               workers: a preempting admission pass for a 16-host ask, a
               pass over 64 blocked jobs, autoscaler ticks over 16
               services (steady, every one up to 2, back to 1).
+2g. workflows — workflows, leader election, the sharded writer plane
+              and history compaction (``phase_workflows``). (a) The
+              daemon's ``Program`` as in services, its loops at 0.5 s:
+              a production Service of zero replicas serving
+              ``--ckpt-dir`` of the workflow's shared bind, then a
+              workflow train → eval → promote: the train member trains
+              llama3-1b 2 steps of 4 x 2048 into the bind, the eval
+              member restores it for a forward and loss, each run here
+              from its rendered environment and its exit recorded by
+              the engine; the supervisor completes each gang, the
+              workflow loop advances, the promote rolls the Service to
+              the trained image; scaled to one replica, its server
+              answers token for token as a plain server on the same
+              checkpoint; the workflow ``succeeded``, every oracle
+              empty; all four kernels counted. (b), (c) and (d)'s
+              compaction run while (a)'s members hold the card (they
+              need none). (b) Two daemon processes
+              over one sqlite file and one docker engine, TTL 2 s: the
+              leader SIGKILLed while rolling 24 families; the standby
+              leads within a TTL and a heartbeat, converges to one live
+              version a family with its data, and the dead leader's
+              epoch is fenced. (c) 4 shards over two daemons, one
+              SIGKILLed: the survivor's writes on its shards go on, none
+              as slow as half the TTL, no gap that long; the time until
+              it holds every shard. (d) A compaction pass
+              over 200 x 8 versions (keys before and after, every
+              latest resolving), then JAX's WORKFLOW_CASES,
+              LEADER_POINTS, COMPACTOR_CASES and ``shard.coord.*`` on
+              the 32-host pod, each repair's ms.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               at the shapes the serving, training and LoRA paths give it
               (adam8 on the adapters' f32 leaves at b = 16, 256 and 4,
@@ -171,10 +201,11 @@ Phases, one JSON line each; any failure exits non-zero:
               and paged at 64 slots x 8192.
 5c. speculative — speculative decoding (``phase_speculative``): the
               batch-1 generator at llama3-1b full width and depth, the
-              target its own draft (128-token prompt, 128 new, k = 4,
-              against plain greedy; fewer than 64 rounds); the
-              ``SpeculativeSlotEngine`` on the serve burst (8 slots,
-              2,048 positions, 32 new) with a self-draft (at least half of
+              target its own draft (128-token prompt, 32 new, k = 4,
+              against plain greedy; fewer than 16 rounds); the
+              ``SpeculativeSlotEngine`` on every other prompt of the serve
+              burst (4 prompts of 17-1,300 tokens, 8 slots, 2,048
+              positions, 8 new) with a self-draft (at least half of
               the proposals accepted) and with a llama3-8b target and a
               llama3-1b draft, each against a plain ``SlotEngine`` on the
               same burst (TTFT/ITL p50, rounds, accepted tokens, peak
@@ -189,12 +220,14 @@ Phases, one JSON line each; any failure exits non-zero:
               one-token route against the flash prefill.
 5d. servebench — ``infer/servebench.py`` at the JAX defaults:
               ``bench_concurrent_serving`` (llama3-1b, 8 streams,
-              128/64), ``bench_decode_roofline`` (llama3-8b int8, batch
+              128/32), ``bench_decode_roofline`` (llama3-8b int8, batch
               64; % of the 3.35 TB/s roof beside the card's name and
               power limit), ``bench_int8_serving`` (llama3-8b, batch 64),
-              ``bench_tail_latency`` and ``bench_moe_serving`` (bench-moe,
-              batch 8, 128/64); one JSON line each, each ok (the MoE one:
-              a positive decode rate).
+              ``bench_tail_latency`` (16 requests, 24 new) and
+              ``bench_moe_serving`` (bench-moe, batch 8, 128/64), each one
+              timed repetition and the llama3-8b ones 32 new tokens; one
+              JSON line each, each ok (the MoE one: a positive decode
+              rate).
 6. train    — the trainer's entry points at llama3-1b full width and depth,
               batch 4 x 2048, random weights from a seed: 4 steps under
               ``adamw`` and 4 under ``adamw-int8`` on one repeated batch,
@@ -277,7 +310,8 @@ Phases, one JSON line each; any failure exits non-zero:
               500-token source (2e-2 relative L2), one
               ``--slots 0`` request (its tokens those of
               ``encdec_generate``, flash once an encoder layer);
-              ``bench_encdec_slot_serving`` at the JAX defaults, ``ok``.
+              ``bench_encdec_slot_serving`` at the JAX defaults but 12
+              requests, 16 new tokens and one timed repetition, ``ok``.
 
 - parallel: the mesh path (parallel/, one process a device) at world
               size 1 over NCCL, full width: llama3-1b trained 3 steps of
@@ -333,6 +367,7 @@ result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import faulthandler
@@ -3019,10 +3054,14 @@ def phase_serve_depth(dev) -> dict:
 
 
 SPEC_PRESET, SPEC_BIG = "llama3-1b", "llama3-8b"
-#: the legacy generator's run (scripts/validate_tpu.py's mechanism check)
-SPEC_PROMPT, SPEC_NEW, SPEC_K = 128, 128, 4
-SPEC_MAX_SEQ, SPEC_SLOTS, SPEC_SLOT_NEW = 2048, 8, 32
-SPEC_LENGTHS = SERVE_LENGTHS   # the serve phase's burst
+#: the legacy generator's run (scripts/validate_tpu.py's mechanism check);
+#: 32 new tokens (and 8 a request on the slot engine) where the checks
+#: once ran 128 (and 32), and every other prompt of the serve phase's
+#: burst: the depth cuts that make room for the workflows phase inside
+#: the script's time limit, every check unchanged
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 128, 32, 4
+SPEC_MAX_SEQ, SPEC_SLOTS, SPEC_SLOT_NEW = 2048, 8, 8
+SPEC_LENGTHS = SERVE_LENGTHS[::2]   # 17, 100, 511 and 1300 tokens
 
 
 def _spec_model(dev, preset: str, seed: int = 0):
@@ -3297,14 +3336,22 @@ def phase_speculative(dev) -> dict:
     return res
 
 
-#: the servebench phase's runs, at the JAX functions' defaults
+#: the servebench phase's runs, at the JAX functions' defaults but one
+#: timed repetition of each (JAX's 2 or 3), 32 new tokens where JAX's
+#: llama runs take 64 (24 of bench_tail_latency's 48) and 16 requests of
+#: bench_tail_latency (JAX's 32): the depth cuts that make room for the
+#: workflows phase, the checks unchanged
 SERVEBENCH = [
     ("bench_concurrent_serving", {"preset": "llama3-1b", "streams": 8,
-                                  "prompt_len": 128, "new_tok": 64}),
-    ("bench_decode_roofline", {"preset": "llama3-8b", "batch": 64}),
-    ("bench_int8_serving", {"preset": "llama3-8b", "batch": 64, "reps": 2}),
-    ("bench_tail_latency", {"preset": "llama3-1b"}),
-    ("bench_moe_serving", {"preset": "bench-moe"}),
+                                  "prompt_len": 128, "new_tok": 32,
+                                  "reps": 1}),
+    ("bench_decode_roofline", {"preset": "llama3-8b", "batch": 64,
+                               "new_tok": 32, "reps": 1}),
+    ("bench_int8_serving", {"preset": "llama3-8b", "batch": 64,
+                            "new_tok": 32, "reps": 1}),
+    ("bench_tail_latency", {"preset": "llama3-1b", "n_requests": 16,
+                            "new_tok": 24}),
+    ("bench_moe_serving", {"preset": "bench-moe", "reps": 1}),
 ]
 
 
@@ -3766,10 +3813,14 @@ ENCDEC_BATCH, ENCDEC_SEQ = 32, 512
 ENCDEC_TIMED_STEPS = 6
 ENCDEC_SERVE_LENGTHS = [17, 40, 100, 180, 250, 333, 420, 500]
 ENCDEC_MAX_NEW = 32
-#: the JAX defaults (8 streams, 16 requests, 128-token sources, 96 new
-#: tokens) but one timed repetition: the serialized baseline alone runs
-#: 1,536 batch-1 decode steps a repetition
-ENCDEC_BENCH = {"preset": "encdec-base", "reps": 1}
+#: the JAX defaults (8 streams, 128-token sources) but 12 requests (still
+#: more than the streams: the sustained-load shape) where JAX's send 16,
+#: one timed repetition and 16 new tokens where JAX's take 96: the
+#: serialized baseline runs 192 batch-1 decode steps a repetition (the
+#: depth cuts that make room for the workflows phase; its check is
+#: unchanged)
+ENCDEC_BENCH = {"preset": "encdec-base", "reps": 1, "new_tok": 16,
+                "requests": 12}
 #: the attention rule's shapes: (name, batch, seq, heads, head_dim)
 ATTN_RULE_SHAPES = [("vit-b16", 128, 256, 12, 64),
                     ("encdec-base encoder", 32, 512, 12, 64)]
@@ -4961,7 +5012,9 @@ JOBS_HOSTS = 32
 JOBS_INTERVAL_S = 1.0
 JOBS_TRAIN_STEPS = 2
 JOBS_LOSS_TOL = 1e-3
-JOBS_REPEATS = 5
+#: repeats behind each median of (c), in jobs and services (3, once 5: a
+#: depth cut that makes room for the workflows phase)
+JOBS_REPEATS = 3
 #: JAX's JOB_CASES (tests/test_chaos.py): flow × the crash points it
 #: traverses, and the feasible migrate points
 _JOBS_RUN = ("job.run.after_version_bump", "job.run.after_create")
@@ -5050,9 +5103,10 @@ def _member_train(env: list[str] | None) -> dict:
     return {"losses": losses, **lines[-1]}
 
 
-def _jobs_pod(kv, rts: dict, workers: int = 1, **cfg):
+def _jobs_pod(kv, rts: dict, workers: int = 1, leader_clock=None, **cfg):
     """A ``Program`` over a pod of ``len(rts)`` fake h100-8 hosts (h0 this
-    machine's synthesized host, the rest ``[[pod_hosts]]``), init only."""
+    machine's synthesized host, the rest ``[[pod_hosts]]``), init only;
+    ``leader_clock`` drives its lease(s)."""
     from tpu_docker_api_torch import config as cp_config
     from tpu_docker_api_torch.daemon import Program
     from tpu_docker_api_torch.scheduler.topology import HostTopology
@@ -5067,7 +5121,8 @@ def _jobs_pod(kv, rts: dict, workers: int = 1, **cfg):
              **({"local": True} if i == 0 else {"runtime_backend": "fake"})}
             for i in range(len(rts))], **cfg)
     prg = Program(conf, host="127.0.0.1", kv=kv, runtime=rts["h0"],
-                  pod_runtimes={h: r for h, r in rts.items() if h != "h0"})
+                  pod_runtimes={h: r for h, r in rts.items() if h != "h0"},
+                  leader_clock=leader_clock)
     prg._discover_topology = lambda: HostTopology.build("h100-8")
     prg.init()
     return prg
@@ -5245,7 +5300,7 @@ def phase_jobs(dev) -> dict:
     supervisor restarts the gang within 3 intervals, the same GPU UUID
     attached; ``DELETE`` frees the H100. (b) JAX's job crash matrix and
     migrate points on a 32-host pod of h100-8 fake engines, each repaired
-    by a fresh Program's startup reconcile. (c) Medians of 5 at that size
+    by a fresh Program's startup reconcile. (c) Medians of 3 at that size
     with 1 and 8 fan-out workers, at no engine latency and at 1 ms a
     call."""
     from tpu_docker_api_torch import config as cp_config
@@ -5290,8 +5345,10 @@ def phase_jobs(dev) -> dict:
         if (master != f"127.0.0.1:{info['coordinatorPort']}"
                 or (env["WORLD_SIZE"], env["RANK"]) != ("1", "0")):
             raise AssertionError(f"j-0-p0's environment: {spec.env}")
-        member = _member_train(spec.env)
-        plain = _member_train(None)
+        # the member's run and the plain one at once on the card: two
+        # processes, two process groups, each its own numerics
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            member, plain = pool.map(_member_train, (spec.env, None))
         diff = max(abs(a - b) for a, b in zip(member["losses"],
                                              plain["losses"]))
         want = {"flash_fwd": 16 * JOBS_TRAIN_STEPS,
@@ -5401,23 +5458,27 @@ sys.exit(rc)
 
 
 def _serve_member(env: list[str] | None, port: int, prompts: list,
-                  vocab: int) -> dict:
-    """``python -m tpu_docker_api_torch.serve``'s ``main`` (SERVICES_PRESET,
-    random weights from seed 0) in a child process under a replica
-    member's rendered environment verbatim, or with no job environment
-    (``env`` None), on ``port``: its ready time, the tokens of one greedy
-    request a prompt (sent one at a time, so both servers see the same
-    batch shapes) and its flash launches, read when SIGTERM stops it."""
+                  vocab: int, argv: list[str] | None = None,
+                  log_dir: str = SERVICES_DIR) -> dict:
+    """``python -m tpu_docker_api_torch.serve``'s ``main`` (``argv``, by
+    default SERVICES_PRESET with random weights from seed 0) in a child
+    process under a replica member's rendered environment verbatim, or
+    with no job environment (``env`` None), on ``port``: its ready time,
+    the checkpoint step it serves, the tokens of one greedy request a
+    prompt (sent one at a time, so both servers see the same batch
+    shapes) and its flash launches, read when SIGTERM stops it."""
+    if argv is None:
+        argv = ["--preset", SERVICES_PRESET, "--device", SERVICES_DEVICE,
+                "--max-seq", str(SERVICES_MAX_SEQ), "--slots", "4",
+                "--chunk", "8", "--seed", "0"]
     penv = {k: v for k, v in os.environ.items() if k not in _DIST_VARS}
     penv.update(dict(e.split("=", 1) for e in env or []))
     penv["PYTHONPATH"] = os.getcwd()
-    log_path = os.path.join(SERVICES_DIR, f"serve-{port}.log")
+    log_path = os.path.join(log_dir, f"serve-{port}.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-c", _SERVE_CHILD, "--preset", SERVICES_PRESET,
-             "--device", SERVICES_DEVICE, "--max-seq", str(SERVICES_MAX_SEQ),
-             "--slots", "4", "--chunk", "8", "--seed", "0",
+            [sys.executable, "-c", _SERVE_CHILD, *argv,
              "--host", "127.0.0.1", "--port", str(port)],
             env=penv, stdout=subprocess.PIPE, stderr=log, text=True)
         try:
@@ -5431,7 +5492,9 @@ def _serve_member(env: list[str] | None, port: int, prompts: list,
                     raise AssertionError(f"the replica's server did not "
                                          f"come up on {port}")
                 time.sleep(0.1)
-            ready_s = time.perf_counter() - t0
+            ready_at = time.perf_counter()
+            ready_s = ready_at - t0
+            step = _get(port, "/healthz")["step"]
             tokens = [_check_reply(*_post(port, {
                 "tokens": [p], "maxNewTokens": SERVICES_MAX_NEW}), 1,
                 SERVICES_MAX_NEW, vocab)["tokens"][0] for p in prompts]
@@ -5449,22 +5512,45 @@ def _serve_member(env: list[str] | None, port: int, prompts: list,
                                  f"{proc.returncode}: {f.read()[-3000:]}")
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     serving = next(ln for ln in lines if ln.get("event") == "serving")
-    return {"ready_s": ready_s, "tokens": tokens,
-            "launches": lines[-1]["launches"], "device": serving["device"]}
+    return {"ready_s": ready_s, "ready_at": ready_at, "step": step,
+            "tokens": tokens, "launches": lines[-1]["launches"],
+            "device": serving["device"]}
+
+
+def _serve_both(env: list[str], port: int, prompts: list, vocab: int,
+                argv: list[str] | None = None,
+                log_dir: str = SERVICES_DIR) -> tuple[dict, dict]:
+    """``_serve_member`` under a replica member's environment on ``port``
+    and, at the same time on the same card, without a job environment on
+    a free port (the plain server the replica is held against): each
+    answers its own requests one at a time, so the two see the same batch
+    shapes whatever the other does."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        replica, plain = pool.map(
+            lambda a: _serve_member(*a, prompts, vocab, argv, log_dir),
+            ((env, port), (None, _free_port())))
+    return replica, plain
 
 
 def _market_oracle(prg) -> list:
-    """The container, job and service oracles of one Program."""
+    """The container, job and service oracles of one Program, read
+    between two admission passes: a pass that probes a parked gang bumps
+    its version and rolls it back when the pool is full, and the oracles
+    judge the world at rest, not inside that write (a transient JAX's
+    package shows alike: ``tests/test_torch_admission.py``
+    ``test_an_oracle_inside_a_probe_sees_what_jax_sees``)."""
     from tpu_docker_api_torch.service.invariants import (
         check_invariants, check_job_invariants, check_service_invariants)
 
-    return (check_invariants(prg.runtime, prg.store, prg.container_versions,
-                             prg.chip_scheduler, prg.port_scheduler,
-                             job_versions=prg.job_versions)
-            + check_job_invariants(prg.pod, prg.pod_scheduler, prg.store,
-                                   prg.job_versions)
-            + check_service_invariants(prg.store, prg.service_versions,
-                                       prg.job_versions))
+    with prg.admission._pass_mu:
+        return (check_invariants(prg.runtime, prg.store,
+                                 prg.container_versions, prg.chip_scheduler,
+                                 prg.port_scheduler,
+                                 job_versions=prg.job_versions)
+                + check_job_invariants(prg.pod, prg.pod_scheduler, prg.store,
+                                       prg.job_versions)
+                + check_service_invariants(prg.store, prg.service_versions,
+                                           prg.job_versions))
 
 
 def _until(what: str, fn, limit_s: float, poll_s: float = 0.01) -> float:
@@ -5682,7 +5768,7 @@ def phase_services(dev) -> dict:
     JAX's admission crash cases, every ``service.*`` label and
     ``admission.partial_preempt`` on the 32-host pod of h100-8 fake
     engines, each repaired by a fresh Program's startup reconcile. (c)
-    Medians of 5 there at 1 ms an engine call, 1 and 8 fan-out workers."""
+    Medians of 3 there at 1 ms an engine call, 1 and 8 fan-out workers."""
     from tpu_docker_api_torch import config as cp_config
     from tpu_docker_api_torch.daemon import Program
     from tpu_docker_api_torch.models import resolve_preset
@@ -5787,9 +5873,8 @@ def phase_services(dev) -> dict:
         g = torch.Generator().manual_seed(0)
         prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
                    for n in SERVICES_PROMPTS]
-        replica = _serve_member(rspec.env, rjob["coordinatorPort"], prompts,
-                                vocab)
-        plain = _serve_member(None, _free_port(), prompts, vocab)
+        replica, plain = _serve_both(rspec.env, rjob["coordinatorPort"],
+                                     prompts, vocab)
         if (replica["tokens"] != plain["tokens"]
                 or replica["launches"]["flash_fwd"] <= 0
                 or replica["device"] != plain["device"]):
@@ -5873,14 +5958,1061 @@ def phase_services(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- workflows
+
+WORKFLOWS_DIR = "build/workflows"
+#: the workflow's steps: the published model at full width and depth,
+#: random weights from seed 0, the train phase's batch and sequence
+WORKFLOWS_PRESET = "llama3-1b"
+WORKFLOWS_DEVICE = "cuda"
+WORKFLOWS_BATCH, WORKFLOWS_SEQ = TRAIN_BATCH, TRAIN_SEQ
+#: the daemon's admission and workflow loops, and its supervisor, seconds
+WORKFLOWS_INTERVAL_S = 0.5
+#: (b) and (c): the lease's TTL and heartbeat, seconds; families rolled
+#: when the leader is killed; the writer's cadence during the kill
+WORKFLOWS_TTL_S = 2.0
+WORKFLOWS_RENEW_S = 0.1
+WORKFLOWS_HA_FAMILIES = 24
+WORKFLOWS_SHARDS = 4
+WORKFLOWS_WRITE_EVERY_S = 0.05
+#: (d): the compaction pass's history, and the retention it keeps
+WORKFLOWS_COMPACT_FAMILIES, WORKFLOWS_COMPACT_VERSIONS = 200, 8
+WORKFLOWS_RETENTION = 2
+#: (d)'s Programs: the market on, every loop off (passes, ticks and
+#: journal replays run inline)
+WORKFLOWS_INLINE = {**SERVICES_INLINE, "workflow_interval_s": 0,
+                    "reconcile_interval": 0}
+#: JAX's WORKFLOW_CASES (tests/test_workflow.py): every workflow.* label
+#: and the flow that traverses it
+WORKFLOWS_CASES = (
+    ("workflow.create.after_record", "create"),
+    ("workflow.enqueue_step", "create"),
+    ("workflow.after_launch", "launch"),
+    ("workflow.after_complete_marker", "complete"),
+    ("workflow.after_promote", "promote"),
+    ("workflow.cron_fire", "cron"),
+    ("workflow.delete.after_mark", "delete"),
+)
+
+#: the eval step's command: restore the train step's checkpoint (params
+#: only, as serving's --ckpt-dir does) and run one forward pass and loss
+#: over seeded tokens; one JSON line, last
+_EVAL_CHILD = """
+import json, sys
+import torch
+from tpu_docker_api_torch.models import model_fns, resolve_preset
+from tpu_docker_api_torch.ops import flash
+from tpu_docker_api_torch.train import checkpoint
+args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+cfg = resolve_preset(args["--preset"])[1]
+dev = torch.device(args["--device"])
+params, step = checkpoint.restore_model_params(args["--ckpt-dir"], cfg, dev)
+g = torch.Generator().manual_seed(1)
+tokens = torch.randint(0, cfg.vocab_size, (int(args["--batch"]),
+                       int(args["--seq"]) + 1), generator=g).to(dev)
+flash.reset_launch_count()
+with torch.no_grad():
+    loss = float(model_fns(cfg)[1](params, tokens, cfg))
+print(json.dumps({"rc": 0, "step": step, "loss": loss,
+                  "launches": dict(flash.launch_count)}), flush=True)
+"""
+
+
+def _member_argv(spec) -> list[str]:
+    """A member's command as this machine runs it: its ``python`` is this
+    interpreter (the workflow's binds mount each host path at the same
+    path, so the arguments need no mapping)."""
+    if not spec.cmd or spec.cmd[0] != "python":
+        raise AssertionError(f"a member's command: {spec.cmd}")
+    return [sys.executable, *spec.cmd[1:]]
+
+
+def _run_member(spec, timeout: int = 600) -> dict:
+    """Run a step member's command under its rendered environment; the
+    fake engine then records the exit code the process returned (the
+    supervisor reads a clean exit as the gang's completion)."""
+    penv = {k: v for k, v in os.environ.items() if k not in _DIST_VARS}
+    penv.update(dict(e.split("=", 1) for e in spec.env))
+    penv["PYTHONPATH"] = os.getcwd()
+    t0 = time.perf_counter()
+    proc = subprocess.run(_member_argv(spec), env=penv, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"the member {spec.name} failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    losses = [ln["loss"] for ln in lines if "loss" in ln and "step" in ln]
+    return {"seconds": time.perf_counter() - t0, "losses": losses,
+            **lines[-1]}
+
+
+def _wf_oracle(prg) -> list:
+    from tpu_docker_api_torch.service.invariants import (
+        check_workflow_invariants)
+
+    return (check_workflow_invariants(prg.store, prg.workflow_versions,
+                                      prg.job_versions)
+            + _market_oracle(prg))
+
+
+def _workflow_card(root: str, uuid: str, vocab: int) -> dict:
+    """(a): the daemon's Program from a TOML config in this process over
+    sqlite, the persisting fake runtime and the NVML topology, its loops
+    at WORKFLOWS_INTERVAL_S. A production Service of zero replicas whose
+    replica serves ``--ckpt-dir`` of the workflow's shared bind; POST a
+    three-step workflow train → eval → promote. Each step's member command
+    runs here under the member's rendered environment, and the engine
+    records its exit; the supervisor completes the gang and the workflow
+    loop advances. The promote rolls the Service to the trained image;
+    scaled to one replica, its server answers token for token as a plain
+    server on the same checkpoint."""
+    from tpu_docker_api_torch import config as cp_config
+    from tpu_docker_api_torch.daemon import Program
+
+    art = os.path.join(root, "artifacts")
+    ckpt_dir = os.path.join(art, "ckpt")
+    os.makedirs(art)
+    start = _free_range()
+    cfg_path = os.path.join(root, "daemon.toml")
+    with open(cfg_path, "w") as f:
+        f.write(f'port = 0\nstore_backend = "sqlite"\n'
+                f'sqlite_path = "{root}/state.db"\n'
+                f'runtime_backend = "fake"\n'
+                f'fake_runtime_root = "{root}/runtime"\n'
+                f'accelerator_type = "h100-1"\n'
+                f"start_port = {start}\nend_port = {start + 15}\n"
+                "admission_enabled = true\n"
+                f"admission_interval_s = {WORKFLOWS_INTERVAL_S}\n"
+                f"job_supervise_interval = {WORKFLOWS_INTERVAL_S}\n"
+                f"workflow_interval_s = {WORKFLOWS_INTERVAL_S}\n"
+                "autoscale_interval_s = 0\n")
+    model = ["--preset", WORKFLOWS_PRESET, "--device", WORKFLOWS_DEVICE]
+    serve_cmd = ["python", "-c", _SERVE_CHILD, *model, "--max-seq",
+                 str(SERVICES_MAX_SEQ), "--slots", "4", "--chunk", "8",
+                 "--ckpt-dir", ckpt_dir]
+    steps = [
+        {"name": "train", "image": "local", "chipCount": 1, "cmd": [
+            "python", "-c", _JOBS_CHILD, *model, "--steps",
+            str(JOBS_TRAIN_STEPS), "--batch", str(WORKFLOWS_BATCH), "--seq",
+            str(WORKFLOWS_SEQ), "--optim", "adamw-int8", "--log-every", "1",
+            "--dp", "1", "--ckpt-dir", ckpt_dir]},
+        {"name": "eval", "image": "local", "chipCount": 1, "deps": ["train"],
+         "cmd": ["python", "-c", _EVAL_CHILD, *model, "--ckpt-dir", ckpt_dir,
+                 "--batch", str(WORKFLOWS_BATCH), "--seq",
+                 str(WORKFLOWS_SEQ)]},
+        {"name": "promote", "kind": "promote", "deps": ["eval"],
+         "service": "prod", "image": "local:trained"}]
+    prg = Program(cp_config.load(cfg_path), host="127.0.0.1")
+    prg.init()
+    prg.start()
+    oracles, members = {}, {}
+    try:
+        port = prg.api_server.port
+        svc = _api(port, "POST", "/services", {
+            "serviceName": "prod", "imageName": "local:base",
+            "chipsPerReplica": 1, "replicas": 0, "minReplicas": 0,
+            "maxReplicas": 1, "binds": [f"{art}:{art}"],
+            "cmd": serve_cmd})
+        if svc["replicas"] != 0 or svc["priorityClass"] != "production":
+            raise AssertionError(f"POST /services: {svc}")
+        t_post = time.perf_counter()
+        created = _api(port, "POST", "/workflows", {
+            "workflowName": "pipe", "binds": [f"{art}:{art}"],
+            "steps": steps})
+        if created["phase"] != "running":
+            raise AssertionError(f"POST /workflows: {created}")
+
+        def step_of(name):
+            info = _api(port, "GET", "/workflows/pipe")
+            return info, next(s for s in info["steps"] if s["name"] == name)
+
+        transitions = {}
+        for name in ("train", "eval"):
+            _until(f"the {name} step's gang running", lambda: step_of(
+                name)[1].get("jobPhase") == "running",
+                6 * WORKFLOWS_INTERVAL_S + 10)
+            transitions[f"{name}_running_s"] = time.perf_counter() - t_post
+            job = _api(port, "GET", f"/jobs/{step_of(name)[1]['job']}")
+            cname = job["processes"][0]["container"]
+            spec = prg.runtime.container_inspect(cname).spec
+            env = dict(e.split("=", 1) for e in spec.env)
+            if (spec.gpu_uuids != [uuid] or env.get(
+                    "TPU_DOCKER_API_WORKFLOW") != "pipe"
+                    or f"{art}:{art}" not in spec.binds):
+                raise AssertionError(f"the {name} member: {spec}")
+            members[name] = _run_member(spec)
+            prg.runtime.crash_container(cname, exit_code=members[name]["rc"])
+            _until(f"the {name} step succeeded", lambda: step_of(
+                name)[1]["state"] == "succeeded",
+                6 * WORKFLOWS_INTERVAL_S + 10)
+            transitions[f"{name}_succeeded_s"] = time.perf_counter() - t_post
+        _until("the workflow succeeded", lambda: _api(
+            port, "GET", "/workflows/pipe")["phase"] == "succeeded",
+            6 * WORKFLOWS_INTERVAL_S + 10)
+        transitions["succeeded_s"] = time.perf_counter() - t_post
+        info = _api(port, "GET", "/workflows/pipe")
+        rolled = _api(port, "GET", "/services/prod")
+        oracles["succeeded"] = _wf_oracle(prg)
+        train, ev = members["train"], members["eval"]
+        want = {"flash_fwd": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dq": 16 * JOBS_TRAIN_STEPS,
+                "flash_bwd_dkv": 16 * JOBS_TRAIN_STEPS,
+                "adam8": len(LLAMA3_1B_LEAVES) * JOBS_TRAIN_STEPS}
+        if (len(train["losses"]) != JOBS_TRAIN_STEPS
+                or not all(math.isfinite(x) for x in train["losses"])
+                or (WORKFLOWS_DEVICE == "cuda" and train["launches"] != want)
+                or ev["step"] != JOBS_TRAIN_STEPS
+                or not math.isfinite(ev["loss"])
+                or rolled["image"] != "local:trained"
+                or prg.job_versions.snapshot() != {}):
+            raise AssertionError(f"the workflow's steps: train {train}, "
+                                 f"eval {ev}, service {rolled}, jobs "
+                                 f"{prg.job_versions.snapshot()}")
+
+        # the promoted Service scaled to one replica: its server restores
+        # the trained checkpoint
+        t0 = time.perf_counter()
+        _api(port, "PATCH", "/services/prod", {"replicas": 1})
+        _until("the replica running", lambda: _api(
+            port, "GET", "/services/prod")["readyReplicas"] == 1,
+            6 * WORKFLOWS_INTERVAL_S + 10)
+        rjob = _api(port, "GET", "/jobs/prod.r0")
+        rspec = prg.runtime.container_inspect(
+            rjob["processes"][0]["container"]).spec
+        g = torch.Generator().manual_seed(0)
+        prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
+                   for n in SERVICES_PROMPTS]
+        argv = _member_argv(rspec)[3:]  # the server's own arguments
+        replica, plain = _serve_both(rspec.env, rjob["coordinatorPort"],
+                                     prompts, vocab, argv, root)
+        promote_to_serving_s = replica["ready_at"] - t0
+        if (rspec.image != "local:trained" or rspec.gpu_uuids != [uuid]
+                or replica["tokens"] != plain["tokens"]
+                or replica["step"] != JOBS_TRAIN_STEPS
+                or (WORKFLOWS_DEVICE == "cuda"
+                    and replica["launches"]["flash_fwd"] <= 0)):
+            raise AssertionError(f"the promoted replica: {rspec.image}, "
+                                 f"{replica}, the plain server {plain}")
+        oracles["serving"] = _wf_oracle(prg)
+        _api(port, "DELETE", "/services/prod")
+        _api(port, "DELETE", "/workflows/pipe")
+        oracles["teardown"] = _wf_oracle(prg)
+        events = [e for e in prg.workflow.events_view(200)
+                  if e["workflow"] == "pipe"]
+    finally:
+        prg.stop()
+    if any(oracles.values()):
+        raise AssertionError(f"invariants: {oracles}")
+    launches = {name: train["launches"].get(name, 0)
+                + ev["launches"].get(name, 0)
+                + replica["launches"].get(name, 0)
+                for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                             "adam8")}
+    return {"transitions": transitions, "steps": info["steps"],
+            "events": [(e["event"], e.get("step"), round(e["ts"] - events[0][
+                "ts"], 3)) for e in events],
+            "train": train, "eval": ev, "replica": replica, "plain": plain,
+            "promote_to_replica_serving_s": promote_to_serving_s,
+            "launches": launches}
+
+
+class _Engine:
+    """A docker engine (``runtime/fake_engine.py``) on a unix socket that
+    both daemons of (b) and (c) drive, as two daemons of an HA fleet share
+    one dockerd: each container's MergedDir is a directory under ``root``,
+    so a rolling replace copies real data."""
+
+    def __init__(self, root: str):
+        from tpu_docker_api_torch.runtime.fake_engine import FakeEngine
+
+        os.makedirs(root, exist_ok=True)
+        base = FakeEngine.route
+        engine_root = root
+
+        class Engine(FakeEngine):
+            def route(self, method, path, params, body):
+                out = base(self, method, path, params, body)
+                if (method, path) == ("POST", "/containers/create") \
+                        and out[0] == 201:
+                    c = self.containers[params["name"]]
+                    merged = os.path.join(engine_root, c["Id"], "merged")
+                    os.makedirs(merged, exist_ok=True)
+                    c["GraphDriver"]["Data"]["MergedDir"] = merged
+                return out
+
+        self.engine = Engine(os.path.join(root, "docker.sock"),
+                             known_images=("local",))
+        self.docker_host = self.engine.docker_host
+
+    def running(self) -> list[str]:
+        with self.engine.mu:
+            return sorted(n for n, c in self.engine.containers.items()
+                          if c["State"]["Running"])
+
+    def merged(self, name: str) -> str:
+        with self.engine.mu:
+            return self.engine.containers[name]["GraphDriver"]["Data"][
+                "MergedDir"]
+
+    def close(self) -> None:
+        self.engine.close()
+
+
+def _ha_daemon(root: str, name: str, engine, db: str, **keys) -> _Daemon:
+    """``python -m tpu_docker_api_torch`` of an HA fleet: the shared
+    sqlite file and engine, leader election at WORKFLOWS_TTL_S."""
+    port = _free_port()
+    cfg_path = os.path.join(root, f"{name}.toml")
+    lines = [f"port = {port}", 'store_backend = "sqlite"',
+             f'sqlite_path = "{db}"', 'runtime_backend = "docker"',
+             f'docker_host = "{engine.docker_host}"',
+             f"start_port = {CONTROL_PORTS[0]}",
+             f"end_port = {CONTROL_PORTS[1]}", "leader_election = true",
+             f'leader_id = "{name}"', f"leader_ttl_s = {WORKFLOWS_TTL_S}",
+             f"leader_renew_interval_s = {WORKFLOWS_RENEW_S}",
+             "health_watch_interval = 0"]
+    lines += [f"{k} = {json.dumps(v)}" for k, v in keys.items()]
+    with open(cfg_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return _Daemon(cfg_path, port)
+
+
+def _read_world(db: str, engine) -> dict:
+    """The store's container world against the engine's, read from a
+    fresh connection: the families' versions, the running members and
+    ``check_invariants``."""
+    from tpu_docker_api_torch.runtime.docker_http import DockerRuntime
+    from tpu_docker_api_torch.scheduler.ports import PortScheduler
+    from tpu_docker_api_torch.scheduler.slices import ChipScheduler
+    from tpu_docker_api_torch.service.invariants import check_invariants
+    from tpu_docker_api_torch.state import keys
+    from tpu_docker_api_torch.state.kv import SqliteKV
+    from tpu_docker_api_torch.state.store import StateStore
+    from tpu_docker_api_torch.state.version import VersionMap
+    from tpu_docker_api_torch.telemetry.probe import probe_local_topology
+
+    kv = SqliteKV(db)
+    rt = DockerRuntime(engine.docker_host)
+    try:
+        versions = VersionMap(kv, keys.VERSIONS_CONTAINER_KEY)
+        topo = probe_local_topology()
+        problems = check_invariants(
+            rt, StateStore(kv), versions, ChipScheduler(topo, kv),
+            PortScheduler(kv, *CONTROL_PORTS),
+            job_versions=VersionMap(kv, keys.VERSIONS_JOB_KEY))
+        return {"versions": versions.snapshot(), "oracle": problems,
+                "running": engine.running()}
+    finally:
+        rt.close()
+        kv.close()
+
+
+def _failover(root: str) -> dict:
+    """(b): two daemon processes over one sqlite file and one engine, the
+    lease's TTL WORKFLOWS_TTL_S. The leader rolls WORKFLOWS_HA_FAMILIES
+    families (a volume patch each: a new version, the old member's data
+    copied, the old member stopped) and is SIGKILLed once half of the
+    patches are acknowledged; the standby takes the lease, replays the
+    dead leader's journal and converges."""
+    from tpu_docker_api_torch import errors
+    from tpu_docker_api_torch.service.leader import FencedKV
+    from tpu_docker_api_torch.state import keys
+    from tpu_docker_api_torch.state.kv import SqliteKV
+
+    engine = _Engine(os.path.join(root, "engine"))
+    db = os.path.join(root, "ha.db")
+    alpha = beta = None
+    try:
+        alpha = _ha_daemon(root, "alpha", engine, db)
+        _until("alpha leading", lambda: _api(
+            alpha.port, "GET", "/leader")["accepting"], 30)
+        beta = _ha_daemon(root, "beta", engine, db)
+        if _api(beta.port, "GET", "/leader")["role"] != "standby":
+            raise AssertionError("beta is not a standby")
+        epoch = _api(alpha.port, "GET", "/leader")["epoch"]
+        names = [f"f{i}" for i in range(WORKFLOWS_HA_FAMILIES)]
+        for name in names:
+            for v in ("a", "b"):
+                os.makedirs(os.path.join(root, "binds", f"{name}{v}"))
+            _api(alpha.port, "POST", "/containers", {
+                "imageName": "local", "containerName": name, "chipCount": 0,
+                "binds": [{"src": os.path.join(root, "binds", f"{name}a"),
+                           "dest": "/data"}]})
+            with open(os.path.join(engine.merged(f"{name}-0"), "ckpt.txt"),
+                      "w") as f:
+                f.write(f"{name} step=100")
+        _drain_s(alpha.port)
+        refused = _call(beta.port, "POST", "/api/v1/containers", {
+            "imageName": "local", "containerName": "nope",
+            "chipCount": 0})
+        acked: list[str] = []
+        mu = threading.Lock()
+
+        def roll(name):
+            try:
+                status, reply = _call(
+                    alpha.port, "PATCH", f"/api/v1/containers/{name}/volume",
+                    {"oldBind": {"src": os.path.join(root, "binds",
+                                                     f"{name}a"),
+                                 "dest": "/data"},
+                     "newBind": {"src": os.path.join(root, "binds",
+                                                     f"{name}b"),
+                                 "dest": "/data"}})
+                if reply["code"] == 200:
+                    with mu:
+                        acked.append(name)
+            except OSError:
+                pass  # the leader died under this request
+
+        threads = [threading.Thread(target=roll, args=(n,), daemon=True)
+                   for n in names]
+        for t in threads:
+            t.start()
+        _until("half of the rolls acknowledged",
+               lambda: len(acked) >= len(names) // 2, 60, 0.001)
+        t_kill = time.perf_counter()
+        alpha.kill()
+        for t in threads:
+            t.join(timeout=30)
+        _until("beta leading", lambda: _api(
+            beta.port, "GET", "/leader")["role"] == "leader",
+            4 * WORKFLOWS_TTL_S, 0.002)
+        kill_to_leader_s = time.perf_counter() - t_kill
+        # the lease is beta's; mutations open once its writers booted and
+        # its startup reconcile adopted alpha's journal
+        _until("beta accepting", lambda: _api(
+            beta.port, "GET", "/leader")["accepting"], 30)
+        kill_to_accepting_s = time.perf_counter() - t_kill
+        view = _api(beta.port, "GET", "/leader")
+
+        def converged():
+            world = _read_world(db, engine)
+            live = {}
+            for n in world["running"]:
+                live.setdefault(n.rsplit("-", 1)[0], []).append(n)
+            return (not world["oracle"]
+                    and not _api(beta.port, "GET", "/queue")["journal"][
+                        "entries"]
+                    and all(len(v) == 1 for v in live.values())
+                    and sorted(live) == sorted(names))
+
+        _until("the fleet converged", converged, 60, 0.05)
+        kill_to_converged_s = time.perf_counter() - t_kill
+        world = _read_world(db, engine)
+        data = {}
+        for name in names:
+            latest = world["versions"][name]
+            with open(os.path.join(engine.merged(f"{name}-{latest}"),
+                                   "ckpt.txt")) as f:
+                data[name] = f.read() == f"{name} step=100"
+        # the deposed leader's fence: a write carrying alpha's epoch
+        fenced = FencedKV(SqliteKV(db), lambda: [
+            ("value", keys.LEADER_EPOCH_KEY, str(epoch))])
+        try:
+            fenced.put("/apis/v1/fence-probe", "stale")
+            fence = "applied"
+        except errors.GuardFailed:
+            fence = "GuardFailed"
+        finally:
+            fenced.close()
+        fixpoint = _api(beta.port, "GET", "/reconcile")["actions"]
+        live = sorted(world["running"])
+        want_live = sorted(f"{n}-{world['versions'][n]}" for n in names)
+        # the lease's deadline is at most one TTL after the kill (the last
+        # renewal came before it); the standby's heartbeat sees it expired
+        # within one renewal interval after that
+        if (refused[0] != 503 or kill_to_leader_s > WORKFLOWS_TTL_S
+                + 2 * WORKFLOWS_RENEW_S or view["holderId"] != "beta"
+                or view["epoch"] != epoch + 1 or fence != "GuardFailed"
+                or world["oracle"] or fixpoint or not all(data.values())
+                or live != want_live):
+            raise AssertionError(
+                f"the failover: standby refusal {refused}, leader after "
+                f"{kill_to_leader_s} s ({view}), fence {fence}, invariants "
+                f"{world['oracle']}, fixpoint {fixpoint}, data {data}, live "
+                f"{live}, versions {world['versions']}")
+        return {"families": len(names), "acked_before_kill": len(acked),
+                "rolled": sum(v == 1 for v in world["versions"].values()),
+                "ttl_s": WORKFLOWS_TTL_S, "renew_s": WORKFLOWS_RENEW_S,
+                "kill_to_standby_leader_s": kill_to_leader_s,
+                "kill_to_standby_accepting_s": kill_to_accepting_s,
+                "kill_to_converged_s": kill_to_converged_s,
+                "epochs": [epoch, view["epoch"]], "fenced_write": fence,
+                "boot_s": [alpha.ready_s, beta.ready_s]}
+    finally:
+        for d in (alpha, beta):
+            if d is not None:
+                d.kill(signal.SIGTERM)
+        engine.close()
+
+
+def _sharded(root: str) -> dict:
+    """(c): ``shard_count = WORKFLOWS_SHARDS`` over two daemon processes,
+    alpha preferring shards 0-1 and beta 2-3, one sqlite file, one
+    engine. A writer creates a family on beta's shards every
+    WORKFLOWS_WRITE_EVERY_S; alpha is SIGKILLed; the writes go on until
+    beta holds every shard, every one answered 200 in less than half the
+    lease's TTL, with no gap that long from the kill to the takeover."""
+    from tpu_docker_api_torch.service.shard import ShardMap
+
+    engine = _Engine(os.path.join(root, "engine"))
+    db = os.path.join(root, "shards.db")
+    smap = ShardMap(WORKFLOWS_SHARDS)
+    daemons = {}
+    try:
+        for name, pref in (("alpha", [0, 1]), ("beta", [2, 3])):
+            # the standby delay outlasts beta's boot, so alpha leaves
+            # beta's preferred shards vacant until beta takes them; a dead
+            # holder's shards are taken at their deadline, with no delay
+            daemons[name] = _ha_daemon(
+                root, name, engine, db, shard_count=WORKFLOWS_SHARDS,
+                shard_preferred=pref, shard_standby_delay_s=30.0)
+        alpha, beta = daemons["alpha"], daemons["beta"]
+        def split():
+            # held and accepting: a shard's mutations open once its
+            # acquire callback (the writers' boot) has returned
+            views = {d: _api(daemons[d].port, "GET", "/shards")
+                     for d in daemons}
+            return all(v["held"] == held and all(
+                sh["accepting"] for sh in v["shards"] if sh["shard"] in held)
+                for v, held in ((views["alpha"], [0, 1]),
+                                (views["beta"], [2, 3])))
+
+        _until("the shards split", split, 60)
+        theirs = (f"w{i}" for i in range(100_000)
+                  if smap.shard_of(f"w{i}") in (2, 3))
+        writes: list[tuple[float, float, int]] = []
+        stop = threading.Event()
+
+        def writer():
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                _, reply = _call(beta.port, "POST", "/api/v1/containers", {
+                    "imageName": "local", "containerName": next(theirs),
+                    "chipCount": 0})
+                writes.append((t0, time.perf_counter() - t0, reply["code"]))
+                stop.wait(WORKFLOWS_WRITE_EVERY_S)
+
+        thread = threading.Thread(target=writer, daemon=True)
+        thread.start()
+        time.sleep(0.5)
+        t_kill = time.perf_counter()
+        alpha.kill()
+        _until("beta holding every shard", lambda: _api(
+            beta.port, "GET", "/shards")["held"] == list(range(
+                WORKFLOWS_SHARDS)), 4 * WORKFLOWS_TTL_S + 5)
+        takeover_s = time.perf_counter() - t_kill
+        time.sleep(0.5)
+        stop.set()
+        thread.join(timeout=30)
+        during = [(lat, code) for t0, lat, code in writes if t0 >= t_kill]
+        mine = next(f"m{i}" for i in range(10_000)
+                    if smap.shard_of(f"m{i}") == 0)
+        adopted = _call(beta.port, "POST", "/api/v1/containers", {
+            "imageName": "local", "containerName": mine, "chipCount": 0})
+        world = _read_world(db, engine)
+        # the survivor's writes must not stop: none of them (one in
+        # flight at the kill included) waits half a lease, and no gap
+        # between the kill, the starts of the writes in the takeover
+        # window and the takeover is that long
+        stall = WORKFLOWS_TTL_S / 2
+        starts = [t_kill, *(t0 for t0, _, _ in writes
+                            if t_kill <= t0 <= t_kill + takeover_s),
+                  t_kill + takeover_s]
+        gap = max(b - a for a, b in zip(starts, starts[1:]))
+        slowest = max(lat for _, lat, _ in writes)
+        if (not during or any(code != 200 for _, code in during)
+                or any(code != 200 for _, _, code in writes)
+                or slowest >= stall or gap >= stall
+                or adopted[1]["code"] != 200 or world["oracle"]
+                or takeover_s > WORKFLOWS_TTL_S + 1.0 + 3 * WORKFLOWS_RENEW_S):
+            raise AssertionError(
+                f"the sharded plane: writes {writes}, after the kill "
+                f"{during}, slowest {slowest} s and largest gap {gap} s "
+                f"(stall {stall} s), takeover {takeover_s} s, shard-0 "
+                f"write {adopted}, invariants {world['oracle']}")
+        lat = [x for x, _ in during]
+        return {"shards": WORKFLOWS_SHARDS, "writes_total": len(writes),
+                "writes_during_kill": len(during),
+                "writes_in_takeover_window": len(starts) - 2,
+                "write_p50_ms_during_kill": _pct(lat, 0.5) * 1e3,
+                "write_max_ms_during_kill": max(lat) * 1e3,
+                "write_max_gap_ms_during_takeover": gap * 1e3,
+                "kill_to_all_shards_s": takeover_s}
+    finally:
+        for d in daemons.values():
+            d.kill(signal.SIGTERM)
+        engine.close()
+
+
+def _compaction(root: str) -> dict:
+    """(d), first half: one compaction pass over
+    WORKFLOWS_COMPACT_FAMILIES container families of
+    WORKFLOWS_COMPACT_VERSIONS versions each (retention
+    WORKFLOWS_RETENTION) on the sqlite store; the store's keys counted
+    before and after, and every family's latest resolved after."""
+    from tpu_docker_api_torch.runtime.spec import ContainerSpec
+    from tpu_docker_api_torch.schemas.state import ContainerState
+    from tpu_docker_api_torch.service.compactor import HistoryCompactor
+    from tpu_docker_api_torch.state import keys
+    from tpu_docker_api_torch.state.kv import SqliteKV
+    from tpu_docker_api_torch.state.store import StateStore
+    from tpu_docker_api_torch.state.version import VersionMap
+    from tpu_docker_api_torch.telemetry.metrics import MetricsRegistry
+
+    kv = SqliteKV(os.path.join(root, "compact.db"))
+    try:
+        n, last = WORKFLOWS_COMPACT_FAMILIES, WORKFLOWS_COMPACT_VERSIONS - 1
+        spec = ContainerSpec(name="c", image="local").to_dict()
+        latest = {}
+        for i in range(n):
+            base = f"c{i}"
+            kv.apply([("put", keys.version_key(keys.Resource.CONTAINERS,
+                                               base, v),
+                       json.dumps(ContainerState(
+                           container_name=f"{base}-{v}", version=v,
+                           spec=dict(spec, name=f"{base}-{v}")).to_dict()))
+                      for v in range(last + 1)]
+                     + [("put", keys.latest_key(keys.Resource.CONTAINERS,
+                                                base), str(last))])
+            latest[base] = last
+        kv.put(keys.VERSIONS_CONTAINER_KEY, json.dumps(latest))
+        before = len(kv.keys_prefix(keys.PREFIX + "/"))
+        store = StateStore(kv)
+        comp = HistoryCompactor(
+            kv, store, maps=[(keys.Resource.CONTAINERS, VersionMap(
+                kv, keys.VERSIONS_CONTAINER_KEY))],
+            retention=WORKFLOWS_RETENTION, registry=MetricsRegistry())
+        t0 = time.perf_counter()
+        report = comp.compact_once()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = len(kv.keys_prefix(keys.PREFIX + "/"))
+        resolved = sum(store.get_container(f"c{i}").version == last
+                       for i in range(n))
+        want = n * (WORKFLOWS_COMPACT_VERSIONS - WORKFLOWS_RETENTION)
+        if (report["trimmedTotal"] != want or before - after != want
+                or resolved != n):
+            raise AssertionError(f"the compaction: {report}, keys {before} "
+                                 f"→ {after}, latest resolved {resolved}")
+        return {"families": n, "versions": WORKFLOWS_COMPACT_VERSIONS,
+                "retention": WORKFLOWS_RETENTION, "keys_before": before,
+                "keys_after": after, "trimmed": report["trimmedTotal"],
+                "pass_ms": ms, "latest_resolved": resolved}
+    finally:
+        kv.close()
+
+
+def _wf_pod(kv, rts, clock, **cfg):
+    """A Program of the 32-host pod with the market and the workflows on
+    and every loop off, its workflow clock ``clock``."""
+    prg = _jobs_pod(kv, rts, **{**WORKFLOWS_INLINE, **cfg})
+    prg.workflow._clock = lambda: clock["now"]
+    return prg
+
+
+def _wf_drive(prg, name: str) -> dict:
+    """Run a workflow's DAG to a terminal phase inline: replay the
+    journal, drain the admission queue, complete running gangs (the fake
+    engines' members never exit), tick the engine."""
+    for _ in range(24):
+        info = prg.workflow.workflow_info(name)
+        if info["phase"] in ("succeeded", "failed"):
+            return info
+        prg.wq.replay_journal(include_local=True)
+        while prg.admission.admit_once():
+            pass
+        for s in prg.workflow.workflow_info(name)["steps"]:
+            if s["state"] == "running" and s.get("jobPhase") == "running":
+                prg.job_svc.mark_gang_completed(s["job"])
+        prg.workflow.tick()
+        prg.wq.replay_journal(include_local=True)
+    return prg.workflow.workflow_info(name)
+
+
+def _workflow_case(point: str, flow: str) -> dict:
+    """One of JAX's WORKFLOW_CASES on the 32-host pod: a two-step DAG of
+    whole-host gangs (or a promote of a one-host service, or a cron
+    workflow) dies at ``point``; a fresh Program's reconcile pass repairs
+    it and the DAG then runs to completion, every effect exactly once."""
+    from tpu_docker_api_torch.schemas.service import ServiceCreate
+    from tpu_docker_api_torch.schemas.workflow import (WorkflowCreate,
+                                                       WorkflowStep)
+    from tpu_docker_api_torch.service.crashpoints import SimulatedCrash, armed
+    from tpu_docker_api_torch.service.workflow import step_base
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    kv, rts = MemoryKV(), _jobs_engines(JOBS_HOSTS)
+    clock = {"now": 1000.0}
+    dead = _wf_pod(kv, rts, clock)
+    steps = [WorkflowStep(name="train", image="local", chip_count=8),
+             WorkflowStep(name="eval", image="local", chip_count=8,
+                          deps=["train"])]
+
+    def create(**kw):
+        dead.workflow.create_workflow(WorkflowCreate(
+            workflow_name="pipe", steps=kw.pop("steps", steps), **kw))
+
+    try:
+        with armed(point):
+            if flow == "create":
+                create()
+            elif flow == "launch":
+                create()
+                dead.wq.replay_journal(include_local=True)
+            elif flow == "complete":
+                create()
+                dead.wq.replay_journal(include_local=True)
+                dead.job_svc.mark_gang_completed(step_base("pipe", 0, 0))
+                dead.workflow.tick()
+                dead.wq.replay_journal(include_local=True)
+            elif flow == "promote":
+                dead.serving.create_service(ServiceCreate(
+                    service_name="web", image_name="local",
+                    chips_per_replica=8, replicas=1, max_replicas=2))
+                create(steps=[WorkflowStep(name="promote", kind="promote",
+                                           service="web",
+                                           image="local:v2")])
+                dead.wq.replay_journal(include_local=True)
+            elif flow == "cron":
+                create(steps=steps[:1], cron_interval_s=100.0,
+                       cron_catchup="fire_once")
+                if _wf_drive(dead, "pipe")["phase"] != "succeeded":
+                    raise AssertionError("the cron run did not finish")
+                clock["now"] += 250.0
+                dead.workflow.tick()
+            else:
+                create()
+                dead.wq.replay_journal(include_local=True)
+                dead.workflow.delete_workflow("pipe")
+        raise AssertionError(f"{point}: no crash")
+    except SimulatedCrash:
+        pass
+    prg = _wf_pod(kv, rts, clock)
+    report = prg.reconciler.reconcile()
+    info = None if flow == "delete" else _wf_drive(prg, "pipe")
+    creates = [c[1] for rt in rts.values() for c in rt.inner.calls
+               if c[0] == "create"]
+    problems = _wf_oracle(prg)
+    fixpoint = prg.reconciler.reconcile()["actions"]
+    journal = prg.wq.stats()["journal"]
+    done = (prg.workflow_versions.snapshot() == {} if flow == "delete"
+            else info["phase"] == "succeeded")
+    if (not done or problems or fixpoint or journal["pending"]
+            or journal["inflight"] or len(creates) != len(set(creates))):
+        raise AssertionError(f"{point}: done {done} ({info}), invariants "
+                             f"{problems}, fixpoint {fixpoint}, journal "
+                             f"{journal}, creates {creates}")
+    return {"case": point, "ms": report["durationMs"],
+            "actions": [a["action"] for a in report["actions"]]}
+
+
+def _ha_pod(kv, rts, holder: str, clock):
+    """An HA fleet member on the 32-host pod, its elector stepped by hand
+    on ``clock``."""
+    return _jobs_pod(kv, rts, leader_clock=lambda: clock["now"],
+                     **WORKFLOWS_INLINE, leader_election=True,
+                     leader_ttl_s=30.0, leader_id=holder)
+
+
+def leader_takeover(ns, point: str, kv, boot) -> tuple:
+    """JAX's failover matrix (LEADER_POINTS) through the package ``ns``
+    (its ``crash`` and ``keys`` modules; ``tests/test_torch_chaos.py``
+    runs it through both packages) over the store ``kv``: leader A
+    (``boot(holder, clock)``, an HA member whose elector is stepped by
+    hand on ``clock``) dies at ``point``; standby B stays hands-off while
+    the lease lives and acquires at its first step past the deadline,
+    which replays A's journal. Returns A, B, the clock and what B's
+    steps showed."""
+    clock = {"now": 1000.0}
+    a = boot("daemon-a", clock)
+    if point == "leader.after_renew":
+        a.leader_elector.step()
+        clock["now"] += 10.0
+    try:
+        with ns.crash.armed(point):
+            a.leader_elector.step()
+        raise AssertionError(f"{point}: no crash")
+    except ns.crash.SimulatedCrash:
+        pass
+    b = boot("daemon-b", clock)
+    b.leader_elector.step()
+    deadline = json.loads(kv.get(ns.keys.LEADER_LEASE_KEY))["deadline"]
+    seen = {"a_epoch": a.leader_elector.epoch,
+            "hands_off": (b.leader_elector.is_leader, b.wq._thread is None),
+            "within_ttl": deadline - clock["now"] <= b.cfg.leader_ttl_s}
+    clock["now"] = deadline + 0.001
+    t0 = time.perf_counter()
+    b.leader_elector.step()
+    seen["acquire_ms"] = (time.perf_counter() - t0) * 1e3
+    seen["b"] = (b.leader_elector.is_leader, b.leader_elector.epoch)
+    return a, b, clock, seen
+
+
+def _leader_case(point: str) -> dict:
+    """``leader_takeover`` on the 32-host pod: a previous daemon left a
+    rolling rescale of a 16-host gang journaled; B's acquire replays the
+    journal and repairs. The deposed leader's fenced write fails."""
+    import types
+
+    from tpu_docker_api_torch import errors
+    from tpu_docker_api_torch.schemas.job import JobPatchChips, JobRun
+    from tpu_docker_api_torch.service import crashpoints
+    from tpu_docker_api_torch.service.invariants import check_job_invariants
+    from tpu_docker_api_torch.state import keys
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    kv, rts = MemoryKV(), _jobs_engines(JOBS_HOSTS)
+    prg0 = _jobs_pod(kv, rts, **WORKFLOWS_INLINE)
+    prg0.job_svc.run_job(JobRun(image_name="local", job_name="train",
+                                chip_count=128))
+    with crashpoints.armed("job.patch.after_start_new"):
+        try:
+            prg0.job_svc.patch_job_chips("train", JobPatchChips(
+                chip_count=64))
+        except crashpoints.SimulatedCrash:
+            pass
+    a, b, _, seen = leader_takeover(
+        types.SimpleNamespace(crash=crashpoints, keys=keys), point, kv,
+        lambda holder, clock: _ha_pod(kv, rts, holder, clock))
+    try:
+        b.wq.drain()
+        report = b.reconciler.last_report()
+        problems = (check_job_invariants(b.pod, b.pod_scheduler, b.store,
+                                         b.job_versions) + _wf_oracle(b))
+        try:
+            a.kv.put("/apis/v1/fence-probe", "stale")
+            fence = "applied"
+        except errors.GuardFailed:
+            fence = "GuardFailed"
+        if (seen["hands_off"][0] or not seen["within_ttl"]
+                or not b.leader_elector.is_leader or problems
+                or fence != "GuardFailed" or report is None):
+            raise AssertionError(f"{point}: {seen}, invariants "
+                                 f"{problems}, fence {fence}")
+        return {"case": point, "ms": report["durationMs"],
+                "acquire_ms": seen["acquire_ms"],
+                "actions": [x["action"] for x in report["actions"]]}
+    finally:
+        for p in (a, b):
+            p.leader_elector.close(release=False)
+            p._stop_writers()
+
+
+def compactor_crash(ns, point: str, boot, seed, image: str = "local",
+                    skip: int = 0) -> tuple[dict, dict, object]:
+    """JAX's COMPACTOR_CASES scenario through the package ``ns`` (its
+    ``keys``, ``kv``, ``spec``, ``state``, ``compactor``, ``crash`` and
+    ``inv`` modules; ``tests/test_torch_chaos.py`` runs it through both
+    packages): version records 0-7 of family ``t``, its latest pointer
+    and map at 7, member ``t-7`` running (``seed(spec)``). The compactor
+    of a Program (``boot(kv)``) dies at ``point``; a fresh Program reads
+    the latest, its reconcile finds no drift, and a re-run finishes the
+    trim exactly once. Returns what each step left, the repair's report
+    and the fresh Program."""
+    keys = ns.keys
+    kv = ns.kv.MemoryKV()
+    spec = ns.spec.ContainerSpec(name="t", image=image)
+    kv.apply([("put", keys.version_key(keys.Resource.CONTAINERS, "t", v),
+               json.dumps(ns.state.ContainerState(
+                   container_name=f"t-{v}", version=v,
+                   spec=dict(spec.to_dict(), name=f"t-{v}")).to_dict()))
+              for v in range(8)]
+             + [("put", keys.latest_key(keys.Resource.CONTAINERS, "t"), "7"),
+                ("put", keys.VERSIONS_CONTAINER_KEY, json.dumps({"t": 7}))])
+    seed(spec)
+
+    def compactor(prg):
+        return ns.compactor.HistoryCompactor(
+            prg.kv, prg.store,
+            maps=[(keys.Resource.CONTAINERS, prg.container_versions)],
+            retention=2, runtime=prg.runtime, chunk_ops=2)
+
+    try:
+        with ns.crash.armed(point, skip=skip):
+            compactor(boot(kv)).compact_once()
+        raise AssertionError(f"{point}: no crash")
+    except ns.crash.SimulatedCrash:
+        pass
+    prg = boot(kv)
+    out = {"latest": prg.store.get_container("t").version,
+           "crashed_history": prg.store.history(keys.Resource.CONTAINERS,
+                                                "t")}
+    report = prg.reconciler.reconcile()
+    out.update({"repair": report["actions"],
+                "oracle": ns.inv.check_invariants(
+                    prg.runtime, prg.store, prg.container_versions,
+                    prg.chip_scheduler, prg.port_scheduler),
+                "fixpoint": prg.reconciler.reconcile()["actions"]})
+    compactor(prg).compact_once()
+    out["history"] = prg.store.history(keys.Resource.CONTAINERS, "t")
+    out["running"] = prg.runtime.container_inspect("t-7").running
+    return out, report, prg
+
+
+def _compactor_case(point: str) -> dict:
+    """``compactor_crash`` on the 32-host pod, every oracle empty."""
+    import types
+
+    from tpu_docker_api_torch.runtime import spec
+    from tpu_docker_api_torch.schemas import state
+    from tpu_docker_api_torch.service import compactor, crashpoints, invariants
+    from tpu_docker_api_torch.state import keys, kv
+
+    rts = _jobs_engines(JOBS_HOSTS)
+    ns = types.SimpleNamespace(keys=keys, kv=kv, spec=spec, state=state,
+                               compactor=compactor, crash=crashpoints,
+                               inv=invariants)
+    out, report, prg = compactor_crash(
+        ns, point, lambda store: _jobs_pod(store, rts, **WORKFLOWS_INLINE),
+        lambda s: rts["h0"].inner.seed_running(["t-7"], s))
+    problems = _wf_oracle(prg)
+    if (out["latest"] != 7 or out["repair"] or out["oracle"] or problems
+            or out["fixpoint"] or out["history"] != [6, 7]
+            or not out["running"]):
+        raise AssertionError(f"{point}: {out}, invariants {problems}")
+    return {"case": point, "ms": report["durationMs"], "actions": []}
+
+
+def _shard_case(point: str) -> dict:
+    """A ``shard.coord.*`` point on the 32-host pod: alpha holds shards
+    0-1 of 3 and dies inside a cross-shard apply (a gang's version and
+    the pod's ledgers); beta, holding 2, steals 0-1 past their deadline,
+    its acquire replays and repairs, and alpha's writes are fenced."""
+    from tpu_docker_api_torch.schemas.job import JobRun
+    from tpu_docker_api_torch.service.crashpoints import SimulatedCrash, armed
+    from tpu_docker_api_torch.service.shard import ShardMap
+    from tpu_docker_api_torch.state import keys
+    from tpu_docker_api_torch.state.kv import MemoryKV
+
+    kv, rts = MemoryKV(), _jobs_engines(JOBS_HOSTS)
+    clock = {"now": 1000.0}
+    smap = ShardMap(3)
+
+    def member(holder, preferred):
+        return _jobs_pod(kv, rts, leader_clock=lambda: clock["now"],
+                         **WORKFLOWS_INLINE, leader_election=True,
+                         leader_ttl_s=30.0, leader_id=holder, shard_count=3,
+                         shard_preferred=preferred,
+                         shard_standby_delay_s=50.0)
+
+    beta = member("beta", [2])
+    beta.shard_plane.step_all()
+    alpha = member("alpha", [0, 1])
+    alpha.shard_plane.step_all()
+    victim = next(f"g{i}" for i in range(1000) if smap.shard_of(f"g{i}") == 1)
+    try:
+        with armed(point):
+            alpha.job_svc.run_job(JobRun(image_name="local",
+                                         job_name=victim, chip_count=16))
+        raise AssertionError(f"{point}: no crash")
+    except SimulatedCrash:
+        pass
+    survivor = next(f"s{i}" for i in range(1000)
+                    if smap.shard_of(f"s{i}") == 2)
+    beta.job_svc.run_job(JobRun(image_name="local", job_name=survivor,
+                                chip_count=8))
+    clock["now"] = max(json.loads(kv.get(keys.shard_lease_key(i)))[
+        "deadline"] for i in range(2)) + 50.0
+    t0 = time.perf_counter()
+    beta.shard_plane.step_all()
+    takeover_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        report = beta.reconciler.last_report()
+        problems = _wf_oracle(beta)
+        fenced = []
+        for shard in range(3):
+            fam = next(f"p{i}" for i in range(1000)
+                       if smap.shard_of(f"p{i}") == shard)
+            try:
+                alpha.kv.put(keys.latest_key(keys.Resource.JOBS, fam), "0")
+                fenced.append("applied")
+            except Exception as e:  # noqa: BLE001 — the class is the check
+                fenced.append(type(e).__name__)
+        if (sorted(beta.shard_plane.held) != [0, 1, 2] or problems
+                or fenced != ["GuardFailed"] * 3 or report is None):
+            raise AssertionError(f"{point}: held "
+                                 f"{sorted(beta.shard_plane.held)}, "
+                                 f"invariants {problems}, fenced {fenced}")
+        return {"case": point, "ms": report["durationMs"],
+                "takeover_ms": takeover_ms,
+                "actions": [x["action"] for x in report["actions"]]}
+    finally:
+        for p in (alpha, beta):
+            p.shard_plane.close(release=False)
+            p._stop_writers()
+
+
+def phase_workflows(dev) -> dict:
+    """Workflows, leader election, the sharded writer plane and history
+    compaction (``phase_workflows``): (a) ``_workflow_card`` on the H100
+    (all four kernels launched by the workflow's steps and its promoted
+    replica); at the same time (b) ``_failover``, (c) ``_sharded`` and
+    (d) ``_compaction``, which need no card; then JAX's WORKFLOW_CASES,
+    LEADER_POINTS, COMPACTOR_CASES and the ``shard.coord.*`` points on
+    the 32-host pod of h100-8 fake engines, each with its repair's
+    milliseconds."""
+    from tpu_docker_api_torch.models import resolve_preset
+    from tpu_docker_api_torch.service.crashpoints import (
+        COMPACTOR_CRASH_POINTS, LEADER_CRASH_POINTS, SHARD_CRASH_POINTS)
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(WORKFLOWS_DIR, ignore_errors=True)
+    os.makedirs(WORKFLOWS_DIR)
+    root = os.path.abspath(WORKFLOWS_DIR)
+    smi = nvidia_smi_gpus()
+    if len(smi) != 1:
+        raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
+    vocab = resolve_preset(WORKFLOWS_PRESET)[1].vocab_size
+    seconds = {}
+
+    def beside_the_card() -> dict:
+        """(b), (c) and (d)'s compaction: daemon processes and the store,
+        no card, run while (a)'s members hold it. No crash point is armed
+        here (the points are process-wide and (a)'s Program runs in this
+        process)."""
+        res = {}
+        for name, fn in (("failover", _failover), ("sharded", _sharded),
+                         ("compaction", _compaction)):
+            t = time.perf_counter()
+            sub = os.path.join(root, name)
+            os.makedirs(sub)
+            res[name] = fn(sub)
+            seconds[name] = time.perf_counter() - t
+        return res
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        beside = pool.submit(beside_the_card)
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "card"))
+        out = _workflow_card(os.path.join(root, "card"), smi[0]["uuid"],
+                             vocab)
+        seconds["card"] = time.perf_counter() - t0
+        out.update(beside.result())
+    t0 = time.perf_counter()
+    matrix = ([_workflow_case(p, f) for p, f in WORKFLOWS_CASES]
+              + [_leader_case(p) for p in LEADER_CRASH_POINTS]
+              + [_compactor_case(p) for p in COMPACTOR_CRASH_POINTS]
+              + [_shard_case(p) for p in SHARD_CRASH_POINTS])
+    seconds["matrix"] = time.perf_counter() - t0
+    shutil.rmtree(WORKFLOWS_DIR, ignore_errors=True)
+    res = {"phase": "workflows", **out, "hosts": JOBS_HOSTS,
+           "matrix": matrix, "seconds": seconds,
+           "phase_s": time.perf_counter() - phase_t0,
+           "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
+    emit(res)
+    return res
+
+
 # ---------------------------------------------------------------- reconcile
 
 RECONCILE_DIR = "build/reconcile"
 #: the daemon half's host: control_plane's 200 families (gpuCount 0,
 #: one containerPort each) beside one family holding the GPU
 RECONCILE_FAMILIES = CONTROL_FAMILIES
-#: repeats behind each median (full pass, dirty pass, restart-to-ready)
-RECONCILE_REPEATS = 5
+#: repeats behind each median (full pass, dirty pass, restart-to-ready;
+#: 3, once 5: a depth cut that makes room for the workflows phase)
+RECONCILE_REPEATS = 3
 #: families stopped through the API before each timed dirty pass, which
 #: then visits exactly these; a pass the periodic one beat to some marks
 #: is retried on the next batch, at most this many times in all
@@ -6035,7 +7167,7 @@ def phase_reconcile(dev) -> dict:
     holding the H100, a SIGKILL, ``g``'s container removed out of band
     while the daemon is down, a restart whose startup reconcile frees the
     H100, a new container granted it by UUID whose exec runs flash_fwd,
-    and a dry run that finds no drift. Medians of 5: a full pass, a dirty
+    and a dry run that finds no drift. Medians of 3: a full pass, a dirty
     pass over RECONCILE_DIRTY_CHANGES families stopped just before it,
     restart-to-ready."""
     from tpu_docker_api_torch.runtime.fake import FakeRuntime
@@ -6851,11 +7983,19 @@ def phase_mesh(dev) -> dict:
 def main() -> int:
     """No arguments: every phase on the first card (``phase_mesh`` too
     where more than one card is visible). ``--mesh``: the build and
-    ``phase_mesh`` alone. ``--mesh-rank``: one of its ranks."""
+    ``phase_mesh`` alone. ``--mesh-rank``: one of its ranks. ``--phase
+    NAME``: the build and one phase of ``single`` alone (no kernels
+    line and no last line)."""
+    main_t0 = time.perf_counter()
     args = sys.argv[1:]
     if args == ["--mesh-rank"]:
         return mesh_rank()
-    if args not in ([], ["--mesh"]):
+    single = {"devices": phase_devices, "control_plane": phase_control_plane,
+              "reconcile": phase_reconcile, "jobs": phase_jobs,
+              "services": phase_services, "workflows": phase_workflows,
+              "speculative": phase_speculative, "encdec": phase_encdec}
+    only = args[1] if len(args) == 2 and args[0] == "--phase" else None
+    if args not in ([], ["--mesh"]) and only not in single:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6899,36 +8039,53 @@ def main() -> int:
                  if "(C75" in ln]
         if notes:
             raise AssertionError(f"{name}: ptxas serialized wgmma: {notes}")
+    if only is not None:
+        single[only](dev)
+        print(card, flush=True)
+        return 0
     if args == ["--mesh"]:
         if torch.cuda.device_count() < 2:
             raise AssertionError("--mesh needs more than one card")
         phase_mesh(dev)
         print(card, flush=True)
         return 0
-    devices_res = phase_devices(dev)
-    control_res = phase_control_plane(dev)
-    reconcile_res = phase_reconcile(dev)
-    jobs_n = phase_jobs(dev)["launches"]
-    services_n = phase_services(dev)["launches"]
-    fwd_res = phase_kernels(dev)
-    bwd_res = phase_flash_bwd(dev)
-    adam_res = phase_adam8(dev)
-    serve_res = phase_serve(dev)
-    int8_res = phase_serve_int8_text(dev, serve_res)
-    depth_res = phase_serve_depth(dev)
-    spec_res = phase_speculative(dev)
-    bench_res = phase_servebench(dev)
-    train_res = phase_train(dev)
-    life_res = phase_lifecycle(dev)
-    lora_res = phase_lora(dev, train_res, int8_res)
-    moe_res = phase_moe(dev)
-    vit_res = phase_vit(dev)
-    encdec_res = phase_encdec(dev)
-    par_res = phase_parallel(dev)
+    timeline = {"build": build_s}
+
+    def timed(fn, *fn_args):
+        """``fn(dev, *fn_args)``, its wall seconds kept in ``timeline``."""
+        t = time.perf_counter()
+        out = fn(dev, *fn_args)
+        timeline[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t
+        return out
+
+    devices_res = timed(phase_devices)
+    control_res = timed(phase_control_plane)
+    reconcile_res = timed(phase_reconcile)
+    jobs_n = timed(phase_jobs)["launches"]
+    services_n = timed(phase_services)["launches"]
+    workflows_n = timed(phase_workflows)["launches"]
+    fwd_res = timed(phase_kernels)
+    bwd_res = timed(phase_flash_bwd)
+    adam_res = timed(phase_adam8)
+    serve_res = timed(phase_serve)
+    int8_res = timed(phase_serve_int8_text, serve_res)
+    depth_res = timed(phase_serve_depth)
+    spec_res = timed(phase_speculative)
+    bench_res = timed(phase_servebench)
+    train_res = timed(phase_train)
+    life_res = timed(phase_lifecycle)
+    lora_res = timed(phase_lora, train_res, int8_res)
+    moe_res = timed(phase_moe)
+    vit_res = timed(phase_vit)
+    encdec_res = timed(phase_encdec)
+    par_res = timed(phase_parallel)
     par_n = par_res["launches"]
-    pipe_n = phase_pipeline(dev, par_res)["launches"]
+    pipe_n = timed(phase_pipeline, par_res)["launches"]
     if torch.cuda.device_count() > 1:
-        phase_mesh(dev)
+        timed(phase_mesh)
+    # each phase's wall seconds and the script's, from main's start
+    emit({"phase": "timeline", "seconds": timeline,
+          "total_s": time.perf_counter() - main_t0})
     train_n, life_n = train_res["launches"], life_res["launches"]
     lora_n, moe_n = lora_res["launches"], moe_res["launches"]
     vit_n, encdec_n = vit_res["launches"], encdec_res["launches"]
@@ -6950,12 +8107,14 @@ def main() -> int:
                       "parallel": par_n["flash_fwd"],
                       "pipeline": pipe_n["flash_fwd"],
                       "jobs": jobs_n["flash_fwd"],
-                      "services": services_n["flash_fwd"]},
+                      "services": services_n["flash_fwd"],
+                      "workflows": workflows_n["flash_fwd"]},
         **{name: {"train": train_n[name], "lifecycle": life_n[name],
                   "lora": lora_n[name], "moe": moe_n[name],
                   "vit": vit_n[name], "encdec": encdec_n[name],
                   "parallel": par_n[name], "pipeline": pipe_n[name],
-                  "jobs": jobs_n[name], "services": services_n[name]}
+                  "jobs": jobs_n[name], "services": services_n[name],
+                  "workflows": workflows_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",

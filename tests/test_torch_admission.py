@@ -1,7 +1,6 @@
 """The port's capacity market (``service/admission.py``) against the JAX
-package's on the CPU: every case of ``tests/test_admission.py`` but the
-leader-standby one (leader election is not ported) runs one script
-through each package's ``Program`` over a row of 8-GPU hosts, and what
+package's on the CPU: every case of ``tests/test_admission.py`` runs one
+script through each package's ``Program`` over a row of 8-GPU hosts, and what
 each left behind must be JAX's: phases, queue positions and skips, the
 victims and their order, the stored job states and admission journal,
 the pod (containers, GPU and port owners, slices), the market's event
@@ -486,6 +485,42 @@ def test_admission_loop_runs_with_the_writers_only_when_enabled():
         assert prg.admission._thread is None
 
 
+def test_leader_standby_does_not_run_admission_loop():
+    """The admission loop is a writer: with leader election on it starts
+    and stops with the lease — the leader runs it, the standby does not
+    until it acquires — and with the loop interval 0 it never starts."""
+    def case(pkg):
+        out = []
+        for interval in (0, 0.05):
+            kv, clock = pkg.kv.MemoryKV(), {"now": 1000.0}
+            rts = {"h0": pkg.fake.FakeRuntime()}
+            progs = [tc.pod_program(
+                pkg, kv=kv, rts=rts, admission_enabled=True,
+                admission_interval_s=interval, leader_election=True,
+                leader_ttl_s=30.0, leader_id=name, reconcile_interval=0,
+                job_supervise_interval=0, host_probe_interval_s=0,
+                workflow_interval_s=0) for name in ("alpha", "beta")]
+            for prg in progs:
+                prg.leader_elector._clock = lambda: clock["now"]
+            try:
+                seen = [prg.admission._thread is not None for prg in progs]
+                for prg in progs:
+                    prg.leader_elector.step()
+                seen += [prg.admission._thread is not None for prg in progs]
+                progs[0].stop()  # releases the lease, stops its writers
+                progs[1].leader_elector.step()
+                seen += [prg.admission._thread is not None for prg in progs]
+                out.append(seen)
+            finally:
+                progs[1].stop()
+        return out
+
+    with tc.jax_knows_h100():
+        assert tc.both(case) == [
+            [False] * 6,
+            [False, False, True, False, False, True]]
+
+
 # -- config validation --------------------------------------------------------
 
 
@@ -757,10 +792,43 @@ def test_blocked_growback_never_freezes_queued_admissions():
 
 @pytest.mark.parametrize("arg", ["shard_fn", "owned_shards"])
 def test_sharded_plane_is_refused_by_name(arg):
-    with pytest.raises(NotImplementedError,
-                       match=f"{arg}.*ROADMAP Queue 1 item 10"):
-        tc.PORT.adm.AdmissionController(None, None, None, None, None,
-                                        **{arg: lambda *a: 0})
+    """The sharded writer plane's arguments are ported: ``shard_fn``
+    journals a queued gang under its family's shard, ``owned_shards``
+    leaves another shard's records to that shard's leader — the journal
+    keys, the records and the admission passes are JAX's."""
+    def case(pkg):
+        prg = tc.pod_program(pkg, admission_enabled=True,
+                             admission_interval_s=0)
+        kw = {"shard_fn": lambda base: 2 if base == "late" else 0}
+        if arg == "owned_shards":
+            kw["owned_shards"] = lambda: frozenset({0})
+        ctl = pkg.adm.AdmissionController(
+            prg.job_svc, prg.store, prg.job_versions, prg.pod_scheduler,
+            prg.kv, enabled=True, **kw)
+        prg.job_svc.admission = ctl
+        run = [prg.job_svc.run_job(pkg.js.JobRun(
+            image_name="jax", job_name=name, chip_count=8,
+            priority_class="batch"))["phase"] for name in ("big", "late")]
+        prg.job_svc.delete_job("big", pkg.js.JobDelete(force=True))
+        passes = [ctl.admit_once() for _ in range(2)]
+        return tc.unclocked({
+            "run": run, "passes": passes,
+            "keys": sorted(prg.kv.range_prefix(pkg.keys.ADMISSION_PREFIX)),
+            "records": [(r.base, r.kind, r.shard) for r in ctl._ordered()],
+            "world": tc.job_world(prg)})
+
+    with tc.jax_knows_h100():
+        out = tc.both(case)
+    assert out["run"] == ["running", "queued"]
+    prefix = tc.PORT.keys.admission_prefix(2)
+    assert [k.startswith(prefix) for k in out["keys"]] == [True] * (
+        arg == "owned_shards")
+    if arg == "owned_shards":
+        # shard 2 is not ours: its leader admits it, this process does not
+        assert out["records"] == [("late", "queued", 2)]
+    else:
+        assert out["records"] == []
+        assert out["passes"][0] and "late" in out["world"]["versions"]
 
 
 def test_records_and_classes_are_jax_s():
@@ -780,3 +848,33 @@ def test_records_and_classes_are_jax_s():
     assert not hasattr(tc.PORT.js, "DEFAULT_PRIORITY_CLASSES")
     assert [f.name for f in dataclasses.fields(tc.PORT.js.JobState)] == [
         f.name for f in dataclasses.fields(tc.JAX.js.JobState)]
+
+
+def test_an_oracle_inside_a_probe_sees_what_jax_sees(monkeypatch):
+    """The transient that ``chip_smoke.py``'s market oracles wait out by
+    reading between admission passes: a pass that probes a queued gang
+    on a full pool bumps its version pointer before the claim and rolls
+    it back when the claim fails. An oracle read inside the probe finds
+    the same dangling pointer in both packages; read after the pass, it
+    finds nothing."""
+    def case(pkg):
+        prg = boot(pkg)
+        run(pkg, prg, "a", 8)
+        queued = run(pkg, prg, "b", 8)["phase"]
+        inside = []
+        crash_point = pkg.job.crash_point
+
+        def spy(label):
+            if label == "job.run.after_version_bump":
+                inside.append(tc.market_oracle(pkg, prg))
+            crash_point(label)
+
+        monkeypatch.setattr(pkg.job, "crash_point", spy)
+        return books(pkg, prg, queued=queued, passes=placed(prg),
+                     inside=inside)
+
+    out = tc.both(case)
+    assert out["queued"] == "queued" and out["passes"] == []
+    assert out["inside"] == [["job b: latest pointer v1 has no stored "
+                              "state"]]
+    assert out["oracle"] == []

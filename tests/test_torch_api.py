@@ -176,16 +176,19 @@ def test_api_gpu_view_carries_the_uuids(tmp_path):
             in info["data"]["state"]["spec"]["env"])
 
 
-NOT_PORTED = [
-    ("POST", "/workflows", "workflows"), ("GET", "/workflows", "workflows"),
-    ("GET", "/gateway", "gateway"),
-    ("GET", "/leader", "leader election"), ("GET", "/shards", "shards"),
-    ("POST", "/compact", "history compaction"),
+NOT_PORTED = [("GET", "/gateway", "gateway")]
+#: the routes of item 10 part v's control plane, which answered 501 before
+#: workflows, leader election, shards and compaction were ported
+PORTED_CONTROL = [
+    ("POST", "/workflows"), ("GET", "/workflows"), ("GET", "/leader"),
+    ("GET", "/shards"), ("POST", "/compact"),
 ]
 
 
 def test_unported_routes_are_refused_by_name(tmp_path):
-    server, w = _server(svc.PORT, str(tmp_path))
+    servers = {name: _server(pkg, str(tmp_path / name))
+               for name, pkg in (("jax", svc.JAX), ("port", svc.PORT))}
+    server = servers["port"][0]
     try:
         for method, path, what in NOT_PORTED:
             status, reply = call(server.port, method, B + path, {})
@@ -195,15 +198,26 @@ def test_unported_routes_are_refused_by_name(tmp_path):
             assert "ROADMAP Queue 1 item 10" in reply["msg"], path
         status, reply = call(server.port, "GET", B + "/nowhere")
         assert (status, reply["code"]) == (200, 10001)
-        # the capacity market's and the services' routes are ported: a
-        # router without those services has no such route (JAX's answer)
+        # the capacity market's, the services', the workflows', the
+        # leader's, the shards' and the compactor's routes are ported: a
+        # router without those services answers as JAX's does (no route,
+        # or the single-process leader and shard views)
         for method, path in (("GET", "/admission"), ("POST", "/services"),
-                             ("GET", "/services/s")):
-            status, reply = call(server.port, method, B + path, {})
-            assert (status, reply["code"]) == (200, 10001), path
+                             ("GET", "/services/s")) + tuple(PORTED_CONTROL):
+            got = {}
+            for name, (srv, _) in servers.items():
+                status, reply = call(srv.port, method, B + path, {})
+                reply.pop("requestId", None)
+                got[name] = (status, reply)
+            assert got["port"] == got["jax"], path
+        assert call(server.port, "GET", B + "/leader")[1]["data"][
+            "role"] == "single"
+        assert call(server.port, "POST", B + "/workflows", {})[1][
+            "code"] == 10001
     finally:
-        server.close()
-        w.wq.close()
+        for srv, w in servers.values():
+            srv.close()
+            w.wq.close()
 
 
 #: the routes of item 10 part iv, which answered 501 before the pod, the
@@ -334,11 +348,12 @@ def test_job_slice_and_host_routes_answer_as_jax(group):
 
 
 def _strip_clock(obj):
-    """Drop what differs run to run: timestamps, trace ids, durations."""
+    """Drop what differs run to run: timestamps, trace ids, durations (an
+    admission entry's ``waitingS`` is its age in seconds)."""
     if isinstance(obj, dict):
         return {k: _strip_clock(v) for k, v in obj.items()
                 if k not in ("ts", "traceId", "spanId", "durationMs",
-                             "sinceS", "requestId")}
+                             "sinceS", "requestId", "waitingS")}
     if isinstance(obj, list):
         return [_strip_clock(v) for v in obj]
     return obj

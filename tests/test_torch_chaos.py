@@ -8,16 +8,21 @@ wreckage. Covered: the 13 container cases (grow, shrink and volume
 flows × the replace and patch points), the three queue points during a
 volume-resize copy and a rolling-replace copy, the ``KV.apply`` boundary
 on both sides of every commit of a create and a rolling replace, a
-daemon killed inside a fan-out batch, and ``reconcile.dirty_drained``.
+daemon killed inside a fan-out batch, ``reconcile.dirty_drained``, a
+leader killed at each ``leader.*`` point mid-handoff of an interrupted
+rolling replace (JAX's ``TestFailoverChaos``), and the history compactor
+killed before and in the middle of a trim (JAX's ``COMPACTOR_CASES``).
 The dry run's and the repair's reports, the end state (version maps,
 running containers, GPU and port ownership) and the data must be JAX's,
 ``check_invariants`` must be empty, and a second pass must find nothing.
 The matrix covers every crash label the port knows."""
 
+import json
 import time
 
 import pytest
 
+import chip_smoke
 import torch_control as tc
 
 pytestmark = pytest.mark.chaos
@@ -95,15 +100,20 @@ def test_case_matrix_covers_every_crash_point():
     assert set(c.FANOUT_CRASH_POINTS) == {"fanout.mid_batch"}
     assert set(c.RECONCILE_CRASH_POINTS) == {RECONCILE_DIRTY_POINT}
     # the job, resize and admission labels are test_torch_job_chaos.py's
-    # matrix, the service labels test_torch_service.py's
+    # matrix, the service labels test_torch_service.py's, the workflow,
+    # leader, shard and compactor labels those of test_torch_workflow.py,
+    # test_torch_leader.py, test_torch_shard.py and test_torch_compactor.py
     assert (set(p for _, p in CASES) | set(QUEUE_POINTS) | set(TXN_POINTS)
             | {"fanout.mid_batch", RECONCILE_DIRTY_POINT}
             | set(c.JOB_CRASH_POINTS) | set(c.RESIZE_CRASH_POINTS)
             | set(c.ADMISSION_CRASH_POINTS) | set(c.SERVICE_CRASH_POINTS)
+            | set(c.WORKFLOW_CRASH_POINTS) | set(c.LEADER_CRASH_POINTS)
+            | set(c.SHARD_CRASH_POINTS) | set(c.COMPACTOR_CRASH_POINTS)
             == set(c.KNOWN_CRASH_POINTS))
     # every label the port knows is one JAX knows, under the same group
     for group in ("CONTAINER", "JOB", "QUEUE", "TXN", "FANOUT", "RECONCILE",
-                  "ADMISSION", "RESIZE", "SERVICE"):
+                  "ADMISSION", "RESIZE", "SERVICE", "WORKFLOW", "LEADER",
+                  "SHARD", "COMPACTOR"):
         name = f"{group}_CRASH_POINTS"
         assert getattr(c, name) == getattr(tc.JAX.crash, name)
 
@@ -335,13 +345,107 @@ def test_crashed_flow_without_reconcile_violates_invariants(tmp_path):
 
 
 def test_unknown_crash_label_is_refused():
-    """A label of a service the port lacks is not armed silently; the
-    capacity market's and the Service resource's are armed."""
-    for label in ("workflow.create.after_record", "gateway.drain.after_mark",
-                  "compact.before_trim", "leader.after_acquire"):
+    """A label of a service the port lacks (the gateway's) is not armed
+    silently; the capacity market's, the Service resource's, the
+    workflows', the leader's, the shards' and the compactor's are armed."""
+    for label in ("gateway.drain.after_mark", "gateway.drain.after_ack"):
         with pytest.raises(ValueError, match="unknown crash points"):
             with tc.PORT.crash.armed(label):
                 pass
-    for label in ("admission.enqueue", "service.create.after_record"):
+    for label in ("admission.enqueue", "service.create.after_record",
+                  "workflow.create.after_record", "compact.before_trim",
+                  "leader.after_acquire", "shard.coord.before_apply"):
         with tc.PORT.crash.armed(label):
             pass
+
+
+#: election-lifecycle crash points: the failover matrix kills the leader at
+#: each and proves the standby takes over within the lease TTL
+LEADER_POINTS = ("leader.after_acquire", "leader.after_start_writers",
+                 "leader.after_renew")
+
+
+def _boot_ha(pkg, kv, runtime, holder, clock):
+    """An HA fleet member over the shared store and engine: election on,
+    writers follow the lease, the injected clock drives TTL expiry; the
+    heartbeat thread never starts — the case steps the elector by hand."""
+    prg = tc.boot(pkg, kv, runtime, host_probe_interval_s=0,
+                  job_supervise_interval=0, reconcile_interval=0,
+                  workflow_interval_s=0, leader_election=True,
+                  leader_ttl_s=30.0, leader_id=holder)
+    prg.leader_elector._clock = lambda: clock["now"]
+    return prg
+
+
+def _failover_case(pkg, point, root):
+    """Two daemons over one store; the leader dies at ``point`` mid-handoff
+    of an interrupted rolling replace. The standby stays hands-off while
+    the lease lives, acquires at the first step past the deadline, replays
+    the dead leader's journal and converges, while every epoch-fenced
+    write of the deposed leader is rejected by the store."""
+    kv = pkg.kv.MemoryKV()
+    runtime = pkg.fake.FakeRuntime(root=str(root / "rt"))
+    prg0 = tc.boot(pkg, kv, runtime)
+    _setup_family(pkg, prg0, root)
+    _flow(pkg, prg0, "grow", root)
+    a, b, clock, out = chip_smoke.leader_takeover(
+        pkg, point, kv,
+        lambda holder, clock: _boot_ha(pkg, kv, runtime, holder, clock))
+    del out["acquire_ms"]  # the card run's number, a wall time
+    out.update(_end_state(pkg, b))
+    stats = b.wq.stats()["journal"]
+    out["journal"] = (stats["pending"], stats["inflight"])
+    store_before = dict(kv.range_prefix("/"))
+    txn = pkg.txn.StoreTxn(a.kv)
+    txn.add_op(("put", "/apis/v1/fence-probe", "via-txn"))
+    out["fenced"] = [
+        a.leader_elector.is_leader,
+        tc.outcome(a.kv.put, "/apis/v1/fence-probe", "stale"),
+        tc.outcome(a.kv.apply, [("delete", pkg.keys.LEADER_EPOCH_KEY)]),
+        tc.outcome(txn.commit),
+        dict(kv.range_prefix("/")) == store_before]
+    b.kv.put("/apis/v1/fence-probe", "fresh")
+    clock["now"] += 5.0
+    b.leader_elector.step()
+    out["fresh"] = (kv.get("/apis/v1/fence-probe"), b.leader_elector.is_leader)
+    return out
+
+
+@pytest.mark.parametrize("point", LEADER_POINTS)
+def test_leader_killed_standby_acquires_and_converges(point, tmp_path):
+    out = tc.both(lambda pkg: _failover_case(pkg, point, tmp_path / pkg.name))
+    assert out["a_epoch"] == 1  # the fencing token it died with
+    assert out["hands_off"] == (False, True)  # stole no live lease
+    assert out["within_ttl"] is True and out["b"] == (True, 2)
+    assert out["invariants"] == [] and out["fixpoint"] == []
+    assert out["world"]["versions"] == {"train": 1}
+    assert out["data"] == {"train-1": "step=100"}
+    assert out["journal"] == (0, 0)
+    assert out["fenced"] == [True] + [("raise", "GuardFailed")] * 3 + [True]
+    assert out["fresh"] == ("fresh", True)
+
+
+#: (crash point, chunk index to die at): before_trim dies with nothing
+#: deleted; mid_trim dies with exactly one chunk durable
+COMPACTOR_CASES = (("compact.before_trim", 0), ("compact.mid_trim", 0))
+
+
+def _compactor_case(pkg, point, skip):
+    """``chip_smoke.compactor_crash`` on one fake host: a family whose
+    old versions' members are gone, the compactor killed at ``point``; a
+    fresh daemon reads the latest, finds no drift, and a re-run finishes
+    the trim exactly once."""
+    rt = pkg.fake.FakeRuntime()
+    out, _, _ = chip_smoke.compactor_crash(
+        pkg, point, lambda kv: tc.boot(pkg, kv, rt),
+        lambda spec: rt.seed_running(["t-7"], spec), image="jax", skip=skip)
+    return out
+
+
+@pytest.mark.parametrize("point,skip", COMPACTOR_CASES)
+def test_compactor_crash_converges(point, skip):
+    out = tc.both(lambda pkg: _compactor_case(pkg, point, skip))
+    assert out["latest"] == 7
+    assert out["repair"] == [], f"{point}: trim read as drift"
+    assert out["oracle"] == [] and out["fixpoint"] == []
+    assert out["history"] == [6, 7] and out["running"] is True

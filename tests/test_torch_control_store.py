@@ -5,10 +5,12 @@ CPU: ``state/txn.py`` ``StoreTxn`` (with the schedulers' ``txn=`` claims),
 (``service/crashpoints.py``). Each package gets the same seeded script;
 values, revisions, persisted strings and error classes must be equal."""
 
+import dataclasses
 import json
 import types
 
 import numpy as np
+
 import pytest
 
 from tpu_docker_api import errors as jerrors
@@ -245,10 +247,10 @@ def test_state_store_scripts_match_jax(backend, seed, tmp_path):
     ("get_service", ("s",)), ("put_workflow", (None,)),
     ("get_workflow", ("w",))])
 def test_store_refuses_unported_families_by_name(method, args):
-    """The workflow records refuse by name; the job and service records
-    are ported and round-trip as JAX's do, key for key (``pointer=False``
-    rewrites a retired job version without moving the family's pointer,
-    and a missing version is JAX's NotExistInStore)."""
+    """Every family is ported: the job, service and workflow records
+    round-trip as JAX's do, key for key (``pointer=False`` rewrites a
+    retired job version without moving the family's pointer, and a
+    missing version is JAX's NotExistInStore)."""
     if method.endswith("_job"):
         got = [_job_round_trip(pkg, method) for pkg in (JAX, PORT)]
         assert got[1] == got[0]
@@ -262,10 +264,41 @@ def test_store_refuses_unported_families_by_name(method, args):
         assert got[1] == got[0]
         assert got[1][1]["version"] == 1 and got[1][1]["replicas"] == 3
         return
-    st = tstore.StateStore(tkv.MemoryKV())
-    with pytest.raises(NotImplementedError,
-                       match=f"{method}.*ROADMAP Queue 1 item 10"):
-        getattr(st, method)(*args)
+    got = [_workflow_round_trip(pkg, method) for pkg in (JAX, PORT)]
+    assert got[1] == got[0]
+    assert got[1][1]["version"] == 1 and got[1][1]["run"] == 2
+    assert [st.name for st in wf_steps(got[1][1])] == ["train", "eval"]
+    assert got[1][2] == "NotExistInStore"
+
+
+def wf_steps(d):
+    from tpu_docker_api_torch.schemas.workflow import WorkflowState
+
+    return WorkflowState.from_dict(d).spec_steps()
+
+
+def _workflow_round_trip(pkg, method):
+    from tpu_docker_api.schemas import workflow as jwf
+    from tpu_docker_api_torch.schemas import workflow as twf
+
+    wf = jwf if pkg is JAX else twf
+    kv = pkg.kv.MemoryKV()
+    st = pkg.store.StateStore(kv)
+    steps = [wf.WorkflowStep(name="train", image="i", chip_count=2),
+             wf.WorkflowStep(name="eval", image="i", chip_count=1,
+                             deps=["train"])]
+    rec = wf.WorkflowState(
+        workflow_name="w-1", version=1,
+        steps=[dataclasses.asdict(s) for s in steps], run=2,
+        step_status={"train": {"state": "running", "attempts": 0}})
+    st.put_workflow(rec)
+    got = st.get_workflow("w-1").to_dict()
+    try:
+        st.get_workflow("w-0")
+        missing = None
+    except Exception as e:  # noqa: BLE001 — the class is the outcome
+        missing = type(e).__name__
+    return kv.range_prefix("/"), got, missing
 
 
 def _job_round_trip(pkg, method):
@@ -373,9 +406,14 @@ def _run_crashes(pkg, kv):
                 out.append(kv.range_prefix("/k/"))
     kv.apply([("put", "/k/free", "1")])  # disarmed again
     out.append(kv.range_prefix("/k/"))
-    out.append(_outcome(lambda: crash.armed("workflow.create.after_record")
-                        .__enter__()))
+    for label in ("workflow.create.after_record", "gateway.drain.after_mark"):
+        out.append(_outcome(lambda: _arm_and_release(crash, label)))
     return out
+
+
+def _arm_and_release(crash, label):
+    with crash.armed(label):
+        pass
 
 
 @pytest.mark.parametrize("backend", ["memory", "sqlite"])
@@ -384,21 +422,19 @@ def test_kv_apply_fires_crash_points_where_jax_does(backend, tmp_path):
     ``skip`` picks which commit dies, in both packages."""
     want = _run_crashes(JAX, _kv(JAX, backend, tmp_path, "jax"))
     got = _run_crashes(PORT, _kv(PORT, backend, tmp_path, "port"))
-    assert got[:-1] == want[:-1]
+    assert got[:-2] == want[:-2]
     assert got[0] == "txn.before_apply" and got[1] == {}
     assert got[4] == "txn.after_apply" and len(got[5]) == 2
-    # the workflow labels come with the workflow service: the port refuses
-    # them
+    # the workflow labels are ported: both packages arm them; the gateway's
+    # come with the gateway, so the port refuses them
+    assert got[-2] is want[-2] is None
     assert want[-1] is None and got[-1] == "ValueError"
 
 
 def test_port_knows_the_slice_crash_points_jax_fires():
-    assert tcrash.KNOWN_CRASH_POINTS == (
-        jcrash.CONTAINER_CRASH_POINTS + jcrash.JOB_CRASH_POINTS
-        + jcrash.QUEUE_CRASH_POINTS + jcrash.TXN_CRASH_POINTS
-        + jcrash.FANOUT_CRASH_POINTS + jcrash.ADMISSION_CRASH_POINTS
-        + jcrash.RESIZE_CRASH_POINTS + jcrash.SERVICE_CRASH_POINTS
-        + jcrash.RECONCILE_CRASH_POINTS)
+    assert tcrash.KNOWN_CRASH_POINTS == tuple(
+        p for p in jcrash.KNOWN_CRASH_POINTS
+        if p not in jcrash.GATEWAY_CRASH_POINTS)
     assert issubclass(tcrash.SimulatedCrash, BaseException)
     assert not issubclass(tcrash.SimulatedCrash, Exception)
 

@@ -25,6 +25,7 @@ import pytest
 
 from tpu_docker_api import config as jconfig
 from tpu_docker_api import daemon as jdaemon
+import torch_control as tc
 from tpu_docker_api_torch import config as tconfig
 from tpu_docker_api_torch.daemon import Program
 from tpu_docker_api_torch.runtime.fake import FakeRuntime
@@ -39,7 +40,6 @@ B = "/api/v1"
 #: the port's defaults that differ from JAX's: features the port lacks
 #: are off, and the synthesized host is an H100 one
 PORT_DEFAULTS = {
-    "workflow_interval_s": (2.0, 0.0),
     "accelerator_type": ("v5e-8", "h100-8"),
 }
 
@@ -133,6 +133,17 @@ def test_config_validation_errors_as_jax(line, tmp_path):
 def test_unported_features_are_refused_by_name(lines, key, tmp_path):
     path = _toml(tmp_path, lines)
     j = jconfig.load(path)  # JAX takes every one
+    if key in PORTED_CONTROL_KEYS:
+        # workflows, leader election, shards and compaction are ported:
+        # the port loads the same TOML to the same values, and a Program
+        # booted on it wires the same subsystems as JAX's does
+        t = tconfig.load(path)
+        assert getattr(t, key) == getattr(j, key)
+        with tc.jax_knows_h100():
+            got = [_wiring(pkg, cfg) for pkg, cfg in
+                   ((tc.JAX, j), (tc.PORT, t))]
+        assert got[1] == got[0]
+        return
     if key in PORTED_POD_KEYS + PORTED_MARKET_KEYS:
         # pods, the job supervisor, the host monitor, the capacity market
         # and the autoscaler are ported: the port loads the same TOML to
@@ -173,6 +184,29 @@ PORTED_POD_KEYS = ("pod_hosts", "job_supervise_interval",
                    "host_probe_interval_s")
 #: the keys of item 10 part v's capacity market and Service resource
 PORTED_MARKET_KEYS = ("admission_enabled", "autoscale_interval_s")
+#: the keys of item 10 part v's workflows, leader election, sharded
+#: writer plane and history compactor
+PORTED_CONTROL_KEYS = ("leader_election", "shard_count",
+                       "workflow_interval_s", "history_retention_versions")
+
+
+def _wiring(pkg, cfg):
+    """Which subsystems a Program booted on ``cfg`` has, by class name."""
+    cfg = dataclasses.replace(cfg, store_backend="memory",
+                              accelerator_type="h100-8")
+    prg = pkg.daemon.Program(cfg, kv=None, runtime=pkg.fake.FakeRuntime())
+    prg._discover_topology = lambda: tc.topology(pkg)
+    prg.init()
+    try:
+        return {name: type(getattr(prg, name)).__name__
+                for name in ("kv", "leader_elector", "shard_plane",
+                             "informer", "workflow", "compactor",
+                             "workflow_versions", "job_versions")} | {
+            "interval": prg.workflow._interval,
+            "shards": (None if prg.shard_map is None
+                       else prg.shard_map.count)}
+    finally:
+        prg.stop()
 
 
 def _h100_topology():

@@ -12,7 +12,8 @@ scheduler through the fake runtime, the control-plane daemon booted
 with a container run through one REST call, and an ``EtcdKV`` (over the
 standard library, ``requests`` blocked) against the fake gateway, on the
 CPU. With ``torch`` blocked too, the daemon boots on etcd with its
-reconciler and answers ``/api/v1/reconcile``."""
+reconciler and answers ``/api/v1/reconcile``, and again with leader
+election, workflows and the compactor on."""
 
 import os
 import subprocess
@@ -97,6 +98,11 @@ _CHILD = textwrap.dedent("""
                    "tpu_docker_api_torch.service.job_supervisor",
                    "tpu_docker_api_torch.service.host_health",
                    "tpu_docker_api_torch.scheduler.pod",
+                   "tpu_docker_api_torch.schemas.workflow",
+                   "tpu_docker_api_torch.service.workflow",
+                   "tpu_docker_api_torch.service.leader",
+                   "tpu_docker_api_torch.service.shard",
+                   "tpu_docker_api_torch.service.compactor",
                    "tpu_docker_api_torch.schemas.job",
                    "tpu_docker_api_torch.schemas.state",
                    "tpu_docker_api_torch.schemas.container",
@@ -262,9 +268,10 @@ _CHILD = textwrap.dedent("""
 
 #: the control-plane daemon with torch blocked too: it boots on an etcd
 #: store (the fake gateway) with its reconciler on, and answers the
-#: reconcile route
+#: reconcile route; then an HA daemon (leader election, workflows, the
+#: compactor) boots on the same store and leads
 _NO_TORCH_CHILD = textwrap.dedent("""
-    import http.client, json, sys, tempfile
+    import http.client, json, sys, tempfile, time
 
     BLOCKED = ("jax", "jaxlib", "tpu_docker_api", "torch", "requests")
 
@@ -303,11 +310,41 @@ _NO_TORCH_CHILD = textwrap.dedent("""
             "gpuCount": 1})["code"] == 200
         prg.runtime.crash_container("c-0")
         report = call("POST", "/api/v1/reconcile?mode=full")["data"]
-        assert [a["action"] for a in report["actions"]] == ["restart-dead"]
+        # the 0.2 s periodic pass may repair the crash before the explicit
+        # one runs: the repair is the reconciler's whichever pass made it
+        repairs = [(e["action"], e["target"])
+                   for e in call("GET", "/api/v1/reconcile/events")["data"]
+                   if not e["dryRun"]]
+        assert repairs == [("restart-dead", "c-0")], (repairs, report)
+        assert report["actions"] in ([], [{"action": "restart-dead",
+                                           "target": "c-0"}]), report
+        assert prg.runtime.container_inspect("c-0").running
         health = call("GET", "/healthz")["data"]
         assert health["fanout"]["workers"] == 4
         assert health["storeHealth"]["mode"] == "healthy"
         assert "reconcileDirty" in health
+    finally:
+        prg.stop()
+
+    # the HA daemon on the same store: leader election with its informer
+    # read path, workflows at JAX's interval and the history compactor
+    prg = Program(cp_config.Config(
+        port=0, runtime_backend="fake", store_backend="etcd", etcd_addr=addr,
+        health_watch_interval=0, leader_election=True, leader_ttl_s=5.0,
+        leader_renew_interval_s=0.05, history_retention_versions=3,
+        fake_runtime_root=tempfile.mkdtemp()), host="127.0.0.1")
+    prg.init()
+    prg.start()
+    try:
+        deadline = time.monotonic() + 30
+        while (not prg.leader_elector.accepts_mutations
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert call("GET", "/api/v1/leader")["data"]["role"] == "leader"
+        assert call("POST", "/api/v1/workflows", {
+            "workflowName": "w", "steps": [
+                {"name": "a", "image": "i", "chipCount": 1}]})["code"] == 200
+        assert call("POST", "/api/v1/compact")["code"] == 200
     finally:
         prg.stop()
         stop_gateway(server)

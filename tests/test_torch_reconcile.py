@@ -526,22 +526,43 @@ def test_watch_lost_relist_marks_everything_dirty_once(tmp_path):
 
 
 def test_reconciler_refuses_the_unported_collaborators():
-    """The workflow repair and the sharded plane's filter come with their
-    services: handing one in raises. The admission and serving adoption
-    are ported: the reconciler takes both."""
+    """Every collaborator is ported: the reconciler takes the admission,
+    serving and workflow adoption and the sharded plane's filter, and its
+    family passes visit only the families ``owns`` keeps, as JAX's do
+    (a half-created job of an unowned family is left to its owner)."""
     import types
 
     from tpu_docker_api_torch.service.reconcile import Reconciler
 
-    for arg in ("workflow", "owns", "owned_shards"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{arg}.*ROADMAP Queue 1 item 10"):
-            Reconciler(None, None, None, None, None,
-                       **{arg: types.SimpleNamespace()})
-    adm, srv = types.SimpleNamespace(), types.SimpleNamespace()
+    adm, srv, wf = (types.SimpleNamespace() for _ in range(3))
     rec = Reconciler(None, None, None, None, None, admission=adm,
-                     serving=srv)
-    assert (rec._admission, rec._serving) == (adm, srv)
+                     serving=srv, workflow=wf)
+    assert (rec._admission, rec._serving, rec._workflow) == (adm, srv, wf)
+    got = []
+    with tc.jax_knows_h100():
+        for pkg in tc.PKGS:
+            kv, rt = pkg.kv.MemoryKV(), pkg.fake.FakeRuntime()
+            prg = tc.boot(pkg, kv, rt)
+            for name in ("mine", "theirs"):
+                with pkg.crash.armed("job.run.after_create"):
+                    with pytest.raises(pkg.crash.SimulatedCrash):
+                        prg.job_svc.run_job(pkg.js.JobRun(
+                            image_name="jax", job_name=name, chip_count=2))
+            prg2 = tc.boot(pkg, kv, rt)
+            rec = pkg.rec.Reconciler(
+                rt, prg2.store, prg2.chip_scheduler, prg2.port_scheduler,
+                prg2.container_versions, job_svc=prg2.job_svc,
+                job_versions=prg2.job_versions,
+                owns=lambda base: base == "mine",
+                owned_shards=lambda: frozenset({1}))
+            report = rec.reconcile()
+            got.append(([(a["action"], a["target"])
+                         for a in report["actions"]],
+                        sorted(prg2.job_versions.snapshot())))
+    assert got[1] == got[0]
+    actions, versions = got[1]
+    assert ("scrub-half-created-job", "mine-0") in actions
+    assert "theirs" in versions and "mine" not in versions
 
 
 def test_reconciler_takes_the_job_service():

@@ -1,9 +1,9 @@
 """Shared harness of the control-plane tests that hold the port against the
 JAX package (test_torch_reconcile, _chaos, _fanout, _informer, _faulty,
 _etcd_kv, _store_health, _pod, _job_supervisor, _host_health, _job_chaos,
-_job_e2e, _admission, _service): each package's modules under one
-namespace, so a test runs one script through ``JAX`` and ``PORT`` and
-compares what each left behind.
+_job_e2e, _admission, _service, _workflow, _leader, _shard, _compactor):
+each package's modules under one namespace, so a test runs one script
+through ``JAX`` and ``PORT`` and compares what each left behind.
 Both packages get the same host: an HGX line of 8 GPUs. JAX's topology
 knows no GPU part, so the job tests teach it ``h100`` for their duration
 (``jax_knows_h100``): a JAX pod then has the port's hosts, GPU for GPU."""
@@ -26,18 +26,24 @@ from tpu_docker_api.scheduler import topology as jtopo
 from tpu_docker_api.schemas import container as jcontainer
 from tpu_docker_api.schemas import job as jjobschema
 from tpu_docker_api.schemas import service as jsvcschema
+from tpu_docker_api.schemas import state as jstate
 from tpu_docker_api.schemas import volume as jvolume
+from tpu_docker_api.schemas import workflow as jwfschema
 from tpu_docker_api.service import admission as jadmission
+from tpu_docker_api.service import compactor as jcompactor
 from tpu_docker_api.service import container as jcsvc
 from tpu_docker_api.service import crashpoints as jcrash
 from tpu_docker_api.service import host_health as jhosthealth
 from tpu_docker_api.service import invariants as jinv
 from tpu_docker_api.service import job as jjob
 from tpu_docker_api.service import job_supervisor as jsup
+from tpu_docker_api.service import leader as jleader
 from tpu_docker_api.service import reconcile as jrec
 from tpu_docker_api.service import serving as jserving
+from tpu_docker_api.service import shard as jshard
 from tpu_docker_api.service import store_health as jhealth
 from tpu_docker_api.service import watch as jwatch
+from tpu_docker_api.service import workflow as jworkflow
 from tpu_docker_api.state import faulty as jfaultykv
 from tpu_docker_api.state import informer as jinformer
 from tpu_docker_api.state import keys as jkeys
@@ -61,18 +67,24 @@ from tpu_docker_api_torch.scheduler import topology as ttopo
 from tpu_docker_api_torch.schemas import container as tcontainer
 from tpu_docker_api_torch.schemas import job as tjobschema
 from tpu_docker_api_torch.schemas import service as tsvcschema
+from tpu_docker_api_torch.schemas import state as tstate
 from tpu_docker_api_torch.schemas import volume as tvolume
+from tpu_docker_api_torch.schemas import workflow as twfschema
 from tpu_docker_api_torch.service import admission as tadmission
+from tpu_docker_api_torch.service import compactor as tcompactor
 from tpu_docker_api_torch.service import container as tcsvc
 from tpu_docker_api_torch.service import crashpoints as tcrash
 from tpu_docker_api_torch.service import host_health as thosthealth
 from tpu_docker_api_torch.service import invariants as tinv
 from tpu_docker_api_torch.service import job as tjob
 from tpu_docker_api_torch.service import job_supervisor as tsup
+from tpu_docker_api_torch.service import leader as tleader
 from tpu_docker_api_torch.service import reconcile as trec
 from tpu_docker_api_torch.service import serving as tserving
+from tpu_docker_api_torch.service import shard as tshard
 from tpu_docker_api_torch.service import store_health as thealth
 from tpu_docker_api_torch.service import watch as twatch
+from tpu_docker_api_torch.service import workflow as tworkflow
 from tpu_docker_api_torch.state import faulty as tfaultykv
 from tpu_docker_api_torch.state import informer as tinformer
 from tpu_docker_api_torch.state import keys as tkeys
@@ -91,7 +103,9 @@ JAX = types.SimpleNamespace(
     informer=jinformer, keys=jkeys, kv=jkv, store=jstore, version=jversion,
     wq=jwq, metrics=jmetrics, topo=jtopo, pod=jpod, js=jjobschema,
     job=jjob, sup=jsup, hh=jhosthealth, watch=jwatch, txn=jtxn,
-    adm=jadmission, serving=jserving, ss=jsvcschema)
+    adm=jadmission, serving=jserving, ss=jsvcschema, wfs=jwfschema,
+    wf=jworkflow, leader=jleader, shard=jshard, compactor=jcompactor,
+    state=jstate)
 PORT = types.SimpleNamespace(
     name="port", config=tconfig, daemon=tdaemon, errors=terrors, fake=tfake,
     fanout=tfanout, faulty=tfaulty, spec=tspec, ports=tports,
@@ -100,7 +114,9 @@ PORT = types.SimpleNamespace(
     informer=tinformer, keys=tkeys, kv=tkv, store=tstore, version=tversion,
     wq=twq, metrics=tmetrics, topo=ttopo, pod=tpod, js=tjobschema,
     job=tjob, sup=tsup, hh=thosthealth, watch=twatch, txn=ttxn,
-    adm=tadmission, serving=tserving, ss=tsvcschema)
+    adm=tadmission, serving=tserving, ss=tsvcschema, wfs=twfschema,
+    wf=tworkflow, leader=tleader, shard=tshard, compactor=tcompactor,
+    state=tstate)
 PKGS = (JAX, PORT)
 H100 = ttopo.GENERATIONS["h100"]
 #: the H100 as JAX's topology module spells a generation
@@ -340,3 +356,4 @@ def both(case):
         assert not differ, f"jax vs port: {differ}"
     assert got[1] == got[0]
     return got[1]
+

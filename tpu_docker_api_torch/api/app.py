@@ -9,11 +9,13 @@ fall-through validation bugs cannot happen here.
 
 The port's copy of ``tpu_docker_api/api/app.py``: the container, volume,
 job, admission, service, resource, slice, host, queue, dead-letter,
-reconcile, event, trace and health routes, with JAX's bodies and codes, and
-the store-outage gate (503 + ``Retry-After``, the stale-read envelope). The
-routes of families whose services the port lacks (workflows, gateway,
-leader, shards, compaction) answer with :class:`NotPorted` naming the
-missing service and ROADMAP Queue 1 item 10, not a bare "no route".
+reconcile, event, trace, health, workflow, leader, shard and compaction
+routes, with JAX's bodies and codes, the store-outage gate (503 +
+``Retry-After``, the stale-read envelope) and the HA gates (a standby, or a
+process that does not hold the family's shard, answers a mutation 503 with
+the leader hint). The gateway's routes answer with :class:`NotPorted`
+naming the missing service and ROADMAP Queue 1 item 10, not a bare "no
+route".
 
 Route table:
 
@@ -44,6 +46,14 @@ Route table:
     POST   /api/v1/jobs/{name}/stop            gang stop
     PATCH  /api/v1/jobs/{name}/restart         gang restart
     GET    /api/v1/admission                   capacity-market queue view
+    POST   /api/v1/workflows                   create a DAG workflow (steps + cron)
+    GET    /api/v1/workflows                   list workflows
+    GET    /api/v1/workflows/{name}            per-step status + cron state
+    PATCH  /api/v1/workflows/{name}            cron enable/interval/catch-up
+    DELETE /api/v1/workflows/{name}            tear down the DAG + step gangs
+    GET    /api/v1/leader                      election role, holder, epoch, lease deadline
+    GET    /api/v1/shards                      per-shard lease table
+    POST   /api/v1/compact                     one history-compaction pass
     POST   /api/v1/services                    create a replicated service
     GET    /api/v1/services                    list services
     GET    /api/v1/services/{name}             replica fleet + last autoscale decision
@@ -118,11 +128,7 @@ _VERSIONED_RE = re.compile(_NAME_RE.pattern.rstrip("$") + r"(-\d+)?$")
 #: route prefixes of the families this port has no service for yet, and
 #: the JAX service each needs (ROADMAP Queue 1 item 10)
 NOT_PORTED_ROUTES = (
-    ("/api/v1/workflows", "workflows (service/workflow.py)"),
     ("/api/v1/gateway", "the gateway (service/gateway.py)"),
-    ("/api/v1/leader", "leader election (service/leader.py)"),
-    ("/api/v1/shards", "shards (service/shard.py)"),
-    ("/api/v1/compact", "history compaction (service/compactor.py)"),
 )
 
 
@@ -145,6 +151,41 @@ def _validate_ref_name(name: str) -> None:
         raise errors.BadRequest(f"invalid container/volume name {name!r}")
 
 
+#: resources whose mutation routes carry a family name (the shard unit)
+_FAMILY_SEGMENTS = frozenset(("containers", "volumes", "jobs", "services",
+                              "workflows"))
+#: create bodies carry the family name under the resource's own field
+_CREATE_NAME_FIELDS = ("containerName", "volumeName", "jobName",
+                       "serviceName", "workflowName")
+
+
+def _shard_for_request(plane, path: str, raw: bytes) -> int:
+    """Owning shard for a mutation: family routes shard by the (version-
+    stripped) name in the path, creates by the name in the body; anything
+    else — host ops, reconcile, dead-letter retry — is shard 0. Unparsable
+    input classifies as shard 0 too: the gate must never mask the
+    validation error the handler would raise."""
+    from tpu_docker_api_torch.state import keys
+
+    seg = path.split("/")
+    if len(seg) < 4 or seg[3] not in _FAMILY_SEGMENTS:
+        return 0
+    if len(seg) >= 5 and seg[4]:
+        base, _ = keys.split_versioned_name(seg[4])
+        return plane.map.shard_of(base)
+    try:
+        body = json.loads(raw) if raw else {}
+    except ValueError:
+        return 0
+    if isinstance(body, dict):
+        for field in _CREATE_NAME_FIELDS:
+            name = body.get(field)
+            if isinstance(name, str) and name:
+                return plane.map.shard_of(name)
+    return 0
+
+
+
 def _not_ported_handler(service: str):
     def handler(body, **_):
         raise NotPorted(f"{service} is not ported to tpu_docker_api_torch "
@@ -165,6 +206,11 @@ class Router:
         #: trace sink (telemetry/trace.py); build_router sets it (None =
         #: request tracing off)
         self.tracer = None
+        #: HA role gate; build_router sets it (None = no gating)
+        self.leader_elector = None
+        #: sharded writer plane (service/shard.py); build_router sets it —
+        #: when present, the mutation gate routes per shard instead
+        self.shard_plane = None
 
     def add(self, method: str, pattern: str, handler) -> None:
         regex = re.compile(
@@ -193,7 +239,10 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  health_watcher=None, metrics=None,
                  job_svc=None, pod_scheduler=None, reconciler=None,
                  job_supervisor=None, host_monitor=None,
-                 fanout=None, admission=None, serving=None,
+                 leader_elector=None, shard_plane=None,
+                 informer=None, fanout=None,
+                 admission=None, serving=None, workflow_svc=None,
+                 compactor=None,
                  store_health=None,
                  list_default_limit: int = 0,
                  list_max_limit: int = 5000,
@@ -209,6 +258,16 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
     # probe; reads served from the informer mirror are marked stale
     # (envelope field + X-Stale-Read header). None gates nothing.
     r.store_health = store_health
+    # HA role gate (service/leader.py): on a standby replica every non-GET
+    # request is answered 503 + the leader hint BEFORE dispatch — reads
+    # stay local, mutations belong to the lease holder. None (single-
+    # process, or election disabled) gates nothing.
+    r.leader_elector = leader_elector
+    # sharded writer plane: same contract, per shard — a mutation is
+    # answered 503 + the OWNING shard's leader hint unless this process
+    # holds that shard's lease (api-layer routing is a redirect, never a
+    # proxy: the client retries against the advertised holder)
+    r.shard_plane = shard_plane
 
     def _page_params(body) -> tuple[int, str]:
         """(effective limit, continue token) for a list request. No (or
@@ -491,6 +550,53 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
         r.add("DELETE", "/api/v1/services/{name}", s_delete)
         r.add("POST", "/api/v1/services/{name}/load", s_load)
 
+    # -- Workflows (durable DAG orchestration, service/workflow.py) -----------
+
+    if workflow_svc is not None:
+        from tpu_docker_api_torch.schemas.workflow import (WorkflowCreate,
+                                                           WorkflowPatch)
+
+        def w_create(body, **_):
+            req = WorkflowCreate.from_dict(body)
+            _validate_base_name(req.workflow_name)
+            return workflow_svc.create_workflow(req)
+
+        def w_info(body, name):
+            _validate_ref_name(name)
+            return workflow_svc.workflow_info(name)
+
+        def w_patch(body, name):
+            _validate_ref_name(name)
+            return workflow_svc.patch_workflow(name,
+                                               WorkflowPatch.from_dict(body))
+
+        def w_delete(body, name):
+            _validate_ref_name(name)
+            workflow_svc.delete_workflow(name)
+            return None
+
+        def w_list(body, **_):
+            limit, token = _page_params(body)
+            if limit <= 0 and not token:
+                # legacy shape: the unbounded flat list
+                return workflow_svc.list_workflows()
+            page = pager.list_families(
+                container_svc.store.kv, Resource.WORKFLOWS,
+                limit=limit, token=token)
+            items = []
+            for it in page["items"]:
+                s = workflow_svc.workflow_summary(it["name"])
+                if s is not None:
+                    items.append(s)
+            return {"items": items, "continue": page["continue"],
+                    "rev": page["rev"]}
+
+        r.add("POST", "/api/v1/workflows", w_create)
+        r.add("GET", "/api/v1/workflows", w_list)
+        r.add("GET", "/api/v1/workflows/{name}", w_info)
+        r.add("PATCH", "/api/v1/workflows/{name}", w_patch)
+        r.add("DELETE", "/api/v1/workflows/{name}", w_delete)
+
     if pod_scheduler is not None:
         r.add("GET", "/api/v1/resources/slices",
               lambda body, **_: pod_scheduler.status())
@@ -525,8 +631,25 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
     r.add("GET", "/api/v1/resources/ports", lambda body, **_: port_scheduler.status())
 
     def healthz(body, **_):
-        # one process, no election: the role is always "single"
-        out = {"status": "ok", "role": "single", **build_info()}
+        # role surfaced next to liveness: load balancers route mutations by
+        # it, and "single" keeps the no-election deployment unambiguous
+        if shard_plane is not None:
+            held = sorted(shard_plane.held)
+            role = "leader" if held else "standby"
+        else:
+            role = ("single" if leader_elector is None
+                    else ("leader" if leader_elector.is_leader
+                          else "standby"))
+        out = {"status": "ok", "role": role, **build_info()}
+        if shard_plane is not None:
+            # which slice of the writer plane this replica carries: load
+            # balancers shard mutations by it, operators eyeball spread
+            out["shards"] = {"count": shard_plane.map.count, "held": held}
+        if informer is not None:
+            # read-path health rides liveness: a standby whose informer is
+            # degraded still serves (read-through fallback) but slower —
+            # load balancers and operators see it here
+            out["informer"] = informer.status_view()
         if fanout is not None:
             # fan-out saturation (workers/in-flight/batches): a pool pinned
             # at its worker cap is the "lifecycle flows are serializing
@@ -562,14 +685,68 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
 
     r.add("GET", "/healthz", healthz)
 
+    def leader_view(body, **_):
+        def _with_store(out):
+            # lease health and store health are one story: a leader whose
+            # renewals are failing IS a store brownout in progress
+            if store_health is not None:
+                out["storeHealth"] = store_health.status_view()
+            return out
+
+        if shard_plane is not None:
+            # shard-aware: the single-lease fields generalize to the full
+            # per-shard table (satellite of docs/robustness.md "Sharded
+            # writer plane"); holder/epoch/deadline come from each
+            # elector's heartbeat-observed cache — zero store reads
+            out = shard_plane.status_view()
+            out["election"] = True
+            out["sharded"] = True
+            if informer is not None:
+                out["informer"] = informer.status_view()
+            return _with_store(out)
+        if leader_elector is None:
+            return _with_store(
+                {"election": False, "role": "single", "accepting": True,
+                 "selfId": None, "holderId": None, "epoch": None,
+                 "deadline": None, "advertise": "", "ttlS": None,
+                 "fencingEpoch": 0})
+        out = leader_elector.status_view()
+        if informer is not None:
+            out["informer"] = informer.status_view()
+        return _with_store(out)
+
+    r.add("GET", "/api/v1/leader", leader_view)
+
+    def shards_view(body, **_):
+        if shard_plane is None:
+            # unsharded deployments still answer: one implicit shard whose
+            # lease state is the single elector's (or a bare single role)
+            out = {"sharded": False, "shardCount": 1,
+                   "held": [], "shards": []}
+            if leader_elector is not None:
+                sv = leader_elector.status_view()
+                sv["shard"] = 0
+                out["shards"] = [sv]
+                if leader_elector.is_leader:
+                    out["held"] = [0]
+            return out
+        out = shard_plane.status_view()
+        out["sharded"] = True
+        return out
+
+    r.add("GET", "/api/v1/shards", shards_view)
+
     if (health_watcher is not None or job_supervisor is not None
-            or host_monitor is not None or admission is not None
-            or serving is not None or tracer is not None
-            or store_health is not None):
+            or host_monitor is not None or leader_elector is not None
+            or shard_plane is not None
+            or informer is not None or admission is not None
+            or serving is not None or workflow_svc is not None
+            or tracer is not None or store_health is not None):
         # one events ring for the operator: container liveness transitions
         # (health watcher) merged with gang lifecycle events (job
-        # supervisor), host health transitions (host monitor),
-        # capacity-market admissions/preemptions, service scaling,
+        # supervisor), host health transitions (host monitor), leadership
+        # transitions (elector), informer degradations, capacity-market
+        # admissions/preemptions, service scaling, workflow steps,
         # slow-trace events and store-mode transitions, ordered by
         # timestamp (SURVEY.md §5.3)
         def h_events(body, **_):
@@ -586,8 +763,9 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             per_ring = 1 << 20 if trace_id else limit
             rings = [src.events_view(limit=per_ring)
                      for src in (health_watcher, job_supervisor,
-                                 host_monitor, admission, serving, tracer,
-                                 store_health)
+                                 host_monitor, leader_elector, shard_plane,
+                                 informer, admission, serving, workflow_svc,
+                                 tracer, store_health)
                      if src is not None]
             merged = heapq.merge(*rings, key=lambda e: e.get("ts", 0))
             if trace_id:
@@ -637,6 +815,12 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
         r.add("POST", "/api/v1/reconcile", reconcile_view)
         r.add("GET", "/api/v1/reconcile/events",
               lambda body, **_: reconciler.events_view())
+
+    if compactor is not None:
+        # bounded history (service/compactor.py): run one compaction pass
+        # now and return its report (what was trimmed / spared / purged)
+        r.add("POST", "/api/v1/compact",
+              lambda body, **_: compactor.compact_once())
 
     if tracer is not None:
         # recent trace summaries + one full span tree, served from the
@@ -771,6 +955,30 @@ def build_handler(router: Router):
                     # leftover bytes would desync a keep-alive connection
                     length = int(self.headers.get("Content-Length") or 0)
                     raw = self.rfile.read(length) if length else b""
+                    # ...but the HA standby contract gates BEFORE parsing or
+                    # validating it: reads (GET) serve locally, every mutation
+                    # gets 503 + the leader hint — a standby never
+                    # half-validates a request it will not execute. Mutations
+                    # are also rejected while a NEW leader's writer subsystems
+                    # are still booting (accepts_mutations), so no request can
+                    # race the leadership-handoff cache reload
+                    elector = router.leader_elector
+                    if (method != "GET" and elector is not None
+                            and not elector.accepts_mutations):
+                        raise errors.NotLeader(elector.standby_message())
+                    # sharded plane: the same gate per shard. The target
+                    # shard comes from the family name (path segment, or
+                    # the create body's *Name field) — zero store reads;
+                    # non-family mutations belong to shard 0, the
+                    # singleton-of-last-resort. Wrong shard ⇒ 503 naming
+                    # the OWNING shard's advertised holder (a redirect,
+                    # never a proxy).
+                    plane = router.shard_plane
+                    if method != "GET" and plane is not None:
+                        shard = _shard_for_request(plane, path, raw)
+                        if not plane.accepting(shard):
+                            raise errors.NotLeader(
+                                plane.standby_message(shard))
                     # store brownout gate: in outage mode a mutation that
                     # cannot journal its intent must never half-apply —
                     # fail fast with the typed 503 + Retry-After (zero

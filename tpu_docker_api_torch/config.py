@@ -11,12 +11,13 @@ The port has the container path with its reconciler, fan-out,
 store-health machine and etcd store, distributed jobs over a pod of
 hosts (``[[pod_hosts]]``, whose ``accelerator_type`` is the port's
 ``<part>-<N>``) with the job supervisor and the host monitor on by JAX's
-defaults, and the capacity market (``admission_*``, the priority ladder)
-and the Service resource with its autoscaler (``service_default_class``,
-``autoscale_*``) at JAX's defaults. A key that turns on a feature the port
-lacks fails :func:`load` with a ValueError naming the key and ROADMAP
-Queue 1 item 10 part v (``_NOT_PORTED``). Where JAX's default turns such
-a feature on, the port's default is off (``workflow_interval_s``), and
+defaults, the capacity market (``admission_*``, the priority ladder), the
+Service resource with its autoscaler (``service_default_class``,
+``autoscale_*``), workflows (``workflow_*``), leader election
+(``leader_*``, ``read_cache``), the sharded writer plane (``shard_*``) and
+history compaction (``history_*``), all at JAX's defaults. The gateway's
+switch (``gateway_enabled``) fails :func:`load` with a ValueError naming
+the key and ROADMAP Queue 1 item 10 (``_NOT_PORTED``).
 ``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
 ``fake_runtime_root``.
 """
@@ -322,8 +323,7 @@ class Config:
     # "Workflows"): DAG engine tick (a writer: leader-only under
     # leader_election); 0 disables the loop — workflows still converge via
     # the reconciler's adoption and explicit tick() calls (test/bench hook)
-    # (JAX: 2.0; the port has no workflow service yet)
-    workflow_interval_s: float = 0.0
+    workflow_interval_s: float = 2.0
     # class assigned when POST /workflows carries no priorityClass —
     # batch by default: pipelines are throughput work, a production
     # serving scale-up should outrank them in the capacity market
@@ -566,14 +566,7 @@ def load(path: str | None = None) -> Config:
 
 #: (key, test that the value turns the feature on, what the port lacks)
 _NOT_PORTED = (
-    ("shard_count", lambda v: v > 1, "the sharded writer plane "
-     "(service/shard.py)"),
-    ("leader_election", bool, "leader election (service/leader.py)"),
-    ("workflow_interval_s", lambda v: v > 0,
-     "the workflow service (service/workflow.py)"),
     ("gateway_enabled", bool, "the gateway (service/gateway.py)"),
-    ("history_retention_versions", lambda v: v > 0,
-     "the history compactor (service/compactor.py)"),
 )
 
 
@@ -585,8 +578,7 @@ def _refuse_not_ported(cfg: Config) -> None:
         if turns_on(value):
             raise ValueError(
                 f"{key} = {value!r}: {what} is not ported to "
-                "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10 "
-                "part v)")
+                "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
     if cfg.libtpu_path:
         raise ValueError(
             f"libtpu_path = {cfg.libtpu_path!r}: a TPU key with no GPU "

@@ -136,7 +136,9 @@ class FakeEngine:
                     "Tty": body.get("Tty", False),
                 },
                 "HostConfig": body.get("HostConfig", {}),
-                "State": {"Running": False, "Pid": 0, "ExitCode": 0},
+                # docker's State.Status: "created" until the first start
+                "State": {"Running": False, "Pid": 0, "ExitCode": 0,
+                          "Status": "created"},
                 "GraphDriver": {"Name": "overlay2", "Data": {
                     "MergedDir": f"/var/lib/docker/overlay2/{cid}/merged"}},
             }
@@ -153,6 +155,7 @@ class FakeEngine:
                     return 304, None, None
                 c["State"]["Running"] = want
                 c["State"]["Pid"] = 4242 if want else 0
+                c["State"]["Status"] = "running" if want else "exited"
                 return 204, None, None
             if op == "exec":
                 eid = f"exec-{len(self.execs)}"

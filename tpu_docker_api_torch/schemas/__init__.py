@@ -1,7 +1,7 @@
 """Wire formats of the port (parity: reference ``internal/model/``): the
-GPU telemetry schema and the container, volume and state DTOs; the job
-and service DTOs in ``schemas/job.py`` and ``schemas/service.py``. The
-workflow DTOs come with their service (ROADMAP Queue 1 item 10)."""
+GPU telemetry schema and the container, volume and state DTOs; the job,
+service and workflow DTOs in ``schemas/job.py``, ``schemas/service.py``
+and ``schemas/workflow.py``."""
 
 from tpu_docker_api_torch.schemas.container import (  # noqa: F401
     Bind,

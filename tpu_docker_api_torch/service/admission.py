@@ -51,11 +51,10 @@ running — never half-quiesced — and the journal replays exactly-once.
 The port's copy of ``tpu_docker_api/service/admission.py``, whole: the
 classes, the journal, victim selection, preemption, partial preemption and
 grow-back, backfill, defragmentation, journal adoption, the views and the
-loop. The sharded writer plane is not ported (ROADMAP Queue 1 item 10 part
-v): a ``shard_fn`` or ``owned_shards`` raises NotImplementedError, so every
-record lives on shard 0 and this process drains them all. The serving
-gateway is not ported either: the job service's ``drain_coordinator`` is
-None, so a preemption waits for no drain.
+loop, with the sharded writer plane's ``shard_fn`` and ``owned_shards``.
+The serving gateway is not ported (ROADMAP Queue 1 item 10): the job
+service's ``drain_coordinator`` is None, so a preemption waits for no
+drain.
 """
 
 from __future__ import annotations
@@ -165,13 +164,6 @@ class AdmissionController:
                  shard_fn=None,
                  owned_shards=None,
                  store_gate=None) -> None:
-        for arg, value in (("shard_fn", shard_fn),
-                           ("owned_shards", owned_shards)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"AdmissionController({arg}=...): the sharded writer "
-                    "plane is not ported to tpu_docker_api_torch yet "
-                    "(ROADMAP Queue 1 item 10)")
         self._svc = job_svc
         #: trace sink for self-rooted per-pass spans (idle passes trimmed)
         self._tracer = tracer

@@ -11,12 +11,9 @@ in-process compensation never gets a chance. The test then boots a fresh
 (service/reconcile.py) repairs the drift.
 
 The port's copy of ``tpu_docker_api/service/crashpoints.py`` with the
-labels its modules fire: the container service, the job service and its
-supervisor, the elastic resize, the capacity market, the Service resource,
-the work queue, the ``KV.apply`` boundary, the runtime fan-out and the
-reconciler's dirty pass. The leader, shard, gateway, compactor and workflow
-labels come with those services (ROADMAP Queue 1 item 10 part v); arming
-one raises ValueError.
+labels its modules fire: every one of JAX's but the serving gateway's
+(``gateway.drain.*``), which comes with the gateway (ROADMAP Queue 1 item
+10); arming one raises ValueError.
 """
 
 from __future__ import annotations
@@ -93,21 +90,41 @@ TXN_CRASH_POINTS = (
     "txn.after_apply",
 )
 
+#: leader-election lifecycle (service/leader.py): the failover chaos matrix
+#: kills the leader daemon at each of these and proves the standby acquires
+#: within the lease TTL, replays the journal, and converges — while the
+#: deposed leader's epoch-fenced writes are rejected
+LEADER_CRASH_POINTS = (
+    # lease + epoch durably written (we hold leadership), the on-acquire
+    # callbacks (writer-subsystem boot, startup reconcile) not yet run
+    "leader.after_acquire",
+    # writer subsystems started and the startup reconcile/replay finished —
+    # the steady state every established leader dies from
+    "leader.after_start_writers",
+    # heartbeat renewal landed: the lease deadline was just pushed out, so
+    # a standby must wait out the FULL TTL before stealing
+    "leader.after_renew",
+)
+
+#: cross-shard coordination record (service/shard.py ShardedKV): a write
+#: batch spanning shards CAS-bumps keys.SHARD_COORD_KEY inside ONE atomic
+#: apply — so either crash side leaves the store consistent, and the shard
+#: chaos matrix proves a takeover from each converges (the batch is all-in
+#: with the seq bump, or absent entirely)
+SHARD_CRASH_POINTS = (
+    # seq re-read and the coordinated batch built; NOTHING applied yet
+    "shard.coord.before_apply",
+    # the batch + seq bump are durable in one apply; the caller's
+    # in-process follow-ups (response, cache updates) never ran
+    "shard.coord.after_apply",
+)
+
 #: runtime fan-out layer (runtime/fanout.py): fires after the FIRST call
 #: of a batch completes, while the rest are un-dispatched (serial mode) or
 #: genuinely in flight (parallel mode) — the "concurrent create batch is
 #: half-landed" daemon death the reconciler must converge from
 FANOUT_CRASH_POINTS = (
     "fanout.mid_batch",
-)
-
-#: event-driven reconcile (service/reconcile.py): the dirty-set is
-#: in-process state derived from the watch stream — a daemon death after
-#: the pass DRAINED it but before the repairs ran must not lose the
-#: families it held. The contract is restart ⇒ full pass (everything is
-#: dirty once), proven by killing here and reconverging from a fresh boot
-RECONCILE_CRASH_POINTS = (
-    "reconcile.dirty_drained",
 )
 
 #: capacity-market admission lifecycle (service/admission.py): the chaos
@@ -195,11 +212,68 @@ SERVICE_CRASH_POINTS = (
     "service.delete.after_mark",
 )
 
+#: event-driven reconcile (service/reconcile.py): the dirty-set is
+#: in-process state derived from the watch stream — a daemon death after
+#: the pass DRAINED it but before the repairs ran must not lose the
+#: families it held. The contract is restart ⇒ full pass (everything is
+#: dirty once), proven by killing here and reconverging from a fresh boot
+RECONCILE_CRASH_POINTS = (
+    "reconcile.dirty_drained",
+)
+
+#: history compactor (service/compactor.py): trims are pure garbage
+#: collection — a crash at either side must leave every latest pointer
+#: and live-referenced version intact, and a re-run must finish the trim
+COMPACTOR_CRASH_POINTS = (
+    # doomed version keys are chosen; NOTHING is deleted yet
+    "compact.before_trim",
+    # the first ≤100-op delete chunk is durable, later chunks are not —
+    # the partially-trimmed family must still serve its latest version
+    "compact.mid_trim",
+)
+
+#: durable Workflow DAG lifecycle (service/workflow.py): the chaos matrix
+#: kills the daemon at each of these and proves a fresh Program's
+#: reconcile drives the DAG forward to completion (or terminal failure) —
+#: every step effect applied exactly once (the step-complete marker is
+#: written BEFORE the successor launches, the copy-marker pattern),
+#: zero orphan gangs, failed-past-budget workflows settle terminal
+WORKFLOW_CRASH_POINTS = (
+    # the v0 WorkflowState (full DAG spec) is durable in ONE apply; no
+    # step has been considered yet — reconcile starts the roots
+    "workflow.create.after_record",
+    # a step's launch TaskRecord is journaled (idempotency-keyed) and the
+    # step is durably marked "launching"; the gang was never submitted —
+    # replay/reconcile submits it exactly once
+    "workflow.enqueue_step",
+    # the step's gang exists (run or queued through admission) but the
+    # control record still says "launching" — reconcile adopts the gang
+    # instead of double-launching
+    "workflow.after_launch",
+    # the step-complete marker + control-record flip are durable; the
+    # successor steps have NOT been launched — reconcile launches them,
+    # and the marker proves the finished step never re-runs
+    "workflow.after_complete_marker",
+    # the promote step's replace_job_spec rolled the Service, but the
+    # step is not yet marked complete — the marker protocol must prove
+    # the roll happened and not roll again
+    "workflow.after_promote",
+    # a cron tick durably recorded its fire (lastFire + run spawn) —
+    # restart must not double-fire the same tick
+    "workflow.cron_fire",
+    # phase "deleting" is durable; step gangs may still exist —
+    # reconcile finishes the teardown and drops the family
+    "workflow.delete.after_mark",
+)
+
 KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + JOB_CRASH_POINTS
                       + QUEUE_CRASH_POINTS + TXN_CRASH_POINTS
+                      + LEADER_CRASH_POINTS + SHARD_CRASH_POINTS
                       + FANOUT_CRASH_POINTS
                       + ADMISSION_CRASH_POINTS + RESIZE_CRASH_POINTS
-                      + SERVICE_CRASH_POINTS + RECONCILE_CRASH_POINTS)
+                      + SERVICE_CRASH_POINTS
+                      + RECONCILE_CRASH_POINTS + COMPACTOR_CRASH_POINTS
+                      + WORKFLOW_CRASH_POINTS)
 
 
 class SimulatedCrash(BaseException):

@@ -26,9 +26,8 @@ Both return human-readable violations (empty list = consistent) rather than
 raising, so tests can assert on the whole set and operators can surface it
 verbatim.
 
-The port's copy of ``tpu_docker_api/service/invariants.py`` with the
-container, job and service oracles: the workflow oracle comes with its
-service (ROADMAP Queue 1 item 10 part v).
+The port's copy of ``tpu_docker_api/service/invariants.py``, whole: the
+container, job, service and workflow oracles.
 """
 
 from __future__ import annotations
@@ -207,6 +206,112 @@ def check_service_invariants(
         problems.append(
             f"replica gang(s) {sorted(jb for _, jb in owned[owner])} owned "
             f"by unknown service {owner!r}")
+    return problems
+
+
+def check_workflow_invariants(
+    store: StateStore,
+    workflow_versions: VersionMap,
+    job_versions: VersionMap,
+) -> list[str]:
+    """Durable-workflow oracle (service/workflow.py):
+
+    1. the latest workflow pointer has a persisted ``WorkflowState`` with
+       a legal phase, and every step status a legal state;
+    2. a ``deleting`` workflow is a violation at rest — the reconciler
+       must have finished the teardown sweep;
+    3. a terminal (``succeeded``/``failed``) workflow owns ZERO step gang
+       families — exactly-once settlement frees everything;
+    4. a ``running`` workflow's step gangs exist only for steps in state
+       ``launching``/``running``, and only for the CURRENT run — a
+       pending/succeeded step holding a gang is a leak, a stale cron
+       run's gang is an orphan;
+    5. every workflow-marked job family (``WORKFLOW_OWNER_ENV`` in its
+       stored env) maps to a known workflow — a deleted workflow never
+       strands a gang.
+    """
+    from tpu_docker_api_torch.schemas.workflow import (
+        STEP_STATES,
+        WORKFLOW_PHASES,
+        owner_from_env,
+        run_from_env,
+    )
+    from tpu_docker_api_torch.service.workflow import split_step_base, step_base
+
+    problems: list[str] = []
+    families = workflow_versions.snapshot()
+
+    def job_owner(job_base: str) -> tuple[str, int] | None:
+        if split_step_base(job_base) is None:
+            return None
+        latest = job_versions.get(job_base)
+        if latest is None:
+            return None
+        try:
+            jst = store.get_job(versioned_name(job_base, latest))
+        except errors.NotExistInStore:
+            return None
+        owner = owner_from_env(jst.env)
+        if owner is None:
+            return None
+        run = run_from_env(jst.env)
+        return (owner, run if run is not None else 0)
+
+    owned: dict[str, list[tuple[int, str]]] = {}
+    for jb in job_versions.snapshot():
+        owner = job_owner(jb)
+        if owner is not None:
+            owned.setdefault(owner[0], []).append((owner[1], jb))
+
+    for base, latest in sorted(families.items()):
+        latest_name = versioned_name(base, latest)
+        try:
+            st = store.get_workflow(latest_name)
+        except errors.NotExistInStore:
+            problems.append(
+                f"workflow {base}: latest pointer v{latest} has no stored "
+                f"record")
+            continue
+        if st.phase not in WORKFLOW_PHASES:
+            problems.append(f"workflow {base}: unknown phase {st.phase!r}")
+        if st.phase == "deleting":
+            problems.append(
+                f"workflow {base}: stuck in phase deleting (teardown "
+                f"unfinished)")
+            continue
+        for sname, stat in sorted(st.step_status.items()):
+            if stat.get("state") not in STEP_STATES:
+                problems.append(
+                    f"workflow {base}: step {sname} has unknown state "
+                    f"{stat.get('state')!r}")
+        gangs = owned.get(base, [])
+        if st.phase in ("succeeded", "failed"):
+            if gangs:
+                problems.append(
+                    f"workflow {base}: terminal {st.phase} but owns step "
+                    f"gang(s) {sorted(jb for _, jb in gangs)}")
+            continue
+        # running: gangs exist exactly for launching/running steps of the
+        # current run ("launching" may legitimately have no gang yet)
+        allowed = set()
+        for idx, step in enumerate(st.spec_steps()):
+            if st.step_status[step.name]["state"] in ("launching",
+                                                      "running"):
+                allowed.add(step_base(base, st.run, idx))
+        for run, jb in sorted(gangs):
+            if run != st.run:
+                problems.append(
+                    f"workflow {base}: stale run-{run} step gang {jb} "
+                    f"(current run {st.run})")
+            elif jb not in allowed:
+                problems.append(
+                    f"workflow {base}: step gang {jb} exists but its step "
+                    f"is not launching/running")
+
+    for owner in sorted(set(owned) - set(families)):
+        problems.append(
+            f"step gang(s) {sorted(jb for _, jb in owned[owner])} owned "
+            f"by unknown workflow {owner!r}")
     return problems
 
 

@@ -40,7 +40,7 @@ crash points, fan-out batches, state and ports. The daemon wires the
 capacity market (service/admission.py) into ``admission``: queueing, grow-back
 records and re-admission of parked gangs. A service replica's quiesce writes
 the durable ``draining`` marker first, as JAX's ``_predrain`` does; the
-serving gateway is not ported yet (ROADMAP Queue 1 item 10 part v), so
+serving gateway is not ported yet (ROADMAP Queue 1 item 10), so
 ``drain_coordinator`` stays None and nothing waits for a drain ack.
 """
 

@@ -36,9 +36,7 @@ once the host is confirmed *down*, the gang MIGRATES onto healthy hosts
 ``job_max_migrations`` budget — a dead host must never eat the
 crash-restart budget, because no restart can fix it.
 
-The port's copy of ``tpu_docker_api/service/job_supervisor.py``, whole but
-for the sharded writer plane (ROADMAP Queue 1 item 10 part v): a non-None
-``owns`` raises NotImplementedError.
+The port's copy of ``tpu_docker_api/service/job_supervisor.py``, whole.
 """
 
 from __future__ import annotations
@@ -89,10 +87,6 @@ class JobSupervisor:
         owns=None,
         store_gate=None,
     ) -> None:
-        if owns is not None:
-            raise NotImplementedError(
-                "JobSupervisor(owns=...): the sharded writer plane is not "
-                "ported to tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
         self.pod = pod
         #: runtime fan-out: per-member liveness inspects run as one
         #: concurrent batch per family, so a poll's wall time is O(slowest
@@ -101,6 +95,9 @@ class JobSupervisor:
         self._svc = job_svc
         self._store = store
         self._versions = versions
+        #: sharded writer plane (daemon wiring): supervise only families
+        #: whose shard this process leads; None ⇒ all (single-writer)
+        self._owns = owns
         self._interval = interval_s
         self._max_restarts = max_restarts
         self._max_migrations = max_migrations
@@ -200,6 +197,8 @@ class JobSupervisor:
             self._store_held = False
             self._record("store-outage-over", "*")
         families = sorted(self._versions.snapshot())
+        if self._owns is not None:
+            families = [b for b in families if self._owns(b)]
         for base in families:
             try:
                 self._check_family(base)

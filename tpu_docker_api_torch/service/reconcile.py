@@ -35,16 +35,15 @@ Every action is recorded as a HealthWatcher-style event, counted in
 in the report served at ``GET /api/v1/reconcile``. ``dry_run=True`` reports
 the planned repairs without mutating anything.
 
-The port's copy of ``tpu_docker_api/service/reconcile.py``: ``DirtySet``,
+The port's copy of ``tpu_docker_api/service/reconcile.py``, whole: ``DirtySet``,
 the journal replay, the container and job family passes (JAX's gang
 adoption: half-created job versions scrubbed, interrupted restarts,
 migrations and resizes finished, crash loops failed, stale versions
 retired), the orphan passes, the resource and foreign-owner sweeps, the
 modes, the periodic loop and the store-outage hold, with JAX's constructor.
-The serving and admission adoption passes run after the family passes, as
-JAX's do. The workflow adoption and the sharded plane's ``owns`` filter
-come with their services (ROADMAP Queue 1 item 10 part v); handing the
-constructor one of them raises NotImplementedError.
+The serving and admission adoption passes run after the family passes, and
+the workflow adoption last, as JAX's do; under the sharded writer plane the
+family passes visit only the families this process's shards own.
 """
 
 from __future__ import annotations
@@ -199,12 +198,6 @@ class Reconciler:
         owned_shards=None,
         store_gate=None,
     ) -> None:
-        for arg, value in (("workflow", workflow), ("owns", owns),
-                           ("owned_shards", owned_shards)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Reconciler({arg}=...): not ported to "
-                    "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
         self.runtime = runtime
         #: trace sink for self-rooted per-pass spans (daemon wires the
         #: Program's tracer); an idle pass's trace is trimmed, not buffered
@@ -248,7 +241,6 @@ class Reconciler:
         #: makes a replayed release an owner-guarded no-op), repeats count
         #: toward ``job_resize_max`` so a thrashing resize converges
         self._resize_adopted: set[str] = set()
-        self._registry = registry if registry is not None else REGISTRY
         #: capacity-market admission controller (service/admission.py):
         #: the sweep adopts its journal — purging records whose family is
         #: gone, settling records whose job already placed (the
@@ -260,12 +252,25 @@ class Reconciler:
         #: replicas created, surplus/orphan fleets torn down, interrupted
         #: deletes and spec rolls finished
         self._serving = serving
+        #: Workflow adoption (service/workflow.py): after services settled,
+        #: the DAG engine's sweep finishes interrupted step transitions,
+        #: GCs finished/orphan step gangs and settles terminal workflows
+        self._workflow = workflow
+        self._registry = registry if registry is not None else REGISTRY
         #: event-driven mode: with a dirty feed attached,
         #: periodic passes visit only watch-dirtied families and the full
         #: scan is demoted to a rare anti-entropy pass every
         #: ``full_interval_s`` seconds (<= 0: every pass is full — the
         #: legacy behavior, and the safe default without a feed)
         self._full_interval_s = full_interval_s
+        #: sharded writer plane (daemon wiring): ``owns(base)`` → does this
+        #: process lead the shard owning the family? The family passes
+        #: visit only owned families — the rest belong to their own (live)
+        #: shard leaders, whose sweeps see the same store. ``owned_shards``
+        #: feeds the pass span's bounded-cardinality shard attribute.
+        #: None ⇒ single-writer semantics, exactly today's behavior.
+        self._owns = owns
+        self._owned_shards = owned_shards
         #: store-outage hold (service/store_health.py): a repair decided on
         #: state the sweep cannot re-read — and recorded nowhere — is drift
         #: manufactured, not drift repaired. While gated, non-dry-run passes
@@ -384,6 +389,10 @@ class Reconciler:
         # attributable too); via the HTTP route it rides the request trace
         with trace.pass_span(self._tracer, "reconcile.pass",
                              mode=effective, dryRun=dry_run) as span:
+            if span is not None and self._owned_shards is not None:
+                # bounded cardinality: shard ids, never family names
+                span.attrs["shard"] = ",".join(
+                    map(str, sorted(self._owned_shards())))
             if effective == "dirty":
                 visited = self._reconcile_dirty(actions, dry_run)
             else:
@@ -429,12 +438,17 @@ class Reconciler:
                 raise
         return self._full_body(actions, dry_run)
 
+    def _owned_only(self, bases) -> list[str]:
+        if self._owns is None:
+            return sorted(bases)
+        return sorted(b for b in bases if self._owns(b))
+
     def _full_body(self, actions: list[dict], dry_run: bool) -> int:
         self._replay_queue_journal(actions, dry_run)
         families = self.versions.snapshot()
         members = self._runtime_members()
 
-        for base in sorted(families):
+        for base in self._owned_only(families):
             if self._svc is not None and not dry_run:
                 with self._svc.family_lock(base):
                     # under the lock, re-probe fresh — the pre-lock
@@ -445,11 +459,11 @@ class Reconciler:
             else:
                 self._reconcile_family(base, actions, dry_run,
                                        members=members.get(base, {}))
-        for base in sorted(set(members) - set(families)):
+        for base in self._owned_only(set(members) - set(families)):
             self._reconcile_orphan(base, actions, dry_run,
                                    hint=members.get(base, {}))
         if self._job_svc is not None and self._job_versions is not None:
-            for base in sorted(self._job_versions.snapshot()):
+            for base in self._owned_only(self._job_versions.snapshot()):
                 try:
                     self._reconcile_job_family(base, actions, dry_run)
                 except Exception:  # noqa: BLE001 — one family must not
@@ -476,7 +490,7 @@ class Reconciler:
         try:
             crash_point("reconcile.dirty_drained")
             self._replay_queue_journal(actions, dry_run)
-            for base in sorted(drained[Resource.CONTAINERS.value]):
+            for base in self._owned_only(drained[Resource.CONTAINERS.value]):
                 if self.versions.get(base) is not None:
                     if self._svc is not None and not dry_run:
                         with self._svc.family_lock(base):
@@ -491,7 +505,7 @@ class Reconciler:
                     # therefore no event — the full pass removes those)
                     self._reconcile_orphan(base, actions, dry_run)
             if self._job_svc is not None and self._job_versions is not None:
-                for base in sorted(drained[Resource.JOBS.value]):
+                for base in self._owned_only(drained[Resource.JOBS.value]):
                     try:
                         self._reconcile_job_family(base, actions, dry_run)
                     except Exception:  # noqa: BLE001 — as in the full pass
@@ -534,6 +548,19 @@ class Reconciler:
             except Exception as e:  # noqa: BLE001 — a store outage must
                 # not abort the sweep; records are re-read next pass
                 log.warning("reconcile: admission adoption failed: %s", e)
+        if self._workflow is not None:
+            # workflow adoption LAST: it drives the DAG engine over the
+            # post-repair world — step gangs already adopted by the job
+            # passes, services already converged (a replayed promote
+            # patches a settled service), admission records settled
+            try:
+                for a in self._workflow.reconcile_workflows(dry_run=dry_run):
+                    a = dict(a)
+                    self._act(actions, dry_run, a.pop("action"),
+                              a.pop("target"), **a)
+            except Exception as e:  # noqa: BLE001 — one subsystem must
+                # not abort the sweep; workflows are re-read next pass
+                log.warning("reconcile: workflow adoption failed: %s", e)
 
     def _replay_queue_journal(self, actions: list[dict],
                               dry_run: bool) -> None:

@@ -41,11 +41,10 @@ fully-owned replica set, never a half-scaled orphan fleet.
 
 The port's copy of ``tpu_docker_api/service/serving.py``, whole: the CRUD,
 replica convergence, rolling spec updates, the synthetic load model and the
-HTTP scrape (``urllib.request``), the autoscaler's decisions and loop, and
-the reconciler's adoption. A replica gang runs the port's server
-(``python -m tpu_docker_api_torch.serve``) under its rendered environment.
-The sharded writer plane is not ported (ROADMAP Queue 1 item 10 part v):
-an ``owns`` raises NotImplementedError.
+HTTP scrape (``urllib.request``), the autoscaler's decisions and loop, the
+reconciler's adoption and the sharded writer plane's ``owns`` filter. A
+replica gang runs the port's server (``python -m tpu_docker_api_torch.serve``)
+under its rendered environment.
 """
 
 from __future__ import annotations
@@ -119,10 +118,6 @@ class ServingService:
                  max_events: int = 256,
                  clock=time.monotonic,
                  tracer=None, owns=None, store_gate=None) -> None:
-        if owns is not None:
-            raise NotImplementedError(
-                "ServingService(owns=...): the sharded writer plane is not "
-                "ported to tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
         self._job = job_svc
         #: trace sink for self-rooted per-tick spans (idle ticks trimmed)
         self._tracer = tracer

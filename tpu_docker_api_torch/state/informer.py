@@ -33,8 +33,8 @@ same counters /metrics exports): ``informer_events_total``,
 
 The port's copy of ``tpu_docker_api/state/informer.py``, whole. The
 port's daemon runs an ``Informer`` over the raw store as the reconciler's
-dirty feed (``reconcile_full_interval_s > 0``); ``InformerReadKV`` is wired
-with leader election (ROADMAP Queue 1 item 10).
+dirty feed (``reconcile_full_interval_s > 0``) and, under leader election,
+as a standby's read path through ``InformerReadKV``.
 """
 
 from __future__ import annotations

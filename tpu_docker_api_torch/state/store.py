@@ -5,8 +5,7 @@ per-version key layout from `state.keys`, giving the rollback-capable history
 the reference advertises but cannot deliver (SURVEY.md appendix, etcd quirk).
 
 The port's copy of ``tpu_docker_api/state/store.py``: the container, volume,
-job and service families. The workflow family refuses by name until its
-schema is ported (ROADMAP Queue 1 item 10 part v).
+job, service and workflow families.
 """
 
 from __future__ import annotations
@@ -125,14 +124,16 @@ class StateStore:
 
         return ServiceState.from_dict(self._get(Resource.SERVICES, name))
 
-    # -- workflows: the schema and its service are not ported (ROADMAP
-    # Queue 1 item 10 part v); the methods refuse by name ----------------------
+    # -- workflows --------------------------------------------------------------
 
     def put_workflow(self, st) -> None:
-        _not_ported("put_workflow", "schemas/workflow")
+        base, _ = keys.split_versioned_name(st.workflow_name)
+        self._put(Resource.WORKFLOWS, base, st.version, st.to_dict())
 
     def get_workflow(self, name: str):
-        _not_ported("get_workflow", "schemas/workflow")
+        from tpu_docker_api_torch.schemas.workflow import WorkflowState
+
+        return WorkflowState.from_dict(self._get(Resource.WORKFLOWS, name))
 
     # -- volumes ----------------------------------------------------------------
 
@@ -142,9 +143,3 @@ class StateStore:
 
     def get_volume(self, name: str) -> VolumeState:
         return VolumeState.from_dict(self._get(Resource.VOLUMES, name))
-
-
-def _not_ported(method: str, module: str):
-    raise NotImplementedError(
-        f"StateStore.{method}: {module} is not ported to "
-        "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")

@@ -37,14 +37,14 @@ daemon crash lost every queued persist, data copy and compensation:
   queue; ``close()`` has a drain deadline so a hung engine cannot block
   daemon shutdown indefinitely.
 
-The port's copy of ``tpu_docker_api/state/workqueue.py`` for one writer:
-without JAX's legacy closure tasks (``PutKVTask``/``DelKeyTask``/
-``CopyTask``/``FnTask`` through ``submit``) and the sharded writer plane's
-``shard_fn``/``owned_shards``, which no caller of the port has (they come
-with ``service/shard``, ROADMAP Queue 1 item 10). A record's ``shard``
-stays in its format, so a journal one package wrote reads the same in
-the other. The reconciler (service/reconcile.py) replays the journal a
-dead daemon left on its startup pass.
+The port's copy of ``tpu_docker_api/state/workqueue.py`` without JAX's
+legacy closure tasks (``PutKVTask``/``DelKeyTask``/``CopyTask``/``FnTask``
+through ``submit``), which no caller of the port has. The sharded writer
+plane's ``shard_fn``/``owned_shards`` are JAX's: a record is journaled
+under its family's shard, and replay, the marker sweep and dead-letter
+revival adopt only the shards this process leads. The reconciler
+(service/reconcile.py) replays the journal a dead daemon left on its
+startup pass.
 """
 
 from __future__ import annotations
@@ -179,6 +179,8 @@ class WorkQueue:
         metrics=None,
         tracer=None,
         store_gate=None,
+        shard_fn: Callable[[str, dict], int] | None = None,
+        owned_shards: Callable[[], frozenset[int]] | None = None,
     ) -> None:
         from tpu_docker_api_torch.utils.files import copy_dir_contents
 
@@ -218,11 +220,19 @@ class WorkQueue:
         #: installed as permanently stale key→task_id entries
         self._seeding = 0
         self._dropped_while_seeding: set[str] = set()
-        #: the journal's next sequence number; None until the first scan
-        #: (lazy so a store outage at construction degrades instead of
-        #: failing the boot)
-        self._seq: int | None = None
+        #: per-shard journal sequence counters; a shard is absent until its
+        #: first scan (lazy so a store outage at construction degrades
+        #: instead of failing the boot). The unsharded queue only ever
+        #: uses shard 0 — the legacy flat journal prefix.
+        self._seq: dict[int, int] = {}
         self._seq_mu = threading.Lock()
+        #: sharded writer plane (daemon wiring): maps a submit to its
+        #: owning shard (None ⇒ everything is shard 0), and names the
+        #: shards THIS process currently leads so replay adopts only its
+        #: own journal sub-prefixes (None ⇒ every record is adoptable —
+        #: single-writer semantics)
+        self._shard_fn = shard_fn
+        self._owned_shards = owned_shards
         #: store-outage hold (service/store_health.py): the sync loop keeps
         #: draining submits into its hands but PAUSES execution while the
         #: gate holds — a task run against a dead store would burn its
@@ -310,12 +320,15 @@ class WorkQueue:
                     log.info("workqueue: %s submit deduplicated against "
                              "active record %s:%s", kind, kind, dup_id)
                     return dup_id
+            shard = self._shard_of(kind, params)
             cur = trace_mod.current()
             rec = TaskRecord(task_id=uuid.uuid4().hex[:12], kind=kind,
-                             params=dict(params), seq=self._next_seq(),
+                             params=dict(params),
+                             seq=self._next_seq(shard),
                              idempotency_key=idempotency_key,
                              trace_id=cur.trace_id if cur else "",
-                             span_id=cur.span_id if cur else "")
+                             span_id=cur.span_id if cur else "",
+                             shard=shard)
             # claim local ownership BEFORE the journal write: once the
             # record is visible in KV, a concurrent reconcile's replay
             # must already see it as ours, or it would double-run it
@@ -359,20 +372,43 @@ class WorkQueue:
                 f"{self._submit_timeout_s}s; retry later") from None
         return rec.task_id
 
-    def _next_seq(self) -> int:
+    def reset_shard_cache(self, shard: int) -> None:
+        """Shard-takeover cache invalidation (daemon's on-acquire hook):
+        drop the shard's lazy seq counter and the idempotency-key map so
+        both re-seed from the journal — the previous holder appended
+        records this process never saw, and a stale counter would
+        overwrite them."""
         with self._seq_mu:
-            if self._seq is None:
-                prefix = keys.queue_tasks_prefix(0)
+            self._seq.pop(shard, None)
+        with self._local_mu:
+            self._active_keys = None
+
+    def _shard_of(self, kind: str, params: dict) -> int:
+        if self._shard_fn is None:
+            return 0
+        try:
+            return int(self._shard_fn(kind, params))
+        except Exception:  # noqa: BLE001 — misclassification must not
+            # lose the task; shard 0 is the singleton-of-last-resort
+            log.exception("workqueue: shard classification failed for %s; "
+                          "routing to shard 0", kind)
+            return 0
+
+    def _next_seq(self, shard: int = 0) -> int:
+        with self._seq_mu:
+            if shard not in self._seq:
+                prefix = keys.queue_tasks_prefix(shard)
                 top = -1
                 for k in self._kv.range_prefix(prefix):
                     tail = k[len(prefix):]
-                    # the flat prefix is the PARENT of a sharded JAX
-                    # daemon's s<i>/ sub-prefixes: skip nested keys
+                    # shard 0's flat prefix is the PARENT of the s<i>/
+                    # sub-prefixes: skip nested keys or a shard-0 scan
+                    # would absorb every other shard's counter
                     if tail.isdigit():
                         top = max(top, int(tail))
-                self._seq = top + 1
-            out = self._seq
-            self._seq = out + 1
+                self._seq[shard] = top + 1
+            out = self._seq[shard]
+            self._seq[shard] = out + 1
             return out
 
     def _find_active(self, idempotency_key: str) -> str | None:
@@ -679,9 +715,15 @@ class WorkQueue:
                            include_local: bool) -> list[TaskRecord]:
         with self._local_mu:
             local = set() if include_local else set(self._local_ids)
+        owned = (self._owned_shards() if self._owned_shards is not None
+                 else None)
         return [rec for rec in records
                 if rec.state in ("pending", "inflight")
-                and rec.task_id not in local]
+                and rec.task_id not in local
+                # sharded plane: adopt ONLY the shards this process leads
+                # — another shard's journal belongs to its own (live!)
+                # leader, and replaying it here would double-run work
+                and (owned is None or rec.shard in owned)]
 
     def replay_journal(self, include_local: bool = False) -> list[dict]:
         """Adopt the journal: execute every replayable record inline, in
@@ -729,6 +771,13 @@ class WorkQueue:
             self._sweep_orphan_markers(records)
         return outcomes
 
+    def sweep_orphan_markers(self) -> None:
+        """Public GC entry (service/compactor.py rides it): drop acked
+        copy-complete markers whose journal record is gone. Same
+        best-effort contract as the replay-time sweep — a failure logs
+        and waits for the next pass, never raises."""
+        self._sweep_orphan_markers()
+
     def _sweep_orphan_markers(self, records: list[TaskRecord] | None = None
                               ) -> None:
         """GC markers whose record is gone — a daemon death between _ack's
@@ -745,11 +794,16 @@ class WorkQueue:
             live = {rec.task_id for rec in records}
             with self._local_mu:
                 live |= self._local_ids
+            owned = (self._owned_shards() if self._owned_shards is not None
+                     else None)
             doomed = [
                 # keys-only: marker values are never inspected here, and at
                 # scale the orphan sweep must not deserialize the backlog
                 key for key in self._kv.keys_prefix(keys.QUEUE_MARKERS_PREFIX)
                 if key.rsplit("/", 1)[-1] not in live
+                # sharded plane: GC only our own shards' markers — another
+                # shard's fence would (rightly) reject the delete anyway
+                and (owned is None or _marker_shard(key) in owned)
             ]
             # batched deletes, chunked under etcd's max-txn-ops (default
             # 128) so a huge orphan backlog still GCs incrementally instead
@@ -806,9 +860,13 @@ class WorkQueue:
                 # behind the shutdown sentinel in a consumerless queue
                 return 0
             n = 0
+            owned = (self._owned_shards() if self._owned_shards is not None
+                     else None)
             for rec in self._journal_records():
                 if rec.state != "dead":
                     continue
+                if owned is not None and rec.shard not in owned:
+                    continue  # that shard's leader revives its own dead
                 if rec.op_retries >= self._dl_retry_budget:
                     exhausted.append(rec.label())
                     continue  # refused: stays dead, stays observable
@@ -884,6 +942,17 @@ class WorkQueue:
         if journal_error:
             out["journal"]["error"] = journal_error
         return out
+
+
+def _marker_shard(marker_key: str) -> int:
+    """Owning shard of a marker key: ``.../markers/s<i>/<tid>`` → i,
+    the legacy flat layout → 0."""
+    rest = marker_key[len(keys.QUEUE_MARKERS_PREFIX):]
+    if rest.startswith("s"):
+        sid, sep, _ = rest[1:].partition("/")
+        if sep and sid.isdigit():
+            return int(sid)
+    return 0
 
 
 def queue_depth(wq: WorkQueue) -> int:
