@@ -39,7 +39,8 @@ Phases, one JSON line each; any failure exits non-zero:
               one GPU, the granted UUID, and holds flash_fwd at the
               devices shape against its plain version; ``PATCH .../gpu``
               to 0 frees the GPU (``g-1``'s child sees no device) and back
-              to 1 grants it again (``g-2``). Then 200 families (one
+              to 1 grants it again (``g-2``). Beside that chain (its three
+              children's starts were most of the phase), 200 families (one
               port each, replaced twice, 3 versions, the list paged) and
               50 volumes with a 16 MiB seeded file, resized; SIGKILL
               right after the second half's resizes are acknowledged,
@@ -94,32 +95,46 @@ Phases, one JSON line each; any failure exits non-zero:
               and at 1 ms a call: run_job of a 16-host 128-GPU gang, its
               rescale to 256 GPUs, a 4-host gang's migration from the down
               verdict to the new gang started, a supervisor poll over 32
-              hosts, a full reconcile pass.
-2f. services — the capacity market and the Service resource
-              (``phase_services``). (a) The daemon's ``Program`` as in
-              jobs, with ``admission_enabled`` and the admission loop and
-              autoscaler at 1 s: a batch job of one GPU (its member trains
-              llama3-1b 2 steps); ``POST /api/v1/services`` at
+              hosts, a full reconcile pass. (b) and (c) run in a child
+              process beside (a)'s two trainers.
+2f. services — the capacity market, the Service resource and the serving
+              gateway (``phase_services``). (a) The daemon's ``Program``
+              as in jobs, with ``admission_enabled``, the admission loop
+              and autoscaler at 1 s and ``gateway_enabled`` (its listener
+              on an ephemeral port): a batch job of one GPU (its member
+              trains llama3-1b 2 steps); ``POST /api/v1/services`` at
               ``production``, one replica of one GPU: it queues, the
               market preempts the batch gang, the replica lands on the
               same GPU UUID; the port's server (``serve``'s ``main``,
               llama3-1b) from the replica member's environment on the
               job's coordinator port answers 4 greedy requests token for
-              token as without that environment, flash_fwd counted;
+              token as without that environment, flash_fwd counted, and
+              the gateway's ``POST /v1/s/generate`` gives the same
+              tokens; each prompt streamed to the replica and through the
+              gateway: the same tokens, the ndjson relayed chunk for
+              chunk, the TTFT p50 of each route (the gateway's overhead);
               offered load above a replica's capacity scales the service
               to 2, the second replica queued (nothing lower to preempt)
               and kept by the autoscaler at no load (JAX's rule: never
               shed a replica still materializing); a ``maxReplicas``
-              clamp takes it to 1; DELETE re-admits the batch job on the
-              GPU within 3 admission intervals; the container, job and
-              service oracles are empty after every step. (b) JAX's
-              admission crash cases, every ``service.*`` label and
+              clamp takes it to 1; DELETE, with a 64-token stream in
+              flight through the gateway, waits for the gateway's drain
+              ack (``job-drain-acked``, never the deadline) while the
+              stream ends whole with no truncation line, then re-admits
+              the batch job on the GPU within 3 admission intervals; the
+              gateway answers the typed 503 of no routable replica; both
+              listeners' ``/healthz`` name the one gateway; the
+              container, job and service oracles are empty after every
+              step. (b) JAX's admission crash cases, every ``service.*``
+              and ``gateway.drain.*`` label and
               ``admission.partial_preempt`` on the 32-host pod, each
-              repaired by a fresh Program's startup reconcile. (c)
-              Medians of 3 there, 1 ms an engine call, 1 and 8 fan-out
-              workers: a preempting admission pass for a 16-host ask, a
-              pass over 64 blocked jobs, autoscaler ticks over 16
-              services (steady, every one up to 2, back to 1).
+              repaired by a fresh Program's startup reconcile, no replica
+              left both draining and running. (c) Medians of 3 there, 1
+              ms an engine call, 1 and 8 fan-out workers: a preempting
+              admission pass for a 16-host ask, a pass over 64 blocked
+              jobs, autoscaler ticks over 16 services (steady, every one
+              up to 2, back to 1). (b) and (c) run in a child process
+              beside (a)'s batch member.
 2g. workflows — workflows, leader election, the sharded writer plane
               and history compaction (``phase_workflows``). (a) The
               daemon's ``Program`` as in services, its loops at 0.5 s:
@@ -240,8 +255,10 @@ Phases, one JSON line each; any failure exits non-zero:
               in process with ``--profile-dir`` for where a step's time
               goes.
 7. lifecycle — train → checkpoint → resume → export → serve at llama3-1b
-              full width and depth through the command-line entry points
-              (``phase_lifecycle``): a resumed run and a SIGTERM-quiesced
+              full width, its depth cut to 8 of 16 layers (the five saves
+              of ~6 GB dominated the phase), through the command-line
+              entry points (``phase_lifecycle``): a resumed run and a
+              SIGTERM-quiesced
               one must equal an uninterrupted run, and ``--hf-ckpt`` and
               ``--ckpt-dir`` servers must give the greedy tokens of the
               restored params in memory; checkpoint bytes, the step
@@ -1163,9 +1180,10 @@ def phase_train(dev) -> dict:
     emit(result)
     return result
 
-def _post(port: int, body: dict) -> tuple[int, bytes]:
+def _post(port: int, body: dict, path: str = "/generate"
+          ) -> tuple[int, bytes]:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    conn.request("POST", "/generate", body=json.dumps(body))
+    conn.request("POST", path, body=json.dumps(body))
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
@@ -1781,6 +1799,9 @@ def phase_serve_int8_text(dev, bf16: dict) -> dict:
 LIFECYCLE_DIR = "build/lifecycle"
 LIFECYCLE_WINDOWS = 72  # windows of seq + 1 tokens in the token file
 LIFECYCLE_MAX_NEW = 16
+#: the depth cut of the lifecycle's llama3-1b: the width is the published
+#: one, the layers half of its 16, so each of the five saves writes half
+LIFECYCLE_LAYERS = 8
 
 
 def _ckpt_files_equal(dev, a: str, b: str) -> dict:
@@ -1841,11 +1862,45 @@ def _serve_once(argv: list[str], prompt: list[int]) -> dict:
         thread.join(timeout=30)
 
 
+@contextlib.contextmanager
+def _preset_at_depth(name: str, preset: str, layers: int):
+    """Inside the block, the preset spec ``name`` resolves to ``preset``
+    with ``layers`` layers, its width unchanged, in every entry point run
+    in this process (each resolves its ``--preset`` through
+    ``models.resolve_preset`` when it runs): a phase's depth cut."""
+    from tpu_docker_api_torch import models
+
+    real = models.resolve_preset
+
+    def resolve(spec: str):
+        if spec != name:
+            return real(spec)
+        family, cfg = real(preset)
+        return family, dataclasses.replace(cfg, n_layers=layers)
+
+    models.resolve_preset = resolve
+    try:
+        yield
+    finally:
+        models.resolve_preset = real
+
+
 def phase_lifecycle(dev, preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
-                    seq: int = TRAIN_SEQ) -> dict:
-    """Train → checkpoint → resume → export → serve at llama3-1b's full
-    width and depth (batch 4 x 2048, adamw-int8, remat on), through the
-    command-line entry points in process, on a token file:
+                    seq: int = TRAIN_SEQ, layers: int | None = None) -> dict:
+    """``_lifecycle`` of ``preset``, or of its first ``layers`` layers
+    (``_preset_at_depth``: the main run's depth cut)."""
+    if layers is None:
+        return _lifecycle(dev, preset, batch, seq)
+    cut = f"{preset}@{layers}"
+    with _preset_at_depth(cut, preset, layers):
+        return _lifecycle(dev, cut, batch, seq)
+
+
+def _lifecycle(dev, preset: str, batch: int, seq: int) -> dict:
+    """Train → checkpoint → resume → export → serve at a preset's full
+    width (llama3-1b's on the card, batch 4 x 2048, adamw-int8, remat
+    on), through the command-line entry points in process, on a token
+    file:
 
     A: 4 steps, a save at step 4. B: 2 steps (saved at 2), then a second
     run on the same directory that must resume at step 2 and log step 3
@@ -1863,15 +1918,15 @@ def phase_lifecycle(dev, preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
 
     from tpu_docker_api_torch.data.loader import write_token_file
     from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
+    from tpu_docker_api_torch import models
     from tpu_docker_api_torch.infer.slots import SlotEngine
     from tpu_docker_api_torch.models import import_weights, param_shapes
-    from tpu_docker_api_torch.models.llama import llama_presets
     from tpu_docker_api_torch.ops import flash
     from tpu_docker_api_torch.train import optim
     from tpu_docker_api_torch.train import checkpoint as ckpt
     from tpu_docker_api_torch.train.__main__ import main as train_main
 
-    cfg = llama_presets()[preset]
+    cfg = models.resolve_preset(preset)[1]
     shapes = optim.tree_leaves(param_shapes(cfg))
     n_params = sum(math.prod(s) for s in shapes)
     # bf16 params, int8 mu and nu, two f32 scales a block of 256
@@ -2019,7 +2074,7 @@ def phase_lifecycle(dev, preset: str = "llama3-1b", batch: int = TRAIN_BATCH,
                                 ("C", c2)) for s in r["saved"]]
         result = {
             "phase": "lifecycle", "preset": preset,
-            "params": n_params,
+            "layers": cfg.n_layers, "params": n_params,
             "batch": batch, "seq": seq, "optim": "adamw-int8",
             "token_file_windows": LIFECYCLE_WINDOWS,
             "disk_free_bytes": free, "disk_needed_bytes": need,
@@ -2607,31 +2662,53 @@ def _call(port: int, method: str, path: str, body=None) -> tuple[int, dict]:
     return resp.status, data
 
 
-def _stream_times(port: int, prompt: list, max_new: int, started=None):
-    """One streamed greedy request: (tokens, host arrival time of each,
-    send time). ``started`` is set once the first token arrives."""
+def _ndjson_stream(port: int, path: str, prompt: list, max_new: int,
+                   started=None) -> dict:
+    """One streamed greedy request to ``path``: its status and headers,
+    its tokens with the host arrival time of each, the send time, the
+    time to the response headers (the server sends them at admission,
+    before any token), the TTFT and the wall clock at its end.
+    ``started`` is set once the first token arrives. Raises unless the
+    stream ends with every token and the done line, and carries no
+    gateway truncation line."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
-    conn.request("POST", "/generate", body=json.dumps(
+    conn.request("POST", path, body=json.dumps(
         {"tokens": [prompt], "maxNewTokens": max_new, "stream": True}))
     resp = conn.getresponse()
-    toks, times, done = [], [], None
+    ttfb_ms = (time.perf_counter() - t0) * 1e3
+    headers = {k.lower(): v for k, v in resp.getheaders()}
+    toks, times, done, cut = [], [], None, []
     for line in iter(resp.readline, b""):  # to the body's end
         if not line.strip():
             continue
         msg = json.loads(line)
-        if "t" not in msg:
+        if "gatewayTruncated" in msg:
+            cut.append(msg)
+        elif "t" not in msg:
             done = msg
-            continue
-        toks.append(msg["t"])
-        times.append(time.perf_counter())
-        if started is not None:
-            started.set()
+        else:
+            toks.append(msg["t"])
+            times.append(time.perf_counter())
+            if started is not None:
+                started.set()
     conn.close()
-    if done != {"done": True, "length": max_new} or len(toks) != max_new:
-        raise AssertionError(f"stream gave {len(toks)} of {max_new} "
-                             f"tokens, then {done}")
-    return toks, times, t0
+    if (resp.status != 200 or cut or done != {"done": True,
+                                              "length": max_new}
+            or len(toks) != max_new):
+        raise AssertionError(f"{path} on {port}: HTTP {resp.status}, "
+                             f"stream gave {len(toks)} of {max_new} "
+                             f"tokens, then {done}, truncated {cut}")
+    return {"headers": headers, "tokens": toks, "times": times, "t0": t0,
+            "ttfb_ms": ttfb_ms, "ttft_ms": (times[0] - t0) * 1e3,
+            "wall_end": time.time()}
+
+
+def _stream_times(port: int, prompt: list, max_new: int, started=None):
+    """One streamed greedy request: (tokens, host arrival time of each,
+    send time). ``started`` is set once the first token arrives."""
+    r = _ndjson_stream(port, "/generate", prompt, max_new, started)
+    return r["tokens"], r["times"], r["t0"]
 
 
 def _burst(port: int, prompts: list, max_new: int, vocab: int) -> list:
@@ -4829,6 +4906,7 @@ def phase_control_plane(dev) -> dict:
            "list_page": [], "resize": []}
     daemon = _Daemon(cfg, port)
     boot_s = daemon.ready_s
+    chain_pool = concurrent.futures.ThreadPoolExecutor(1)
     try:
         # -- the GPU through the API --------------------------------------
         gpus = _api(port, "GET", "/resources/gpus")
@@ -4843,29 +4921,41 @@ def phase_control_plane(dev) -> dict:
         _api(port, "POST", "/containers", {"imageName": "local",
                                            "containerName": "h",
                                            "gpuCount": 1}, want=10601)
-        child0 = _gpu_exec(port, "g-0")
         granted = uuid.lower().removeprefix("gpu-")
-        if (child0["count"], child0.get("uuid", "").lower()) != (1, granted):
-            raise AssertionError(f"g-0's child saw {child0}, granted {uuid}")
-        if not child0["max_abs_err"] <= child0["tol"] \
-                or child0["launches"] < 1:
-            raise AssertionError(f"flash in g-0: {child0}")
-        if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 0},
-                times=lat["replace"])["name"] != "g-1":
-            raise AssertionError("PATCH gpuCount 0 did not make g-1")
-        _drain_s(port)
-        if _api(port, "GET", "/resources/gpus")["freeChips"] != 1:
-            raise AssertionError("g-1 still holds the GPU")
-        child1 = _gpu_exec(port, "g-1")
-        if child1["count"] != 0:
-            raise AssertionError(f"the GPU-less g-1 saw {child1}")
-        if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 1},
-                times=lat["replace"])["name"] != "g-2":
-            raise AssertionError("PATCH gpuCount 1 did not make g-2")
-        _drain_s(port)
-        child2 = _gpu_exec(port, "g-2")
-        if (child2["count"], child2.get("uuid", "").lower()) != (1, granted):
-            raise AssertionError(f"g-2's child saw {child2}, granted {uuid}")
+
+        def gpu_chain():
+            """g's three children: granted, taken away, granted again.
+            Each child's start is most of the phase's card time, so the
+            chain runs beside the host's state below (other families)."""
+            child0 = _gpu_exec(port, "g-0")
+            if (child0["count"], child0.get("uuid", "").lower()) \
+                    != (1, granted):
+                raise AssertionError(f"g-0's child saw {child0}, granted "
+                                     f"{uuid}")
+            if not child0["max_abs_err"] <= child0["tol"] \
+                    or child0["launches"] < 1:
+                raise AssertionError(f"flash in g-0: {child0}")
+            if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 0},
+                    times=lat["replace"])["name"] != "g-1":
+                raise AssertionError("PATCH gpuCount 0 did not make g-1")
+            _drain_s(port)
+            if _api(port, "GET", "/resources/gpus")["freeChips"] != 1:
+                raise AssertionError("g-1 still holds the GPU")
+            child1 = _gpu_exec(port, "g-1")
+            if child1["count"] != 0:
+                raise AssertionError(f"the GPU-less g-1 saw {child1}")
+            if _api(port, "PATCH", "/containers/g/gpu", {"gpuCount": 1},
+                    times=lat["replace"])["name"] != "g-2":
+                raise AssertionError("PATCH gpuCount 1 did not make g-2")
+            _drain_s(port)
+            child2 = _gpu_exec(port, "g-2")
+            if (child2["count"], child2.get("uuid", "").lower()) \
+                    != (1, granted):
+                raise AssertionError(f"g-2's child saw {child2}, granted "
+                                     f"{uuid}")
+            return child0, child1, child2
+
+        chain = chain_pool.submit(gpu_chain)
 
         # -- a host's state at real size -----------------------------------
         binds = [{"src": f"{root}/data/a", "dest": "/d"},
@@ -4916,6 +5006,7 @@ def phase_control_plane(dev) -> dict:
             _api(port, "PATCH", f"/volumes/vol{i}-0/size", {"size": "2GB"},
                  times=lat["resize"])
         resize_drain_s = _drain_s(port)
+        child0, child1, child2 = chain.result()
 
         # -- a crash right after a batch of acknowledged resizes ------------
         for i in range(half, CONTROL_VOLUMES):
@@ -4979,6 +5070,7 @@ def phase_control_plane(dev) -> dict:
             raise AssertionError(f"after the teardown: {left}")
     finally:
         daemon.kill(signal.SIGTERM)
+        chain_pool.shutdown()
     shutil.rmtree(CONTROL_DIR, ignore_errors=True)
     res = {"phase": "control_plane", "boot_s": boot_s,
            "restart_to_ready_s": restart_s,
@@ -5286,6 +5378,16 @@ def _jobs_timings(workers: int, latency_s: float) -> dict:
             for k, v in out.items()}
 
 
+def _jobs_side() -> dict:
+    """(b) and (c) of ``phase_jobs``, host work on fake engines, run in a
+    child process beside (a)'s trainers."""
+    matrix = [_jobs_case(flow, point) for flow, point in JOBS_CASES]
+    timings = {f"workers{w}_latency{lat * 1e3:g}ms":
+               _jobs_timings(w, lat)
+               for lat in (0.0, JOBS_ENGINE_LATENCY_S) for w in (1, 8)}
+    return {"matrix": matrix, "timings": timings}
+
+
 def phase_jobs(dev) -> dict:
     """The port's gangs over a pod (``phase_jobs``). (a) The daemon's
     ``Program`` from a TOML config, as ``python -m tpu_docker_api_torch``
@@ -5302,7 +5404,7 @@ def phase_jobs(dev) -> dict:
     migrate points on a 32-host pod of h100-8 fake engines, each repaired
     by a fresh Program's startup reconcile. (c) Medians of 3 at that size
     with 1 and 8 fan-out workers, at no engine latency and at 1 ms a
-    call."""
+    call. (b) and (c) run in a child process beside (a)'s trainers."""
     from tpu_docker_api_torch import config as cp_config
     from tpu_docker_api_torch.daemon import Program
 
@@ -5314,6 +5416,8 @@ def phase_jobs(dev) -> dict:
     if len(smi) != 1:
         raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
     uuid = smi[0]["uuid"]
+    side_log = os.path.join(root, "side.log")
+    side = _side_start("_jobs_side", side_log)
 
     # -- (a) the gang on the H100 ---------------------------------------------
     start = _free_range()
@@ -5386,17 +5490,16 @@ def phase_jobs(dev) -> dict:
         if ([(c["uuid"], c["used"]) for c in gpus["chips"]] != [(uuid, False)]
                 or slices["slices"] or slices["freeSchedulableChips"] != 1):
             raise AssertionError(f"after DELETE: {gpus} {slices}")
+        side_res = _side_result(side, side_log)
     finally:
+        if side.poll() is None:
+            side.kill()
+            side.wait()
         prg.stop()
 
-    # -- (b) the crash matrix on 32 hosts ---------------------------------------
-    matrix = [_jobs_case(flow, point) for flow, point in JOBS_CASES]
+    # -- (b) and (c), from the side child ------------------------------------------
+    matrix, timings = side_res["matrix"], side_res["timings"]
     matrix_ms = sorted(c["ms"] for c in matrix)
-
-    # -- (c) timings at that size -----------------------------------------------
-    timings = {f"workers{w}_latency{lat * 1e3:g}ms":
-               _jobs_timings(w, lat)
-               for lat in (0.0, JOBS_ENGINE_LATENCY_S) for w in (1, 8)}
     shutil.rmtree(JOBS_DIR, ignore_errors=True)
     res = {"phase": "jobs", "member": member, "plain": plain,
            "loss_max_abs_diff": diff, "loss_tol": JOBS_LOSS_TOL,
@@ -5444,6 +5547,46 @@ SERVICES_ADMISSION_CASES = (("admission.enqueue", 0),
                             ("admission.select_victims", 0),
                             ("admission.preempt", 0), ("admission.preempt", 1),
                             ("admission.readmit", 0))
+#: (a)'s gateway: the new tokens of the stream in flight at the service's
+#: DELETE, and the drain deadline the DELETE waits under (far above the
+#: stream's few seconds: the gateway's ack, not the deadline, must end
+#: the wait)
+SERVICES_DRAIN_NEW = 64
+SERVICES_DRAIN_DEADLINE_S = 30.0
+
+_SIDE_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(getattr(chip_smoke, sys.argv[2])()), flush=True)
+"""
+
+
+def _side_start(fn_name: str, log_path: str) -> subprocess.Popen:
+    """``chip_smoke.<fn_name>()`` in a child process, started now: a
+    phase's host work on fake engines beside its card work (its crash
+    points armed in its own process, never in the phase's daemon)."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-c", _SIDE_CHILD,
+             os.path.dirname(os.path.abspath(__file__)), fn_name],
+            stdout=subprocess.PIPE, stderr=log, text=True)
+
+
+def _side_result(proc: subprocess.Popen, log_path: str) -> dict:
+    """The JSON a ``_side_start`` child printed last; raises with its
+    log's tail unless it exited 0."""
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"a side child exited {proc.returncode}: "
+                                 f"{f.read()[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 _SERVE_CHILD = """
 import json, sys
@@ -5457,16 +5600,17 @@ sys.exit(rc)
 """
 
 
-def _serve_member(env: list[str] | None, port: int, prompts: list,
-                  vocab: int, argv: list[str] | None = None,
-                  log_dir: str = SERVICES_DIR) -> dict:
+@contextlib.contextmanager
+def _member_server(env: list[str] | None, port: int,
+                   argv: list[str] | None = None,
+                   log_dir: str = SERVICES_DIR):
     """``python -m tpu_docker_api_torch.serve``'s ``main`` (``argv``, by
     default SERVICES_PRESET with random weights from seed 0) in a child
     process under a replica member's rendered environment verbatim, or
-    with no job environment (``env`` None), on ``port``: its ready time,
-    the checkpoint step it serves, the tokens of one greedy request a
-    prompt (sent one at a time, so both servers see the same batch
-    shapes) and its flash launches, read when SIGTERM stops it."""
+    with no job environment (``env`` None), on ``port``, for the block:
+    yields a dict of its ready time and the checkpoint step it serves;
+    SIGTERM stops it on leaving, and the dict gains its flash launches
+    and device."""
     if argv is None:
         argv = ["--preset", SERVICES_PRESET, "--device", SERVICES_DEVICE,
                 "--max-seq", str(SERVICES_MAX_SEQ), "--slots", "4",
@@ -5493,28 +5637,46 @@ def _serve_member(env: list[str] | None, port: int, prompts: list,
                                          f"come up on {port}")
                 time.sleep(0.1)
             ready_at = time.perf_counter()
-            ready_s = ready_at - t0
-            step = _get(port, "/healthz")["step"]
-            tokens = [_check_reply(*_post(port, {
-                "tokens": [p], "maxNewTokens": SERVICES_MAX_NEW}), 1,
-                SERVICES_MAX_NEW, vocab)["tokens"][0] for p in prompts]
+            out = {"ready_s": ready_at - t0, "ready_at": ready_at,
+                   "step": _get(port, "/healthz")["step"]}
+            yield out
         finally:
             if proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
             try:
-                out, _ = proc.communicate(timeout=120)
+                stdout, _ = proc.communicate(timeout=120)
             except subprocess.TimeoutExpired:
                 proc.kill()
-                out, _ = proc.communicate()
+                stdout, _ = proc.communicate()
     if proc.returncode != 0:
         with open(log_path) as f:
             raise AssertionError(f"the replica's server exited "
                                  f"{proc.returncode}: {f.read()[-3000:]}")
-    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
     serving = next(ln for ln in lines if ln.get("event") == "serving")
-    return {"ready_s": ready_s, "ready_at": ready_at, "step": step,
-            "tokens": tokens, "launches": lines[-1]["launches"],
-            "device": serving["device"]}
+    out.update(launches=lines[-1]["launches"], device=serving["device"])
+
+
+def _greedy(port: int, prompts: list, vocab: int,
+            path: str = "/generate") -> list:
+    """One greedy request a prompt to ``path``, one at a time: the
+    tokens of each."""
+    return [_check_reply(*_post(port, {
+        "tokens": [p], "maxNewTokens": SERVICES_MAX_NEW}, path), 1,
+        SERVICES_MAX_NEW, vocab)["tokens"][0] for p in prompts]
+
+
+def _serve_member(env: list[str] | None, port: int, prompts: list,
+                  vocab: int, argv: list[str] | None = None,
+                  log_dir: str = SERVICES_DIR) -> dict:
+    """``_member_server`` for one greedy request a prompt (sent one at a
+    time, so two servers see the same batch shapes): its ready time, the
+    checkpoint step it serves, the tokens, its flash launches and
+    device."""
+    with _member_server(env, port, argv, log_dir) as srv:
+        srv["tokens"] = _greedy(port, prompts, vocab)
+    return srv
 
 
 def _serve_both(env: list[str], port: int, prompts: list, vocab: int,
@@ -5530,6 +5692,46 @@ def _serve_both(env: list[str], port: int, prompts: list, vocab: int,
             lambda a: _serve_member(*a, prompts, vocab, argv, log_dir),
             ((env, port), (None, _free_port())))
     return replica, plain
+
+
+def _gateway_traffic(rport: int, gport: int, gpath: str, prompts: list,
+                     vocab: int, direct: list) -> dict:
+    """The replica's server behind the gateway, the card otherwise quiet:
+    the greedy requests through ``gpath`` give the tokens the replica
+    answered directly; then each prompt streamed to the replica, then
+    through the gateway: the same tokens, relayed chunk for chunk
+    (chunked, the replica's content type, one ndjson line a token), the
+    TTFT of each and its time to the response headers (the hop's own
+    cost: the replica sends them at admission, so they carry none of the
+    engine's scheduling, which spreads TTFT by hundreds of ms)."""
+    through = _greedy(gport, prompts, vocab, gpath)
+    if through != direct:
+        raise AssertionError(f"through the gateway {through}, direct "
+                             f"{direct}")
+    ttft: dict = {"direct": [], "gateway": []}
+    ttfb: dict = {"direct": [], "gateway": []}
+    for prompt, want in zip(prompts, direct):
+        d = _ndjson_stream(rport, "/generate", prompt, SERVICES_MAX_NEW)
+        g = _ndjson_stream(gport, gpath, prompt, SERVICES_MAX_NEW)
+        if d["tokens"] != want or g["tokens"] != want:
+            raise AssertionError(f"streamed: direct {d['tokens']}, through "
+                                 f"the gateway {g['tokens']}, greedy {want}")
+        hd, hg = d["headers"], g["headers"]
+        if (hg.get("transfer-encoding") != "chunked"
+                or hg.get("content-type") != hd.get("content-type")
+                or hg.get("x-gateway-endpoint") != "s.r0"):
+            raise AssertionError(f"the relay's headers {hg}, the "
+                                 f"replica's {hd}")
+        for key, r in (("direct", d), ("gateway", g)):
+            ttft[key].append(r["ttft_ms"])
+            ttfb[key].append(r["ttfb_ms"])
+    p50 = {k: _median(v) for k, v in ttft.items()}
+    hop = {k: _median(v) for k, v in ttfb.items()}
+    return {"ttft_ms": ttft, "ttft_p50_ms": p50,
+            "ttft_overhead_p50_ms": p50["gateway"] - p50["direct"],
+            "ttfb_ms": ttfb, "ttfb_p50_ms": hop,
+            "ttfb_overhead_p50_ms": hop["gateway"] - hop["direct"],
+            "content_type": hd.get("content-type")}
 
 
 def _market_oracle(prg) -> list:
@@ -5568,10 +5770,12 @@ def _services_case(kind: str, point: str, skip: int = 0) -> dict:
     ``kind`` "admission" (JAX's ADMISSION_CASES: a preemptible gang over
     every host, a production ask of half of them), "partial" (an elastic
     preemptible gang over every host donates one to a one-host production
-    ask) or "service" (JAX's TestServiceChaos flows, one host a
-    replica). A fresh Program's startup reconcile repairs the wreckage;
-    admission passes drain the queue; every oracle must then be empty and
-    a second pass find nothing."""
+    ask), "service" (JAX's TestServiceChaos flows, one host a replica)
+    or "gateway" (JAX's TestGatewayChaos: a replica's stop dies inside
+    its drain handshake). A fresh Program's startup reconcile repairs the
+    wreckage; admission passes drain the queue; every oracle must then be
+    empty, no replica both ``draining`` and running, and a second pass
+    find nothing."""
     from tpu_docker_api_torch.schemas.job import JobRun
     from tpu_docker_api_torch.schemas.service import (ServiceCreate,
                                                       ServicePatch)
@@ -5599,6 +5803,8 @@ def _services_case(kind: str, point: str, skip: int = 0) -> dict:
                            min_members=1))
         svc.run_job(JobRun(image_name="local", job_name="prod",
                            chip_count=8, priority_class="production"))
+    elif kind == "gateway":
+        create(1)
     try:
         with armed(point, skip=skip):
             if kind == "admission":
@@ -5608,6 +5814,8 @@ def _services_case(kind: str, point: str, skip: int = 0) -> dict:
                 dead.admission.admit_once()
             elif kind == "partial":
                 dead.admission.admit_once()
+            elif kind == "gateway":
+                svc.stop_job("web.r0")
             elif point == "service.create.after_record":
                 create(2)
             elif point == "service.scale_up.after_mark":
@@ -5639,15 +5847,20 @@ def _services_case(kind: str, point: str, skip: int = 0) -> dict:
         failed = [a for a in report["actions"] if "error" in a]
         problems = _market_oracle(prg)
         fixpoint = prg.reconciler.reconcile()["actions"]
-        placed = {base: prg.store.get_job(f"{base}-{v}").phase
+        states = {base: prg.store.get_job(f"{base}-{v}")
                   for base, v in prg.job_versions.snapshot().items()}
+        placed = {base: st.phase for base, st in states.items()}
+        half = [b for b, st in states.items()
+                if st.draining and st.phase == "running"]
         want = {"admission": {"low", "high"}, "partial": {"don", "prod"},
-                "service": set()}[kind]
-        if (failed or problems or fixpoint or not want <= set(placed)
+                "service": set(), "gateway": set()}[kind]
+        if (failed or problems or fixpoint or half
+                or not want <= set(placed)
                 or any(placed[b] != "running" for b in want - {"low"})):
             raise AssertionError(f"{kind}@{point}@{skip}: failed {failed}, "
                                  f"invariants {problems}, fixpoint "
-                                 f"{fixpoint}, phases {placed}")
+                                 f"{fixpoint}, phases {placed}, half-"
+                                 f"drained {half}")
         return {"case": f"{point}@skip{skip}", "ms": report["durationMs"],
                 "actions": [a["action"] for a in report["actions"]],
                 "admission_passes": passes, "phases": placed}
@@ -5747,32 +5960,57 @@ def _services_timings(workers: int) -> dict:
             for k, v in out.items()}
 
 
+def _services_side() -> dict:
+    """(b) and (c) of ``phase_services``, host work on fake engines, run
+    in a child process beside (a)'s batch member trainer."""
+    from tpu_docker_api_torch.service.crashpoints import (
+        GATEWAY_CRASH_POINTS, SERVICE_CRASH_POINTS)
+
+    matrix = ([_services_case("admission", p, k)
+               for p, k in SERVICES_ADMISSION_CASES]
+              + [_services_case("service", p) for p in SERVICE_CRASH_POINTS]
+              + [_services_case("gateway", p) for p in GATEWAY_CRASH_POINTS]
+              + [_services_case("partial", "admission.partial_preempt")])
+    timings = {f"workers{w}_latency{JOBS_ENGINE_LATENCY_S * 1e3:g}ms":
+               _services_timings(w) for w in (1, 8)}
+    return {"matrix": matrix, "timings": timings}
+
+
 def phase_services(dev) -> dict:
-    """The capacity market and the Service resource (``phase_services``).
-    (a) The daemon's ``Program`` from a TOML config, serving in this
-    process over sqlite, a persisting fake runtime under
-    ``build/services`` and the NVML topology, the market on, the admission
-    loop and the autoscaler at 1 s: a batch job of one GPU (its member's
-    rendered environment trains llama3-1b 2 steps, all four kernels
-    counted); a production service of one replica of one GPU queues and
-    the market preempts the batch gang for it, the replica landing on the
-    GPU's UUID; the port's server from the replica member's environment,
-    on the job's coordinator port, answers 4 greedy requests token for
-    token as the same server without the job environment does, through
-    flash_fwd; offered load above a replica's capacity scales the service
-    to 2, the second replica queued (nothing lower is left to preempt) and
-    held there by the autoscaler with the load at 0 (it never sheds a
-    replica that is still materializing); an audited ``maxReplicas`` clamp
-    takes it back to 1; DELETE re-admits the batch job onto the GPU within
-    3 admission intervals. Every oracle is empty after each step. (b)
-    JAX's admission crash cases, every ``service.*`` label and
+    """The capacity market, the Service resource and the serving gateway
+    (``phase_services``). (a) The daemon's ``Program`` from a TOML
+    config, serving in this process over sqlite, a persisting fake
+    runtime under ``build/services`` and the NVML topology, the market
+    on, the admission loop and the autoscaler at 1 s, the gateway on its
+    own listener: a batch job of one GPU (its member's rendered
+    environment trains llama3-1b 2 steps, all four kernels counted); a
+    production service of one replica of one GPU queues and the market
+    preempts the batch gang for it, the replica landing on the GPU's
+    UUID; the port's server from the replica member's environment, on
+    the job's coordinator port, answers 4 greedy requests token for token
+    as the same server without the job environment does, through
+    flash_fwd, and as the gateway's ``POST /v1/s/generate`` relays them;
+    each prompt streamed to the replica and through the gateway (the
+    same tokens, relayed chunk for chunk; each TTFT); offered load above
+    a replica's capacity scales the service to 2, the second replica
+    queued (nothing lower is left to preempt) and held there by the
+    autoscaler with the load at 0 (it never sheds a replica that is
+    still materializing); an audited ``maxReplicas`` clamp takes it back
+    to 1; DELETE, under a stream in flight through the gateway, waits
+    for the gateway's drain ack (``job-drain-acked``) while the stream
+    finishes whole, then re-admits the batch job onto the GPU within 3
+    admission intervals; the gateway then answers the typed 503 of no
+    routable replica; both listeners' ``/healthz`` name the gateway.
+    Every oracle is empty after each step. (b) JAX's admission crash
+    cases, every ``service.*`` and ``gateway.drain.*`` label and
     ``admission.partial_preempt`` on the 32-host pod of h100-8 fake
     engines, each repaired by a fresh Program's startup reconcile. (c)
-    Medians of 3 there at 1 ms an engine call, 1 and 8 fan-out workers."""
+    Medians of 3 there at 1 ms an engine call, 1 and 8 fan-out workers.
+    (b) and (c) run in a child process beside (a)'s batch member."""
     from tpu_docker_api_torch import config as cp_config
     from tpu_docker_api_torch.daemon import Program
+    from tpu_docker_api_torch.errors import GatewayNoEndpoints
     from tpu_docker_api_torch.models import resolve_preset
-    from tpu_docker_api_torch.service.crashpoints import SERVICE_CRASH_POINTS
 
     phase_t0 = time.perf_counter()
     shutil.rmtree(SERVICES_DIR, ignore_errors=True)
@@ -5783,8 +6021,10 @@ def phase_services(dev) -> dict:
         raise AssertionError(f"want one GPU, nvidia-smi shows {smi}")
     uuid = smi[0]["uuid"]
     vocab = resolve_preset(SERVICES_PRESET)[1].vocab_size
+    side_log = os.path.join(root, "side.log")
+    side = _side_start("_services_side", side_log)
 
-    # -- (a) the market on the H100 -------------------------------------------
+    # -- (a) the market and the gateway on the H100 -----------------------------
     start = _free_range()
     cfg_path = os.path.join(root, "daemon.toml")
     with open(cfg_path, "w") as f:
@@ -5799,7 +6039,9 @@ def phase_services(dev) -> dict:
                 f"admission_interval_s = {SERVICES_INTERVAL_S}\n"
                 f"autoscale_interval_s = {SERVICES_INTERVAL_S}\n"
                 f"autoscale_up_cooldown_s = {SERVICES_UP_COOLDOWN_S}\n"
-                f"autoscale_down_cooldown_s = {SERVICES_DOWN_COOLDOWN_S}\n")
+                f"autoscale_down_cooldown_s = {SERVICES_DOWN_COOLDOWN_S}\n"
+                "gateway_enabled = true\ngateway_port = 0\n"
+                f"gateway_drain_deadline_s = {SERVICES_DRAIN_DEADLINE_S}\n")
     prg = Program(cp_config.load(cfg_path), host="127.0.0.1")
     prg.init()
     preempt_s: list[float] = []
@@ -5815,8 +6057,10 @@ def phase_services(dev) -> dict:
     prg.admission._preempt_one = preempt_one
     prg.start()
     oracles: dict = {}
+    pool = concurrent.futures.ThreadPoolExecutor(2)
     try:
         port = prg.api_server.port
+        gport, gpath = prg.gateway_server.port, "/v1/s/generate"
 
         def phase_of(base):
             return _api(port, "GET", f"/jobs/{base}")["phase"]
@@ -5840,6 +6084,7 @@ def phase_services(dev) -> dict:
                 or member["launches"] != want):
             raise AssertionError(f"the batch member's trainer: {member}")
         oracles["batch"] = _market_oracle(prg)
+        side_res = _side_result(side, side_log)
 
         # the production service: its replica queues, the market preempts
         t0 = time.perf_counter()
@@ -5865,7 +6110,8 @@ def phase_services(dev) -> dict:
                                  f"{rspec.gpu_uuids}, admission {adm}")
         oracles["preempted"] = _market_oracle(prg)
 
-        # the replica's server, from its member's environment
+        # the replica's server, from its member's environment, and a plain
+        # one beside it; then the gateway in front of the replica
         env = dict(e.split("=", 1) for e in rspec.env)
         if (env.get("CUDA_VISIBLE_DEVICES") != uuid
                 or env.get("TPU_DOCKER_API_SERVICE") != "s"):
@@ -5873,55 +6119,108 @@ def phase_services(dev) -> dict:
         g = torch.Generator().manual_seed(0)
         prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
                    for n in SERVICES_PROMPTS]
-        replica, plain = _serve_both(rspec.env, rjob["coordinatorPort"],
-                                     prompts, vocab)
+        rport = rjob["coordinatorPort"]
+        plain_f = pool.submit(_serve_member, None, _free_port(), prompts,
+                              vocab)
+        with _member_server(rspec.env, rport) as replica:
+            replica["tokens"] = _greedy(rport, prompts, vocab)
+            plain = plain_f.result()
+            _until("the gateway routing to the replica", lambda: [
+                ep["routable"] for ep in _call(gport, "GET", "/healthz")[1][
+                    "gateway"]["services"].get("s", [])] == [True], 10)
+            relay = _gateway_traffic(rport, gport, gpath, prompts, vocab,
+                                     replica["tokens"])
+            health = {"api": _call(port, "GET", "/healthz")[1]["data"][
+                "gateway"], "gateway": _call(gport, "GET", "/healthz")[1]}
+            if not (health["api"]["instanceId"]
+                    == health["gateway"]["gateway"]["instanceId"]
+                    == prg.gateway.instance_id):
+                raise AssertionError(f"/healthz: {health}")
+
+            # traffic above a replica's capacity: the autoscaler scales
+            _api(port, "POST", "/services/s/load",
+                 {"rps": SERVICES_LOAD_RPS})
+            up_s = _until("the scale-up", lambda: _api(
+                port, "GET", "/services/s")["replicas"] == 2,
+                3 * SERVICES_INTERVAL_S + 5)
+            _until("the second replica queued", lambda: phase_of(
+                "s.r1") == "queued", 3 * SERVICES_INTERVAL_S)
+            time.sleep(2 * SERVICES_INTERVAL_S)  # two admission passes
+            scaled = _api(port, "GET", "/services/s")
+            if (phase_of("s.r1") != "queued"
+                    or phase_of("train") != "preempted"
+                    or scaled["lastScale"]["trigger"] != "autoscale"
+                    or scaled["readyReplicas"] != 1):
+                raise AssertionError(f"after the scale-up: {scaled}")
+            oracles["scaled_up"] = _market_oracle(prg)
+            # no traffic: a replica still materializing is never shed
+            _api(port, "POST", "/services/s/load", {"rps": 0})
+            time.sleep(SERVICES_DOWN_COOLDOWN_S + 3 * SERVICES_INTERVAL_S)
+            held = _api(port, "GET", "/services/s")
+            if held["replicas"] != 2 or held["autoscaleTotal"] != 1:
+                raise AssertionError(f"the autoscaler shed a queued "
+                                     f"replica: {held}")
+            clamped = _api(port, "PATCH", "/services/s", {"maxReplicas": 1})
+            adm = _api(port, "GET", "/admission")
+            if (clamped["replicas"] != 1 or clamped["readyReplicas"] != 1
+                    or clamped["lastScale"]["trigger"] != "manual"
+                    or [e["name"] for e in adm["entries"]] != ["train"]
+                    or prg.job_versions.get("s.r1") is not None):
+                raise AssertionError(f"the clamp to 1: {clamped}, {adm}")
+            oracles["scaled_down"] = _market_oracle(prg)
+
+            # DELETE under a stream in flight through the gateway: the
+            # replica's stop waits for the gateway's drain ack, the
+            # stream ends whole, then the batch job re-admits
+            started = threading.Event()
+            stream_f = pool.submit(_ndjson_stream, gport, gpath, prompts[1],
+                                   SERVICES_DRAIN_NEW, started)
+            if not started.wait(120):
+                stream_f.result()  # raises the stream's own failure
+                raise AssertionError("the drained stream never started")
+            delete_wall = time.time()
+            t0 = time.perf_counter()
+            _api(port, "DELETE", "/services/s")
+            delete_s = time.perf_counter() - t0
+            readmit_s = _until("the re-admission", lambda: phase_of(
+                "train") == "running", 3 * SERVICES_INTERVAL_S)
+            drained = stream_f.result()
+            drains = [e for e in prg.job_supervisor.events_view(1000)
+                      if e["job"].startswith("s.r0-")
+                      and e["event"].startswith("job-drain")]
+            if [e["event"] for e in drains] != ["job-draining",
+                                                "job-drain-acked"]:
+                raise AssertionError(f"the replica's drain: {drains}")
+            shed_status, shed = _call(gport, "POST", gpath, {
+                "tokens": [prompts[0]], "maxNewTokens": 1})
+            if (shed_status, shed["code"]) != (503,
+                                               GatewayNoEndpoints.code):
+                raise AssertionError(f"after the drain: {shed_status} "
+                                     f"{shed}")
+            gw_view = _api(port, "GET", "/gateway")
         if (replica["tokens"] != plain["tokens"]
                 or replica["launches"]["flash_fwd"] <= 0
                 or replica["device"] != plain["device"]):
             raise AssertionError(f"the replica's server: {replica}, the "
                                  f"plain one {plain}")
+        counters = gw_view["counters"]
+        if (counters["truncatedStreams"] or counters["drainAcks"] < 1
+                or counters["requests"] < 2 * len(prompts) + 1):
+            raise AssertionError(f"the gateway's counters: {counters}")
+        drain = {"delete_s": delete_s,
+                 "delete_to_ack_s": drains[-1]["ts"] - delete_wall,
+                 "stream_end_to_ack_s": drains[-1]["ts"]
+                 - drained["wall_end"],
+                 "stream_tokens": len(drained["tokens"]),
+                 "events": [e["event"] for e in drains]}
 
-        # traffic above a replica's capacity: the autoscaler scales to 2
-        _api(port, "POST", "/services/s/load", {"rps": SERVICES_LOAD_RPS})
-        up_s = _until("the scale-up", lambda: _api(
-            port, "GET", "/services/s")["replicas"] == 2,
-            3 * SERVICES_INTERVAL_S + 5)
-        _until("the second replica queued", lambda: phase_of(
-            "s.r1") == "queued", 3 * SERVICES_INTERVAL_S)
-        time.sleep(2 * SERVICES_INTERVAL_S)  # two admission passes
-        scaled = _api(port, "GET", "/services/s")
-        if (phase_of("s.r1") != "queued" or phase_of("train") != "preempted"
-                or scaled["lastScale"]["trigger"] != "autoscale"
-                or scaled["readyReplicas"] != 1):
-            raise AssertionError(f"after the scale-up: {scaled}")
-        oracles["scaled_up"] = _market_oracle(prg)
-        # no traffic: a replica still materializing is never shed
-        _api(port, "POST", "/services/s/load", {"rps": 0})
-        time.sleep(SERVICES_DOWN_COOLDOWN_S + 3 * SERVICES_INTERVAL_S)
-        held = _api(port, "GET", "/services/s")
-        if held["replicas"] != 2 or held["autoscaleTotal"] != 1:
-            raise AssertionError(f"the autoscaler shed a queued replica: "
-                                 f"{held}")
-        clamped = _api(port, "PATCH", "/services/s", {"maxReplicas": 1})
-        adm = _api(port, "GET", "/admission")
-        if (clamped["replicas"] != 1 or clamped["readyReplicas"] != 1
-                or clamped["lastScale"]["trigger"] != "manual"
-                or [e["name"] for e in adm["entries"]] != ["train"]
-                or prg.job_versions.get("s.r1") is not None):
-            raise AssertionError(f"the clamp to 1: {clamped}, {adm}")
-        oracles["scaled_down"] = _market_oracle(prg)
-
-        # DELETE: the batch job re-admits onto the GPU
-        t0 = time.perf_counter()
-        _api(port, "DELETE", "/services/s")
-        readmit_s = _until("the re-admission", lambda: phase_of(
-            "train") == "running", 3 * SERVICES_INTERVAL_S)
         tjob = _api(port, "GET", "/jobs/train")
         after = member_spec(tjob["processes"][0]["container"]).gpu_uuids
         if after != [uuid] or _api(port, "GET", "/admission")["depth"]:
             raise AssertionError(f"after the re-admission: {tjob}")
         oracles["readmitted"] = _market_oracle(prg)
-        health = _call(port, "GET", "/healthz")[1]["data"]["admission"]
+        health["admission"] = _call(port, "GET", "/healthz")[1]["data"][
+            "admission"]
         _api(port, "DELETE", "/jobs/train", {
             "force": True, "delStateAndVersionRecord": True})
         gpus = _api(port, "GET", "/resources/gpus")
@@ -5929,30 +6228,32 @@ def phase_services(dev) -> dict:
             raise AssertionError(f"after DELETE: {gpus}")
         oracles["teardown"] = _market_oracle(prg)
     finally:
+        if side.poll() is None:
+            side.kill()
+            side.wait()
+        pool.shutdown()
         prg.stop()
     if any(oracles.values()):
         raise AssertionError(f"invariants: {oracles}")
 
-    # -- (b) the crash cases on 32 hosts ----------------------------------------
-    matrix = ([_services_case("admission", p, k)
-               for p, k in SERVICES_ADMISSION_CASES]
-              + [_services_case("service", p) for p in SERVICE_CRASH_POINTS]
-              + [_services_case("partial", "admission.partial_preempt")])
+    # -- (b) and (c), from the side child ------------------------------------------
+    matrix = side_res["matrix"]
     matrix_ms = sorted(c["ms"] for c in matrix)
-
-    # -- (c) timings at that size -------------------------------------------------
-    timings = {f"workers{w}_latency{JOBS_ENGINE_LATENCY_S * 1e3:g}ms":
-               _services_timings(w) for w in (1, 8)}
     shutil.rmtree(SERVICES_DIR, ignore_errors=True)
     launches = {name: member["launches"][name] + (
         replica["launches"].get(name, 0)) for name in member["launches"]}
     res = {"phase": "services", "member": member, "replica": replica,
            "plain": plain, "post_to_replica_running_s": post_to_running_s,
            "preemption_s": preempt_s[0], "scale_up_s": up_s,
-           "delete_to_readmitted_s": readmit_s, "healthz_admission": health,
+           "delete_to_readmitted_s": readmit_s,
+           "healthz_admission": health["admission"],
+           "gateway": {**relay, "drain": drain,
+                       "shed": {"status": shed_status, "code": shed["code"]},
+                       "counters": counters,
+                       "healthz_keys": sorted(health["gateway"]["gateway"])},
            "hosts": JOBS_HOSTS, "matrix": matrix,
            "matrix_startup_ms_median": matrix_ms[len(matrix_ms) // 2],
-           "timings": timings, "launches": launches,
+           "timings": side_res["timings"], "launches": launches,
            "seconds": time.perf_counter() - phase_t0, "card": nvidia_smi()}
     emit(res)
     return res
@@ -7993,7 +8294,10 @@ def main() -> int:
     single = {"devices": phase_devices, "control_plane": phase_control_plane,
               "reconcile": phase_reconcile, "jobs": phase_jobs,
               "services": phase_services, "workflows": phase_workflows,
-              "speculative": phase_speculative, "encdec": phase_encdec}
+              "speculative": phase_speculative, "encdec": phase_encdec,
+              "lifecycle": lambda dev: phase_lifecycle(
+                  dev, "llama3-1b", TRAIN_BATCH, TRAIN_SEQ,
+                  LIFECYCLE_LAYERS)}
     only = args[1] if len(args) == 2 and args[0] == "--phase" else None
     if args not in ([], ["--mesh"]) and only not in single:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
@@ -8073,7 +8377,8 @@ def main() -> int:
     spec_res = timed(phase_speculative)
     bench_res = timed(phase_servebench)
     train_res = timed(phase_train)
-    life_res = timed(phase_lifecycle)
+    life_res = timed(phase_lifecycle, "llama3-1b", TRAIN_BATCH, TRAIN_SEQ,
+                     LIFECYCLE_LAYERS)
     lora_res = timed(phase_lora, train_res, int8_res)
     moe_res = timed(phase_moe)
     vit_res = timed(phase_vit)

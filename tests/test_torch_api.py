@@ -3,10 +3,10 @@ against the JAX package's on the CPU: one request script sent over HTTP
 to both servers, each over its own services, fake runtime, memory store
 and an HGX line of 8 GPUs. HTTP statuses and reply bodies must match key
 for key, apart from the logged differences (the grant's attachment in a
-stored spec, the GPU view's ``uuid``, the random ids). The routes of the
-families the port lacks answer 501 with code 10002, naming the missing
-service and ROADMAP Queue 1 item 10; the reconcile, job, slice, host,
-admission and service routes answer as JAX's."""
+stored spec, the GPU view's ``uuid``, the random ids). Every route answers
+as JAX's: the reconcile, job, slice, host, admission, service, workflow,
+leader, shard, compaction and gateway routes too, and no route answers
+501 any more."""
 
 import http.client
 import json
@@ -17,16 +17,15 @@ import test_torch_container_service as svc
 from tpu_docker_api.api import app as japp
 from tpu_docker_api.telemetry import trace as jtrace
 from tpu_docker_api_torch.api import app as tapp
-from tpu_docker_api_torch.api import codes as tcodes
 from tpu_docker_api_torch.telemetry import trace as ttrace
 
 
-def _server(pkg, root):
+def _server(pkg, root, gateway=None):
     w = svc.World(pkg, root)
     app, trace = (japp, jtrace) if pkg is svc.JAX else (tapp, ttrace)
     router = app.build_router(w.csvc, w.vsvc, w.chips, w.ports,
                               work_queue=w.wq, tracer=trace.Tracer(),
-                              list_max_limit=3)
+                              list_max_limit=3, gateway=gateway)
     server = app.ApiServer(router, port=0)
     server.start()
     return server, w
@@ -176,12 +175,12 @@ def test_api_gpu_view_carries_the_uuids(tmp_path):
             in info["data"]["state"]["spec"]["env"])
 
 
-NOT_PORTED = [("GET", "/gateway", "gateway")]
 #: the routes of item 10 part v's control plane, which answered 501 before
-#: workflows, leader election, shards and compaction were ported
+#: workflows, leader election, shards, compaction and the gateway were
+#: ported
 PORTED_CONTROL = [
     ("POST", "/workflows"), ("GET", "/workflows"), ("GET", "/leader"),
-    ("GET", "/shards"), ("POST", "/compact"),
+    ("GET", "/shards"), ("POST", "/compact"), ("GET", "/gateway"),
 ]
 
 
@@ -190,12 +189,6 @@ def test_unported_routes_are_refused_by_name(tmp_path):
                for name, pkg in (("jax", svc.JAX), ("port", svc.PORT))}
     server = servers["port"][0]
     try:
-        for method, path, what in NOT_PORTED:
-            status, reply = call(server.port, method, B + path, {})
-            assert status == 501, path
-            assert reply["code"] == tcodes.NOT_PORTED == 10002, path
-            assert what in reply["msg"], (path, reply["msg"])
-            assert "ROADMAP Queue 1 item 10" in reply["msg"], path
         status, reply = call(server.port, "GET", B + "/nowhere")
         assert (status, reply["code"]) == (200, 10001)
         # the capacity market's, the services', the workflows', the
@@ -218,6 +211,30 @@ def test_unported_routes_are_refused_by_name(tmp_path):
         for srv, w in servers.values():
             srv.close()
             w.wq.close()
+    # with a gateway, /gateway, /healthz's gateway block and the events
+    # ring answer as JAX's: the same keys and values but the instance id
+    import torch_control as tc
+
+    views = {}
+    for name, pkg, world in (("jax", tc.JAX, svc.JAX),
+                             ("port", tc.PORT, svc.PORT)):
+        gw = pkg.gateway.Gateway(pkg.kv.MemoryKV(),
+                                 resolve_addr=lambda hid: "127.0.0.1")
+        srv, w = _server(world, str(tmp_path / f"gw-{name}"), gateway=gw)
+        try:
+            status, reply = call(srv.port, "GET", B + "/gateway")
+            health = call(srv.port, "GET", "/healthz")[1]["data"]["gateway"]
+            events = call(srv.port, "GET", B + "/events")
+        finally:
+            srv.close()
+            w.wq.close()
+        assert reply["data"].pop("instanceId") == gw.instance_id
+        assert health.pop("instanceId") == gw.instance_id
+        views[name] = (status, reply["code"], reply["data"], health,
+                       events[1]["data"])
+    assert views["port"] == views["jax"]
+    assert views["port"][:2] == (200, 200)
+    assert views["port"][2]["counters"]["requests"] == 0
 
 
 #: the routes of item 10 part iv, which answered 501 before the pod, the

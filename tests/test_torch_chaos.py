@@ -102,18 +102,20 @@ def test_case_matrix_covers_every_crash_point():
     # the job, resize and admission labels are test_torch_job_chaos.py's
     # matrix, the service labels test_torch_service.py's, the workflow,
     # leader, shard and compactor labels those of test_torch_workflow.py,
-    # test_torch_leader.py, test_torch_shard.py and test_torch_compactor.py
+    # test_torch_leader.py, test_torch_shard.py and test_torch_compactor.py,
+    # the gateway's drain labels test_torch_gateway.py's
     assert (set(p for _, p in CASES) | set(QUEUE_POINTS) | set(TXN_POINTS)
             | {"fanout.mid_batch", RECONCILE_DIRTY_POINT}
             | set(c.JOB_CRASH_POINTS) | set(c.RESIZE_CRASH_POINTS)
             | set(c.ADMISSION_CRASH_POINTS) | set(c.SERVICE_CRASH_POINTS)
             | set(c.WORKFLOW_CRASH_POINTS) | set(c.LEADER_CRASH_POINTS)
             | set(c.SHARD_CRASH_POINTS) | set(c.COMPACTOR_CRASH_POINTS)
+            | set(c.GATEWAY_CRASH_POINTS)
             == set(c.KNOWN_CRASH_POINTS))
     # every label the port knows is one JAX knows, under the same group
     for group in ("CONTAINER", "JOB", "QUEUE", "TXN", "FANOUT", "RECONCILE",
                   "ADMISSION", "RESIZE", "SERVICE", "WORKFLOW", "LEADER",
-                  "SHARD", "COMPACTOR"):
+                  "SHARD", "COMPACTOR", "GATEWAY"):
         name = f"{group}_CRASH_POINTS"
         assert getattr(c, name) == getattr(tc.JAX.crash, name)
 
@@ -345,18 +347,20 @@ def test_crashed_flow_without_reconcile_violates_invariants(tmp_path):
 
 
 def test_unknown_crash_label_is_refused():
-    """A label of a service the port lacks (the gateway's) is not armed
-    silently; the capacity market's, the Service resource's, the
-    workflows', the leader's, the shards' and the compactor's are armed."""
-    for label in ("gateway.drain.after_mark", "gateway.drain.after_ack"):
+    """A label that no service fires is not armed silently, in either
+    package; every label of JAX's matrix, the gateway's drain handshake's
+    included, is armed by both."""
+    for pkg in tc.PKGS:
         with pytest.raises(ValueError, match="unknown crash points"):
-            with tc.PORT.crash.armed(label):
+            with pkg.crash.armed("gateway.drain.nowhere"):
                 pass
-    for label in ("admission.enqueue", "service.create.after_record",
+    for label in ("gateway.drain.after_mark", "gateway.drain.after_ack",
+                  "admission.enqueue", "service.create.after_record",
                   "workflow.create.after_record", "compact.before_trim",
                   "leader.after_acquire", "shard.coord.before_apply"):
-        with tc.PORT.crash.armed(label):
-            pass
+        for pkg in tc.PKGS:
+            with pkg.crash.armed(label):
+                pass
 
 
 #: election-lifecycle crash points: the failover matrix kills the leader at

@@ -425,16 +425,13 @@ def test_kv_apply_fires_crash_points_where_jax_does(backend, tmp_path):
     assert got[:-2] == want[:-2]
     assert got[0] == "txn.before_apply" and got[1] == {}
     assert got[4] == "txn.after_apply" and len(got[5]) == 2
-    # the workflow labels are ported: both packages arm them; the gateway's
-    # come with the gateway, so the port refuses them
-    assert got[-2] is want[-2] is None
-    assert want[-1] is None and got[-1] == "ValueError"
+    # the workflow and gateway labels are ported: both packages arm them
+    assert got[-2:] == want[-2:] == [None, None]
 
 
 def test_port_knows_the_slice_crash_points_jax_fires():
-    assert tcrash.KNOWN_CRASH_POINTS == tuple(
-        p for p in jcrash.KNOWN_CRASH_POINTS
-        if p not in jcrash.GATEWAY_CRASH_POINTS)
+    assert tcrash.KNOWN_CRASH_POINTS == jcrash.KNOWN_CRASH_POINTS
+    assert tcrash.GATEWAY_CRASH_POINTS == jcrash.GATEWAY_CRASH_POINTS
     assert issubclass(tcrash.SimulatedCrash, BaseException)
     assert not issubclass(tcrash.SimulatedCrash, Exception)
 

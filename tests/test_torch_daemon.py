@@ -174,8 +174,18 @@ def test_unported_features_are_refused_by_name(lines, key, tmp_path):
         finally:
             prg.stop()
         return
-    with pytest.raises(ValueError, match=f"{key}.*ROADMAP Queue 1 item 10"):
-        tconfig.load(path)
+    # the serving gateway is ported: the port loads the same TOML to the
+    # same values, and a daemon booted on it serves the gateway's listener
+    # and status views and waits on the drain coordinator, as JAX's does
+    assert key in PORTED_GATEWAY_KEYS
+    t = tconfig.load(path)
+    assert getattr(t, key) == getattr(j, key) is True
+    with tc.jax_knows_h100():
+        got = [_gateway_wiring(pkg, cfg) for pkg, cfg in
+               ((tc.JAX, j), (tc.PORT, t))]
+    assert got[1] == got[0]
+    assert got[1]["coordinator"] == "DrainCoordinator"
+    assert got[1]["listener"] == (200, ["gateway", "status"], True)
 
 
 #: the keys of item 10 part iv, refused before the pod and its services
@@ -188,6 +198,8 @@ PORTED_MARKET_KEYS = ("admission_enabled", "autoscale_interval_s")
 #: writer plane and history compactor
 PORTED_CONTROL_KEYS = ("leader_election", "shard_count",
                        "workflow_interval_s", "history_retention_versions")
+#: the key of item 10's serving gateway
+PORTED_GATEWAY_KEYS = ("gateway_enabled",)
 
 
 def _wiring(pkg, cfg):
@@ -205,6 +217,37 @@ def _wiring(pkg, cfg):
             "interval": prg.workflow._interval,
             "shards": (None if prg.shard_map is None
                        else prg.shard_map.count)}
+    finally:
+        prg.stop()
+
+
+def _gateway_wiring(pkg, cfg):
+    """A daemon booted and started on ``cfg`` with the gateway on: its
+    wiring by class name, and what its two listeners answer (the status
+    view's keys and counters; the instance id is random)."""
+    cfg = dataclasses.replace(cfg, store_backend="memory", port=0,
+                              accelerator_type="h100-8")
+    prg = pkg.daemon.Program(cfg, host="127.0.0.1",
+                             runtime=pkg.fake.FakeRuntime())
+    prg._discover_topology = lambda: tc.topology(pkg)
+    prg.init()
+    prg.start()
+    try:
+        status, reply = call(prg.api_server.port, "GET", B + "/gateway")
+        health = call(prg.api_server.port, "GET", "/healthz")[1]["data"]
+        own = call(prg.gateway_server.port, "GET", "/healthz")
+        view = reply["data"]
+        return {
+            "status": (status, reply["code"]), "keys": sorted(view),
+            "counters": view["counters"], "services": view["services"],
+            "health": sorted(health["gateway"]),
+            "listener": (own[0], sorted(own[1]),
+                         own[1]["gateway"]["instanceId"]
+                         == view["instanceId"] == prg.gateway.instance_id),
+            "coordinator": type(prg.job_svc.drain_coordinator).__name__,
+            "deadline": prg.job_svc.drain_deadline_s,
+            "feed": type(prg.gateway_informer).__name__,
+            "ephemeral": prg.gateway_server.port > 0}
     finally:
         prg.stop()
 

@@ -13,7 +13,7 @@ with a container run through one REST call, and an ``EtcdKV`` (over the
 standard library, ``requests`` blocked) against the fake gateway, on the
 CPU. With ``torch`` blocked too, the daemon boots on etcd with its
 reconciler and answers ``/api/v1/reconcile``, and again with leader
-election, workflows and the compactor on."""
+election, workflows, the compactor and the serving gateway on."""
 
 import os
 import subprocess
@@ -269,7 +269,7 @@ _CHILD = textwrap.dedent("""
 #: the control-plane daemon with torch blocked too: it boots on an etcd
 #: store (the fake gateway) with its reconciler on, and answers the
 #: reconcile route; then an HA daemon (leader election, workflows, the
-#: compactor) boots on the same store and leads
+#: compactor, the serving gateway) boots on the same store and leads
 _NO_TORCH_CHILD = textwrap.dedent("""
     import http.client, json, sys, tempfile, time
 
@@ -327,11 +327,13 @@ _NO_TORCH_CHILD = textwrap.dedent("""
         prg.stop()
 
     # the HA daemon on the same store: leader election with its informer
-    # read path, workflows at JAX's interval and the history compactor
+    # read path, workflows at JAX's interval, the history compactor and
+    # the serving gateway on its own listener
     prg = Program(cp_config.Config(
         port=0, runtime_backend="fake", store_backend="etcd", etcd_addr=addr,
         health_watch_interval=0, leader_election=True, leader_ttl_s=5.0,
         leader_renew_interval_s=0.05, history_retention_versions=3,
+        gateway_enabled=True, gateway_port=0,
         fake_runtime_root=tempfile.mkdtemp()), host="127.0.0.1")
     prg.init()
     prg.start()
@@ -345,6 +347,11 @@ _NO_TORCH_CHILD = textwrap.dedent("""
             "workflowName": "w", "steps": [
                 {"name": "a", "image": "i", "chipCount": 1}]})["code"] == 200
         assert call("POST", "/api/v1/compact")["code"] == 200
+        gw = call("GET", "/api/v1/gateway")["data"]
+        assert gw["instanceId"] == prg.gateway.instance_id
+        assert call("GET", "/healthz")["data"]["gateway"]["inFlight"] == 0
+        assert type(prg.job_svc.drain_coordinator).__name__ \
+            == "DrainCoordinator"
     finally:
         prg.stop()
         stop_gateway(server)

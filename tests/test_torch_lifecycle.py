@@ -7,6 +7,7 @@ servers answer with the greedy tokens of the restored params in
 memory); only the launch counts stay 0, since on the CPU the wrappers
 run the kernels' plain versions."""
 
+import pytest
 import torch
 
 import chip_smoke
@@ -29,3 +30,22 @@ def test_lifecycle_phase_on_cpu(tmp_path, monkeypatch, capsys):
     assert set(res["launches"].values()) == {0}
     assert not (tmp_path / "build" / "lifecycle").exists()  # cleaned up
     assert '"phase": "lifecycle"' in capsys.readouterr().out
+
+
+def test_lifecycle_phase_at_a_cut_depth_on_cpu(tmp_path, monkeypatch):
+    """The card's run cuts llama3-1b to 8 of its layers: every entry
+    point in process resolves the cut preset at the preset's width with
+    fewer layers, and the phase's checks hold as at full depth."""
+    from tpu_docker_api_torch.models import llama_presets, resolve_preset
+
+    monkeypatch.chdir(tmp_path)
+    res = chip_smoke.phase_lifecycle(torch.device("cpu"), "tiny", 2, 32, 1)
+    full = llama_presets()["tiny"]
+    assert res["preset"] == "tiny@1" and res["layers"] == 1 < full.n_layers
+    assert res["B_vs_A"]["bit_equal"] and res["C_vs_A"]["bit_equal"]
+    assert res["losses_equal"] and res["serve_ckpt"]["step"] == 4
+    assert res["serve_hf"]["model"] == "export"
+    # the cut is scoped to the phase
+    assert resolve_preset("tiny")[1] == full
+    with pytest.raises(KeyError):
+        resolve_preset("tiny@1")

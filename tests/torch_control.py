@@ -1,7 +1,8 @@
 """Shared harness of the control-plane tests that hold the port against the
 JAX package (test_torch_reconcile, _chaos, _fanout, _informer, _faulty,
 _etcd_kv, _store_health, _pod, _job_supervisor, _host_health, _job_chaos,
-_job_e2e, _admission, _service, _workflow, _leader, _shard, _compactor):
+_job_e2e, _admission, _service, _workflow, _leader, _shard, _compactor,
+_gateway):
 each package's modules under one namespace, so a test runs one script
 through ``JAX`` and ``PORT`` and compares what each left behind.
 Both packages get the same host: an HGX line of 8 GPUs. JAX's topology
@@ -13,6 +14,7 @@ import re
 import types
 
 from tpu_docker_api import config as jconfig
+from tpu_docker_api.api import gateway_app as jgwapp
 from tpu_docker_api import daemon as jdaemon
 from tpu_docker_api import errors as jerrors
 from tpu_docker_api.runtime import fake as jfake
@@ -33,6 +35,7 @@ from tpu_docker_api.service import admission as jadmission
 from tpu_docker_api.service import compactor as jcompactor
 from tpu_docker_api.service import container as jcsvc
 from tpu_docker_api.service import crashpoints as jcrash
+from tpu_docker_api.service import gateway as jgateway
 from tpu_docker_api.service import host_health as jhosthealth
 from tpu_docker_api.service import invariants as jinv
 from tpu_docker_api.service import job as jjob
@@ -53,7 +56,9 @@ from tpu_docker_api.state import txn as jtxn
 from tpu_docker_api.state import version as jversion
 from tpu_docker_api.state import workqueue as jwq
 from tpu_docker_api.telemetry import metrics as jmetrics
+from tpu_docker_api.telemetry import trace as jtrace
 from tpu_docker_api_torch import config as tconfig
+from tpu_docker_api_torch.api import gateway_app as tgwapp
 from tpu_docker_api_torch import daemon as tdaemon
 from tpu_docker_api_torch import errors as terrors
 from tpu_docker_api_torch.runtime import fake as tfake
@@ -74,6 +79,7 @@ from tpu_docker_api_torch.service import admission as tadmission
 from tpu_docker_api_torch.service import compactor as tcompactor
 from tpu_docker_api_torch.service import container as tcsvc
 from tpu_docker_api_torch.service import crashpoints as tcrash
+from tpu_docker_api_torch.service import gateway as tgateway
 from tpu_docker_api_torch.service import host_health as thosthealth
 from tpu_docker_api_torch.service import invariants as tinv
 from tpu_docker_api_torch.service import job as tjob
@@ -94,6 +100,7 @@ from tpu_docker_api_torch.state import txn as ttxn
 from tpu_docker_api_torch.state import version as tversion
 from tpu_docker_api_torch.state import workqueue as twq
 from tpu_docker_api_torch.telemetry import metrics as tmetrics
+from tpu_docker_api_torch.telemetry import trace as ttrace
 
 JAX = types.SimpleNamespace(
     name="jax", config=jconfig, daemon=jdaemon, errors=jerrors, fake=jfake,
@@ -105,7 +112,7 @@ JAX = types.SimpleNamespace(
     job=jjob, sup=jsup, hh=jhosthealth, watch=jwatch, txn=jtxn,
     adm=jadmission, serving=jserving, ss=jsvcschema, wfs=jwfschema,
     wf=jworkflow, leader=jleader, shard=jshard, compactor=jcompactor,
-    state=jstate)
+    state=jstate, gateway=jgateway, gwapp=jgwapp, trace=jtrace)
 PORT = types.SimpleNamespace(
     name="port", config=tconfig, daemon=tdaemon, errors=terrors, fake=tfake,
     fanout=tfanout, faulty=tfaulty, spec=tspec, ports=tports,
@@ -116,7 +123,7 @@ PORT = types.SimpleNamespace(
     job=tjob, sup=tsup, hh=thosthealth, watch=twatch, txn=ttxn,
     adm=tadmission, serving=tserving, ss=tsvcschema, wfs=twfschema,
     wf=tworkflow, leader=tleader, shard=tshard, compactor=tcompactor,
-    state=tstate)
+    state=tstate, gateway=tgateway, gwapp=tgwapp, trace=ttrace)
 PKGS = (JAX, PORT)
 H100 = ttopo.GENERATIONS["h100"]
 #: the H100 as JAX's topology module spells a generation

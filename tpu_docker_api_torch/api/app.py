@@ -13,9 +13,7 @@ reconcile, event, trace, health, workflow, leader, shard and compaction
 routes, with JAX's bodies and codes, the store-outage gate (503 +
 ``Retry-After``, the stale-read envelope) and the HA gates (a standby, or a
 process that does not hold the family's shard, answers a mutation 503 with
-the leader hint). The gateway's routes answer with :class:`NotPorted`
-naming the missing service and ROADMAP Queue 1 item 10, not a bare "no
-route".
+the leader hint), and the serving gateway's status route.
 
 Route table:
 
@@ -54,6 +52,7 @@ Route table:
     GET    /api/v1/leader                      election role, holder, epoch, lease deadline
     GET    /api/v1/shards                      per-shard lease table
     POST   /api/v1/compact                     one history-compaction pass
+    GET    /api/v1/gateway                     serving-gateway status (when on)
     POST   /api/v1/services                    create a replicated service
     GET    /api/v1/services                    list services
     GET    /api/v1/services/{name}             replica fleet + last autoscale decision
@@ -125,19 +124,6 @@ log = logging.getLogger(__name__)
 # cannot drift
 _VERSIONED_RE = re.compile(_NAME_RE.pattern.rstrip("$") + r"(-\d+)?$")
 
-#: route prefixes of the families this port has no service for yet, and
-#: the JAX service each needs (ROADMAP Queue 1 item 10)
-NOT_PORTED_ROUTES = (
-    ("/api/v1/gateway", "the gateway (service/gateway.py)"),
-)
-
-
-class NotPorted(errors.ApiError):
-    """The route's service is not ported to tpu_docker_api_torch yet."""
-    code = codes.NOT_PORTED
-    http_status = 501
-
-
 def _validate_base_name(name: str) -> None:
     """Create-time rule: nonempty, no '-' (reference api/container.go:66-70)."""
     if not name or not _NAME_RE.match(name):
@@ -186,13 +172,6 @@ def _shard_for_request(plane, path: str, raw: bytes) -> int:
 
 
 
-def _not_ported_handler(service: str):
-    def handler(body, **_):
-        raise NotPorted(f"{service} is not ported to tpu_docker_api_torch "
-                        "yet (ROADMAP Queue 1 item 10)")
-    return handler
-
-
 class Router:
     """Tiny method+pattern router; patterns use ``{name}`` segments. Carries
     its own metrics registry so each server instance exposes only its own
@@ -220,17 +199,13 @@ class Router:
 
     def match(self, method: str, path: str):
         """(handler, path_params, route_pattern) or None. The pattern is the
-        low-cardinality metrics label (never the raw path). A path under an
-        unported family matches its refusal, whatever the method."""
+        low-cardinality metrics label (never the raw path)."""
         for m, regex, pattern, handler in self._routes:
             if m != method:
                 continue
             match = regex.match(path)
             if match:
                 return handler, match.groupdict(), pattern
-        for prefix, service in NOT_PORTED_ROUTES:
-            if path == prefix or path.startswith(prefix + "/"):
-                return _not_ported_handler(service), {}, prefix
         return None
 
 
@@ -243,6 +218,7 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  informer=None, fanout=None,
                  admission=None, serving=None, workflow_svc=None,
                  compactor=None,
+                 gateway=None,
                  store_health=None,
                  list_default_limit: int = 0,
                  list_max_limit: int = 5000,
@@ -676,6 +652,12 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                 pools[hid] = view
             if pools:
                 out["enginePools"] = pools
+        if gateway is not None:
+            # serving-ingress health next to liveness: in-flight load,
+            # retry-budget level, breaker/shed counters and the routing
+            # table's per-endpoint view (one set of books — identical to
+            # the gateway listener's own /healthz)
+            out["gateway"] = gateway.status_view()
         if store_health is not None:
             # the store failure domain rides liveness too: mode (healthy/
             # degraded/outage), failure streak and the op/outage counters
@@ -735,13 +717,20 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
         return out
 
     r.add("GET", "/api/v1/shards", shards_view)
-
+    if gateway is not None:
+        # serving-gateway introspection: instance identity, the watch-fed
+        # routing table with per-endpoint breaker/drain/in-flight state,
+        # budget levels and the shed/retry/hedge counters — read straight
+        # from the gateway engine, zero store reads
+        r.add("GET", "/api/v1/gateway",
+              lambda body, **_: gateway.status_view())
     if (health_watcher is not None or job_supervisor is not None
             or host_monitor is not None or leader_elector is not None
             or shard_plane is not None
             or informer is not None or admission is not None
             or serving is not None or workflow_svc is not None
-            or tracer is not None or store_health is not None):
+            or tracer is not None or gateway is not None
+            or store_health is not None):
         # one events ring for the operator: container liveness transitions
         # (health watcher) merged with gang lifecycle events (job
         # supervisor), host health transitions (host monitor), leadership
@@ -765,7 +754,7 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                      for src in (health_watcher, job_supervisor,
                                  host_monitor, leader_elector, shard_plane,
                                  informer, admission, serving, workflow_svc,
-                                 tracer, store_health)
+                                 tracer, gateway, store_health)
                      if src is not None]
             merged = heapq.merge(*rings, key=lambda e: e.get("ts", 0))
             if trace_id:
@@ -1005,8 +994,7 @@ def build_handler(router: Router):
                 except errors.ApiError as e:
                     app_code = e.code
                     # the deviations from always-200: backpressure (429),
-                    # a moved list snapshot (410), a route not ported (501),
-                    # a store outage (503)
+                    # a moved list snapshot (410), a store outage (503)
                     http_status = e.http_status or 200
                     # typed backoff hint (StoreDegraded): surfaced as the
                     # Retry-After header so retry-aware clients hold off

@@ -5,9 +5,7 @@ uniform envelope with HTTP 200 (their messages are Chinese; ours English).
 Codes live on the exception classes in ``tpu_docker_api_torch.errors``; this module
 adds the non-error codes and the fallback messages.
 
-The port's copy of ``tpu_docker_api/api/codes.py``: the same codes, plus
-``NOT_PORTED``, the refusal of a route whose service the port lacks
-(``api/app.py`` ``NotPorted``).
+The port's copy of ``tpu_docker_api/api/codes.py``: the same codes.
 """
 
 from __future__ import annotations
@@ -15,13 +13,11 @@ from __future__ import annotations
 SUCCESS = 200
 SERVER_ERROR = 500
 BAD_REQUEST = 10001
-NOT_PORTED = 10002
 
 MESSAGES: dict[int, str] = {
     SUCCESS: "success",
     SERVER_ERROR: "internal server error",
     BAD_REQUEST: "bad request",
-    NOT_PORTED: "not ported to tpu_docker_api_torch yet",
     10201: "no patch required",
     10202: "version does not match the latest",
     10301: "container already exists",

@@ -14,12 +14,11 @@ hosts (``[[pod_hosts]]``, whose ``accelerator_type`` is the port's
 defaults, the capacity market (``admission_*``, the priority ladder), the
 Service resource with its autoscaler (``service_default_class``,
 ``autoscale_*``), workflows (``workflow_*``), leader election
-(``leader_*``, ``read_cache``), the sharded writer plane (``shard_*``) and
-history compaction (``history_*``), all at JAX's defaults. The gateway's
-switch (``gateway_enabled``) fails :func:`load` with a ValueError naming
-the key and ROADMAP Queue 1 item 10 (``_NOT_PORTED``).
-``accelerator_type`` defaults to ``h100-8``. One key is the port's own:
-``fake_runtime_root``.
+(``leader_*``, ``read_cache``), the sharded writer plane (``shard_*``),
+history compaction (``history_*``) and the serving gateway
+(``gateway_*``), all at JAX's defaults. ``accelerator_type`` defaults to
+``h100-8``. One key is the port's own: ``fake_runtime_root``; one of
+JAX's is refused: a non-empty ``libtpu_path``.
 """
 
 from __future__ import annotations
@@ -560,26 +559,8 @@ def load(path: str | None = None) -> Config:
         raise ValueError(
             f"autoscale_down_watermark must be in (0, 1], "
             f"got {cfg.autoscale_down_watermark}")
-    _refuse_not_ported(cfg)
-    return cfg
-
-
-#: (key, test that the value turns the feature on, what the port lacks)
-_NOT_PORTED = (
-    ("gateway_enabled", bool, "the gateway (service/gateway.py)"),
-)
-
-
-def _refuse_not_ported(cfg: Config) -> None:
-    """Fail the boot on a feature the port lacks, naming the key
-    (the serve CLI's ``_NOT_PORTED`` pattern)."""
-    for key, turns_on, what in _NOT_PORTED:
-        value = getattr(cfg, key)
-        if turns_on(value):
-            raise ValueError(
-                f"{key} = {value!r}: {what} is not ported to "
-                "tpu_docker_api_torch yet (ROADMAP Queue 1 item 10)")
     if cfg.libtpu_path:
         raise ValueError(
             f"libtpu_path = {cfg.libtpu_path!r}: a TPU key with no GPU "
             "counterpart; a GPU is attached by UUID")
+    return cfg

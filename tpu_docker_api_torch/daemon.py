@@ -16,9 +16,8 @@ version maps, the container and volume services, the pod and its
 scheduler, the job service, the capacity market, the Service resource and
 its autoscaler, workflows, the host monitor, the job supervisor, the
 health watcher, the reconciler and its dirty feed, the history compactor,
-the tracer and the API — and the writer role that the lease starts and
-stops. The serving gateway comes with the rest of the control plane
-(ROADMAP Queue 1 item 10); ``config.load`` refuses ``gateway_enabled``.
+the tracer, the API and the serving gateway with its drain coordinator —
+and the writer role that the lease starts and stops.
 
 CLI: ``python -m tpu_docker_api_torch -c cfg.toml``.
 """
@@ -497,6 +496,61 @@ class Program:
                                 registry=self.metrics)
                 self.reconcile_informer = feed
             self.reconciler.attach_dirty_feed(feed)
+        # L7 serving gateway (service/gateway.py, api/gateway_app.py): a
+        # stateless ingress on its own listener — drain-aware zero-drop
+        # routing, retry/hedge budgets, breakers, outlier ejection, typed
+        # load shedding. The routing table registers on the informer feed
+        # HERE (before start() lists) so the initial snapshot seeds it;
+        # the DrainCoordinator hooks the quiesce paths so rolls, scale-
+        # downs and preemptions wait for gateway drain-acks.
+        self.gateway = None
+        self.gateway_server = None
+        self.gateway_informer = None
+        if cfg.gateway_enabled:
+            from tpu_docker_api_torch.api.gateway_app import GatewayServer
+            from tpu_docker_api_torch.service.gateway import (
+                DrainCoordinator, Gateway)
+
+            self.gateway = Gateway(
+                raw_kv,
+                resolve_addr=lambda hid: (
+                    self.pod.hosts[hid].address
+                    if hid in self.pod.hosts else None),
+                registry=self.metrics,
+                tracer=self.tracer,
+                signals=self.serving.replica_signal,
+                request_timeout_s=cfg.gateway_request_timeout_s,
+                connect_timeout_s=cfg.gateway_connect_timeout_s,
+                retry_limit=cfg.gateway_retry_limit,
+                retry_budget_ratio=cfg.gateway_retry_budget_ratio,
+                hedge_ms=cfg.gateway_hedge_ms,
+                breaker_threshold=cfg.gateway_breaker_threshold,
+                breaker_cooldown_s=cfg.gateway_breaker_cooldown_s,
+                outlier_latency_factor=cfg.gateway_outlier_latency_factor,
+                max_inflight=cfg.gateway_max_inflight,
+                max_inflight_per_endpoint=(
+                    cfg.gateway_max_inflight_per_endpoint),
+                pool_size=cfg.gateway_pool_size,
+                heartbeat_s=cfg.gateway_heartbeat_s,
+            )
+            feed = self.informer or self.reconcile_informer
+            if feed is None:
+                from tpu_docker_api_torch.state.informer import Informer
+
+                feed = Informer(raw_kv, keys.PREFIX + "/",
+                                registry=self.metrics)
+                self.gateway_informer = feed
+            self.gateway.table.attach(feed)
+            self.gateway_server = GatewayServer(
+                self.gateway, host=self.host, port=cfg.gateway_port)
+            # control-plane half of the drain handshake: quiesce/preempt
+            # paths wait (deadline-bounded) for every live gateway's ack
+            # before the first member stop. The coordinator rides the RAW
+            # store: instance heartbeats/acks are gateway-owned liveness
+            # records, not fenced control-plane state
+            self.job_svc.drain_coordinator = DrainCoordinator(
+                raw_kv, heartbeat_s=cfg.gateway_heartbeat_s)
+            self.job_svc.drain_deadline_s = cfg.gateway_drain_deadline_s
         # bounded history (service/compactor.py): a writer loop — started
         # leader-only in _start_writers — trimming version records past
         # history_retention_versions plus settled admission/marker garbage
@@ -925,6 +979,11 @@ class Program:
             # promoted later must not start its first dirty passes from a
             # cold, everything-is-dirty state
             self.reconcile_informer.start()
+        if self.gateway_informer is not None:
+            # dedicated routing-table feed (only when no shared informer
+            # exists): the gateway serves traffic on every role, so its
+            # table warms unconditionally
+            self.gateway_informer.start()
         if self.leader_elector is None and self.shard_plane is None:
             # single-process: writers start unconditionally, as always
             self._start_writers()
@@ -943,6 +1002,7 @@ class Program:
             serving=self.serving,
             workflow_svc=self.workflow,
             compactor=self.compactor,
+            gateway=self.gateway,
             store_health=self.store_health,
             list_default_limit=self.cfg.list_default_limit,
             list_max_limit=self.cfg.list_max_limit,
@@ -951,6 +1011,13 @@ class Program:
         bi = build_info()  # warm the git probe BEFORE serving /healthz
         self.api_server = ApiServer(router, host=self.host, port=self.cfg.port)
         self.api_server.start()
+        if self.gateway_server is not None:
+            # serving ingress on its own listener — starts after the
+            # control-plane API so /healthz can already name the gateway
+            self.gateway_server.start()
+            log.info("gateway %s serving on %s:%d",
+                     self.gateway.instance_id, self.host,
+                     self.gateway_server.port)
         if self.leader_elector is not None:
             # serving is up (reads + 503-with-hint on mutations) BEFORE the
             # election begins: a standby is useful from its first second
@@ -972,6 +1039,13 @@ class Program:
         """Shutdown — tolerant of a partially-completed init (every subsystem
         access is guarded), so a failed boot reports its root cause instead
         of masking it with an AttributeError during cleanup."""
+        if getattr(self, "gateway_server", None) is not None:
+            # the ingress goes first: stop accepting serving traffic (and
+            # deregister this instance's heartbeat so drains stop waiting
+            # on it) before the control plane dismantles anything
+            self.gateway_server.close()
+        if getattr(self, "gateway_informer", None) is not None:
+            self.gateway_informer.close()
         if getattr(self, "api_server", None) is not None:
             self.api_server.close()
         if getattr(self, "leader_elector", None) is not None:

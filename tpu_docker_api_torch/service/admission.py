@@ -52,9 +52,9 @@ The port's copy of ``tpu_docker_api/service/admission.py``, whole: the
 classes, the journal, victim selection, preemption, partial preemption and
 grow-back, backfill, defragmentation, journal adoption, the views and the
 loop, with the sharded writer plane's ``shard_fn`` and ``owned_shards``.
-The serving gateway is not ported (ROADMAP Queue 1 item 10): the job
-service's ``drain_coordinator`` is None, so a preemption waits for no
-drain.
+With the serving gateway on, the job service's ``drain_coordinator``
+makes a preemption wait (deadline-bounded) for every live gateway's drain
+ack before the victim's first member stop.
 """
 
 from __future__ import annotations

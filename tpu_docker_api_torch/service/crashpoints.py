@@ -10,10 +10,8 @@ in-process compensation never gets a chance. The test then boots a fresh
 ``Program`` over the same KV + runtime and its reconciler
 (service/reconcile.py) repairs the drift.
 
-The port's copy of ``tpu_docker_api/service/crashpoints.py`` with the
-labels its modules fire: every one of JAX's but the serving gateway's
-(``gateway.drain.*``), which comes with the gateway (ROADMAP Queue 1 item
-10); arming one raises ValueError.
+The port's copy of ``tpu_docker_api/service/crashpoints.py``: the same
+labels, so both packages' chaos matrices iterate one set.
 """
 
 from __future__ import annotations
@@ -212,6 +210,20 @@ SERVICE_CRASH_POINTS = (
     "service.delete.after_mark",
 )
 
+#: serving-gateway drain handshake (service/job.py ``_predrain`` +
+#: service/gateway.py): the chaos matrix kills the daemon at each of
+#: these mid-quiesce and proves a fresh Program's reconcile finishes the
+#: stop the durable ``draining`` marker recorded — never a half-drained
+#: replica left serving at rest
+GATEWAY_CRASH_POINTS = (
+    # draining=True is durable on the replica JobState; no member has
+    # been stopped and no gateway ack has been awaited
+    "gateway.drain.after_mark",
+    # the gateway drain-ack wait finished (acked or deadline); members
+    # are still running — the stop itself has not begun
+    "gateway.drain.after_ack",
+)
+
 #: event-driven reconcile (service/reconcile.py): the dirty-set is
 #: in-process state derived from the watch stream — a daemon death after
 #: the pass DRAINED it but before the repairs ran must not lose the
@@ -271,7 +283,7 @@ KNOWN_CRASH_POINTS = (CONTAINER_CRASH_POINTS + JOB_CRASH_POINTS
                       + LEADER_CRASH_POINTS + SHARD_CRASH_POINTS
                       + FANOUT_CRASH_POINTS
                       + ADMISSION_CRASH_POINTS + RESIZE_CRASH_POINTS
-                      + SERVICE_CRASH_POINTS
+                      + SERVICE_CRASH_POINTS + GATEWAY_CRASH_POINTS
                       + RECONCILE_CRASH_POINTS + COMPACTOR_CRASH_POINTS
                       + WORKFLOW_CRASH_POINTS)
 

@@ -39,9 +39,10 @@ The port's copy of ``tpu_docker_api/service/job.py``: the same flows,
 crash points, fan-out batches, state and ports. The daemon wires the
 capacity market (service/admission.py) into ``admission``: queueing, grow-back
 records and re-admission of parked gangs. A service replica's quiesce writes
-the durable ``draining`` marker first, as JAX's ``_predrain`` does; the
-serving gateway is not ported yet (ROADMAP Queue 1 item 10), so
-``drain_coordinator`` stays None and nothing waits for a drain ack.
+the durable ``draining`` marker first, as JAX's ``_predrain`` does, and
+when the daemon runs the serving gateway it sets ``drain_coordinator``
+(service/gateway.py ``DrainCoordinator``): the first member stop then waits,
+deadline-bounded, for every live gateway's drain ack.
 """
 
 from __future__ import annotations
@@ -135,9 +136,10 @@ class JobService:
         #: None keeps the legacy refusal byte-for-byte (and validates
         #: classes against the default ladder)
         self.admission = None
-        #: serving-gateway drain handshake (JAX's service/gateway.py
-        #: DrainCoordinator, not ported yet): None = mark-only, the durable
-        #: marker still lands and nothing waits
+        #: serving-gateway drain handshake (service/gateway.py
+        #: DrainCoordinator), wired by the daemon when the gateway is on:
+        #: None = mark-only, the durable marker still lands and nothing
+        #: waits
         self.drain_coordinator = None
         self.drain_deadline_s = 0.0
 

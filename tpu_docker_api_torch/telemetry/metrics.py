@@ -1,10 +1,10 @@
 """In-process metrics registry with Prometheus text exposition — the
 port's own copy of the subset of ``tpu_docker_api/telemetry/metrics.py``
 that serving and the control plane use: histograms (``observe``),
-counters (``counter_inc``, pull-time ``counter_fn``, ``counter_value``),
-gauges (labeled ``gauge_set``, pull-time ``gauge_fn``, labeled
-``gauge_series_fn``), ``render`` and the process-wide ``REGISTRY``. Stdlib
-only.
+counters (``counter_inc``, pull-time ``counter_fn``, ``counter_value``,
+``counter_sum``), gauges (labeled ``gauge_set``, pull-time ``gauge_fn``,
+labeled ``gauge_series_fn``), ``render`` and the process-wide
+``REGISTRY``. Stdlib only.
 """
 
 from __future__ import annotations
@@ -75,6 +75,13 @@ class MetricsRegistry:
         with self._lock:
             series = self._counters.get(name, {})
             return series.get(tuple(sorted((labels or {}).items())), 0.0)
+
+    def counter_sum(self, name: str) -> float:
+        """Sum a counter across all label series (0.0 if never
+        incremented): the gateway's status view totals its labeled
+        families from the books /metrics exports."""
+        with self._lock:
+            return sum(self._counters.get(name, {}).values())
 
     def gauge_set(self, name: str, value: float, labels: dict | None = None,
                   help: str = "") -> None:
