@@ -263,7 +263,15 @@ Phases, one JSON line each; any failure exits non-zero:
               ``--ckpt-dir`` servers must give the greedy tokens of the
               restored params in memory; checkpoint bytes, the step
               loop's blocked time and the writer's time of each save,
-              restore, export, import and serve-ready seconds. Under
+              restore, export, import and serve-ready seconds. The
+              trainers read the int32 token file through the native
+              batcher (``data/loader.py`` ``_NativeBatcher``, built with
+              g++ from ``csrc/dataloader.cc``): each must be one, run A's
+              batches equal to the numpy path's, its sequential reads
+              served from the step+1 lookahead; the ms of the
+              trainers' own reads (from the lookahead, on the spot), of
+              a batch back to back on the spot and on numpy, and their
+              share of A's step. Under
               ``build/lifecycle``, deleted at the end; it checks the free
               disk first.
 8. lora     — LoRA and QLoRA at llama3-1b full width and depth, rank 16
@@ -367,11 +375,14 @@ Phases, one JSON line each; any failure exits non-zero:
               a card (``python -m chip_smoke --mesh-rank``, NCCL)
               trains llama3-1b at a global 8 x 2048 on dp, fsdp, tp,
               fsdp x tp, tp x sp and sp (zigzag ring, Ulysses), and
-              through the 1F1B pipeline on pp, pp 2 x tp and pp 2 x dp,
-              bench-moe at ep, vit-b16 (128) and encdec-base (32 x 512)
-              at tp, encdec-base on sp and sp 2 x tp (its rings), 3
+              through the 1F1B pipeline on pp, pp 2 x tp, pp 2 x dp and
+              pp 2 x sp (a stage's flash over the gathered sequence,
+              as JAX's), bench-moe at ep, vit-b16 (128) and
+              encdec-base (32 x 512) at tp, encdec-base on sp and
+              sp 2 x tp (its rings), 3
               steps each, against the same runs on one card
-              (losses within 1e-3 relative); ``serve --tp N`` against
+              (losses within 1e-3 relative; a pipeline run's launches
+              every step its schedule's); ``serve --tp N`` against
               one card's stream, ``serve --dp N --slots 0`` on N rows
               (one a rank, each equal to one card's row). Step ms,
               peaks, launches a step, TTFT and ITL of each.
@@ -1911,10 +1922,15 @@ def _lifecycle(dev, preset: str, batch: int, seq: int) -> dict:
     ``Server`` once from ``--hf-ckpt`` and once from ``--ckpt-dir``: one
     greedy 16-token request each, whose tokens must equal each other's
     and the slot engine's on ``restore_model_params`` in memory. Launch
-    counts are zeroed just before and read just after the phase. The
-    tests run it on the CPU at the tiny preset, where the wrappers run
-    the plain versions and count nothing."""
+    counts are zeroed just before and read just after the phase. Every
+    trainer's batch function must be the native batcher (data/loader.py
+    ``_NativeBatcher``), A's batches the numpy path's, and A's sequential
+    reads served from its lookahead; ``_loader_checks`` times the
+    trainers' reads and a batch on each path against A's step. The tests run it on the CPU at the tiny preset,
+    where the wrappers run the plain versions and count nothing."""
     import numpy as np
+
+    from tpu_docker_api_torch import data as data_pkg
 
     from tpu_docker_api_torch.data.loader import write_token_file
     from tpu_docker_api_torch.infer.quantize import fuse_llama_projections
@@ -1971,6 +1987,24 @@ def _lifecycle(dev, preset: str, batch: int, seq: int) -> dict:
             # trainer saves and quiesces after step 2
             signal.raise_signal(signal.SIGTERM)
 
+    # every batch function a trainer builds, kept to be checked, and the
+    # (ms, from the lookahead) of each read as the trainers make them
+    batchers, reads, real_make = [], [], data_pkg.make_batch_fn
+
+    def recording_make(*args, **kwargs):
+        fn = real_make(*args, **kwargs)
+        batchers.append(fn)
+
+        def timed_read(step):
+            hits = getattr(fn, "hits", 0)
+            t = time.perf_counter()
+            out = fn(step)
+            reads.append(((time.perf_counter() - t) * 1e3,
+                          getattr(fn, "hits", 0) > hits))
+            return out
+        return timed_read
+
+    data_pkg.make_batch_fn = recording_make
     try:
         # ---- the main path: counts zeroed just before, read just after
         flash.reset_launch_count()
@@ -1984,6 +2018,10 @@ def _lifecycle(dev, preset: str, batch: int, seq: int) -> dict:
         c2 = train(d["C"], 4)
         train_s = time.perf_counter() - t0
         train_launches = {**flash.launch_count, **optim.launch_count}
+        data_pkg.make_batch_fn = real_make
+        loader = _loader_checks(batchers, reads, tokens_path, batch, seq,
+                                cfg, a)
+        batchers.clear()
 
         if step_nums(a) != [1, 2, 3, 4] or step_nums(b1) != [1, 2]:
             raise AssertionError(f"step lines: A {step_nums(a)}, "
@@ -2092,13 +2130,92 @@ def _lifecycle(dev, preset: str, batch: int, seq: int) -> dict:
             "restore_params_s": restore_s,
             "serve_hf": {k: hf[k] for k in ("ready_s", "model", "step")},
             "serve_ckpt": {k: ck[k] for k in ("ready_s", "model", "step")},
-            "greedy_tokens": want, "launches": launches,
+            "greedy_tokens": want, "launches": launches, "loader": loader,
             "phase_s": time.perf_counter() - phase_t0,
             "card": nvidia_smi() if dev.type == "cuda" else "cpu"}
         emit(result)
         return result
     finally:
+        data_pkg.make_batch_fn = real_make
         shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+
+
+LOADER_REPS = 20  # batches timed back to back on each path
+
+
+def _loader_checks(batchers: list, reads: list, tokens_path: str,
+                   batch: int, seq: int, cfg, run_a: dict) -> dict:
+    """The lifecycle trainers' batch functions: each the native batcher;
+    run A's (the first) equal to the numpy path on the steps it ran, its
+    sequential reads served from its step+1 lookahead. ``reads`` holds
+    (ms, from the lookahead) of every read the trainers made, a train
+    step between two: the lookahead's time as the trainer meets it, and
+    a read computed on the spot (a trainer's first). Then, back to back,
+    median of LOADER_REPS batches of ``batch`` x (``seq`` + 1) tokens:
+    the native batcher computing on the spot (a jump of steps) and
+    numpy; each against A's median step after its first."""
+    import numpy as np
+
+    from tpu_docker_api_torch.data import loader
+
+    kinds = [type(fn).__name__ for fn in batchers]
+    if len(batchers) != 5 or kinds != ["_NativeBatcher"] * 5:
+        raise AssertionError(f"lifecycle trainers' batch functions: {kinds}")
+    bin_dtype = "int32" if cfg.vocab_size > 65535 else "uint16"
+    source = loader.open_token_files(tokens_path, window=seq + 1,
+                                     bin_dtype=bin_dtype)
+    off = os.environ.get("TPU_DOCKER_API_NATIVE_DATA")
+    os.environ["TPU_DOCKER_API_NATIVE_DATA"] = "0"
+    try:
+        plain = loader.make_batch_fn(source, batch, seed=0)
+    finally:
+        if off is None:
+            os.environ.pop("TPU_DOCKER_API_NATIVE_DATA")
+        else:
+            os.environ["TPU_DOCKER_API_NATIVE_DATA"] = off
+    if isinstance(plain, loader._NativeBatcher):
+        raise AssertionError("the off switch left the native path on")
+    a_fn, a_steps = batchers[0], len(run_a["steps"])
+    a_hits = a_fn.hits
+    if a_hits < 1:
+        raise AssertionError(f"run A's {a_steps} sequential reads never "
+                             f"hit the lookahead")
+    for i in range(a_steps):
+        if not np.array_equal(a_fn(i), plain(i)):
+            raise AssertionError(f"native batch of step {i} is not numpy's")
+
+    def ms(fn, steps):
+        out = []
+        for i in steps:
+            t = time.perf_counter()
+            fn(i)
+            out.append((time.perf_counter() - t) * 1e3)
+        return _median(out)
+
+    hit = [t for t, h in reads if h]
+    spot = [t for t, h in reads if not h]
+    native = loader.make_batch_fn(source, batch, seed=0)
+    miss_ms = ms(native, range(100, 100 + 7 * LOADER_REPS, 7))
+    numpy_ms = ms(plain, range(LOADER_REPS))
+    # A's step k ends k·batch·seq/rate_k ms after its loop began (the
+    # trainer's rate is over the whole loop, its first step's warm-up in)
+    ends = [ln["step"] * batch * seq / ln["tokens_per_sec"] * 1e3
+            for ln in run_a["steps"]]
+    step_ms = _median([b - a for a, b in zip(ends, ends[1:])])
+    return {"native": True, "dtype": bin_dtype,
+            "tokens_per_batch": batch * (seq + 1),
+            "run_a_reads": a_steps, "run_a_lookahead_hits": a_hits,
+            "trainer_reads": len(reads), "trainer_hits": len(hit),
+            "trainer_hit_ms": _median(hit) if hit else None,
+            "trainer_spot_ms": _median(spot) if spot else None,
+            "trainer_hit_ms_all": hit, "trainer_spot_ms_all": spot,
+            "native_miss_ms": miss_ms, "numpy_ms": numpy_ms,
+            "step_ms": step_ms,
+            "trainer_hit_share_of_step":
+                _median(hit) / step_ms if hit else None,
+            "native_miss_share_of_step": miss_ms / step_ms,
+            "numpy_share_of_step": numpy_ms / step_ms,
+            "reps": LOADER_REPS}
 
 
 LORA_DIR = "build/lora"
@@ -8049,10 +8166,11 @@ def mesh_jobs(world: int) -> list[dict]:
     """The multi-rank runs of ``world`` ranks: llama3-1b on pure dp,
     fsdp, tp, fsdp × tp, tp × sp with zigzag ring, sp with zigzag ring
     and with Ulysses (shapes whose kv heads do not split left out), and
-    through ``--pp``'s 1F1B pipeline at pp = world, pp 2 × tp and
-    pp 2 × dp; bench-moe at ep = world (sort); vit-b16 and encdec-base
-    at tp = world (their products split over tp); encdec-base on its
-    rings at sp = world and sp 2 × tp."""
+    through ``--pp``'s 1F1B pipeline at pp = world, pp 2 × tp, pp 2 × dp
+    and pp 2 × sp (``auto``: a stage's flash over the gathered sequence,
+    JAX's ``mesh=None`` block); bench-moe at ep = world (sort); vit-b16
+    and encdec-base at tp = world (their products split over tp);
+    encdec-base on its rings at sp = world and sp 2 × tp."""
     from tpu_docker_api_torch.models import resolve_preset
 
     _, cfg = resolve_preset(PAR_PRESET)
@@ -8075,7 +8193,8 @@ def mesh_jobs(world: int) -> list[dict]:
     # --pp: the 1F1B pipeline through the CLI's pipeline_parts
     pipe = [{"dp": 1, "pp": world}]
     if half > 1:
-        pipe += [{"dp": 1, "pp": 2, "tp": half}, {"dp": half, "pp": 2}]
+        pipe += [{"dp": 1, "pp": 2, "tp": half}, {"dp": half, "pp": 2},
+                 {"dp": 1, "pp": 2, "sp": half}]
     jobs += [{"preset": PAR_PRESET, "plan": p, "impl": "auto",
               "optim": "adamw-int8", "pipeline": True} for p in pipe
              if cfg.n_layers % p["pp"] == 0 and fits(p, "auto")]
@@ -8200,14 +8319,36 @@ def mesh_rank() -> int:
     return 0
 
 
+def mesh_pipeline_launches(cfg, plan: dict, adam8: int) -> dict:
+    """The launches a step of a ``mesh_jobs`` pipeline run implies on
+    rank 0 (stage 0, ``n_layers/pp`` layers; one row a microbatch on
+    each data rank, as ``pipeline_parts`` cuts them): the schedule's
+    flash launches (at sp > 1 too: a stage attends over the gathered
+    sequence) and adam8 once a leaf as on one card."""
+    n_micro = MESH_BATCH // (plan.get("dp", 1) * plan.get("fsdp", 1))
+    stage = dataclasses.replace(cfg, n_layers=cfg.n_layers // plan["pp"])
+    return pipeline_launches(stage, n_micro, adam8)
+
+
+def _mesh_run_checks(rows: list) -> None:
+    bad = [r for r in rows if r["loss_max_rel"] > PAR_LOSS_TOL]
+    if bad:
+        raise AssertionError(f"mesh losses off one card's: {bad}")
+    bad = [r for r in rows if not r["launches_ok"]]
+    if bad:
+        raise AssertionError(f"pipeline launches a step off the "
+                             f"schedule's: {bad}")
+
+
 def phase_mesh(dev) -> dict:
     """The mesh path on every visible card against this process's card
     alone: ``mesh_rank`` on each card, then the same runs and requests
     on the single-device path here. Hard: every run's losses within
-    PAR_LOSS_TOL of one card's, the ``--dp`` rows split one a rank and
-    equal to one card's generation of each row alone. The tp server's
-    stream is reported against one card's (bf16 partial sums reduced
-    over tp may round otherwise)."""
+    PAR_LOSS_TOL of one card's, a pipeline run's launches every step
+    those of its schedule (``mesh_pipeline_launches``), the ``--dp``
+    rows split one a rank and equal to one card's generation of each row
+    alone. The tp server's stream is reported against one card's (bf16
+    partial sums reduced over tp may round otherwise)."""
     from tpu_docker_api_torch.models import resolve_preset
     from tpu_docker_api_torch.workload.torchenv import launch_workers
 
@@ -8239,6 +8380,10 @@ def phase_mesh(dev) -> dict:
         ref = single[key]
         rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
                                                        ref["losses"]))
+        want = (mesh_pipeline_launches(
+            resolve_preset(run["preset"])[1], run["plan"],
+            ref["launches_per_step"][0]["adam8"])
+            if run.get("pipeline") else None)
         rows.append({"preset": run["preset"], "plan": run["plan"],
                      "impl": run["impl"],
                      "pipeline": run.get("pipeline", False),
@@ -8247,6 +8392,10 @@ def phase_mesh(dev) -> dict:
                      "max_memory_allocated": run["max_memory_allocated"],
                      "peak_above_entry": run["peak_above_entry"],
                      "launches_per_step": run["launches_per_step"][-1],
+                     "launches_per_step_expected": want,
+                     "launches_ok": want is None or all(
+                         n == want for n in run["launches_per_step"]),
+                     "launches": run["launches"],
                      "single_step_ms": ref["step_ms"],
                      "single_max_memory_allocated":
                          ref["max_memory_allocated"],
@@ -8272,9 +8421,7 @@ def phase_mesh(dev) -> dict:
            "ranks_s": ranks_s, "seconds": time.perf_counter() - t0,
            "card": nvidia_smi()}
     emit(res)
-    bad = [r for r in rows if r["loss_max_rel"] > PAR_LOSS_TOL]
-    if bad:
-        raise AssertionError(f"mesh losses off one card's: {bad}")
+    _mesh_run_checks(rows)
     if dp["mesh_rows"] != [1] * world or dp["tokens"] != one["tokens"]:
         raise AssertionError(f"--dp {world} rows not split one a rank, or "
                              f"not one card's: {dp}")
@@ -8386,8 +8533,8 @@ def main() -> int:
     par_res = timed(phase_parallel)
     par_n = par_res["launches"]
     pipe_n = timed(phase_pipeline, par_res)["launches"]
-    if torch.cuda.device_count() > 1:
-        timed(phase_mesh)
+    mesh_res = (timed(phase_mesh) if torch.cuda.device_count() > 1
+                else None)
     # each phase's wall seconds and the script's, from main's start
     emit({"phase": "timeline", "seconds": timeline,
           "total_s": time.perf_counter() - main_t0})
@@ -8421,6 +8568,11 @@ def main() -> int:
                   "jobs": jobs_n[name], "services": services_n[name],
                   "workflows": workflows_n[name]}
            for name in ("flash_bwd_dq", "flash_bwd_dkv", "adam8")}}
+    for run in (mesh_res or {}).get("runs", []):
+        if run["pipeline"] and run["plan"].get("sp", 1) > 1:
+            # pp × sp's rank 0
+            for name, path in by_path.items():
+                path["mesh_pp_sp"] = run["launches"][name]
     rows = [
         ("flash_fwd", "tpu_docker_api_torch/csrc/flash_fwd.cu",
          "tpu_docker_api/ops/flash_pallas.py:95", fwd_res),

@@ -444,3 +444,49 @@ def test_observability_routes_answer(path, tmp_path):
         assert json.loads(body)["code"] == 10001
     else:
         assert resp.status == 200 and json.loads(body)["code"] == 200
+
+
+def _bare_router(pkg, root, **extra):
+    w = svc.World(pkg, root)
+    app = japp if pkg is svc.JAX else tapp
+    return app.build_router(w.csvc, w.vsvc, w.chips, w.ports, **extra), w
+
+
+def test_router_dispatch_matches_jax(tmp_path):
+    """``Router.dispatch`` as JAX has it: a known route answers its
+    handler's result; an unknown one raises ``BadRequest`` with the same
+    message."""
+    out = []
+    for name, pkg in (("jax", svc.JAX), ("port", svc.PORT)):
+        router, w = _bare_router(pkg, str(tmp_path / name))
+        try:
+            known = router.dispatch("GET", B + "/volumes", {})
+            try:
+                router.dispatch("GET", B + "/no/such/route", {})
+                unknown = None
+            except Exception as e:  # noqa: BLE001 - the class is compared
+                unknown = (type(e).__name__, str(e))
+        finally:
+            w.wq.close()
+        out.append((known, unknown))
+    assert out[0] == out[1]
+    assert out[1][1] == ("BadRequest", f"no route for GET {B}/no/such/route")
+
+
+def test_events_route_guard_matches_jax(tmp_path):
+    """A router wired with a workflow service and no other event source
+    has JAX's route inventory: a workflow service alone adds no
+    ``/api/v1/events``."""
+
+    class _Any:
+        def __getattr__(self, _):
+            return lambda *a, **k: {}
+
+    inventories = []
+    for name, pkg in (("jax", svc.JAX), ("port", svc.PORT)):
+        router, w = _bare_router(pkg, str(tmp_path / name),
+                                 workflow_svc=_Any())
+        w.wq.close()
+        inventories.append(sorted((m, p) for m, _, p, _ in router._routes))
+    assert inventories[0] == inventories[1]
+    assert ("GET", B + "/events") not in inventories[1]

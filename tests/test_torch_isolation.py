@@ -2,7 +2,7 @@
 packages the port's GPU hosts need not have (``safetensors``,
 ``transformers``, ``orbax``, ``tokenizers``, ``regex``, ``requests``) blocked on
 ``sys.meta_path``, every module of ``tpu_docker_api_torch`` and
-``chip_smoke.py`` import, and a tiny forward, a paged engine with a
+``chip_smoke.py`` import, and a tiny forward, the native batcher, a paged engine with a
 shared prefix and segments, speculative decoding (the batch-1 generator
 and the slot engine), the int8-serving benchmark, a train step (Llama
 and MoE), a QLoRA step,
@@ -178,6 +178,14 @@ _CHILD = textwrap.dedent("""
     mstate, metrics = make_train_step(mcfg, mopt)(
         mstate, torch.zeros(1, 6, dtype=torch.long))
     assert torch.isfinite(metrics["loss"])
+
+    import numpy as np
+    from tpu_docker_api_torch.data import loader
+    with tempfile.TemporaryDirectory() as d:
+        loader.write_token_file(np.arange(300) % 250, d + "/t.bin")
+        fn = loader.make_batch_fn(loader.open_token_files(d + "/t.bin", 9), 2)
+        assert isinstance(fn, loader._NativeBatcher)
+        assert fn(0).shape == (2, 9)
 
     from tpu_docker_api_torch.train import lora
     lstate, lopt = lora.create_lora_state(cfg, torch.Generator(), 2)
@@ -416,3 +424,17 @@ def test_chip_smoke_defines_each_top_level_name_once():
                     if isinstance(n, ast.Name):
                         names[n.id] += 1
     assert [n for n, c in names.items() if c > 1] == []
+
+
+def test_no_port_file_names_tpu_native():
+    """The port keeps its own copy of the native loader's source and
+    builds it: no module or source of ``tpu_docker_api_torch``, and not
+    ``chip_smoke.py``, names the JAX package's native directory, so none
+    can load its library."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "tpu_docker_api_torch")):
+        files += [os.path.join(base, n) for n in names
+                  if n.endswith((".py", ".cc", ".cu", ".cuh"))]
+    assert len(files) > 100
+    named = [f for f in files if "tpu_native" in open(f).read()]
+    assert named == []

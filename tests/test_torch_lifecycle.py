@@ -28,6 +28,11 @@ def test_lifecycle_phase_on_cpu(tmp_path, monkeypatch, capsys):
     assert res["serve_hf"]["model"] == "export"
     assert len(res["greedy_tokens"]) == chip_smoke.LIFECYCLE_MAX_NEW
     assert set(res["launches"].values()) == {0}
+    # the trainers read through the native batcher, numpy's batches
+    assert res["loader"]["native"] and res["loader"]["dtype"] == "uint16"
+    assert res["loader"]["run_a_lookahead_hits"] >= 1
+    assert res["loader"]["trainer_hits"] >= res["loader"][
+        "run_a_lookahead_hits"]
     assert not (tmp_path / "build" / "lifecycle").exists()  # cleaned up
     assert '"phase": "lifecycle"' in capsys.readouterr().out
 

@@ -130,13 +130,19 @@ def pipe2(tmp_path_factory):
 
 
 GRAD_CASES = {
-    # id: (plan, rows, n_micro, dtype)
-    "pp2tp2-f32": (dict(pp=2, tp=2), 8, 4, "float32"),
-    "pp4-n10-f32": (dict(pp=4), 10, 10, "float32"),
-    "pp2tp2-bf16": (dict(pp=2, tp=2), 8, 4, "bfloat16"),
+    # id: (plan, rows, n_micro, dtype, the port's attention_impl); at
+    # sp 2 "auto" gathers the sequence as JAX's stage does, the ring
+    # keeps it sharded (JAX's reference is the same mesh's either way)
+    "pp2tp2-f32": (dict(pp=2, tp=2), 8, 4, "float32", "auto"),
+    "pp4-n10-f32": (dict(pp=4), 10, 10, "float32", "auto"),
+    "pp2tp2-bf16": (dict(pp=2, tp=2), 8, 4, "bfloat16", "auto"),
+    "pp2sp2-f32": (dict(pp=2, sp=2), 8, 4, "float32", "auto"),
+    "pp2sp2-bf16": (dict(pp=2, sp=2), 8, 4, "bfloat16", "auto"),
+    "pp2sp2-ring-f32": (dict(pp=2, sp=2), 8, 4, "float32", "ring-zigzag"),
 }
 GPIPE_CASES = {"pp2tp2-n4": (dict(pp=2, tp=2), 8, 4),
-               "pp4-n1": (dict(pp=4), 2, 1)}
+               "pp4-n1": (dict(pp=4), 2, 1),
+               "pp2sp2-n4": (dict(pp=2, sp=2), 8, 4)}
 #: the tokens of a case: the pp 2 × tp 2 ones share theirs, so the
 #: port's GPipe and 1F1B gradients compare there
 SEEDS = {8: 2, 10: 3, 2: 4}
@@ -153,12 +159,12 @@ def pipe4(pipe2, tmp_path_factory):
         cases.append(("pipe_grads", dict(plan=plan, host=f32, tokens=tokens,
                                          n_micro=nm, schedule="gpipe")))
         refs.append((jax_plain, _jcfg(), tokens))
-    for plan, rows, nm, dtype in GRAD_CASES.values():
+    for plan, rows, nm, dtype, impl in GRAD_CASES.values():
         tokens = _tokens(rows, SEEDS[rows])
         cases.append(("pipe_grads", dict(
             plan=plan, host=bf16 if dtype == "bfloat16" else f32,
             tokens=tokens, n_micro=nm, schedule="1f1b",
-            over={"dtype": dtype})))
+            over={"dtype": dtype, "attention_impl": impl})))
         refs.append((jax_1f1b, _jcfg(getattr(jnp, dtype)), plan, tokens,
                      nm))
     cases += [("pipe_global_norm", dict(plan=dict(pp=2, tp=2), host=f32)),
@@ -168,10 +174,10 @@ def pipe4(pipe2, tmp_path_factory):
     ranks = Ranks(4, cases, tmp_path_factory.mktemp("pp4"))
     ref = in_threads(call, refs)
     got = ranks.join()
-    n = len(GPIPE_CASES)
+    n, g = len(GPIPE_CASES), len(GRAD_CASES)
     return {"gpipe": dict(zip(GPIPE_CASES, zip(got[:n], ref[:n]))),
-            "1f1b": dict(zip(GRAD_CASES, zip(got[n:n + 3], ref[n:]))),
-            "norm": got[n + 3], "resume": got[n + 4], "f32": f32}
+            "1f1b": dict(zip(GRAD_CASES, zip(got[n:n + g], ref[n:]))),
+            "norm": got[n + g], "resume": got[n + g + 1], "f32": f32}
 
 
 def _close_grads(got: dict, ref: dict, rtol: float, atol: float) -> None:
@@ -254,6 +260,26 @@ def test_1f1b_matches_the_port_gpipe(pipe4):
     one, _ = pipe4["1f1b"]["pp2tp2-f32"]
     np.testing.assert_allclose(one["loss"], gpipe["loss"], rtol=F32_LOSS)
     _close_grads(one["grads"], gpipe["grads"], *F32_GRAD)
+
+
+@pytest.mark.parametrize("sp,impl,device,want", [
+    (2, "auto", "cuda", "flash"), (2, "auto", "cpu", "dense"),
+    (2, "ring-zigzag", "cuda", "ring-zigzag"), (1, "auto", "cuda", "auto"),
+])
+def test_stage_attention_is_jaxs_block_pick(sp, impl, device, want):
+    """JAX's stage blocks run with ``mesh=None``, so at sp > 1 their
+    ``auto`` attends over the gathered sequence (flash on the
+    accelerator), not the sp rule's ring; an explicit impl, and any
+    impl off sp, is kept. llama3-1b's head_dim 64 is one the kernels
+    take. (The device is only named: nothing runs.)"""
+    from tpu_docker_api_torch.models import llama as tl
+
+    mesh = _FakeMesh()
+    mesh.shape = {**mesh.shape, "sp": sp}
+    cfg = dataclasses.replace(tl.llama_presets()["llama3-1b"],
+                              attention_impl=impl)
+    got = tpl._stage_cfg(cfg, mesh, torch.bfloat16, torch.device(device))
+    assert got.attention_impl == want
 
 
 class _FakeMesh:
@@ -445,12 +471,13 @@ def test_checkpoint_pp2_restores_at_pp2_tp2(pipe2, pipe4):
 # ------------------------------------------------------------------- CLI
 
 
-def test_cli_pp2_matches_jax_cli(tmp_path):
-    """``--pp 2`` on two gloo ranks trains tiny through the 1F1B
+def cli_against_jax(tmp_path, *mesh):
+    """(the port's losses and last line, JAX's losses) of 3 steps of
+    tiny on a token file under the mesh flags ``mesh`` (``--pp`` first):
+    the port in gloo ranks, one a device of the mesh, through the 1F1B
     pipeline from JAX's init (key 0, carried over in a step-0
-    checkpoint) on a token file; JAX's CLI ``--pp 2`` on 2 virtual
-    devices runs the plain loss on replicas from the same init and
-    batches. The losses agree within 1e-3."""
+    checkpoint); JAX's CLI on as many virtual devices, running the plain
+    loss from the same init and batches."""
     from tpu_docker_api_torch.data.loader import write_token_file
     from tpu_docker_api_torch.models import resolve_preset
     from tpu_docker_api_torch.models.convert import params_from_numpy
@@ -470,16 +497,17 @@ def test_cli_pp2_matches_jax_cli(tmp_path):
     with CheckpointManager(ck) as mgr:
         mgr.save(TrainState(0, params, opt.init(params)))
         mgr.wait()
+    world = int(np.prod([int(v) for v in mesh[1::2]]))
     common = ["--preset", "tiny", "--data", data, "--steps", "3",
-              "--batch", "2", "--seq", "16", "--log-every", "1", "--pp", "2"]
+              "--batch", "2", "--seq", "16", "--log-every", "1", *mesh]
     ours = subprocess.Popen(
         [sys.executable, "-m", "tpu_docker_api_torch.train", *common,
-         "--device", "cpu", "--nproc-per-node", "2", "--ckpt-dir", ck,
-         "--save-every", "1000"],
+         "--device", "cpu", "--nproc-per-node", str(world), "--ckpt-dir",
+         ck, "--save-every", "1000"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     theirs = subprocess.run(
         [sys.executable, "-m", "tpu_docker_api.train", *common,
-         "--platform", "cpu", "--virtual-devices", "2"],
+         "--platform", "cpu", "--virtual-devices", str(world)],
         cwd=ROOT, capture_output=True, text=True, timeout=240)
     out, err = ours.communicate(timeout=240)
     assert ours.returncode == 0, err
@@ -489,7 +517,16 @@ def test_cli_pp2_matches_jax_cli(tmp_path):
         return [ln["loss"] for ln in map(json.loads, text.splitlines())
                 if "loss" in ln]
 
-    got, ref = losses(out), losses(theirs.stdout)
+    return losses(out), json.loads(out.splitlines()[-1]), losses(
+        theirs.stdout)
+
+
+def test_cli_pp2_matches_jax_cli(tmp_path):
+    """``--pp 2`` on two gloo ranks trains tiny through the 1F1B
+    pipeline; JAX's CLI ``--pp 2`` on 2 virtual devices runs the plain
+    loss on replicas (``cli_against_jax``). The losses agree within
+    1e-3."""
+    got, last, ref = cli_against_jax(tmp_path, "--pp", "2")
     assert len(got) == len(ref) == 3
     np.testing.assert_allclose(got, ref, rtol=CLI_TOL)
-    assert json.loads(out.splitlines()[-1]) == {"event": "done", "step": 3}
+    assert last == {"event": "done", "step": 3}

@@ -238,17 +238,34 @@ def test_cli_refuses_unported_flags(flag):
     (["--preset", "vit:tiny", "--pp", "2"],
      "--pp does not apply to vit: presets: the pipeline is Llama's"),
     (["--pp", "2", "--lora-rank", "4"], "--pp does not compose with LoRA"),
-    (["--pp", "2", "--sp", "2"], "--pp does not compose with --sp"),
     (["--pp", "2", "--ep", "2"], "--pp does not compose with --ep")])
 def test_cli_keeps_the_jax_lora_guards(flags, msg):
     """The JAX entry point's guards: a LoRA flag without a rank, --qlora
     over the merged forward, and --moe-dispatch on a Llama preset are
     refused before any work; so are the port's mesh refusals, each with
     its reason: --sp on vit (JAX's sp axis only replicates there), --pp
-    on a family other than Llama, with LoRA, with --sp and with --ep
-    (ROADMAP Queue 1 item 9's remainder)."""
+    on a family other than Llama, with LoRA and with --ep (JAX's
+    pipeline is Llama's only and has none of these compositions)."""
     proc = _cli("--device", "cpu", *flags, timeout=60)
     assert proc.returncode == 2 and msg in proc.stderr
+    if "--pp" in flags:
+        assert "JAX's pipeline is Llama's only" in proc.stderr
+        assert "Queue 1" not in proc.stderr
+
+
+def test_cli_pp2_sp2_matches_jax_cli(tmp_path):
+    """``--pp 2 --sp 2`` on four gloo ranks trains tiny through the 1F1B
+    pipeline, each stage's attention the ring over its two sequence
+    chunks; JAX's CLI with the same flags on 4 virtual devices runs the
+    plain loss on that mesh, from the same init and batches
+    (tests/test_torch_pipeline.py ``cli_against_jax``). The losses agree
+    within 1e-3."""
+    from test_torch_pipeline import CLI_TOL, cli_against_jax
+
+    got, last, ref = cli_against_jax(tmp_path, "--pp", "2", "--sp", "2")
+    assert len(got) == len(ref) == 3
+    np.testing.assert_allclose(got, ref, rtol=CLI_TOL)
+    assert last == {"event": "done", "step": 3}
 
 
 def test_cli_refuses_unported_family():

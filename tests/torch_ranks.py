@@ -547,11 +547,12 @@ def pipe_grads(plan: dict, host: dict, tokens, n_micro: int, schedule: str,
     ``pipeline_loss`` ("gpipe") under ``pipeline_rules``: the global
     loss and the whole gradients, reduced as the train step reduces
     them (f32); with "gpipe" also ``pipeline_forward``'s logits (this
-    rank's rows: the mesh has no dp) from the last stage, and whether
-    rank 0 (stage 0) got any."""
+    rank's rows: the mesh has no dp) from the last stage, gathered over
+    sp, and whether rank 0 (stage 0) got any."""
     import torch
     import torch.distributed as dist
 
+    from tpu_docker_api_torch.parallel import comm
     from tpu_docker_api_torch.parallel import pipeline as pl
     from tpu_docker_api_torch.parallel import sharding as sh
     from tpu_docker_api_torch.train.optim import tree_leaves, tree_map
@@ -578,6 +579,8 @@ def pipe_grads(plan: dict, host: dict, tokens, n_micro: int, schedule: str,
             logits = pl.pipeline_forward(tree_map(sh.local, params),
                                          rows[:, :-1], cfg, mesh, n_micro)
         out["logits_here"] = logits is not None
+        if logits is not None:
+            logits = comm.gather_nograd(logits, 1, mesh.group("sp"))
         held = [None if logits is None else logits.numpy()]
         last = dist.get_global_rank(mesh.group("pp"), mesh.shape["pp"] - 1)
         dist.broadcast_object_list(held, src=last, group=mesh.group("pp"))

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 by ``nvcc`` into a shared library under ``build/kernels/`` at the root of
@@ -7,6 +7,12 @@ a hash of its source, so an edited source builds anew and a stale
 library is never loaded. Nothing is built at import time: the first
 ``load`` of a kernel builds it, and ``build_all`` builds every kernel
 with one ``nvcc`` process per source, all started together.
+
+The host library (``csrc/dataloader.cc``, the data loader's native batch
+path) is built the same way by the host C++ compiler (``$CXX``, else
+``g++``) into ``build/host/`` at its first ``load_host``. Every build
+writes a name of its own and ``os.replace``s it into place, so processes
+that race on a first build each finish with a whole library.
 """
 
 from __future__ import annotations
@@ -33,8 +39,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _PTXAS_KEEP = ("Compiling entry", "registers", "arning", "(C75")
 
+#: host library name → C++ source under csrc/
+HOST_LIBS = {"tpudata": "dataloader.cc"}
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+#: the flags the JAX package's loader library is built with
+CXX_FLAGS = ["-O2", "-fPIC", "-Wall", "-Wextra", "-std=c++17", "-shared"]
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()  # a g++ build never waits on an nvcc one
+_host_libs: dict[str, ctypes.CDLL] = {}
 #: per kernel: {"seconds": nvcc wall time, "ptxas": [register/smem lines,
 #: warnings, and ptxas's notes (C75xx) on wgmma it had to serialize]}
 #: for the builds this process ran (empty for a library found on disk)
@@ -111,6 +125,43 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+def host_library_path(name: str) -> Path:
+    """The host library's path, named by a hash of its source."""
+    h = hashlib.sha256((_SRC_DIR / HOST_LIBS[name]).read_bytes())
+    return HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build_host(name: str, out: Path) -> None:
+    cxx = os.environ.get("CXX") or "g++"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [cxx, *CXX_FLAGS, str(_SRC_DIR / HOST_LIBS[name]), "-o", str(tmp),
+           "-lpthread"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cxx} could not run for {name}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for {name} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: no reader sees a partial file
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library, built first if it is not on disk. Raises with
+    the compiler's output if the build fails, and ``OSError`` if the
+    library does not load."""
+    with _host_lock:
+        lib = _host_libs.get(name)
+        if lib is None:
+            path = host_library_path(name)
+            if not path.exists():
+                _build_host(name, path)
+            lib = _host_libs[name] = ctypes.CDLL(str(path))
+        return lib
 
 
 def _sass(name: str) -> str:

@@ -208,6 +208,13 @@ class Router:
                 return handler, match.groupdict(), pattern
         return None
 
+    def dispatch(self, method: str, path: str, body: dict):
+        found = self.match(method, path)
+        if found is None:
+            raise errors.BadRequest(f"no route for {method} {path}")
+        handler, params, _ = found
+        return handler(body=body, **params)
+
 
 def build_router(container_svc: ContainerService, volume_svc: VolumeService,
                  chip_scheduler, port_scheduler, work_queue=None,
@@ -728,9 +735,8 @@ def build_router(container_svc: ContainerService, volume_svc: VolumeService,
             or host_monitor is not None or leader_elector is not None
             or shard_plane is not None
             or informer is not None or admission is not None
-            or serving is not None or workflow_svc is not None
-            or tracer is not None or gateway is not None
-            or store_health is not None):
+            or serving is not None or tracer is not None
+            or gateway is not None or store_health is not None):
         # one events ring for the operator: container liveness transitions
         # (health watcher) merged with gang lifecycle events (job
         # supervisor), host health transitions (host monitor), leadership

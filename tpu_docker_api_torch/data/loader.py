@@ -1,5 +1,5 @@
 """Token-stream data layer (counterpart of
-``tpu_docker_api/data/loader.py``, its numpy path).
+``tpu_docker_api/data/loader.py``).
 
 - **Stateless step → batch.** A batch is a pure function of ``(seed,
   step)``: window indices come from an affine permutation of the window
@@ -15,14 +15,27 @@ File format: flat little-endian token ids, ``.bin`` (uint16 when the
 vocab is below 65536, else int32) or ``.npy``. Several files concatenate
 in sorted order into one stream, diced into non-overlapping
 ``seq + 1``-token windows (the trainer shifts inputs and targets off one
-array). Batches are bit-identical to the JAX package's. Its native C++
-batch path (``tpu_native/dataloader.cc``) is not ported (ROADMAP
-Queue 1); this is the numpy path it falls back to.
+array). Batches are bit-identical to the JAX package's.
+
+**Native batch path.** When every source is a ``.bin`` of ``uint16`` or
+``int32``, the seed is not negative and ``TPU_DOCKER_API_NATIVE_DATA``
+is not ``0``, ``make_batch_fn`` returns a ``_NativeBatcher``: the port's
+own copy of the C++ loader (``csrc/dataloader.cc``: mmap and a tight
+widen loop, and a worker that computes step+1 for the same rows while
+the trainer runs step s), bit-identical to the numpy path. The library
+is built from that source at first use (``_build.load_host``); nothing
+from the default library search path is loaded. Where JAX quietly falls
+back to numpy when its library is unbuilt, the port raises: a failed
+build, load or ``tpudata_open`` is an error, never a slower path.
+``int16`` (which shares ``uint16``'s width) and ``.npy`` sources stay on
+numpy, as in JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import os
 import pathlib
 from typing import Callable, Sequence
 
@@ -47,6 +60,10 @@ class TokenSource:
 
     arrays: tuple[np.ndarray, ...]  # memory-mapped, 1-D
     window: int                     # tokens per window (seq + 1)
+    #: set by open_token_files when every file is a plain .bin: the
+    #: precondition of the native batch path (no npy header to skip)
+    bin_paths: tuple[str, ...] | None = None
+    bin_dtype: str = "uint16"
 
     def __post_init__(self):
         if self.window < 2:
@@ -98,18 +115,24 @@ def open_token_files(
         else:
             paths = [p]
     arrays = []
+    all_bin: list[str] | None = []
     for p in map(pathlib.Path, paths):
         if p.suffix == ".npy":
             arr = np.load(p, mmap_mode="r")
             if arr.ndim != 1:
                 raise ValueError(
                     f"{p}: token arrays must be 1-D, got {arr.shape}")
+            all_bin = None
         elif p.suffix == ".bin":
             arr = np.memmap(p, dtype=np.dtype(bin_dtype), mode="r")
+            if all_bin is not None:
+                all_bin.append(str(p))
         else:
             raise ValueError(f"{p}: expected .bin or .npy")
         arrays.append(arr)
-    return TokenSource(arrays=tuple(arrays), window=window)
+    return TokenSource(arrays=tuple(arrays), window=window,
+                       bin_paths=tuple(all_bin) if all_bin else None,
+                       bin_dtype=bin_dtype)
 
 
 def rows_for_process(
@@ -122,6 +145,84 @@ def rows_for_process(
             f"{process_count}")
     per = global_batch // process_count
     return range(process_index * per, (process_index + 1) * per)
+
+
+def _native_lib() -> ctypes.CDLL:
+    """The C++ loader library, built from ``csrc/dataloader.cc`` at first
+    use (``_build.load_host`` keeps one a process) and bound; raises if
+    it does not build, load or speak ABI 1."""
+    from tpu_docker_api_torch import _build
+
+    lib = _build.load_host("tpudata")
+    lib.tpudata_abi_version.restype = ctypes.c_int32
+    if lib.tpudata_abi_version() != 1:
+        raise OSError(f"{_build.host_library_path('tpudata')}: ABI "
+                      f"{lib.tpudata_abi_version()}, want 1")
+    lib.tpudata_open.restype = ctypes.c_int64
+    lib.tpudata_open.argtypes = [ctypes.POINTER(ctypes.c_char_p),
+                                 ctypes.c_int32, ctypes.c_int64,
+                                 ctypes.c_int32]
+    for fn in (lib.tpudata_n_windows, lib.tpudata_n_tokens,
+               lib.tpudata_hits):
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_int64]
+    lib.tpudata_batch.restype = ctypes.c_int32
+    lib.tpudata_batch.argtypes = [ctypes.c_int64] * 6 + [
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.tpudata_close.argtypes = [ctypes.c_int64]
+    return lib
+
+
+class _NativeBatcher:
+    """Owns one native source handle; ``__call__(step)`` fills this
+    process's rows. The handle is closed on GC (the worker thread joins
+    there), so the object must outlive the returned batch fn: it IS the
+    batch fn."""
+
+    def __init__(self, lib, paths: tuple[str, ...], window: int,
+                 bin_dtype: str, global_batch: int, rows: range,
+                 seed: int):
+        self._lib = lib
+        arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+        self._handle = lib.tpudata_open(arr, len(paths), window,
+                                        np.dtype(bin_dtype).itemsize)
+        if self._handle < 0:
+            raise OSError(f"tpudata_open failed for {paths}")
+        self._window = window
+        self._global_batch = global_batch
+        self._rows = rows
+        self._seed = seed
+
+    def __call__(self, step: int) -> np.ndarray:
+        out = np.empty((len(self._rows), self._window), np.int32)
+        rc = self._lib.tpudata_batch(
+            self._handle, int(step), self._global_batch, self._rows.start,
+            self._rows.stop, self._seed,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if rc != 0:
+            raise RuntimeError(f"tpudata_batch failed rc={rc}")
+        return out
+
+    @property
+    def hits(self) -> int:
+        """Calls served from the step+1 lookahead buffer so far."""
+        return int(self._lib.tpudata_hits(self._handle))
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        if lib is not None and getattr(self, "_handle", -1) >= 0:
+            lib.tpudata_close(self._handle)
+            self._handle = -1
+
+
+def native_wanted(source: TokenSource, seed: int) -> bool:
+    """JAX's conditions for the native path: every source a ``.bin`` of
+    a dtype its widen loop knows (``int16`` shares ``uint16``'s width
+    and would be widened sign-blind), a seed the C ABI takes, and the
+    switch not off."""
+    return (source.bin_paths is not None and seed >= 0
+            and source.bin_dtype in ("uint16", "int32")
+            and os.environ.get("TPU_DOCKER_API_NATIVE_DATA", "1") != "0")
 
 
 def make_batch_fn(
@@ -138,11 +239,14 @@ def make_batch_fn(
     visitation order, mapped through the affine permutation
     ``w = (a·p + b) mod n_windows``, a full-period shuffle that changes
     per epoch (b advances by the epoch index) while staying O(1) and
-    stateless.
+    stateless. Under ``native_wanted`` it is a ``_NativeBatcher``.
     """
     n = source.n_windows
     a = _coprime_stride(n, seed)
     rows = rows_for_process(global_batch, process_index, process_count)
+    if native_wanted(source, seed):
+        return _NativeBatcher(_native_lib(), source.bin_paths, source.window,
+                              source.bin_dtype, global_batch, rows, seed)
 
     def batch_at(step: int) -> np.ndarray:
         out = np.empty((len(rows), source.window), np.int32)

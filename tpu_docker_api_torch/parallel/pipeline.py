@@ -38,21 +38,38 @@ parameter dtype at the end, the embedding's backward once after the
 ring on stage 0's accumulated ``dx``; both directions of a tick travel
 in one ``batch_isend_irecv`` (``comm.exchange``).
 
+**Sequence parallelism.** On ``sp > 1`` JAX shards each stage's buffer
+over the sequence (``P("pp", ("dp", "fsdp"), "sp", None)``) and GSPMD
+gathers it for attention. Here a rank is a (stage, sp chunk) pair: each
+function cuts its rows' inputs and targets to the rank's chunk
+(models/llama.py ``seq_slice``, as ``llama_loss`` does), rope takes the
+chunk's positions. JAX runs a stage's blocks with ``mesh=None``, so
+its ``auto`` there attends over the whole gathered sequence (flash on
+the accelerator), not the sp rule's ring: ``_stage_cfg`` resolves
+``auto`` to that pick, which ``_self_attention`` runs on q, k and v
+gathered along sp (an explicit ring or Ulysses stays as asked). Every
+buffer, stash and cotangent is (microbatch rows, seq/sp, d), and a pp
+send goes from (s, c) to (s+1, c) on the pp group of sp coordinate c.
+The loss share's denominator already counts sp (``loss_denominator``).
+
 Each function takes this rank's local params and rows (off a mesh, the
 whole tree and batch: one stage), and returns this rank's share of the
 global mean loss: the last stage's, zero on the others. The pipeline is
-Llama's, as in JAX; an sp or ep axis is refused (pp × sp and pp × ep
-are ROADMAP Queue 1 item 9's remainder).
+Llama's, as in JAX, which has no pp × ep: an ep axis is refused.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.distributed as dist
 
 from tpu_docker_api_torch.models.llama import (LlamaConfig, embed_lookup,
                                                head_loss, lm_head,
-                                               rope_slice, run_layers)
+                                               rope_slice, run_layers,
+                                               seq_slice)
+from tpu_docker_api_torch.ops.attention import auto_impl
 from tpu_docker_api_torch.parallel import comm
 from tpu_docker_api_torch.parallel.sharding import P
 from tpu_docker_api_torch.train.optim import tree_leaves, tree_map
@@ -90,16 +107,27 @@ def _stages(cfg, mesh, device) -> tuple[int, int, object]:
                         f"{type(cfg).__name__}")
     if mesh is None:
         return 1, 0, None
-    for ax in ("sp", "ep"):
-        if mesh.shape[ax] > 1:
-            raise ValueError(f"pp x {ax} is not in the PyTorch package yet "
-                             f"(ROADMAP Queue 1 item 9's remainder)")
-    grp = mesh.group("pp")
-    if grp is not None:
-        # NCCL's rule for batch_isend_irecv: the group's first operation
-        # involves all of its ranks
-        dist.all_reduce(torch.zeros(1, device=device), group=grp)
-    return mesh.shape["pp"], mesh.coords["pp"], grp
+    if mesh.shape["ep"] > 1:
+        raise ValueError("pp x ep does not apply: JAX's pipeline is "
+                         "Llama's only and has no such composition")
+    for ax in ("sp", "pp"):
+        if mesh.group(ax) is not None:
+            # NCCL's rule for batch_isend_irecv (the pp hand-off, the sp
+            # ring): the group's first operation involves all its ranks
+            dist.all_reduce(torch.zeros(1, device=device),
+                            group=mesh.group(ax))
+    return mesh.shape["pp"], mesh.coords["pp"], mesh.group("pp")
+
+
+def _stage_cfg(cfg, mesh, dtype, device):
+    """The config a stage's blocks run under: on sp > 1 ``auto`` becomes
+    the whole sequence's pick (``auto_impl``: flash on CUDA, else
+    dense), JAX's ``mesh=None`` block; otherwise ``cfg`` as it is."""
+    if cfg.attention_impl != "auto" or mesh is None or mesh.shape["sp"] == 1:
+        return cfg
+    shape = (1, 1, cfg.n_heads, cfg.head_dim)
+    return dataclasses.replace(cfg, attention_impl=auto_impl(
+        shape, shape, True, device.type == "cuda", dtype))
 
 
 def _micro(batch: int, n_micro: int) -> int:
@@ -110,16 +138,19 @@ def _micro(batch: int, n_micro: int) -> int:
 
 
 def _gpipe(params, inputs, cfg, mesh, n_micro):
-    """The GPipe forward: (the last stage's final hidden (rows, seq, d),
-    None elsewhere; a zero joining every buffer and leaf this rank's
-    loss does not otherwise reach, so its backward runs every
+    """The GPipe forward of ``inputs`` (this rank's rows, the whole
+    sequence): (the last stage's final hidden (rows, seq/sp, d) of this
+    rank's sp chunk, None elsewhere; a zero joining every buffer and leaf
+    this rank's loss does not otherwise reach, so its backward runs every
     transpose)."""
     S, s, grp = _stages(cfg, mesh, inputs.device)
+    inputs = seq_slice(inputs, mesh)
     batch, seq = inputs.shape
     mb = _micro(batch, n_micro)
     stage = _stage_layers(params, S, s)
     per = stage["attn_norm"].shape[0]
     table = params["embed"]["tokens"]
+    cfg = _stage_cfg(cfg, mesh, table.dtype, inputs.device)
     rope_cos, rope_sin = rope_slice(cfg, seq, inputs.device, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     dead = (([] if s == 0 else [table])
@@ -159,9 +190,9 @@ def _gpipe(params, inputs, cfg, mesh, n_micro):
 
 def pipeline_forward(params: dict, tokens: torch.Tensor, cfg, mesh,
                      n_micro: int):
-    """Next-token logits (rows, seq, vocab) f32 of ``tokens`` (this
-    rank's rows), through the GPipe schedule: on the last stage; None on
-    the others."""
+    """Next-token logits (rows, seq/sp, vocab) f32 of ``tokens`` (this
+    rank's rows, the whole sequence) on this rank's sp chunk, through
+    the GPipe schedule: on the last stage; None on the others."""
     h, _ = _gpipe(params, tokens, cfg, mesh, n_micro)
     return None if h is None else lm_head(params, h, cfg, mesh)
 
@@ -176,7 +207,8 @@ def pipeline_loss(params: dict, tokens: torch.Tensor, cfg, mesh,
     h, keep = _gpipe(params, tokens[:, :-1], cfg, mesh, n_micro)
     if h is None:
         return keep
-    return head_loss(params, h, tokens[:, 1:], cfg, mesh) + keep
+    return head_loss(params, h, seq_slice(tokens[:, 1:], mesh), cfg,
+                     mesh) + keep
 
 
 def pipeline_1f1b_grads(params: dict, tokens: torch.Tensor, cfg, mesh,
@@ -191,7 +223,8 @@ def pipeline_1f1b_grads(params: dict, tokens: torch.Tensor, cfg, mesh,
     Feed it to ``make_train_step(grad_fn=...)``."""
     S, s, grp = _stages(cfg, mesh, tokens.device)
     M = n_micro
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    inputs = seq_slice(tokens[:, :-1], mesh)
+    targets = seq_slice(tokens[:, 1:], mesh)
     batch, seq = inputs.shape
     mb = _micro(batch, M)
     layers = tree_map(lambda p: p.detach().requires_grad_(),
@@ -200,6 +233,7 @@ def pipeline_1f1b_grads(params: dict, tokens: torch.Tensor, cfg, mesh,
     rope_cos, rope_sin = rope_slice(cfg, seq, tokens.device, mesh)
     targets_mb = targets.reshape(M, mb, seq)
     table = params["embed"]["tokens"]
+    cfg = _stage_cfg(cfg, mesh, table.dtype, tokens.device)
     like = torch.empty((mb, seq, cfg.dim), dtype=table.dtype,
                        device=tokens.device)
     head = {k: params[k].detach().requires_grad_()

@@ -1,7 +1,7 @@
 """ctypes binding to NVML, the NVIDIA driver's management library.
 
 The port's counterpart of ``tpu_docker_api/telemetry/shim.py`` (a ctypes
-binding to the native ``tpu_native/libtpushim.so``): here the native side
+binding to the JAX package's native TPU shim library): here the native side
 is the driver's own ``libnvidia-ml.so.1``, the library the reference's
 detect-gpu sidecar wraps through go-nvml (SURVEY.md row 103). Nothing is
 downloaded (no ``pynvml``). The library is loaded lazily, at the first

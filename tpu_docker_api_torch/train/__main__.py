@@ -89,15 +89,16 @@ point:
 - **Pipeline** (``--pp N``, parallel/pipeline.py): a llama preset
   trains through the 1F1B schedule, each rank a stage of
   ``n_layers/N`` layers (``pipeline_rules``, ``make_train_step``'s
-  ``grad_fn=pipeline_1f1b_grads``), composing with ``--dp``, ``--fsdp``
-  and ``--tp``. The JAX CLI takes ``--pp`` but never reaches its
+  ``grad_fn=pipeline_1f1b_grads``), composing with ``--dp``, ``--fsdp``,
+  ``--tp`` and ``--sp`` (each stage's blocks run the sp attention on
+  the rank's chunk of the sequence). The JAX CLI takes ``--pp`` but never reaches its
   pipeline (its ``pp`` axis holds replicas of the same work); the loss
   is the same, the pipeline being exact. There is no microbatch flag,
   as in JAX: ``n_micro = batch / (dp·fsdp)``, one row a microbatch on
   each data rank, which keeps the 1F1B bubble (N-1)/(n_micro+N-1) as
   small as the batch allows. ``--pp`` is refused on moe, vit and
-  encdec presets (JAX's pipeline is Llama's), with LoRA, and with
-  ``--sp`` or ``--ep`` above 1 (ROADMAP Queue 1 item 9's remainder).
+  encdec presets, with LoRA, and with ``--ep`` above 1: JAX's pipeline
+  is Llama's only and has none of these compositions.
 
 Flags of the JAX entry point that the port does not have yet are refused
 with a message naming the work that brings them, never ignored.
@@ -226,15 +227,14 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if args.pp is not None:
         if family != "llama":
             p.error(f"--pp does not apply to {family}: presets: the "
-                    f"pipeline is Llama's (ROADMAP Queue 1 item 9's "
-                    f"remainder)")
+                    f"pipeline is Llama's; JAX's pipeline is Llama's only "
+                    f"and has no such composition")
         if args.lora_rank > 0:
-            p.error("--pp does not compose with LoRA yet (ROADMAP Queue 1 "
-                    "item 9's remainder)")
-        for ax in ("sp", "ep"):
-            if getattr(args, ax) not in (None, 1):
-                p.error(f"--pp does not compose with --{ax} yet (ROADMAP "
-                        f"Queue 1 item 9's remainder)")
+            p.error("--pp does not compose with LoRA: JAX's pipeline is "
+                    "Llama's only and has no such composition")
+        if args.ep not in (None, 1):
+            p.error("--pp does not compose with --ep: JAX's pipeline is "
+                    "Llama's only and has no such composition")
     if args.nproc_per_node > 1 and args.device != "cpu":
         p.error("--nproc-per-node is for --device cpu (on cuda one rank "
                 "starts for every visible GPU)")
