@@ -10,6 +10,8 @@
   the global batch (``rows_for_process``).
 - **Zero-copy reads.** Token files are memory-mapped; a batch gathers
   its windows without reading the corpus.
+- **Waits counted.** ``wait_count`` sums the calls of every batch
+  function, on both paths, and the host seconds spent in them.
 
 File format: flat little-endian token ids, ``.bin`` (uint16 when the
 vocab is below 65536, else int32) or ``.npy``. Several files concatenate
@@ -37,9 +39,19 @@ import ctypes
 import dataclasses
 import os
 import pathlib
+import time
 from typing import Callable, Sequence
 
 import numpy as np
+
+#: calls of every batch function this process made (both paths) and the
+#: host seconds the callers waited in them
+wait_count = {"batches": 0, "wait_s": 0.0}
+
+
+def _waited(t0: float) -> None:
+    wait_count["batches"] += 1
+    wait_count["wait_s"] += time.perf_counter() - t0
 
 
 def _coprime_stride(n: int, seed: int) -> int:
@@ -194,6 +206,7 @@ class _NativeBatcher:
         self._seed = seed
 
     def __call__(self, step: int) -> np.ndarray:
+        t0 = time.perf_counter()
         out = np.empty((len(self._rows), self._window), np.int32)
         rc = self._lib.tpudata_batch(
             self._handle, int(step), self._global_batch, self._rows.start,
@@ -201,6 +214,7 @@ class _NativeBatcher:
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
         if rc != 0:
             raise RuntimeError(f"tpudata_batch failed rc={rc}")
+        _waited(t0)
         return out
 
     @property
@@ -249,12 +263,14 @@ def make_batch_fn(
                               source.bin_dtype, global_batch, rows, seed)
 
     def batch_at(step: int) -> np.ndarray:
+        t0 = time.perf_counter()
         out = np.empty((len(rows), source.window), np.int32)
         for i, row in enumerate(rows):
             p = step * global_batch + row
             epoch, pos = divmod(p, n)
             w = (a * pos + seed + epoch) % n
             out[i] = source.read_window(w)
+        _waited(t0)
         return out
 
     return batch_at

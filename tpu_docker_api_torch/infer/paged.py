@@ -65,8 +65,9 @@ import numpy as np
 import torch
 
 from tpu_docker_api_torch.infer.engine import init_kv_cache
-from tpu_docker_api_torch.infer.slots import SlotEngine, _Slot
+from tpu_docker_api_torch.infer.slots import ADMIT_RANGE, SlotEngine, _Slot
 from tpu_docker_api_torch.models.llama import LlamaConfig, llama_forward_paged
+from tpu_docker_api_torch.telemetry.profile import span
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -755,6 +756,7 @@ class PagedSlotEngine(SlotEngine):
                 pages = [self._free.pop() for _ in range(need)]
                 (prompt, max_new, temp, eos_id, tk, tp, handle,
                  carry) = req
+                handle._admitted()
                 slot = free_slots.pop()
                 st = _Slot(handle=handle, tokens=list(carry),
                            max_new=max_new, pos=len(prompt),
@@ -833,6 +835,8 @@ class PagedSlotEngine(SlotEngine):
                         row[:shared] = ent.page_ids
                     row[shared:shared + len(pages)] = pages
                 slots_np = np.asarray(slots_v, np.int64)
+                for req, _pages in grp:
+                    req[6]._admitted()
                 if ent is None:
                     toks = self._prefill_paged(bucket, prompts_np, lens,
                                                slots_np, page_ids, temps,
@@ -907,7 +911,8 @@ class PagedSlotEngine(SlotEngine):
         # deferred requests are invisible to the base loop's pending
         # check; completions processed above may have freed pages
         if self._deferred and not self._closed:
-            did = self._admit() or did
+            with span(ADMIT_RANGE):
+                did = self._admit() or did
         return did
 
     def _fail_deferred(self, err: Exception) -> None:

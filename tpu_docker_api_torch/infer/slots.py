@@ -78,6 +78,16 @@ import torch
 from tpu_docker_api_torch.infer.engine import init_kv_cache
 from tpu_docker_api_torch.infer.sampling import gumbel
 from tpu_docker_api_torch.models import cached_forward_fn
+from tpu_docker_api_torch.telemetry.profile import span
+
+#: profiler ranges of an engine iteration (:meth:`SlotEngine.step`):
+#: admission with its prefills and segments, one decode chunk's dispatch
+#: (the kv-limit choice through its kernels to the pinned copy and its
+#: event), and one chunk's hand-off (the event wait, then its tokens to
+#: the streams)
+ADMIT_RANGE = "SlotEngine.admit"
+DECODE_LAUNCH_RANGE = "SlotEngine.decode_launch"
+PROCESS_RANGE = "SlotEngine.process"
 
 
 def _default_buckets(max_seq: int) -> tuple[int, ...]:
@@ -102,10 +112,12 @@ class Handle:
     _result: dict | None = None
     _error: Exception | None = None
     _stream: queue.SimpleQueue | None = None
-    #: perf_counter() at completion, at submit, and at the first
+    #: perf_counter() at completion, at submit, at the first admission
+    #: into a slot (before its prefill is dispatched), and at the first
     #: host-resolved token (what a streaming client sees as TTFT)
     completed_at: float | None = None
     submitted_at: float | None = None
+    admitted_at: float | None = None
     first_token_at: float | None = None
 
     def result(self, timeout: float | None = None) -> dict:
@@ -143,6 +155,12 @@ class Handle:
         self._done.set()
         if self._stream is not None:
             self._stream.put(None)
+
+    def _admitted(self) -> None:
+        """Stamp the first admission: a preempted request that comes back
+        keeps it."""
+        if self.admitted_at is None:
+            self.admitted_at = time.perf_counter()
 
     def _fail(self, err: Exception) -> None:
         self._error = err
@@ -315,12 +333,13 @@ class SlotEngine:
         self._px_lock = threading.Lock()
         self._px_seq = 0
         self._seg_rr = -1          # last slot served a prefill segment
-        # ALL keys pre-seeded: /healthz unpacks this dict from other threads
+        # ALL keys pre-seeded: /healthz unpacks this dict from other
+        # threads. decode_launch_s: host seconds dispatching decode chunks
         self.stats = {"completed": 0, "decode_chunks": 0, "prefills": 0,
                       "wasted_steps": 0, "emitted_tokens": 0,
                       "bucketed_chunks": 0, "prefix_hits": 0,
                       "segment_prefills": 0, "prefix_bytes": 0,
-                      "accepted_tokens": 0}
+                      "accepted_tokens": 0, "decode_launch_s": 0.0}
         #: per-request (ttft, mean_itl) ring for latency_stats(); serve
         #: points ``metrics_hook`` at its metrics registry
         self._lat_samples: collections.deque = collections.deque(maxlen=512)
@@ -801,6 +820,7 @@ class SlotEngine:
                            pos=len(prompt), temperature=temp,
                            eos_id=eos_id, top_k=tk, top_p=tp,
                            base_len=len(prompt), pending=list(prompt))
+                handle._admitted()
                 with self._lock:
                     self._table[free.pop()] = st
                 admitted = True
@@ -835,6 +855,8 @@ class SlotEngine:
                     lens[r] = len(sfx)
                     temps[r], topks[r], topps[r] = temp, tk, tp
                 slots_np = np.asarray(slots_v, np.int64)
+                for req in group:
+                    req[-1]._admitted()
                 if prefix is not None:
                     toks = self._px_prefill(prefix, bucket, prompts_np, lens,
                                             slots_np, temps, topks, topps)
@@ -1052,17 +1074,23 @@ class SlotEngine:
         if self._has_request() and not any(
                 s is None for s in self._table.values()):
             if self._outstanding:
-                self._process_oldest()
+                with span(PROCESS_RANGE):
+                    self._process_oldest()
                 did = True
-        did = self._admit() or did
-        did = self._dispatch_segments() or did
+        with span(ADMIT_RANGE):
+            did = self._admit() or did
+            did = self._dispatch_segments() or did
         active = bool(self._decoding())
         if active:
-            self._dispatch_chunk()
+            with span(DECODE_LAUNCH_RANGE):
+                t0 = time.perf_counter()
+                self._dispatch_chunk()
+                self.stats["decode_launch_s"] += time.perf_counter() - t0
             did = True
         lag = self.pipeline if active else 0
         while len(self._outstanding) > lag:
-            self._process_oldest()
+            with span(PROCESS_RANGE):
+                self._process_oldest()
             did = True
         return did
 

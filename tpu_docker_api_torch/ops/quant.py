@@ -24,6 +24,8 @@ from typing import Any
 
 import torch
 
+from tpu_docker_api_torch.telemetry.profile import span
+
 _EPS = 1e-12
 
 #: ``torch._int_mm`` on CUDA refuses an A of 16 rows or fewer ("self.size(0)
@@ -151,7 +153,7 @@ class _Int8LinearSTE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w_int8, scale = ctx.saved_tensors
-        with torch.profiler.record_function(STE_BACKWARD_RANGE):
+        with span(STE_BACKWARD_RANGE):
             gx = (g.float() * scale) @ w_int8.float().t()
         return gx.to(ctx.x_dtype), None, None, None
 

@@ -47,7 +47,8 @@ point:
   ``start_step + 1`` with ``torch.profiler``, writes ``trace.json``
   there and prints ``{"event": "profile_written", ...}`` with the
   window's device time by kernel class and its idle share, and the
-  device time inside the int8 straight-through backward's range
+  device time launched inside each of the train step's ranges (forward,
+  backward, optimizer) and the int8 straight-through backward's
   (``ms_by_range``; telemetry/profile.py).
 - **LoRA** (``--lora-rank R > 0``, train/lora.py): the base is frozen
   (random from ``--seed``, or the params of ``--lora-base-ckpt``) and
@@ -333,7 +334,8 @@ def _run(args, on_mesh: bool) -> int:
     from tpu_docker_api_torch.ops.quant import STE_BACKWARD_RANGE
     from tpu_docker_api_torch.telemetry.profile import device_time_summary
     from tpu_docker_api_torch.train.checkpoint import resume_or_init
-    from tpu_docker_api_torch.train.trainer import (create_train_state,
+    from tpu_docker_api_torch.train.trainer import (STEP_RANGES,
+                                                    create_train_state,
                                                     make_train_step,
                                                     step_generator,
                                                     synthetic_batch)
@@ -488,7 +490,8 @@ def _run(args, on_mesh: bool) -> int:
                                               "trace.json"))
         emit({"event": "profile_written", "dir": args.profile_dir,
               **device_time_summary(prof, wall,
-                                    ranges=(STE_BACKWARD_RANGE,))})
+                                    ranges=(*STEP_RANGES,
+                                            STE_BACKWARD_RANGE))})
         prof = None
 
     tokens_per_step = args.batch * seq

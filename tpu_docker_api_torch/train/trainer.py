@@ -29,11 +29,20 @@ import torch
 from tpu_docker_api_torch.models import model_fns
 from tpu_docker_api_torch.models.common import seeded_generator
 from tpu_docker_api_torch.parallel import sharding
+from tpu_docker_api_torch.telemetry.profile import span
 from tpu_docker_api_torch.train.optim import (GradientTransformation,
                                               adamw, apply_updates, chain,
                                               clip_by_global_norm,
                                               global_norm, tree_leaves,
                                               tree_map)
+
+#: profiler ranges of a train step: the loss (autograd path only), its
+#: ``torch.autograd.grad``, and the optimizer's whole no-grad block
+#: (update, ``apply_updates``, the metrics' norm)
+FORWARD_RANGE = "train_step.forward"
+BACKWARD_RANGE = "train_step.backward"
+OPTIMIZER_RANGE = "train_step.optimizer"
+STEP_RANGES = (FORWARD_RANGE, BACKWARD_RANGE, OPTIMIZER_RANGE)
 
 
 @dataclasses.dataclass
@@ -150,7 +159,7 @@ def make_train_step(
             batch = batch.to(device, non_blocking=True)
         loss, grads = _loss_and_grads(loss_fn, grad_fn, state.params,
                                       batch)
-        with torch.no_grad():
+        with span(OPTIMIZER_RANGE), torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 state.params)
             new_params = apply_updates(state.params, updates)
@@ -170,8 +179,10 @@ def _loss_and_grads(loss_fn, grad_fn, params, batch):
         return grad_fn(tree_map(lambda p: local(p).detach(), params), batch)
     live = tree_map(lambda p: local(p).detach().requires_grad_(), params)
     leaves = tree_leaves(live)
-    loss = loss_fn(live, batch)
-    flat = iter(torch.autograd.grad(loss, leaves))
+    with span(FORWARD_RANGE):
+        loss = loss_fn(live, batch)
+    with span(BACKWARD_RANGE):
+        flat = iter(torch.autograd.grad(loss, leaves))
     return loss, tree_map(lambda _: next(flat), live)
 
 
@@ -208,7 +219,7 @@ def _make_mesh_step(cfg, optimizer, loss_fn, grad_fn, mesh, specs, rules):
         batch = (tuple(mine(t) for t in batch)
                  if isinstance(batch, (tuple, list)) else mine(batch))
         loss, grads = _loss_and_grads(loss_fn, grad_fn, state.params, batch)
-        with torch.no_grad():
+        with span(OPTIMIZER_RANGE), torch.no_grad():
             grads = tree_map(
                 lambda g, p, r: sharding.to_dtensor(
                     sharding.reduce_grad(g.contiguous(), r[1], mesh),
